@@ -79,3 +79,21 @@ class ModelConfig:
             butd_box_dim=32,
             max_detected_boxes=16,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization schedule: the JAX package's ``TrainConfig`` (reference
+    ``main_utils.py:276-330``), the fields the training step reads."""
+
+    lr: float = 2e-4
+    lr_backbone: float = 2e-3
+    text_lr: float = 2e-5
+    weight_decay: float = 5e-4
+    max_epoch: int = 100
+    warmup_epoch: int = -1
+    warmup_multiplier: float = 100.0
+    lr_decay_epochs: Sequence[int] = (50, 75)
+    lr_decay_rate: float = 0.1
+    clip_norm: float = 0.1
+    lr_scheduler: str = "multistep"   # multistep | cosine

@@ -1,7 +1,8 @@
 // Fused set-abstraction pair pool forward on Hopper (radius test per pair).
 //
 // Replaces the TPU kernel eda_tpu/ops/pallas/sa_kernel.py:sa_pair_pool_pallas
-// (body _make_kernel with d2_mode="pair", with_winners=False).
+// (body _make_kernel with d2_mode="pair"): sa_pair_pool_launch without winner
+// export (serving, "K3"), sa_pair_pool_winners_launch with it (training, "K4").
 //
 // One CTA per (batch row, block of 16 rank-sorted centers). The block pairs
 // with the W points of its window, which starts at a multiple of 16. For every
@@ -27,6 +28,15 @@
 // Thread layout (256 threads): thread t owns center c = t / 16 and channel
 // group g = t % 16. The 16 threads of a center form a half-warp, so the
 // LayerNorm sums over a pair's channels reduce with four shuffles.
+//
+// Winner export (WIN): next to each running max the thread keeps the window
+// position of its point, with the TPU kernel's tie rule
+// (sa_kernel.py:357-382): the window runs in tiles of wc = min(128, W) rows;
+// inside a tile the LAST of equal maxima wins, across tiles a strictly larger
+// value is needed, so the earlier tile keeps a tie. Points arrive in window
+// order, so: take a point if its value is larger, or equal and in the same
+// tile as the current winner. A center with no in-radius point exports global
+// rank 0. The output is the winner's global rank, window start + position.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -97,7 +107,7 @@ struct Layout {
   }
 };
 
-template <int C2, int C3>
+template <int C2, int C3, bool WIN>
 __global__ void __launch_bounds__(kThreads)
 sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
                     const uint16_t* __restrict__ bc, const float* __restrict__ cen,
@@ -105,7 +115,7 @@ sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xy
                     const float* __restrict__ b2, const float* __restrict__ s2,
                     const float* __restrict__ lb2, const uint16_t* __restrict__ w3,
                     const float* __restrict__ b3, int N, int M, int c1, int W,
-                    float r2, float* __restrict__ out) {
+                    float r2, int wc, float* __restrict__ out, int* __restrict__ winners) {
   constexpr int CPT1 = C2 / kGroups;            // interior channels per thread
   constexpr int CPT2 = C3 / kGroups;            // output channels per thread
   constexpr int CH2 = CPT2 < 8 ? CPT2 : 8;      // output channels per pass
@@ -157,8 +167,12 @@ sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xy
   const float cx = cp[0], cy = cp[1], cz = cp[2];
 
   float best[CPT2];
+  int win[CPT2];  // window position of the winner, -1 for none (WIN only)
 #pragma unroll
-  for (int j = 0; j < CPT2; ++j) best[j] = kNeg;
+  for (int j = 0; j < CPT2; ++j) {
+    best[j] = kNeg;
+    win[j] = -1;
+  }
   __syncthreads();
 
   const uint16_t* a_win = A + ((size_t)b * N + start) * c1;
@@ -271,34 +285,76 @@ sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xy
       for (int j = 0; j < CH2; ++j) {
         const float bias = b3s[ch0 + j];
 #pragma unroll
-        for (int p = 0; p < kTile; ++p)
-          if (in_radius & (1u << p))
-            best[pass * CH2 + j] = fmaxf(best[pass * CH2 + j], acc[p][j] + bias);
+        for (int p = 0; p < kTile; ++p) {
+          if (!(in_radius & (1u << p))) continue;
+          const float v = acc[p][j] + bias;
+          if constexpr (WIN) {
+            const int pos = t0 + p;
+            float& bj = best[pass * CH2 + j];
+            int& wj = win[pass * CH2 + j];
+            if (v > bj || (v == bj && wj >= 0 && pos / wc == wj / wc)) {
+              bj = v;
+              wj = pos;
+            }
+          } else {
+            best[pass * CH2 + j] = fmaxf(best[pass * CH2 + j], v);
+          }
+        }
       }
     }
   }
 
-  float* o = out + ((size_t)b * M + m0 + c) * C3 + g * CPT2;
+  const size_t o = ((size_t)b * M + m0 + c) * C3 + g * CPT2;
 #pragma unroll
-  for (int j = 0; j < CPT2; ++j) o[j] = best[j];
+  for (int j = 0; j < CPT2; ++j) {
+    out[o + j] = best[j];
+    if constexpr (WIN) winners[o + j] = win[j] >= 0 ? start + win[j] : 0;
+  }
 }
 
-template <int C2, int C3>
+template <int C2, int C3, bool WIN>
 cudaError_t launch(const uint16_t* A, const float* xyz, const uint16_t* bc,
                    const float* cen, const int* starts, const uint16_t* w2,
                    const float* b2, const float* s2, const float* lb2,
                    const uint16_t* w3, const float* b3, int B, int N, int M, int c1,
-                   int W, float r2, float* out, cudaStream_t s) {
+                   int W, float r2, float* out, int* winners, cudaStream_t s) {
   const Layout L(c1, C2, C3);
   if (L.total > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(sa_pair_pool_kernel<C2, C3>,
+  cudaError_t err = cudaFuncSetAttribute(sa_pair_pool_kernel<C2, C3, WIN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.total);
   if (err != cudaSuccess) return err;
   dim3 grid(M / kCenters, B);
-  sa_pair_pool_kernel<C2, C3><<<grid, kThreads, L.total, s>>>(
-      A, xyz, bc, cen, starts, w2, b2, s2, lb2, w3, b3, N, M, c1, W, r2, out);
+  const int wc = W < 128 ? W : 128;
+  sa_pair_pool_kernel<C2, C3, WIN><<<grid, kThreads, L.total, s>>>(
+      A, xyz, bc, cen, starts, w2, b2, s2, lb2, w3, b3, N, M, c1, W, r2, wc, out, winners);
   return cudaGetLastError();
+}
+
+template <bool WIN>
+int dispatch(const void* A, const float* xyz, const void* bc, const float* cen,
+             const int* starts, const void* w2, const float* b2, const float* s2,
+             const float* lb2, const void* w3, const float* b3, int B, int N, int M,
+             int c1, int c2, int c3, int W, float r2, float* out, int* winners,
+             void* stream) {
+  if (B <= 0 || M <= 0) return cudaSuccess;
+  if (M % kCenters || c1 % 8 || c1 <= 0 || W <= 0 || W > N)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* a = static_cast<const uint16_t*>(A);
+  const auto* bcv = static_cast<const uint16_t*>(bc);
+  const auto* w2v = static_cast<const uint16_t*>(w2);
+  const auto* w3v = static_cast<const uint16_t*>(w3);
+#define EDA_SA_LAUNCH(X, Y)                                                     \
+  if (c2 == X && c3 == Y)                                                       \
+    return launch<X, Y, WIN>(a, xyz, bcv, cen, starts, w2v, b2, s2, lb2, w3v, b3, \
+                             B, N, M, c1, W, r2, out, winners, s);
+  EDA_SA_LAUNCH(16, 32)
+  EDA_SA_LAUNCH(32, 64)
+  EDA_SA_LAUNCH(64, 128)
+  EDA_SA_LAUNCH(128, 256)
+#undef EDA_SA_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -317,24 +373,20 @@ int sa_pair_pool_launch(const void* A, const float* xyz, const void* bc,
                         const void* w3, const float* b3, int B, int N, int M,
                         int c1, int c2, int c3, int W, float r2, float* out,
                         void* stream) {
-  if (B <= 0 || M <= 0) return cudaSuccess;
-  if (M % kCenters || c1 % 8 || c1 <= 0 || W <= 0 || W > N)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* a = static_cast<const uint16_t*>(A);
-  const auto* bcv = static_cast<const uint16_t*>(bc);
-  const auto* w2v = static_cast<const uint16_t*>(w2);
-  const auto* w3v = static_cast<const uint16_t*>(w3);
-#define EDA_SA_LAUNCH(X, Y)                                                     \
-  if (c2 == X && c3 == Y)                                                       \
-    return launch<X, Y>(a, xyz, bcv, cen, starts, w2v, b2, s2, lb2, w3v, b3, B, \
-                        N, M, c1, W, r2, out, s);
-  EDA_SA_LAUNCH(16, 32)
-  EDA_SA_LAUNCH(32, 64)
-  EDA_SA_LAUNCH(64, 128)
-  EDA_SA_LAUNCH(128, 256)
-#undef EDA_SA_LAUNCH
-  return cudaErrorInvalidValue;
+  return dispatch<false>(A, xyz, bc, cen, starts, w2, b2, s2, lb2, w3, b3, B, N, M, c1,
+                         c2, c3, W, r2, out, nullptr, stream);
+}
+
+// As sa_pair_pool_launch, plus winners: (B, M, c3) int32 global rank of the
+// point whose pair gave each pooled value (0 where out is -1e9).
+int sa_pair_pool_winners_launch(const void* A, const float* xyz, const void* bc,
+                                const float* cen, const int* starts, const void* w2,
+                                const float* b2, const float* s2, const float* lb2,
+                                const void* w3, const float* b3, int B, int N, int M,
+                                int c1, int c2, int c3, int W, float r2, float* out,
+                                int* winners, void* stream) {
+  return dispatch<true>(A, xyz, bc, cen, starts, w2, b2, s2, lb2, w3, b3, B, N, M, c1,
+                        c2, c3, W, r2, out, winners, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,11 @@
-"""Synthetic grounding scenes: the serving inputs without ScanNet.
+"""Synthetic grounding scenes without ScanNet.
 
 Rooms of boxy objects with template utterances ("the red chair next to the
-table ."). The port needs only what the model consumes when it serves:
-``point_clouds``, ``text_ids`` and ``text_mask``. The arrays are byte-for-byte
-those of the JAX package's synthetic generator for the same config and index.
+table ."). ``batch`` gives what the model consumes when it serves
+(``point_clouds``, ``text_ids``, ``text_mask``); ``example`` and
+``train_batch`` add the criterion's targets, built by the text decoupler and
+the positive maps (``butd=False``). The arrays are byte-for-byte those of the
+JAX package's synthetic generator for the same config and index.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Dict
 
 import numpy as np
 
+from eda_tpu_torch.data.decouple import decoupled_spans
+from eda_tpu_torch.data.positive_maps import MAX_TOKENS, build_positive_maps
 from eda_tpu_torch.data.presort import morton_sort
 from eda_tpu_torch.data.tokenizer import SimpleTokenizer, not_mentioned_suffix
 
@@ -29,6 +33,7 @@ _RELATIONS = ["next to", "behind", "in front of", "to the left of",
 @dataclasses.dataclass
 class SyntheticConfig:
     num_points: int = 50000
+    max_objects: int = 132
     num_objects: int = 8
     text_len: int = 64
     room_extent: float = 5.0
@@ -43,7 +48,7 @@ class SyntheticScenes:
         self.tokenizer = SimpleTokenizer(vocab_size)
 
     def scene(self, idx: int) -> Dict[str, np.ndarray]:
-        """One Morton-sorted scene: (N, 6) xyz+rgb cloud and its utterance."""
+        """One Morton-sorted scene: cloud, instance ids, boxes, classes, utterance, target."""
         cfg = self.cfg
         rng = np.random.default_rng(cfg.seed * 100003 + idx)
         n_obj = cfg.num_objects
@@ -90,21 +95,62 @@ class SyntheticScenes:
             f"the {size_word} {_COLORS[colors[target]]} {_CLASSES[classes[target]]} "
             f"{rel} the {_CLASSES[classes[anchor]]} ."
         )
-        return {"point_clouds": np.concatenate([xyz, rgb], -1), "utterance": utterance}
-
-    def inputs(self, idx: int) -> Dict[str, np.ndarray]:
-        """Model inputs of one scene."""
-        scene = self.scene(idx)
-        ids, mask = self.tokenizer.encode_batch(
-            [not_mentioned_suffix(scene["utterance"])], max_len=self.cfg.text_len
-        )
         return {
-            "point_clouds": scene["point_clouds"],
-            "text_ids": ids[0],
-            "text_mask": mask[0],
+            "point_clouds": np.concatenate([xyz, rgb], -1),
+            "instance": instance,
+            "boxes": np.concatenate([centers, sizes], -1).astype(np.float32),
+            "classes": classes,
+            "target": target,
+            "anchor": anchor,
+            "utterance": utterance,
         }
+
+    def example(self, idx: int) -> Dict[str, dict]:
+        """One training example: model inputs, criterion targets and the caption."""
+        scene = self.scene(idx)
+        caption = not_mentioned_suffix(scene["utterance"])
+        tokens = self.tokenizer.encode_batch([caption], max_len=self.cfg.text_len)
+        maps = build_positive_maps(tokens, 0, decoupled_spans(caption))
+        G = self.cfg.max_objects
+        target = scene["target"]
+        center_label = np.zeros((G, 3), np.float32)
+        size_gts = np.zeros((G, 3), np.float32)
+        box_label_mask = np.zeros((G,), np.float32)
+        center_label[0] = scene["boxes"][target, :3]
+        size_gts[0] = scene["boxes"][target, 3:]
+        box_label_mask[0] = 1.0
+
+        def tile(m):
+            out = np.zeros((G, MAX_TOKENS), np.float32)
+            out[0] = m
+            return out
+
+        inputs = {
+            "point_clouds": scene["point_clouds"],
+            "text_ids": tokens.input_ids[0],
+            "text_mask": tokens.attention_mask[0],
+        }
+        targets = {
+            "center_label": center_label,
+            "size_gts": size_gts,
+            "box_label_mask": box_label_mask,
+            "positive_map": tile(maps["main"]),
+            "modify_positive_map": tile(maps["modifiers"]),
+            "pron_positive_map": tile(maps["pronouns"]),
+            "other_entity_map": tile(maps["others"]),
+            "rel_positive_map": tile(maps["relations"]),
+            # the target object's points -> GT slot 0, every other point -1
+            "point_instance_label": np.where(scene["instance"] == target, 0, -1).astype(np.int32),
+            "text_lengths": np.int32(tokens.lengths[0]),
+        }
+        return {"inputs": inputs, "targets": targets, "utterance": caption}
 
     def batch(self, indices) -> Dict[str, np.ndarray]:
         """Stacked model inputs of the scenes ``indices``."""
-        examples = [self.inputs(int(i)) for i in indices]
-        return {k: np.stack([e[k] for e in examples]) for k in examples[0]}
+        return self.train_batch(indices)["inputs"]
+
+    def train_batch(self, indices) -> Dict[str, Dict[str, np.ndarray]]:
+        """Stacked ``{"inputs": ..., "targets": ...}`` of the scenes ``indices``."""
+        examples = [self.example(int(i)) for i in indices]
+        return {key: {k: np.stack([e[key][k] for e in examples]) for k in examples[0][key]}
+                for key in ("inputs", "targets")}

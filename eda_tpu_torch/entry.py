@@ -1,10 +1,12 @@
-"""Entry point: the flagship grounding forward of the port.
+"""Entry points of the port: the flagship grounding forward and its training step.
 
-The twin of ``__graft_entry__.entry``: ``ModelConfig(use_bf16=True)``, a batch
-of 50 000-point synthetic scenes and a randomly initialised ``EDAGrounder``
-on the chosen device, returning ``last_center``. The device is CUDA unless the
-caller passes ``device="cpu"``; without CUDA and without an explicit device it
-raises, it never moves to the CPU by itself.
+``entry`` is the twin of ``__graft_entry__.entry``: ``ModelConfig(use_bf16=True)``,
+a batch of 50 000-point synthetic scenes and a randomly initialised
+``EDAGrounder`` on the chosen device, returning ``last_center``.
+``build_trainer`` gives the same model with its optimizer, the training step
+and a synthetic training batch. The device is CUDA unless the caller passes
+``device="cpu"``; without CUDA and without an explicit device they raise, they
+never move to the CPU by themselves.
 """
 
 from __future__ import annotations
@@ -14,9 +16,16 @@ from typing import Optional, Tuple
 
 import torch
 
-from eda_tpu_torch.config import ModelConfig
+from eda_tpu_torch.config import ModelConfig, TrainConfig
 from eda_tpu_torch.data.synthetic import SyntheticConfig, SyntheticScenes
+from eda_tpu_torch.losses.criterion import SetCriterionConfig
 from eda_tpu_torch.models.grounder import EDAGrounder
+from eda_tpu_torch.train.optim import AdamW
+from eda_tpu_torch.train.step import TrainState, make_train_step
+
+# schedule length of the synthetic training run: longer than any smoke or test
+# runs, so the learning rates stay at their base values
+STEPS_PER_EPOCH = 1000
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -33,13 +42,25 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
     return dev
 
 
-def make_batch(cfg: ModelConfig, indices, device, text_len: int = 64, num_objects: int = 8):
-    """Synthetic serving inputs of the scenes ``indices`` as tensors on ``device``."""
-    gen = SyntheticScenes(
+def _scenes(cfg: ModelConfig, text_len: int, num_objects: int) -> SyntheticScenes:
+    return SyntheticScenes(
         SyntheticConfig(num_points=cfg.num_points, num_objects=num_objects, text_len=text_len),
         vocab_size=cfg.text_vocab_size,
     )
-    return {k: torch.from_numpy(v).to(device) for k, v in gen.batch(indices).items()}
+
+
+def make_batch(cfg: ModelConfig, indices, device, text_len: int = 64, num_objects: int = 8):
+    """Synthetic serving inputs of the scenes ``indices`` as tensors on ``device``."""
+    batch = _scenes(cfg, text_len, num_objects).batch(indices)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def make_train_batch(cfg: ModelConfig, indices, device, text_len: int = 64,
+                     num_objects: int = 8):
+    """Synthetic ``{"inputs": ..., "targets": ...}`` of the scenes ``indices`` on ``device``."""
+    batch = _scenes(cfg, text_len, num_objects).train_batch(indices)
+    return {group: {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+            for group, arrays in batch.items()}
 
 
 def build(cfg: Optional[ModelConfig] = None, *, batch_size: int = 2,
@@ -53,6 +74,24 @@ def build(cfg: Optional[ModelConfig] = None, *, batch_size: int = 2,
     return model, make_batch(cfg, range(batch_size), dev)
 
 
+def build_trainer(cfg: Optional[ModelConfig] = None, *, batch_size: int = 2,
+                  device: Optional[str] = None, seed: int = 0):
+    """(state, step, batch): a ``TrainState`` (model with random weights from
+    ``seed`` and its AdamW under the default ``TrainConfig``), the training
+    step and a synthetic training batch.
+
+    ``step(state, batch)`` runs one training step and returns its metrics.
+    """
+    dev = resolve_device(device)
+    cfg = cfg or ModelConfig(use_bf16=True)
+    model = EDAGrounder(cfg)
+    model.init_weights(seed)
+    model = model.to(dev).train()
+    optimizer = AdamW(model, TrainConfig(), STEPS_PER_EPOCH)
+    step = make_train_step(SetCriterionConfig(num_decoder_layers=cfg.num_decoder_layers))
+    return TrainState(model, optimizer), step, make_train_batch(cfg, range(batch_size), dev)
+
+
 def entry(device: Optional[str] = None, **overrides) -> torch.Tensor:
     """``last_center`` (B, num_queries, 3) of the flagship forward on ``device``.
 
@@ -60,4 +99,5 @@ def entry(device: Optional[str] = None, **overrides) -> torch.Tensor:
     """
     cfg = dataclasses.replace(ModelConfig(use_bf16=True), **overrides)
     model, inputs = build(cfg, device=device)
-    return model(inputs)["last_center"]
+    with torch.inference_mode():
+        return model(inputs)["last_center"]

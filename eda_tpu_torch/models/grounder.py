@@ -1,4 +1,4 @@
-"""EDAGrounder: the 3D visual-grounding model, serving forward.
+"""EDAGrounder: the 3D visual-grounding model.
 
 Counterpart of ``eda_tpu/models/grounder.py`` with ``butd=False``: PointNet++
 backbone and RoBERTa text encoder feed the cross-modal encoder; the top
@@ -6,6 +6,11 @@ backbone and RoBERTa text encoder feed the cross-modal encoder; the top
 the decoder layers each predict center, size and soft-token scores. The
 returned ``end_points`` keep the JAX package's keys and prefixes
 (``proposal_``, ``{i}head_``, ``last_``).
+
+``train()`` selects the training forward (dropout, BatchNorm batch statistics,
+the fused SA's kernels with a backward); the frozen text encoder and the
+decoder's box inputs carry no gradient, as the JAX model's ``stop_gradient``s.
+Serving callers wrap the forward in ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from eda_tpu_torch.models.layers import (
     ClsAgnosticPredictHead,
     ContrastiveProjection,
     Dense,
+    Dropout,
     PointsObjClsModule,
     PositionEmbeddingLearned,
     lecun_normal_,
@@ -57,9 +63,11 @@ class EDAGrounder(nn.Module):
         )
         self.text_projector_dense = Dense(cfg.text_hidden, d)
         self.text_projector_norm = nn.LayerNorm(d, eps=1e-12)
+        self.text_dropout = Dropout(cfg.dropout)
         self.pos_embed = PositionEmbeddingLearned(3, d, dt)
         self.cross_encoder = nn.ModuleList([
-            BiEncoderLayer(d, cfg.n_heads, cfg.dim_feedforward, cfg.self_attend, dt)
+            BiEncoderLayer(d, cfg.n_heads, cfg.dim_feedforward, cfg.self_attend, dt,
+                           cfg.dropout)
             for _ in range(cfg.num_encoder_layers)
         ])
         if cfg.contrastive_align:
@@ -70,7 +78,7 @@ class EDAGrounder(nn.Module):
         self.proposal_head = ClsAgnosticPredictHead(cfg.num_class, d, dt)
         self.decoder = nn.ModuleList([
             BiDecoderLayer(d, cfg.n_heads, cfg.dim_feedforward,
-                           cfg.self_position_embedding, dt)
+                           cfg.self_position_embedding, dt, cfg.dropout)
             for _ in range(cfg.num_decoder_layers)
         ])
         self.prediction_head = nn.ModuleList([
@@ -93,7 +101,6 @@ class EDAGrounder(nn.Module):
                 elif isinstance(module, nn.Embedding):
                     module.weight.normal_(0.0, module.weight.shape[1] ** -0.5, generator=g)
 
-    @torch.no_grad()
     def forward(self, inputs: dict) -> dict:
         cfg = self.cfg
         end_points = self.backbone_net(inputs["point_clouds"])
@@ -103,8 +110,10 @@ class EDAGrounder(nn.Module):
         points_features = end_points["fp2_features"]
 
         text_valid = inputs["text_mask"].bool()
-        encoded_text = self.text_encoder(inputs["text_ids"], text_valid)
+        with torch.no_grad():  # the frozen text encoder: no dropout, no gradient
+            encoded_text = self.text_encoder(inputs["text_ids"], text_valid)
         text_feats = self.text_projector_norm(self.text_projector_dense(encoded_text))
+        text_feats = self.text_dropout(text_feats)
         end_points["text_feats_prepro"] = text_feats
 
         pos_feats = self.pos_embed(points_xyz)
@@ -135,7 +144,7 @@ class EDAGrounder(nn.Module):
         end_points["proposal_center"] = center
         end_points["proposal_pred_size"] = size
         end_points["proposal_sem_cls_scores"] = sem_cls
-        base_xyz, base_size = center, size
+        base_xyz, base_size = center.detach(), size.detach()
 
         for i, (layer, head) in enumerate(zip(self.decoder, self.prediction_head)):
             prefix = "last_" if i == cfg.num_decoder_layers - 1 else f"{i}head_"
@@ -151,7 +160,7 @@ class EDAGrounder(nn.Module):
             end_points[f"{prefix}center"] = center
             end_points[f"{prefix}pred_size"] = size
             end_points[f"{prefix}sem_cls_scores"] = sem_cls
-            base_xyz, base_size = center, size
+            base_xyz, base_size = center.detach(), size.detach()
         return end_points
 
 

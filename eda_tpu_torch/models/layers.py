@@ -12,8 +12,8 @@ Conventions kept from the JAX package:
 * LayerNorm epsilons are explicit: 1e-6 in the residual blocks (flax's
   default), 1e-12 for the text projector, 1e-5 in RoBERTa.
 
-The modules are the serving forward: dropout is off and BatchNorm uses its
-running statistics.
+``train()`` / ``eval()`` switch dropout and BatchNorm's batch statistics as
+flax's ``train`` flag does; dropout sits where the JAX modules put it.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax momentum (eda_tpu/models/pointnet2.py:30)
 ATTN_LN_EPS = 1e-6  # flax nn.LayerNorm default
 
 
@@ -47,7 +48,13 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last axis, in f32, with running statistics."""
+    """flax ``BatchNorm`` over the last axis, in f32.
+
+    Eval mode normalises with the running statistics. Train mode normalises
+    with the batch statistics over every other axis, with flax's fast
+    variance ``E[x^2] - E[x]^2`` (biased, clipped at 0), and updates the
+    running statistics as flax does: ``r = 0.9 r + 0.1 batch``.
+    """
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
@@ -58,14 +65,56 @@ class BatchNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x.float() - self.running_mean) * mul + self.bias
+        x = x.float()
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(axes)
+            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                        + (1 - BN_MOMENTUM) * mean)
+                self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                       + (1 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+class Dropout(nn.Dropout):
+    """flax ``nn.Dropout``: ``where(keep, x / keep_prob, 0)`` in the input's dtype.
+
+    ``shape`` (optional) draws one mask of that shape and broadcasts it over
+    the input, as flax's ``broadcast_dropout`` does for attention weights.
+    Set ``p = 0`` to switch it off in train mode.
+    """
+
+    def forward(self, x: torch.Tensor, shape=None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep_prob = 1.0 - self.p
+        keep = torch.rand(shape if shape is not None else x.shape, device=x.device) < keep_prob
+        return torch.where(keep, x / torch.tensor(keep_prob, dtype=x.dtype), torch.zeros_like(x))
+
+
+def softmax_rounded(w: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` in the input's dtype: ``exp(w - max)`` rounded per op,
+    the sum taken in f32 and rounded back, then one rounded division."""
+    e = torch.exp(w - w.amax(-1, keepdim=True))
+    return e / e.float().sum(-1, keepdim=True).to(w.dtype)
 
 
 class MultiHeadAttention(nn.Module):
-    """flax ``MultiHeadDotProductAttention`` with a key validity mask."""
+    """flax ``MultiHeadDotProductAttention`` with a key validity mask.
 
-    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype = torch.float32):
+    The core rounds where flax 0.12's ``dot_product_attention`` rounds in the
+    compute dtype: the queries divided by ``sqrt(depth)``, the ``q @ k^T``
+    logits, the masked logits (``finfo(dtype).min``), the softmax, and the
+    ``probs @ v`` product. In train mode the attention weights drop out with
+    one ``(1, 1, Lq, Lk)`` mask shared by every batch row and head.
+    """
+
+    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
         self.dtype = dtype
@@ -73,6 +122,7 @@ class MultiHeadAttention(nn.Module):
         self.key = Dense(d_model, d_model, dtype=dtype)
         self.value = Dense(d_model, d_model, dtype=dtype)
         self.out = Dense(d_model, d_model, dtype=dtype)
+        self.dropout = Dropout(dropout)
 
     def forward(self, q, k, v, key_valid: Optional[torch.Tensor] = None):
         B, Lq, d = q.shape
@@ -81,10 +131,12 @@ class MultiHeadAttention(nn.Module):
         qh = self.query(q).view(B, Lq, h, dh).transpose(1, 2)
         kh = self.key(k).view(B, k.shape[1], h, dh).transpose(1, 2)
         vh = self.value(v).view(B, v.shape[1], h, dh).transpose(1, 2)
-        # flax divides the queries by sqrt(depth) in the compute dtype
         qh = qh / torch.tensor(math.sqrt(dh), dtype=torch.float32).to(self.dtype)
-        mask = None if key_valid is None else key_valid[:, None, None, :].bool()
-        x = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=1.0)
+        w = qh @ kh.transpose(-1, -2)  # (B, h, Lq, Lk) in the compute dtype
+        if key_valid is not None:
+            w = w.masked_fill(~key_valid[:, None, None, :].bool(), torch.finfo(w.dtype).min)
+        w = self.dropout(softmax_rounded(w), shape=(1, 1) + tuple(w.shape[-2:]))
+        x = w @ vh
         return self.out(x.transpose(1, 2).reshape(B, Lq, d))
 
 
@@ -94,31 +146,35 @@ class ResidualAttn(nn.Module):
     ``k=None`` means the keys are the queries (position embedding on both).
     """
 
-    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype):
+    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype, dropout: float = 0.0):
         super().__init__()
-        self.attn = MultiHeadAttention(d_model, n_heads, dtype)
+        self.attn = MultiHeadAttention(d_model, n_heads, dtype, dropout)
+        self.dropout = Dropout(dropout)
         self.norm = nn.LayerNorm(d_model, eps=ATTN_LN_EPS)
 
     def forward(self, x, k, v, valid, q_pos=None):
         q = x if q_pos is None else x + q_pos
         k = q if k is None else k
         v = k if v is None else v
-        return self.norm(x + self.attn(q, k, v, valid))
+        return self.norm(x + self.dropout(self.attn(q, k, v, valid)))
 
 
 class FFN(nn.Module):
     """``LayerNorm(x + Dense(relu(Dense(x))))``."""
 
-    def __init__(self, d_model: int, dim_feedforward: int, dtype: torch.dtype):
+    def __init__(self, d_model: int, dim_feedforward: int, dtype: torch.dtype,
+                 dropout: float = 0.0):
         super().__init__()
         self.dense = nn.ModuleList([
             Dense(d_model, dim_feedforward, dtype=dtype),
             Dense(dim_feedforward, d_model, dtype=dtype),
         ])
+        self.dropout = Dropout(dropout)
         self.norm = nn.LayerNorm(d_model, eps=ATTN_LN_EPS)
 
     def forward(self, x):
-        return self.norm(x + self.dense[1](torch.relu(self.dense[0](x))))
+        h = self.dropout(torch.relu(self.dense[0](x)))
+        return self.norm(x + self.dropout(self.dense[1](h)))
 
 
 class PositionEmbeddingLearned(nn.Module):
@@ -145,16 +201,16 @@ class BiEncoderLayer(nn.Module):
     """
 
     def __init__(self, d_model: int, n_heads: int, dim_feedforward: int,
-                 self_attend: bool, dtype: torch.dtype):
+                 self_attend: bool, dtype: torch.dtype, dropout: float = 0.0):
         super().__init__()
         self.self_attend = self_attend
         if self_attend:
-            self.self_vis = ResidualAttn(d_model, n_heads, dtype)
-            self.self_lang = ResidualAttn(d_model, n_heads, dtype)
-        self.cross_lv = ResidualAttn(d_model, n_heads, dtype)
-        self.ffn_lv = FFN(d_model, dim_feedforward, dtype)
-        self.cross_vl = ResidualAttn(d_model, n_heads, dtype)
-        self.ffn_vl = FFN(d_model, dim_feedforward, dtype)
+            self.self_vis = ResidualAttn(d_model, n_heads, dtype, dropout)
+            self.self_lang = ResidualAttn(d_model, n_heads, dtype, dropout)
+        self.cross_lv = ResidualAttn(d_model, n_heads, dtype, dropout)
+        self.ffn_lv = FFN(d_model, dim_feedforward, dtype, dropout)
+        self.cross_vl = ResidualAttn(d_model, n_heads, dtype, dropout)
+        self.ffn_vl = FFN(d_model, dim_feedforward, dtype, dropout)
 
     def forward(self, vis_feats, pos_feats, vis_valid, text_feats, text_valid):
         if self.self_attend:
@@ -174,15 +230,15 @@ class BiDecoderLayer(nn.Module):
     """
 
     def __init__(self, d_model: int, n_heads: int, dim_feedforward: int,
-                 self_position_embedding: str, dtype: torch.dtype):
+                 self_position_embedding: str, dtype: torch.dtype, dropout: float = 0.0):
         super().__init__()
         loc_dim = {"xyz_learned": 3, "loc_learned": 6}.get(self_position_embedding)
         if loc_dim is not None:
             self.self_posembed = PositionEmbeddingLearned(loc_dim, d_model, dtype)
-        self.self_attn = ResidualAttn(d_model, n_heads, dtype)
-        self.cross_l = ResidualAttn(d_model, n_heads, dtype)
-        self.cross_v = ResidualAttn(d_model, n_heads, dtype)
-        self.ffn = FFN(d_model, dim_feedforward, dtype)
+        self.self_attn = ResidualAttn(d_model, n_heads, dtype, dropout)
+        self.cross_l = ResidualAttn(d_model, n_heads, dtype, dropout)
+        self.cross_v = ResidualAttn(d_model, n_heads, dtype, dropout)
+        self.ffn = FFN(d_model, dim_feedforward, dtype, dropout)
 
     def forward(self, query, vis_feats, text_feats, query_loc, text_valid):
         q_pos = self.self_posembed(query_loc) if hasattr(self, "self_posembed") else None
@@ -211,7 +267,7 @@ class PointsObjClsModule(nn.Module):
 
 
 class ThreeLayerMLP(nn.Module):
-    """(Dense without bias + BN + ReLU) x 2 + Dense(out) in f32."""
+    """(Dense without bias + BN + ReLU + Dropout(0.3)) x 2 + Dense(out) in f32."""
 
     def __init__(self, dim: int, out_dim: int, dtype: torch.dtype):
         super().__init__()
@@ -221,10 +277,11 @@ class ThreeLayerMLP(nn.Module):
             Dense(dim, out_dim, dtype=torch.float32),
         ])
         self.bn = nn.ModuleList([BatchNorm(dim), BatchNorm(dim)])
+        self.dropout = Dropout(0.3)
 
     def forward(self, x):
         for dense, bn in zip(self.dense[:2], self.bn):
-            x = torch.relu(bn(dense(x)))
+            x = self.dropout(torch.relu(bn(dense(x))))
         return self.dense[2](x)
 
 

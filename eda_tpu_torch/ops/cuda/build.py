@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled on first use
 with ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/`` at
 the repository root (listed in ``.gitignore``) and loaded with ``ctypes``. The
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt. ``build_all`` starts one ``nvcc`` per source at once.
+library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt. ``build_all``
+starts one ``nvcc`` per source at once.
 
 No ``--use_fast_math``: the kernels rely on IEEE division and square root, and
 ``--fmad=false`` keeps the compiler from contracting a multiply and an add
@@ -24,7 +25,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fps", "sa_prep", "sa_pair_pool")
+SOURCES = ("fps", "sa_prep", "sa_prep_bwd", "sa_pair_pool", "sa_pair_pool_bwd")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -43,6 +44,7 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,7 +1,9 @@
 """SA pair-MLP max-pool forward: the CUDA kernel ``csrc/sa_pair_pool.cu`` and its plain version.
 
 Counterpart of ``eda_tpu/ops/pallas/sa_kernel.py:sa_pair_pool_pallas`` with
-``d2_mode="pair"`` and no winner export. Centers come in blocks of 16 (rank
+``d2_mode="pair"``: ``sa_pair_pool`` (serving, no winner export) and
+``sa_pair_pool_winners`` (training: also the winning point of each pooled
+value, for the backward in ``sa_pool_bwd.py``). Centers come in blocks of 16 (rank
 order); each block pairs with the ``window`` points that start at its window
 start floored to a multiple of 16. Per pair (center c, point p)::
 
@@ -12,6 +14,11 @@ start floored to a multiple of 16. Per pair (center c, point p)::
 and the output is the max of z over the pairs with ``|p - c|^2 <= r^2`` (f32),
 -1e9 for a center with no point of its window in range. The pair MLP has one
 interior layer, as every configuration of the model does.
+
+Winners follow the TPU kernel's tie rule (``sa_kernel.py:357-382``): the
+window is cut in tiles of ``wc = min(128, W)`` points; within a tile the last
+of equal maxima wins, across tiles the first tile keeps a tie. A center with
+no in-radius point exports global rank 0.
 """
 
 from __future__ import annotations
@@ -35,6 +42,12 @@ KERNEL = register(Kernel(
     + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_void_p),
     replaces="eda_tpu/ops/pallas/sa_kernel.py:1271",
 ))
+WINNERS_KERNEL = register(Kernel(
+    "sa_pair_pool", "sa_pair_pool_winners_launch",
+    (ctypes.c_void_p,) * 11
+    + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p),
+    replaces="eda_tpu/ops/pallas/sa_kernel.py:1195",
+))
 
 
 def window_starts(starts: torch.Tensor, n_points: int, window: int) -> torch.Tensor:
@@ -49,6 +62,23 @@ def sa_pair_pool_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
     The matmuls run in f32 on bf16-rounded operands: the products are exact,
     so each sum is an f32 sum of bf16 products as in the kernel.
     """
+    return _pool_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
+                       radius=radius, window=window, with_winners=False)
+
+
+def sa_pair_pool_winners_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
+                               *, radius: float, window: int, runner_up: bool = False):
+    """Plain PyTorch pair pool with winner export: ((B, M, c3) f32, (B, M, c3) int32).
+
+    With ``runner_up`` it also returns the best value of the other pairs, so a
+    caller can tell a winner from a near-tie.
+    """
+    return _pool_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
+                       radius=radius, window=window, with_winners=True, runner_up=runner_up)
+
+
+def _pool_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
+                *, radius: float, window: int, with_winners: bool, runner_up: bool = False):
     B, N, c1 = A.shape
     M = b_c.shape[1]
     n_blocks = M // BLOCK
@@ -59,6 +89,9 @@ def sa_pair_pool_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
     offs = torch.arange(window, device=A.device)
     chunk = max(1, PLAIN_MAX_PAIRS // (B * BLOCK * window))
     out = torch.empty((B, M, w3.shape[1]), dtype=torch.float32, device=A.device)
+    winners = torch.empty((B, M, w3.shape[1]), dtype=torch.int32, device=A.device)
+    second = torch.empty_like(out)
+    tile = (offs // min(128, window))[:, None]  # (W, 1) tile of each window point
     for j0 in range(0, n_blocks, chunk):
         j1 = min(n_blocks, j0 + chunk)
         nb = j1 - j0
@@ -73,8 +106,20 @@ def sa_pair_pool_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
         d = x_w - cen
         d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
         z = torch.where((d2 <= r2)[..., None], z, torch.full_like(z, NEG))
-        out[:, j0 * BLOCK:j1 * BLOCK] = z.amax(dim=3).reshape(B, nb * BLOCK, -1)
-    return out
+        best = z.amax(dim=3)  # (B, nb, 16, c3)
+        out[:, j0 * BLOCK:j1 * BLOCK] = best.reshape(B, nb * BLOCK, -1)
+        if with_winners:
+            eq = z == best[:, :, :, None]
+            first = torch.where(eq, tile, window).amin(dim=3, keepdim=True)
+            pos = torch.where(eq & (tile == first), offs[:, None], -1).amax(dim=3)
+            win = torch.where(best > NEG, starts[:, j0:j1, None, None] + pos, 0)
+            winners[:, j0 * BLOCK:j1 * BLOCK] = win.reshape(B, nb * BLOCK, -1).int()
+            if runner_up:
+                others = torch.where(offs[:, None] == pos[:, :, :, None], NEG, z)
+                second[:, j0 * BLOCK:j1 * BLOCK] = others.amax(dim=3).reshape(B, nb * BLOCK, -1)
+    if runner_up:
+        return out, winners, second
+    return (out, winners) if with_winners else out
 
 
 def sa_pair_pool(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
@@ -97,6 +142,23 @@ def sa_pair_pool(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
     if A.device.type == "cpu":
         return sa_pair_pool_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2,
                                   w3, b3, radius=radius, window=window)
+    return _launch(KERNEL, A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
+                   radius=radius, window=window)
+
+
+def sa_pair_pool_winners(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
+                         *, radius: float, window: int):
+    """``sa_pair_pool`` that also returns the (B, M, c3) int32 global rank of
+    each pooled value's point: the kernel on CUDA, the plain version on the CPU."""
+    if A.device.type == "cpu":
+        return sa_pair_pool_winners_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2,
+                                          w3, b3, radius=radius, window=window)
+    return _launch(WINNERS_KERNEL, A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
+                   radius=radius, window=window)
+
+
+def _launch(kernel, A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
+            *, radius: float, window: int):
     B, N, c1 = A.shape
     M = b_c.shape[1]
     c2, c3 = w3.shape
@@ -117,7 +179,11 @@ def sa_pair_pool(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
         raise ValueError("sa_pair_pool input shapes do not agree")
     out = torch.empty((B, M, c3), dtype=torch.float32, device=A.device)
     r2 = torch.tensor(radius * radius, dtype=torch.float32).item()
-    KERNEL(ptr(A), ptr(xyz), ptr(b_c), ptr(cen_xyz), ptr(starts), ptr(w2), ptr(b2),
-           ptr(s2), ptr(lb2), ptr(w3), ptr(b3), B, N, M, c1, c2, c3, window, r2,
-           ptr(out))
+    args = [ptr(A), ptr(xyz), ptr(b_c), ptr(cen_xyz), ptr(starts), ptr(w2), ptr(b2),
+            ptr(s2), ptr(lb2), ptr(w3), ptr(b3), B, N, M, c1, c2, c3, window, r2, ptr(out)]
+    if kernel is WINNERS_KERNEL:
+        winners = torch.empty((B, M, c3), dtype=torch.int32, device=A.device)
+        kernel(*args, ptr(winners))
+        return out, winners
+    kernel(*args)
     return out

@@ -16,6 +16,13 @@ of 16 rank-sorted centers, each with a window starting at the midpoint
 center's rank minus W/2, clipped and floored to a multiple of 16. Points must
 arrive Morton-sorted (the data pipeline presorts them), or the window must
 cover the cloud.
+
+With gradients on, the prep and the pool run as autograd functions, as the
+JAX package's ``impl="pallas_train"`` does: the prep forward (K2) with its
+backward kernel (K7), and the pool forward with winner export (K4) with the
+compact (K5) or windowed (K6) backward, chosen by the TPU's rule. With
+gradients off the serving pool (K3) runs. The per-center offset ``b_c`` and
+the recomputed self term stay plain autograd.
 """
 
 from __future__ import annotations
@@ -24,8 +31,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from eda_tpu_torch.ops.cuda.sa_kernel import BLOCK, sa_pair_pool
-from eda_tpu_torch.ops.cuda.sa_prep import bf16_round, sa_prep
+from eda_tpu_torch.ops.cuda.sa_kernel import BLOCK, sa_pair_pool, sa_pair_pool_winners
+from eda_tpu_torch.ops.cuda.sa_pool_bwd import compact_backward, sa_pool_bwd
+from eda_tpu_torch.ops.cuda.sa_prep import bf16_round, sa_prep, sa_prep_bwd
 from eda_tpu_torch.ops.pointops import gather_points
 
 
@@ -38,6 +46,45 @@ class SAParams(NamedTuple):
     biases: Tuple[torch.Tensor, ...]
     ln_scales: Tuple[torch.Tensor, ...]
     ln_biases: Tuple[torch.Tensor, ...]
+
+
+class _Prep(torch.autograd.Function):
+    """``A = sa_prep(pts, ...)`` with the prep backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, pts, w1, b1, scale, lnb, radius):
+        ctx.save_for_backward(pts, w1, b1, scale)
+        ctx.radius = radius
+        return sa_prep(pts, w1, b1, scale, lnb, radius=radius)
+
+    @staticmethod
+    def backward(ctx, dA):
+        pts, w1, b1, scale = ctx.saved_tensors
+        dpts, dw1, db1, dscale, dlnb = sa_prep_bwd(pts, dA, w1, b1, scale, radius=ctx.radius)
+        return dpts, dw1, db1, dscale, dlnb, None
+
+
+class _Pool(torch.autograd.Function):
+    """The pair pool with winner export; its gradient is the pair-pool backward
+    kernel (compact or windowed). Geometry and window starts get none."""
+
+    @staticmethod
+    def forward(ctx, A, xyz, b_c, cen, starts, w2, b2, s2, lb2, w3, b3, radius, window):
+        out, winners = sa_pair_pool_winners(A, xyz, b_c, cen, starts, w2, b2, s2, lb2, w3, b3,
+                                            radius=radius, window=window)
+        ctx.save_for_backward(A, b_c, winners, starts, w2, b2, s2, lb2, w3)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        A, b_c, winners, starts, w2, b2, s2, lb2, w3 = ctx.saved_tensors
+        dA, dbc, dw2, db2, ds2, dlb2, dw3, db3 = sa_pool_bwd(
+            A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, window=ctx.window,
+            compact=compact_backward(ctx.window, w3.shape[1]))
+        # the TPU wrapper hands dA and db_c back in A's and b_c's dtype
+        return (dA.to(A.dtype), None, dbc.to(b_c.dtype), None, None,
+                dw2, db2, ds2, dlb2, dw3, db3, None, None)
 
 
 def layer_norm(x: torch.Tensor, scale, bias, eps: float = 1e-5) -> torch.Tensor:
@@ -94,10 +141,16 @@ def fused_set_abstraction(
         raise ValueError(f"block must be a multiple of {BLOCK}, got {block}")
     W = min(window, N)
     ranks = torch.sort(center_idx.long(), dim=1).values
+    train = torch.is_grad_enabled() and (
+        features.requires_grad or any(p.requires_grad for group in params for p in group))
 
     # per-point projection A = LN([xyz/r ; f] @ W1 + b1), in bf16
-    A = sa_prep(torch.cat([xyz, features], -1).contiguous(), w1, params.biases[0],
-                params.ln_scales[0], params.ln_biases[0], radius=radius)
+    pts = torch.cat([xyz, features], -1).contiguous()
+    prep_args = (w1, params.biases[0], params.ln_scales[0], params.ln_biases[0])
+    if train:
+        A = _Prep.apply(pts, *prep_args, radius)
+    else:
+        A = sa_prep(pts, *prep_args, radius=radius)
     # per-center offset b_c = -(x_c / r) @ W1[:3]
     cen_xyz = gather_points(xyz, ranks)
     cen_scaled = cen_xyz / cen_xyz.new_tensor(radius)
@@ -113,10 +166,12 @@ def fused_set_abstraction(
         cen_p = torch.cat([cen_xyz, cen_xyz[:, -1:].expand(-1, m_pad, -1)], 1)
     starts = window_starts(ranks_p, N, W, dense)
     k, b, s, lb = params
-    outs = sa_pair_pool(
-        A, xyz.contiguous(), b_c_p.contiguous(), cen_p.contiguous(), starts,
-        k[1], b[1], s[1], lb[1], k[2], b[2], radius=radius, window=W,
-    )[:, :M]
+    pool_args = (A, xyz.contiguous(), b_c_p.contiguous(), cen_p.contiguous(), starts,
+                 k[1], b[1], s[1], lb[1], k[2], b[2])
+    if train:
+        outs = _Pool.apply(*pool_args, radius, W)[:, :M]
+    else:
+        outs = sa_pair_pool(*pool_args, radius=radius, window=W)[:, :M]
 
     # The center's own point always lies in its ball, but a block-shared
     # window may miss it: max in the self term, recomputed from its inputs.

@@ -5,24 +5,25 @@
 side runs its TPU serving path with every Pallas kernel interpreted
 (``jax_tpu_serving_path``), so both sides use the same 16-center windows.
 
-``num_queries`` is set to the seed count (tiny: 128), so KPS keeps every seed
-and the comparison does not hang on the order of near-tied objectness logits:
-the port's query order is held against the JAX logits (descending within
-``LOGIT_ATOL``), and the per-query outputs are compared after aligning the
-port's queries to the JAX order by seed index. The decoder is equivariant
-under a permutation of its queries, so aligned outputs must agree. KPS's
-selection and tie order at ``k < K`` are checked against ``lax.top_k`` below.
+KPS runs with the config's own ``num_queries`` (tiny: 32 of 128 seeds), and
+both models must select the same set of seeds. The port's attention rounds
+where flax's bf16 attention rounds (the core is bit-identical), but the
+backbone's bf16 MLPs still differ by a few bf16 steps (``fp2_features``
+within 0.05), which moves the objectness logits by up to ~0.008. Scene 1 has
+near-ties below that: seeds 12 and 14 have JAX logits -0.52539 and -0.52587
+(gap 4.8e-4), and seeds 54, 56, 60, 70 lie within 3.8e-3 of each other, so
+the port orders those queries differently. The test therefore holds the
+port's order against the JAX logits (descending within ``LOGIT_ATOL``) and
+compares the per-query outputs after aligning the port's queries to the JAX
+order by seed index. The decoder is equivariant under a permutation of its
+queries, so aligned outputs must agree. KPS's selection and tie order are
+checked against ``lax.top_k`` below.
 
 Tolerances, all absolute: the backbone as in ``test_torch_backbone.py``;
-everything after it carries bf16 activations through attention, where flax
-rounds the attention logits and probabilities to bf16 and PyTorch's
-``scaled_dot_product_attention`` keeps them in f32, so values differ by a few
-bf16 steps: 0.06 for centers, sizes and class scores (magnitude up to ~3.5,
-measured max ~0.02), 0.03 for the unit-norm contrastive projections (measured
-max ~0.01), ``LOGIT_ATOL`` 0.03 for the objectness logits.
+after it, 0.03 for centers, sizes and class scores (magnitude up to ~3.5,
+measured max 0.014), 0.02 for the unit-norm contrastive projections
+(measured max 0.006), ``LOGIT_ATOL`` 0.03 for the objectness logits.
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -38,10 +39,9 @@ from eda_tpu_torch.data.synthetic import SyntheticConfig, SyntheticScenes
 from eda_tpu_torch.models.grounder import EDAGrounder, decoder_prefixes, top_k_indices
 from eda_tpu_torch.weights import load_flax
 
-HEAD_ATOL = 0.06
-PROJ_ATOL = 0.03
+HEAD_ATOL = 0.03
+PROJ_ATOL = 0.02
 LOGIT_ATOL = 0.03
-SEEDS = 128  # tiny: sa_npoints[1]
 
 
 @pytest.fixture(scope="module")
@@ -52,9 +52,9 @@ def inputs():
 
 
 def test_grounder_matches_jax_serving_path(jax_tpu_serving_path, inputs):  # noqa: F811
-    cfg = dataclasses.replace(ModelConfig(use_bf16=True).tiny(), num_queries=SEEDS)
-    jcfg = dataclasses.replace(JaxConfig(use_bf16=True).tiny(), num_queries=SEEDS)
-    assert cfg.sa_npoints[1] == SEEDS
+    cfg = ModelConfig(use_bf16=True).tiny()
+    jcfg = JaxConfig(use_bf16=True).tiny()
+    assert cfg.num_queries == jcfg.num_queries < cfg.sa_npoints[1]
     jax_model = JaxGrounder(jcfg)
     jin = {k: jnp.asarray(v) for k, v in inputs.items()}
     variables = jax.jit(lambda x: jax_model.init(jax.random.key(0), x, train=False))(jin)
@@ -65,7 +65,8 @@ def test_grounder_matches_jax_serving_path(jax_tpu_serving_path, inputs):  # noq
 
     port = EDAGrounder(cfg)
     load_flax(port, variables)
-    got = port.eval()({k: torch.from_numpy(v) for k, v in inputs.items()})
+    with torch.inference_mode():
+        got = port.eval()({k: torch.from_numpy(v) for k, v in inputs.items()})
     got = {k: v.float().numpy() if v.is_floating_point() else v.numpy()
            for k, v in got.items()}
     assert set(got) == set(want)
@@ -80,8 +81,8 @@ def test_grounder_matches_jax_serving_path(jax_tpu_serving_path, inputs):  # noq
     np.testing.assert_allclose(got["seeds_obj_cls_logits"], want["seeds_obj_cls_logits"],
                                atol=LOGIT_ATOL, rtol=0)
 
-    # KPS: same seeds; the port's order is descending in the JAX logits up to
-    # the logit tolerance
+    # KPS: the same set of seeds; the port's order is descending in the JAX
+    # logits up to the logit tolerance
     g_inds, w_inds = got["query_points_sample_inds"], want["query_points_sample_inds"]
     for g_row, w_row, logit_row in zip(g_inds, w_inds, want["seeds_obj_cls_logits"]):
         assert sorted(g_row) == sorted(w_row)
@@ -98,7 +99,7 @@ def test_grounder_matches_jax_serving_path(jax_tpu_serving_path, inputs):  # noq
             key = prefix + name
             np.testing.assert_allclose(align(got[key]), want[key], atol=atol, rtol=0,
                                        err_msg=key)
-    assert got["last_center"].shape == (2, SEEDS, 3)
+    assert got["last_center"].shape == (2, cfg.num_queries, 3)
 
 
 @pytest.mark.parametrize("k", [1, 7, 32])

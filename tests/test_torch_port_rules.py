@@ -6,7 +6,8 @@
 * entry points run on CUDA unless the caller asks for the CPU, and never fall
   back to the CPU by themselves; ``chip_smoke.py`` fails without a card;
 * ``weights.load_flax`` maps every flax leaf and sets every port parameter;
-* the port's synthetic serving inputs are the JAX package's, byte for byte.
+* the port's synthetic inputs and training targets are the JAX package's,
+  byte for byte.
 """
 
 import ast
@@ -81,7 +82,10 @@ def test_entry_needs_cuda_unless_cpu_is_asked(monkeypatch):
     assert torch.isfinite(center).all()
     # on CPU tensors every wrapper ran its plain version: no kernel launched
     assert all(k.launches == 0 for k in build.KERNELS.values())
-    assert sorted(build.KERNELS) == ["fps_launch", "sa_pair_pool_launch", "sa_prep_launch"]
+    assert sorted(build.KERNELS) == [
+        "fps_launch", "sa_pair_pool_launch", "sa_pair_pool_winners_launch",
+        "sa_pool_bwd_compact_launch", "sa_pool_bwd_window_launch", "sa_prep_bwd_launch",
+        "sa_prep_launch"]
 
 
 def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
@@ -134,10 +138,24 @@ def test_from_flax_maps_every_leaf():
 
 @pytest.mark.parametrize("num_points,text_len", [(1024, 16), (50000, 64)])
 def test_synthetic_inputs_byte_identical(num_points, text_len):
+    """Serving inputs, training targets and the decoupled spans, byte for byte."""
+    from eda_tpu.data.decouple import decoupled_spans as jax_spans
+    from eda_tpu_torch.data.decouple import decoupled_spans
+
     kw = dict(num_points=num_points, num_objects=8, text_len=text_len)
-    want = JaxSyntheticScenes(JaxSyntheticConfig(**kw), vocab_size=50265).batch([0, 3])["inputs"]
-    got = SyntheticScenes(SyntheticConfig(**kw), vocab_size=50265).batch([0, 3])
+    jax_gen = JaxSyntheticScenes(JaxSyntheticConfig(**kw), vocab_size=50265)
+    gen = SyntheticScenes(SyntheticConfig(**kw), vocab_size=50265)
+    want = jax_gen.batch([0, 3])
+    got = gen.batch([0, 3])
     assert sorted(got) == ["point_clouds", "text_ids", "text_mask"]
-    for key in got:
-        assert got[key].dtype == np.asarray(want[key]).dtype, key
-        assert got[key].tobytes() == np.asarray(want[key]).tobytes(), key
+    got_train = gen.train_batch([0, 3])
+    for group, got_group in (("inputs", got), ("inputs", got_train["inputs"]),
+                             ("targets", got_train["targets"])):
+        assert sorted(got_group) == sorted(want[group]), group
+        for key in got_group:
+            assert got_group[key].dtype == np.asarray(want[group][key]).dtype, key
+            assert got_group[key].tobytes() == np.asarray(want[group][key]).tobytes(), key
+    for idx in (0, 3):
+        caption = jax_gen.example(idx)["utterance"]
+        assert gen.example(idx)["utterance"] == caption
+        assert decoupled_spans(caption) == jax_spans(caption)

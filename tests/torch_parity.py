@@ -53,21 +53,27 @@ def perturb(variables, seed: int = 0):
     return jax.tree_util.tree_map_with_path(leaf, variables)
 
 
-@pytest.fixture
-def jax_tpu_serving_path(monkeypatch):
-    """Put the JAX model on its TPU serving path, interpreted on the CPU.
+def tpu_path(monkeypatch, training: bool = False):
+    """Put the JAX model on its TPU path, every Pallas kernel interpreted on the CPU.
 
     ``jax.default_backend`` reads "tpu" (so FusedSetAbstraction picks the
-    Pallas pair kernel and pointops the Pallas FPS), and every Pallas kernel
-    runs in interpret mode. Nothing in ``eda_tpu`` is edited.
+    Pallas pair kernel, ``impl="pallas_train"`` when it trains, and pointops
+    the Pallas FPS). With ``training`` the pair pool's backward kernel is
+    interpreted too and dropout is the identity (``flax.linen.Dropout``
+    returns its input). Nothing in ``eda_tpu`` is edited.
     """
+    from flax import linen as nn
+
     from eda_tpu.ops.pallas import fps as pallas_fps
     from eda_tpu.ops.pallas import sa_kernel, sa_prep
 
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     monkeypatch.setattr(sa_prep, "_INTERPRET", True)
-    for module, name in ((sa_kernel, "sa_pair_pool_pallas"),
-                         (pallas_fps, "furthest_point_sample_pallas")):
+    names = [(sa_kernel, "sa_pair_pool_pallas"), (pallas_fps, "furthest_point_sample_pallas")]
+    if training:
+        names.append((sa_kernel, "sa_pair_pool_bwd_pallas"))
+        monkeypatch.setattr(nn.Dropout, "__call__", lambda self, x, *a, **k: x)
+    for module, name in names:
         orig = getattr(module, name)
 
         def patched(*a, _orig=orig, **k):
@@ -75,3 +81,16 @@ def jax_tpu_serving_path(monkeypatch):
             return getattr(_orig, "__wrapped__", _orig)(*a, **k)
 
         monkeypatch.setattr(module, name, patched)
+
+
+@pytest.fixture
+def jax_tpu_serving_path(monkeypatch):
+    """The JAX model on its TPU serving path, interpreted on the CPU."""
+    tpu_path(monkeypatch)
+
+
+@pytest.fixture
+def jax_tpu_training_path(monkeypatch):
+    """The JAX model on its TPU training path (``impl="pallas_train"``),
+    interpreted on the CPU, with dropout off."""
+    tpu_path(monkeypatch, training=True)
