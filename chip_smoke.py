@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: serving forward and training step.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: serving, training and evaluation.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
 
@@ -8,7 +8,10 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
 3. Checks a small grounder (``ModelConfig(use_bf16=True).tiny()``) on the card
    against the same weights and inputs on the CPU, where every kernel wrapper
    runs its plain PyTorch version: the serving forward, then one training step
-   with dropout off (loss, metrics, gradients, new parameters).
+   with dropout off (loss, metrics, gradients, new parameters); then scores the
+   tiny model's card end points on the card and on the CPU: the IoU stacks
+   agree to 1e-6 except at ranks whose scores lie within 1e-5 of a
+   neighbour's (those are excused and counted).
 4. Serving. Records the serving kernels' inputs (K1 FPS, K2 prep, K3 pair
    pool) in one full-width forward (``ModelConfig(use_bf16=True)``, batch 8,
    50 000-point scenes, random weights from a seed) and holds each kernel call
@@ -30,14 +33,36 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    0. Prints ms per step and scenes/s, the stage times of one step (forward,
    loss, backward, optimizer), the matcher's host syncs and the busiest device
    operations of one step.
-6. Prints the per-kernel JSON line, the card line, and as its last line
+6. Radius-test modes. For ``mxu`` (K8) and ``pre`` (K9a mask, K9b pool), with
+   ``EDA_SA_D2`` set in the process, records the mode's kernel calls in one
+   full-width serving forward and one training step at batch 8 (each with its
+   launch counts checked) and holds each call against its plain version: the
+   mask bit-exact, pooled values within 0.03 with identical -1e9 rows,
+   winners as K4's. On the same inputs it runs the ``pair`` kernel and counts
+   the (center, channel) entries that differ from it by more than 0.03; every
+   center with one must have a window point within 1e-5 of the radius
+   (``eda_tpu/ops/pallas/sa_kernel.py:75-80``).
+7. Evaluation under ``pair``, ``mxu`` and ``pre``: ``entry.build_evaluator``
+   at batch 8 (size heads moved as in the tiny check, so that boxes overlap
+   the GT boxes) scores five batches of full-width scenes under each mode,
+   the modes taking turns on each batch; each IoU stack goes to the mode's
+   evaluator as ``bench.py`` does. Each batch must launch the mode's kernels
+   four times and no other pool or training kernel, and give a finite
+   (2, 2, 8, 10) IoU stack in [0, 1]. A scene whose ``mxu`` or ``pre`` end
+   points equal its ``pair`` end points bit for bit must score pair's IoU
+   stack; any other scene must differ from pair's from an SA layer's output on
+   (both counted). Prints ms per batch and scenes/s per mode and one line of
+   ``print_stats()``.
+8. Prints the per-kernel JSON line, the card line, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Per kernel, the JSON line's ``ms``, ``plain_ms`` and ``bound_ms`` are sums over
-the four SA layers of one batch-8 forward (K1-K3) or training step (K4-K7), and
-``launches`` is the count of the serving run (K1-K3) or the training run
-(K4-K7). Any failed check raises, and the script exits non-zero. Without CUDA
-it exits non-zero before printing any result.
+the four SA layers of one batch-8 forward (K1-K3, K8, K9a, K9b) or training
+step (K4-K7, K8 and K9b with winners). ``launches`` is the count of the serving
+run (K1-K3), the training run (K4-K7), the mode's evaluation run (K8, K9a,
+K9b) or the mode's training step (K8 and K9b with winners). Each phase prints
+its wall time. Any failed check raises, and the script exits non-zero. Without
+CUDA it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -46,6 +71,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -65,10 +91,10 @@ HEAD_ATOL = 0.06      # card (cuBLAS bf16) vs CPU heads, as tests/test_torch_gro
 SERVING = ("fps_launch", "sa_prep_launch", "sa_pair_pool_launch")
 TRAINING = ("sa_pair_pool_winners_launch", "sa_pool_bwd_compact_launch",
             "sa_pool_bwd_window_launch", "sa_prep_bwd_launch")
-# launches per training step of the flagship: compact backward at SA1 only
-STEP_LAUNCHES = {"fps_launch": 4, "sa_prep_launch": 4, "sa_pair_pool_launch": 0,
-                 "sa_pair_pool_winners_launch": 4, "sa_pool_bwd_compact_launch": 1,
-                 "sa_pool_bwd_window_launch": 3, "sa_prep_bwd_launch": 4}
+MASK = "sa_radius_mask_launch"
+IOU_SHAPE = (2, 2, BATCH, 10)  # (prefixes, scoring modes, batch, top-k)
+SCORE_TIE, IOU_ATOL = 1e-5, 1e-6  # tiny eval check, card vs CPU scoring
+BOUNDARY = 1e-5  # |d2 - r^2| within which mxu / pre may decide a pair otherwise than pair
 # card vs CPU training step, as tests/test_torch_train_step.py holds the port to
 # JAX, but 10% for a single metric: the tiny train-mode step magnifies bf16
 # noise (the port against itself, the input moved by 1e-6, moves grad_norm 9%)
@@ -83,6 +109,58 @@ ZERO_GRAD = ("attn.key.bias", "points_obj_cls.dense.0.bias", "points_obj_cls.den
 # rounding of dx that lands on the other side of a boundary moves an element
 # by ~5e-4 of the leaf's largest value)
 PREP_BWD_REL, POOL_BWD_W_REL, POOL_BWD_A_REL = 0.02, 0.01, 0.005
+
+
+def pool_symbol(mode: str, winners: bool) -> str:
+    from eda_tpu_torch.ops.cuda.sa_kernel import KERNELS
+
+    return KERNELS[mode, winners].symbol
+
+
+def forward_launches(mode: str) -> dict:
+    """Kernel launches of one flagship forward under radius-test ``mode``."""
+    out = {"fps_launch": 4, "sa_prep_launch": 4, pool_symbol(mode, False): 4}
+    if mode == "pre":
+        out[MASK] = 4
+    return out
+
+
+def step_launches(mode: str) -> dict:
+    """Kernel launches of one flagship training step: compact backward at SA1 only."""
+    out = {"fps_launch": 4, "sa_prep_launch": 4, pool_symbol(mode, True): 4,
+           "sa_pool_bwd_compact_launch": 1, "sa_pool_bwd_window_launch": 3,
+           "sa_prep_bwd_launch": 4}
+    if mode == "pre":
+        out[MASK] = 4
+    return out
+
+
+def launch_counts() -> dict:
+    from eda_tpu_torch.ops.cuda import build
+
+    return {s: k.launches for s, k in build.KERNELS.items()}
+
+
+def check_launches(before: dict, want: dict, what: str) -> None:
+    """Every kernel advanced from ``before`` by ``want`` (0 where not listed)."""
+    for symbol, count in launch_counts().items():
+        if count - before[symbol] != want.get(symbol, 0):
+            raise AssertionError(f"{what}: {symbol} launched {count - before[symbol]} times, "
+                                 f"not {want.get(symbol, 0)}")
+
+
+@contextlib.contextmanager
+def radius_mode(mode: str):
+    """``EDA_SA_D2=mode`` in this process, restored afterwards."""
+    saved = os.environ.get("EDA_SA_D2")
+    os.environ["EDA_SA_D2"] = mode
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("EDA_SA_D2")
+        else:
+            os.environ["EDA_SA_D2"] = saved
 
 
 def card_line() -> str:
@@ -180,29 +258,88 @@ def prep_bound(args, kw):
     return bound(2 * B * N * in_dim * c1, PEAK_BF16, nb)
 
 
-def in_radius_pairs(xyz, cen, starts, radius, window) -> int:
-    """Pairs of this run's windows that lie within the radius (the work the pool needs)."""
+def window_d2(xyz, cen, starts, window: int):
+    """Yields (first block, end block, d2): the squared distances (B, blocks, 16,
+    W) of each 16-center block's centers to its window's points, x, y, z summed
+    in order, a few blocks at a time."""
     from eda_tpu_torch.ops.cuda.sa_kernel import BLOCK, window_starts
 
-    starts = window_starts(starts.long(), xyz.shape[1], window)
-    r2 = torch.tensor(radius * radius, dtype=torch.float32).item()
+    B, N, _ = xyz.shape
+    n_blocks = cen.shape[1] // BLOCK
+    starts = window_starts(starts.long(), N, window)
     offs = torch.arange(window, device=xyz.device)
-    total = 0
-    for j in range(starts.shape[1]):
-        pts = xyz.gather(1, (starts[:, j, None] + offs)[..., None].expand(-1, -1, 3))
-        c = cen[:, j * BLOCK:(j + 1) * BLOCK]
-        d2 = ((pts[:, None] - c[:, :, None]) ** 2).sum(-1)
-        total += int((d2 <= r2).sum())
-    return total
+    chunk = max(1, (1 << 24) // (B * BLOCK * window))
+    for j0 in range(0, n_blocks, chunk):
+        j1 = min(n_blocks, j0 + chunk)
+        pos = (starts[:, j0:j1, None] + offs).reshape(B, -1, 1)
+        p = xyz.gather(1, pos.expand(-1, -1, 3)).view(B, j1 - j0, 1, window, 3)
+        d = p - cen[:, j0 * BLOCK:j1 * BLOCK].view(B, j1 - j0, BLOCK, 1, 3)
+        yield j0, j1, d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+
+
+def in_radius_pairs(xyz, cen, starts, radius, window) -> int:
+    """Pairs of this run's windows that lie within the radius (the work the pool needs)."""
+    r2 = torch.tensor(radius * radius, dtype=torch.float32).item()
+    return sum(int((d2 <= r2).sum()) for _, _, d2 in window_d2(xyz, cen, starts, window))
 
 
 def pool_bound(args, kw, winners: bool = False):
+    """The pair MLP over this run's in-radius pairs; ``pre`` reads the mask, not xyz."""
     A, xyz, b_c, cen, starts, w2, b2, s2, lb2, w3, b3 = args
     c1, c2, c3 = A.shape[-1], w2.shape[1], w3.shape[1]
-    pairs = in_radius_pairs(xyz, cen, starts, kw["radius"], kw["window"])
+    if kw["d2_mode"] == "pre":
+        pairs, geometry = int(kw["mask"].sum()), nbytes(kw["mask"])
+    else:
+        pairs = in_radius_pairs(xyz, cen, starts, kw["radius"], kw["window"])
+        geometry = nbytes(xyz, cen)
     out = b_c.shape[0] * b_c.shape[1] * c3 * (8 if winners else 4)
-    nb = nbytes(A, xyz, b_c, cen, starts, b2, s2, lb2, b3) + (w2.numel() + w3.numel()) * 2 + out
+    nb = (nbytes(A, b_c, starts, b2, s2, lb2, b3) + geometry + (w2.numel() + w3.numel()) * 2
+          + out)
     return bound(pairs * 2 * (c1 * c2 + c2 * c3), PEAK_BF16, nb)
+
+
+def mask_bound(args, kw):
+    """Per window row: p - o and |p'|^2 (8 operations); per (row, center): the
+    expansion and the test (8). Bytes: xyz, centers and starts read once, the
+    mask written once."""
+    xyz, cen, starts = args
+    B, M, _ = cen.shape
+    rows = B * (M // 16) * kw["window"]
+    return bound(rows * (8 + 16 * 8), PEAK_F32, rows * 16 + nbytes(xyz, cen, starts))
+
+
+def boundary_centers(xyz, cen, starts, radius: float, window: int):
+    """(B, M) bool: centers with a window point p where ||p - c|^2 - r^2| <= BOUNDARY."""
+    from eda_tpu_torch.ops.cuda.sa_kernel import BLOCK
+
+    r2 = torch.tensor(radius * radius, dtype=torch.float32).item()
+    near = torch.zeros(cen.shape[:2], dtype=torch.bool, device=xyz.device)
+    for j0, j1, d2 in window_d2(xyz, cen, starts, window):
+        near[:, j0 * BLOCK:j1 * BLOCK] = ((d2 - r2).abs() <= BOUNDARY).any(-1).flatten(1)
+    return near
+
+
+def against_pair(symbol: str, args, kw, got, layer: int) -> None:
+    """The mode kernel's values against the pair kernel on the same inputs:
+    counts the (center, channel) entries more than 0.03 apart and requires a
+    window point on the radius boundary at each of their centers."""
+    from eda_tpu_torch.ops.cuda import sa_kernel
+
+    if symbol.endswith("winners_launch"):
+        pair = sa_kernel.sa_pair_pool_winners(*args, **{**kw, "d2_mode": "pair", "mask": None})
+        pair, got = pair[0], got[0]
+    else:
+        pair = sa_kernel.sa_pair_pool(*args, **{**kw, "d2_mode": "pair", "mask": None})
+    differ = ((got - pair).abs() > 0.03) | ((got < -1e8) != (pair < -1e8))
+    centers = differ.any(-1)
+    near = boundary_centers(args[1], args[3], args[4], kw["radius"], kw["window"])
+    print(f"  SA{layer} against pair: {int(differ.sum())} of {differ.numel()} (center, channel) "
+          f"entries differ by more than 0.03 ({int((got != pair).sum())} differ at all), at "
+          f"{int(centers.sum())} centers; "
+          f"{int(near.sum())} centers have a window point within {BOUNDARY} of the radius")
+    if (centers & ~near).any():
+        raise AssertionError(f"{symbol} differs from pair at SA{layer} at a center with no "
+                             f"window point on the radius boundary")
 
 
 def live_rows(args, kw) -> tuple:
@@ -267,8 +404,12 @@ def check_kernel(symbol: str, got, want, layer: int) -> float:
         if not ((g - w).abs() <= 0.02 + w.abs() * 2.0 ** -7).all():
             raise AssertionError(f"prep kernel off its plain version at SA{layer}: {err}")
         return err
-    if symbol in ("sa_pair_pool_launch", "sa_pair_pool_winners_launch"):
-        if symbol == "sa_pair_pool_winners_launch":
+    if symbol == MASK:
+        if not torch.equal(got, want):
+            raise AssertionError(f"mask kernel differs from its plain version at SA{layer}")
+        return 0.0
+    if symbol.startswith("sa_pair_pool"):
+        if symbol.endswith("winners_launch"):
             (got, got_win), (want, want_win, second) = got, want
             # the two sides round h1 to bf16 after f32 sums in other orders, so a
             # pooled value moves by up to the largest value error: a winner is
@@ -298,34 +439,39 @@ def check_kernel(symbol: str, got, want, layer: int) -> float:
 
 
 def kernel_specs():
-    from eda_tpu_torch.ops.cuda import fps, sa_kernel, sa_pool_bwd, sa_prep
+    """symbol -> (kernel wrapper, plain version, bound, timed launches)."""
+    from eda_tpu_torch.ops.cuda import fps, sa_kernel, sa_mask, sa_pool_bwd, sa_prep
 
     bwd = (sa_pool_bwd.sa_pool_bwd, sa_pool_bwd.sa_pool_bwd_plain)
-    return {
-        "fps_launch": ("fps", fps.fps, fps.fps_plain, fps_bound, 20),
-        "sa_prep_launch": ("sa_prep", sa_prep.sa_prep, sa_prep.sa_prep_plain, prep_bound, 20),
-        "sa_pair_pool_launch": ("sa_pair_pool", sa_kernel.sa_pair_pool,
-                                sa_kernel.sa_pair_pool_plain, pool_bound, 5),
-        "sa_pair_pool_winners_launch": (
-            "sa_pair_pool_winners", sa_kernel.sa_pair_pool_winners,
-            lambda *a, **k: sa_kernel.sa_pair_pool_winners_plain(*a, runner_up=True, **k),
-            lambda a, k: pool_bound(a, k, winners=True), 5),
-        "sa_pool_bwd_compact_launch": ("sa_pool_bwd_compact", *bwd, pool_bwd_bound, 5),
-        "sa_pool_bwd_window_launch": ("sa_pool_bwd_window", *bwd, pool_bwd_bound, 5),
-        "sa_prep_bwd_launch": ("sa_prep_bwd", sa_prep.sa_prep_bwd, sa_prep.sa_prep_bwd_plain,
-                               prep_bwd_bound, 10),
+    specs = {
+        "fps_launch": (fps.fps, fps.fps_plain, fps_bound, 20),
+        "sa_prep_launch": (sa_prep.sa_prep, sa_prep.sa_prep_plain, prep_bound, 20),
+        "sa_pool_bwd_compact_launch": (*bwd, pool_bwd_bound, 5),
+        "sa_pool_bwd_window_launch": (*bwd, pool_bwd_bound, 5),
+        "sa_prep_bwd_launch": (sa_prep.sa_prep_bwd, sa_prep.sa_prep_bwd_plain, prep_bwd_bound, 10),
+        MASK: (sa_mask.sa_radius_mask, sa_mask.sa_radius_mask_plain, mask_bound, 20),
     }
+    for mode in sa_kernel.D2_MODES:
+        specs[pool_symbol(mode, False)] = (sa_kernel.sa_pair_pool, sa_kernel.sa_pair_pool_plain,
+                                           pool_bound, 5)
+        specs[pool_symbol(mode, True)] = (
+            sa_kernel.sa_pair_pool_winners,
+            lambda *a, **k: sa_kernel.sa_pair_pool_winners_plain(*a, runner_up=True, **k),
+            lambda a, k: pool_bound(a, k, winners=True), 5)
+    return specs
 
 
 @torch.no_grad()
-def check_kernels(calls, symbols, layers: dict) -> list:
-    """Hold every recorded kernel call against its plain version; time both."""
+def check_kernels(calls, symbols, layers: dict, compare_pair: bool = False) -> list:
+    """Hold every recorded kernel call against its plain version; time both.
+    With ``compare_pair`` the pool calls are also held against the pair kernel."""
     from eda_tpu_torch.ops.cuda import build
 
     specs = kernel_specs()
     rows = []
     for symbol in symbols:
-        name, kernel_fn, plain_fn, bound_fn, reps = specs[symbol]
+        kernel_fn, plain_fn, bound_fn, reps = specs[symbol]
+        name = symbol.removesuffix("_launch")
         kernel = build.KERNELS[symbol]
         if len(calls.get(symbol, [])) != layers[symbol]:
             raise AssertionError(f"{name}: the run made {len(calls.get(symbol, []))} calls, "
@@ -339,6 +485,8 @@ def check_kernels(calls, symbols, layers: dict) -> list:
             got, want = kernel_fn(*args, **kw), plain_fn(*args, **kw)
             torch.cuda.synchronize()
             err = check_kernel(symbol, got, want, layer)
+            if compare_pair and symbol != MASK:
+                against_pair(symbol, args, kw, got, layer)
             del got, want
             ms = cuda_ms(lambda: kernel_fn(*args, **kw), reps)
             plain_ms = cuda_ms(lambda: plain_fn(*args, **kw), 1)
@@ -492,6 +640,46 @@ def small_train_check(root_cfg) -> None:
         raise AssertionError(f"tiny train step on the card is off its CPU twin; leaves {bad}")
 
 
+def positive_sizes(model) -> None:
+    """Move every size head's output bias by +1, so that the random model's
+    boxes have positive extents and overlap the GT boxes (else every IoU is ~0)."""
+    with torch.no_grad():
+        for name, module in model.named_modules():
+            if name.endswith("size_head"):
+                module.dense[2].bias += 1.0
+
+
+def small_eval_check(root_cfg) -> None:
+    """The tiny model's card end points scored on the card and on the CPU."""
+    from eda_tpu_torch.entry import build_evaluator
+    from eda_tpu_torch.eval.grounding import grounding_scores, score_and_iou_multi
+
+    model, _, evaluator, batch = build_evaluator(root_cfg.tiny(), batch_size=2, device="cuda",
+                                                 seed=1)
+    positive_sizes(model)
+    kw = dict(prefixes=evaluator.prefixes, modes=evaluator.modes)
+    with torch.inference_mode():
+        ends = model(batch["inputs"])
+        got = score_and_iou_multi(ends, batch["targets"], **kw).cpu()
+        cpu_ends = {k: v.cpu() for k, v in ends.items()}
+        cpu_targets = {k: v.cpu() for k, v in batch["targets"].items()}
+        want = score_and_iou_multi(cpu_ends, cpu_targets, **kw)
+    excused = torch.zeros_like(want, dtype=torch.bool)
+    for pi, prefix in enumerate(evaluator.prefixes):
+        for mi, mode in enumerate(evaluator.modes):
+            scores, _ = grounding_scores(cpu_ends, cpu_targets, prefix=prefix, mode=mode)
+            top = scores.sort(1, descending=True).values[:, :want.shape[-1] + 1]
+            tie = (top[:, :-1] - top[:, 1:]).abs() <= SCORE_TIE  # rank r with rank r + 1
+            excused[pi, mi, :, 1:] |= tie[:, :-1]
+            excused[pi, mi] |= tie
+    err = (got - want).abs()[~excused].max().item()
+    print(f"tiny eval card vs CPU scoring: IoU stack {tuple(got.shape)}, max IoU "
+          f"{want.max().item():.4f}, max err {err} at compared ranks, "
+          f"{int(excused.sum())} of {excused.numel()} ranks excused (score ties)")
+    if err > IOU_ATOL or not torch.isfinite(got).all():
+        raise AssertionError("tiny eval: card scoring is off the CPU scoring")
+
+
 def stage_times(model, batch) -> dict:
     """Host-clock ms of the forward's stages, each ended by a synchronize."""
     with torch.inference_mode():
@@ -581,18 +769,14 @@ def serving_phase(cfg):
     times = []
     with torch.inference_mode():
         for i, batch in enumerate(batches):
-            before = {s: k.launches for s, k in build.KERNELS.items()}
+            before = launch_counts()
             out, ms = timed(lambda: model(batch)["last_center"])
             times.append(ms)
             if out.shape != (BATCH, cfg.num_queries, 3) or not torch.isfinite(out).all():
                 raise AssertionError(f"request {i}: bad last_center {tuple(out.shape)}")
-            for symbol, kernel in build.KERNELS.items():
-                want = 4 if symbol in SERVING else 0
-                if kernel.launches - before[symbol] != want:
-                    raise AssertionError(f"request {i}: {symbol} launched "
-                                         f"{kernel.launches - before[symbol]} times, not {want}")
+            check_launches(before, forward_launches("pair"), f"request {i}")
             print(f"request {i}: {BATCH} scenes in {ms:.2f} ms, last_center finite")
-    launches = {s: k.launches for s, k in build.KERNELS.items()}
+    launches = launch_counts()
     steady = statistics.median(times[1:])
     print(f"serving forward, batch {BATCH}: {steady:.2f} ms per batch, "
           f"{1e3 * BATCH / steady:.2f} scenes/s (median of requests 1-{REQUESTS - 1}; "
@@ -601,7 +785,7 @@ def serving_phase(cfg):
     print(f"stage ms of one batch: {stage_times(model, batches[-1])}")
     with torch.inference_mode():
         profile(lambda: model(batches[-1]), "serving forward")
-    return rows, launches
+    return rows, launches, model, inputs
 
 
 def train_phase(cfg):
@@ -629,7 +813,7 @@ def train_phase(cfg):
     matcher.HOST_SYNCS = 0
     times = []
     for i in range(STEPS):
-        before = {s: k.launches for s, k in build.KERNELS.items()}
+        before = launch_counts()
         old = [p.detach().clone() for p in trained]
         metrics, ms = timed(lambda: step(state, batch))
         times.append(ms)
@@ -639,14 +823,10 @@ def train_phase(cfg):
         changed = sum(not torch.equal(o, p) for o, p in zip(old, trained))
         if changed < 0.9 * len(trained):
             raise AssertionError(f"step {i}: only {changed} of {len(trained)} parameters changed")
-        for symbol, kernel in build.KERNELS.items():
-            if kernel.launches - before[symbol] != STEP_LAUNCHES[symbol]:
-                raise AssertionError(f"step {i}: {symbol} launched "
-                                     f"{kernel.launches - before[symbol]} times, "
-                                     f"not {STEP_LAUNCHES[symbol]}")
+        check_launches(before, step_launches("pair"), f"step {i}")
         print(f"step {i}: {BATCH} scenes in {ms:.2f} ms, loss {loss:.4f}, grad_norm {norm:.4f}, "
               f"{changed} of {len(trained)} parameters changed")
-    launches = {s: k.launches for s, k in build.KERNELS.items()}
+    launches = launch_counts()
     steady = statistics.median(times[1:])
     print(f"training step, batch {BATCH}: {steady:.2f} ms per step, "
           f"{1e3 * BATCH / steady:.2f} scenes/s (median of steps 1-{STEPS - 1}; "
@@ -666,7 +846,130 @@ def train_phase(cfg):
           f"{t_loss:.2f}, backward {t_bwd:.2f}, optimizer {t_opt:.2f}")
     del ends, loss
     profile(lambda: step(state, batch), "training step")
-    return rows, launches
+    return rows, launches, state, step, batch
+
+
+def radius_mode_phase(mode: str, model, inputs, state, step, batch):
+    """The mode's kernels on a full-width serving forward and training step,
+    against their plain versions and against the pair kernel. Returns the
+    kernels' rows and the launches of the training step."""
+    from eda_tpu_torch.ops import fused_sa
+    from eda_tpu_torch.ops.cuda import build
+
+    pool = lambda kw: pool_symbol(kw["d2_mode"], False)  # noqa: E731
+    pool_winners = lambda kw: pool_symbol(kw["d2_mode"], True)  # noqa: E731
+    masks = [(fused_sa, "sa_radius_mask", MASK)] if mode == "pre" else []
+    with radius_mode(mode):
+        before = launch_counts()
+        with Recorder([(fused_sa, "sa_pair_pool", pool)] + masks) as serve:
+            with torch.inference_mode():
+                out = model(inputs)["last_center"]
+        check_launches(before, forward_launches(mode), f"{mode} serving forward")
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{mode}: non-finite last_center")
+        for kernel in build.KERNELS.values():
+            kernel.launches = 0
+        with Recorder([(fused_sa, "sa_pair_pool_winners", pool_winners)]) as train:
+            metrics = step(state, batch)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        check_launches({s: 0 for s in launches}, step_launches(mode), f"{mode} training step")
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"{mode}: non-finite training loss")
+        symbols = ([MASK] if mode == "pre" else []) + [pool_symbol(mode, False)]
+        rows = check_kernels(serve.calls, symbols, {s: 4 for s in symbols}, compare_pair=True)
+        winners = pool_symbol(mode, True)
+        rows += check_kernels(train.calls, [winners], {winners: 4}, compare_pair=True)
+    rows[-1]["launches"] = launches[winners]
+    return rows
+
+
+def against_pair_stack(mode: str, stacks: dict, ends: dict, i: int) -> int:
+    """The mode's IoU stack against the batch's pair stack, scene by scene.
+    A scene whose end points equal pair's bit for bit must score the same IoU
+    stack. A scene where the radius test decided a pair otherwise (near the
+    boundary, which the radius-mode phase bounds) has another forward and is
+    not compared; its end points must first differ at an SA layer's output.
+    Returns the number of scenes compared."""
+    mine, pair = ends[mode], ends["pair"]
+    keys = [k for k, v in pair.items() if isinstance(v, torch.Tensor) and v.shape[:1] == (BATCH,)]
+    same = [b for b in range(BATCH) if all(torch.equal(mine[k][b], pair[k][b]) for k in keys)]
+    pools = [f"sa{j}_features" for j in range(1, 5)]
+    for b in set(range(BATCH)) - set(same):
+        if all(torch.equal(mine[k][b], pair[k][b]) for k in pools):
+            raise AssertionError(f"{mode} eval batch {i}, scene {b}: end points differ from "
+                                 f"pair's with equal SA outputs")
+    if not torch.equal(stacks[mode][:, :, same], stacks["pair"][:, :, same]):
+        raise AssertionError(f"{mode} eval batch {i}: a scene with pair's end points scores "
+                             f"another IoU stack")
+    return len(same)
+
+
+def eval_phase(cfg) -> dict:
+    """Five batches of 8 scored under each radius-test mode, the modes taking
+    turns on each batch (forward order on even batches, reverse on odd ones)
+    so that the host's drift falls on all three alike. Every size head's bias
+    is moved as in ``small_eval_check`` so that the boxes overlap the GT boxes;
+    the ``mxu`` and ``pre`` IoU stacks of each scene whose end points equal
+    pair's must equal its ``pair`` stack. Returns the launches of each mode's
+    five batches."""
+    from eda_tpu_torch.entry import build_evaluator, make_train_batch
+    from eda_tpu_torch.eval.grounding import GroundingEvaluator, score_and_iou_multi
+    from eda_tpu_torch.train import step as step_module
+
+    model, score_step, evaluator, batch = build_evaluator(cfg, batch_size=BATCH, device="cuda")
+    positive_sizes(model)
+    batches = [batch] + [make_train_batch(cfg, range(BATCH * i, BATCH * (i + 1)), "cuda")
+                         for i in range(1, REQUESTS)]
+    modes = ("pair", "mxu", "pre")
+    evaluators = {m: GroundingEvaluator(prefixes=evaluator.prefixes, modes=evaluator.modes)
+                  for m in modes}
+    times = {m: [] for m in modes}
+    launches = {m: dict.fromkeys(launch_counts(), 0) for m in modes}
+    compared = {m: 0 for m in modes[1:]}
+    largest = 0.0
+    scored = {}
+
+    def keep(end_points, targets, **kw):  # the score step's end points, kept to compare
+        scored["ends"] = end_points
+        return score_and_iou_multi(end_points, targets, **kw)
+
+    with patched(step_module, "score_and_iou_multi", keep):
+        for i, b in enumerate(batches):
+            stacks, ends = {}, {}
+            for mode in modes if i % 2 == 0 else modes[::-1]:
+                with radius_mode(mode):
+                    before = launch_counts()
+                    t = time.perf_counter()
+                    ious = score_step(b)
+                    evaluators[mode].evaluate(None, None, ious=ious)  # pulls the stack to the host
+                    times[mode].append(1e3 * (time.perf_counter() - t))
+                check_launches(before, forward_launches(mode), f"{mode} eval batch {i}")
+                for symbol, count in launch_counts().items():
+                    launches[mode][symbol] += count - before[symbol]
+                if (ious.shape != IOU_SHAPE or not torch.isfinite(ious).all()
+                        or ious.min() < 0 or ious.max() > 1):
+                    raise AssertionError(f"{mode} eval batch {i}: bad IoU stack "
+                                         f"{tuple(ious.shape)}")
+                stacks[mode], ends[mode] = ious, scored.pop("ends")
+            largest = max(largest, stacks["pair"].max().item())
+            for mode in modes[1:]:
+                compared[mode] += against_pair_stack(mode, stacks, ends, i)
+            del stacks, ends
+    for mode in modes:
+        steady = statistics.median(times[mode][1:])
+        print(f"eval under {mode}, batch {BATCH}: {steady:.2f} ms per batch, "
+              f"{1e3 * BATCH / steady:.2f} scenes/s (median of batches 1-{REQUESTS - 1}; "
+              f"batch 0 {times[mode][0]:.2f} ms; all {[round(t, 2) for t in times[mode]]}); "
+              f"IoU stacks {IOU_SHAPE} finite in [0, 1]")
+        if mode != "pair":
+            print(f"  {compared[mode]} of {REQUESTS * BATCH} scenes have pair's end points bit "
+                  f"for bit and score pair's IoU stack; the other "
+                  f"{REQUESTS * BATCH - compared[mode]} differ from pair's from an SA "
+                  f"layer's output on")
+        print(f"  {evaluators[mode].print_stats().splitlines()[0]}")
+    print(f"largest IoU with the GT box in the eval batches: {largest:.4f}")
+    return launches
 
 
 def main() -> int:
@@ -690,15 +993,34 @@ def main() -> int:
                 print(f"  nvcc {name}: {line.strip()}")
 
     cfg = ModelConfig(use_bf16=True)
-    small_model_check(cfg)
-    small_train_check(cfg)
-    serve_rows, serve_launches = serving_phase(cfg)
-    torch.cuda.empty_cache()
-    train_rows, train_launches = train_phase(cfg)
 
-    rows = serve_rows + train_rows
-    for row, symbol in zip(rows, SERVING + TRAINING):
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    with radius_mode("pair"):
+        phase("tiny model", small_model_check, cfg)
+        phase("tiny training step", small_train_check, cfg)
+        phase("tiny eval", small_eval_check, cfg)
+        serve_rows, serve_launches, model, inputs = phase("serving", serving_phase, cfg)
+        torch.cuda.empty_cache()
+        train_rows, train_launches, *trainer = phase("training", train_phase, cfg)
+    for row, symbol in zip(serve_rows + train_rows, SERVING + TRAINING):
         row["launches"] = (serve_launches if symbol in SERVING else train_launches)[symbol]
+    mode_rows = {mode: phase(f"radius mode {mode}", radius_mode_phase, mode, model, inputs,
+                             *trainer) for mode in ("mxu", "pre")}
+    del model, inputs, trainer
+    torch.cuda.empty_cache()
+    eval_launches = phase("eval", eval_phase, cfg)
+    for mode, mode_row in mode_rows.items():
+        for row in mode_row:
+            if not row["name"].endswith("winners"):
+                row["launches"] = eval_launches[mode][row["name"] + "_launch"]
+
+    rows = serve_rows + train_rows + mode_rows["mxu"] + mode_rows["pre"]
+    for row in rows:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on the main path")
     print(json.dumps({"kernels": rows}))

@@ -1,8 +1,11 @@
-// Fused set-abstraction pair pool forward on Hopper (radius test per pair).
+// Fused set-abstraction pair pool forward on Hopper.
 //
 // Replaces the TPU kernel eda_tpu/ops/pallas/sa_kernel.py:sa_pair_pool_pallas
-// (body _make_kernel with d2_mode="pair"): sa_pair_pool_launch without winner
-// export (serving, "K3"), sa_pair_pool_winners_launch with it (training, "K4").
+// (body _make_kernel) under each radius test (d2_mode), without winner export
+// (serving) and with it (training):
+//   "pair"  sa_pair_pool_launch ("K3"), sa_pair_pool_winners_launch ("K4")
+//   "mxu"   sa_pair_pool_mxu_launch, sa_pair_pool_mxu_winners_launch ("K8")
+//   "pre"   sa_pair_pool_pre_launch, sa_pair_pool_pre_winners_launch ("K9b")
 //
 // One CTA per (batch row, block of 16 rank-sorted centers). The block pairs
 // with the W points of its window, which starts at a multiple of 16. For every
@@ -11,8 +14,18 @@
 //   h1 = bf16(relu(LN(h0 @ W2 + b2)))        f32 sums of bf16 products,
 //                                            one-pass LN stats, eps 1e-5
 //   z  = h1 @ W3 + b3                        f32 pre-activation
-// and the output is max over in-radius pairs (|p-c|^2 <= r^2 in f32) of z,
-// -1e9 where a center has no point of its window in range.
+// and the output is max over in-radius pairs of z, -1e9 where a center has no
+// point of its window in range. The radius test (f32, never contracted into an
+// FMA: the build passes --fmad=false) is the template parameter D2:
+//   kPair  |p-c|^2 <= r^2, the squares summed x, y, z;
+//   kMxu   the TPU's expansion about the block's first center o
+//          (sa_kernel.py:251-255, 279-289): p' = p-o, c' = c-o,
+//          psq = |p'|^2, csq = |c'|^2 (sums x, y, z),
+//          pc = (-2p'x)c'x + (-2p'y)c'y + (-2p'z)c'z + csq, in iff pc <= r^2 - psq;
+//   kPre   reads the (W, 16) byte mask of csrc/sa_mask.cu for its block and
+//          loads no coordinates at all (no xyz window, no centers), which is
+//          the point of the TPU's "pre" mode: no xyz window DMA.
+// Only the radius test differs; the pair MLP, the max and the winners do not.
 //
 // Bound on this card: operations. A pair costs 2*(c1*c2 + c2*c3) flops
 // (SA1: 24.6 K, SA2-4: 98.3 K); a 50 000-point scene's four layers need
@@ -92,7 +105,7 @@ __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(
 
 // Shared memory carve-up, in bytes, shared by the kernel and the launcher.
 struct Layout {
-  size_t w2, w3, bct, h0, h1, at, xt, prm, total;
+  size_t w2, w3, bct, h0, h1, at, xt, mt, prm, total;
   __host__ __device__ Layout(int c1, int c2, int c3) {
     size_t o = 0;
     w2 = o;  o += align16((size_t)c1 * c2 * 2);
@@ -102,15 +115,19 @@ struct Layout {
     h1 = o;  o += align16((size_t)c2 * kCenters * kTile * 2);
     at = o;  o += align16((size_t)kTile * c1 * 2);
     xt = o;  o += align16((size_t)kTile * 3 * 4);
+    mt = o;  o += align16((size_t)kTile * kCenters);
     prm = o; o += align16((size_t)(3 * c2 + c3) * 4);
     total = o;
   }
 };
 
-template <int C2, int C3, bool WIN>
+enum D2 { kPair, kMxu, kPre };
+
+template <int C2, int C3, bool WIN, int D2>
 __global__ void __launch_bounds__(kThreads)
 sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
                     const uint16_t* __restrict__ bc, const float* __restrict__ cen,
+                    const uint8_t* __restrict__ mask,
                     const int* __restrict__ starts, const uint16_t* __restrict__ w2,
                     const float* __restrict__ b2, const float* __restrict__ s2,
                     const float* __restrict__ lb2, const uint16_t* __restrict__ w3,
@@ -131,6 +148,7 @@ sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xy
   uint16_t* h1s = reinterpret_cast<uint16_t*>(smem + L.h1);  // [k][center][p]
   uint16_t* ats = reinterpret_cast<uint16_t*>(smem + L.at);  // [p][k]
   float* xts = reinterpret_cast<float*>(smem + L.xt);        // [p][3]
+  uint8_t* mts = smem + L.mt;                                 // [p][center] (kPre)
   float* b2s = reinterpret_cast<float*>(smem + L.prm);
   float* s2s = b2s + C2;
   float* lb2s = s2s + C2;
@@ -163,8 +181,24 @@ sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xy
     lb2s[i] = lb2[i];
   }
   for (int i = tid; i < C3; i += kThreads) b3s[i] = b3[i];
-  const float* cp = cen + ((size_t)b * M + m0 + c) * 3;
-  const float cx = cp[0], cy = cp[1], cz = cp[2];
+  // kPair: the center; kMxu: c' = c - o, -2 o and csq; kPre: nothing
+  float cx = 0.f, cy = 0.f, cz = 0.f, ox = 0.f, oy = 0.f, oz = 0.f, csq = 0.f;
+  if constexpr (D2 != kPre) {
+    const float* cp = cen + ((size_t)b * M + m0 + c) * 3;
+    cx = cp[0];
+    cy = cp[1];
+    cz = cp[2];
+  }
+  if constexpr (D2 == kMxu) {
+    const float* op = cen + ((size_t)b * M + m0) * 3;  // the block's first center
+    ox = op[0];
+    oy = op[1];
+    oz = op[2];
+    cx -= ox;
+    cy -= oy;
+    cz -= oz;
+    csq = cx * cx + cy * cy + cz * cz;
+  }
 
   float best[CPT2];
   int win[CPT2];  // window position of the winner, -1 for none (WIN only)
@@ -176,11 +210,14 @@ sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xy
   __syncthreads();
 
   const uint16_t* a_win = A + ((size_t)b * N + start) * c1;
-  const float* x_win = xyz + ((size_t)b * N + start) * 3;
+  const float* x_win = D2 == kPre ? nullptr : xyz + ((size_t)b * N + start) * 3;
+  const uint8_t* m_win =
+      D2 == kPre ? mask + ((size_t)b * n_blocks + blockIdx.x) * W * kCenters : nullptr;
 
   for (int t0 = 0; t0 < W; t0 += kTile) {
     const int np = min(kTile, W - t0);
-    // 1. stage the tile's A rows and coordinates (zeros past the window end)
+    // 1. stage the tile's A rows and coordinates, or its mask rows (zeros
+    //    past the window end)
     {
       const uint4* src = reinterpret_cast<const uint4*>(a_win + (size_t)t0 * c1);
       uint4* dst = reinterpret_cast<uint4*>(ats);
@@ -188,7 +225,12 @@ sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xy
         const int p = (i * 8) / c1;
         dst[i] = p < np ? src[i] : make_uint4(0, 0, 0, 0);
       }
-      if (tid < kTile * 3) xts[tid] = tid / 3 < np ? x_win[(size_t)t0 * 3 + tid] : 0.f;
+      if constexpr (D2 == kPre) {
+        if (tid < kTile * kCenters)
+          mts[tid] = tid / kCenters < np ? m_win[(size_t)t0 * kCenters + tid] : 0;
+      } else {
+        if (tid < kTile * 3) xts[tid] = tid / 3 < np ? x_win[(size_t)t0 * 3 + tid] : 0.f;
+      }
     }
     __syncthreads();
 
@@ -210,11 +252,23 @@ sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xy
     unsigned in_radius = 0;
 #pragma unroll
     for (int p = 0; p < kTile; ++p) {
-      const float dx = xts[p * 3] - cx;
-      const float dy = xts[p * 3 + 1] - cy;
-      const float dz = xts[p * 3 + 2] - cz;
-      const float d2 = dx * dx + dy * dy + dz * dz;
-      if (p < np && d2 <= r2) in_radius |= 1u << p;
+      bool in;
+      if constexpr (D2 == kPre) {
+        in = mts[p * kCenters + c] != 0;
+      } else if constexpr (D2 == kMxu) {
+        const float px = xts[p * 3] - ox;
+        const float py = xts[p * 3 + 1] - oy;
+        const float pz = xts[p * 3 + 2] - oz;
+        const float psq = px * px + py * py + pz * pz;
+        const float pc = (-2.f * px) * cx + (-2.f * py) * cy + (-2.f * pz) * cz + csq;
+        in = pc <= r2 - psq;
+      } else {
+        const float dx = xts[p * 3] - cx;
+        const float dy = xts[p * 3 + 1] - cy;
+        const float dz = xts[p * 3 + 2] - cz;
+        in = dx * dx + dy * dy + dz * dz <= r2;
+      }
+      if (p < np && in) in_radius |= 1u << p;
     }
     {
       float acc[kTile][CPT1];
@@ -312,31 +366,32 @@ sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xy
   }
 }
 
-template <int C2, int C3, bool WIN>
+template <int C2, int C3, bool WIN, int D2>
 cudaError_t launch(const uint16_t* A, const float* xyz, const uint16_t* bc,
-                   const float* cen, const int* starts, const uint16_t* w2,
-                   const float* b2, const float* s2, const float* lb2,
+                   const float* cen, const uint8_t* mask, const int* starts,
+                   const uint16_t* w2, const float* b2, const float* s2, const float* lb2,
                    const uint16_t* w3, const float* b3, int B, int N, int M, int c1,
                    int W, float r2, float* out, int* winners, cudaStream_t s) {
   const Layout L(c1, C2, C3);
   if (L.total > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(sa_pair_pool_kernel<C2, C3, WIN>,
+  cudaError_t err = cudaFuncSetAttribute(sa_pair_pool_kernel<C2, C3, WIN, D2>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.total);
   if (err != cudaSuccess) return err;
   dim3 grid(M / kCenters, B);
   const int wc = W < 128 ? W : 128;
-  sa_pair_pool_kernel<C2, C3, WIN><<<grid, kThreads, L.total, s>>>(
-      A, xyz, bc, cen, starts, w2, b2, s2, lb2, w3, b3, N, M, c1, W, r2, wc, out, winners);
+  sa_pair_pool_kernel<C2, C3, WIN, D2><<<grid, kThreads, L.total, s>>>(
+      A, xyz, bc, cen, mask, starts, w2, b2, s2, lb2, w3, b3, N, M, c1, W, r2, wc, out,
+      winners);
   return cudaGetLastError();
 }
 
-template <bool WIN>
+template <bool WIN, int D2>
 int dispatch(const void* A, const float* xyz, const void* bc, const float* cen,
-             const int* starts, const void* w2, const float* b2, const float* s2,
-             const float* lb2, const void* w3, const float* b3, int B, int N, int M,
-             int c1, int c2, int c3, int W, float r2, float* out, int* winners,
-             void* stream) {
+             const uint8_t* mask, const int* starts, const void* w2, const float* b2,
+             const float* s2, const float* lb2, const void* w3, const float* b3, int B,
+             int N, int M, int c1, int c2, int c3, int W, float r2, float* out,
+             int* winners, void* stream) {
   if (B <= 0 || M <= 0) return cudaSuccess;
   if (M % kCenters || c1 % 8 || c1 <= 0 || W <= 0 || W > N)
     return cudaErrorInvalidValue;
@@ -347,8 +402,8 @@ int dispatch(const void* A, const float* xyz, const void* bc, const float* cen,
   const auto* w3v = static_cast<const uint16_t*>(w3);
 #define EDA_SA_LAUNCH(X, Y)                                                     \
   if (c2 == X && c3 == Y)                                                       \
-    return launch<X, Y, WIN>(a, xyz, bcv, cen, starts, w2v, b2, s2, lb2, w3v, b3, \
-                             B, N, M, c1, W, r2, out, winners, s);
+    return launch<X, Y, WIN, D2>(a, xyz, bcv, cen, mask, starts, w2v, b2, s2, lb2, \
+                                 w3v, b3, B, N, M, c1, W, r2, out, winners, s);
   EDA_SA_LAUNCH(16, 32)
   EDA_SA_LAUNCH(32, 64)
   EDA_SA_LAUNCH(64, 128)
@@ -373,8 +428,8 @@ int sa_pair_pool_launch(const void* A, const float* xyz, const void* bc,
                         const void* w3, const float* b3, int B, int N, int M,
                         int c1, int c2, int c3, int W, float r2, float* out,
                         void* stream) {
-  return dispatch<false>(A, xyz, bc, cen, starts, w2, b2, s2, lb2, w3, b3, B, N, M, c1,
-                         c2, c3, W, r2, out, nullptr, stream);
+  return dispatch<false, kPair>(A, xyz, bc, cen, nullptr, starts, w2, b2, s2, lb2, w3, b3,
+                                B, N, M, c1, c2, c3, W, r2, out, nullptr, stream);
 }
 
 // As sa_pair_pool_launch, plus winners: (B, M, c3) int32 global rank of the
@@ -385,8 +440,51 @@ int sa_pair_pool_winners_launch(const void* A, const float* xyz, const void* bc,
                                 const void* w3, const float* b3, int B, int N, int M,
                                 int c1, int c2, int c3, int W, float r2, float* out,
                                 int* winners, void* stream) {
-  return dispatch<true>(A, xyz, bc, cen, starts, w2, b2, s2, lb2, w3, b3, B, N, M, c1,
-                        c2, c3, W, r2, out, winners, stream);
+  return dispatch<true, kPair>(A, xyz, bc, cen, nullptr, starts, w2, b2, s2, lb2, w3, b3,
+                               B, N, M, c1, c2, c3, W, r2, out, winners, stream);
+}
+
+// As sa_pair_pool_launch with the expansion-formula radius test ("mxu").
+int sa_pair_pool_mxu_launch(const void* A, const float* xyz, const void* bc,
+                            const float* cen, const int* starts, const void* w2,
+                            const float* b2, const float* s2, const float* lb2,
+                            const void* w3, const float* b3, int B, int N, int M,
+                            int c1, int c2, int c3, int W, float r2, float* out,
+                            void* stream) {
+  return dispatch<false, kMxu>(A, xyz, bc, cen, nullptr, starts, w2, b2, s2, lb2, w3, b3,
+                               B, N, M, c1, c2, c3, W, r2, out, nullptr, stream);
+}
+
+int sa_pair_pool_mxu_winners_launch(const void* A, const float* xyz, const void* bc,
+                                    const float* cen, const int* starts, const void* w2,
+                                    const float* b2, const float* s2, const float* lb2,
+                                    const void* w3, const float* b3, int B, int N, int M,
+                                    int c1, int c2, int c3, int W, float r2, float* out,
+                                    int* winners, void* stream) {
+  return dispatch<true, kMxu>(A, xyz, bc, cen, nullptr, starts, w2, b2, s2, lb2, w3, b3,
+                              B, N, M, c1, c2, c3, W, r2, out, winners, stream);
+}
+
+// As sa_pair_pool_launch with the radius test read from mask ("pre"):
+// (B, M/16, W, 16) uint8, row w of block j the window point starts[j] + w
+// (csrc/sa_mask.cu). No coordinates and no radius.
+int sa_pair_pool_pre_launch(const void* A, const void* bc, const uint8_t* mask,
+                            const int* starts, const void* w2, const float* b2,
+                            const float* s2, const float* lb2, const void* w3,
+                            const float* b3, int B, int N, int M, int c1, int c2, int c3,
+                            int W, float* out, void* stream) {
+  return dispatch<false, kPre>(A, nullptr, bc, nullptr, mask, starts, w2, b2, s2, lb2, w3,
+                               b3, B, N, M, c1, c2, c3, W, 0.f, out, nullptr, stream);
+}
+
+int sa_pair_pool_pre_winners_launch(const void* A, const void* bc, const uint8_t* mask,
+                                    const int* starts, const void* w2, const float* b2,
+                                    const float* s2, const float* lb2, const void* w3,
+                                    const float* b3, int B, int N, int M, int c1, int c2,
+                                    int c3, int W, float* out, int* winners,
+                                    void* stream) {
+  return dispatch<true, kPre>(A, nullptr, bc, nullptr, mask, starts, w2, b2, s2, lb2, w3,
+                              b3, B, N, M, c1, c2, c3, W, 0.f, out, winners, stream);
 }
 
 }  // extern "C"

@@ -1,12 +1,14 @@
-"""Entry points of the port: the flagship grounding forward and its training step.
+"""Entry points of the port: the flagship grounding forward, its training step and its evaluation.
 
 ``entry`` is the twin of ``__graft_entry__.entry``: ``ModelConfig(use_bf16=True)``,
 a batch of 50 000-point synthetic scenes and a randomly initialised
 ``EDAGrounder`` on the chosen device, returning ``last_center``.
 ``build_trainer`` gives the same model with its optimizer, the training step
-and a synthetic training batch. The device is CUDA unless the caller passes
-``device="cpu"``; without CUDA and without an explicit device they raise, they
-never move to the CPU by themselves.
+and a synthetic training batch; ``build_evaluator`` the model in eval mode,
+the fused forward + scoring step, a grounding evaluator and a batch with
+targets. The device is CUDA unless the caller passes ``device="cpu"``; without
+CUDA and without an explicit device they raise, they never move to the CPU by
+themselves.
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ import torch
 
 from eda_tpu_torch.config import ModelConfig, TrainConfig
 from eda_tpu_torch.data.synthetic import SyntheticConfig, SyntheticScenes
+from eda_tpu_torch.eval.grounding import GroundingEvaluator
 from eda_tpu_torch.losses.criterion import SetCriterionConfig
 from eda_tpu_torch.models.grounder import EDAGrounder
 from eda_tpu_torch.train.optim import AdamW
-from eda_tpu_torch.train.step import TrainState, make_train_step
+from eda_tpu_torch.train.step import TrainState, make_eval_score_step, make_train_step
 
 # schedule length of the synthetic training run: longer than any smoke or test
 # runs, so the learning rates stay at their base values
@@ -90,6 +93,25 @@ def build_trainer(cfg: Optional[ModelConfig] = None, *, batch_size: int = 2,
     optimizer = AdamW(model, TrainConfig(), STEPS_PER_EPOCH)
     step = make_train_step(SetCriterionConfig(num_decoder_layers=cfg.num_decoder_layers))
     return TrainState(model, optimizer), step, make_train_batch(cfg, range(batch_size), dev)
+
+
+def build_evaluator(cfg: Optional[ModelConfig] = None, *, batch_size: int,
+                    device: Optional[str] = None, seed: int = 0):
+    """(model, score_step, evaluator, batch): the grounder with random weights
+    from ``seed`` in eval mode, the forward + scoring step of ``train.py``'s
+    evaluation (prefixes ``last_`` and ``proposal_``, modes ``bbs`` and
+    ``bbf``), an empty ``GroundingEvaluator`` and a synthetic batch with targets.
+
+    ``evaluator.evaluate(None, None, ious=score_step(batch))`` scores one batch.
+    """
+    dev = resolve_device(device)
+    cfg = cfg or ModelConfig(use_bf16=True)
+    model = EDAGrounder(cfg)
+    model.init_weights(seed)
+    model = model.to(dev).eval()
+    evaluator = GroundingEvaluator(prefixes=("last_", "proposal_"))
+    score_step = make_eval_score_step(model, prefixes=evaluator.prefixes, modes=evaluator.modes)
+    return model, score_step, evaluator, make_train_batch(cfg, range(batch_size), dev)
 
 
 def entry(device: Optional[str] = None, **overrides) -> torch.Tensor:

@@ -165,12 +165,15 @@ class EDAGrounder(nn.Module):
 
 
 def top_k_indices(logits: torch.Tensor, k: int) -> torch.Tensor:
-    """KPS: indices of the ``k`` largest logits per row, descending.
+    """Indices of the ``k`` largest values per row, descending, as ``lax.top_k``.
 
-    A stable descending sort puts tied logits lowest index first, as
-    ``lax.top_k`` does (``torch.topk`` promises no order among ties).
+    ``lax.top_k`` orders floats totally (+0 above -0) and puts equal values
+    lowest index first; ``torch.topk`` promises no order among ties. So the
+    values sort by their total-order integer key, stably.
     """
-    return torch.sort(logits, dim=1, descending=True, stable=True).indices[:, :k]
+    bits = logits.float().contiguous().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)  # monotone in the float order
+    return torch.sort(key, dim=1, descending=True, stable=True).indices[:, :k]
 
 
 def decoder_prefixes(num_decoder_layers: int) -> list:

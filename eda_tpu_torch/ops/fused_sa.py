@@ -23,6 +23,12 @@ backward kernel (K7), and the pool forward with winner export (K4) with the
 compact (K5) or windowed (K6) backward, chosen by the TPU's rule. With
 gradients off the serving pool (K3) runs. The per-center offset ``b_c`` and
 the recomputed self term stay plain autograd.
+
+The pool's radius test is resolved once per call (``resolve_d2_mode``: the
+``EDA_SA_D2`` environment variable, else ``pair``). ``mxu`` runs the
+expansion-formula pool (K8); ``pre`` runs the mask kernel (K9a) and then the
+pool that reads the mask (K9b). The backward does not depend on the mode: it
+reads only the winners.
 """
 
 from __future__ import annotations
@@ -31,7 +37,13 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from eda_tpu_torch.ops.cuda.sa_kernel import BLOCK, sa_pair_pool, sa_pair_pool_winners
+from eda_tpu_torch.ops.cuda.sa_kernel import (
+    BLOCK,
+    resolve_d2_mode,
+    sa_pair_pool,
+    sa_pair_pool_winners,
+)
+from eda_tpu_torch.ops.cuda.sa_mask import sa_radius_mask
 from eda_tpu_torch.ops.cuda.sa_pool_bwd import compact_backward, sa_pool_bwd
 from eda_tpu_torch.ops.cuda.sa_prep import bf16_round, sa_prep, sa_prep_bwd
 from eda_tpu_torch.ops.pointops import gather_points
@@ -66,12 +78,14 @@ class _Prep(torch.autograd.Function):
 
 class _Pool(torch.autograd.Function):
     """The pair pool with winner export; its gradient is the pair-pool backward
-    kernel (compact or windowed). Geometry and window starts get none."""
+    kernel (compact or windowed). Geometry, window starts and mask get none."""
 
     @staticmethod
-    def forward(ctx, A, xyz, b_c, cen, starts, w2, b2, s2, lb2, w3, b3, radius, window):
+    def forward(ctx, A, xyz, b_c, cen, starts, w2, b2, s2, lb2, w3, b3, radius, window,
+                d2_mode, mask):
         out, winners = sa_pair_pool_winners(A, xyz, b_c, cen, starts, w2, b2, s2, lb2, w3, b3,
-                                            radius=radius, window=window)
+                                            radius=radius, window=window, d2_mode=d2_mode,
+                                            mask=mask)
         ctx.save_for_backward(A, b_c, winners, starts, w2, b2, s2, lb2, w3)
         ctx.window = window
         return out
@@ -84,7 +98,7 @@ class _Pool(torch.autograd.Function):
             compact=compact_backward(ctx.window, w3.shape[1]))
         # the TPU wrapper hands dA and db_c back in A's and b_c's dtype
         return (dA.to(A.dtype), None, dbc.to(b_c.dtype), None, None,
-                dw2, db2, ds2, dlb2, dw3, db3, None, None)
+                dw2, db2, ds2, dlb2, dw3, db3, None, None, None, None)
 
 
 def layer_norm(x: torch.Tensor, scale, bias, eps: float = 1e-5) -> torch.Tensor:
@@ -166,12 +180,14 @@ def fused_set_abstraction(
         cen_p = torch.cat([cen_xyz, cen_xyz[:, -1:].expand(-1, m_pad, -1)], 1)
     starts = window_starts(ranks_p, N, W, dense)
     k, b, s, lb = params
-    pool_args = (A, xyz.contiguous(), b_c_p.contiguous(), cen_p.contiguous(), starts,
-                 k[1], b[1], s[1], lb[1], k[2], b[2])
+    xyz, cen_p = xyz.contiguous(), cen_p.contiguous()
+    mode = resolve_d2_mode()
+    mask = sa_radius_mask(xyz, cen_p, starts, radius=radius, window=W) if mode == "pre" else None
+    pool_args = (A, xyz, b_c_p.contiguous(), cen_p, starts, k[1], b[1], s[1], lb[1], k[2], b[2])
     if train:
-        outs = _Pool.apply(*pool_args, radius, W)[:, :M]
+        outs = _Pool.apply(*pool_args, radius, W, mode, mask)[:, :M]
     else:
-        outs = sa_pair_pool(*pool_args, radius=radius, window=W)[:, :M]
+        outs = sa_pair_pool(*pool_args, radius=radius, window=W, d2_mode=mode, mask=mask)[:, :M]
 
     # The center's own point always lies in its ball, but a block-shared
     # window may miss it: max in the self term, recomputed from its inputs.

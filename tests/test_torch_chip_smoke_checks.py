@@ -1,0 +1,145 @@
+"""The radius-mode checks of ``chip_smoke.py``, run on the CPU with the plain versions.
+
+The smoke holds the ``mxu`` and ``pre`` kernels against the ``pair`` kernel
+and excuses only centers with a window point on the radius boundary; it
+counts launches per forward and step from tables. Those checks must catch a
+wrong mask and accept a right one, so they run here on small CPU inputs
+(where every wrapper runs its plain version):
+
+* the launch tables are the ones the port's layers produce;
+* ``boundary_centers`` flags exactly the centers with a window point within
+  1e-5 of the radius;
+* ``against_pair`` passes the true mask and raises on a mask that drops a
+  pair far from the boundary; ``check_kernel`` accepts only a bit-exact mask;
+* ``pool_bound`` counts the mask's pairs under ``pre``; ``mask_bound`` reads
+  xyz once, however much the windows overlap;
+* the eval phase compares a radius test's IoU stack with the ``pair`` stack
+  at every scene whose end points equal pair's, and accepts another forward
+  only where an SA layer's output moved.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from eda_tpu_torch.config import ModelConfig
+from eda_tpu_torch.entry import build_evaluator
+from eda_tpu_torch.eval.grounding import score_and_iou_multi
+from eda_tpu_torch.ops.cuda import sa_mask
+
+RADIUS = float(np.sqrt(0.0913))  # r^2 off the 0.05 grid's d2 values
+T = torch.from_numpy
+
+
+def _pool_args(seed=0, N=256, M=32, W=128, c1=16, c2=16, c3=32):
+    rng = np.random.default_rng(seed)
+    xyz = np.sort((rng.integers(-20, 20, (2, N, 3)) * 0.05).astype(np.float32), axis=1)
+    ranks = np.stack([np.sort(rng.permutation(N)[:M]) for _ in range(2)])
+    cen = np.take_along_axis(xyz, ranks[..., None], 1)
+    starts = np.clip(ranks.reshape(2, M // 16, 16)[:, :, 8] - W // 2, 0, N - W).astype(np.int32)
+    args = (T(rng.normal(size=(2, N, c1)).astype(np.float32)).bfloat16(), T(xyz),
+            T(rng.normal(size=(2, M, c1)).astype(np.float32)).bfloat16(), T(cen), T(starts),
+            T((rng.normal(size=(c1, c2)) * 0.4).astype(np.float32)), torch.zeros(c2),
+            torch.ones(c2), torch.zeros(c2),
+            T((rng.normal(size=(c2, c3)) * 0.4).astype(np.float32)), torch.zeros(c3))
+    return args, W
+
+
+def test_launch_tables():
+    assert chip_smoke.forward_launches("pair") == {
+        "fps_launch": 4, "sa_prep_launch": 4, "sa_pair_pool_launch": 4}
+    assert chip_smoke.forward_launches("pre") == {
+        "fps_launch": 4, "sa_prep_launch": 4, "sa_pair_pool_pre_launch": 4,
+        "sa_radius_mask_launch": 4}
+    assert chip_smoke.step_launches("mxu") == {
+        "fps_launch": 4, "sa_prep_launch": 4, "sa_pair_pool_mxu_winners_launch": 4,
+        "sa_pool_bwd_compact_launch": 1, "sa_pool_bwd_window_launch": 3,
+        "sa_prep_bwd_launch": 4}
+
+
+def test_boundary_centers_flags_points_on_the_radius():
+    xyz = torch.zeros(1, 32, 3)
+    xyz[0, :, 0] = torch.arange(32) * 0.5  # spaced far beyond 1e-5 of any radius
+    cen = xyz[:, :16].clone()
+    xyz[0, 20, 0] = 3.5 + RADIUS  # on center 7's radius (3.5 + r)
+    r2 = torch.tensor(RADIUS * RADIUS).item()
+    assert abs(((xyz[0, 20] - cen[0, 7]) ** 2).sum().item() - r2) <= 1e-5
+    near = chip_smoke.boundary_centers(xyz, cen, torch.zeros(1, 1, dtype=torch.int32),
+                                       RADIUS, 32)
+    assert near[0].nonzero().flatten().tolist() == [7]
+
+
+def test_against_pair_catches_a_wrong_mask(capsys):
+    args, W = _pool_args()
+    kw = {"radius": RADIUS, "window": W, "d2_mode": "pre"}
+    mask = sa_mask.sa_radius_mask(args[1], args[3], args[4], radius=RADIUS, window=W)
+    got = chip_smoke.kernel_specs()["sa_pair_pool_pre_launch"][0](*args, **kw, mask=mask)
+    chip_smoke.against_pair("sa_pair_pool_pre_launch", args, {**kw, "mask": mask}, got, 1)
+    assert "0 of" in capsys.readouterr().out
+    assert chip_smoke.check_kernel(chip_smoke.MASK, mask, mask.clone(), 1) == 0.0
+
+    wrong = mask.clone()
+    wrong[0, 0] = 0  # every pair of the first block dropped, none near the boundary
+    got = chip_smoke.kernel_specs()["sa_pair_pool_pre_launch"][0](*args, **kw, mask=wrong)
+    with pytest.raises(AssertionError, match="boundary"):
+        chip_smoke.against_pair("sa_pair_pool_pre_launch", args, {**kw, "mask": wrong}, got, 1)
+    with pytest.raises(AssertionError, match="mask kernel"):
+        chip_smoke.check_kernel(chip_smoke.MASK, wrong, mask, 1)
+
+
+def test_pool_bound_counts_the_mask_pairs():
+    args, W = _pool_args()
+    mask = sa_mask.sa_radius_mask(args[1], args[3], args[4], radius=RADIUS, window=W)
+    pre = chip_smoke.pool_bound(args, {"radius": RADIUS, "window": W, "d2_mode": "pre",
+                                       "mask": mask})
+    # grid coordinates, r^2 off the grid: the same pairs either way
+    pairs = chip_smoke.in_radius_pairs(args[1], args[3], args[4], RADIUS, W)
+    assert pairs == int(mask.sum()) > 0
+    A, xyz, b_c, cen, starts, w2, b2, s2, lb2, w3, b3 = args
+    ops = pairs * 2 * (16 * 16 + 16 * 32)
+    nb = (chip_smoke.nbytes(A, b_c, starts, b2, s2, lb2, b3, mask)
+          + (w2.numel() + w3.numel()) * 2 + b_c.shape[0] * b_c.shape[1] * 32 * 4)
+    assert pre == chip_smoke.bound(ops, chip_smoke.PEAK_BF16, nb)  # the mask, not xyz
+
+
+def test_mask_bound_reads_xyz_once():
+    args, W = _pool_args()
+    xyz, cen, starts = args[1], args[3], args[4]
+    rows = 2 * 2 * W  # batch 2, two 16-center blocks, W rows each: the windows overlap
+    got = chip_smoke.mask_bound((xyz, cen, starts), {"window": W})
+    nb = rows * 16 + chip_smoke.nbytes(xyz, cen, starts)
+    assert got == chip_smoke.bound(rows * (8 + 16 * 8), chip_smoke.PEAK_F32, nb)
+    assert got[1] == "bytes"
+
+
+def test_eval_stack_check_compares_scenes_with_pair_end_points(monkeypatch):
+    model, _, evaluator, batch = build_evaluator(ModelConfig(use_bf16=True).tiny(),
+                                                 batch_size=2, device="cpu", seed=1)
+    chip_smoke.positive_sizes(model)
+    monkeypatch.setattr(chip_smoke, "BATCH", 2)
+    with torch.inference_mode():
+        ends = model(batch["inputs"])
+        pair = score_and_iou_multi(ends, batch["targets"], prefixes=evaluator.prefixes,
+                                   modes=evaluator.modes)
+    assert pair.shape == chip_smoke.IOU_SHAPE[:2] + (2, 10) and (pair > 0).any()
+    same = {"pair": ends, "mxu": dict(ends)}
+    assert chip_smoke.against_pair_stack("mxu", {"pair": pair, "mxu": pair.clone()}, same, 0) == 2
+    wrong = pair.clone()
+    wrong[0, 0, 1, 0] += 0.1
+    with pytest.raises(AssertionError, match="another IoU stack"):
+        chip_smoke.against_pair_stack("mxu", {"pair": pair, "mxu": wrong}, same, 0)
+
+    # scene 1's forward moved at SA2: compared no more, whatever its stack
+    moved = dict(ends)
+    moved["sa2_features"] = ends["sa2_features"].clone()
+    moved["sa2_features"][1, 0, 0] += 1.0
+    moved["last_center"] = ends["last_center"].clone()
+    moved["last_center"][1] += 1.0
+    assert chip_smoke.against_pair_stack("mxu", {"pair": pair, "mxu": wrong},
+                                         {"pair": ends, "mxu": moved}, 0) == 1
+    # a scene that differs with equal SA outputs is an error
+    moved["sa2_features"] = ends["sa2_features"]
+    with pytest.raises(AssertionError, match="equal SA outputs"):
+        chip_smoke.against_pair_stack("mxu", {"pair": pair, "mxu": pair}, {"pair": ends,
+                                                                          "mxu": moved}, 0)

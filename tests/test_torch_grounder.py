@@ -9,7 +9,9 @@ KPS runs with the config's own ``num_queries`` (tiny: 32 of 128 seeds), and
 both models must select the same set of seeds. The port's attention rounds
 where flax's bf16 attention rounds (the core is bit-identical), but the
 backbone's bf16 MLPs still differ by a few bf16 steps (``fp2_features``
-within 0.05), which moves the objectness logits by up to ~0.008. Scene 1 has
+within 0.05): f32 sums taken in other orders flip single bf16 roundings, no
+rounding point is skipped (ROADMAP Queue 3). That moves the objectness
+logits by up to ~0.008. Scene 1 has
 near-ties below that: seeds 12 and 14 have JAX logits -0.52539 and -0.52587
 (gap 4.8e-4), and seeds 54, 56, 60, 70 lie within 3.8e-3 of each other, so
 the port orders those queries differently. The test therefore holds the

@@ -3,8 +3,9 @@
 * ``eda_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor flax nor
   anything of the JAX package ``eda_tpu``;
 * both import on a machine with no CUDA and no ``nvcc`` (kernels build on use);
-* entry points run on CUDA unless the caller asks for the CPU, and never fall
-  back to the CPU by themselves; ``chip_smoke.py`` fails without a card;
+* entry points (``build``, ``entry``, ``build_evaluator``) run on CUDA
+  unless the caller asks for the CPU, and never fall back to the CPU by
+  themselves; ``chip_smoke.py`` fails without a card;
 * ``weights.load_flax`` maps every flax leaf and sets every port parameter;
 * the port's synthetic inputs and training targets are the JAX package's,
   byte for byte.
@@ -83,9 +84,26 @@ def test_entry_needs_cuda_unless_cpu_is_asked(monkeypatch):
     # on CPU tensors every wrapper ran its plain version: no kernel launched
     assert all(k.launches == 0 for k in build.KERNELS.values())
     assert sorted(build.KERNELS) == [
-        "fps_launch", "sa_pair_pool_launch", "sa_pair_pool_winners_launch",
+        "fps_launch", "sa_pair_pool_launch", "sa_pair_pool_mxu_launch",
+        "sa_pair_pool_mxu_winners_launch", "sa_pair_pool_pre_launch",
+        "sa_pair_pool_pre_winners_launch", "sa_pair_pool_winners_launch",
         "sa_pool_bwd_compact_launch", "sa_pool_bwd_window_launch", "sa_prep_bwd_launch",
-        "sa_prep_launch"]
+        "sa_prep_launch", "sa_radius_mask_launch"]
+    assert all(k.replaces.startswith("eda_tpu/ops/pallas/") for k in build.KERNELS.values())
+
+
+def test_build_evaluator_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ModelConfig(use_bf16=True).tiny()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.build_evaluator(cfg, batch_size=2)
+    model, score_step, evaluator, batch = entry.build_evaluator(cfg, batch_size=2, device="cpu")
+    assert not model.training and next(model.parameters()).device.type == "cpu"
+    ious = score_step(batch)
+    assert ious.shape == (2, 2, 2, 10) and ious.device.type == "cpu"
+    evaluator.evaluate(None, None, ious=ious)
+    assert evaluator.gts[("last_", 0.25, 1, "bbf")] == 2
+    assert all(k.launches == 0 for k in build.KERNELS.values())
 
 
 def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
