@@ -4,7 +4,19 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
 
 1. Prints the card's name and power limit and the torch / CUDA versions.
 2. Builds every CUDA kernel from ``eda_tpu_torch/csrc`` (one nvcc per source,
-   all started at once) and prints the build time.
+   all started at once) and prints the build time. The pair pool's kernels
+   must spill no register and, where the toolkit has ``cuobjdump``, hold
+   HGMMA (``wgmma``) instructions, every one of them; the count is printed.
+   Then the pool tie check: all six pool variants (``pair``, ``mxu``,
+   ``pre``, each with and without winners) on a full-width SA2 input with
+   W3 = 0 and distinct b3, where every in-radius pair of a center gives b3
+   exactly, so the tie rule alone sets the winners; with blocks whose centers
+   have no point in radius and windows clamped at N - W. Values and winners
+   must equal the plain version's and the rule's at every (center, channel),
+   with -1e9 and rank 0 exactly at the centers out of reach. The same at two
+   windows wider than the kernel holds in shared memory at once (SA2 at 512,
+   SA1 at 2048 points), and on each input with a random W3 every variant
+   within 0.03 of the plain version; prints the pair pool's time there.
 3. Checks a small grounder (``ModelConfig(use_bf16=True).tiny()``) on the card
    against the same weights and inputs on the CPU, where every kernel wrapper
    runs its plain PyTorch version: the serving forward, then one training step
@@ -17,7 +29,10 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    50 000-point scenes, random weights from a seed) and holds each kernel call
    against its plain version on those inputs: FPS bit-exact, the bf16 prep
    within 0.02 (plus one bf16 step of the value), the pair pool within 0.03
-   with identical -1e9 rows; times both with CUDA events, per SA layer. Then
+   with identical -1e9 rows; times both with CUDA events, per SA layer, and
+   prints per pool layer the TFLOP/s over the dense window work and the share
+   of (center, 64-point) tiles with no pair in radius, which the kernel
+   skips. Then
    serves five batches of 8 scenes with every launch counter set to 0 first:
    each batch must advance K1, K2 and K3 by 4 (one launch per SA layer) and
    no training kernel, and give a finite (8, 256, 3) ``last_center``. Prints ms
@@ -72,6 +87,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -95,6 +112,8 @@ MASK = "sa_radius_mask_launch"
 IOU_SHAPE = (2, 2, BATCH, 10)  # (prefixes, scoring modes, batch, top-k)
 SCORE_TIE, IOU_ATOL = 1e-5, 1e-6  # tiny eval check, card vs CPU scoring
 BOUNDARY = 1e-5  # |d2 - r^2| within which mxu / pre may decide a pair otherwise than pair
+TILE_ROWS = 64  # window points per GEMM tile of csrc/sa_pair_pool.cu
+SLEEP_CYCLES = 50_000_000  # ~25 ms of device sleep ahead of timed launches (cuda_ms)
 # card vs CPU training step, as tests/test_torch_train_step.py holds the port to
 # JAX, but 10% for a single metric: the tiny train-mode step magnifies bf16
 # noise (the port against itself, the input moved by 1e-6, moves grad_norm 9%)
@@ -172,10 +191,15 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` launches after one warm-up."""
+    """Mean milliseconds of ``fn()`` over ``reps`` launches after one warm-up.
+
+    The launches queue up behind a device sleep of ~25 ms, so that the card
+    runs them back to back and the host's time per call (the wrapper's Python,
+    ~0.1-0.3 ms) does not pass for the device time of a short kernel."""
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -296,6 +320,33 @@ def pool_bound(args, kw, winners: bool = False):
     nb = (nbytes(A, b_c, starts, b2, s2, lb2, b3) + geometry + (w2.numel() + w3.numel()) * 2
           + out)
     return bound(pairs * 2 * (c1 * c2 + c2 * c3), PEAK_BF16, nb)
+
+
+def dense_flops(args, kw) -> int:
+    """The pair MLP over every pair of the windows the pool computes."""
+    A, b_c, w2, w3 = args[0], args[2], args[5], args[9]
+    c1, c2, c3 = A.shape[-1], w2.shape[1], w3.shape[1]
+    return b_c.shape[0] * b_c.shape[1] * kw["window"] * 2 * (c1 * c2 + c2 * c3)
+
+
+def empty_tiles(args, kw) -> tuple:
+    """(empty, all): the pool's (center, 64-point window tile) pairs, and those
+    with no pair in radius, which the kernel skips (from ``window_d2``, or
+    from the mask under ``pre``)."""
+    xyz, cen, starts = args[1], args[3], args[4]
+    window = kw["window"]
+    pad = -window % TILE_ROWS
+    r2 = torch.tensor(kw["radius"] * kw["radius"], dtype=torch.float32).item()
+    if kw["d2_mode"] == "pre":
+        keeps = [kw["mask"].transpose(2, 3).bool()]
+    else:
+        keeps = (d2 <= r2 for _, _, d2 in window_d2(xyz, cen, starts, window))
+    empty = total = 0
+    for keep in keeps:  # (B, blocks, 16, W)
+        tiles = torch.nn.functional.pad(keep, (0, pad)).unflatten(-1, (-1, TILE_ROWS)).any(-1)
+        empty += int((~tiles).sum())
+        total += tiles.numel()
+    return empty, total
 
 
 def mask_bound(args, kw):
@@ -496,6 +547,11 @@ def check_kernels(calls, symbols, layers: dict, compare_pair: bool = False) -> l
             shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)][:2]
             print(f"kernel {name} SA{layer} {shapes}: max_err {err} ms {ms:.4f} "
                   f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({by})")
+            if symbol.startswith("sa_pair_pool"):
+                empty, tiles = empty_tiles(args, kw)
+                print(f"  SA{layer} pool: {dense_flops(args, kw) / ms / 1e9:.1f} TFLOP/s over the "
+                      f"dense window work; {empty} of {tiles} (center, {TILE_ROWS}-point) tiles "
+                      f"({100 * empty / tiles:.1f}%) have no pair in radius and are skipped")
             for key, value in (("err", err), ("ms", ms), ("plain_ms", plain_ms),
                                ("bound_ms", bound_ms)):
                 total[key] = max(total[key], value) if key == "err" else total[key] + value
@@ -508,6 +564,150 @@ def check_kernels(calls, symbols, layers: dict, compare_pair: bool = False) -> l
             "library_ms": None,
         })
     return rows
+
+
+def hgmma_counts(library: Path):
+    """HGMMA instructions per kernel function of a built library, from
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, function = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            function = line.split("Function : ")[1].strip()
+            counts[function] = 0
+        elif function is not None and "HGMMA" in line:
+            counts[function] += 1
+    return counts
+
+
+def check_pool_build(log: str, build) -> None:
+    """The pool kernels spill nothing and run their products on tensor cores
+    (HGMMA in every pool kernel's SASS, where cuobjdump exists)."""
+    spills = [line.strip() for line in log.splitlines()
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
+    if spills:
+        raise AssertionError(f"pool kernels spill registers: {spills}")
+    counts = hgmma_counts(build._target("sa_pair_pool"))
+    if counts is None:
+        print("pool HGMMA count: not checked (no cuobjdump)")
+        return
+    pools = {f: n for f, n in counts.items() if "sa_pair_pool_kernel" in f}
+    print(f"pool HGMMA count: {sum(pools.values())} HGMMA instructions in {len(pools)} pool "
+          f"kernels, fewest in one kernel {min(pools.values(), default=0)}; no spills")
+    if not pools or min(pools.values()) == 0:
+        raise AssertionError("a pool kernel has no HGMMA instruction")
+
+
+def tie_inputs(B=BATCH, N=2048, M=1024, window=256, widths=(128, 128, 256), seed=0):
+    """A pool input on which every in-radius pair of a center gives the same
+    value, b3, whatever the summation order (W3 = 0, b3 distinct), so that the
+    winners are set by the tie rule alone. By default a full-width SA2 input.
+
+    Points lie on a 1/16 grid and r^2 halfway between two grid distances, so
+    the three radius tests decide every pair alike. The centers of blocks 1
+    and 5 of every scene move out of reach (their rows must be -1e9, rank 0);
+    the last blocks' windows are clamped at N - W. Returns (args, kw), CPU
+    tensors, ``kw`` without the radius test."""
+    c1, c2, c3 = widths
+    g = torch.Generator().manual_seed(seed)
+    x = torch.sort(torch.randint(0, 8 * 16, (B, N), generator=g), dim=1).values / 16
+    yz = torch.randint(0, 8, (B, N, 2), generator=g) / 16
+    xyz = torch.cat([x[..., None], yz], -1).float()
+    ranks = torch.sort(torch.rand(B, N, generator=g).argsort(1)[:, :M], dim=1).values
+    cen = xyz.gather(1, ranks[..., None].expand(-1, -1, 3)).clone()
+    for block in (1, 5):
+        cen[:, 16 * block:16 * (block + 1)] += 100.0
+    starts = (ranks.view(B, M // 16, 16)[:, :, 8] - window // 2).clamp(0, N - window).int()
+    radius = math.sqrt(40.5 / 256)  # r^2 halfway between grid distances 40/256 and 41/256
+    args = (torch.randn(B, N, c1, generator=g).bfloat16(), xyz,
+            torch.randn(B, M, c1, generator=g).bfloat16(), cen, starts,
+            torch.randn(c1, c2, generator=g) * 0.1, torch.randn(c2, generator=g) * 0.1,
+            1 + 0.1 * torch.randn(c2, generator=g), torch.randn(c2, generator=g) * 0.1,
+            torch.zeros(c2, c3), (torch.randperm(c3, generator=g).float() - c3 / 2) / 16)
+    return args, {"radius": radius, "window": window}
+
+
+def rule_winners(args, kw) -> tuple:
+    """((B, M) global rank, (B, M) none): the point the tie rule picks among a
+    center's in-radius window points, all of equal value: the earliest tile of
+    min(128, W) points with one, the last one in that tile; rank 0 for a
+    center with none."""
+    from eda_tpu_torch.ops.cuda.sa_kernel import window_starts
+
+    xyz, cen, starts = args[1], args[3], args[4]
+    window = kw["window"]
+    r2 = torch.tensor(kw["radius"] * kw["radius"], dtype=torch.float32).item()
+    keep = torch.cat([d2 <= r2 for _, _, d2 in window_d2(xyz, cen, starts, window)], 1)
+    tile = torch.arange(window, device=keep.device) // min(128, window)
+    first = torch.where(keep, tile, window).amin(-1, keepdim=True)
+    pos = torch.where(keep & (tile == first), torch.arange(window, device=keep.device), -1).amax(-1)
+    start = window_starts(starts.long(), xyz.shape[1], window)[..., None]
+    none = (pos < 0).flatten(1)
+    return torch.where(pos >= 0, start + pos, 0).flatten(1), none
+
+
+# pool tie check inputs: (layer, widths, N, M, window). The full-width SA2
+# input at the flagship window (one stage of csrc/sa_pair_pool.cu), and windows
+# wider than the kernel's shared memory holds at once (SA2 at 512, SA1 at 2048:
+# two stages each), as the wide sa_windows settings and the dense path give
+TIE_CASES = ((2, (128, 128, 256), 2048, 1024, 256), (2, (128, 128, 256), 2048, 1024, 512),
+             (1, (64, 64, 128), 4096, 2048, 2048))
+
+
+@torch.no_grad()
+def pool_tie_check() -> None:
+    """Every pool variant on ``tie_inputs`` of each ``TIE_CASES`` entry:
+    values and winners equal to the plain version's and to the rule's at every
+    (center, channel), -1e9 rows and rank 0 exactly at the centers out of
+    reach. Then the same inputs with a random W3: every variant within 0.03 of
+    the plain version, winners equal where the best two values are apart."""
+    from eda_tpu_torch.ops.cuda import sa_kernel, sa_mask
+
+    for layer, widths, n_points, n_centers, window in TIE_CASES:
+        args, kw = tie_inputs(N=n_points, M=n_centers, window=window, widths=widths)
+        args = tuple(a.cuda() for a in args)
+        N = args[1].shape[1]
+        if boundary_centers(args[1], args[3], args[4], kw["radius"], window).any():
+            raise AssertionError("tie input: a window point lies on the radius")
+        rule, empty = rule_winners(args, kw)
+        clamped = int((sa_kernel.window_starts(args[4].long(), N, window) == N - window).sum())
+        mask = sa_mask.sa_radius_mask(args[1], args[3], args[4], **kw)
+        g = torch.Generator(device="cuda").manual_seed(layer)
+        w3 = torch.randn(widths[1:], generator=g, device="cuda") * 0.1
+        random_w3 = args[:9] + (w3,) + args[10:]
+        for mode in sa_kernel.D2_MODES:
+            mkw = dict(kw, d2_mode=mode, mask=mask if mode == "pre" else None)
+            got = sa_kernel.sa_pair_pool(*args, **mkw)
+            got_v, got_w = sa_kernel.sa_pair_pool_winners(*args, **mkw)
+            want_v, want_w = sa_kernel.sa_pair_pool_winners_plain(*args, **mkw)
+            torch.cuda.synchronize()
+            for what, ok in (("values", torch.equal(got, want_v) and torch.equal(got_v, want_v)),
+                             ("winners", torch.equal(got_w, want_w)),
+                             ("rule", torch.equal(want_w, rule[..., None].expand_as(want_w).int())),
+                             ("-1e9 rows", torch.equal((got_v == -1e9).all(-1), empty)
+                              and not (got_w[empty] != 0).any())):
+                if not ok:
+                    raise AssertionError(f"pool tie check, {mode}, SA{layer} W={window}: "
+                                         f"{what} differ")
+            want = sa_kernel.sa_pair_pool_winners_plain(*random_w3, **mkw, runner_up=True)
+            check_kernel(pool_symbol(mode, False), sa_kernel.sa_pair_pool(*random_w3, **mkw),
+                         want[0], layer)
+            check_kernel(pool_symbol(mode, True),
+                         sa_kernel.sa_pair_pool_winners(*random_w3, **mkw), want, layer)
+        pair_kw = dict(kw, d2_mode="pair")
+        ms = cuda_ms(lambda: sa_kernel.sa_pair_pool(*random_w3, **pair_kw), 5)
+        win_ms = cuda_ms(lambda: sa_kernel.sa_pair_pool_winners(*random_w3, **pair_kw), 5)
+        print(f"pool tie check SA{layer} widths {widths}, W={window}: all six variants equal "
+              f"the plain version and the tie rule at every one of {got_w.numel()} (center, "
+              f"channel) pairs with W3 = 0; {int(empty.sum())} centers with no point in "
+              f"radius give -1e9 and rank 0; {clamped} windows clamped at N - W; with a "
+              f"random W3 within 0.03 of the plain version; pair pool {ms:.4f} ms, with "
+              f"winners {win_ms:.4f} ms (batch {BATCH}, {n_centers} centers, "
+              f"{dense_flops(random_w3, kw) / ms / 1e9:.1f} TFLOP/s over the dense window work)")
 
 
 def small_model_check(root_cfg) -> None:
@@ -989,8 +1189,11 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "warning" in line or "registers" in line or "spill" in line:
+            # C7519: ptxas notes each warpgroup.arrive it adds around a wgmma
+            keep = "warning" in line or "registers" in line or "spill" in line
+            if keep and "C7519" not in line:
                 print(f"  nvcc {name}: {line.strip()}")
+    check_pool_build(logs["sa_pair_pool"], build)
 
     cfg = ModelConfig(use_bf16=True)
 
@@ -1000,6 +1203,7 @@ def main() -> int:
         print(f"phase {name}: {time.perf_counter() - t:.1f} s")
         return out
 
+    phase("pool ties", pool_tie_check)
     with radius_mode("pair"):
         phase("tiny model", small_model_check, cfg)
         phase("tiny training step", small_train_check, cfg)

@@ -1,11 +1,11 @@
-// Fused set-abstraction pair pool forward on Hopper.
+// Fused set-abstraction pair pool forward on Hopper's tensor cores.
 //
 // Replaces the TPU kernel eda_tpu/ops/pallas/sa_kernel.py:sa_pair_pool_pallas
-// (body _make_kernel) under each radius test (d2_mode), without winner export
-// (serving) and with it (training):
+// (body _make_kernel, tile :262-382) under each radius test (d2_mode), without
+// winner export (serving) and with it (training):
 //   "pair"  sa_pair_pool_launch ("K3"), sa_pair_pool_winners_launch ("K4")
-//   "mxu"   sa_pair_pool_mxu_launch, sa_pair_pool_mxu_winners_launch ("K8")
-//   "pre"   sa_pair_pool_pre_launch, sa_pair_pool_pre_winners_launch ("K9b")
+//   "mxu"   sa_pair_pool_mxu_launch ("K8"), sa_pair_pool_mxu_winners_launch ("K8w")
+//   "pre"   sa_pair_pool_pre_launch ("K9b"), sa_pair_pool_pre_winners_launch ("K9bw")
 //
 // One CTA per (batch row, block of 16 rank-sorted centers). The block pairs
 // with the W points of its window, which starts at a multiple of 16. For every
@@ -14,9 +14,9 @@
 //   h1 = bf16(relu(LN(h0 @ W2 + b2)))        f32 sums of bf16 products,
 //                                            one-pass LN stats, eps 1e-5
 //   z  = h1 @ W3 + b3                        f32 pre-activation
-// and the output is max over in-radius pairs of z, -1e9 where a center has no
-// point of its window in range. The radius test (f32, never contracted into an
-// FMA: the build passes --fmad=false) is the template parameter D2:
+// and the output is the max over in-radius pairs of z, -1e9 where a center has
+// no point of its window in range. The radius test (f32, never contracted into
+// an FMA: the build passes --fmad=false) is the template parameter D2:
 //   kPair  |p-c|^2 <= r^2, the squares summed x, y, z;
 //   kMxu   the TPU's expansion about the block's first center o
 //          (sa_kernel.py:251-255, 279-289): p' = p-o, c' = c-o,
@@ -27,361 +27,651 @@
 //          the point of the TPU's "pre" mode: no xyz window DMA.
 // Only the radius test differs; the pair MLP, the max and the winners do not.
 //
-// Bound on this card: operations. A pair costs 2*(c1*c2 + c2*c3) flops
-// (SA1: 24.6 K, SA2-4: 98.3 K); a 50 000-point scene's four layers need
-// 96.6 GFLOP against 989 TFLOP/s of bf16 tensor cores, while the bytes are
-// only A's window reads and the (M, c3) output. This first version runs the
-// two pair matmuls on CUDA cores in f32 (67 TFLOP/s peak), so it cannot come
-// near that bound; its design keeps every pair tensor on chip so that the
-// only device traffic is the A/xyz windows and the output: W2 and W3 sit in
-// shared memory for the CTA's lifetime (SA2-4: 96 KB), each 8-point tile of
-// the window goes through h0 -> h1 in shared memory, and the running max of
-// each (center, channel) stays in a register of the thread that owns it.
+// Bound on this card: operations. A pair costs 2*(c1*c2 + c2*c3) flops (SA1
+// 24.6 K, SA2-4 98.3 K). The windows the kernel computes hold 773 GFLOP per
+// batch-8 forward of the flagship model (0.78 ms at 989 TFLOP/s of dense bf16
+// tensor cores); the in-radius pairs alone, 12.7% of them, need 0.099 ms. The
+// bytes are A's windows (mostly L2 hits: neighbouring blocks' windows overlap),
+// the weights once per CTA and the (M, c3) output.
 //
-// Thread layout (256 threads): thread t owns center c = t / 16 and channel
-// group g = t % 16. The 16 threads of a center form a half-warp, so the
-// LayerNorm sums over a pair's channels reduce with four shuffles.
-//
-// Winner export (WIN): next to each running max the thread keeps the window
-// position of its point, with the TPU kernel's tie rule
-// (sa_kernel.py:357-382): the window runs in tiles of wc = min(128, W) rows;
-// inside a tile the LAST of equal maxima wins, across tiles a strictly larger
-// value is needed, so the earlier tile keeps a tie. Points arrive in window
-// order, so: take a point if its value is larger, or equal and in the same
-// tile as the current winner. A center with no in-radius point exports global
-// rank 0. The output is the winner's global rank, window start + position.
+// Design. Both products run as wgmma (bf16 in, f32 sums) on 64-row tiles:
+// GEMM row r of a tile is window point 64*k + r of ONE center, so the masked
+// max is a reduction over rows inside one center and the winner's position is
+// the row. The CTA has three warpgroups; each takes every third center and
+// walks its window chunk by chunk, so that one warpgroup's CUDA-core work runs
+// while another's products are on the tensor cores (three beat two by 7-16%,
+// PERF.md; four would leave 128 registers a thread, fewer than the widest
+// kernels use).
+//   * Shared memory holds for the CTA's life W2 and W3, transposed into the
+//     K-major no-swizzle core-matrix layout the wgmma descriptors read (8x8
+//     bf16 cores, 128 bytes each; a thread gathers the 8 k-values of one
+//     16-byte core row, so the global reads coalesce and the stores do not
+//     conflict), and the LN and bias vectors. The A window (x c1 bf16, 16-byte
+//     chunks XOR-swizzled by row so that ldmatrix is conflict-free) comes in
+//     stages of as many 64-row tiles as the rest of the 227 KB leaves room for,
+//     with the in-radius bits of every (center, point) of the stage. At the
+//     flagship model's windows a stage is the whole window (SA1 1024 rows, 128
+//     KB; SA2-4 256 rows), so A is read once per CTA. A wider window (W = N on
+//     the dense path, or the wide sa_windows settings) runs in several equal
+//     stages: each center's partial max and winner rank wait in the output
+//     buffers, read back and combined by the same thread in the next stage, so
+//     any W runs; the next stage's loads do not overlap this stage's products.
+//   * The radius test runs once per stage, into 16 x rows bits (one ballot
+//     per 32 points and center). A (center, 64-point) tile whose 64
+//     bits are all 0 leaves the max unchanged, so both of its products are
+//     skipped: exact, and one shared load decides for the whole warpgroup. On
+//     the flagship model's data 62% / 46% / 34% / 29% of the tiles of SA1-4
+//     are skipped (PERF.md).
+//   * GEMM1 takes A from registers: the A rows come by ldmatrix in the m64k16
+//     fragment layout, get bc_c added and relu'd as bf16x2 (add.rn.bf16x2 of
+//     two bf16 values is the f32 sum rounded once, as the reference rounds).
+//   * LN in the accumulator: a row's c2 channels lie in the 4 threads of a
+//     quad, so each statistic is a sum in the thread and two shfl_xor. h1 is
+//     then packed from the f32 accumulator layout straight into the bf16
+//     A-register fragments of GEMM2 (the accumulator's n8 blocks 2s and 2s+1
+//     are k-slice s), so h1 never touches shared memory.
+//   * GEMM2 runs in passes of 64 columns into two accumulators in turn: the
+//     tensor cores compute pass h + 1 while pass h is masked and maxed. b3 is
+//     added after the max: x -> x + b3 is monotone, so the max is the same.
+//   * The max over a tile's 64 rows: a thread's two rows combine, then a
+//     transposing butterfly over the 8 lanes of a column group (xor 16, 8, 4)
+//     halves the values each step, so 16 values a pass take 14 shuffles and
+//     each lane keeps a running max of 2 (value, position) pairs per pass
+//     across the chunks. At the end of a center the 4 warps' partials combine
+//     through shared memory.
+
+// Winner export (WIN): the TPU kernel's tie rule (sa_kernel.py:357-382) cuts
+// the window in tiles of wc = min(128, W) points; inside a tile the LAST of
+// equal maxima wins, across tiles the earlier tile keeps a tie. The reduction
+// here runs in no window order, so every combine takes the larger of two
+// (value, position) pairs under the total order that rule defines: the larger
+// value, then the smaller wc-tile, then the larger position. That order is
+// associative, so any reduction tree finds the same winner. A position is
+// carried as its rank q = (nt-1-tile)*wc + (p mod wc), larger is better. A
+// center with no in-radius point exports global rank 0; the output is the
+// winner's global rank, window start + position.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarpgroups = 3;  // centers taken in turn: 6 / 5 / 5 of the 16
+constexpr int kThreads = 128 * kWarpgroups;
 constexpr int kCenters = 16;  // centers per CTA (the window block)
-constexpr int kGroups = 16;   // channel groups per center
-constexpr int kTile = 8;      // window points per tile
+constexpr int kRows = 64;     // window points per GEMM tile
+constexpr int kPassCols = 64; // GEMM2 columns per pass (32 accumulators a thread)
 constexpr float kEps = 1e-5f;
 constexpr float kNeg = -1e9f;
 constexpr int kMaxSharedBytes = 232448;
+constexpr uint32_t kMinusInfBits = 0xff800000u;  // -inf: the max of no value
 
-__device__ __forceinline__ uint16_t bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ float bits_lo(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bits_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
-
-// Load n (1, 2, 4 or 8) consecutive bf16 values as floats.
-template <int n>
-__device__ __forceinline__ void load_bf16(const uint16_t* p, float* out) {
-  if constexpr (n == 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    out[0] = bits_lo(v.x); out[1] = bits_hi(v.x);
-    out[2] = bits_lo(v.y); out[3] = bits_hi(v.y);
-    out[4] = bits_lo(v.z); out[5] = bits_hi(v.z);
-    out[6] = bits_lo(v.w); out[7] = bits_hi(v.w);
-  } else if constexpr (n == 4) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    out[0] = bits_lo(v.x); out[1] = bits_hi(v.x);
-    out[2] = bits_lo(v.y); out[3] = bits_hi(v.y);
-  } else if constexpr (n == 2) {
-    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
-    out[0] = bits_lo(v); out[1] = bits_hi(v);
-  } else {
-    out[0] = __uint_as_float(uint32_t(*p) << 16);
-  }
-}
-
-__device__ __forceinline__ void store_tile(uint16_t* dst, const float* v) {
-  uint4 u;
-  u.x = uint32_t(bf16_bits(v[0])) | (uint32_t(bf16_bits(v[1])) << 16);
-  u.y = uint32_t(bf16_bits(v[2])) | (uint32_t(bf16_bits(v[3])) << 16);
-  u.z = uint32_t(bf16_bits(v[4])) | (uint32_t(bf16_bits(v[5])) << 16);
-  u.w = uint32_t(bf16_bits(v[6])) | (uint32_t(bf16_bits(v[7])) << 16);
-  *reinterpret_cast<uint4*>(dst) = u;
-}
-
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+__host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
 
 // Shared memory carve-up, in bytes, shared by the kernel and the launcher.
+// rows: the window points of one stage, a multiple of 64.
 struct Layout {
-  size_t w2, w3, bct, h0, h1, at, xt, mt, prm, total;
-  __host__ __device__ Layout(int c1, int c2, int c3) {
+  size_t a, w2, w3, part, bits, prm, cen, total;
+  __host__ __device__ Layout(int c1, int c2, int c3, int rows, bool win) {
     size_t o = 0;
-    w2 = o;  o += align16((size_t)c1 * c2 * 2);
-    w3 = o;  o += align16((size_t)c2 * c3 * 2);
-    bct = o; o += align16((size_t)c1 * kCenters * 4);
-    h0 = o;  o += align16((size_t)c1 * kCenters * kTile * 2);
-    h1 = o;  o += align16((size_t)c2 * kCenters * kTile * 2);
-    at = o;  o += align16((size_t)kTile * c1 * 2);
-    xt = o;  o += align16((size_t)kTile * 3 * 4);
-    mt = o;  o += align16((size_t)kTile * kCenters);
-    prm = o; o += align16((size_t)(3 * c2 + c3) * 4);
+    a = o;    o += align128((size_t)rows * c1 * 2);
+    w2 = o;   o += align128((size_t)c1 * c2 * 2);
+    w3 = o;   o += align128((size_t)c2 * c3 * 2);
+    part = o; o += align128((size_t)2 * kWarpgroups * 4 * c3 * (win ? 8 : 4));
+    bits = o; o += align128((size_t)kCenters * (rows / 32) * 4);
+    prm = o;  o += align128((size_t)(3 * c2 + c3) * 4);
+    cen = o;  o += align128((size_t)(kCenters + 1) * 4 * 4);
     total = o;
   }
 };
 
 enum D2 { kPair, kMxu, kPre };
 
-template <int C2, int C3, bool WIN, int D2>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// bf16x2 relu(a + b), the sum rounded once to bf16
+__device__ __forceinline__ uint32_t add_relu_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t s, r;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(s) : "r"(a), "r"(b));
+  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(s), "r"(0u));
+  return r;
+}
+
+// (lo, hi) -> bf16x2, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// wgmma descriptor of a K-major operand in the no-swizzle core-matrix layout:
+// lbo = bytes between the two core matrices of a k16 step, sbo = bytes between
+// 8-row groups along N.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int n>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(n) : "memory");
+}
+
+// Keeps the compiler from moving register reads or writes across an
+// asynchronous wgmma (CUTLASS's warpgroup_fence_operand).
+template <int n>
+__device__ __forceinline__ void fence_regs(float (&r)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int n>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define EDA_D8(i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),          \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D (64 x N, f32) (+)= A (64 x 16, bf16 registers) @ B (16 x N, bf16 shared).
+// d holds the thread's N/2 accumulator values: d[4j + e] is row g, column
+// 8j + 2t + e, and d[4j + 2 + e] row g + 8 (g = lane / 4, t = lane % 4, rows
+// counted from 16 * warp).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc, int accumulate) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : EDA_D8(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : EDA_D8(0), EDA_D8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : EDA_D8(0), EDA_D8(8), EDA_D8(16), EDA_D8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else {
+    static_assert(N == 128, "wgmma widths");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : EDA_D8(0), EDA_D8(8), EDA_D8(16), EDA_D8(24), EDA_D8(32), EDA_D8(40), EDA_D8(48),
+          EDA_D8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+}
+#undef EDA_D8
+
+// Stage a row-major (K, N) bf16 matrix as its transpose in the K-major
+// no-swizzle core-matrix layout: core (n/8, k/8) at ((n/8) * K/8 + k/8) * 64
+// elements, element (n % 8) * 8 + k % 8 inside it.
+__device__ __forceinline__ void stage_kmajor(uint16_t* dst, const uint16_t* __restrict__ src,
+                                             int K, int N) {
+  for (int i = threadIdx.x; i < K * N / 8; i += kThreads) {
+    const int n = i % N, kb = i / N;
+    const uint16_t* s = src + (size_t)(8 * kb) * N + n;
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      w[e] = uint32_t(s[2 * e * N]) | (uint32_t(s[(2 * e + 1) * N]) << 16);
+    *reinterpret_cast<uint4*>(dst + ((size_t)(n / 8) * (K / 8) + kb) * 64 + (n % 8) * 8) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The larger of (va, qa) and (vb, qb): the larger value, then the larger q.
+template <bool WIN>
+__device__ __forceinline__ void combine(float& va, int& qa, float vb, int qb) {
+  if constexpr (WIN) {
+    const bool take = vb > va || (vb == va && qb > qa);
+    va = take ? vb : va;
+    qa = take ? qb : qa;
+  } else {
+    va = fmaxf(va, vb);
+  }
+}
+
+// One step of the transposing butterfly: lanes whose bit `m` is clear keep the
+// first n/2 values and send the rest to lane ^ m, the others keep the last
+// n/2; afterwards v[i] (i < n/2) holds the combine of both lanes' value i + (up
+// ? n/2 : 0).
+template <int n, bool WIN>
+__device__ __forceinline__ void reduce_step(float* v, int* q, int m, bool up) {
+#pragma unroll
+  for (int i = 0; i < n / 2; ++i) {
+    const float send_v = up ? v[i] : v[i + n / 2];
+    float keep_v = up ? v[i + n / 2] : v[i];
+    const float got_v = __shfl_xor_sync(0xffffffffu, send_v, m);
+    int keep_q = 0, got_q = 0;
+    if constexpr (WIN) {
+      const int send_q = up ? q[i] : q[i + n / 2];
+      keep_q = up ? q[i + n / 2] : q[i];
+      got_q = __shfl_xor_sync(0xffffffffu, send_q, m);
+    }
+    combine<WIN>(keep_v, keep_q, got_v, got_q);
+    v[i] = keep_v;
+    if constexpr (WIN) q[i] = keep_q;
+  }
+}
+
+// LN of the tile's rows over their C2 channels (a row's channels lie in the 4
+// threads of a quad: two shuffles per statistic), relu and bf16, packed as
+// GEMM2's A fragments: the accumulator's n8 blocks 2s and 2s+1 are k-slice s.
+template <int C2>
+__device__ __forceinline__ void ln_fragments(float (&acc)[C2 / 2], const float* b2s,
+                                             const float* s2s, const float* lb2s, int t4,
+                                             uint32_t (&hf)[C2 / 16][4]) {
+  float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < C2 / 8; ++j) {
+    const float2 bias = *reinterpret_cast<const float2*>(b2s + 8 * j + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float z = acc[4 * j + e] + (e % 2 ? bias.y : bias.x);
+      acc[4 * j + e] = z;
+      sum[e / 2] += z;
+      sq[e / 2] = __fmaf_rn(z, z, sq[e / 2]);
+    }
+  }
+  float mean_r[2], rstd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
+    sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
+    const float mean = sum[h] * (1.f / C2);
+    const float var = fmaxf(sq[h] * (1.f / C2) - mean * mean, 0.f);
+    rstd[h] = rsqrtf(var + kEps);
+    mean_r[h] = -mean * rstd[h];
+  }
+#pragma unroll
+  for (int j = 0; j < C2 / 8; ++j) {
+    const float2 sc = *reinterpret_cast<const float2*>(s2s + 8 * j + 2 * t4);
+    const float2 sh = *reinterpret_cast<const float2*>(lb2s + 8 * j + 2 * t4);
+    float y[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float xn = __fmaf_rn(acc[4 * j + e], rstd[e / 2], mean_r[e / 2]);
+      y[e] = fmaxf(__fmaf_rn(xn, e % 2 ? sc.y : sc.x, e % 2 ? sh.y : sh.x), 0.f);
+    }
+    // n8 block j is half (j % 2) of k-slice j / 2: registers 0, 1 or 2, 3
+    hf[j / 2][2 * (j % 2)] = pack_bf16x2(y[0], y[1]);
+    hf[j / 2][2 * (j % 2) + 1] = pack_bf16x2(y[2], y[3]);
+  }
+}
+
+// One GEMM2 pass of a tile folded into the lane's running max: the thread's
+// two rows (masked by in0, in1) combine, the transposing butterfly over the
+// column group's 8 lanes leaves NV / 8 values a lane, and those fold into
+// run_v / run_q.
+template <int NV, bool WIN>
+__device__ __forceinline__ void fold_max(const float* acc, bool in0, bool in1, int q0, int q1,
+                                         int lane, float* run_v, int* run_q) {
+  const float none = __uint_as_float(kMinusInfBits);
+  float v[NV];
+  int q[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int j = i / 2, e = i % 2;
+    v[i] = in0 ? acc[4 * j + e] : none;
+    q[i] = q0;
+    combine<WIN>(v[i], q[i], in1 ? acc[4 * j + 2 + e] : none, q1);
+  }
+  reduce_step<NV, WIN>(v, q, 16, lane & 16);
+  reduce_step<NV / 2, WIN>(v, q, 8, lane & 8);
+  reduce_step<NV / 4, WIN>(v, q, 4, lane & 4);
+#pragma unroll
+  for (int i = 0; i < NV / 8; ++i) combine<WIN>(run_v[i], run_q[i], v[i], q[i]);
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int C1, int C2, int C3, bool WIN, int D2>
+__global__ void __launch_bounds__(kThreads, 1)
 sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
                     const uint16_t* __restrict__ bc, const float* __restrict__ cen,
-                    const uint8_t* __restrict__ mask,
-                    const int* __restrict__ starts, const uint16_t* __restrict__ w2,
-                    const float* __restrict__ b2, const float* __restrict__ s2,
-                    const float* __restrict__ lb2, const uint16_t* __restrict__ w3,
-                    const float* __restrict__ b3, int N, int M, int c1, int W,
-                    float r2, int wc, float* __restrict__ out, int* __restrict__ winners) {
-  constexpr int CPT1 = C2 / kGroups;            // interior channels per thread
-  constexpr int CPT2 = C3 / kGroups;            // output channels per thread
-  constexpr int CH2 = CPT2 < 8 ? CPT2 : 8;      // output channels per pass
-  static_assert(C2 % kGroups == 0 && C3 % kGroups == 0, "widths");
-  static_assert(CPT1 <= 8 && CPT2 % CH2 == 0, "widths");
+                    const uint8_t* __restrict__ mask, const int* __restrict__ starts,
+                    const uint16_t* __restrict__ w2, const float* __restrict__ b2,
+                    const float* __restrict__ s2, const float* __restrict__ lb2,
+                    const uint16_t* __restrict__ w3, const float* __restrict__ b3, int N,
+                    int M, int W, int rows, float r2, float* __restrict__ out,
+                    int* __restrict__ winners) {
+  constexpr int NP = C3 < kPassCols ? C3 : kPassCols;  // GEMM2 columns per pass
+  constexpr int PASSES = C3 / NP;
+  constexpr int NV = NP / 4;               // a thread's values of a pass, per row pair
+  constexpr int NR = NV / 8;               // a lane's values after the row reduction
+  constexpr int NK1 = C1 / 16;             // k16 steps of GEMM1
+  static_assert(NR >= 1 && C3 % NP == 0 && C1 % 16 == 0 && C2 % 16 == 0, "widths");
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L(c1, C2, C3);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L(C1, C2, C3, rows, WIN);
   uint16_t* w2s = reinterpret_cast<uint16_t*>(smem + L.w2);
   uint16_t* w3s = reinterpret_cast<uint16_t*>(smem + L.w3);
-  float* bct = reinterpret_cast<float*>(smem + L.bct);   // [k][center]
-  uint16_t* h0s = reinterpret_cast<uint16_t*>(smem + L.h0);  // [k][center][p]
-  uint16_t* h1s = reinterpret_cast<uint16_t*>(smem + L.h1);  // [k][center][p]
-  uint16_t* ats = reinterpret_cast<uint16_t*>(smem + L.at);  // [p][k]
-  float* xts = reinterpret_cast<float*>(smem + L.xt);        // [p][3]
-  uint8_t* mts = smem + L.mt;                                 // [p][center] (kPre)
+  float* part_v = reinterpret_cast<float*>(smem + L.part);         // [buf][wg][warp][C3]
+  int* part_q = reinterpret_cast<int*>(part_v + 2 * kWarpgroups * 4 * C3);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + L.bits);     // [center][rows / 32]
   float* b2s = reinterpret_cast<float*>(smem + L.prm);
   float* s2s = b2s + C2;
   float* lb2s = s2s + C2;
   float* b3s = lb2s + C2;
+  float* cens = reinterpret_cast<float*>(smem + L.cen);  // [center][4], then o
 
   const int tid = threadIdx.x;
-  const int c = tid / kGroups;
-  const int g = tid % kGroups;
+  const int warp = tid / 32, lane = tid % 32;
   const int b = blockIdx.y;
   const int n_blocks = M / kCenters;
   const int m0 = blockIdx.x * kCenters;
   int start = starts[(size_t)b * n_blocks + blockIdx.x];
   start = min(max(start, 0), N - W);  // keeps every window read inside the cloud
+  constexpr int kc = C1 / 8;          // 16-byte chunks of an A row
+  constexpr int swz = (kc < 8 ? kc : 8) - 1;  // chunk c of row r lies at c ^ (r & swz)
+  const uint32_t a_smem = smem_u32(smem + L.a);
 
-  {
-    const uint4* src = reinterpret_cast<const uint4*>(w2);
-    uint4* dst = reinterpret_cast<uint4*>(w2s);
-    for (int i = tid; i < c1 * C2 / 8; i += kThreads) dst[i] = src[i];
-    src = reinterpret_cast<const uint4*>(w3);
-    dst = reinterpret_cast<uint4*>(w3s);
-    for (int i = tid; i < C2 * C3 / 8; i += kThreads) dst[i] = src[i];
-  }
-  for (int i = tid; i < c1 * kCenters; i += kThreads) {
-    const int cc = i % kCenters, k = i / kCenters;
-    bct[i] = __uint_as_float(uint32_t(bc[((size_t)b * M + m0 + cc) * c1 + k]) << 16);
-  }
-  for (int i = tid; i < C2; i += kThreads) {
-    b2s[i] = b2[i];
-    s2s[i] = s2[i];
-    lb2s[i] = lb2[i];
-  }
-  for (int i = tid; i < C3; i += kThreads) b3s[i] = b3[i];
-  // kPair: the center; kMxu: c' = c - o, -2 o and csq; kPre: nothing
-  float cx = 0.f, cy = 0.f, cz = 0.f, ox = 0.f, oy = 0.f, oz = 0.f, csq = 0.f;
-  if constexpr (D2 != kPre) {
-    const float* cp = cen + ((size_t)b * M + m0 + c) * 3;
-    cx = cp[0];
-    cy = cp[1];
-    cz = cp[2];
-  }
-  if constexpr (D2 == kMxu) {
-    const float* op = cen + ((size_t)b * M + m0) * 3;  // the block's first center
-    ox = op[0];
-    oy = op[1];
-    oz = op[2];
-    cx -= ox;
-    cy -= oy;
-    cz -= oz;
-    csq = cx * cx + cy * cy + cz * cz;
-  }
+  const int wg = tid / 128, wt = tid % 128;
+  const int wq = wt / 32;                 // warp of the warpgroup: tile rows 16 wq ..
+  const int g = lane / 4, t4 = lane % 4;  // the thread's rows g, g + 8; columns 2 t4 (+1)
+  const int wc = W < 128 ? W : 128;
+  const int nt = (W + wc - 1) / wc;
+  const uint32_t w2_base = smem_u32(w2s), w3_base = smem_u32(w3s);
+  constexpr uint32_t sbo1 = C1 * 16, sbo2 = C2 * 16;
+  // ldmatrix: lanes 0-7 / 8-15 / 16-23 / 24-31 address rows 0-7 / 8-15 / 0-7 /
+  // 8-15 of the warp's 16, k-chunks 2s / 2s / 2s+1 / 2s+1
+  const int ld_row = 16 * wq + (lane & 7) + (lane & 8);
+  const int ld_chunk = lane >> 4;
+  // after the butterfly, lane value i is the pass's value base_i + i
+  const int base_i = ((lane & 16) ? NV / 2 : 0) + ((lane & 8) ? NV / 4 : 0) +
+                     ((lane & 4) ? NV / 8 : 0);
+  const int stages = (W + rows - 1) / rows;
+  int buf = 0;
+  for (int st = 0; st < stages; ++st) {
+    const int s0 = st * rows;  // the stage's first window point
+    const int sw = min(rows, W - s0);
+    const int swp = (sw + kRows - 1) / kRows * kRows;
+    if (st > 0) __syncthreads();  // every warpgroup is done with the last stage
 
-  float best[CPT2];
-  int win[CPT2];  // window position of the winner, -1 for none (WIN only)
-#pragma unroll
-  for (int j = 0; j < CPT2; ++j) {
-    best[j] = kNeg;
-    win[j] = -1;
-  }
-  __syncthreads();
-
-  const uint16_t* a_win = A + ((size_t)b * N + start) * c1;
-  const float* x_win = D2 == kPre ? nullptr : xyz + ((size_t)b * N + start) * 3;
-  const uint8_t* m_win =
-      D2 == kPre ? mask + ((size_t)b * n_blocks + blockIdx.x) * W * kCenters : nullptr;
-
-  for (int t0 = 0; t0 < W; t0 += kTile) {
-    const int np = min(kTile, W - t0);
-    // 1. stage the tile's A rows and coordinates, or its mask rows (zeros
-    //    past the window end)
+    // 1. the stage's A rows, asynchronously; rows past the window end are zeros
     {
-      const uint4* src = reinterpret_cast<const uint4*>(a_win + (size_t)t0 * c1);
-      uint4* dst = reinterpret_cast<uint4*>(ats);
-      for (int i = tid; i < kTile * c1 / 8; i += kThreads) {
-        const int p = (i * 8) / c1;
-        dst[i] = p < np ? src[i] : make_uint4(0, 0, 0, 0);
-      }
-      if constexpr (D2 == kPre) {
-        if (tid < kTile * kCenters)
-          mts[tid] = tid / kCenters < np ? m_win[(size_t)t0 * kCenters + tid] : 0;
-      } else {
-        if (tid < kTile * 3) xts[tid] = tid / 3 < np ? x_win[(size_t)t0 * 3 + tid] : 0.f;
-      }
-    }
-    __syncthreads();
-
-    // 2. h0 = bf16(relu(A_p + bc_c)) for the 16 x 8 pairs of the tile
-    for (int i = tid; i < c1 * kCenters; i += kThreads) {
-      const int k = i / kCenters;
-      const float bv = bct[i];
-      float v[kTile];
-#pragma unroll
-      for (int p = 0; p < kTile; ++p) {
-        const float a = __uint_as_float(uint32_t(ats[p * c1 + k]) << 16);
-        v[p] = fmaxf(a + bv, 0.f);
-      }
-      store_tile(h0s + (size_t)i * kTile, v);
-    }
-    __syncthreads();
-
-    // 3. interior layer: h1 = bf16(relu(LN(h0 @ W2 + b2))); radius mask
-    unsigned in_radius = 0;
-#pragma unroll
-    for (int p = 0; p < kTile; ++p) {
-      bool in;
-      if constexpr (D2 == kPre) {
-        in = mts[p * kCenters + c] != 0;
-      } else if constexpr (D2 == kMxu) {
-        const float px = xts[p * 3] - ox;
-        const float py = xts[p * 3 + 1] - oy;
-        const float pz = xts[p * 3 + 2] - oz;
-        const float psq = px * px + py * py + pz * pz;
-        const float pc = (-2.f * px) * cx + (-2.f * py) * cy + (-2.f * pz) * cz + csq;
-        in = pc <= r2 - psq;
-      } else {
-        const float dx = xts[p * 3] - cx;
-        const float dy = xts[p * 3 + 1] - cy;
-        const float dz = xts[p * 3 + 2] - cz;
-        in = dx * dx + dy * dy + dz * dz <= r2;
-      }
-      if (p < np && in) in_radius |= 1u << p;
-    }
-    {
-      float acc[kTile][CPT1];
-#pragma unroll
-      for (int p = 0; p < kTile; ++p)
-#pragma unroll
-        for (int j = 0; j < CPT1; ++j) acc[p][j] = 0.f;
-      for (int k = 0; k < c1; ++k) {
-        float h[kTile], w[CPT1];
-        load_bf16<8>(h0s + ((size_t)k * kCenters + c) * kTile, h);
-        load_bf16<CPT1>(w2s + (size_t)k * C2 + g * CPT1, w);
-#pragma unroll
-        for (int p = 0; p < kTile; ++p)
-#pragma unroll
-          for (int j = 0; j < CPT1; ++j) acc[p][j] = fmaf(h[p], w[j], acc[p][j]);
-      }
-      float mean[kTile], rstd[kTile];
-#pragma unroll
-      for (int p = 0; p < kTile; ++p) {
-        float s1 = 0.f, sq = 0.f;
-#pragma unroll
-        for (int j = 0; j < CPT1; ++j) {
-          const float z = acc[p][j] + b2s[g * CPT1 + j];
-          acc[p][j] = z;
-          s1 += z;
-          sq += z * z;
+      const uint16_t* a_win = A + ((size_t)b * N + start + s0) * C1;
+      for (int i = tid; i < swp * kc; i += kThreads) {
+        const int r = i / kc, ch = i % kc;
+        const uint32_t dst = a_smem + r * C1 * 2 + ((ch ^ (r & swz)) << 4);
+        if (r < sw) {
+          cp_async16(dst, a_win + (size_t)r * C1 + ch * 8);
+        } else {
+          asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(dst), "r"(0u));
         }
-#pragma unroll
-        for (int off = 1; off < kGroups; off <<= 1) {
-          s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-          sq += __shfl_xor_sync(0xffffffffu, sq, off);
-        }
-        mean[p] = s1 / C2;
-        const float var = fmaxf(sq / C2 - mean[p] * mean[p], 0.f);
-        rstd[p] = rsqrtf(var + kEps);
       }
-#pragma unroll
-      for (int j = 0; j < CPT1; ++j) {
-        const int ch = g * CPT1 + j;
-        float v[kTile];
-#pragma unroll
-        for (int p = 0; p < kTile; ++p)
-          v[p] = fmaxf((acc[p][j] - mean[p]) * rstd[p] * s2s[ch] + lb2s[ch], 0.f);
-        store_tile(h1s + ((size_t)ch * kCenters + c) * kTile, v);
-      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
-    __syncthreads();
-
-    // 4. last layer z = h1 @ W3 + b3, folded into the running masked max
-#pragma unroll
-    for (int pass = 0; pass < CPT2 / CH2; ++pass) {
-      float acc[kTile][CH2];
-#pragma unroll
-      for (int p = 0; p < kTile; ++p)
-#pragma unroll
-        for (int j = 0; j < CH2; ++j) acc[p][j] = 0.f;
-      const int ch0 = g * CPT2 + pass * CH2;
-      for (int k = 0; k < C2; ++k) {
-        float h[kTile], w[CH2];
-        load_bf16<8>(h1s + ((size_t)k * kCenters + c) * kTile, h);
-        load_bf16<CH2>(w3s + (size_t)k * C3 + ch0, w);
-#pragma unroll
-        for (int p = 0; p < kTile; ++p)
-#pragma unroll
-          for (int j = 0; j < CH2; ++j) acc[p][j] = fmaf(h[p], w[j], acc[p][j]);
+    // the first stage: weights, vectors and centers, while A is on its way
+    if (st == 0) {
+      stage_kmajor(w2s, w2, C1, C2);
+      stage_kmajor(w3s, w3, C2, C3);
+      for (int i = tid; i < C2; i += kThreads) {
+        b2s[i] = b2[i];
+        s2s[i] = s2[i];
+        lb2s[i] = lb2[i];
       }
-#pragma unroll
-      for (int j = 0; j < CH2; ++j) {
-        const float bias = b3s[ch0 + j];
-#pragma unroll
-        for (int p = 0; p < kTile; ++p) {
-          if (!(in_radius & (1u << p))) continue;
-          const float v = acc[p][j] + bias;
-          if constexpr (WIN) {
-            const int pos = t0 + p;
-            float& bj = best[pass * CH2 + j];
-            int& wj = win[pass * CH2 + j];
-            if (v > bj || (v == bj && wj >= 0 && pos / wc == wj / wc)) {
-              bj = v;
-              wj = pos;
-            }
-          } else {
-            best[pass * CH2 + j] = fmaxf(best[pass * CH2 + j], v);
+      for (int i = tid; i < C3; i += kThreads) b3s[i] = b3[i];
+      // kPair: the center; kMxu: c' = c - o and csq, o after the 16 centers
+      if (D2 != kPre && tid < kCenters) {
+        const float* cp = cen + ((size_t)b * M + m0 + tid) * 3;
+        float cx = cp[0], cy = cp[1], cz = cp[2], csq = 0.f;
+        if constexpr (D2 == kMxu) {
+          const float* op = cen + ((size_t)b * M + m0) * 3;  // the block's first center
+          cx -= op[0];
+          cy -= op[1];
+          cz -= op[2];
+          csq = cx * cx + cy * cy + cz * cz;
+          if (tid == 0) {
+            cens[kCenters * 4] = op[0];
+            cens[kCenters * 4 + 1] = op[1];
+            cens[kCenters * 4 + 2] = op[2];
           }
         }
+        cens[tid * 4] = cx;
+        cens[tid * 4 + 1] = cy;
+        cens[tid * 4 + 2] = cz;
+        cens[tid * 4 + 3] = csq;
+      }
+      __syncthreads();
+    }
+
+    // 2. the radius test of every (center, stage point), as bits
+    const int nwords = swp / 32;
+    for (int wi = warp; wi < nwords; wi += kThreads / 32) {
+      const int p = s0 + wi * 32 + lane;
+      const bool valid = p < W;
+      if constexpr (D2 == kPre) {
+        const uint8_t* m_win = mask + ((size_t)b * n_blocks + blockIdx.x) * W * kCenters;
+        const uint4 row = valid ? *reinterpret_cast<const uint4*>(m_win + (size_t)p * kCenters)
+                                : make_uint4(0, 0, 0, 0);
+        const uint32_t w[4] = {row.x, row.y, row.z, row.w};
+#pragma unroll
+        for (int c = 0; c < kCenters; ++c) {
+          const bool in = valid && ((w[c / 4] >> (8 * (c % 4))) & 0xffu) != 0;
+          const uint32_t word = __ballot_sync(0xffffffffu, in);
+          if (lane == 0) bits[c * nwords + wi] = word;
+        }
+      } else {
+        const float* xp = xyz + ((size_t)b * N + start + (valid ? p : 0)) * 3;
+        const float x = xp[0], y = xp[1], z = xp[2];
+        float px = 0.f, py = 0.f, pz = 0.f, psq = 0.f;
+        if constexpr (D2 == kMxu) {
+          px = x - cens[kCenters * 4];
+          py = y - cens[kCenters * 4 + 1];
+          pz = z - cens[kCenters * 4 + 2];
+          psq = px * px + py * py + pz * pz;
+        }
+#pragma unroll
+        for (int c = 0; c < kCenters; ++c) {
+          const float cx = cens[c * 4], cy = cens[c * 4 + 1], cz = cens[c * 4 + 2];
+          bool in;
+          if constexpr (D2 == kMxu) {
+            const float pc =
+                (-2.f * px) * cx + (-2.f * py) * cy + (-2.f * pz) * cz + cens[c * 4 + 3];
+            in = pc <= r2 - psq;
+          } else {
+            const float dx = x - cx, dy = y - cy, dz = z - cz;
+            in = dx * dx + dy * dy + dz * dz <= r2;
+          }
+          const uint32_t word = __ballot_sync(0xffffffffu, valid && in);
+          if (lane == 0) bits[c * nwords + wi] = word;
+        }
       }
     }
-  }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    // the staged weights are read by wgmma, through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
 
-  const size_t o = ((size_t)b * M + m0 + c) * C3 + g * CPT2;
+    // 3. per warpgroup: every third center, the stage in 64-row tiles
+    for (int c = wg; c < kCenters; c += kWarpgroups, buf ^= 1) {
+      uint32_t bcf[NK1][2];  // bc_c at columns 16 s + 2 t4 (+1) and + 8
+      const uint16_t* bcp = bc + ((size_t)b * M + m0 + c) * C1 + 2 * t4;
 #pragma unroll
-  for (int j = 0; j < CPT2; ++j) {
-    out[o + j] = best[j];
-    if constexpr (WIN) winners[o + j] = win[j] >= 0 ? start + win[j] : 0;
+      for (int s = 0; s < NK1; ++s) {
+        bcf[s][0] = *reinterpret_cast<const uint32_t*>(bcp + 16 * s);
+        bcf[s][1] = *reinterpret_cast<const uint32_t*>(bcp + 16 * s + 8);
+      }
+      float run_v[PASSES * NR];
+      int run_q[PASSES * NR];
+#pragma unroll
+      for (int i = 0; i < PASSES * NR; ++i) {
+        run_v[i] = __uint_as_float(kMinusInfBits);
+        run_q[i] = 0;
+      }
+
+      for (int k = 0; k < swp / kRows; ++k) {
+        const uint32_t lo = bits[c * nwords + 2 * k], hi = bits[c * nwords + 2 * k + 1];
+        if ((lo | hi) == 0) continue;  // no pair of the tile in radius
+        const uint32_t word = wq < 2 ? lo : hi;
+        const int sh = (16 * wq + g) & 31;
+        const bool in0 = (word >> sh) & 1u, in1 = (word >> (sh + 8)) & 1u;
+        int q0 = 0, q1 = 0;
+        if constexpr (WIN) {
+          const int p0 = s0 + k * kRows + 16 * wq + g, p1 = p0 + 8;
+          q0 = (nt - 1 - p0 / wc) * wc + p0 % wc;
+          q1 = (nt - 1 - p1 / wc) * wc + p1 % wc;
+        }
+
+        // h0 = relu(A + bc) as GEMM1's register A operand
+        uint32_t af[NK1][4];
+        const int row = k * kRows + ld_row;
+#pragma unroll
+        for (int s = 0; s < NK1; ++s) {
+          const int ch = 2 * s + ld_chunk;
+          ldmatrix_x4(af[s], a_smem + row * C1 * 2 + ((ch ^ (row & swz)) << 4));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) af[s][i] = add_relu_bf16x2(af[s][i], bcf[s][i >> 1]);
+        }
+        float acc1[C2 / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < NK1; ++s)
+          wgmma_rs<C2>(acc1, af[s], make_desc(w2_base + 256 * s, 128, sbo1), s > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc1);
+#pragma unroll
+        for (int s = 0; s < NK1; ++s) fence_regs(af[s]);
+
+        uint32_t hf[C2 / 16][4];
+        ln_fragments<C2>(acc1, b2s, s2s, lb2s, t4, hf);
+
+        // z = h1 @ W3 in passes of NP columns into two accumulators in turn:
+        // the tensor cores run pass h + 1 while pass h is masked and maxed
+        float acc2[2][NP / 2];
+        auto start_pass = [&](float (&acc)[NP / 2], int h) {
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < C2 / 16; ++s)
+            wgmma_rs<NP>(acc, hf[s],
+                         make_desc(w3_base + h * (NP / 8) * sbo2 + 256 * s, 128, sbo2), s > 0);
+          wgmma_commit();
+        };
+        start_pass(acc2[0], 0);
+        if (PASSES > 1) start_pass(acc2[1], 1);
+#pragma unroll
+        for (int h = 0; h < PASSES; ++h) {
+          float(&acc)[NP / 2] = acc2[h % 2];
+          if (h + 1 < PASSES) {
+            wgmma_wait<1>();
+          } else {
+            wgmma_wait<0>();
+          }
+          fence_regs(acc);
+          fold_max<NV, WIN>(acc, in0, in1, q0, q1, lane, run_v + h * NR, run_q + h * NR);
+          if (h + 2 < PASSES) start_pass(acc, h + 2);
+        }
+#pragma unroll
+        for (int s = 0; s < C2 / 16; ++s) fence_regs(hf[s]);
+      }
+
+      // the 4 warps' partials through shared memory; then the earlier stages'
+      // partial from the output buffers, and b3 and the output at the last stage
+      const size_t pbase = ((size_t)buf * kWarpgroups + wg) * 4;
+#pragma unroll
+      for (int h = 0; h < PASSES; ++h) {
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          const int ii = base_i + i;
+          const int col = h * NP + 8 * (ii / 2) + 2 * t4 + ii % 2;
+          part_v[(pbase + wq) * C3 + col] = run_v[h * NR + i];
+          if constexpr (WIN) part_q[(pbase + wq) * C3 + col] = run_q[h * NR + i];
+        }
+      }
+      bar_sync(1 + wg, 128);
+      for (int col = wt; col < C3; col += 128) {
+        float v = part_v[pbase * C3 + col];
+        int q = WIN ? part_q[pbase * C3 + col] : 0;
+#pragma unroll
+        for (int w = 1; w < 4; ++w)
+          combine<WIN>(v, q, part_v[(pbase + w) * C3 + col],
+                       WIN ? part_q[(pbase + w) * C3 + col] : 0);
+        const size_t o = ((size_t)b * M + m0 + c) * C3 + col;
+        // the same thread wrote (out, winners)[o] at the last stage
+        if (st > 0) combine<WIN>(v, q, out[o], WIN ? winners[o] : 0);
+        if (st + 1 < stages) {
+          out[o] = v;
+          if constexpr (WIN) winners[o] = q;
+          continue;
+        }
+        const float zmax = v + b3s[col];
+        const bool hit = zmax > kNeg;
+        out[o] = hit ? zmax : kNeg;
+        if constexpr (WIN) {
+          const int p = (nt - 1 - q / wc) * wc + q % wc;
+          winners[o] = hit ? start + p : 0;
+        }
+      }
+    }
   }
 }
 
-template <int C2, int C3, bool WIN, int D2>
+template <int C1, int C2, int C3, bool WIN, int D2>
 cudaError_t launch(const uint16_t* A, const float* xyz, const uint16_t* bc,
                    const float* cen, const uint8_t* mask, const int* starts,
                    const uint16_t* w2, const float* b2, const float* s2, const float* lb2,
-                   const uint16_t* w3, const float* b3, int B, int N, int M, int c1,
-                   int W, float r2, float* out, int* winners, cudaStream_t s) {
-  const Layout L(c1, C2, C3);
+                   const uint16_t* w3, const float* b3, int B, int N, int M, int W,
+                   float r2, float* out, int* winners, cudaStream_t s) {
+  // the window in equal stages of whole 64-row tiles, as few as shared memory allows
+  const int tiles = (W + kRows - 1) / kRows;
+  int most = min(tiles, kMaxSharedBytes / (kRows * C1 * 2));
+  while (most > 1 && Layout(C1, C2, C3, most * kRows, WIN).total > (size_t)kMaxSharedBytes)
+    --most;
+  const int stages = (tiles + most - 1) / most;
+  const int rows = (tiles + stages - 1) / stages * kRows;
+  const Layout L(C1, C2, C3, rows, WIN);
   if (L.total > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(sa_pair_pool_kernel<C2, C3, WIN, D2>,
+  cudaError_t err = cudaFuncSetAttribute(sa_pair_pool_kernel<C1, C2, C3, WIN, D2>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.total);
   if (err != cudaSuccess) return err;
   dim3 grid(M / kCenters, B);
-  const int wc = W < 128 ? W : 128;
-  sa_pair_pool_kernel<C2, C3, WIN, D2><<<grid, kThreads, L.total, s>>>(
-      A, xyz, bc, cen, mask, starts, w2, b2, s2, lb2, w3, b3, N, M, c1, W, r2, wc, out,
+  sa_pair_pool_kernel<C1, C2, C3, WIN, D2><<<grid, kThreads, L.total, s>>>(
+      A, xyz, bc, cen, mask, starts, w2, b2, s2, lb2, w3, b3, N, M, W, rows, r2, out,
       winners);
   return cudaGetLastError();
 }
@@ -393,21 +683,21 @@ int dispatch(const void* A, const float* xyz, const void* bc, const float* cen,
              int N, int M, int c1, int c2, int c3, int W, float r2, float* out,
              int* winners, void* stream) {
   if (B <= 0 || M <= 0) return cudaSuccess;
-  if (M % kCenters || c1 % 8 || c1 <= 0 || W <= 0 || W > N)
+  if (M % kCenters || W <= 0 || W > N)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const uint16_t*>(A);
   const auto* bcv = static_cast<const uint16_t*>(bc);
   const auto* w2v = static_cast<const uint16_t*>(w2);
   const auto* w3v = static_cast<const uint16_t*>(w3);
-#define EDA_SA_LAUNCH(X, Y)                                                     \
-  if (c2 == X && c3 == Y)                                                       \
-    return launch<X, Y, WIN, D2>(a, xyz, bcv, cen, mask, starts, w2v, b2, s2, lb2, \
-                                 w3v, b3, B, N, M, c1, W, r2, out, winners, s);
-  EDA_SA_LAUNCH(16, 32)
-  EDA_SA_LAUNCH(32, 64)
-  EDA_SA_LAUNCH(64, 128)
-  EDA_SA_LAUNCH(128, 256)
+#define EDA_SA_LAUNCH(X, Y, Z)                                                     \
+  if (c1 == X && c2 == Y && c3 == Z)                                               \
+    return launch<X, Y, Z, WIN, D2>(a, xyz, bcv, cen, mask, starts, w2v, b2, s2, lb2, \
+                                    w3v, b3, B, N, M, W, r2, out, winners, s);
+  EDA_SA_LAUNCH(16, 16, 32)
+  EDA_SA_LAUNCH(32, 32, 64)
+  EDA_SA_LAUNCH(64, 64, 128)
+  EDA_SA_LAUNCH(128, 128, 256)
 #undef EDA_SA_LAUNCH
   return cudaErrorInvalidValue;
 }
@@ -419,9 +709,9 @@ extern "C" {
 // A: (B, N, c1) bf16; xyz: (B, N, 3) f32; bc: (B, M, c1) bf16; cen: (B, M, 3)
 // f32; starts: (B, M/16) int32 window starts (multiples of 16, clamped to
 // [0, N-W]); w2: (c1, c2) bf16; b2/s2/lb2: (c2,) f32; w3: (c2, c3) bf16;
-// b3: (c3,) f32; out: (B, M, c3) f32. (c2, c3) must be one of (16, 32),
-// (32, 64), (64, 128), (128, 256); c1 a multiple of 8. Returns
-// cudaGetLastError().
+// b3: (c3,) f32; out: (B, M, c3) f32. (c1, c2, c3) must be one of (16, 16,
+// 32), (32, 32, 64), (64, 64, 128), (128, 128, 256), the model's layer widths;
+// any window 0 < W <= N. Returns cudaGetLastError().
 int sa_pair_pool_launch(const void* A, const float* xyz, const void* bc,
                         const float* cen, const int* starts, const void* w2,
                         const float* b2, const float* s2, const float* lb2,

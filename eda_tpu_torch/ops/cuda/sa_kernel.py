@@ -49,8 +49,9 @@ from eda_tpu_torch.ops.cuda.sa_prep import bf16_round, ln_one_pass
 BLOCK = 16  # centers per window block
 NEG = -1e9
 PLAIN_MAX_PAIRS = 1 << 22  # pairs the plain version holds at once (SA1's grid is ~1 GB a scene)
-# (c2, c3) widths the kernel is instantiated for (csrc/sa_pair_pool.cu)
-WIDTHS = ((16, 32), (32, 64), (64, 128), (128, 256))
+# (c1, c2, c3) widths the kernel is instantiated for (csrc/sa_pair_pool.cu): the
+# model's layer widths, full and tiny
+WIDTHS = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128, 256))
 
 D2_MODES = ("pair", "mxu", "pre")
 
@@ -244,8 +245,8 @@ def _launch(mode: str, with_winners: bool, A, xyz, b_c, cen_xyz, starts, w2, b2,
     require_cuda(A, b_c, starts, w2, b2, s2, lb2, w3, b3)
     if A.dtype != torch.bfloat16 or b_c.dtype != torch.bfloat16:
         raise ValueError("sa_pair_pool takes bf16 A and b_c")
-    if (c2, c3) not in WIDTHS or c1 % 8 or w2.shape != (c1, c2):
-        raise ValueError(f"sa_pair_pool kernel takes (c2, c3) in {WIDTHS} and c1 % 8 == 0, "
+    if (c1, c2, c3) not in WIDTHS or w2.shape != (c1, c2):
+        raise ValueError(f"sa_pair_pool kernel takes (c1, c2, c3) in {WIDTHS}, "
                          f"got c1={c1}, c2={c2}, c3={c3}")
     if (M % BLOCK or b_c.shape != (B, M, c1) or starts.shape != (B, M // BLOCK)
             or not 0 < window <= N):

@@ -15,7 +15,12 @@ wrong mask and accept a right one, so they run here on small CPU inputs
   xyz once, however much the windows overlap;
 * the eval phase compares a radius test's IoU stack with the ``pair`` stack
   at every scene whose end points equal pair's, and accepts another forward
-  only where an SA layer's output moved.
+  only where an SA layer's output moved;
+* ``empty_tiles`` counts the (center, 64-point) tiles the pool kernel skips;
+  the pool tie check's input makes every in-radius pair of a center tie, so
+  that the plain winners are the tie rule's, with -1e9 rows and clamped
+  windows, also at a window wider than 128 points; ``check_pool_build``
+  refuses spills and a pool kernel without HGMMA.
 """
 
 import numpy as np
@@ -26,7 +31,7 @@ import chip_smoke
 from eda_tpu_torch.config import ModelConfig
 from eda_tpu_torch.entry import build_evaluator
 from eda_tpu_torch.eval.grounding import score_and_iou_multi
-from eda_tpu_torch.ops.cuda import sa_mask
+from eda_tpu_torch.ops.cuda import sa_kernel, sa_mask
 
 RADIUS = float(np.sqrt(0.0913))  # r^2 off the 0.05 grid's d2 values
 T = torch.from_numpy
@@ -143,3 +148,64 @@ def test_eval_stack_check_compares_scenes_with_pair_end_points(monkeypatch):
     with pytest.raises(AssertionError, match="equal SA outputs"):
         chip_smoke.against_pair_stack("mxu", {"pair": pair, "mxu": pair}, {"pair": ends,
                                                                           "mxu": moved}, 0)
+
+
+@pytest.mark.parametrize("mode", ["pair", "pre"])
+def test_empty_tiles_counts_the_skipped_tiles(mode):
+    args, W = _pool_args(W=96)  # a ragged window: its second tile is padded
+    xyz, cen, starts = args[1], args[3], args[4]
+    mask = sa_mask.sa_radius_mask(xyz, cen, starts, radius=RADIUS, window=W)
+    kw = {"radius": RADIUS, "window": W, "d2_mode": mode, "mask": mask}
+    empty, total = chip_smoke.empty_tiles(args, kw)
+    want = 0
+    for b in range(mask.shape[0]):
+        for j in range(mask.shape[1]):
+            for c in range(16):
+                for k0 in range(0, W, 64):
+                    want += int(not mask[b, j, k0:k0 + 64, c].any())
+    assert total == 2 * 2 * 16 * 2 and empty == want and 0 < empty < total
+    far = (args[0], xyz, args[2], cen + 100.0) + args[4:]
+    far_mask = torch.zeros_like(mask)
+    assert chip_smoke.empty_tiles(far, {**kw, "mask": far_mask}) == (total, total)
+
+
+@pytest.mark.parametrize("window", [128, 64, 384])
+def test_tie_input_plain_winners_are_the_rule(window):
+    args, kw = chip_smoke.tie_inputs(B=2, N=512, M=128, window=window, widths=(16, 16, 32))
+    assert not chip_smoke.boundary_centers(args[1], args[3], args[4], kw["radius"], window).any()
+    rule, none = chip_smoke.rule_winners(args, kw)
+    assert none[:, 16:32].all() and none[:, 80:96].all()  # blocks 1 and 5 out of reach
+    starts = sa_kernel.window_starts(args[4].long(), 512, window)
+    assert (starts == 512 - window).any() and (starts == 0).any()
+    mask = sa_mask.sa_radius_mask(args[1], args[3], args[4], **kw)
+    for mode in ("pair", "mxu", "pre"):
+        v, w = sa_kernel.sa_pair_pool_winners_plain(
+            *args, **kw, d2_mode=mode, mask=mask if mode == "pre" else None)
+        assert torch.equal(w, rule[..., None].expand_as(w).int())
+        assert torch.equal((v == -1e9).all(-1), none) and not w[none].any()
+        assert torch.equal(v[~none], args[10].expand_as(v)[~none])  # every value is b3
+
+
+def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
+    class FakeBuild:
+        @staticmethod
+        def _target(name):
+            return name
+
+    ok_log = ("ptxas info    : Used 178 registers\n"
+              "   8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
+    spill_log = "   8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads"
+    monkeypatch.setattr(chip_smoke, "hgmma_counts", lambda lib: None)
+    chip_smoke.check_pool_build(ok_log, FakeBuild)
+    assert "not checked" in capsys.readouterr().out
+    with pytest.raises(AssertionError, match="spill"):
+        chip_smoke.check_pool_build(spill_log, FakeBuild)
+    monkeypatch.setattr(chip_smoke, "hgmma_counts",
+                        lambda lib: {"_Z19sa_pair_pool_kernelILi16E": 0, "_Z3fps": 0})
+    with pytest.raises(AssertionError, match="HGMMA"):
+        chip_smoke.check_pool_build(ok_log, FakeBuild)
+    monkeypatch.setattr(chip_smoke, "hgmma_counts",
+                        lambda lib: {"_Z19sa_pair_pool_kernelILi16E": 24, "_Z3fps": 0})
+    chip_smoke.check_pool_build(ok_log, FakeBuild)
+    assert "24 HGMMA" in capsys.readouterr().out
+
