@@ -5,8 +5,9 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
 1. Prints the card's name and power limit and the torch / CUDA versions.
 2. Builds every CUDA kernel from ``eda_tpu_torch/csrc`` (one nvcc per source,
    all started at once) and prints the build time. The pair pool's kernels
-   must spill no register and, where the toolkit has ``cuobjdump``, hold
-   HGMMA (``wgmma``) instructions, every one of them; the count is printed.
+   and its backward's must spill no register and, where the toolkit has
+   ``cuobjdump``, every GEMM kernel of both must hold HGMMA (``wgmma``)
+   instructions; the counts are printed.
    Then the pool tie check: all six pool variants (``pair``, ``mxu``,
    ``pre``, each with and without winners) on a full-width SA2 input with
    W3 = 0 and distinct b3, where every in-radius pair of a center gives b3
@@ -17,6 +18,12 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    windows wider than the kernel holds in shared memory at once (SA2 at 512,
    SA1 at 2048 points), and on each input with a random W3 every variant
    within 0.03 of the plain version; prints the pair pool's time there.
+   Then the pool backward edge check: K5 and K6 against their plain version
+   on ``bwd_edge_inputs`` (a center whose channels one point wins all, one
+   whose channels c3 points win, blocks with no live row, compact winners
+   outside the window, windows clamped at N - W) at SA2's widths with W =
+   256 and 512, SA1's with W = 2048 and the tiny SA1 triple, both variants
+   at each, within the training step's tolerances.
 3. Checks a small grounder (``ModelConfig(use_bf16=True).tiny()``) on the card
    against the same weights and inputs on the CPU, where every kernel wrapper
    runs its plain PyTorch version: the serving forward, then one training step
@@ -42,7 +49,10 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
 5. Training. Records the training kernels' inputs (K4 pair pool with winners,
    K5 compact and K6 windowed pair-pool backward, K7 prep backward) in one
    full-width training step at batch 8 and holds each against its plain
-   version; times both per SA layer. Then runs five training steps from fresh
+   version; times both per SA layer. K5 and K6 must give db_c and every
+   weight and vector gradient bit for bit again on a second launch; per
+   backward layer the live pair rows, the TFLOP/s over the live-row work and
+   the peak memory of one call are printed. Then runs five training steps from fresh
    counters: each must give a finite loss and ``grad_norm``, change the
    parameters, and advance K1, K2, K4 and K7 by 4, K5 by 1, K6 by 3 and K3 by
    0. Prints ms per step and scenes/s, the stage times of one step (forward,
@@ -109,6 +119,7 @@ SERVING = ("fps_launch", "sa_prep_launch", "sa_pair_pool_launch")
 TRAINING = ("sa_pair_pool_winners_launch", "sa_pool_bwd_compact_launch",
             "sa_pool_bwd_window_launch", "sa_prep_bwd_launch")
 MASK = "sa_radius_mask_launch"
+POOL_BWD = ("sa_pool_bwd_compact_launch", "sa_pool_bwd_window_launch")
 IOU_SHAPE = (2, 2, BATCH, 10)  # (prefixes, scoring modes, batch, top-k)
 SCORE_TIE, IOU_ATOL = 1e-5, 1e-6  # tiny eval check, card vs CPU scoring
 BOUNDARY = 1e-5  # |d2 - r^2| within which mxu / pre may decide a pair otherwise than pair
@@ -393,31 +404,47 @@ def against_pair(symbol: str, args, kw, got, layer: int) -> None:
                              f"window point on the radius boundary")
 
 
-def live_rows(args, kw) -> tuple:
-    """(pair rows, won channels) the pool backward needs for this run's data."""
+def live_channels(args, kw):
+    """(B, M, c3) bool: the (center, channel) entries whose cotangent reaches a
+    pair row of the pool backward: g != 0, and (windowed) an in-window winner."""
     A, b_c, g, winners, starts = args[:5]
     from eda_tpu_torch.ops.cuda.sa_kernel import BLOCK, window_starts
 
-    B, N, _ = A.shape
-    M = b_c.shape[1]
     live = g != 0
-    channels = int(live.sum())
     if kw["compact"]:
-        return channels, channels
-    start = window_starts(starts.long(), N, kw["window"]).repeat_interleave(BLOCK, dim=1)
+        return live
+    start = window_starts(starts.long(), A.shape[1], kw["window"]).repeat_interleave(BLOCK, dim=1)
     rel = winners.long() - start[..., None]
-    live &= (rel >= 0) & (rel < kw["window"])
-    center = torch.arange(B * M, device=A.device).view(B, M, 1).expand_as(rel)
-    rows = int(torch.unique((center * N + rel)[live]).numel())
-    return rows, int(live.sum())
+    return live & (rel >= 0) & (rel < kw["window"])
+
+
+def center_rows(args, kw):
+    """(B, M) pair rows of each center in the pool backward: its live channels
+    (compact), or their distinct winners (windowed)."""
+    live = live_channels(args, kw)
+    if kw["compact"]:
+        return live.sum(-1)
+    key = torch.where(live, args[3].long(), -1).sort(-1).values
+    return ((key[..., 1:] != key[..., :-1]) & (key[..., 1:] >= 0)).sum(-1) + (key[..., 0] >= 0)
+
+
+def live_rows(args, kw) -> tuple:
+    """(pair rows, won channels) the pool backward needs for this run's data."""
+    return int(center_rows(args, kw).sum()), int(live_channels(args, kw).sum())
+
+
+def pool_bwd_ops(args, kw) -> int:
+    """The pool backward's live-row work: per row h0 @ W2, dh0 = dx @ W2^T and
+    dW2 = h0^T dx; per won channel its W3^T row and its dW3 column."""
+    c1, c2 = args[5].shape
+    rows, channels = live_rows(args, kw)
+    return rows * 6 * c1 * c2 + channels * 4 * c2
 
 
 def pool_bwd_bound(args, kw):
     A, b_c, g, winners, starts, w2, b2, s2, lb2, w3 = args
-    c1, c2 = w2.shape
-    rows, channels = live_rows(args, kw)
-    # per row: h0 @ W2, dh0 = dx @ W2^T, dW2 = h0^T dx; per won channel: W3^T and dW3
-    ops = rows * 6 * c1 * c2 + channels * 4 * c2
+    c2 = w2.shape[1]
+    ops = pool_bwd_ops(args, kw)
     nb = (nbytes(A, b_c, g, winners, starts, b2, s2, lb2) + (w2.numel() + w3.numel()) * 2
           + A.numel() * 4 + b_c.numel() * 4 + (w2.numel() + w3.numel() + 3 * c2 + w3.shape[1]) * 4)
     return bound(ops, PEAK_BF16, nb)
@@ -538,6 +565,12 @@ def check_kernels(calls, symbols, layers: dict, compare_pair: bool = False) -> l
             err = check_kernel(symbol, got, want, layer)
             if compare_pair and symbol != MASK:
                 against_pair(symbol, args, kw, got, layer)
+            if symbol in POOL_BWD:
+                again = kernel_fn(*args, **kw)
+                if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
+                    raise AssertionError(f"{name} SA{layer}: db_c or a weight or vector "
+                                         f"gradient differs between two launches")
+                del again
             del got, want
             ms = cuda_ms(lambda: kernel_fn(*args, **kw), reps)
             plain_ms = cuda_ms(lambda: plain_fn(*args, **kw), 1)
@@ -547,6 +580,17 @@ def check_kernels(calls, symbols, layers: dict, compare_pair: bool = False) -> l
             shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)][:2]
             print(f"kernel {name} SA{layer} {shapes}: max_err {err} ms {ms:.4f} "
                   f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({by})")
+            if symbol in POOL_BWD:
+                n_rows, _ = live_rows(args, kw)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                kernel_fn(*args, **kw)
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+                print(f"  SA{layer} pool backward: {n_rows} live rows, "
+                      f"{pool_bwd_ops(args, kw) / ms / 1e9:.1f} TFLOP/s over the live-row work, "
+                      f"peak memory of one call {peak:.1f} MiB")
             if symbol.startswith("sa_pair_pool"):
                 empty, tiles = empty_tiles(args, kw)
                 print(f"  SA{layer} pool: {dense_flops(args, kw) / ms / 1e9:.1f} TFLOP/s over the "
@@ -584,22 +628,28 @@ def hgmma_counts(library: Path):
     return counts
 
 
-def check_pool_build(log: str, build) -> None:
-    """The pool kernels spill nothing and run their products on tensor cores
-    (HGMMA in every pool kernel's SASS, where cuobjdump exists)."""
-    spills = [line.strip() for line in log.splitlines()
+# tensor-core kernel libraries: source -> the name of its GEMM kernels
+GEMM_KERNELS = {"sa_pair_pool": "sa_pair_pool_kernel", "sa_pair_pool_bwd": "pool_bwd_tiles"}
+
+
+def check_pool_build(logs: dict, build) -> None:
+    """The pair pool's forward and backward kernels spill nothing and run their
+    products on tensor cores (HGMMA in every GEMM kernel's SASS, where
+    cuobjdump exists)."""
+    spills = [line.strip() for source in GEMM_KERNELS for line in logs[source].splitlines()
               if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
     if spills:
         raise AssertionError(f"pool kernels spill registers: {spills}")
-    counts = hgmma_counts(build._target("sa_pair_pool"))
-    if counts is None:
-        print("pool HGMMA count: not checked (no cuobjdump)")
-        return
-    pools = {f: n for f, n in counts.items() if "sa_pair_pool_kernel" in f}
-    print(f"pool HGMMA count: {sum(pools.values())} HGMMA instructions in {len(pools)} pool "
-          f"kernels, fewest in one kernel {min(pools.values(), default=0)}; no spills")
-    if not pools or min(pools.values()) == 0:
-        raise AssertionError("a pool kernel has no HGMMA instruction")
+    for source, kernel in GEMM_KERNELS.items():
+        counts = hgmma_counts(build._target(source))
+        if counts is None:
+            print(f"{source} HGMMA count: not checked (no cuobjdump)")
+            continue
+        gemms = {f: n for f, n in counts.items() if kernel in f}
+        print(f"{source} HGMMA count: {sum(gemms.values())} HGMMA instructions in {len(gemms)} "
+              f"GEMM kernels, fewest in one kernel {min(gemms.values(), default=0)}; no spills")
+        if not gemms or min(gemms.values()) == 0:
+            raise AssertionError(f"a {source} GEMM kernel has no HGMMA instruction")
 
 
 def tie_inputs(B=BATCH, N=2048, M=1024, window=256, widths=(128, 128, 256), seed=0):
@@ -708,6 +758,77 @@ def pool_tie_check() -> None:
               f"random W3 within 0.03 of the plain version; pair pool {ms:.4f} ms, with "
               f"winners {win_ms:.4f} ms (batch {BATCH}, {n_centers} centers, "
               f"{dense_flops(random_w3, kw) / ms / 1e9:.1f} TFLOP/s over the dense window work)")
+
+
+def bwd_edge_inputs(B=2, N=2048, M=1024, window=256, widths=(128, 128, 256), seed=0):
+    """A pool-backward input with the row packing's edge cases, in every block
+    of 16 centers (center m, kind m % 16):
+    kind 0: one point wins every channel (windowed: one row carrying all c3);
+    kind 1: every channel won by a different point (c3 rows, several tiles);
+    kind 2: the odd channels won outside the window (compact: zero A rows);
+    other kinds: random in-window winners, 20% of the cotangents 0.
+    Every fourth block has g = 0 everywhere (no live row), and the last two
+    blocks' windows are clamped at N - W. Returns (args, kw), CPU tensors,
+    ``kw`` without the variant; needs N - W >= c3 and W >= c3."""
+    from eda_tpu_torch.ops.cuda.sa_kernel import BLOCK, window_starts
+
+    c1, c2, c3 = widths
+    gen = torch.Generator().manual_seed(seed)
+    n_blocks = M // BLOCK
+    starts = (torch.arange(n_blocks) * (N - window) // max(n_blocks - 1, 1)).repeat(B, 1)
+    starts[:, -2:] = N  # clamped to N - W
+    start = window_starts(starts, N, window).repeat_interleave(BLOCK, dim=1)[..., None]
+    kind = (torch.arange(M) % BLOCK)[None, :, None]
+    chan = torch.arange(c3)
+    winners = start + torch.randint(0, window, (B, M, c3), generator=gen)
+    winners = torch.where(kind == 0, winners[..., :1], winners)
+    distinct = torch.rand(B, M, window, generator=gen).argsort(-1)[..., :c3]
+    winners = torch.where(kind == 1, start + distinct, winners)
+    outside = torch.where(start + window + chan < N, start + window + chan, start - 1 - chan)
+    winners = torch.where((kind == 2) & (chan % 2 == 1), outside, winners)
+    g = torch.randn(B, M, c3, generator=gen)
+    g = torch.where((kind > 2) & (torch.rand(B, M, c3, generator=gen) < 0.2), 0.0, g)
+    g = torch.where(((torch.arange(M) // BLOCK) % 4 == 3)[None, :, None], 0.0, g)
+    args = (torch.randn(B, N, c1, generator=gen).bfloat16(),
+            torch.randn(B, M, c1, generator=gen).bfloat16(), g, winners.int(), starts.int(),
+            torch.randn(c1, c2, generator=gen) * 0.1, torch.randn(c2, generator=gen) * 0.1,
+            1 + 0.1 * torch.randn(c2, generator=gen), torch.randn(c2, generator=gen) * 0.1,
+            torch.randn(c2, c3, generator=gen) * 0.1)
+    return args, {"window": window}
+
+
+# pool backward edge inputs: (layer, widths, N, M, window). The full-width SA2
+# layer at the flagship window and at 512, SA1's widths at 2048 (both variants
+# called directly; the model picks compact at both), and the tiny SA1 triple
+BWD_EDGE_CASES = ((2, (128, 128, 256), 2048, 1024, 256), (2, (128, 128, 256), 2048, 1024, 512),
+                  (1, (64, 64, 128), 4096, 2048, 2048), (1, (16, 16, 32), 512, 128, 64))
+
+
+def bwd_symbol(compact: bool) -> str:
+    return POOL_BWD[0] if compact else POOL_BWD[1]
+
+
+@torch.no_grad()
+def pool_bwd_edge_check() -> None:
+    """K5 and K6 against the plain version on ``bwd_edge_inputs`` of each
+    ``BWD_EDGE_CASES`` entry, within the step's tolerances."""
+    from eda_tpu_torch.ops.cuda import sa_pool_bwd
+
+    for layer, widths, n_points, n_centers, window in BWD_EDGE_CASES:
+        args, kw = bwd_edge_inputs(N=n_points, M=n_centers, window=window, widths=widths)
+        args = tuple(a.cuda() for a in args)
+        for compact in (True, False):
+            ckw = dict(kw, compact=compact)
+            rows = center_rows(args, ckw)
+            got = sa_pool_bwd.sa_pool_bwd(*args, **ckw)
+            want = sa_pool_bwd.sa_pool_bwd_plain(*args, **ckw)
+            torch.cuda.synchronize()
+            check_kernel(bwd_symbol(compact), got, want, layer)
+            empty = int((rows.view(rows.shape[0], -1, 16).sum(-1) == 0).sum())
+            print(f"pool backward edge check SA{layer} widths {widths}, W={window}, "
+                  f"{'compact' if compact else 'windowed'}: within tolerance; live rows per "
+                  f"center {int(rows.min())}-{int(rows.max())}, {empty} blocks without a live "
+                  f"row, {int(rows.sum())} rows in all")
 
 
 def small_model_check(root_cfg) -> None:
@@ -890,8 +1011,10 @@ def stage_times(model, batch) -> dict:
             "rest": whole - backbone - text}
 
 
-def profile(fn, label: str) -> None:
-    """Device time by operation and the device's busy share over one call of ``fn``."""
+def profile(fn, label: str, also=()) -> None:
+    """Device time by operation and the device's busy share over one call of
+    ``fn``: the 15 busiest operations, and every one whose name holds a string
+    of ``also``."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
@@ -907,9 +1030,11 @@ def profile(fn, label: str) -> None:
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"profiled {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f}% of wall; profiler on)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"  device {e.self_device_time_total / 1e3:9.3f} ms  calls {e.count:5d}  "
-              f"{e.key[:90]}")
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):
+        if i < 15 or any(a in e.key for a in also):
+            print(f"  device {e.self_device_time_total / 1e3:9.3f} ms  calls {e.count:5d}  "
+                  f"{e.key[:90]}")
 
 
 def sdpa_attention(self, q, k, v, key_valid=None):
@@ -995,8 +1120,7 @@ def train_phase(cfg):
     from eda_tpu_torch.ops.cuda import build
 
     state, step, batch = build_trainer(cfg, batch_size=BATCH, device="cuda", seed=0)
-    bwd = lambda kw: ("sa_pool_bwd_compact_launch" if kw["compact"]  # noqa: E731
-                      else "sa_pool_bwd_window_launch")
+    bwd = lambda kw: bwd_symbol(kw["compact"])  # noqa: E731
     with Recorder([(fused_sa, "sa_pair_pool_winners", "sa_pair_pool_winners_launch"),
                    (fused_sa, "sa_pool_bwd", bwd),
                    (fused_sa, "sa_prep_bwd", "sa_prep_bwd_launch")]) as rec:
@@ -1045,7 +1169,7 @@ def train_phase(cfg):
     print(f"stage ms of one training step: forward {t_fwd:.2f}, loss (matching included) "
           f"{t_loss:.2f}, backward {t_bwd:.2f}, optimizer {t_opt:.2f}")
     del ends, loss
-    profile(lambda: step(state, batch), "training step")
+    profile(lambda: step(state, batch), "training step", also=("pool_bwd", "reduce_records"))
     return rows, launches, state, step, batch
 
 
@@ -1193,7 +1317,7 @@ def main() -> int:
             keep = "warning" in line or "registers" in line or "spill" in line
             if keep and "C7519" not in line:
                 print(f"  nvcc {name}: {line.strip()}")
-    check_pool_build(logs["sa_pair_pool"], build)
+    check_pool_build(logs, build)
 
     cfg = ModelConfig(use_bf16=True)
 
@@ -1204,6 +1328,7 @@ def main() -> int:
         return out
 
     phase("pool ties", pool_tie_check)
+    phase("pool backward edges", pool_bwd_edge_check)
     with radius_mode("pair"):
         phase("tiny model", small_model_check, cfg)
         phase("tiny training step", small_train_check, cfg)

@@ -94,7 +94,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
+
+using namespace wg;
 
 constexpr int kWarpgroups = 3;  // centers taken in turn: 6 / 5 / 5 of the 16
 constexpr int kThreads = 128 * kWarpgroups;
@@ -127,10 +131,6 @@ struct Layout {
 
 enum D2 { kPair, kMxu, kPre };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
 }
@@ -139,53 +139,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-// bf16x2 relu(a + b), the sum rounded once to bf16
-__device__ __forceinline__ uint32_t add_relu_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t s, r;
-  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(s) : "r"(a), "r"(b));
-  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(s), "r"(0u));
-  return r;
-}
-
-// (lo, hi) -> bf16x2, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
-// wgmma descriptor of a K-major operand in the no-swizzle core-matrix layout:
-// lbo = bytes between the two core matrices of a k16 step, sbo = bytes between
-// 8-row groups along N.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int n>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(n) : "memory");
-}
-
-// Keeps the compiler from moving register reads or writes across an
-// asynchronous wgmma (CUTLASS's warpgroup_fence_operand).
-template <int n>
-__device__ __forceinline__ void fence_regs(float (&r)[n]) {
-#pragma unroll
-  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int n>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[n]) {
-#pragma unroll
-  for (int i = 0; i < n; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 #define EDA_D8(i)                                                                       \
@@ -239,23 +192,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 #undef EDA_D8
-
-// Stage a row-major (K, N) bf16 matrix as its transpose in the K-major
-// no-swizzle core-matrix layout: core (n/8, k/8) at ((n/8) * K/8 + k/8) * 64
-// elements, element (n % 8) * 8 + k % 8 inside it.
-__device__ __forceinline__ void stage_kmajor(uint16_t* dst, const uint16_t* __restrict__ src,
-                                             int K, int N) {
-  for (int i = threadIdx.x; i < K * N / 8; i += kThreads) {
-    const int n = i % N, kb = i / N;
-    const uint16_t* s = src + (size_t)(8 * kb) * N + n;
-    uint32_t w[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      w[e] = uint32_t(s[2 * e * N]) | (uint32_t(s[(2 * e + 1) * N]) << 16);
-    *reinterpret_cast<uint4*>(dst + ((size_t)(n / 8) * (K / 8) + kb) * 64 + (n % 8) * 8) =
-        make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
 
 // The larger of (va, qa) and (vb, qb): the larger value, then the larger q.
 template <bool WIN>
@@ -446,8 +382,8 @@ sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xy
     }
     // the first stage: weights, vectors and centers, while A is on its way
     if (st == 0) {
-      stage_kmajor(w2s, w2, C1, C2);
-      stage_kmajor(w3s, w3, C2, C3);
+      stage_kmajor<kThreads>(w2s, w2, C1, C2);
+      stage_kmajor<kThreads>(w3s, w3, C2, C3);
       for (int i = tid; i < C2; i += kThreads) {
         b2s[i] = b2[i];
         s2s[i] = s2[i];

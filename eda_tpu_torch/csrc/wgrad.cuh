@@ -1,5 +1,6 @@
-// Weight gradients as split-row outer-product sums, shared by the backward
-// kernels (sa_prep_bwd.cu, sa_pair_pool_bwd.cu):
+// Weight gradients as split-row outer-product sums on CUDA cores, used by the
+// SA prep backward (sa_prep_bwd.cu, dW1). The pair-pool backward
+// (sa_pair_pool_bwd.cu) forms its weight gradients on the tensor cores instead.
 //
 //   out[k][c] = sum over valid rows r of X[r][k] * Y[r][c]        (f32 sums)
 //
@@ -11,9 +12,9 @@
 // reduce_partials adds the partials in chunk order (second pass): no atomics,
 // and the result does not depend on the schedule.
 //
-// A row r is valid when counts is null, or when (r % cap) < counts[r / cap]:
-// the pair-pool backward stores each center's live rows at the front of its
-// cap-row slot range.
+// A row r is valid when counts is null, or when (r % cap) < counts[r / cap]
+// (rows kept at the front of cap-row slot ranges; the prep backward passes
+// null).
 //
 // First pass layout: CTA (chunk, k-tile of 32) with 256 threads; thread t owns
 // k = 32 * tile + t / 8 and the channels c = t % 8 + 8 j. Rows stream through

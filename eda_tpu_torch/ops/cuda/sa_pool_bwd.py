@@ -35,10 +35,10 @@ from eda_tpu_torch.ops.cuda.build import Kernel, ptr, register, require_cuda
 from eda_tpu_torch.ops.cuda.sa_kernel import BLOCK, window_starts
 from eda_tpu_torch.ops.cuda.sa_prep import EPS, bf16_round
 
-ROWS_PER_CHUNK = 4096  # pair rows per weight-gradient partial (csrc/wgrad.cuh)
+WIDTHS = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128, 256))  # (c1, c2, c3) taken
 PLAIN_MAX_ELEMS = 1 << 23  # (center, row, channel) elements the plain version holds at once
 
-_ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,) * 13
+_ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,) * 4
 COMPACT_KERNEL = register(Kernel(
     "sa_pair_pool_bwd", "sa_pool_bwd_compact_launch", _ARGTYPES,
     replaces="eda_tpu/ops/pallas/sa_kernel.py:649",
@@ -159,30 +159,24 @@ def sa_pool_bwd(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, *,
     require_cuda(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3)
     if A.dtype != torch.bfloat16 or b_c.dtype != torch.bfloat16:
         raise ValueError("sa_pool_bwd takes bf16 A and b_c")
-    if max(c1, c2) > 128 or c3 > 256 or w2.shape != (c1, c2):
-        raise ValueError(f"sa_pool_bwd kernel takes c1, c2 <= 128 and c3 <= 256, "
+    if (c1, c2, c3) not in WIDTHS or w2.shape != (c1, c2):
+        raise ValueError(f"sa_pool_bwd kernel takes the widths {WIDTHS}, "
                          f"got c1={c1}, c2={c2}, c3={c3}")
     if (M % BLOCK or b_c.shape != (B, M, c1) or g.shape != (B, M, c3)
             or winners.shape != (B, M, c3) or starts.shape != (B, M // BLOCK)
             or not 0 < window <= N):
         raise ValueError("sa_pool_bwd input shapes do not agree")
-    slots = B * M * c3
-    n_chunks = -(-slots // ROWS_PER_CHUNK)
+    # one f32 record per CTA (16 centers): [dW2; dW3; db2; ds2; dlb2; db3]
+    n_w2, n_w3 = c1 * c2, c2 * c3
     f32 = dict(dtype=torch.float32, device=A.device)
-    bf = dict(dtype=torch.bfloat16, device=A.device)
     dA = torch.zeros((B, N, c1), **f32)
     dbc = torch.empty((B, M, c1), **f32)
-    dw2, dw3 = torch.empty((c1, c2), **f32), torch.empty((c2, c3), **f32)
-    vec = torch.empty(3 * c2 + c3, **f32)
-    h0, dx = torch.empty((slots, c1), **bf), torch.empty((slots, c2), **bf)
-    h1, d = torch.empty((slots, c2), **bf), torch.empty((slots, c3), **bf)
-    counts = torch.empty((B, M), dtype=torch.int32, device=A.device)
-    vec_partial = torch.empty((B * M // BLOCK, 3 * c2 + c3), **f32)
-    w2_partial = torch.empty((n_chunks, c1, c2), **f32)
-    w3_partial = torch.empty((n_chunks, c2, c3), **f32)
+    out = torch.empty(n_w2 + n_w3 + 3 * c2 + c3, **f32)
+    records = torch.empty((B * M // BLOCK, out.numel()), **f32)
     kernel = COMPACT_KERNEL if compact else WINDOW_KERNEL
     kernel(ptr(A), ptr(b_c), ptr(g), ptr(winners), ptr(starts), ptr(w2), ptr(b2), ptr(s2),
-           ptr(lb2), ptr(w3), B, N, M, c1, c2, c3, window, ROWS_PER_CHUNK,
-           ptr(dA), ptr(dbc), ptr(dw2), ptr(dw3), ptr(vec), ptr(h0), ptr(dx), ptr(h1),
-           ptr(d), ptr(counts), ptr(vec_partial), ptr(w2_partial), ptr(w3_partial))
+           ptr(lb2), ptr(w3), B, N, M, c1, c2, c3, window, ptr(dA), ptr(dbc), ptr(out),
+           ptr(records))
+    dw2, dw3 = out[:n_w2].view(c1, c2), out[n_w2:n_w2 + n_w3].view(c2, c3)
+    vec = out[n_w2 + n_w3:]
     return (dA, dbc, dw2, vec[:c2], vec[c2:2 * c2], vec[2 * c2:3 * c2], dw3, vec[3 * c2:])

@@ -20,7 +20,12 @@ wrong mask and accept a right one, so they run here on small CPU inputs
   the pool tie check's input makes every in-radius pair of a center tie, so
   that the plain winners are the tie rule's, with -1e9 rows and clamped
   windows, also at a window wider than 128 points; ``check_pool_build``
-  refuses spills and a pool kernel without HGMMA.
+  refuses spills and a GEMM kernel without HGMMA in the pool's library and
+  in its backward's;
+* ``bwd_edge_inputs`` holds the pool backward's edge cases: centers with one
+  live row carrying all c3 channels and with c3 rows, blocks with no live
+  row, compact winners outside the window, windows clamped at N - W; and
+  ``center_rows`` counts the rows the kernel packs.
 """
 
 import numpy as np
@@ -195,17 +200,54 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
     ok_log = ("ptxas info    : Used 178 registers\n"
               "   8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
     spill_log = "   8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads"
+    ok = {"sa_pair_pool": ok_log, "sa_pair_pool_bwd": ok_log, "fps": spill_log}
     monkeypatch.setattr(chip_smoke, "hgmma_counts", lambda lib: None)
-    chip_smoke.check_pool_build(ok_log, FakeBuild)
-    assert "not checked" in capsys.readouterr().out
-    with pytest.raises(AssertionError, match="spill"):
-        chip_smoke.check_pool_build(spill_log, FakeBuild)
-    monkeypatch.setattr(chip_smoke, "hgmma_counts",
-                        lambda lib: {"_Z19sa_pair_pool_kernelILi16E": 0, "_Z3fps": 0})
-    with pytest.raises(AssertionError, match="HGMMA"):
-        chip_smoke.check_pool_build(ok_log, FakeBuild)
-    monkeypatch.setattr(chip_smoke, "hgmma_counts",
-                        lambda lib: {"_Z19sa_pair_pool_kernelILi16E": 24, "_Z3fps": 0})
-    chip_smoke.check_pool_build(ok_log, FakeBuild)
-    assert "24 HGMMA" in capsys.readouterr().out
+    chip_smoke.check_pool_build(ok, FakeBuild)
+    assert capsys.readouterr().out.count("not checked") == 2
+    for source in ("sa_pair_pool", "sa_pair_pool_bwd"):  # a spill in either library
+        with pytest.raises(AssertionError, match="spill"):
+            chip_smoke.check_pool_build({**ok, source: spill_log}, FakeBuild)
+    sass = {"sa_pair_pool": {"_Z19sa_pair_pool_kernelILi16E": 24, "_Z3fps": 0},
+            "sa_pair_pool_bwd": {"_Z14pool_bwd_tilesILi16E": 12, "_Z14pool_bwd_tilesILi32E": 0,
+                                 "_Z14reduce_records": 0}}
+    monkeypatch.setattr(chip_smoke, "hgmma_counts", lambda lib: sass[lib])
+    with pytest.raises(AssertionError, match="sa_pair_pool_bwd GEMM kernel has no HGMMA"):
+        chip_smoke.check_pool_build(ok, FakeBuild)
+    sass["sa_pair_pool_bwd"]["_Z14pool_bwd_tilesILi32E"] = 16
+    chip_smoke.check_pool_build(ok, FakeBuild)
+    out = capsys.readouterr().out
+    assert "24 HGMMA instructions in 1" in out and "28 HGMMA instructions in 2" in out
+    sass["sa_pair_pool"]["_Z19sa_pair_pool_kernelILi16E"] = 0
+    with pytest.raises(AssertionError, match="sa_pair_pool GEMM kernel has no HGMMA"):
+        chip_smoke.check_pool_build(ok, FakeBuild)
 
+
+@pytest.mark.parametrize("N,M,W,widths", [(256, 64, 128, (16, 16, 32)),
+                                          (512, 128, 64, (16, 16, 32)),
+                                          (640, 64, 256, (32, 32, 64))])
+def test_bwd_edge_inputs_hold_their_edge_cases(N, M, W, widths):
+    args, kw = chip_smoke.bwd_edge_inputs(N=N, M=M, window=W, widths=widths)
+    A, b_c, g, win, starts = args[:5]
+    c3 = widths[2]
+    assert ((win >= 0) & (win < N)).all()
+    start = sa_kernel.window_starts(starts.long(), N, W)
+    assert (start == N - W).any() and (starts > N - W).any()  # clamped windows
+    rel = win.long() - start.repeat_interleave(16, dim=1)[..., None]
+    outside = (g != 0) & ((rel < 0) | (rel >= W))
+    assert outside.any()  # compact winners outside the window
+    for compact in (True, False):
+        ckw = {**kw, "compact": compact}
+        rows = chip_smoke.center_rows(args, ckw)
+        # brute force: distinct live winners (windowed) or live channels (compact)
+        for b, m in ((0, 0), (0, 1), (1, 2), (1, 5), (0, 3 * 16)):
+            live = (g[b, m] != 0) & (compact | ((rel[b, m] >= 0) & (rel[b, m] < W)))
+            want = int(live.sum()) if compact else len(set(win[b, m][live].tolist()))
+            assert rows[b, m] == want
+        assert rows.max() == c3
+        blocks = rows.view(2, -1, 16).sum(-1)
+        assert (blocks == 0).any() and (blocks > 0).any()  # blocks with no live row
+        if not compact:
+            one = rows == 1  # one row carrying all c3 channels
+            assert one.any()
+            assert chip_smoke.live_channels(args, ckw).sum(-1)[one].max() == c3
+    assert chip_smoke.live_rows(args, {**kw, "compact": True})[0] == int((g != 0).sum())
