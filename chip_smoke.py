@@ -4,10 +4,10 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
 
 1. Prints the card's name and power limit and the torch / CUDA versions.
 2. Builds every CUDA kernel from ``eda_tpu_torch/csrc`` (one nvcc per source,
-   all started at once) and prints the build time. The pair pool's kernels
-   and its backward's must spill no register and, where the toolkit has
-   ``cuobjdump``, every GEMM kernel of both must hold HGMMA (``wgmma``)
-   instructions; the counts are printed.
+   all started at once) and prints the build time. The pair pool's kernels,
+   its backward's and the prep backward's must spill no register and, where
+   the toolkit has ``cuobjdump``, every GEMM kernel of the three must hold
+   HGMMA (``wgmma``) instructions; the counts are printed.
    Then the pool tie check: all six pool variants (``pair``, ``mxu``,
    ``pre``, each with and without winners) on a full-width SA2 input with
    W3 = 0 and distinct b3, where every in-radius pair of a center gives b3
@@ -24,6 +24,14 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    outside the window, windows clamped at N - W) at SA2's widths with W =
    256 and 512, SA1's with W = 2048 and the tiny SA1 triple, both variants
    at each, within the training step's tolerances.
+   Then the FPS edge check: K1 bit-exact against its plain version, at the
+   cluster size it picks and at 1, 2, 4 and 8 CTAs a row, on
+   ``fps_edge_inputs`` (duplicated points and equal-distance ties,
+   zero-padded tails and an all-padding row, 20 000 points for the scratch
+   variant, N = 1001 and 8191). And the prep backward edge check: K7 within
+   2% of each output's largest value on ``prep_bwd_edge_inputs`` (row counts
+   that are no multiple of 64, the tiny widths, zero dA, large-magnitude
+   points), its weight and vector gradients bit-identical on a second launch.
 3. Checks a small grounder (``ModelConfig(use_bf16=True).tiny()``) on the card
    against the same weights and inputs on the CPU, where every kernel wrapper
    runs its plain PyTorch version: the serving forward, then one training step
@@ -39,7 +47,8 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    with identical -1e9 rows; times both with CUDA events, per SA layer, and
    prints per pool layer the TFLOP/s over the dense window work and the share
    of (center, 64-point) tiles with no pair in radius, which the kernel
-   skips. Then
+   skips; runs each FPS call at 1, 2, 4 and 8 CTAs a row (bit-exact) and
+   prints its ms and microseconds per serial step. Then
    serves five batches of 8 scenes with every launch counter set to 0 first:
    each batch must advance K1, K2 and K3 by 4 (one launch per SA layer) and
    no training kernel, and give a finite (8, 256, 3) ``last_center``. Prints ms
@@ -49,7 +58,7 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
 5. Training. Records the training kernels' inputs (K4 pair pool with winners,
    K5 compact and K6 windowed pair-pool backward, K7 prep backward) in one
    full-width training step at batch 8 and holds each against its plain
-   version; times both per SA layer. K5 and K6 must give db_c and every
+   version; times both per SA layer. K5, K6 and K7 must give db_c and every
    weight and vector gradient bit for bit again on a second launch; per
    backward layer the live pair rows, the TFLOP/s over the live-row work and
    the peak memory of one call are printed. Then runs five training steps from fresh
@@ -565,7 +574,7 @@ def check_kernels(calls, symbols, layers: dict, compare_pair: bool = False) -> l
             err = check_kernel(symbol, got, want, layer)
             if compare_pair and symbol != MASK:
                 against_pair(symbol, args, kw, got, layer)
-            if symbol in POOL_BWD:
+            if symbol in POOL_BWD or symbol == "sa_prep_bwd_launch":
                 again = kernel_fn(*args, **kw)
                 if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
                     raise AssertionError(f"{name} SA{layer}: db_c or a weight or vector "
@@ -629,17 +638,18 @@ def hgmma_counts(library: Path):
 
 
 # tensor-core kernel libraries: source -> the name of its GEMM kernels
-GEMM_KERNELS = {"sa_pair_pool": "sa_pair_pool_kernel", "sa_pair_pool_bwd": "pool_bwd_tiles"}
+GEMM_KERNELS = {"sa_pair_pool": "sa_pair_pool_kernel", "sa_pair_pool_bwd": "pool_bwd_tiles",
+                "sa_prep_bwd": "prep_bwd_tiles"}
 
 
 def check_pool_build(logs: dict, build) -> None:
-    """The pair pool's forward and backward kernels spill nothing and run their
-    products on tensor cores (HGMMA in every GEMM kernel's SASS, where
-    cuobjdump exists)."""
+    """The pair pool's forward and backward kernels and the prep backward
+    spill nothing and run their products on tensor cores (HGMMA in every GEMM
+    kernel's SASS, where cuobjdump exists)."""
     spills = [line.strip() for source in GEMM_KERNELS for line in logs[source].splitlines()
               if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
     if spills:
-        raise AssertionError(f"pool kernels spill registers: {spills}")
+        raise AssertionError(f"tensor-core kernels spill registers: {spills}")
     for source, kernel in GEMM_KERNELS.items():
         counts = hgmma_counts(build._target(source))
         if counts is None:
@@ -829,6 +839,126 @@ def pool_bwd_edge_check() -> None:
                   f"{'compact' if compact else 'windowed'}: within tolerance; live rows per "
                   f"center {int(rows.min())}-{int(rows.max())}, {empty} blocks without a live "
                   f"row, {int(rows.sum())} rows in all")
+
+
+# FPS edge inputs: CPU clouds and their sample counts
+def fps_edge_inputs(seed=0) -> dict:
+    """name -> ((B, N, 3) f32 CPU cloud, npoint): the FPS kernel's edge cases.
+
+    Points on a 4 x 4 x 4 grid, each twice (duplicates, and many points at
+    equal distance from every pick); a row with a zero-padded tail, an
+    all-padding row and a row padded from 700; 20 000 points (the kernel's
+    scratch variant: too many for registers); N = 1001 and 8191, no multiple
+    of 32 or of any cluster size."""
+    g = torch.Generator().manual_seed(seed)
+    grid = torch.randint(0, 4, (2, 500, 3), generator=g).float() - 1.5
+    padded = torch.rand(3, 1500, 3, generator=g) * 8 - 4
+    padded[0, 1200:] = 0
+    padded[1] = 0
+    padded[2, 700:] = 0
+    return {
+        "duplicates and equal-distance ties, N=1000": (torch.cat([grid, grid], 1), 300),
+        "zero-padded tails and an all-padding row, N=1500": (padded, 400),
+        "N=20000, the scratch variant": (torch.rand(2, 20000, 3, generator=g) * 8 - 4, 256),
+        "N=1001": (torch.rand(3, 1001, 3, generator=g) * 8 - 4, 333),
+        "N=8191": (torch.rand(2, 8191, 3, generator=g) * 8 - 4, 1024),
+    }
+
+
+FPS_CLUSTERS = (1, 2, 4, 8)
+
+
+@torch.no_grad()
+def fps_edge_check() -> None:
+    """The FPS kernel bit-exact against its plain version on every
+    ``fps_edge_inputs`` case, at the cluster size it picks and at each of
+    ``FPS_CLUSTERS``."""
+    from eda_tpu_torch.ops.cuda import fps
+
+    for name, (xyz, npoint) in fps_edge_inputs().items():
+        xyz = xyz.cuda()
+        want = fps.fps_plain(xyz, npoint)
+        for cluster in (0,) + FPS_CLUSTERS:
+            got = fps.fps_cluster(xyz, npoint, cluster)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"fps edge check {name}: cluster {cluster} differs from "
+                                     f"the plain version")
+        print(f"fps edge check {name}: bit-exact at the kernel's cluster size "
+              f"({fps.cluster_size(xyz.shape[1])}) and at {FPS_CLUSTERS}")
+
+
+@torch.no_grad()
+def fps_sweep(calls) -> None:
+    """Each FPS call of the forward at every cluster size: bit-exact against
+    the plain version; ms and microseconds per serial step."""
+    from eda_tpu_torch.ops.cuda import fps
+
+    for layer, (args, kw) in enumerate(calls, 1):
+        xyz, npoint = args
+        want = fps.fps_plain(xyz, npoint)
+        parts = []
+        for cluster in FPS_CLUSTERS:
+            got = fps.fps_cluster(xyz, npoint, cluster)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"fps sweep SA{layer}: cluster {cluster} differs from the "
+                                     f"plain version")
+            ms = cuda_ms(lambda: fps.fps_cluster(xyz, npoint, cluster), 20)
+            parts.append(f"{cluster}: {ms:.4f} ms, {1e3 * ms / (npoint - 1):.3f} us/step")
+        print(f"fps sweep SA{layer} (B={xyz.shape[0]}, N={xyz.shape[1]}, M={npoint}), CTAs a "
+              f"row {'; '.join(parts)}; the kernel takes {fps.cluster_size(xyz.shape[1])}")
+
+
+def prep_bwd_edge_inputs(seed=0) -> dict:
+    """name -> ((pts, dA, w1, b1, scale) CPU tensors, radius): the prep
+    backward's edge cases. Row counts that are no multiple of the kernel's
+    64-row tile at SA1's and SA3's widths; the tiny config's widths (in_dim
+    6 / 35 / 67, c1 16 / 32); a zero cotangent; points of large magnitude."""
+    g = torch.Generator().manual_seed(seed)
+
+    def case(B, N, in_dim, c1, radius, scale_xyz=4.0, scale_f=1.0, zero=False):
+        pts = torch.cat([(torch.rand(B, N, 3, generator=g) * 2 - 1) * scale_xyz,
+                         torch.randn(B, N, in_dim - 3, generator=g) * scale_f], -1)
+        dA = torch.zeros(B, N, c1) if zero else torch.randn(B, N, c1, generator=g)
+        w1 = torch.randn(in_dim, c1, generator=g) * in_dim ** -0.5
+        b1 = torch.randn(c1, generator=g) * 0.1
+        scale = 1 + 0.1 * torch.randn(c1, generator=g)
+        return (pts, dA.bfloat16(), w1, b1, scale), radius
+
+    return {
+        "SA1 widths (6, 64), 1000 rows": case(1, 1000, 6, 64, 0.2),
+        "SA3 widths (259, 128), 3 x 77 rows": case(3, 77, 259, 128, 0.8),
+        "tiny SA1 widths (6, 16), 2 x 1000 rows": case(2, 1000, 6, 16, 0.2),
+        "tiny SA2 widths (35, 32), 2 x 250 rows": case(2, 250, 35, 32, 0.4),
+        "tiny SA3 widths (67, 32), 2 x 100 rows": case(2, 100, 67, 32, 0.8),
+        "zero dA, SA2 widths (131, 128)": case(2, 300, 131, 128, 0.4, zero=True),
+        "large-magnitude points, SA1 widths": case(1, 4100, 6, 64, 0.2, 500.0, 50.0),
+    }
+
+
+@torch.no_grad()
+def prep_bwd_edge_check() -> None:
+    """K7 against its plain version on every ``prep_bwd_edge_inputs`` case,
+    within ``PREP_BWD_REL``, and its weight and vector gradients bit-identical
+    on a second launch."""
+    from eda_tpu_torch.ops.cuda import sa_prep
+
+    for name, (args, radius) in prep_bwd_edge_inputs().items():
+        args = tuple(a.cuda() for a in args)
+        got = sa_prep.sa_prep_bwd(*args, radius=radius)
+        again = sa_prep.sa_prep_bwd(*args, radius=radius)
+        want = sa_prep.sa_prep_bwd_plain(*args, radius=radius)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        if max(errs) > PREP_BWD_REL or not all(torch.isfinite(a).all() for a in got):
+            raise AssertionError(f"prep backward edge check {name}: {errs}")
+        if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
+            raise AssertionError(f"prep backward edge check {name}: a weight or vector "
+                                 f"gradient differs between two launches")
+        print(f"prep backward edge check {name}: errors relative to each output's largest "
+              f"value {[f'{e:.2e}' for e in errs]}; dW1, db1, dscale, dlnb bit-identical on a "
+              f"second launch")
 
 
 def small_model_check(root_cfg) -> None:
@@ -1085,6 +1215,7 @@ def serving_phase(cfg):
             model(inputs)
     torch.cuda.synchronize()
     rows = check_kernels(rec.calls, SERVING, {s: 4 for s in SERVING})
+    fps_sweep(rec.calls["fps_launch"])
     del rec
 
     batches = [inputs] + [make_batch(cfg, range(BATCH * i, BATCH * (i + 1)), "cuda")
@@ -1329,6 +1460,8 @@ def main() -> int:
 
     phase("pool ties", pool_tie_check)
     phase("pool backward edges", pool_bwd_edge_check)
+    phase("fps edges", fps_edge_check)
+    phase("prep backward edges", prep_bwd_edge_check)
     with radius_mode("pair"):
         phase("tiny model", small_model_check, cfg)
         phase("tiny training step", small_train_check, cfg)

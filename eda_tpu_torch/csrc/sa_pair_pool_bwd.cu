@@ -132,166 +132,6 @@ struct Layout {
   }
 };
 
-#define EDA_D8(i)                                                                       \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),          \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// D (64 x N, f32) (+)= A (64 x 16) @ B (16 x N), both bf16 in shared memory;
-// TA / TB: the operand is MN-major. d[4j + e] is row g (e < 2) or g + 8,
-// column 8j + 2t + e % 2 (g = lane / 4, t = lane % 4, rows from 16 * warp).
-template <int N, int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  if constexpr (N == 8) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
-  } else if constexpr (N == 16) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
-        : EDA_D8(0)
-        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
-  } else if constexpr (N == 32) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, %19, %20;\n}\n"
-        : EDA_D8(0), EDA_D8(8)
-        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
-  } else if constexpr (N == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, %35, %36;\n}\n"
-        : EDA_D8(0), EDA_D8(8), EDA_D8(16), EDA_D8(24)
-        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
-  } else {
-    static_assert(N == 128, "wgmma widths");
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, %67, %68;\n}\n"
-        : EDA_D8(0), EDA_D8(8), EDA_D8(16), EDA_D8(24), EDA_D8(32), EDA_D8(40), EDA_D8(48),
-          EDA_D8(56)
-        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
-  }
-}
-#undef EDA_D8
-
-// A 64-row product over the tile's rows (K = 64, four k16 steps) of two
-// MN-major operands: X^T (M = 64 columns of X from m0) times Y (N columns
-// from n0), X and Y (64 x XC, 64 x YC) in the core layout.
-template <int N>
-__device__ __forceinline__ void wgmma_rows(float (&d)[N / 2], uint32_t x, int XC, int m0,
-                                           uint32_t y, int YC, int n0, int accumulate) {
-#pragma unroll
-  for (int s = 0; s < kRows / 16; ++s)
-    wgmma_ss<N, 1, 1>(d, make_desc(x + (m0 / 8) * 128 + s * 32 * XC, XC * 16, 128),
-                      make_desc(y + (n0 / 8) * 128 + s * 32 * YC, YC * 16, 128),
-                      accumulate || s > 0);
-}
-
-// The value, opaque to the compiler: a descriptor built from it is built
-// where it is used, not hoisted ahead and held in registers across phases.
-__device__ __forceinline__ uint32_t opaque(uint32_t v) {
-  asm volatile("" : "+r"(v));
-  return v;
-}
-
-// Offset, in elements, of (r, c) in the core layout of a matrix of `cols` columns.
-__device__ __forceinline__ int core_at(int r, int c, int cols) {
-  return ((r >> 3) * (cols >> 3) + (c >> 3)) * 64 + (r & 7) * 8 + (c & 7);
-}
-
-// One step of the transposing butterfly sum: lanes whose bit `m` is clear keep
-// the first n/2 sums, the others the last n/2.
-template <int n>
-__device__ __forceinline__ void sum_step(float* v, int m, bool up) {
-#pragma unroll
-  for (int i = 0; i < n / 2; ++i) {
-    const float send = up ? v[i] : v[i + n / 2];
-    const float keep = up ? v[i + n / 2] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, m);
-  }
-}
-
-// Column sums over a warp's 16 rows: v[jj] (jj < NV) is the thread's two
-// rows summed at its column jj (column 8 (jj / 2) + 2t + jj % 2 of the
-// thread's columns); afterwards an owning lane (col_owner) adds the sum of
-// column col_base(lane) + i to run[i], i < col_regs(NV).
-template <int NV>
-__device__ __forceinline__ void column_sums(float (&v)[NV], int lane, float* run) {
-  sum_step<NV>(v, 16, lane & 16);
-  if constexpr (NV >= 8) {
-    sum_step<NV / 2>(v, 8, lane & 8);
-    sum_step<NV / 4>(v, 4, lane & 4);
-#pragma unroll
-    for (int i = 0; i < NV / 8; ++i) run[i] += v[i];
-  } else if constexpr (NV == 4) {
-    sum_step<2>(v, 8, lane & 8);
-    run[0] += v[0] + __shfl_xor_sync(0xffffffffu, v[0], 4);
-  } else {
-    static_assert(NV == 2, "column sums");
-    const float s = v[0] + __shfl_xor_sync(0xffffffffu, v[0], 8);
-    run[0] += s + __shfl_xor_sync(0xffffffffu, s, 4);
-  }
-}
-__host__ __device__ constexpr int col_regs(int nv) { return nv >= 8 ? nv / 8 : 1; }
-template <int NV>
-__device__ __forceinline__ int col_base(int lane) {
-  if constexpr (NV >= 8)
-    return ((lane & 16) ? NV / 2 : 0) + ((lane & 8) ? NV / 4 : 0) + ((lane & 4) ? NV / 8 : 0);
-  else if constexpr (NV == 4)
-    return ((lane & 16) ? 2 : 0) + ((lane & 8) ? 1 : 0);
-  else
-    return (lane & 16) ? 1 : 0;
-}
-template <int NV>
-__device__ __forceinline__ bool col_owner(int lane) {
-  return NV >= 8 || (NV == 4 ? !(lane & 4) : !(lane & 12));
-}
-
-// A column sum over the tile of a thread's CW columns (ds2 with PROD: dln *
-// xhat; dlb2, db2 without): the thread's two rows, then the butterfly over
-// the warp's rows, half of the columns at a time from 64 columns on.
-template <int CW>
-struct Fold {
-  static constexpr int NV = CW / 4, NH = NV >= 16 ? 2 : 1, NVH = NV / NH;
-  static constexpr int NRH = col_regs(NVH), NR = NH * NRH;
-  // the column (of the thread's CW) of run[i]
-  static __device__ __forceinline__ int column(int i, int lane, int t4) {
-    const int jj = (i / NRH) * NVH + col_base<NVH>(lane) + i % NRH;
-    return 8 * (jj / 2) + 2 * t4 + (jj & 1);
-  }
-};
-template <int CW, bool PROD>
-__device__ __forceinline__ void fold_columns(const float (&a)[CW / 2], const float (&x)[CW / 2],
-                                             int lane, float* run) {
-  using F = Fold<CW>;
-#pragma unroll
-  for (int h = 0; h < F::NH; ++h) {
-    float v[F::NVH];
-#pragma unroll
-    for (int jj = 0; jj < F::NVH; ++jj) {
-      const int i = 4 * ((h * F::NVH + jj) / 2) + (jj & 1);
-      v[jj] = PROD ? a[i] * x[i] + a[i + 2] * x[i + 2] : a[i] + a[i + 2];
-    }
-    column_sums<F::NVH>(v, lane, run + h * F::NRH);
-  }
-}
-
 __device__ __forceinline__ uint32_t hash_slot(int rel) {
   return (uint32_t(rel) * 2654435761u) >> 23;  // 9 bits: kHash slots
 }
@@ -833,29 +673,6 @@ pool_bwd_tiles(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
   for (int i = tid; i < kCenters * C1; i += kThreads) dbc[cm0 * C1 + i] = dbcs[i];
 }
 
-// out[e] = sum over i < n of records[i][e], in order: 8 fixed groups of
-// records summed in parallel, then the groups in order.
-__global__ void __launch_bounds__(256)
-reduce_records(const float* __restrict__ records, int n, int P, float* __restrict__ out) {
-  __shared__ float part[8][32];
-  const int e = blockIdx.x * 32 + threadIdx.x % 32;
-  const int grp = threadIdx.x / 32;
-  const int i0 = (int)((long long)n * grp / 8), i1 = (int)((long long)n * (grp + 1) / 8);
-  float s = 0.f;
-  if (e < P) {
-#pragma unroll 8
-    for (int i = i0; i < i1; ++i) s += records[(size_t)i * P + e];
-  }
-  part[grp][threadIdx.x % 32] = s;
-  __syncthreads();
-  if (grp == 0 && e < P) {
-    float t = 0.f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) t += part[k][threadIdx.x];
-    out[e] = t;
-  }
-}
-
 template <int C1, int C2, int C3, bool COMPACT>
 cudaError_t launch(const uint16_t* A, const uint16_t* bc, const float* g, const int* win,
                    const int* starts, const uint16_t* w2, const float* b2, const float* s2,
@@ -876,7 +693,7 @@ cudaError_t launch(const uint16_t* A, const uint16_t* bc, const float* g, const 
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  reduce_records<<<(P + 31) / 32, 256, 0, s>>>(records, n_rec, P, wout);
+  reduce_records<8><<<(P + 31) / 32, 256, 0, s>>>(records, n_rec, P, wout);
   return cudaGetLastError();
 }
 

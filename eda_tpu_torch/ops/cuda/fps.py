@@ -19,7 +19,7 @@ BIG = 1e10
 
 KERNEL = register(Kernel(
     "fps", "fps_launch",
-    (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p, ctypes.c_void_p),
     replaces="eda_tpu/ops/pallas/fps.py:116",
 ))
@@ -53,15 +53,28 @@ def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """FPS of a (B, N, 3) cloud: the kernel on CUDA, the plain version on the CPU."""
     if xyz.device.type == "cpu":
         return fps_plain(xyz, npoint)
+    return fps_cluster(xyz, npoint, 0)
+
+
+def fps_cluster(xyz: torch.Tensor, npoint: int, cluster: int) -> torch.Tensor:
+    """The FPS kernel with ``cluster`` CTAs a row (1, 2, 4 or 8; 0: the
+    kernel's choice for N, ``cluster_size``)."""
     require_cuda(xyz)
     if xyz.dtype != torch.float32 or xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"fps takes (B, N, 3) float32, got {tuple(xyz.shape)} {xyz.dtype}")
     B, N, _ = xyz.shape
     if N < 1 or npoint < 1:
         raise ValueError(f"fps needs N >= 1 and npoint >= 1, got N={N}, npoint={npoint}")
+    if cluster not in (0, 1, 2, 4, 8):
+        raise ValueError(f"fps takes clusters of 1, 2, 4 or 8 CTAs, got {cluster}")
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     scratch = None
     if c_function("fps", "fps_needs_scratch", [ctypes.c_int])(N):
         scratch = torch.empty((B, N), dtype=torch.float32, device=xyz.device)
-    KERNEL(ptr(xyz), B, N, npoint, ptr(out), ptr(scratch))
+    KERNEL(ptr(xyz), B, N, npoint, cluster, ptr(out), ptr(scratch))
     return out
+
+
+def cluster_size(n_points: int) -> int:
+    """The CTAs a row that the kernel takes for ``n_points``-point clouds."""
+    return c_function("fps", "fps_cluster_size", [ctypes.c_int])(n_points)

@@ -22,7 +22,6 @@ import torch
 from eda_tpu_torch.ops.cuda.build import Kernel, c_function, ptr, register, require_cuda
 
 EPS = 1e-5
-ROWS_PER_CHUNK = 4096  # rows per dW1 partial (csrc/wgrad.cuh)
 
 KERNEL = register(Kernel(
     "sa_prep", "sa_prep_launch",
@@ -34,8 +33,8 @@ KERNEL = register(Kernel(
 BWD_KERNEL = register(Kernel(
     "sa_prep_bwd", "sa_prep_bwd_launch",
     (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int)
-    + (ctypes.c_void_p,) * 6,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float)
+    + (ctypes.c_void_p,) * 3,
     replaces="eda_tpu/ops/pallas/sa_prep.py:178",
 ))
 
@@ -149,16 +148,13 @@ def sa_prep_bwd(pts, dA, w1, b1, scale, *, radius: float):
         raise ValueError(f"sa_prep_bwd kernel takes c1 <= 256 and in_dim <= {max_in}, "
                          f"got c1={c1}, in_dim={in_dim}")
     rows = B * N
-    n_ctas = c_function("sa_prep_bwd", "sa_prep_bwd_ctas", [ctypes.c_longlong])(rows)
-    n_chunks = -(-rows // ROWS_PER_CHUNK)
+    n_ctas = c_function("sa_prep_bwd", "sa_prep_bwd_ctas",
+                        [ctypes.c_longlong, ctypes.c_int, ctypes.c_int])(rows, in_dim, c1)
     f32 = dict(dtype=torch.float32, device=pts.device)
     dpts = torch.empty((B, N, in_dim), **f32)
-    dw1 = torch.empty((in_dim, c1), **f32)
-    vec = torch.empty((3, c1), **f32)
-    dx_rows = torch.empty((rows, c1), dtype=torch.bfloat16, device=pts.device)
-    vec_partial = torch.empty((n_ctas, 3 * c1), **f32)
-    w_partial = torch.empty((n_chunks, in_dim, c1), **f32)
+    wout = torch.empty(((in_dim + 3) * c1,), **f32)
+    records = torch.empty((n_ctas, (in_dim + 3) * c1), **f32)
     BWD_KERNEL(ptr(pts), ptr(dA), rows, in_dim, c1, ptr(w1), ptr(b1), ptr(scale),
-               float(radius), ROWS_PER_CHUNK, ptr(dpts), ptr(dw1), ptr(vec), ptr(dx_rows),
-               ptr(vec_partial), ptr(w_partial))
-    return dpts, dw1, vec[0], vec[1], vec[2]
+               float(radius), ptr(dpts), ptr(wout), ptr(records))
+    vec = wout[in_dim * c1:].view(3, c1)
+    return dpts, wout[:in_dim * c1].view(in_dim, c1), vec[0], vec[1], vec[2]

@@ -11,11 +11,18 @@ per-center offset ``b_c``. The pair kernel runs the interior layer and the
 last layer on (center, point) pairs inside a Morton window, and the caller
 maxes in the center's own point and applies the last LayerNorm + ReLU.
 
-The port follows the pair kernel's window semantics on every device: blocks
-of 16 rank-sorted centers, each with a window starting at the midpoint
-center's rank minus W/2, clipped and floored to a multiple of 16. Points must
-arrive Morton-sorted (the data pipeline presorts them), or the window must
-cover the cloud.
+The port follows the reference's choice of path on every device. A window W
+= min(window, N) that is a multiple of min(128, W) runs the kernels, with the
+pair kernel's window semantics: blocks of 16 rank-sorted centers, each with a
+window starting at the midpoint center's rank minus W/2, clipped and floored
+to a multiple of 16. Any other window (e.g. 192, or a dense window over a
+cloud of 50 000 points) runs what the reference falls back to there
+(``eda_tpu/ops/fused_sa.py:576-581``): layer 0 as a bf16 matmul plus bias with
+a two-pass LayerNorm, and ``scan_pool``, the plain twin of the reference's
+``_scan_pool`` (blocks of ``block`` centers, windows around the rank of the
+center at offset block/2, not floored), on the CPU and on CUDA alike, its
+gradients from autograd. Points must arrive Morton-sorted (the data pipeline
+presorts them), or the window must cover the cloud.
 
 With gradients on, the prep and the pool run as autograd functions, as the
 JAX package's ``impl="pallas_train"`` does: the prep forward (K2) with its
@@ -36,6 +43,7 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from eda_tpu_torch.ops.cuda.sa_kernel import (
     BLOCK,
@@ -109,6 +117,74 @@ def layer_norm(x: torch.Tensor, scale, bias, eps: float = 1e-5) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
+def runs_kernels(window: int, n_points: int) -> bool:
+    """Whether a layer runs the kernels: its window W = min(window, N) is a
+    multiple of min(128, W), the reference's test for its Pallas pool."""
+    W = min(window, n_points)
+    return W % min(128, W) == 0
+
+
+def plain_prep(pts: torch.Tensor, w1, b1, scale, lnb, *, radius: float) -> torch.Tensor:
+    """Layer 0 where the reference has no Pallas kernel: bf16(x_in @ W1 + b1),
+    two-pass LayerNorm, bf16. (B, N, 3 + C) raw points -> (B, N, c1) f32
+    holding bf16 values."""
+    xyz = pts[..., :3] / pts.new_tensor(radius)
+    x_in = bf16_round(torch.cat([xyz, pts[..., 3:]], -1))
+    h = bf16_round(bf16_round(x_in @ bf16_round(w1.float())) + bf16_round(b1.float()))
+    return bf16_round(layer_norm(h, scale, lnb))
+
+
+def scan_pool(A, xyz, b_c, cen_xyz, ranks, params: SAParams, *, radius: float, window: int,
+              block: int, dense: bool) -> torch.Tensor:
+    """Plain twin of ``eda_tpu/ops/fused_sa.py:_scan_pool``: the windowed
+    masked-max pair MLP, block by block.
+
+    Blocks of ``block`` rank-sorted centers; block i pairs with the W points
+    from clip(ranks[i * block + block // 2] - W // 2, 0, N - W) (0 if dense).
+    h0 = relu(bf16(A + b_c)); each layer bf16(bf16(h @ W) + bf16(b)); the
+    interior layer's LayerNorm (two-pass) + ReLU in f32, then bf16; the last
+    layer's pre-activations max-pooled over the in-radius pairs (-1e9 where
+    none). Each block is recomputed in the backward, as ``jax.checkpoint``
+    does there.
+
+    Args:
+        A: (B, N, c1) layer-0 projection; b_c / cen_xyz / ranks: (B, M_pad, .)
+            per-center offsets, coordinates and ranks, M_pad a multiple of block.
+
+    Returns:
+        (B, M_pad, c_out) f32 pooled pre-activations in rank order.
+    """
+    B, N, c1 = A.shape
+    kernels, biases, scales, lbiases = params
+    r2 = radius * radius
+
+    def block_compute(a_win, xyz_win, bc_blk, cen_blk):
+        h = torch.relu(bf16_round(a_win[:, None] + bc_blk[:, :, None].float()))
+        for i in (1, 2):
+            h = bf16_round(bf16_round(h @ bf16_round(kernels[i].float()))
+                           + bf16_round(biases[i].float()))
+            if i == 1:
+                h = bf16_round(torch.relu(layer_norm(h, scales[1], lbiases[1])))
+        d2 = ((xyz_win[:, None] - cen_blk[:, :, None]) ** 2).sum(-1)
+        return torch.amax(torch.where((d2 <= r2)[..., None], h, h.new_tensor(-1e9)), dim=2)
+
+    offsets = torch.arange(window, device=A.device)
+    outs = []
+    for lo in range(0, ranks.shape[1], block):
+        if dense:
+            start = torch.zeros_like(ranks[:, 0])
+        else:
+            start = torch.clamp(ranks[:, lo + block // 2] - window // 2, 0, N - window)
+        idx = (start[:, None] + offsets)[..., None]
+        args = (A.gather(1, idx.expand(-1, -1, c1)), xyz.gather(1, idx.expand(-1, -1, 3)),
+                b_c[:, lo:lo + block], cen_xyz[:, lo:lo + block])
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(block_compute, *args, use_reentrant=False))
+        else:
+            outs.append(block_compute(*args))
+    return torch.cat(outs, 1)
+
+
 def window_starts(ranks: torch.Tensor, n_points: int, window: int, dense: bool):
     """(B, M_pad // 16) window starts: midpoint rank of each 16-center block - W/2, clipped."""
     B, m_total = ranks.shape
@@ -137,7 +213,8 @@ def fused_set_abstraction(
         params: SAParams of a three-layer MLP.
         radius: ball radius; window: window length (>= N means dense).
         block: centers are padded to a multiple of ``block`` (the last
-            center's rank repeats), which fixes the 16-center blocks' windows.
+            center's rank repeats), which fixes the 16-center blocks' windows
+            of the kernels and is the block of ``scan_pool``.
 
     Returns:
         (features, ranks): (B, M, C_out) f32 pooled features in ascending
@@ -157,11 +234,14 @@ def fused_set_abstraction(
     ranks = torch.sort(center_idx.long(), dim=1).values
     train = torch.is_grad_enabled() and (
         features.requires_grad or any(p.requires_grad for group in params for p in group))
+    kernels = runs_kernels(window, N)
 
     # per-point projection A = LN([xyz/r ; f] @ W1 + b1), in bf16
     pts = torch.cat([xyz, features], -1).contiguous()
     prep_args = (w1, params.biases[0], params.ln_scales[0], params.ln_biases[0])
-    if train:
+    if not kernels:
+        A = plain_prep(pts, *prep_args, radius=radius)
+    elif train:
         A = _Prep.apply(pts, *prep_args, radius)
     else:
         A = sa_prep(pts, *prep_args, radius=radius)
@@ -178,16 +258,23 @@ def fused_set_abstraction(
         ranks_p = torch.cat([ranks, ranks[:, -1:].expand(-1, m_pad)], 1)
         b_c_p = torch.cat([b_c, b_c.new_zeros(B, m_pad, b_c.shape[-1])], 1)
         cen_p = torch.cat([cen_xyz, cen_xyz[:, -1:].expand(-1, m_pad, -1)], 1)
-    starts = window_starts(ranks_p, N, W, dense)
     k, b, s, lb = params
-    xyz, cen_p = xyz.contiguous(), cen_p.contiguous()
-    mode = resolve_d2_mode()
-    mask = sa_radius_mask(xyz, cen_p, starts, radius=radius, window=W) if mode == "pre" else None
-    pool_args = (A, xyz, b_c_p.contiguous(), cen_p, starts, k[1], b[1], s[1], lb[1], k[2], b[2])
-    if train:
-        outs = _Pool.apply(*pool_args, radius, W, mode, mask)[:, :M]
+    if kernels:
+        starts = window_starts(ranks_p, N, W, dense)
+        xyz, cen_p = xyz.contiguous(), cen_p.contiguous()
+        mode = resolve_d2_mode()
+        mask = (sa_radius_mask(xyz, cen_p, starts, radius=radius, window=W)
+                if mode == "pre" else None)
+        pool_args = (A, xyz, b_c_p.contiguous(), cen_p, starts, k[1], b[1], s[1], lb[1], k[2],
+                     b[2])
+        if train:
+            outs = _Pool.apply(*pool_args, radius, W, mode, mask)[:, :M]
+        else:
+            outs = sa_pair_pool(*pool_args, radius=radius, window=W, d2_mode=mode,
+                                mask=mask)[:, :M]
     else:
-        outs = sa_pair_pool(*pool_args, radius=radius, window=W, d2_mode=mode, mask=mask)[:, :M]
+        outs = scan_pool(A, xyz, b_c_p, cen_p, ranks_p, params, radius=radius, window=W,
+                         block=block, dense=dense)[:, :M]
 
     # The center's own point always lies in its ball, but a block-shared
     # window may miss it: max in the self term, recomputed from its inputs.

@@ -20,12 +20,14 @@ wrong mask and accept a right one, so they run here on small CPU inputs
   the pool tie check's input makes every in-radius pair of a center tie, so
   that the plain winners are the tie rule's, with -1e9 rows and clamped
   windows, also at a window wider than 128 points; ``check_pool_build``
-  refuses spills and a GEMM kernel without HGMMA in the pool's library and
-  in its backward's;
+  refuses spills and a GEMM kernel without HGMMA in the pool's library, in
+  its backward's and in the prep backward's;
 * ``bwd_edge_inputs`` holds the pool backward's edge cases: centers with one
   live row carrying all c3 channels and with c3 rows, blocks with no live
   row, compact winners outside the window, windows clamped at N - W; and
-  ``center_rows`` counts the rows the kernel packs.
+  ``center_rows`` counts the rows the kernel packs;
+* ``fps_edge_inputs`` and ``prep_bwd_edge_inputs`` hold the edge cases their
+  checks name, and the plain versions give defined results on them.
 """
 
 import numpy as np
@@ -36,7 +38,7 @@ import chip_smoke
 from eda_tpu_torch.config import ModelConfig
 from eda_tpu_torch.entry import build_evaluator
 from eda_tpu_torch.eval.grounding import score_and_iou_multi
-from eda_tpu_torch.ops.cuda import sa_kernel, sa_mask
+from eda_tpu_torch.ops.cuda import fps, sa_kernel, sa_mask, sa_prep
 
 RADIUS = float(np.sqrt(0.0913))  # r^2 off the 0.05 grid's d2 values
 T = torch.from_numpy
@@ -200,16 +202,18 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
     ok_log = ("ptxas info    : Used 178 registers\n"
               "   8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
     spill_log = "   8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads"
-    ok = {"sa_pair_pool": ok_log, "sa_pair_pool_bwd": ok_log, "fps": spill_log}
+    ok = {"sa_pair_pool": ok_log, "sa_pair_pool_bwd": ok_log, "sa_prep_bwd": ok_log,
+          "fps": spill_log}
     monkeypatch.setattr(chip_smoke, "hgmma_counts", lambda lib: None)
     chip_smoke.check_pool_build(ok, FakeBuild)
-    assert capsys.readouterr().out.count("not checked") == 2
-    for source in ("sa_pair_pool", "sa_pair_pool_bwd"):  # a spill in either library
+    assert capsys.readouterr().out.count("not checked") == 3
+    for source in ("sa_pair_pool", "sa_pair_pool_bwd", "sa_prep_bwd"):  # a spill in any
         with pytest.raises(AssertionError, match="spill"):
             chip_smoke.check_pool_build({**ok, source: spill_log}, FakeBuild)
     sass = {"sa_pair_pool": {"_Z19sa_pair_pool_kernelILi16E": 24, "_Z3fps": 0},
             "sa_pair_pool_bwd": {"_Z14pool_bwd_tilesILi16E": 12, "_Z14pool_bwd_tilesILi32E": 0,
-                                 "_Z14reduce_records": 0}}
+                                 "_Z14reduce_records": 0},
+            "sa_prep_bwd": {"_Z14prep_bwd_tilesILi64ELb1E": 6, "_Z14reduce_records": 0}}
     monkeypatch.setattr(chip_smoke, "hgmma_counts", lambda lib: sass[lib])
     with pytest.raises(AssertionError, match="sa_pair_pool_bwd GEMM kernel has no HGMMA"):
         chip_smoke.check_pool_build(ok, FakeBuild)
@@ -219,6 +223,10 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
     assert "24 HGMMA instructions in 1" in out and "28 HGMMA instructions in 2" in out
     sass["sa_pair_pool"]["_Z19sa_pair_pool_kernelILi16E"] = 0
     with pytest.raises(AssertionError, match="sa_pair_pool GEMM kernel has no HGMMA"):
+        chip_smoke.check_pool_build(ok, FakeBuild)
+    sass["sa_pair_pool"]["_Z19sa_pair_pool_kernelILi16E"] = 24
+    sass["sa_prep_bwd"]["_Z14prep_bwd_tilesILi64ELb1E"] = 0
+    with pytest.raises(AssertionError, match="sa_prep_bwd GEMM kernel has no HGMMA"):
         chip_smoke.check_pool_build(ok, FakeBuild)
 
 
@@ -251,3 +259,39 @@ def test_bwd_edge_inputs_hold_their_edge_cases(N, M, W, widths):
             assert one.any()
             assert chip_smoke.live_channels(args, ckw).sum(-1)[one].max() == c3
     assert chip_smoke.live_rows(args, {**kw, "compact": True})[0] == int((g != 0).sum())
+
+
+def test_fps_edge_inputs_hold_their_edge_cases():
+    cases = chip_smoke.fps_edge_inputs()
+    sizes = {xyz.shape[1] for xyz, _ in cases.values()}
+    assert 20000 in sizes  # past the 8192 points the kernel keeps in registers
+    assert any(n % 32 and n % 8 for n in sizes)  # no multiple of 32 or of a cluster size
+    (dup, n_dup), = [v for k, v in cases.items() if k.startswith("duplicates")]
+    for row in dup:
+        assert len(torch.unique(row, dim=0)) < row.shape[0] // 2  # every point twice
+        d = ((row - row[0]) ** 2).sum(-1)
+        assert len(torch.unique(d)) <= 28  # 1000 points at 28 distances at most: ties
+    (pad, n_pad), = [v for k, v in cases.items() if k.startswith("zero-padded")]
+    mag = (pad ** 2).sum(-1)
+    assert (mag[1] == 0).all() and (mag[0, 1200:] == 0).all() and (mag[0, :1200] > 1e-3).all()
+    idx = fps.fps_plain(pad, n_pad)
+    assert (idx[1] == 0).all()  # an all-padding row gives index 0s
+    assert (idx[0] < 1200).all() and len(torch.unique(idx[0])) == n_pad  # padding never picked
+    picked = fps.fps_plain(dup, n_dup)
+    assert (picked[:, 0] == 0).all() and (picked < dup.shape[1]).all()
+
+
+def test_prep_bwd_edge_inputs_hold_their_edge_cases():
+    cases = chip_smoke.prep_bwd_edge_inputs()
+    widths = {(args[2].shape[0], args[2].shape[1]) for args, _ in cases.values()}
+    assert {(6, 16), (35, 32), (67, 32), (6, 64), (259, 128), (131, 128)} <= widths
+    rows = [args[0].shape[0] * args[0].shape[1] for args, _ in cases.values()]
+    assert sum(r % 64 != 0 for r in rows) >= 5  # ragged last tiles
+    (zero, _), = [v for k, v in cases.items() if k.startswith("zero dA")]
+    assert not zero[1].float().any()
+    (big, _), = [v for k, v in cases.items() if k.startswith("large")]
+    assert big[0][..., :3].abs().max() > 100
+    for args, radius in cases.values():
+        out = sa_prep.sa_prep_bwd_plain(*args, radius=radius)
+        assert all(torch.isfinite(o).all() for o in out)
+    assert all(not o.any() for o in sa_prep.sa_prep_bwd_plain(*zero, radius=0.4))
