@@ -5,9 +5,9 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
 1. Prints the card's name and power limit and the torch / CUDA versions.
 2. Builds every CUDA kernel from ``eda_tpu_torch/csrc`` (one nvcc per source,
    all started at once) and prints the build time. The pair pool's kernels,
-   its backward's and the prep backward's must spill no register and, where
-   the toolkit has ``cuobjdump``, every GEMM kernel of the three must hold
-   HGMMA (``wgmma``) instructions; the counts are printed.
+   its backward's and both prep kernels' must spill no register and, where
+   the toolkit has ``cuobjdump``, every GEMM kernel of the four libraries
+   must hold HGMMA (``wgmma``) instructions; the counts are printed.
    Then the pool tie check: all six pool variants (``pair``, ``mxu``,
    ``pre``, each with and without winners) on a full-width SA2 input with
    W3 = 0 and distinct b3, where every in-radius pair of a center gives b3
@@ -32,6 +32,17 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    2% of each output's largest value on ``prep_bwd_edge_inputs`` (row counts
    that are no multiple of 64, the tiny widths, zero dA, large-magnitude
    points), its weight and vector gradients bit-identical on a second launch.
+   Then the pool widths check: the six pool variants and K5 / K6 at two
+   triples outside the instantiated widths ((48, 48, 96) on an SA1-shaped
+   input at W = 1024, (96, 80, 200) on an SA2-shaped one at W = 256), which
+   the wrappers run zero-padded, against the plain versions at the real
+   widths under the tolerances above; triples above (128, 128, 256) must
+   raise. The prep edge check: K2 within 0.02 plus one bf16 step of its
+   plain version on ``prep_edge_inputs`` (row counts no multiple of 64, c1 of
+   16 to 256 at in_dim 3 and at the kernel's largest, large points). The mask
+   edge check: K9a bit-exact on ``mask_edge_inputs`` (windows no multiple of
+   a CTA's rows, starts below 0 and past N - W, unaligned windows, a single
+   block, points within 1e-5 of the radius).
 3. Checks a small grounder (``ModelConfig(use_bf16=True).tiny()``) on the card
    against the same weights and inputs on the CPU, where every kernel wrapper
    runs its plain PyTorch version: the serving forward, then one training step
@@ -639,11 +650,11 @@ def hgmma_counts(library: Path):
 
 # tensor-core kernel libraries: source -> the name of its GEMM kernels
 GEMM_KERNELS = {"sa_pair_pool": "sa_pair_pool_kernel", "sa_pair_pool_bwd": "pool_bwd_tiles",
-                "sa_prep_bwd": "prep_bwd_tiles"}
+                "sa_prep_bwd": "prep_bwd_tiles", "sa_prep": "sa_prep_kernel"}
 
 
 def check_pool_build(logs: dict, build) -> None:
-    """The pair pool's forward and backward kernels and the prep backward
+    """The pair pool's forward and backward kernels and both prep kernels
     spill nothing and run their products on tensor cores (HGMMA in every GEMM
     kernel's SASS, where cuobjdump exists)."""
     spills = [line.strip() for source in GEMM_KERNELS for line in logs[source].splitlines()
@@ -841,6 +852,74 @@ def pool_bwd_edge_check() -> None:
                   f"row, {int(rows.sum())} rows in all")
 
 
+# pool widths inputs: (layer, widths, N, M, window), triples outside the
+# instantiated WIDTHS that the wrappers pad: an SA1-shaped input at W = 1024
+# and an SA2-shaped one at W = 256
+WIDTH_CASES = ((1, (48, 48, 96), 8192, 2048, 1024), (2, (96, 80, 200), 2048, 1024, 256))
+# triples above the widest instantiation, which must raise on CUDA
+TOO_WIDE = ((160, 128, 256), (128, 144, 256), (128, 128, 288))
+
+
+def random_w3(args, seed: int):
+    """``tie_inputs`` args with a random W3 in place of its zeros."""
+    g = torch.Generator().manual_seed(seed)
+    w3 = torch.randn(args[9].shape, generator=g) * 0.1
+    return args[:9] + (w3.to(args[9].device),) + args[10:]
+
+
+@torch.no_grad()
+def pool_widths_check() -> None:
+    """The six pool variants and K5 / K6 at each ``WIDTH_CASES`` triple, which
+    runs zero-padded on the next instantiated triple, against the plain
+    versions at the real widths under the tolerances of the full-width checks;
+    every ``TOO_WIDE`` triple raises."""
+    from eda_tpu_torch.ops.cuda import sa_kernel, sa_mask, sa_pool_bwd
+
+    for layer, widths, n_points, n_centers, window in WIDTH_CASES:
+        args, kw = tie_inputs(N=n_points, M=n_centers, window=window, widths=widths)
+        args = tuple(a.cuda() for a in random_w3(args, layer))
+        mask = sa_mask.sa_radius_mask(args[1], args[3], args[4], **kw)
+        for mode in sa_kernel.D2_MODES:
+            mkw = dict(kw, d2_mode=mode, mask=mask if mode == "pre" else None)
+            want = sa_kernel.sa_pair_pool_winners_plain(*args, **mkw, runner_up=True)
+            got = sa_kernel.sa_pair_pool(*args, **mkw)
+            got_w = sa_kernel.sa_pair_pool_winners(*args, **mkw)
+            torch.cuda.synchronize()
+            if got.shape != want[0].shape or got_w[1].shape != want[1].shape:
+                raise AssertionError(f"pool widths {widths}: output shapes differ")
+            err = check_kernel(pool_symbol(mode, False), got, want[0], layer)
+            check_kernel(pool_symbol(mode, True), got_w, want, layer)
+            print(f"pool widths SA{layer} {widths} (runs on "
+                  f"{sa_kernel.kernel_widths(*widths)}), W={window}, {mode}: within 0.03 of the "
+                  f"plain version (max err {err:.2e}), winners as the plain version's")
+        bargs, bkw = bwd_edge_inputs(N=n_points, M=n_centers, window=window, widths=widths)
+        bargs = tuple(a.cuda() for a in bargs)
+        for compact in (True, False):
+            ckw = dict(bkw, compact=compact)
+            got = sa_pool_bwd.sa_pool_bwd(*bargs, **ckw)
+            want = sa_pool_bwd.sa_pool_bwd_plain(*bargs, **ckw)
+            torch.cuda.synchronize()
+            if any(g.shape != w.shape for g, w in zip(got, want)):
+                raise AssertionError(f"pool backward widths {widths}: output shapes differ")
+            check_kernel(bwd_symbol(compact), got, want, layer)
+            print(f"pool widths SA{layer} {widths}, W={window}, "
+                  f"{'compact' if compact else 'windowed'} backward: within tolerance")
+    for widths in TOO_WIDE:
+        args, kw = tie_inputs(B=1, N=1024, M=64, window=512, widths=widths)
+        bargs, bkw = bwd_edge_inputs(B=1, N=1024, M=64, window=512, widths=widths)
+        args, bargs = (tuple(a.cuda() for a in t) for t in (args, bargs))
+        for what, fn in (("pool", lambda: sa_kernel.sa_pair_pool(*args, **kw, d2_mode="pair")),
+                         ("pool backward",
+                          lambda: sa_pool_bwd.sa_pool_bwd(*bargs, **bkw, compact=False))):
+            try:
+                fn()
+            except ValueError:
+                continue
+            raise AssertionError(f"{what} at widths {widths} did not raise on CUDA")
+    print(f"pool widths above {sa_kernel.WIDTHS[-1]}: {TOO_WIDE} raise on CUDA, pool and "
+          f"backward")
+
+
 # FPS edge inputs: CPU clouds and their sample counts
 def fps_edge_inputs(seed=0) -> dict:
     """name -> ((B, N, 3) f32 CPU cloud, npoint): the FPS kernel's edge cases.
@@ -959,6 +1038,119 @@ def prep_bwd_edge_check() -> None:
         print(f"prep backward edge check {name}: errors relative to each output's largest "
               f"value {[f'{e:.2e}' for e in errs]}; dW1, db1, dscale, dlnb bit-identical on a "
               f"second launch")
+
+
+# the prep forward's edge widths: c1 with its instantiation's padding, in_dim
+# at 3 and at the kernel's largest
+PREP_EDGE_C1 = (16, 48, 64, 128, 256)
+
+
+def prep_edge_inputs(max_in_dim, seed=0) -> dict:
+    """name -> ((pts, w1, b1, scale, lnb) CPU tensors, radius): the prep
+    forward's edge cases. ``max_in_dim(c1)`` is the kernel's largest in_dim.
+    Each c1 of ``PREP_EDGE_C1`` at in_dim 3 and at ``max_in_dim(c1)``; row
+    counts that are no multiple of the 64-point tile (and fewer than one tile);
+    SA1's and SA3's widths at ragged row counts; coordinates and features of
+    large magnitude."""
+    g = torch.Generator().manual_seed(seed)
+
+    def case(B, N, in_dim, c1, radius, scale_xyz=4.0, scale_f=1.0):
+        pts = torch.cat([(torch.rand(B, N, 3, generator=g) * 2 - 1) * scale_xyz,
+                         torch.randn(B, N, in_dim - 3, generator=g) * scale_f], -1)
+        w1 = torch.randn(in_dim, c1, generator=g) * in_dim ** -0.5
+        b1 = torch.randn(c1, generator=g) * 0.1
+        scale = 1 + 0.1 * torch.randn(c1, generator=g)
+        lnb = 0.1 * torch.randn(c1, generator=g)
+        return (pts, w1, b1, scale, lnb), radius
+
+    cases = {}
+    for c1 in PREP_EDGE_C1:
+        cases[f"c1 {c1}, in_dim 3, 2 x 100 rows"] = case(2, 100, 3, c1, 0.2)
+        top = max_in_dim(c1)
+        cases[f"c1 {c1}, in_dim {top} (the largest), 130 rows"] = case(1, 130, top, c1, 0.4)
+    cases["SA1 widths (6, 64), 3 x 1001 rows"] = case(3, 1001, 6, 64, 0.2)
+    cases["SA3 widths (259, 128), 2 x 77 rows"] = case(2, 77, 259, 128, 0.8)
+    cases["SA2 widths (131, 128), 1 x 40 rows"] = case(1, 40, 131, 128, 0.4)
+    cases["large-magnitude points, SA1 widths, 4100 rows"] = case(1, 4100, 6, 64, 0.2,
+                                                                    500.0, 50.0)
+    cases["large-magnitude points, SA2 widths, 300 rows"] = case(1, 300, 131, 128, 0.4,
+                                                                   500.0, 50.0)
+    return cases
+
+
+@torch.no_grad()
+def prep_edge_check() -> None:
+    """K2 against its plain version on every ``prep_edge_inputs`` case,
+    within 0.02 plus one bf16 step of the value."""
+    from eda_tpu_torch.ops.cuda import sa_prep
+
+    for name, (args, radius) in prep_edge_inputs(sa_prep.max_in_dim).items():
+        args = tuple(a.cuda() for a in args)
+        got = sa_prep.sa_prep(*args, radius=radius)
+        want = sa_prep.sa_prep_plain(*args, radius=radius)
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            raise AssertionError(f"prep edge check {name}: shape {tuple(got.shape)}")
+        err = check_kernel("sa_prep_launch", got, want, 0)
+        print(f"prep edge check {name}: max err {err:.3e}")
+
+
+def mask_edge_inputs(seed=0) -> dict:
+    """name -> ((xyz, cen, starts) CPU tensors, radius, window): the radius
+    mask's edge cases. Windows that are no multiple of a CTA's rows (1100
+    from the 1024-row CTAs of W >= 1024 up, 200 and 1000 below); starts below
+    0 and past N - W (clamped, with N - W no multiple of 16 and N no multiple
+    of 4, so the windows' points lie unaligned); a single block of 16 centers; and
+    points within 1e-5 of the radius of their block's centers."""
+    g = torch.Generator().manual_seed(seed)
+
+    def case(B, N, M, window, radius, clamp=False):
+        xyz = torch.sort(torch.rand(B, N, 3, generator=g) * 4, dim=1).values.contiguous()
+        ranks = torch.sort(torch.rand(B, N, generator=g).argsort(1)[:, :M], dim=1).values
+        cen = xyz.gather(1, ranks[..., None].expand(-1, -1, 3)).clone()
+        starts = (ranks.view(B, M // 16, 16)[:, :, 8] - window // 2).clamp(min=0)
+        if clamp:
+            starts[:, -2:] = N  # past N - W: clamped there
+            starts[:, 0] = -5  # below 0: floored to -16, clamped to 0
+        return (xyz, cen, starts.int()), radius, window
+
+    cases = {
+        "W=1100 (1024-row CTAs), N=5000": case(2, 5000, 256, 1100, 0.3),
+        "W=200 (256-row CTAs), N=2048": case(2, 2048, 128, 200, 0.4),
+        "W=1000, N=1003, clamped starts": case(2, 1003, 64, 1000, 0.5, clamp=True),
+        "W=256, N=1001, clamped starts": case(3, 1001, 96, 256, 0.4, clamp=True),
+        "a single block, W=64, N=64": case(1, 64, 16, 64, 0.6),
+    }
+    # points on the radius: every window point of block 0 moved to the sphere
+    # of radius r about its first center, up to 1e-6 of f32 rounding
+    (xyz, cen, starts), radius, window = case(2, 2048, 64, 256, 0.5)
+    start = torch.clamp((starts // 16) * 16, 0, 2048 - window)
+    for b in range(2):
+        s = int(start[b, 0])
+        d = torch.randn(window, 3, generator=g)
+        d = d / d.norm(dim=-1, keepdim=True) * (radius + 2e-6 * torch.randn(window, 1,
+                                                                             generator=g))
+        xyz[b, s:s + window] = cen[b, 0] + d
+    cases["points within 1e-5 of the radius, W=256"] = ((xyz, cen, starts), radius, window)
+    return cases
+
+
+@torch.no_grad()
+def mask_edge_check() -> None:
+    """K9a bit-exact against its plain version on every ``mask_edge_inputs``
+    case."""
+    from eda_tpu_torch.ops.cuda import sa_mask
+
+    for name, (args, radius, window) in mask_edge_inputs().items():
+        args = tuple(a.cuda() for a in args)
+        got = sa_mask.sa_radius_mask(*args, radius=radius, window=window)
+        want = sa_mask.sa_radius_mask_plain(*args, radius=radius, window=window)
+        torch.cuda.synchronize()
+        check_kernel(MASK, got, want, 0)
+        near = int(boundary_centers(args[0], args[1], args[2], radius, window).sum())
+        print(f"mask edge check {name}: bit-exact, {int(want.sum())} of {want.numel()} "
+              f"(row, center) pairs in radius; {near} centers with a window point within "
+              f"{BOUNDARY} of the radius")
 
 
 def small_model_check(root_cfg) -> None:
@@ -1462,6 +1654,9 @@ def main() -> int:
     phase("pool backward edges", pool_bwd_edge_check)
     phase("fps edges", fps_edge_check)
     phase("prep backward edges", prep_bwd_edge_check)
+    phase("pool widths", pool_widths_check)
+    phase("prep edges", prep_edge_check)
+    phase("mask edges", mask_edge_check)
     with radius_mode("pair"):
         phase("tiny model", small_model_check, cfg)
         phase("tiny training step", small_train_check, cfg)

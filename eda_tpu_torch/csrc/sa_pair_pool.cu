@@ -79,6 +79,12 @@
 //     each lane keeps a running max of 2 (value, position) pairs per pass
 //     across the chunks. At the end of a center the 4 warps' partials combine
 //     through shared memory.
+//   * Widths: the kernels are instantiated for the model's four (c1, c2, c3)
+//     triples. A narrower layer comes zero-padded to the next one by the
+//     wrapper (zero channels add nothing to any sum, and zero s2 and lb2 keep
+//     h1 at 0 past c2); its variant (PAD) divides the LN sums by the real c2,
+//     a correctly rounded quotient (div_real), where the unpadded kernels
+//     multiply by 1/C2, exactly, C2 being a power of two.
 
 // Winner export (WIN): the TPU kernel's tie rule (sa_kernel.py:357-382) cuts
 // the window in tiles of wc = min(128, W) points; inside a tile the LAST of
@@ -228,13 +234,14 @@ __device__ __forceinline__ void reduce_step(float* v, int* q, int m, bool up) {
   }
 }
 
-// LN of the tile's rows over their C2 channels (a row's channels lie in the 4
-// threads of a quad: two shuffles per statistic), relu and bf16, packed as
-// GEMM2's A fragments: the accumulator's n8 blocks 2s and 2s+1 are k-slice s.
-template <int C2>
+// LN of the tile's rows over their c2 real channels of C2 (a row's channels
+// lie in the 4 threads of a quad: two shuffles per statistic), relu and bf16,
+// packed as GEMM2's A fragments: the accumulator's n8 blocks 2s and 2s+1 are
+// k-slice s. Padding channels (zero W2 columns, b2, s2, lb2) come out 0.
+template <int C2, bool PAD>
 __device__ __forceinline__ void ln_fragments(float (&acc)[C2 / 2], const float* b2s,
                                              const float* s2s, const float* lb2s, int t4,
-                                             uint32_t (&hf)[C2 / 16][4]) {
+                                             float c2, float rc2, uint32_t (&hf)[C2 / 16][4]) {
   float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < C2 / 8; ++j) {
@@ -254,8 +261,9 @@ __device__ __forceinline__ void ln_fragments(float (&acc)[C2 / 2], const float* 
     sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
     sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
     sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
-    const float mean = sum[h] * (1.f / C2);
-    const float var = fmaxf(sq[h] * (1.f / C2) - mean * mean, 0.f);
+    const float mean = PAD ? div_real(sum[h], c2, rc2) : sum[h] * (1.f / C2);
+    const float var = fmaxf((PAD ? div_real(sq[h], c2, rc2) : sq[h] * (1.f / C2)) - mean * mean,
+                            0.f);
     rstd[h] = rsqrtf(var + kEps);
     mean_r[h] = -mean * rstd[h];
   }
@@ -303,7 +311,7 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-template <int C1, int C2, int C3, bool WIN, int D2>
+template <int C1, int C2, int C3, bool WIN, int D2, bool PAD>
 __global__ void __launch_bounds__(kThreads, 1)
 sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
                     const uint16_t* __restrict__ bc, const float* __restrict__ cen,
@@ -311,7 +319,8 @@ sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xy
                     const uint16_t* __restrict__ w2, const float* __restrict__ b2,
                     const float* __restrict__ s2, const float* __restrict__ lb2,
                     const uint16_t* __restrict__ w3, const float* __restrict__ b3, int N,
-                    int M, int W, int rows, float r2, float* __restrict__ out,
+                    int M, int W, int rows, float c2, float rc2, float r2,
+                    float* __restrict__ out,
                     int* __restrict__ winners) {
   constexpr int NP = C3 < kPassCols ? C3 : kPassCols;  // GEMM2 columns per pass
   constexpr int PASSES = C3 / NP;
@@ -514,7 +523,7 @@ sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xy
         for (int s = 0; s < NK1; ++s) fence_regs(af[s]);
 
         uint32_t hf[C2 / 16][4];
-        ln_fragments<C2>(acc1, b2s, s2s, lb2s, t4, hf);
+        ln_fragments<C2, PAD>(acc1, b2s, s2s, lb2s, t4, c2, rc2, hf);
 
         // z = h1 @ W3 in passes of NP columns into two accumulators in turn:
         // the tensor cores run pass h + 1 while pass h is masked and maxed
@@ -586,12 +595,12 @@ sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xy
   }
 }
 
-template <int C1, int C2, int C3, bool WIN, int D2>
+template <int C1, int C2, int C3, bool WIN, int D2, bool PAD>
 cudaError_t launch(const uint16_t* A, const float* xyz, const uint16_t* bc,
                    const float* cen, const uint8_t* mask, const int* starts,
                    const uint16_t* w2, const float* b2, const float* s2, const float* lb2,
                    const uint16_t* w3, const float* b3, int B, int N, int M, int W,
-                   float r2, float* out, int* winners, cudaStream_t s) {
+                   int c2_real, float r2, float* out, int* winners, cudaStream_t s) {
   // the window in equal stages of whole 64-row tiles, as few as shared memory allows
   const int tiles = (W + kRows - 1) / kRows;
   int most = min(tiles, kMaxSharedBytes / (kRows * C1 * 2));
@@ -601,14 +610,14 @@ cudaError_t launch(const uint16_t* A, const float* xyz, const uint16_t* bc,
   const int rows = (tiles + stages - 1) / stages * kRows;
   const Layout L(C1, C2, C3, rows, WIN);
   if (L.total > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(sa_pair_pool_kernel<C1, C2, C3, WIN, D2>,
+  cudaError_t err = cudaFuncSetAttribute(sa_pair_pool_kernel<C1, C2, C3, WIN, D2, PAD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.total);
   if (err != cudaSuccess) return err;
   dim3 grid(M / kCenters, B);
-  sa_pair_pool_kernel<C1, C2, C3, WIN, D2><<<grid, kThreads, L.total, s>>>(
-      A, xyz, bc, cen, mask, starts, w2, b2, s2, lb2, w3, b3, N, M, W, rows, r2, out,
-      winners);
+  sa_pair_pool_kernel<C1, C2, C3, WIN, D2, PAD><<<grid, kThreads, L.total, s>>>(
+      A, xyz, bc, cen, mask, starts, w2, b2, s2, lb2, w3, b3, N, M, W, rows,
+      (float)c2_real, 1.f / (float)c2_real, r2, out, winners);
   return cudaGetLastError();
 }
 
@@ -616,20 +625,26 @@ template <bool WIN, int D2>
 int dispatch(const void* A, const float* xyz, const void* bc, const float* cen,
              const uint8_t* mask, const int* starts, const void* w2, const float* b2,
              const float* s2, const float* lb2, const void* w3, const float* b3, int B,
-             int N, int M, int c1, int c2, int c3, int W, float r2, float* out,
+             int N, int M, int c1, int c2, int c3, int c2_real, int W, float r2, float* out,
              int* winners, void* stream) {
   if (B <= 0 || M <= 0) return cudaSuccess;
-  if (M % kCenters || W <= 0 || W > N)
+  if (M % kCenters || W <= 0 || W > N || c2_real <= 0 || c2_real > c2)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const uint16_t*>(A);
   const auto* bcv = static_cast<const uint16_t*>(bc);
   const auto* w2v = static_cast<const uint16_t*>(w2);
   const auto* w3v = static_cast<const uint16_t*>(w3);
-#define EDA_SA_LAUNCH(X, Y, Z)                                                     \
-  if (c1 == X && c2 == Y && c3 == Z)                                               \
-    return launch<X, Y, Z, WIN, D2>(a, xyz, bcv, cen, mask, starts, w2v, b2, s2, lb2, \
-                                    w3v, b3, B, N, M, W, r2, out, winners, s);
+  // a layer padded to (c1, c2, c3) divides its LayerNorm sums by its real c2
+#define EDA_SA_LAUNCH(X, Y, Z)                                                              \
+  if (c1 == X && c2 == Y && c3 == Z)                                                        \
+    return c2_real == c2                                                                    \
+               ? launch<X, Y, Z, WIN, D2, false>(a, xyz, bcv, cen, mask, starts, w2v, b2, s2, \
+                                                 lb2, w3v, b3, B, N, M, W, c2_real, r2, out, \
+                                                 winners, s)                               \
+               : launch<X, Y, Z, WIN, D2, true>(a, xyz, bcv, cen, mask, starts, w2v, b2, s2,  \
+                                                lb2, w3v, b3, B, N, M, W, c2_real, r2, out,  \
+                                                winners, s);
   EDA_SA_LAUNCH(16, 16, 32)
   EDA_SA_LAUNCH(32, 32, 64)
   EDA_SA_LAUNCH(64, 64, 128)
@@ -647,15 +662,18 @@ extern "C" {
 // [0, N-W]); w2: (c1, c2) bf16; b2/s2/lb2: (c2,) f32; w3: (c2, c3) bf16;
 // b3: (c3,) f32; out: (B, M, c3) f32. (c1, c2, c3) must be one of (16, 16,
 // 32), (32, 32, 64), (64, 64, 128), (128, 128, 256), the model's layer widths;
-// any window 0 < W <= N. Returns cudaGetLastError().
+// narrower layers come zero-padded to one of them (zero W2 and W3 rows and
+// columns, zero b2, s2, lb2 and b3 past the real widths) and c2_real <= c2 is
+// the real interior width, the LayerNorm's divisor. Any window 0 < W <= N.
+// Returns cudaGetLastError().
 int sa_pair_pool_launch(const void* A, const float* xyz, const void* bc,
                         const float* cen, const int* starts, const void* w2,
                         const float* b2, const float* s2, const float* lb2,
                         const void* w3, const float* b3, int B, int N, int M,
-                        int c1, int c2, int c3, int W, float r2, float* out,
+                        int c1, int c2, int c3, int c2_real, int W, float r2, float* out,
                         void* stream) {
   return dispatch<false, kPair>(A, xyz, bc, cen, nullptr, starts, w2, b2, s2, lb2, w3, b3,
-                                B, N, M, c1, c2, c3, W, r2, out, nullptr, stream);
+                                B, N, M, c1, c2, c3, c2_real, W, r2, out, nullptr, stream);
 }
 
 // As sa_pair_pool_launch, plus winners: (B, M, c3) int32 global rank of the
@@ -664,10 +682,10 @@ int sa_pair_pool_winners_launch(const void* A, const float* xyz, const void* bc,
                                 const float* cen, const int* starts, const void* w2,
                                 const float* b2, const float* s2, const float* lb2,
                                 const void* w3, const float* b3, int B, int N, int M,
-                                int c1, int c2, int c3, int W, float r2, float* out,
+                                int c1, int c2, int c3, int c2_real, int W, float r2, float* out,
                                 int* winners, void* stream) {
   return dispatch<true, kPair>(A, xyz, bc, cen, nullptr, starts, w2, b2, s2, lb2, w3, b3,
-                               B, N, M, c1, c2, c3, W, r2, out, winners, stream);
+                               B, N, M, c1, c2, c3, c2_real, W, r2, out, winners, stream);
 }
 
 // As sa_pair_pool_launch with the expansion-formula radius test ("mxu").
@@ -675,20 +693,20 @@ int sa_pair_pool_mxu_launch(const void* A, const float* xyz, const void* bc,
                             const float* cen, const int* starts, const void* w2,
                             const float* b2, const float* s2, const float* lb2,
                             const void* w3, const float* b3, int B, int N, int M,
-                            int c1, int c2, int c3, int W, float r2, float* out,
+                            int c1, int c2, int c3, int c2_real, int W, float r2, float* out,
                             void* stream) {
   return dispatch<false, kMxu>(A, xyz, bc, cen, nullptr, starts, w2, b2, s2, lb2, w3, b3,
-                               B, N, M, c1, c2, c3, W, r2, out, nullptr, stream);
+                               B, N, M, c1, c2, c3, c2_real, W, r2, out, nullptr, stream);
 }
 
 int sa_pair_pool_mxu_winners_launch(const void* A, const float* xyz, const void* bc,
                                     const float* cen, const int* starts, const void* w2,
                                     const float* b2, const float* s2, const float* lb2,
                                     const void* w3, const float* b3, int B, int N, int M,
-                                    int c1, int c2, int c3, int W, float r2, float* out,
-                                    int* winners, void* stream) {
+                                    int c1, int c2, int c3, int c2_real, int W, float r2,
+                                    float* out, int* winners, void* stream) {
   return dispatch<true, kMxu>(A, xyz, bc, cen, nullptr, starts, w2, b2, s2, lb2, w3, b3,
-                              B, N, M, c1, c2, c3, W, r2, out, winners, stream);
+                              B, N, M, c1, c2, c3, c2_real, W, r2, out, winners, stream);
 }
 
 // As sa_pair_pool_launch with the radius test read from mask ("pre"):
@@ -698,19 +716,19 @@ int sa_pair_pool_pre_launch(const void* A, const void* bc, const uint8_t* mask,
                             const int* starts, const void* w2, const float* b2,
                             const float* s2, const float* lb2, const void* w3,
                             const float* b3, int B, int N, int M, int c1, int c2, int c3,
-                            int W, float* out, void* stream) {
+                            int c2_real, int W, float* out, void* stream) {
   return dispatch<false, kPre>(A, nullptr, bc, nullptr, mask, starts, w2, b2, s2, lb2, w3,
-                               b3, B, N, M, c1, c2, c3, W, 0.f, out, nullptr, stream);
+                               b3, B, N, M, c1, c2, c3, c2_real, W, 0.f, out, nullptr, stream);
 }
 
 int sa_pair_pool_pre_winners_launch(const void* A, const void* bc, const uint8_t* mask,
                                     const int* starts, const void* w2, const float* b2,
                                     const float* s2, const float* lb2, const void* w3,
                                     const float* b3, int B, int N, int M, int c1, int c2,
-                                    int c3, int W, float* out, int* winners,
+                                    int c3, int c2_real, int W, float* out, int* winners,
                                     void* stream) {
   return dispatch<true, kPre>(A, nullptr, bc, nullptr, mask, starts, w2, b2, s2, lb2, w3,
-                              b3, B, N, M, c1, c2, c3, W, 0.f, out, winners, stream);
+                              b3, B, N, M, c1, c2, c3, c2_real, W, 0.f, out, winners, stream);
 }
 
 }  // extern "C"

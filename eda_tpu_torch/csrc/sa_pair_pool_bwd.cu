@@ -169,7 +169,7 @@ pool_bwd_tiles(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
                const int* __restrict__ starts, const uint16_t* __restrict__ w2,
                const float* __restrict__ b2, const float* __restrict__ s2,
                const float* __restrict__ lb2, const uint16_t* __restrict__ w3, int N, int M,
-               int W, float* __restrict__ dA, float* __restrict__ dbc,
+               int W, float c2f, float rc2, float* __restrict__ dA, float* __restrict__ dbc,
                float* __restrict__ records) {
   constexpr int CP1 = pad64(C1), CP2 = pad64(C2);
   constexpr int P = record_floats(C1, C2, C3);
@@ -452,8 +452,8 @@ pool_bwd_tiles(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
       for (int h = 0; h < 2; ++h) {
         const float2 p0 = *reinterpret_cast<const float2*>(xs + (r0 + 8 * h) * 2);
         const float2 p1 = *reinterpret_cast<const float2*>(xs + (kRows + r0 + 8 * h) * 2);
-        mean[h] = (p0.x + p1.x) / C2;
-        const float var = fmaxf((p0.y + p1.y) / C2 - mean[h] * mean[h], 0.f);
+        mean[h] = div_width<C2>(p0.x + p1.x, c2f, rc2);
+        const float var = fmaxf(div_width<C2>(p0.y + p1.y, c2f, rc2) - mean[h] * mean[h], 0.f);
         rstd[h] = rsqrtf(var + kEps);
       }
     }
@@ -510,8 +510,8 @@ pool_bwd_tiles(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
       for (int h = 0; h < 2; ++h) {
         const float2 p0 = *reinterpret_cast<const float2*>(xs + (2 * kRows + r0 + 8 * h) * 2);
         const float2 p1 = *reinterpret_cast<const float2*>(xs + (3 * kRows + r0 + 8 * h) * 2);
-        m1[h] = (p0.x + p1.x) / C2;
-        m2[h] = (p0.y + p1.y) / C2;
+        m1[h] = div_width<C2>(p0.x + p1.x, c2f, rc2);
+        m2[h] = div_width<C2>(p0.y + p1.y, c2f, rc2);
       }
 #pragma unroll
       for (int j = 0; j < H2 / 8; ++j) {
@@ -676,8 +676,9 @@ pool_bwd_tiles(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
 template <int C1, int C2, int C3, bool COMPACT>
 cudaError_t launch(const uint16_t* A, const uint16_t* bc, const float* g, const int* win,
                    const int* starts, const uint16_t* w2, const float* b2, const float* s2,
-                   const float* lb2, const uint16_t* w3, int B, int N, int M, int W, float* dA,
-                   float* dbc, float* wout, float* records, cudaStream_t s) {
+                   const float* lb2, const uint16_t* w3, int B, int N, int M, int W,
+                   int c2_real, float* dA, float* dbc, float* wout, float* records,
+                   cudaStream_t s) {
   constexpr int P = record_floats(C1, C2, C3);
   const Layout<C1, C2, C3> L;
   if (L.total > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
@@ -689,7 +690,8 @@ cudaError_t launch(const uint16_t* A, const uint16_t* bc, const float* g, const 
     if (err != cudaSuccess) return err;
     dim3 grid(M / kCenters, B);
     pool_bwd_tiles<C1, C2, C3, COMPACT><<<grid, kThreads, L.total, s>>>(
-        A, bc, g, win, starts, w2, b2, s2, lb2, w3, N, M, W, dA, dbc, records);
+        A, bc, g, win, starts, w2, b2, s2, lb2, w3, N, M, W, (float)c2_real,
+        1.f / (float)c2_real, dA, dbc, records);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -700,9 +702,10 @@ cudaError_t launch(const uint16_t* A, const uint16_t* bc, const float* g, const 
 template <bool COMPACT>
 int dispatch(const void* A, const void* bc, const float* g, const int* win, const int* starts,
              const void* w2, const float* b2, const float* s2, const float* lb2, const void* w3,
-             int B, int N, int M, int c1, int c2, int c3, int W, float* dA, float* dbc,
-             float* wout, float* records, void* stream) {
-  if (B < 0 || M < 0 || M % kCenters || W <= 0 || W > N) return cudaErrorInvalidValue;
+             int B, int N, int M, int c1, int c2, int c3, int c2_real, int W, float* dA,
+             float* dbc, float* wout, float* records, void* stream) {
+  if (B < 0 || M < 0 || M % kCenters || W <= 0 || W > N || c2_real <= 0 || c2_real > c2)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const uint16_t*>(A);
   const auto* bcv = static_cast<const uint16_t*>(bc);
@@ -711,7 +714,7 @@ int dispatch(const void* A, const void* bc, const float* g, const int* win, cons
 #define EDA_BWD_LAUNCH(X, Y, Z)                                                             \
   if (c1 == X && c2 == Y && c3 == Z)                                                        \
     return launch<X, Y, Z, COMPACT>(a, bcv, g, win, starts, w2v, b2, s2, lb2, w3v, B, N, M, \
-                                    W, dA, dbc, wout, records, s);
+                                    W, c2_real, dA, dbc, wout, records, s);
   EDA_BWD_LAUNCH(16, 16, 32)
   EDA_BWD_LAUNCH(32, 32, 64)
   EDA_BWD_LAUNCH(64, 64, 128)
@@ -728,19 +731,22 @@ extern "C" {
 // int32 global winner ranks; starts: (B, M/16) int32 window starts (multiples
 // of 16 in [0, N-W]); w2: (c1, c2) bf16; b2/s2/lb2: (c2,) f32; w3: (c2, c3)
 // bf16. (c1, c2, c3) is one of (16, 16, 32), (32, 32, 64), (64, 64, 128),
-// (128, 128, 256), the model's layer widths. Outputs: dA (B, N, c1) f32,
-// ZEROED by the caller (rows add into it); dbc (B, M, c1) f32; wout
+// (128, 128, 256), the model's layer widths; narrower layers come zero-padded
+// to one of them (zero W2 and W3 rows and columns, b2, s2, lb2, g past the
+// real widths) and c2_real <= c2 is the real interior width, the LayerNorm's
+// divisor. Outputs: dA (B, N, c1) f32, ZEROED by the caller (rows add into
+// it); dbc (B, M, c1) f32; wout
 // (c1 c2 + c2 c3 + 3 c2 + c3) f32 = [dW2 (c1, c2); dW3 (c2, c3); db2; ds2;
 // dlb2; db3]. Scratch: records (B * M/16, the same length) f32. Returns
 // cudaGetLastError().
-#define EDA_POOL_BWD_ARGS                                                           \
-  const void *A, const void *bc, const float *g, const int *win, const int *starts, \
-      const void *w2, const float *b2, const float *s2, const float *lb2,           \
-      const void *w3, int B, int N, int M, int c1, int c2, int c3, int W, float *dA, \
-      float *dbc, float *wout, float *records, void *stream
-#define EDA_POOL_BWD_CALL                                                                  \
-  A, bc, g, win, starts, w2, b2, s2, lb2, w3, B, N, M, c1, c2, c3, W, dA, dbc, wout, records, \
-      stream
+#define EDA_POOL_BWD_ARGS                                                              \
+  const void *A, const void *bc, const float *g, const int *win, const int *starts,    \
+      const void *w2, const float *b2, const float *s2, const float *lb2,              \
+      const void *w3, int B, int N, int M, int c1, int c2, int c3, int c2_real, int W, \
+      float *dA, float *dbc, float *wout, float *records, void *stream
+#define EDA_POOL_BWD_CALL                                                             \
+  A, bc, g, win, starts, w2, b2, s2, lb2, w3, B, N, M, c1, c2, c3, c2_real, W, dA, dbc, \
+      wout, records, stream
 
 int sa_pool_bwd_compact_launch(EDA_POOL_BWD_ARGS) { return dispatch<true>(EDA_POOL_BWD_CALL); }
 int sa_pool_bwd_window_launch(EDA_POOL_BWD_ARGS) { return dispatch<false>(EDA_POOL_BWD_CALL); }

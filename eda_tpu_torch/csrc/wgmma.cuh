@@ -170,6 +170,23 @@ __device__ __forceinline__ uint32_t opaque(uint32_t v) {
   return v;
 }
 
+// x / c, correctly rounded, from rc = RN(1/c): q = RN(x rc) corrected once,
+// RN(q + (x - q c) rc) (Markstein's theorem; no division's slow path).
+__device__ __forceinline__ float div_real(float x, float c, float rc) {
+  const float q = x * rc;
+  return __fmaf_rn(__fmaf_rn(-q, c, x), rc, q);
+}
+
+// x / c: a LayerNorm statistic over the c real channels of rows that a kernel
+// instantiated for C channels holds zero-padded past c (the padding adds
+// nothing to the sums), rc = RN(1/c). At c == C, every instantiated width
+// being a power of two, the exact multiply by 1/C; otherwise div_real. Both
+// are the plain versions' sum / c.
+template <int C>
+__device__ __forceinline__ float div_width(float x, float c, float rc) {
+  return c == (float)C ? x * (1.f / C) : div_real(x, c, rc);
+}
+
 // Offset, in elements, of (r, c) in the core layout of a matrix of `cols` columns.
 __device__ __forceinline__ int core_at(int r, int c, int cols) {
   return ((r >> 3) * (cols >> 3) + (c >> 3)) * 64 + (r & 7) * 8 + (c & 7);

@@ -49,14 +49,16 @@ from eda_tpu_torch.ops.cuda.sa_prep import bf16_round, ln_one_pass
 BLOCK = 16  # centers per window block
 NEG = -1e9
 PLAIN_MAX_PAIRS = 1 << 22  # pairs the plain version holds at once (SA1's grid is ~1 GB a scene)
-# (c1, c2, c3) widths the kernel is instantiated for (csrc/sa_pair_pool.cu): the
-# model's layer widths, full and tiny
+# (c1, c2, c3) widths the kernels are instantiated for (csrc/sa_pair_pool.cu,
+# csrc/sa_pair_pool_bwd.cu): the model's layer widths, full and tiny, in
+# ascending order. Other widths up to (128, 128, 256) run zero-padded on the
+# smallest triple that covers them (``kernel_widths``, ``pad_widths``).
 WIDTHS = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128, 256))
 
 D2_MODES = ("pair", "mxu", "pre")
 
-_GEOMETRY_ARGS = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_void_p)
-_MASK_ARGS = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+_GEOMETRY_ARGS = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 8 + (ctypes.c_float, ctypes.c_void_p)
+_MASK_ARGS = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
 # (d2_mode, winners) -> the launch function of csrc/sa_pair_pool.cu
 KERNELS = {
     ("pair", False): register(Kernel(
@@ -101,22 +103,55 @@ def window_starts(starts: torch.Tensor, n_points: int, window: int) -> torch.Ten
     return torch.clamp((starts // 16) * 16, 0, n_points - window)
 
 
+def kernel_widths(c1: int, c2: int, c3: int) -> tuple:
+    """The instantiated triple a layer of widths (c1, c2, c3) runs on: the
+    smallest of ``WIDTHS`` that covers each width. Wider layers raise."""
+    for widths in WIDTHS:
+        if c1 <= widths[0] and c2 <= widths[1] and c3 <= widths[2]:
+            return widths
+    raise ValueError(f"the pair-pool kernels take widths up to {WIDTHS[-1]}, "
+                     f"got c1={c1}, c2={c2}, c3={c3}")
+
+
+def pad_widths(widths, A, b_c, w2, b2, s2, lb2, w3, b3=None, g=None, winners=None):
+    """The pool's operands zero-padded to ``widths`` = (C1, C2, C3), as the
+    TPU kernel pads its lanes (``eda_tpu/ops/fused_sa.py:590-604``).
+
+    A and b_c on their channel axis; W2's and W3's rows and columns; b2, s2,
+    lb2 to C2; b3, and the backward's g and winners, to C3. With zero
+    weights, biases and LayerNorm parameters a padded channel adds nothing to
+    any sum and no kept output depends on it: h0 and z are 0 there, h1 is
+    relu(xhat * 0 + 0) = 0, and a zero cotangent makes no pair row. Only the
+    interior LayerNorm's divisor must stay the real c2. Returns the padded
+    operands in the order given (None stays None).
+    """
+    pad = torch.nn.functional.pad
+    C1, C2, C3 = widths
+    (c1, c2), c3 = w2.shape, w3.shape[1]
+    out = [pad(A, (0, C1 - c1)), pad(b_c, (0, C1 - c1)), pad(w2, (0, C2 - c2, 0, C1 - c1))]
+    out += [pad(v, (0, C2 - c2)) for v in (b2, s2, lb2)]
+    out.append(pad(w3, (0, C3 - c3, 0, C2 - c2)))
+    out += [None if t is None else pad(t, (0, C3 - c3)) for t in (b3, g, winners)]
+    return tuple(out)
+
+
 def sa_pair_pool_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
                        *, radius: float, window: int, d2_mode: str | None = None,
-                       mask=None) -> torch.Tensor:
+                       mask=None, c2_real: int | None = None) -> torch.Tensor:
     """Plain PyTorch pair pool, in chunks of center blocks.
 
     The matmuls run in f32 on bf16-rounded operands: the products are exact,
-    so each sum is an f32 sum of bf16 products as in the kernel.
+    so each sum is an f32 sum of bf16 products as in the kernel. ``c2_real``
+    is the real interior width of operands that ``pad_widths`` padded.
     """
     return _pool_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
                        radius=radius, window=window, d2_mode=resolve_d2_mode(d2_mode),
-                       mask=mask, with_winners=False)
+                       mask=mask, with_winners=False, c2_real=c2_real)
 
 
 def sa_pair_pool_winners_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
                                *, radius: float, window: int, d2_mode: str | None = None,
-                               mask=None, runner_up: bool = False):
+                               mask=None, runner_up: bool = False, c2_real: int | None = None):
     """Plain PyTorch pair pool with winner export: ((B, M, c3) f32, (B, M, c3) int32).
 
     With ``runner_up`` it also returns the best value of the other pairs, so a
@@ -124,7 +159,7 @@ def sa_pair_pool_winners_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3
     """
     return _pool_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
                        radius=radius, window=window, d2_mode=resolve_d2_mode(d2_mode),
-                       mask=mask, with_winners=True, runner_up=runner_up)
+                       mask=mask, with_winners=True, runner_up=runner_up, c2_real=c2_real)
 
 
 def _in_radius(x_w, cen, r2: float, d2_mode: str) -> torch.Tensor:
@@ -143,7 +178,8 @@ def _in_radius(x_w, cen, r2: float, d2_mode: str) -> torch.Tensor:
 
 
 def _pool_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3, *, radius: float,
-                window: int, d2_mode: str, mask, with_winners: bool, runner_up: bool = False):
+                window: int, d2_mode: str, mask, with_winners: bool, runner_up: bool = False,
+                c2_real: int | None = None):
     B, N, c1 = A.shape
     M = b_c.shape[1]
     n_blocks = M // BLOCK
@@ -166,7 +202,7 @@ def _pool_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3, *, radius
         a_w = A.float().gather(1, pos.expand(-1, -1, c1)).view(B, nb, 1, window, c1)
         bc = b_c[:, j0 * BLOCK:j1 * BLOCK].float().view(B, nb, BLOCK, 1, c1)
         h = bf16_round(torch.relu(a_w + bc))  # (B, nb, 16, W, c1)
-        h = bf16_round(torch.relu(ln_one_pass(h @ w2f + b2, s2, lb2)))
+        h = bf16_round(torch.relu(ln_one_pass(h @ w2f + b2, s2, lb2, c=c2_real)))
         z = h @ w3f + b3
         if d2_mode == "pre":
             keep = mask[:, j0:j1].transpose(2, 3).bool()  # (B, nb, 16, W)
@@ -239,16 +275,21 @@ def _launch(mode: str, with_winners: bool, A, xyz, b_c, cen_xyz, starts, w2, b2,
     M = b_c.shape[1]
     c2, c3 = w3.shape
     pre = mode == "pre"
+    if A.dtype != torch.bfloat16 or b_c.dtype != torch.bfloat16:
+        raise ValueError("sa_pair_pool takes bf16 A and b_c")
+    if w2.shape != (c1, c2) or b_c.shape[-1] != c1:
+        raise ValueError("sa_pair_pool widths do not agree")
+    widths = kernel_widths(c1, c2, c3)
+    if widths != (c1, c2, c3):
+        A, b_c, w2, b2, s2, lb2, w3, b3, _, _ = pad_widths(widths, A, b_c, w2, b2, s2, lb2,
+                                                           w3, b3)
+    C1, C2, C3 = widths
+    A, b_c = A.contiguous(), b_c.contiguous()
     w2, w3 = (w.to(torch.bfloat16).contiguous() for w in (w2, w3))
     b2, s2, lb2, b3 = (v.float().contiguous() for v in (b2, s2, lb2, b3))
     starts = window_starts(starts.to(torch.int32), N, window).to(torch.int32).contiguous()
     require_cuda(A, b_c, starts, w2, b2, s2, lb2, w3, b3)
-    if A.dtype != torch.bfloat16 or b_c.dtype != torch.bfloat16:
-        raise ValueError("sa_pair_pool takes bf16 A and b_c")
-    if (c1, c2, c3) not in WIDTHS or w2.shape != (c1, c2):
-        raise ValueError(f"sa_pair_pool kernel takes (c1, c2, c3) in {WIDTHS}, "
-                         f"got c1={c1}, c2={c2}, c3={c3}")
-    if (M % BLOCK or b_c.shape != (B, M, c1) or starts.shape != (B, M // BLOCK)
+    if (M % BLOCK or b_c.shape != (B, M, C1) or starts.shape != (B, M // BLOCK)
             or not 0 < window <= N):
         raise ValueError("sa_pair_pool input shapes do not agree")
     if pre:
@@ -262,16 +303,16 @@ def _launch(mode: str, with_winners: bool, A, xyz, b_c, cen_xyz, starts, w2, b2,
         if xyz.shape != (B, N, 3) or cen_xyz.shape != (B, M, 3):
             raise ValueError("sa_pair_pool input shapes do not agree")
         geometry = [ptr(A), ptr(xyz), ptr(b_c), ptr(cen_xyz), ptr(starts)]
-    out = torch.empty((B, M, c3), dtype=torch.float32, device=A.device)
+    out = torch.empty((B, M, C3), dtype=torch.float32, device=A.device)
     args = geometry + [ptr(w2), ptr(b2), ptr(s2), ptr(lb2), ptr(w3), ptr(b3),
-                       B, N, M, c1, c2, c3, window]
+                       B, N, M, C1, C2, C3, c2, window]
     if not pre:
         args.append(torch.tensor(radius * radius, dtype=torch.float32).item())
     args.append(ptr(out))
     kernel = KERNELS[mode, with_winners]
     if with_winners:
-        winners = torch.empty((B, M, c3), dtype=torch.int32, device=A.device)
+        winners = torch.empty((B, M, C3), dtype=torch.int32, device=A.device)
         kernel(*args, ptr(winners))
-        return out, winners
+        return out[..., :c3], winners[..., :c3]
     kernel(*args)
-    return out
+    return out[..., :c3]

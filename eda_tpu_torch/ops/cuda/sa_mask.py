@@ -68,7 +68,7 @@ def sa_radius_mask(xyz, cen_xyz, starts, *, radius: float, window: int) -> torch
         return sa_radius_mask_plain(xyz, cen_xyz, starts, radius=radius, window=window)
     B, N, _ = xyz.shape
     M = cen_xyz.shape[1]
-    starts = window_starts(starts.to(torch.int32), N, window).to(torch.int32).contiguous()
+    starts = starts.to(torch.int32).contiguous()  # the kernel floors and clamps them
     require_cuda(xyz, cen_xyz, starts)
     if xyz.dtype != torch.float32 or cen_xyz.dtype != torch.float32:
         raise ValueError("sa_radius_mask takes float32 coordinates")

@@ -32,13 +32,12 @@ import ctypes
 import torch
 
 from eda_tpu_torch.ops.cuda.build import Kernel, ptr, register, require_cuda
-from eda_tpu_torch.ops.cuda.sa_kernel import BLOCK, window_starts
+from eda_tpu_torch.ops.cuda.sa_kernel import BLOCK, kernel_widths, pad_widths, window_starts
 from eda_tpu_torch.ops.cuda.sa_prep import EPS, bf16_round
 
-WIDTHS = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128, 256))  # (c1, c2, c3) taken
 PLAIN_MAX_ELEMS = 1 << 23  # (center, row, channel) elements the plain version holds at once
 
-_ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,) * 4
+_ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,) * 4
 COMPACT_KERNEL = register(Kernel(
     "sa_pair_pool_bwd", "sa_pool_bwd_compact_launch", _ARGTYPES,
     replaces="eda_tpu/ops/pallas/sa_kernel.py:649",
@@ -56,14 +55,18 @@ def compact_backward(window: int, c_out: int) -> bool:
 
 
 def sa_pool_bwd_plain(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, *,
-                      window: int, compact: bool):
+                      window: int, compact: bool, c2_real: int | None = None):
     """Plain PyTorch pair-pool backward, in chunks of centers.
+
+    ``c2_real`` is the real interior width of operands that
+    ``sa_kernel.pad_widths`` padded: the LayerNorm's divisor.
 
     Returns (dA (B, N, c1), db_c (B, M, c1), dW2, db2, ds2, dlb2, dW3, db3), f32.
     """
     B, N, c1 = A.shape
     M = b_c.shape[1]
     c2, c3 = w3.shape
+    n_ln = c2_real or c2
     dev = A.device
     w2f, w3f = bf16_round(w2.float()), bf16_round(w3.float())
     b2, s2, lb2 = (v.float() for v in (b2, s2, lb2))
@@ -99,8 +102,8 @@ def sa_pool_bwd_plain(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, *,
         h0pre = aw + b_c[:, m0:m1, None].float()
         h0 = bf16_round(torch.relu(h0pre))
         x = h0 @ w2f + b2
-        mean = x.sum(-1, keepdim=True) / c2
-        var = torch.clamp((x * x).sum(-1, keepdim=True) / c2 - mean * mean, min=0.0)
+        mean = x.sum(-1, keepdim=True) / n_ln
+        var = torch.clamp((x * x).sum(-1, keepdim=True) / n_ln - mean * mean, min=0.0)
         rstd = torch.rsqrt(var + EPS)
         xhat = (x - mean) * rstd
         h1 = bf16_round(torch.relu(xhat * s2 + lb2))
@@ -113,8 +116,8 @@ def sa_pool_bwd_plain(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, *,
         ds2 += rows(dln * xhat).sum(0)
         dlb2 += rows(dln).sum(0)
         dxhat = dln * s2
-        mm1 = dxhat.sum(-1, keepdim=True) / c2
-        mm2 = (dxhat * xhat).sum(-1, keepdim=True) / c2
+        mm1 = dxhat.sum(-1, keepdim=True) / n_ln
+        mm2 = (dxhat * xhat).sum(-1, keepdim=True) / n_ln
         dx = rstd * (dxhat - mm1 - xhat * mm2)
         dx = torch.where(row_w[..., None], dx, torch.zeros((), **f32))
         db2 += rows(dx).sum(0)
@@ -151,32 +154,39 @@ def sa_pool_bwd(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, *,
     B, N, c1 = A.shape
     M = b_c.shape[1]
     c2, c3 = w3.shape
+    if A.dtype != torch.bfloat16 or b_c.dtype != torch.bfloat16:
+        raise ValueError("sa_pool_bwd takes bf16 A and b_c")
+    if w2.shape != (c1, c2) or b_c.shape[-1] != c1:
+        raise ValueError("sa_pool_bwd widths do not agree")
+    if g.shape != (B, M, c3) or winners.shape != (B, M, c3):
+        raise ValueError("sa_pool_bwd input shapes do not agree")
+    widths = kernel_widths(c1, c2, c3)
+    if widths != (c1, c2, c3):
+        A, b_c, w2, b2, s2, lb2, w3, _, g, winners = pad_widths(
+            widths, A, b_c, w2, b2, s2, lb2, w3, g=g, winners=winners)
+    C1, C2, C3 = widths
+    A, b_c = A.contiguous(), b_c.contiguous()
     w2, w3 = (w.to(torch.bfloat16).contiguous() for w in (w2, w3))
     b2, s2, lb2 = (v.float().contiguous() for v in (b2, s2, lb2))
     g = g.float().contiguous()
     winners = winners.to(torch.int32).contiguous()
     starts = window_starts(starts.to(torch.int32), N, window).to(torch.int32).contiguous()
     require_cuda(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3)
-    if A.dtype != torch.bfloat16 or b_c.dtype != torch.bfloat16:
-        raise ValueError("sa_pool_bwd takes bf16 A and b_c")
-    if (c1, c2, c3) not in WIDTHS or w2.shape != (c1, c2):
-        raise ValueError(f"sa_pool_bwd kernel takes the widths {WIDTHS}, "
-                         f"got c1={c1}, c2={c2}, c3={c3}")
-    if (M % BLOCK or b_c.shape != (B, M, c1) or g.shape != (B, M, c3)
-            or winners.shape != (B, M, c3) or starts.shape != (B, M // BLOCK)
-            or not 0 < window <= N):
+    if M % BLOCK or b_c.shape[:2] != (B, M) or starts.shape != (B, M // BLOCK) \
+            or not 0 < window <= N:
         raise ValueError("sa_pool_bwd input shapes do not agree")
     # one f32 record per CTA (16 centers): [dW2; dW3; db2; ds2; dlb2; db3]
-    n_w2, n_w3 = c1 * c2, c2 * c3
+    n_w2, n_w3 = C1 * C2, C2 * C3
     f32 = dict(dtype=torch.float32, device=A.device)
-    dA = torch.zeros((B, N, c1), **f32)
-    dbc = torch.empty((B, M, c1), **f32)
-    out = torch.empty(n_w2 + n_w3 + 3 * c2 + c3, **f32)
+    dA = torch.zeros((B, N, C1), **f32)
+    dbc = torch.empty((B, M, C1), **f32)
+    out = torch.empty(n_w2 + n_w3 + 3 * C2 + C3, **f32)
     records = torch.empty((B * M // BLOCK, out.numel()), **f32)
     kernel = COMPACT_KERNEL if compact else WINDOW_KERNEL
     kernel(ptr(A), ptr(b_c), ptr(g), ptr(winners), ptr(starts), ptr(w2), ptr(b2), ptr(s2),
-           ptr(lb2), ptr(w3), B, N, M, c1, c2, c3, window, ptr(dA), ptr(dbc), ptr(out),
+           ptr(lb2), ptr(w3), B, N, M, C1, C2, C3, c2, window, ptr(dA), ptr(dbc), ptr(out),
            ptr(records))
-    dw2, dw3 = out[:n_w2].view(c1, c2), out[n_w2:n_w2 + n_w3].view(c2, c3)
+    dw2, dw3 = out[:n_w2].view(C1, C2), out[n_w2:n_w2 + n_w3].view(C2, C3)
     vec = out[n_w2 + n_w3:]
-    return (dA, dbc, dw2, vec[:c2], vec[c2:2 * c2], vec[2 * c2:3 * c2], dw3, vec[3 * c2:])
+    return (dA[..., :c1], dbc[..., :c1], dw2[:c1, :c2], vec[:c2], vec[C2:C2 + c2],
+            vec[2 * C2:2 * C2 + c2], dw3[:c2, :c3], vec[3 * C2:3 * C2 + c3])

@@ -44,9 +44,13 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def ln_one_pass(x: torch.Tensor, scale, bias, eps: float = EPS) -> torch.Tensor:
-    """f32 LayerNorm over the last axis with one-pass stats: var = E[x^2] - E[x]^2."""
-    c = x.shape[-1]
+def ln_one_pass(x: torch.Tensor, scale, bias, eps: float = EPS, c: int | None = None):
+    """f32 LayerNorm over the last axis with one-pass stats: var = E[x^2] - E[x]^2.
+
+    ``c`` is the real width when the axis carries zero padding past it (the
+    sums are the real channels' sums, divided by ``c``); by default the axis'.
+    """
+    c = c or x.shape[-1]
     mean = x.sum(-1, keepdim=True) / c
     var = torch.clamp((x * x).sum(-1, keepdim=True) / c - mean * mean, min=0.0)
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
@@ -65,6 +69,11 @@ def sa_prep_plain(pts, w1, b1, scale, lnb, *, radius: float) -> torch.Tensor:
     """Plain PyTorch prep: (B, N, 3 + C) f32 points -> (B, N, c1) bf16 ``A``."""
     _, x = _recompute(pts, w1, b1, radius)
     return ln_one_pass(x, scale.float(), lnb.float()).to(torch.bfloat16)
+
+
+def max_in_dim(c1: int) -> int:
+    """The largest in_dim the prep kernel takes at width c1 (0: c1 unsupported)."""
+    return c_function("sa_prep", "sa_prep_max_in_dim", [ctypes.c_int])(c1)
 
 
 def sa_prep(pts, w1, b1, scale, lnb, *, radius: float) -> torch.Tensor:
@@ -90,7 +99,7 @@ def sa_prep(pts, w1, b1, scale, lnb, *, radius: float) -> torch.Tensor:
         raise ValueError(f"sa_prep takes float32 points, got {pts.dtype}")
     if w1.shape[0] != in_dim or any(v.shape != (c1,) for v in (b1, scale, lnb)):
         raise ValueError("sa_prep parameter shapes do not match the points")
-    max_in = c_function("sa_prep", "sa_prep_max_in_dim", [ctypes.c_int])(c1)
+    max_in = max_in_dim(c1)
     if not 3 <= in_dim <= max_in:
         raise ValueError(f"sa_prep kernel takes c1 <= 256 and in_dim <= {max_in}, "
                          f"got c1={c1}, in_dim={in_dim}")

@@ -27,7 +27,13 @@ wrong mask and accept a right one, so they run here on small CPU inputs
   row, compact winners outside the window, windows clamped at N - W; and
   ``center_rows`` counts the rows the kernel packs;
 * ``fps_edge_inputs`` and ``prep_bwd_edge_inputs`` hold the edge cases their
-  checks name, and the plain versions give defined results on them.
+  checks name, and the plain versions give defined results on them;
+* the pool widths phase's triples lie outside the instantiated widths and
+  below the widest (``TOO_WIDE`` above it), on inputs of the shapes it names;
+  ``prep_edge_inputs`` and ``mask_edge_inputs`` hold the edge cases their
+  checks name (ragged row counts and windows, the widths and in_dims, clamped
+  and unaligned windows, points on the radius); ``prep_bound`` reads the
+  points once and writes A once.
 """
 
 import numpy as np
@@ -203,17 +209,18 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
               "   8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
     spill_log = "   8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads"
     ok = {"sa_pair_pool": ok_log, "sa_pair_pool_bwd": ok_log, "sa_prep_bwd": ok_log,
-          "fps": spill_log}
+          "sa_prep": ok_log, "fps": spill_log}
     monkeypatch.setattr(chip_smoke, "hgmma_counts", lambda lib: None)
     chip_smoke.check_pool_build(ok, FakeBuild)
-    assert capsys.readouterr().out.count("not checked") == 3
-    for source in ("sa_pair_pool", "sa_pair_pool_bwd", "sa_prep_bwd"):  # a spill in any
+    assert capsys.readouterr().out.count("not checked") == 4
+    for source in ("sa_pair_pool", "sa_pair_pool_bwd", "sa_prep_bwd", "sa_prep"):  # any spill
         with pytest.raises(AssertionError, match="spill"):
             chip_smoke.check_pool_build({**ok, source: spill_log}, FakeBuild)
     sass = {"sa_pair_pool": {"_Z19sa_pair_pool_kernelILi16E": 24, "_Z3fps": 0},
             "sa_pair_pool_bwd": {"_Z14pool_bwd_tilesILi16E": 12, "_Z14pool_bwd_tilesILi32E": 0,
                                  "_Z14reduce_records": 0},
-            "sa_prep_bwd": {"_Z14prep_bwd_tilesILi64ELb1E": 6, "_Z14reduce_records": 0}}
+            "sa_prep_bwd": {"_Z14prep_bwd_tilesILi64ELb1E": 6, "_Z14reduce_records": 0},
+            "sa_prep": {"_Z14sa_prep_kernelILi64EE": 1}}
     monkeypatch.setattr(chip_smoke, "hgmma_counts", lambda lib: sass[lib])
     with pytest.raises(AssertionError, match="sa_pair_pool_bwd GEMM kernel has no HGMMA"):
         chip_smoke.check_pool_build(ok, FakeBuild)
@@ -295,3 +302,72 @@ def test_prep_bwd_edge_inputs_hold_their_edge_cases():
         out = sa_prep.sa_prep_bwd_plain(*args, radius=radius)
         assert all(torch.isfinite(o).all() for o in out)
     assert all(not o.any() for o in sa_prep.sa_prep_bwd_plain(*zero, radius=0.4))
+
+
+def test_pool_widths_cases_lie_between_the_instantiations():
+    from eda_tpu_torch.ops.cuda import sa_pool_bwd
+
+    for layer, widths, N, M, W in chip_smoke.WIDTH_CASES:
+        assert widths not in sa_kernel.WIDTHS
+        big = sa_kernel.kernel_widths(*widths)
+        assert big != widths and all(c <= b for c, b in zip(widths, big))
+        assert N - W >= widths[2] and W >= widths[2]  # as bwd_edge_inputs needs
+    assert {w for _, w, *_ in chip_smoke.WIDTH_CASES} == {(48, 48, 96), (96, 80, 200)}
+    assert {(N, W) for _, _, N, _, W in chip_smoke.WIDTH_CASES} == {(8192, 1024), (2048, 256)}
+    for widths in chip_smoke.TOO_WIDE:
+        assert any(c > m for c, m in zip(widths, sa_kernel.WIDTHS[-1]))
+        with pytest.raises(ValueError):
+            sa_kernel.kernel_widths(*widths)
+    # the check's inputs: a random W3 in place of tie_inputs' zeros; the
+    # backward's widths as asked
+    args, _ = chip_smoke.tie_inputs(B=1, N=256, M=32, window=64, widths=(24, 24, 40))
+    mixed = chip_smoke.random_w3(args, seed=1)
+    assert not args[9].any() and mixed[9].shape == (24, 40) and mixed[9].std() > 0.05
+    assert all(a is b for i, (a, b) in enumerate(zip(args, mixed)) if i != 9)
+    bargs, kw = chip_smoke.bwd_edge_inputs(B=1, N=512, M=32, window=128, widths=(24, 24, 40))
+    out = sa_pool_bwd.sa_pool_bwd_plain(*bargs, **kw, compact=False)
+    assert [tuple(o.shape) for o in out] == [(1, 512, 24), (1, 32, 24), (24, 24), (24,), (24,),
+                                             (24,), (24, 40), (40,)]
+
+
+def test_prep_edge_inputs_hold_their_edge_cases():
+    top = {16: 7192, 48: 1752, 64: 1752, 128: 876, 256: 432}
+    cases = chip_smoke.prep_edge_inputs(lambda c1: top[c1] if c1 in top else 0)
+    widths = {(args[1].shape[0], args[1].shape[1]) for args, _ in cases.values()}
+    for c1 in chip_smoke.PREP_EDGE_C1:
+        assert (3, c1) in widths and (top[c1], c1) in widths
+    assert {(6, 64), (131, 128), (259, 128)} <= widths
+    rows = [args[0].shape[0] * args[0].shape[1] for args, _ in cases.values()]
+    assert all(r % 64 for r in rows) and min(rows) < 64  # ragged, and less than a tile
+    large = [args for name, (args, _) in cases.items() if name.startswith("large")]
+    assert len(large) == 2 and all(a[0][..., :3].abs().max() > 100 for a in large)
+    for args, radius in list(cases.values())[:4] + list(cases.values())[-5:]:
+        out = sa_prep.sa_prep_plain(*args, radius=radius)
+        assert out.shape == args[0].shape[:2] + (args[1].shape[1],)
+        assert torch.isfinite(out.float()).all()
+
+
+def test_mask_edge_inputs_hold_their_edge_cases():
+    cases = chip_smoke.mask_edge_inputs()
+    windows = [w for _, _, w in cases.values()]
+    assert 1100 in windows and 1100 % 1024 and any(w < 1024 and w % 256 for w in windows)
+    clamped = unaligned = single = near = 0
+    for (xyz, cen, starts), radius, window in cases.values():
+        B, N, _ = xyz.shape
+        start = sa_kernel.window_starts(starts.long(), N, window)
+        clamped += int((starts > N - window).any())
+        # windows whose points do not start on a 16-byte boundary
+        unaligned += int(((torch.arange(B)[:, None] * N + start) % 4 != 0).any())
+        single += int(cen.shape[1] == 16)
+        near += int(chip_smoke.boundary_centers(xyz, cen, starts, radius, window).any())
+        mask = sa_mask.sa_radius_mask_plain(xyz, cen, starts, radius=radius, window=window)
+        assert mask.shape == (B, cen.shape[1] // 16, window, 16) and mask.any()
+    assert clamped >= 2 and unaligned >= 1 and single == 1 and near >= 1
+
+
+def test_prep_bound_reads_points_once_and_writes_a_once():
+    pts, w1 = torch.zeros(2, 100, 6), torch.zeros(6, 64)
+    got = chip_smoke.prep_bound((pts, w1), {})
+    nb = 2 * 100 * 6 * 4 + 2 * 100 * 64 * 2 + 9 * 64 * 4
+    assert got == chip_smoke.bound(2 * 2 * 100 * 6 * 64, chip_smoke.PEAK_BF16, nb)
+    assert got[1] == "bytes"
