@@ -98,7 +98,20 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    stack; any other scene must differ from pair's from an SA layer's output on
    (both counted). Prints ms per batch and scenes/s per mode and one line of
    ``print_stats()``.
-8. Prints the per-kernel JSON line, the card line, and as its last line
+8. The training CLI (``python -m eda_tpu_torch.train``) on the card: tiny
+   synthetic scenes, batch 8, ``--max_steps 3``, then ``--eval`` from its
+   checkpoint over the whole val split. The run directory must hold
+   ``config.json``, ``log.txt``, ``metrics.jsonl`` and the forced
+   checkpoint, the three ``train`` records and the ``val`` record finite (the
+   accuracies in [0, 1]). A tiny training state saved after two steps and
+   restored on the card into a model of other weights must be bit-identical
+   to the one saved; one more step from each must give bit-identical metrics
+   and state tensors within ``STEP_REPEAT_ATOL`` (the backward adds with
+   atomics, so the update is not bit-identical; the counts are printed).
+9. The bench (``python -m eda_tpu_torch.bench --eval --batch 8 --iters 8``):
+   the forward, training and eval timers at full width with few repetitions,
+   their spreads on stderr and their JSON lines on stdout.
+10. Prints the per-kernel JSON line, the card line, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Per kernel, the JSON line's ``ms``, ``plain_ms`` and ``bound_ms`` are sums over
@@ -159,6 +172,7 @@ ZERO_GRAD = ("attn.key.bias", "points_obj_cls.dense.0.bias", "points_obj_cls.den
 # rounding of dx that lands on the other side of a boundary moves an element
 # by ~5e-4 of the leaf's largest value)
 PREP_BWD_REL, POOL_BWD_W_REL, POOL_BWD_A_REL = 0.02, 0.01, 0.005
+STEP_REPEAT_ATOL = 1e-6  # two tiny training steps from one state on the card, any state tensor
 
 
 def pool_symbol(mode: str, winners: bool) -> str:
@@ -1441,6 +1455,7 @@ def train_phase(cfg):
     from eda_tpu_torch.losses import criterion, matcher
     from eda_tpu_torch.ops import fused_sa
     from eda_tpu_torch.ops.cuda import build
+    from eda_tpu_torch.train.step import dropout_generator, step_generator
 
     state, step, batch = build_trainer(cfg, batch_size=BATCH, device="cuda", seed=0)
     bwd = lambda kw: bwd_symbol(kw["compact"])  # noqa: E731
@@ -1482,7 +1497,8 @@ def train_phase(cfg):
     # stage times of one step, each stage ended by a synchronize
     model, opt = state.model, state.optimizer
     model.train()
-    ends, t_fwd = timed(lambda: model(batch["inputs"]))
+    with dropout_generator(model, step_generator(0, state.step, "cuda")):
+        ends, t_fwd = timed(lambda: model(batch["inputs"]))
     (loss, _), t_loss = timed(lambda: criterion.compute_hungarian_loss(
         criterion.SetCriterionConfig(num_decoder_layers=cfg.num_decoder_layers), ends,
         batch["targets"]))
@@ -1619,6 +1635,92 @@ def eval_phase(cfg) -> dict:
     return launches
 
 
+def _same_state(a, b) -> bool:
+    """Parameters, BatchNorm statistics, AdamW moments and counts and the step, bit for bit."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+    return (a.step == b.step and oa["count"] == ob["count"] and sa.keys() == sb.keys()
+            and all(torch.equal(sa[k], sb[k]) for k in sa)
+            and all(torch.equal(x, y) for x, y in zip(oa["mu"] + oa["nu"], ob["mu"] + ob["nu"])))
+
+
+def cli_phase(root_cfg) -> None:
+    """The training CLI on the card (tiny synthetic, ``--max_steps 3``, then
+    ``--eval`` on its checkpoint), a checkpoint restored on the card, and
+    whether two identical training steps on the card agree bit for bit."""
+    import tempfile
+
+    from eda_tpu_torch.entry import build_trainer
+    from eda_tpu_torch.train import cli
+    from eda_tpu_torch.train.checkpoint import CheckpointManager
+
+    flags = ["--dataset", "synthetic", "--debug", "--use_color", "--batch_size", str(BATCH),
+             "--num_workers", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        run, evaluated = Path(tmp) / "run", Path(tmp) / "eval"
+        if cli.main(flags + ["--max_steps", "3", "--print_freq", "1", "--log_dir", str(run)]):
+            raise AssertionError("cli: the training run failed")
+        if cli.main(flags + ["--eval", "--checkpoint_path", str(run / "ckpt"),
+                             "--log_dir", str(evaluated)]):
+            raise AssertionError("cli: the eval run failed")
+        names = sorted(p.name for p in run.iterdir())
+        if not {"ckpt", "config.json", "log.txt", "metrics.jsonl"} <= set(names):
+            raise AssertionError(f"cli: run directory holds {names}")
+        if [p.name for p in (run / "ckpt").iterdir()] != ["epoch_0.pt"]:
+            raise AssertionError("cli: no forced checkpoint at max_steps")
+        records = [json.loads(line) for d in (run, evaluated)
+                   for line in (d / "metrics.jsonl").read_text().splitlines()]
+        train = [r for r in records if r["group"] == "train"]
+        val = [r for r in records if r["group"] == "val"]
+        values = [v for r in train + val for k, v in r.items() if k not in ("group", "time")]
+        if ([r["step"] for r in train] != [1, 2, 3] or len(val) != 1 or val[0]["step"] != 3
+                or not all(math.isfinite(v) for v in values)
+                or not all(0.0 <= v <= 1.0 for k, v in val[0].items() if "Acc" in k)):
+            raise AssertionError(f"cli: metrics {train} {val}")
+        if "resumed from epoch 1" not in (evaluated / "log.txt").read_text():
+            raise AssertionError("cli: --eval did not restore the checkpoint")
+        print(f"cli: 3 steps, losses {[round(r['loss'], 4) for r in train]}, the full val split "
+              f"scored from the checkpoint: last_ Acc@0.25 top-1 bbs "
+              f"{val[0]['last_Acc0.25Top1_bbs']:.4f}, bbf {val[0]['last_Acc0.25Top1_bbf']:.4f}")
+
+        cfg = root_cfg.tiny()
+        state, step, batch = build_trainer(cfg, batch_size=2, device="cuda", seed=0)
+        for _ in range(2):
+            step(state, batch)
+        mgr = CheckpointManager(str(Path(tmp) / "ckpt"), save_freq=1)
+        mgr.save(0, state)
+        restored, _ = mgr.restore(build_trainer(cfg, batch_size=2, device="cuda", seed=1)[0])
+        if not _same_state(state, restored):
+            raise AssertionError("cli: the state restored on the card is not the state saved")
+    # the same step from bit-identical states, twice
+    m1, m2 = step(state, batch), step(restored, batch)
+    same_metrics = [k for k in m1 if torch.equal(m1[k], m2[k])]
+    s1, s2 = state.model.state_dict(), restored.model.state_dict()
+    differ = [k for k in s1 if not torch.equal(s1[k], s2[k])]
+    worst = max(((s1[k] - s2[k]).abs().max().item(), k) for k in s1)
+    print(f"cli: checkpoint restored on the card bit-identical to the state saved; the next "
+          f"step from both: {len(same_metrics)} of {len(m1)} metrics bit-identical, "
+          f"{len(differ)} of {len(s1)} state tensors differ (largest {worst[0]:.3g} at "
+          f"{worst[1]}){'' if differ else ': bit-identical steps'}")
+    # what holds on the card (PERF.md §6): the forward, the loss and every
+    # metric repeat bit for bit; the update does not, since the backward adds
+    # with atomics (the pool backward's dA, PyTorch's gather backward), but
+    # stays within a few ulps of the parameters' magnitude
+    if len(same_metrics) != len(m1) or worst[0] > STEP_REPEAT_ATOL:
+        raise AssertionError(f"cli: two steps from the same state differ: metrics "
+                             f"{sorted(set(m1) - set(same_metrics))}, largest state "
+                             f"difference {worst[0]} at {worst[1]}")
+
+
+def bench_phase() -> None:
+    """The bench's three timers at flagship batch 8 with few repetitions; its
+    JSON lines go to stdout."""
+    from eda_tpu_torch import bench
+
+    if bench.main(["--eval", "--batch", str(BATCH), "--iters", "8"]):
+        raise AssertionError("bench failed")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1671,6 +1773,9 @@ def main() -> int:
     del model, inputs, trainer
     torch.cuda.empty_cache()
     eval_launches = phase("eval", eval_phase, cfg)
+    phase("cli", cli_phase, cfg)
+    torch.cuda.empty_cache()
+    phase("bench", bench_phase)
     for mode, mode_row in mode_rows.items():
         for row in mode_row:
             if not row["name"].endswith("winners"):

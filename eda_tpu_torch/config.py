@@ -1,8 +1,9 @@
-"""Model configuration of the PyTorch port.
+"""Model, training and data configuration of the PyTorch port.
 
-The port keeps its own copy of the JAX package's ``ModelConfig``: same
-fields, same defaults, same ``tiny()`` miniature, so a configuration written
-for one package describes the same network in the other.
+The port keeps its own copies of the JAX package's ``ModelConfig``,
+``TrainConfig`` and ``DataConfig``: same fields, same defaults, same
+``tiny()`` miniature, so a configuration written for one package describes
+the same network and run in the other.
 """
 
 from __future__ import annotations
@@ -83,9 +84,10 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Optimization schedule: the JAX package's ``TrainConfig`` (reference
-    ``main_utils.py:276-330``), the fields the training step reads."""
+    """Optimization schedule and run cadence: the JAX package's ``TrainConfig``
+    (reference ``main_utils.py:276-330``), field for field."""
 
+    batch_size: int = 12              # per device
     lr: float = 2e-4
     lr_backbone: float = 2e-3
     text_lr: float = 2e-5
@@ -97,3 +99,30 @@ class TrainConfig:
     lr_decay_rate: float = 0.1
     clip_norm: float = 0.1
     lr_scheduler: str = "multistep"   # multistep | cosine
+    save_freq: int = 5
+    val_freq: int = 5
+    seed: int = 0                     # weights and the dropout stream
+    checkpoint_dir: str = "logs"
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Input pipeline (reference ``src/joint_det_dataset.py``): the JAX
+    package's ``DataConfig``, field for field."""
+
+    datasets: Sequence[str] = ("scanrefer",)
+    test_dataset: str = "scanrefer"
+    data_root: str = "data/"
+    use_color: bool = True
+    use_height: bool = False
+    use_multiview: bool = False
+    augment: bool = True
+    augment_det: bool = False
+    detect_intermediate: bool = True
+    joint_det: bool = False
+    butd: bool = False
+    butd_gt: bool = False
+    butd_cls: bool = False
+    max_num_objects: int = 132        # MAX_NUM_OBJ, joint_det_dataset.py:45
+    num_workers: int = 4
+    debug: bool = False               # cap at 128 annos, overfit mode

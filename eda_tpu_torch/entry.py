@@ -58,12 +58,16 @@ def make_batch(cfg: ModelConfig, indices, device, text_len: int = 64, num_object
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+def to_device(batch: dict, device) -> dict:
+    """A numpy ``{"inputs": {...}, "targets": {...}}`` batch as tensors on ``device``."""
+    return {group: {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+            for group, arrays in batch.items()}
+
+
 def make_train_batch(cfg: ModelConfig, indices, device, text_len: int = 64,
                      num_objects: int = 8):
     """Synthetic ``{"inputs": ..., "targets": ...}`` of the scenes ``indices`` on ``device``."""
-    batch = _scenes(cfg, text_len, num_objects).train_batch(indices)
-    return {group: {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
-            for group, arrays in batch.items()}
+    return to_device(_scenes(cfg, text_len, num_objects).train_batch(indices), device)
 
 
 def build(cfg: Optional[ModelConfig] = None, *, batch_size: int = 2,
@@ -90,8 +94,10 @@ def build_trainer(cfg: Optional[ModelConfig] = None, *, batch_size: int = 2,
     model = EDAGrounder(cfg)
     model.init_weights(seed)
     model = model.to(dev).train()
-    optimizer = AdamW(model, TrainConfig(), STEPS_PER_EPOCH)
-    step = make_train_step(SetCriterionConfig(num_decoder_layers=cfg.num_decoder_layers))
+    train_cfg = TrainConfig()
+    optimizer = AdamW(model, train_cfg, STEPS_PER_EPOCH)
+    step = make_train_step(SetCriterionConfig(num_decoder_layers=cfg.num_decoder_layers),
+                           seed=train_cfg.seed)
     return TrainState(model, optimizer), step, make_train_batch(cfg, range(batch_size), dev)
 
 

@@ -86,13 +86,24 @@ class Dropout(nn.Dropout):
     ``shape`` (optional) draws one mask of that shape and broadcasts it over
     the input, as flax's ``broadcast_dropout`` does for attention weights.
     Set ``p = 0`` to switch it off in train mode.
+
+    In train mode the mask is drawn on the input's device from ``generator``,
+    which the training step sets for the length of one step
+    (``train.step.dropout_generator``), as flax draws from the step's
+    ``dropout`` key; without one the layer raises.
     """
+
+    generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor, shape=None) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
+        if self.generator is None:
+            raise RuntimeError("train-mode dropout draws from the training step's generator "
+                               "(eda_tpu_torch.train.step.dropout_generator)")
         keep_prob = 1.0 - self.p
-        keep = torch.rand(shape if shape is not None else x.shape, device=x.device) < keep_prob
+        keep = torch.rand(shape if shape is not None else x.shape, device=x.device,
+                          generator=self.generator) < keep_prob
         return torch.where(keep, x / torch.tensor(keep_prob, dtype=x.dtype), torch.zeros_like(x))
 
 

@@ -15,6 +15,12 @@ group::
 Schedules match the reference's torch schedulers: milestones and the cosine
 horizon are offset by the RAW ``warmup_epoch``, its disabled -1 included
 (``eda_tpu/train/optim.py:50-100``).
+
+``AdamW.constant`` is the accuracy probe's optimizer
+(``eda_tpu/tools/window_sweep.py``, ``--schedule constant``):
+``optax.chain(clip_by_global_norm(1.0), adamw(lr))``, one group of every
+parameter, the text encoder included (its gradient is zero, so only the
+weight decay of 1e-4 moves it), at a constant rate, with the same arithmetic.
 """
 
 from __future__ import annotations
@@ -69,20 +75,53 @@ def make_lr_schedules(cfg: TrainConfig, steps_per_epoch: int) -> Dict[str, Calla
 
 
 class AdamW:
-    """Clip -> AdamW per group over a model's parameters (text encoder frozen)."""
+    """Clip -> AdamW per group over a model's parameters (text encoder frozen).
+
+    With ``one_group`` every parameter, the text encoder included, is in one
+    group at the constant rate ``cfg.lr`` (``AdamW.constant``).
+    """
 
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig, steps_per_epoch: int,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, one_group: bool = False):
         self.cfg = cfg
         self.b1, self.b2, self.eps = b1, b2, eps
-        self.schedules = make_lr_schedules(cfg, steps_per_epoch)
-        self.groups: Dict[str, List[torch.nn.Parameter]] = {"main": [], "backbone": [], "text": []}
+        if one_group:
+            self.schedules = {"all": lambda t: cfg.lr}
+        else:
+            self.schedules = make_lr_schedules(cfg, steps_per_epoch)
+        self.groups: Dict[str, List[torch.nn.Parameter]] = {name: [] for name in self.schedules}
         for name, p in model.named_parameters():
-            self.groups[group_of(name)].append(p)
+            self.groups["all" if one_group else group_of(name)].append(p)
         self.params = [p for ps in self.groups.values() for p in ps]
+        self.trained = [g for g in self.groups if g != "text"]
         self.moments = {p: (torch.zeros_like(p), torch.zeros_like(p))
-                        for g in ("main", "backbone") for p in self.groups[g]}
+                        for g in self.trained for p in self.groups[g]}
         self.count = 0
+
+    @classmethod
+    def constant(cls, model: torch.nn.Module, lr: float, clip_norm: float = 1.0,
+                 weight_decay: float = 1e-4) -> "AdamW":
+        """``optax.chain(clip_by_global_norm(clip_norm), adamw(lr, weight_decay=...))``
+        over every parameter of ``model`` as one group at the constant rate ``lr``."""
+        cfg = TrainConfig(lr=lr, weight_decay=weight_decay, clip_norm=clip_norm)
+        return cls(model, cfg, 1, one_group=True)
+
+    def state_dict(self) -> dict:
+        """The update count and both moments of every trained parameter, in order."""
+        trained = [p for g in self.trained for p in self.groups[g]]
+        return {"count": self.count, "mu": [self.moments[p][0] for p in trained],
+                "nu": [self.moments[p][1] for p in trained]}
+
+    def load_state_dict(self, state: dict) -> None:
+        trained = [p for g in self.trained for p in self.groups[g]]
+        if len(state["mu"]) != len(trained) or len(state["nu"]) != len(trained):
+            raise ValueError(f"optimizer state holds {len(state['mu'])} moments, "
+                             f"this optimizer trains {len(trained)} parameters")
+        with torch.no_grad():
+            for p, mu, nu in zip(trained, state["mu"], state["nu"]):
+                self.moments[p][0].copy_(mu)
+                self.moments[p][1].copy_(nu)
+        self.count = int(state["count"])
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -103,7 +142,7 @@ class AdamW:
         # optax's f32 bias corrections: 1 - decay ** t in f32
         bc1 = float(1 - torch.tensor(self.b1) ** t)
         bc2 = float(1 - torch.tensor(self.b2) ** t)
-        for group in ("main", "backbone"):
+        for group in self.trained:
             params = self.groups[group]
             if not params:
                 continue

@@ -3,20 +3,25 @@
 A training step is the reference's whole inner loop: forward in train mode
 (dropout, BatchNorm batch statistics and running-statistic update), the loss
 with every Hungarian match, the backward, the global-norm clip and the AdamW
-update. The evaluation steps run the forward in eval mode under
-``torch.inference_mode()`` (the serving kernels, no autograd) and restore the
-model's mode afterwards.
+update. Its dropout masks come from one generator on the model's device keyed
+by (seed, step), the counterpart of ``fold_in(key(seed), state.step)``: a run
+restored at step n draws the masks of the uninterrupted run. The evaluation
+steps run the forward in eval mode under ``torch.inference_mode()`` (the
+serving kernels, no autograd) and restore the model's mode afterwards.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
+import numpy as np
 import torch
 
 from eda_tpu_torch.eval.grounding import score_and_iou_multi
 from eda_tpu_torch.losses.criterion import SetCriterionConfig, compute_hungarian_loss
+from eda_tpu_torch.models.layers import Dropout
 from eda_tpu_torch.train.optim import AdamW
 
 
@@ -29,16 +34,38 @@ class TrainState:
     step: int = 0
 
 
-def make_train_step(criterion_cfg: SetCriterionConfig) -> Callable:
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of step ``step`` of a run seeded ``seed``, on ``device``."""
+    words = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed(int(words[0]) << 32 | int(words[1]))
+
+
+@contextlib.contextmanager
+def dropout_generator(model: torch.nn.Module, generator: torch.Generator) -> Iterator[None]:
+    """Every ``Dropout`` of ``model`` draws from ``generator`` inside the block."""
+    layers = [m for m in model.modules() if isinstance(m, Dropout)]
+    for m in layers:
+        m.generator = generator
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.generator = None
+
+
+def make_train_step(criterion_cfg: SetCriterionConfig, seed: int = 0) -> Callable:
     """``step(state, batch) -> metrics`` with ``batch = {"inputs": ..., "targets": ...}``.
 
     The metrics are those of ``compute_hungarian_loss`` plus ``grad_norm``, the
     global gradient norm before clipping, all 0-d tensors on the model's device.
+    Dropout draws from ``step_generator(seed, state.step)``.
     """
 
     def step(state: TrainState, batch: Dict[str, dict]) -> Dict[str, torch.Tensor]:
         state.model.train()
-        end_points = state.model(batch["inputs"])
+        device = batch["inputs"]["point_clouds"].device
+        with dropout_generator(state.model, step_generator(seed, state.step, device)):
+            end_points = state.model(batch["inputs"])
         loss, metrics = compute_hungarian_loss(criterion_cfg, end_points, batch["targets"])
         state.optimizer.zero_grad()
         loss.backward()

@@ -16,7 +16,9 @@ module path:
   ``kernels.i``, ``biases.i``, ``ln_scales.i``, ``ln_biases.i`` (layout kept).
 
 ``load_flax`` raises on a flax leaf with no port parameter and on a port
-parameter or buffer that no flax leaf sets.
+parameter or buffer that no flax leaf sets. ``to_flax`` is its inverse: a port
+``state_dict`` back to flax variables, laid out as a given flax tree (its
+leaves give the names and the shapes the renaming dropped).
 """
 
 from __future__ import annotations
@@ -101,3 +103,33 @@ def load_flax(model: torch.nn.Module, variables: Dict[str, dict]) -> None:
             raise ValueError(f"{key}: flax shape {tuple(value.shape)} != port "
                              f"shape {tuple(expected[key].shape)}")
     model.load_state_dict(state, strict=True)
+
+
+def to_flax(state: Dict[str, torch.Tensor], like: Dict[str, dict]) -> Dict[str, dict]:
+    """The port's state dict as flax ``{"params", "batch_stats"}`` of numpy f32
+    leaves, with the names and shapes of ``like`` (flax variables, any leaves
+    with a ``shape``). Strict both ways, as ``load_flax``."""
+
+    def build(tree, path):
+        out = {}
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                out[key] = build(value, path + (key,))
+                continue
+            shape = tuple(np.shape(value))
+            name, converted = _convert(path + (key,), np.zeros(shape, np.float32))
+            if name not in state:
+                raise KeyError(f"no port tensor {name} for flax leaf {'/'.join(path + (key,))}")
+            x = state[name].detach().cpu().float().numpy()
+            if x.shape != converted.shape:
+                raise ValueError(f"{name}: port shape {x.shape} != {converted.shape}")
+            used.add(name)
+            out[key] = np.ascontiguousarray((x.T if key == "kernel" else x).reshape(shape))
+        return out
+
+    used = set()
+    variables = {c: build(like[c], ()) for c in ("params", "batch_stats") if c in like}
+    unused = sorted(set(state) - used)
+    if unused:
+        raise KeyError(f"port tensors no flax leaf takes: {unused}")
+    return variables

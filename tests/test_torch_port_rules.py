@@ -3,9 +3,10 @@
 * ``eda_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor flax nor
   anything of the JAX package ``eda_tpu``;
 * both import on a machine with no CUDA and no ``nvcc`` (kernels build on use);
-* entry points (``build``, ``entry``, ``build_evaluator``) run on CUDA
-  unless the caller asks for the CPU, and never fall back to the CPU by
-  themselves; ``chip_smoke.py`` fails without a card;
+* entry points (``build``, ``entry``, ``build_evaluator``, the training CLI,
+  the bench and the window sweep) run on CUDA unless the caller asks for the
+  CPU, and never fall back to the CPU by themselves; ``chip_smoke.py`` fails
+  without a card;
 * ``weights.load_flax`` maps every flax leaf and sets every port parameter;
 * the port's synthetic inputs and training targets are the JAX package's,
   byte for byte.
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_torch_thread  # noqa: F401
 
 from eda_tpu.config import ModelConfig as JaxConfig
 from eda_tpu.data.synthetic import SyntheticConfig as JaxSyntheticConfig
@@ -32,7 +34,7 @@ from eda_tpu_torch.config import ModelConfig
 from eda_tpu_torch.data.synthetic import SyntheticConfig, SyntheticScenes
 from eda_tpu_torch.models.grounder import EDAGrounder
 from eda_tpu_torch.ops.cuda import build
-from eda_tpu_torch.weights import from_flax, load_flax
+from eda_tpu_torch.weights import from_flax, load_flax, to_flax
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "eda_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -106,6 +108,33 @@ def test_build_evaluator_needs_cuda_unless_cpu_is_asked(monkeypatch):
     assert all(k.launches == 0 for k in build.KERNELS.values())
 
 
+def _tools(tmp_path):
+    from eda_tpu_torch import bench
+    from eda_tpu_torch.tools import window_sweep
+    from eda_tpu_torch.train import cli
+
+    return {
+        "train": (cli.main, ["--debug", "--use_color", "--max_steps", "1", "--batch_size", "2",
+                             "--log_dir", str(tmp_path / "run")]),
+        "bench": (bench.main, ["--dry", "--no-train", "--no-mfu", "--iters", "1"]),
+        "window_sweep": (window_sweep.main, ["--dry", "--steps", "1", "--batch", "2",
+                                             "--train-batches", "1", "--eval-batches", "1",
+                                             "--sweep", "default"]),
+    }
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("tool", ["train", "bench", "window_sweep"])
+def test_command_line_tools_need_cuda_unless_cpu_is_passed(tool, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main, argv = _tools(tmp_path)[tool]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
+    assert not (tmp_path / "run").exists()
+    assert main(argv + ["--cpu"]) == 0
+    assert all(k.launches == 0 for k in build.KERNELS.values())
+
+
 def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
     import chip_smoke
 
@@ -152,6 +181,25 @@ def test_from_flax_maps_every_leaf():
         load_flax(port, short)
     with pytest.raises(KeyError, match="no port parameter"):
         from_flax({"params": {"odd": {"thing": np.zeros(3, np.float32)}}})
+
+
+def test_to_flax_inverts_from_flax():
+    rng = np.random.default_rng(0)
+    tree = jax.tree_util.tree_map(lambda x: rng.normal(size=x.shape).astype(np.float32),
+                                  _flax_tree(JaxConfig(use_bf16=True).tiny()))
+    port = EDAGrounder(ModelConfig(use_bf16=True).tiny())
+    load_flax(port, tree)
+    back = to_flax(port.state_dict(), tree)
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(tree)
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(tree)):
+        assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+    state = {k: v + 1 for k, v in port.state_dict().items()}
+    again = from_flax(to_flax(state, tree))
+    assert again.keys() == state.keys() and all(torch.equal(again[k], state[k]) for k in state)
+    with pytest.raises(KeyError, match="no flax leaf takes"):
+        to_flax({**state, "stray.weight": torch.zeros(2)}, tree)
+    with pytest.raises(KeyError, match="pos_embed"):
+        to_flax({k: v for k, v in state.items() if not k.startswith("pos_embed")}, tree)
 
 
 @pytest.mark.parametrize("num_points,text_len", [(1024, 16), (50000, 64)])

@@ -42,10 +42,15 @@ brackets, this file's inputs):
   and at least 80% of them within 0.1 lr (88.5%);
 * BatchNorm running statistics within 1% of the leaf's largest value (0.18%);
 * the frozen text encoder unchanged.
+
+A second step runs at the converged tiny checkpoint (``torch_tiny_overfit.npz``)
+with the port's own KPS and auction: its matches must be JAX's, its loss and
+metrics within the tolerances above (``test_converged_step_with_the_ports_own_decisions``).
 """
 
 import dataclasses
 import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -78,7 +83,7 @@ from eda_tpu_torch.models.grounder import EDAGrounder
 from eda_tpu_torch.models.layers import Dropout
 from eda_tpu_torch.train.optim import AdamW, group_of
 from eda_tpu_torch.train.step import TrainState, make_train_step
-from eda_tpu_torch.weights import from_flax, load_flax
+from eda_tpu_torch.weights import from_flax, load_flax, to_flax
 
 STEPS_PER_EPOCH = 10
 LOSS_REL = 0.01
@@ -136,20 +141,21 @@ def _loss_with_decisions(cfg, end_points, targets):
     return loss, metrics
 
 
-@pytest.fixture(scope="module")
-def jax_step():
+def _jax_train_step(batch, variables=None):
+    """One JAX training step on its TPU path, with its decisions; random
+    perturbed weights unless ``variables`` (a function of the model and batch)."""
     with pytest.MonkeyPatch.context() as mp:
         tpu_path(mp, training=True)
         mp.setattr(jax_step_module, "compute_hungarian_loss", _loss_with_decisions)
         jcfg = dataclasses.replace(JaxConfig(use_bf16=True).tiny(), dropout=0.0)
-        gen = JaxSyntheticScenes(JaxSyntheticConfig(num_points=1024, num_objects=4,
-                                                    text_len=16), vocab_size=512)
-        batch = gen.batch(range(2))
         batch_j = jax.tree_util.tree_map(jnp.asarray, batch)
         model = JaxGrounder(jcfg)
-        variables = jax.jit(lambda x: model.init(jax.random.key(0), x, train=False))(
-            batch_j["inputs"])
-        variables = perturb(to_numpy(variables), seed=2)
+        if variables is None:
+            variables = jax.jit(lambda x: model.init(jax.random.key(0), x, train=False))(
+                batch_j["inputs"])
+            variables = perturb(to_numpy(variables), seed=2)
+        else:
+            variables = variables(model, batch_j)
         tx = make_optimizer(JaxTrainConfig(), variables["params"], STEPS_PER_EPOCH)
         state = JaxTrainState.create(variables["params"], variables["batch_stats"], tx)
         step = jax_make_train_step(
@@ -168,25 +174,52 @@ def jax_step():
 
 
 @pytest.fixture(scope="module")
-def port_step(jax_step):
+def jax_step():
+    gen = JaxSyntheticScenes(JaxSyntheticConfig(num_points=1024, num_objects=4, text_len=16),
+                             vocab_size=512)
+    return _jax_train_step(gen.batch(range(2)))
+
+
+def _port_train_step(jax_run, own_decisions=False):
+    """The port's step on the JAX run's weights and batch, dropout off; with
+    the JAX run's KPS indices and matches, or its own (recorded)."""
     cfg = dataclasses.replace(ModelConfig(use_bf16=True).tiny(), dropout=0.0)
     model = EDAGrounder(cfg)
-    load_flax(model, jax_step["variables"])
+    load_flax(model, jax_run["variables"])
     for m in model.modules():
         if isinstance(m, Dropout):
             m.p = 0.0
     state = TrainState(model, AdamW(model, TrainConfig(), STEPS_PER_EPOCH))
     batch = {group: {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
-             for group, arrays in jax_step["batch"].items()}
-    dec = jax_step["decisions"]
+             for group, arrays in jax_run["batch"].items()}
+    dec, chosen = jax_run["decisions"], {}
+
+    def record(fn, key):
+        def wrapped(*a, **k):
+            chosen[key] = fn(*a, **k)
+            return chosen[key]
+        return wrapped
+
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(port_grounder, "top_k_indices", lambda logits, k: dec["__query_inds"].long())
-        mp.setattr(port_criterion, "hungarian_match", lambda *a, **k: MatchResult(
-            dec["__match_q"], a[6], dec["__query_matched"], dec["__query_target"],
-            torch.zeros(len(a[6]), dtype=torch.int32)))
+        if own_decisions:
+            mp.setattr(port_grounder, "top_k_indices", record(port_grounder.top_k_indices, "kps"))
+            mp.setattr(port_criterion, "hungarian_match",
+                       record(port_criterion.hungarian_match, "match"))
+        else:
+            mp.setattr(port_grounder, "top_k_indices",
+                       lambda logits, k: dec["__query_inds"].long())
+            mp.setattr(port_criterion, "hungarian_match", lambda *a, **k: MatchResult(
+                dec["__match_q"], a[6], dec["__query_matched"], dec["__query_target"],
+                torch.zeros(len(a[6]), dtype=torch.int32)))
         metrics = make_train_step(
             SetCriterionConfig(num_decoder_layers=cfg.num_decoder_layers))(state, batch)
-    return dict(state=state, metrics={k: float(v) for k, v in metrics.items()})
+    return dict(state=state, metrics={k: float(v) for k, v in metrics.items()},
+                decisions=chosen)
+
+
+@pytest.fixture(scope="module")
+def port_step(jax_step):
+    return _port_train_step(jax_step)
 
 
 def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -246,3 +279,41 @@ def test_new_parameters_and_batch_stats_match(jax_step, port_step):
         close += int((diff <= 0.1 * lr).sum())
         total += diff.numel()
     assert close >= PARAM_CLOSE * total, close / total
+
+
+def test_converged_step_with_the_ports_own_decisions():
+    """At the converged tiny checkpoint (``tests/torch_tiny_overfit.npz``, two
+    of its training scenes) the port runs its own KPS and auction. The
+    matches must be JAX's and the loss and metrics within the tolerances
+    above. The KPS seed set is not held: the train-mode objectness logits'
+    gap at the KPS boundary (0.029-0.062, adjacent gaps among the top 33 down
+    to 0.004) lies under the packages' ~0.05 train-mode difference, and one
+    seed of each scene differs (ROADMAP Queue 3); the gradient and parameter
+    gates above are not held here either: at convergence some leaves' gradients
+    are ~1e-7 and their cosine is noise."""
+    gen = JaxSyntheticScenes(JaxSyntheticConfig(num_points=1024, num_objects=4, text_len=32,
+                                                max_objects=16), vocab_size=512)
+    with np.load(Path(__file__).with_name("torch_tiny_overfit.npz")) as f:
+        state = {k: torch.from_numpy(f[k]) for k in f.files}
+
+    def converged(model, batch_j):
+        shapes = jax.eval_shape(lambda x: model.init(jax.random.key(0), x, train=False),
+                                batch_j["inputs"])
+        return to_flax(state, shapes)
+
+    want = _jax_train_step(gen.batch(range(2)), converged)
+    got = _port_train_step(want, own_decisions=True)
+    match, dec = got["decisions"]["match"], want["decisions"]
+    valid, matched = match.target_valid, match.query_matched
+    assert valid.sum() > 0
+    assert torch.equal(match.match_q[valid], dec["__match_q"].long()[valid])
+    assert torch.equal(matched, dec["__query_matched"].bool())
+    assert torch.equal(match.query_target[matched], dec["__query_target"].long()[matched])
+    kps = got["decisions"]["kps"]
+    differ = [len(set(k.tolist()) - set(w.tolist()))
+              for k, w in zip(kps, dec["__query_inds"].long())]
+    print(f"converged step: matches equal JAX's; KPS seeds differing per scene {differ}")
+    w, g = want["metrics"], got["metrics"]
+    assert abs(g["loss"] - w["loss"]) <= LOSS_REL * abs(w["loss"])
+    for key in w:
+        assert abs(g[key] - w[key]) <= METRIC_REL * abs(w[key]) + 1e-6, (key, g[key], w[key])

@@ -94,3 +94,13 @@ def jax_tpu_training_path(monkeypatch):
     """The JAX model on its TPU training path (``impl="pallas_train"``),
     interpreted on the CPU, with dropout off."""
     tpu_path(monkeypatch, training=True)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's PyTorch work: the suite runs several
+    workers on one machine, and tiny models gain nothing from more threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
