@@ -108,10 +108,32 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    to the one saved; one more step from each must give bit-identical metrics
    and state tensors within ``STEP_REPEAT_ATOL`` (the backward adds with
    atomics, so the update is not bit-identical; the counts are printed).
-9. The bench (``python -m eda_tpu_torch.bench --eval --batch 8 --iters 8``):
+9. Real-format data through the CLI at the flagship's width, fabricated by
+   ``tests/real_data_fixtures.py`` from a seed: 8 train and 4 val scenes in
+   the ScanNet layout (60 000 vertices each, so the 50 000-point downsample
+   draws without replacement), ScanRefer-format annotations (32 a scene), a
+   byte-level BPE ``vocab.json`` + ``merges.txt`` whose merges build the
+   fixture's words, and a ``roberta-base/pytorch_model.bin`` in HF names (12
+   layers, width 768, 50 265 tokens) from a seeded ``RobertaEncoder``; packs
+   the scenes with ``eda_tpu_torch.tools.pack_scans`` in one process; trains
+   16 steps at batch 8 on ``--dataset scanrefer --use_color`` and 16 on
+   ``--dataset synthetic`` with the same flags, scores the 128 val
+   annotations with ``--eval`` from the first run's checkpoint, and trains 2
+   steps under ``--joint_det``. Each real-data run's
+   log must report every text-encoder tensor loaded, its text encoder before
+   step 1 must be the seeded one bit for bit, every batch must carry
+   256-token texts and a positive map with mass in each target row, every
+   loss and ``grad_norm`` must be finite, each step must advance K1, K2, K4
+   and K7 by 4, K5 by 1, K6 by 3 and K3 by 0, and each eval batch K1-K3 by
+   4; the eval's accuracies must lie in [0, 1]. Prints the packing time, the
+   host ms per ``GroundingDataset.example`` against the synthetic
+   generator's per scene, both CLI runs' steps/s between their first and
+   last ``metrics.jsonl`` rows (steps 1 and 16; the input pipeline's waits
+   included), the eval's scenes/s and the accuracy split by hardness.
+10. The bench (``python -m eda_tpu_torch.bench --eval --batch 8 --iters 8``):
    the forward, training and eval timers at full width with few repetitions,
    their spreads on stderr and their JSON lines on stdout.
-10. Prints the per-kernel JSON line, the card line, and as its last line
+11. Prints the per-kernel JSON line, the card line, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Per kernel, the JSON line's ``ms``, ``plain_ms`` and ``bound_ms`` are sums over
@@ -1712,6 +1734,168 @@ def cli_phase(root_cfg) -> None:
                              f"difference {worst[0]} at {worst[1]}")
 
 
+def pack(root: Path, scan_dir: Path, ids: dict, processes: int) -> None:
+    """``python -m eda_tpu_torch.tools.pack_scans`` for each split, over the fabricated ids."""
+    from eda_tpu_torch.tools import pack_scans as pack_tool
+
+    with patched(pack_tool, "split_scan_ids", lambda split: ids[split]):
+        for split in ids:
+            if pack_tool.main(["--scan_dir", str(scan_dir), "--data_root", str(root),
+                               "--split", split, "--processes", str(processes)]):
+                raise AssertionError(f"pack_scans failed for {split}")
+
+
+
+REAL_ANNOS = 32  # utterances a fabricated scene names (ScanRefer has ~64 a scene)
+REAL_STEPS = 16  # steps of the timed CLI runs
+RATE_FREQ = 5  # their --print_freq: metrics.jsonl rows at steps 1, 6, 11 and 16
+
+
+def cli_rate(run: Path) -> tuple:
+    """(steps/s, first step, last step) between the first and the last train row of
+    a run's ``metrics.jsonl``: wall time, waits for the input pipeline included."""
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    rows = [r for r in rows if r["group"] == "train"]
+    first, last = rows[0], rows[-1]
+    rate = (last["step"] - first["step"]) / (last["time"] - first["time"])
+    return rate, first["step"], last["step"]
+
+
+def real_data_phase(root_cfg) -> None:
+    """The training CLI on real-format data at the flagship's width: pack a
+    fabricated ScanNet tree, train ``REAL_STEPS`` steps on ScanRefer-format
+    annotations with the RoBERTa warm start and, in the same process, as many
+    on synthetic scenes (both rates from ``metrics.jsonl``), score the val
+    split from the checkpoint, and train 2 steps under ``--joint_det``."""
+    import tempfile
+
+    sys.path.append(str(Path(__file__).resolve().parent / "tests"))
+    from real_data_fixtures import CheckedSteps, fabricate_real_data
+
+    from eda_tpu_torch.data.dataset import GroundingDataset
+    from eda_tpu_torch.data.synthetic import SyntheticConfig, SyntheticScenes
+    from eda_tpu_torch.ops.cuda import build
+    from eda_tpu_torch.train import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t = time.perf_counter()
+        root, scan_dir, ids, encoder, _ = fabricate_real_data(
+            tmp, root_cfg, n_vertices=60_000, scenes={"train": 8, "val": 4},
+            annos_per_scene=REAL_ANNOS)
+        print(f"real data: fabricated {len(ids['train'])} + {len(ids['val'])} scenes of 60000 "
+              f"vertices, {REAL_ANNOS} utterances each, and a {len(encoder.state_dict())}-tensor "
+              f"RoBERTa in {time.perf_counter() - t:.1f} s")
+        # one process: spawned workers would each import this script and torch
+        # first (~11 s on the card); tests/test_torch_scannet_data.py runs them
+        t = time.perf_counter()
+        pack(root, scan_dir, ids, processes=1)
+        print(f"real data: packed the two splits in {time.perf_counter() - t:.2f} s "
+              f"(one process)")
+
+        flags = ["--dataset", "scanrefer", "--use_color", "--data_root", str(root),
+                 "--batch_size", str(BATCH), "--num_workers", "4"]
+        args = cli.parse_args(flags)
+        ds = GroundingDataset.from_args(args, "train")
+        syn = SyntheticScenes(SyntheticConfig(num_points=root_cfg.num_points, num_objects=8,
+                                              text_len=64, max_objects=132, seed=0))
+        n_timed = 32
+        for source in (ds, syn):
+            source.example(0)
+        t = time.perf_counter()
+        for i in range(n_timed):
+            ds.example(i)
+        real_ms = 1e3 * (time.perf_counter() - t) / n_timed
+        t = time.perf_counter()
+        for i in range(n_timed):
+            syn.example(i)
+        syn_ms = 1e3 * (time.perf_counter() - t) / n_timed
+        print(f"real data: host ms per example, one thread, {n_timed} examples: "
+              f"GroundingDataset.example {real_ms:.2f} (50000 points, 256 tokens), the "
+              f"synthetic generator {syn_ms:.2f} (50000 points, 64 tokens)")
+
+        want = {k: v.detach().clone() for k, v in encoder.state_dict().items()}
+
+        def same_text_encoder(state):
+            got = state.model.text_encoder.state_dict()
+            if got.keys() != want.keys() or not all(
+                    torch.equal(got[k].cpu(), want[k]) for k in want):
+                raise AssertionError("real data: the warm-started text encoder is not the "
+                                     "seeded encoder bit for bit")
+
+        rates = {}
+        for name, extra, n_steps, freq in (
+                ("scanrefer", [], REAL_STEPS, RATE_FREQ), ("joint_det", ["--joint_det"], 2, 1)):
+            steps = CheckedSteps(cli.make_train_step, same_text_encoder)
+            run = tmp / name
+            for kernel in build.KERNELS.values():
+                kernel.launches = 0
+            with patched(cli, "make_train_step", steps):
+                if cli.main(flags + extra + ["--max_steps", str(n_steps), "--print_freq",
+                                             str(freq), "--log_dir", str(run)]):
+                    raise AssertionError(f"real data: the {name} run failed")
+            metrics = steps.finish()
+            if len(metrics) != n_steps:
+                raise AssertionError(f"real data: {len(metrics)} {name} steps, not {n_steps}")
+            for i, launched in enumerate(steps.launches):
+                want_launches = step_launches("pair")
+                if {s: c for s, c in launched.items() if c} != want_launches:
+                    raise AssertionError(f"real data: {name} step {i} launched {launched}, "
+                                         f"not {want_launches}")
+            log = (run / "log.txt").read_text()
+            loaded = f"text_encoder: loaded {len(want)} RoBERTa leaves"
+            if loaded not in log:
+                raise AssertionError(f"real data: the {name} log lacks '{loaded}'")
+            if n_steps > RATE_FREQ:
+                rates[name] = cli_rate(run)
+            torch.cuda.empty_cache()
+            print(f"real data: {name} run, {n_steps} steps at batch {BATCH}: losses "
+                  f"{[round(m[0], 4) for m in metrics]}, grad_norm "
+                  f"{[round(m[1], 4) for m in metrics]}; {loaded}; the text encoder before "
+                  f"step 1 is the seeded one bit for bit; every step launched "
+                  f"{step_launches('pair')}")
+        # the same CLI on synthetic scenes (64-token texts), same batch and workers
+        if cli.main(["--dataset", "synthetic", "--use_color", "--data_root", str(tmp / "none"),
+                     "--batch_size", str(BATCH), "--num_workers", "4", "--max_steps",
+                     str(REAL_STEPS), "--print_freq", str(RATE_FREQ),
+                     "--log_dir", str(tmp / "synthetic")]):
+            raise AssertionError("real data: the synthetic CLI run failed")
+        rates["synthetic"] = cli_rate(tmp / "synthetic")
+        torch.cuda.empty_cache()
+        for name, (rate, first, last) in rates.items():
+            print(f"real data: CLI on {name} {rate:.3f} steps/s = {rate * BATCH:.2f} scenes/s at "
+                  f"batch {BATCH}, 4 loader threads (metrics.jsonl times, steps {first} -> "
+                  f"{last}, loader waits included)")
+
+        evaluated = tmp / "eval"
+        for kernel in build.KERNELS.values():
+            kernel.launches = 0
+        if cli.main(flags + ["--eval", "--checkpoint_path", str(tmp / "scanrefer" / "ckpt"),
+                             "--log_dir", str(evaluated)]):
+            raise AssertionError("real data: the eval run failed")
+        n_val = len(ids["val"]) * REAL_ANNOS
+        batches = -(-n_val // BATCH)
+        check_launches({s: 0 for s in launch_counts()},
+                       {s: c * batches for s, c in forward_launches("pair").items()},
+                       "real data eval")
+        log = (evaluated / "log.txt").read_text()
+        (val,) = [json.loads(line) for line in (evaluated / "metrics.jsonl").read_text()
+                  .splitlines() if json.loads(line)["group"] == "val"]
+        accs = {k: v for k, v in val.items() if "Acc" in k}
+        if not accs or not all(0.0 <= v <= 1.0 for v in accs.values()):
+            raise AssertionError(f"real data: eval accuracies {accs}")
+        splits = [line for line in log.splitlines()
+                  if re.match(r"^(vd|vid|hard|easy|unique|multi): ", line)]
+        rate = re.search(r"scored (\d+) scenes in ([\d.]+) s \(([\d.]+) scenes/s", log)
+        if not splits or rate is None or int(rate.group(1)) != n_val:
+            raise AssertionError("real data: the eval log lacks its rate or hardness splits")
+        print(f"real data: eval of {n_val} val annotations from the checkpoint: "
+              f"{rate.group(3)} scenes/s ({rate.group(2)} s, the first batch and host assembly "
+              f"included), {batches} batches launching {forward_launches('pair')} each; last_ "
+              f"Acc@0.25 top-1 bbs {val['last_Acc0.25Top1_bbs']:.4f}, "
+              f"bbf {val['last_Acc0.25Top1_bbf']:.4f}; by hardness: {'; '.join(splits)}")
+
+
 def bench_phase() -> None:
     """The bench's three timers at flagship batch 8 with few repetitions; its
     JSON lines go to stdout."""
@@ -1774,6 +1958,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     eval_launches = phase("eval", eval_phase, cfg)
     phase("cli", cli_phase, cfg)
+    torch.cuda.empty_cache()
+    phase("real data", real_data_phase, cfg)
     torch.cuda.empty_cache()
     phase("bench", bench_phase)
     for mode, mode_row in mode_rows.items():

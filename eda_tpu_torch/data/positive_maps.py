@@ -49,3 +49,8 @@ def build_positive_maps(batch: TokenBatch, b: int, decoupled: dict) -> dict:
         key: spans_to_map(batch, b, decoupled[key])
         for key in ("main", "modifiers", "pronouns", "relations", "others", "auxi")
     }
+
+
+def not_mentioned_suffix(utterance: str) -> str:
+    """Append the ' . not mentioned' tail every caption carries."""
+    return utterance.rstrip() + " . not mentioned"

@@ -16,9 +16,9 @@ from typing import Dict
 import numpy as np
 
 from eda_tpu_torch.data.decouple import decoupled_spans
-from eda_tpu_torch.data.positive_maps import MAX_TOKENS, build_positive_maps
+from eda_tpu_torch.data.positive_maps import MAX_TOKENS, build_positive_maps, not_mentioned_suffix
 from eda_tpu_torch.data.presort import morton_sort
-from eda_tpu_torch.data.tokenizer import SimpleTokenizer, not_mentioned_suffix
+from eda_tpu_torch.data.tokenizer import SimpleTokenizer
 
 _CLASSES = [
     "chair", "table", "desk", "sofa", "bed", "cabinet", "shelf", "lamp",

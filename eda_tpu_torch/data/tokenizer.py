@@ -1,10 +1,18 @@
-"""Deterministic word-level tokenizer with stable hashed ids.
+"""Tokenizers with character offsets, in fixed-shape batches.
 
-Token ids come from an FNV-1a hash into the vocabulary. Special ids match
-RoBERTa (<s>=0, <pad>=1, </s>=2). Batches have a fixed shape (``max_len``), so
-every text tensor the model sees has the same length. ``encode_batch`` returns
-a ``TokenBatch`` that also carries each token's character offsets, which the
-positive maps of the training targets need (``eda_tpu/models/tokenizer.py:48-106``).
+The port's own copy of ``eda_tpu/models/tokenizer.py``:
+
+* ``SimpleTokenizer``: word-level, ids from an FNV-1a hash into the
+  vocabulary, for synthetic scenes;
+* ``BPETokenizer`` (``data/bpe.py``): RoBERTa's byte-level BPE from
+  ``vocab.json`` + ``merges.txt``, in plain Python;
+* ``HFTokenizer``: a local HuggingFace fast tokenizer, which imports
+  ``transformers`` only when it is built.
+
+Special ids match RoBERTa (<s>=0, <pad>=1, </s>=2). ``encode_batch`` pads to
+``max_len``, so every text tensor has one length, and returns a
+``TokenBatch`` that carries each token's character offsets, which the positive
+maps of the training targets need.
 """
 
 from __future__ import annotations
@@ -87,6 +95,38 @@ class SimpleTokenizer:
         return TokenBatch(ids, mask, offsets, lengths)
 
 
-def not_mentioned_suffix(utterance: str) -> str:
-    """Append the ' . not mentioned' tail (joint_det_dataset.py:988-991)."""
-    return utterance.rstrip() + " . not mentioned"
+class HFTokenizer:
+    """Adapter over a local HuggingFace fast tokenizer directory."""
+
+    def __init__(self, path: str):
+        from transformers import AutoTokenizer
+
+        self._tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
+        self.vocab_size = self._tok.vocab_size
+
+    def encode_batch(self, texts: Sequence[str], max_len: int = 256) -> TokenBatch:
+        enc = self._tok(list(texts), padding="max_length", truncation=True, max_length=max_len,
+                        return_offsets_mapping=True, return_tensors="np")
+        offsets = [[tuple(pair) for pair in seq] for seq in enc["offset_mapping"].tolist()]
+        mask = enc["attention_mask"].astype(bool)
+        return TokenBatch(enc["input_ids"].astype(np.int32), mask, offsets,
+                          mask.sum(-1).astype(np.int32))
+
+
+def make_tokenizer(path: Optional[str] = None, vocab_size: int = 50265):
+    """The best tokenizer for the directory ``path``: the byte-level BPE where
+    it holds ``vocab.json`` + ``merges.txt`` or ``tokenizer.json``, else a
+    HuggingFace tokenizer where ``transformers`` can read it, else
+    ``SimpleTokenizer`` (which ``GroundingDataset.from_args`` refuses for real
+    data)."""
+    if path is not None:
+        from eda_tpu_torch.data.bpe import load_bpe
+
+        tok = load_bpe(path)
+        if tok is not None:
+            return tok
+        try:
+            return HFTokenizer(path)
+        except Exception:  # noqa: BLE001 - transformers raises many types for an unusable dir
+            pass
+    return SimpleTokenizer(vocab_size)

@@ -20,10 +20,17 @@ Differences from ``train.py``, by design:
 * the model takes its per-point feature width from the first batch, as the
   flax model infers it at init (synthetic scenes always carry RGB);
 * what the port does not have yet is refused with the ROADMAP item that
-  brings it: real datasets and ScanNet detection (Queue 1 items 3-4), the
-  detected-box stream, joint detection, the gather SA and multiview features
-  (items 3-4), pretrained and ``.pth`` weights (item 4), several hosts
-  (item 6).
+  brings it: ScanNet detection evaluation, the detected-box stream, the
+  gather SA, the GroupFree backbone and ``.pth`` weights (Queue 1 item 4),
+  several hosts (item 6).
+
+Real data (``--dataset scanrefer|sr3d|sr3d+|nr3d``, ``--joint_det``) reads
+the scan store that ``python -m eda_tpu_torch.tools.pack_scans`` writes under
+``--data_root`` with the annotations beside it; ``{data_root}/roberta-base``
+gives the byte-level BPE vocabulary and, where it holds ``pytorch_model.bin``
+or ``model.pt``, the text encoder's weights (``train/convert.py``).
+``--use_multiview`` needs ``h5py``; nothing else needs a package beyond
+PyTorch and numpy.
 """
 
 from __future__ import annotations
@@ -40,18 +47,19 @@ import numpy as np
 import torch
 
 from eda_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+from eda_tpu_torch.data.dataset import GroundingDataset
+from eda_tpu_torch.data.detection_prompt import DetectionPromptDataset, MixedDataset
 from eda_tpu_torch.data.synthetic import SyntheticConfig, SyntheticScenes
 from eda_tpu_torch.entry import resolve_device, to_device
 from eda_tpu_torch.eval.grounding import GroundingEvaluator
 from eda_tpu_torch.losses.criterion import SetCriterionConfig
 from eda_tpu_torch.models.grounder import EDAGrounder
 from eda_tpu_torch.train.checkpoint import CheckpointManager
+from eda_tpu_torch.train.convert import warm_start
 from eda_tpu_torch.train.optim import AdamW
 from eda_tpu_torch.train.step import TrainState, make_eval_score_step, make_train_step
 from eda_tpu_torch.utils.logger import setup_logger
 from eda_tpu_torch.utils.metrics import MetricWriter
-
-ROBERTA_FILES = ("pytorch_model.bin", "model.pt")  # what warm_start would load
 
 
 def parse_args(argv=None):
@@ -59,7 +67,7 @@ def parse_args(argv=None):
     # data
     p.add_argument("--data_root", default="data/")
     p.add_argument("--dataset", nargs="+", default=["synthetic"],
-                   help="scanrefer sr3d sr3d+ nr3d scannet synthetic (the port: synthetic)")
+                   help="scanrefer sr3d sr3d+ nr3d scannet synthetic")
     p.add_argument("--test_dataset", default=None)
     p.add_argument("--batch_size", type=int, default=12)
     p.add_argument("--num_points", type=int, default=50000)
@@ -154,25 +162,16 @@ def parse_args(argv=None):
 def refusals(args):
     """(flag, reason) for every requested feature this port does not have yet."""
     out = []
-    if args.dataset != ["synthetic"]:
-        out.append((f"--dataset {' '.join(args.dataset)}", "only synthetic scenes are ported; "
-                    "the ScanNet / annotation pipeline is ROADMAP Queue 1 item 3"))
     if args.test_dataset == "scannet":
         out.append(("--test_dataset scannet", "ScanNet detection evaluation is not ported "
-                    "(ROADMAP Queue 1 items 3-4)"))
+                    "(ROADMAP Queue 1 item 4)"))
     for flag in ("butd", "butd_gt", "butd_cls"):
         if getattr(args, flag):
             out.append((f"--{flag}", "the detected-box stream is not ported "
                         "(ROADMAP Queue 1 item 4)"))
-    if args.joint_det:
-        out.append(("--joint_det", "detection-prompt mixing needs the ScanNet pipeline "
-                    "(ROADMAP Queue 1 items 3-4)"))
     if args.sa_impl != "fused":
         out.append((f"--sa_impl {args.sa_impl}", "the gather SA is not ported "
                     "(ROADMAP Queue 1 item 4)"))
-    if args.use_multiview:
-        out.append(("--use_multiview", "multiview features come from the h5py pipeline "
-                    "(ROADMAP Queue 1 item 3)"))
     if args.pp_checkpoint:
         out.append(("--pp_checkpoint", "the GroupFree backbone converter is not ported "
                     "(ROADMAP Queue 1 item 4)"))
@@ -239,41 +238,66 @@ def build_configs(args):
     return model, train, data
 
 
+def batch_of(source, indices) -> dict:
+    """The numpy batch of ``indices``: ``{"inputs", "targets"}`` from the
+    synthetic generator, ``{"inputs", "targets", "hardness"}`` from a dataset
+    (the detected-box stream is not ported, so ``butd=False``)."""
+    if isinstance(source, SyntheticScenes):
+        return source.train_batch(indices)
+    return source.batch(indices, butd=False)
+
+
 def prefetch_batches(gen, index_chunks, num_workers):
-    """Assemble the batches of ``index_chunks`` on ``num_workers`` background
-    threads with a bounded queue (the reference's DataLoader workers); in
-    order, as numpy ``{"inputs", "targets"}``."""
+    """Assemble the batches of ``index_chunks`` (``batch_of``) on
+    ``num_workers`` background threads with a bounded queue (the reference's
+    DataLoader workers); in order."""
     if num_workers <= 0:
         for idx in index_chunks:
-            yield gen.train_batch(idx)
+            yield batch_of(gen, idx)
         return
     with ThreadPoolExecutor(num_workers) as pool:
         pending = collections.deque()
         it = iter(index_chunks)
         for _ in range(num_workers * 2):
             try:
-                pending.append(pool.submit(gen.train_batch, next(it)))
+                pending.append(pool.submit(batch_of, gen, next(it)))
             except StopIteration:
                 break
         while pending:
             batch = pending.popleft().result()
             try:
-                pending.append(pool.submit(gen.train_batch, next(it)))
+                pending.append(pool.submit(batch_of, gen, next(it)))
             except StopIteration:
                 pass
             yield batch
 
 
-def make_loader(args, model_cfg: ModelConfig, split: str):
-    """(generator, number of scenes) of a split: synthetic scenes, seed 0 for
-    the train split and 1 for the others; 128 scenes with ``--debug``, else 4096."""
-    gen = SyntheticScenes(
-        SyntheticConfig(num_points=model_cfg.num_points, num_objects=8, text_len=64,
-                        max_objects=model_cfg.max_detected_boxes,
-                        seed=0 if split == "train" else 1),
-        vocab_size=model_cfg.text_vocab_size,
-    )
-    return gen, 128 if args.debug else 4096
+def make_loader(args, model_cfg: ModelConfig, split: str, for_eval: bool = False):
+    """(source, number of examples) of a split (``train.py:make_loader``).
+
+    Synthetic scenes: seed 0 for the train split and 1 for the others, 128
+    scenes with ``--debug``, else 4096. Real data: ``GroundingDataset.from_args``,
+    with ScanNet detection prompts mixed in at 10x under ``--joint_det`` on the
+    train split unless ``for_eval`` (an evaluation never mixes).
+    """
+    if args.dataset == ["synthetic"]:
+        gen = SyntheticScenes(
+            SyntheticConfig(num_points=model_cfg.num_points, num_objects=8, text_len=64,
+                            max_objects=model_cfg.max_detected_boxes,
+                            seed=0 if split == "train" else 1),
+            vocab_size=model_cfg.text_vocab_size,
+        )
+        return gen, 128 if args.debug else 4096
+    ds = GroundingDataset.from_args(args, split)
+    if args.joint_det and split == "train" and not for_eval:
+        det = DetectionPromptDataset(
+            ds.scans, split=split, use_color=args.use_color, augment=args.augment,
+            tokenizer=ds.tokenizer, use_height=args.use_height,
+            multiview_path=ds.multiview_path, detected_dir=ds.detected_dir,
+            augment_det=args.augment_det, butd_gt=args.butd_gt, butd_cls=args.butd_cls,
+        )
+        ds = MixedDataset([ds, det], multipliers=[1, 10])
+    return ds, len(ds)
 
 
 def epoch_chunks(order_rng: np.random.Generator, n_train: int, steps_per_epoch: int,
@@ -299,12 +323,6 @@ def main(argv=None) -> int:
     if os.environ.get("EDA_TPU_MULTIHOST"):
         raise SystemExit("EDA_TPU_MULTIHOST: several hosts are not ported "
                          "(ROADMAP Queue 1 item 6)")
-    for name in ROBERTA_FILES:
-        path = os.path.join(args.data_root, "roberta-base", name)
-        if os.path.exists(path):
-            raise SystemExit(f"{path}: the RoBERTa warm start (warm_start) is not ported "
-                             "(ROADMAP Queue 1 items 3-4); move the file away to train "
-                             "from random text weights")
     device = resolve_device("cpu" if args.cpu else None)
     model_cfg, train_cfg, _ = build_configs(args)
     os.makedirs(args.log_dir, exist_ok=True)
@@ -314,14 +332,16 @@ def main(argv=None) -> int:
     with open(os.path.join(args.log_dir, "config.json"), "w") as f:
         json.dump(dict(vars(args)), f, indent=2, default=str)
 
+    # eval-only builds the evaluated split alone (main_utils.py:226-227)
     split = ("train" if args.eval_train else "val") if args.eval else "train"
-    gen, n_train = make_loader(args, model_cfg, split)
+    gen, n_train = make_loader(args, model_cfg, split, for_eval=args.eval)
     global_batch = args.batch_size
     steps_per_epoch = args.steps_per_epoch or max(n_train // global_batch, 1)
-    sample = gen.scene(0)["point_clouds"]
+    sample = batch_of(gen, [0])["inputs"]["point_clouds"]
     model_cfg = dataclasses.replace(model_cfg, input_feature_dim=sample.shape[-1] - 3)
     model = EDAGrounder(model_cfg)
     model.init_weights(train_cfg.seed)
+    warm_start(model, model_cfg, data_root=args.data_root, log=logger.info)
     model = model.to(device)
     logger.info("params: %.1fM", sum(p.numel() for p in model.parameters()) / 1e6)
 
@@ -345,7 +365,8 @@ def main(argv=None) -> int:
         if args.eval:
             # eval-only: the whole split, then exit (main_utils.py:356-362)
             logger.info("Testing evaluation (eval-only mode)...")
-            evaluate(args, model, model_cfg, logger, writer=writer, step=state.step)
+            evaluate(args, model, model_cfg, logger, writer=writer, step=state.step,
+                     loader=(gen, n_train))
             return 0
         return train(args, state, make_train_step(crit, seed=train_cfg.seed), gen, n_train,
                      steps_per_epoch, start_epoch, ckpt, model_cfg, logger, writer, device)
@@ -370,11 +391,13 @@ def train(args, state, step_fn, gen, n_train, steps_per_epoch, start_epoch, ckpt
         prof.start()
 
     total_steps = 0
+    val_loader = None
     for epoch in range(start_epoch, args.max_epoch):
         t_ep = time.time()
         chunks = epoch_chunks(order_rng, n_train, steps_per_epoch, args.batch_size)
         losses = []
         for it, batch_np in enumerate(prefetch_batches(gen, chunks, args.num_workers)):
+            batch_np.pop("hardness", None)  # the evaluator's, not the step's
             metrics = step_fn(state, to_device(batch_np, device))
             total_steps += 1
             if profile_left:
@@ -404,7 +427,10 @@ def train(args, state, step_fn, gen, n_train, steps_per_epoch, start_epoch, ckpt
                     np.mean(losses) if losses else float("nan"))
         ckpt.save(epoch, state)
         if (epoch + 1) % args.val_freq == 0 or epoch == args.max_epoch - 1:
-            evaluate(args, state.model, model_cfg, logger, writer=writer, step=total_steps)
+            if val_loader is None:
+                val_loader = make_loader(args, model_cfg, "val", for_eval=True)
+            evaluate(args, state.model, model_cfg, logger, writer=writer, step=total_steps,
+                     loader=val_loader)
 
     ckpt.save(args.max_epoch - 1, state, force=True)
     return 0
@@ -427,16 +453,19 @@ def tail_chunks(n: int, bsz: int):
     return chunks
 
 
-def evaluate(args, model, model_cfg, logger, writer=None, step=0):
+def evaluate(args, model, model_cfg, logger, writer=None, step=0, loader=None):
     """Grounding evaluation of the whole split (``train.py:evaluate``).
 
-    The tail batch is padded to the batch size and its padding rows are
-    masked out of the counters. One-deep pipeline: batch i + 1 is scored
-    before batch i's IoU stack is pulled to the host, so the pull overlaps the
-    next batch's work on the card. Returns the evaluator.
+    ``loader``: the split's (source, size) from ``make_loader`` (built here
+    when None). The tail batch is padded to the batch size and its padding
+    rows are masked out of the counters; a dataset's hardness flags feed the
+    per-split counts. One-deep pipeline: batch i + 1 is scored before batch
+    i's IoU stack is pulled to the host, so the pull overlaps the next batch's
+    work on the card. Returns the evaluator.
     """
     device = next(model.parameters()).device
-    gen, n_val = make_loader(args, model_cfg, "train" if args.eval_train else "val")
+    gen, n_val = loader or make_loader(args, model_cfg, "train" if args.eval_train else "val",
+                                       for_eval=True)
     evaluator = GroundingEvaluator(prefixes=("last_", "proposal_"))
     score_fn = make_eval_score_step(model, prefixes=evaluator.prefixes, modes=evaluator.modes)
     pairs = tail_chunks(n_val, max(args.batch_size, 1))

@@ -2,14 +2,19 @@
 
 * the parser: every flag of ``train.py:parse_args`` with the same option
   strings, destination, default, type, nargs and choices; the features the
-  port lacks are refused with their ROADMAP item;
+  port lacks are refused with their ROADMAP item, and the real-data flags are
+  parsed as ``train.py`` parses them;
 * ``build_configs`` gives the JAX package's three configs field for field;
 * ``tail_chunks`` and an epoch's index chunks equal ``train.py``'s;
 * the CLI smoke on the CPU (the twin of ``tests/test_cli_integration.py``):
   the run directory, the ``train`` and ``val`` metric groups, ``--profile``,
   and ``--eval`` restoring the forced checkpoint and running no step;
 * ``evaluate`` (pipelined, padded tail) counts exactly what a serial
-  recompute with the eval step and the evaluator's own scoring counts.
+  recompute with the eval step and the evaluator's own scoring counts;
+* real-format data: the first batches the CLI feeds are bit-identical to
+  ``train.make_loader``'s (also under ``--joint_det``), and a tiny run on the
+  CPU trains two steps on a fabricated ScanRefer tree with the RoBERTa warm
+  start and scores the val split from its checkpoint.
 """
 
 import argparse
@@ -20,12 +25,14 @@ import numpy as np
 import pytest
 import torch
 
+import real_data_fixtures
 import train as jax_train
+from eda_tpu_torch.config import ModelConfig
 from eda_tpu_torch.eval.grounding import GroundingEvaluator
 from eda_tpu_torch.models.grounder import EDAGrounder
 from eda_tpu_torch.train import cli
 from eda_tpu_torch.train.step import make_eval_step
-from torch_parity import one_torch_thread  # noqa: F401
+from torch_parity import assert_same_example, one_torch_thread, real_data_tree  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -78,15 +85,11 @@ def test_build_configs_equal_train_py(argv):
 
 
 REFUSED = [
-    (["--dataset", "scanrefer"], "item 3"),
-    (["--dataset", "synthetic", "sr3d"], "item 3"),
-    (["--test_dataset", "scannet"], "items 3-4"),
+    (["--test_dataset", "scannet"], "item 4"),
     (["--butd"], "item 4"),
     (["--butd_gt"], "item 4"),
     (["--butd_cls"], "item 4"),
-    (["--joint_det"], "items 3-4"),
     (["--sa_impl", "gather"], "item 4"),
-    (["--use_multiview"], "item 3"),
     (["--pp_checkpoint", "gf.pth"], "item 4"),
     (["--checkpoint_path", "eda.pth"], "item 4"),
     (["--checkpoint_path", "eda.pt"], "item 4"),
@@ -103,11 +106,48 @@ def test_parser_refuses_what_the_port_lacks(argv, why, capsys):
     assert f"ROADMAP Queue 1 {why}" in err
 
 
+NOW_ACCEPTED = [
+    ["--dataset", "scanrefer"],
+    ["--dataset", "synthetic", "sr3d"],
+    ["--joint_det"],
+    ["--use_multiview"],
+    ["--dataset", "sr3d+", "nr3d", "--joint_det", "--use_height", "--use_multiview"],
+]
+
+
+@pytest.mark.parametrize("argv", NOW_ACCEPTED, ids=" ".join)
+def test_parser_accepts_the_real_data_flags(argv):
+    """Refused before the real-data pipeline was ported; parsed now as ``train.py`` parses them."""
+    args, jax_args = cli.parse_args(argv), jax_train.parse_args(argv)
+    assert vars(args) == vars(jax_args)
+    for got, want in zip(cli.build_configs(args), jax_train.build_configs(jax_args)):
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
 def test_main_refuses_roberta_weights_and_multihost(tmp_path, monkeypatch):
+    """A ``roberta-base`` weights file under ``--data_root`` is no longer refused:
+    the run warm-starts its text encoder from it (``train/convert.py``). Several
+    hosts are still refused."""
+    encoder = real_data_fixtures.seeded_roberta(ModelConfig(use_bf16=True).tiny(), seed=3)
     (tmp_path / "roberta-base").mkdir()
-    (tmp_path / "roberta-base" / "pytorch_model.bin").write_bytes(b"")
-    with pytest.raises(SystemExit, match="warm_start.*Queue 1"):
-        cli.main(["--cpu", "--data_root", str(tmp_path), "--log_dir", str(tmp_path / "run")])
+    torch.save(real_data_fixtures.hf_roberta_state(encoder),
+               tmp_path / "roberta-base" / "pytorch_model.bin")
+    seen = {}
+
+    def first_step(state):
+        seen.update({k: v.clone() for k, v in state.model.text_encoder.state_dict().items()})
+
+    steps = real_data_fixtures.CheckedSteps(cli.make_train_step, first_step, text_len=64)
+    with monkeypatch.context() as mp:
+        mp.setattr(cli, "make_train_step", steps)
+        assert cli.main(["--cpu", "--debug", "--use_color", "--data_root", str(tmp_path),
+                         "--max_steps", "1", "--batch_size", "2",
+                         "--log_dir", str(tmp_path / "run")]) == 0
+    assert len(steps.finish()) == 1
+    want = encoder.state_dict()
+    assert seen.keys() == want.keys() and all(torch.equal(seen[k], want[k]) for k in want)
+    assert f"text_encoder: loaded {len(want)} RoBERTa leaves" in (
+        tmp_path / "run" / "log.txt").read_text()
     monkeypatch.setenv("EDA_TPU_MULTIHOST", "1")
     with pytest.raises(SystemExit, match="item 6"):
         cli.main(["--cpu", "--log_dir", str(tmp_path / "run")])
@@ -198,3 +238,64 @@ def test_evaluate_matches_a_serial_recompute(tmp_path):
         want.evaluate(end_points, batch["targets"], valid=valid)
     assert got.dets == want.dets and got.gts == want.gts
     assert got.gts[("last_", 0.25, 1, "bbs")] == n_val
+
+
+@pytest.fixture(scope="module")
+def tree(tmp_path_factory):
+    return real_data_tree(tmp_path_factory.mktemp("cli_real"))
+
+
+@pytest.mark.parametrize("extra", [[], ["--joint_det"], ["--no_augment", "--use_height"]],
+                         ids=lambda a: " ".join(a) or "scanrefer")
+def test_real_batches_equal_train_py(tree, extra):
+    argv = ["--dataset", "scanrefer", "--use_color", "--batch_size", "3",
+            "--data_root", str(tree[0])] + extra
+    args, jax_args = cli.parse_args(argv), jax_train.parse_args(argv)
+    model_cfg, jax_cfg = cli.build_configs(args)[0], jax_train.build_configs(jax_args)[0]
+    gen, n = cli.make_loader(args, model_cfg, "train")
+    jax_gen, jax_n = jax_train.make_loader(jax_args, jax_cfg, "train")
+    assert n == jax_n == len(tree[2]["train"]) * (3 if not extra or extra[0] != "--joint_det"
+                                                  else 3 + 10)
+    chunks = cli.epoch_chunks(np.random.default_rng(0), n, 2, 3)
+    for idx in chunks:
+        assert_same_example(cli.batch_of(gen, idx), jax_gen.batch(idx, butd=False), str(idx))
+    gen, n = cli.make_loader(args, model_cfg, "train", for_eval=True)  # evaluation never mixes
+    assert n == len(tree[2]["train"]) * 3
+
+
+def test_cli_real_data_train_then_eval(tree, tmp_path, monkeypatch):
+    """Two steps on the fabricated ScanRefer tree (the tiny model, 256-token texts,
+    the warm-started text encoder), then ``--eval`` from the checkpoint."""
+    root, _, ids, encoder = tree
+    build_configs = cli.build_configs
+
+    def tiny(args):
+        model, train, data = build_configs(args)
+        return dataclasses.replace(model.tiny(), text_vocab_size=4096), train, data
+
+    monkeypatch.setattr(cli, "build_configs", tiny)
+    seen = {}
+
+    def first_step(state):
+        seen.update({k: v.clone() for k, v in state.model.text_encoder.state_dict().items()})
+
+    steps = real_data_fixtures.CheckedSteps(cli.make_train_step, first_step)
+    monkeypatch.setattr(cli, "make_train_step", steps)
+    flags = ["--cpu", "--dataset", "scanrefer", "--use_color", "--data_root", str(root),
+             "--batch_size", "4", "--num_workers", "2", "--log_dir", str(tmp_path)]
+    assert cli.main(flags + ["--max_steps", "2", "--print_freq", "1"]) == 0
+    assert len(steps.finish()) == 2 and len(steps.launches) == 2
+    want = encoder.state_dict()
+    assert all(torch.equal(seen[k], want[k]) for k in want)
+    log = (tmp_path / "log.txt").read_text()
+    assert f"text_encoder: loaded {len(want)} RoBERTa leaves" in log
+
+    assert cli.main(flags + ["--eval"]) == 0
+    log = (tmp_path / "log.txt").read_text()
+    assert "resumed from epoch 1" in log
+    n_val = len(ids["val"]) * real_data_fixtures.ANNOS_PER_SCENE
+    assert f"scored {n_val} scenes" in log
+    assert any(line.startswith(("unique: ", "multi: ")) for line in log.splitlines())
+    records = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
+    (val,) = [r for r in records if r["group"] == "val"]
+    assert all(0.0 <= v <= 1.0 for k, v in val.items() if "Acc" in k)

@@ -1,7 +1,8 @@
 """Rules of the PyTorch port that later slices must keep.
 
-* ``eda_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor flax nor
-  anything of the JAX package ``eda_tpu``;
+* ``eda_tpu_torch``, ``chip_smoke.py`` and the fixtures it imports
+  (``tests/real_data_fixtures.py``) import neither JAX nor flax nor anything
+  of the JAX package ``eda_tpu``;
 * both import on a machine with no CUDA and no ``nvcc`` (kernels build on use);
 * entry points (``build``, ``entry``, ``build_evaluator``, the training CLI,
   the bench and the window sweep) run on CUDA unless the caller asks for the
@@ -9,7 +10,11 @@
   without a card;
 * ``weights.load_flax`` maps every flax leaf and sets every port parameter;
 * the port's synthetic inputs and training targets are the JAX package's,
-  byte for byte.
+  byte for byte;
+* the package and the CLI's real-data path import and run with ``regex``,
+  ``h5py`` and ``transformers`` unimportable (the card has none of them);
+  ``--use_multiview`` then stops at start-up, naming ``h5py``;
+* a scan store may name only the scan class and numpy's array globals.
 """
 
 import ast
@@ -37,7 +42,9 @@ from eda_tpu_torch.ops.cuda import build
 from eda_tpu_torch.weights import from_flax, load_flax, to_flax
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "eda_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# chip_smoke.py imports tests/real_data_fixtures.py on the card
+PORT_FILES = sorted((ROOT / "eda_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "real_data_fixtures.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "eda_tpu")
 
 
@@ -61,6 +68,8 @@ def test_port_imports_without_cuda_or_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import eda_tpu_torch, chip_smoke\n"
+        "sys.path.append('tests')\n"
+        "import real_data_fixtures\n"
         "for m in pkgutil.walk_packages(eda_tpu_torch.__path__, 'eda_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'eda_tpu')]\n"
@@ -225,3 +234,56 @@ def test_synthetic_inputs_byte_identical(num_points, text_len):
         caption = jax_gen.example(idx)["utterance"]
         assert gen.example(idx)["utterance"] == caption
         assert decoupled_spans(caption) == jax_spans(caption)
+
+
+def test_real_data_path_needs_no_regex_h5py_or_transformers(tmp_path):
+    """In a process where ``regex``, ``h5py``, ``transformers`` and ``tokenizers``
+    cannot be imported: every port module imports, the CLI's loader builds the
+    real-data datasets (BPE tokenizer, ``--joint_det`` mix) and assembles a
+    batch, and ``--use_multiview`` raises at start-up naming ``h5py``."""
+    from torch_parity import real_data_tree
+
+    root = real_data_tree(tmp_path, scenes=(("train", 2), ("val", 1)))[0]
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "for name in ('regex', 'h5py', 'transformers', 'tokenizers', 'jax', 'eda_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import eda_tpu_torch\n"
+        "for m in pkgutil.walk_packages(eda_tpu_torch.__path__, 'eda_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from eda_tpu_torch.train import cli\n"
+        f"flags = ['--dataset', 'scanrefer', '--joint_det', '--data_root', {str(root)!r}]\n"
+        "args = cli.parse_args(flags)\n"
+        "gen, n = cli.make_loader(args, cli.build_configs(args)[0], 'train')\n"
+        "batch = cli.batch_of(gen, [0, n - 1])\n"
+        "assert type(gen.parts[0].tokenizer).__name__ == 'BPETokenizer'\n"
+        "assert batch['inputs']['text_ids'].shape == (2, 256)\n"
+        "try:\n"
+        "    cli.main(flags + ['--use_multiview', '--cpu', '--log_dir', sys.argv[1]])\n"
+        "except RuntimeError as e:\n"
+        "    print('refused:', e)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "run")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "refused: --use_multiview reads its features with the h5py package" in out.stdout
+
+
+def test_scan_store_refuses_other_globals(tmp_path):
+    import os
+    import pickle
+
+    from eda_tpu_torch.data.scannet import load_packed_scans
+
+    class Evil:
+        def __reduce__(self):
+            return (os.system, ("echo pwned",))
+
+    for payload in ({"scene": Evil()}, {"scene": eval}, {"scene": Path("x")}):
+        path = tmp_path / "store.pkl"
+        path.write_bytes(pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL))
+        with pytest.raises(pickle.UnpicklingError, match="may not name"):
+            load_packed_scans(str(path))
+    ok = {"scene": {"points": np.arange(3), "set": {1, 2}}}
+    path.write_bytes(pickle.dumps(ok, protocol=pickle.HIGHEST_PROTOCOL))
+    assert load_packed_scans(str(path))["scene"]["set"] == {1, 2}
