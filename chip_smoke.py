@@ -130,10 +130,32 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    generator's per scene, both CLI runs' steps/s between their first and
    last ``metrics.jsonl`` rows (steps 1 and 16; the input pipeline's waits
    included), the eval's scenes/s and the accuracy split by hardness.
-10. The bench (``python -m eda_tpu_torch.bench --eval --batch 8 --iters 8``):
+10. The two-stage grounder (phase "butd", ``ModelConfig(use_bf16=True,
+   butd=True)``: 132 detected-box slots, 128-wide box embeddings, the
+   485 x 768 frozen class table, a ``cross_d`` block in every encoder and
+   decoder layer). The tiny butd model on the card against its CPU twin:
+   the forward, one training step (dropout off; ``grad_norm`` within 20% and
+   the leaves that the CPU step itself cannot reproduce on inputs moved by
+   1e-6 held by the global cosine only, as
+   ``tests/test_torch_butd_train_step.py``; the class table's moments zero)
+   and the ``--butd_cls`` IoU stack. Five full-width serving batches of 8
+   from zeroed counters, each launching K1-K3 four times and nothing else,
+   with a finite (8, 256, 3) ``last_center``; three full-width training
+   steps, each with a finite loss and ``grad_norm`` and the single-stage
+   step's launches, the class table after the first equal to p (1 - lr wd)
+   within one f32 ulp with no gradient; each against the single-stage
+   forward or step in the same process (one call each in turns A B B A; the
+   device busy time of one profiled butd call beside the single-stage one
+   profiled in the "serving" or "training" phase). Then the CLI on the "real data" phase's tree
+   with GroupFree-format detections for both splits: 6 ``--butd --butd_cls``
+   steps (steps/s from ``metrics.jsonl``), the grounding eval with the
+   filter from their checkpoint and the ScanNet detection eval
+   (``--test_dataset scannet --butd``; mAP@0.25 and @0.5 finite in [0, 1]),
+   each batch launching K1-K3 four times.
+11. The bench (``python -m eda_tpu_torch.bench --eval --batch 8 --iters 8``):
    the forward, training and eval timers at full width with few repetitions,
    their spreads on stderr and their JSON lines on stdout.
-11. Prints the per-kernel JSON line, the card line, and as its last line
+12. Prints the per-kernel JSON line, the card line, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Per kernel, the JSON line's ``ms``, ``plain_ms`` and ``bound_ms`` are sums over
@@ -157,6 +179,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -187,7 +210,12 @@ LOSS_REL, METRIC_REL = 0.01, 0.10
 GLOBAL_COS, LEAF_COS, NORM_RATIO, ZERO_NORM = 0.85, 0.4, 2.0, 2e-3
 PARAM_CLOSE, BN_REL = 0.8, 0.01
 ZERO_GRAD = ("attn.key.bias", "points_obj_cls.dense.0.bias", "points_obj_cls.dense.1.bias",
-             "pos_embed.dense.0.bias", "self_posembed.dense.0.bias")
+             "pos_embed.dense.0.bias", "self_posembed.dense.0.bias", "box_embeddings.dense.0.bias")
+# the two-stage tiny step, as tests/test_torch_butd_train_step.py holds it: its
+# grad_norm moves 15% when the input points move by 1e-6, and the leaves whose
+# moments fail the per-leaf gates against the CPU run on moved inputs are held
+# by the global cosine only (at most BUTD_MAX_NOISY of them)
+BUTD_GRAD_NORM_REL, BUTD_NOISE_DRAWS, BUTD_MAX_NOISY = 0.2, 3, 10
 # kernel vs plain on a real training step, relative to each leaf's largest value:
 # the prep backward as tests/test_sa_prep.py (0.02), the pool backward's weight
 # gradients as tests/test_sa_kernel_interpret.py (1%); dA and db_c 0.5% (a bf16
@@ -1230,12 +1258,27 @@ def _cos(a, b) -> float:
     return float(a @ b / (a.norm() * b.norm() + 1e-300))
 
 
-def small_train_check(root_cfg) -> None:
+def _leaf_fails(g, w) -> bool:
+    """A leaf's moments fail the per-leaf gates: cosine or norm ratio."""
+    return (_cos(g, w) < LEAF_COS
+            or not 1 / NORM_RATIO <= float(g.norm() / w.norm()) <= NORM_RATIO)
+
+
+def _first_moments(state) -> dict:
+    names = {p: n for n, p in state.model.named_parameters()}
+    return {names[p]: mu.cpu() for p, (mu, _) in state.optimizer.moments.items()}
+
+
+def small_train_check(root_cfg, grad_norm_rel: float = METRIC_REL, noise_draws: int = 0) -> None:
     """One tiny training step on the card against its CPU twin, dropout off.
 
     The CPU run's KPS indices and matches are handed to the card run (the
     discrete choices that near-ties make noise-sensitive), and the tolerances
-    are those ``tests/test_torch_train_step.py`` holds the port to JAX with.
+    are those ``tests/test_torch_train_step.py`` holds the port to JAX with,
+    ``grad_norm`` within ``grad_norm_rel``. With ``noise_draws`` the CPU step
+    also runs on inputs moved by up to 1e-6 that many times, and the leaves
+    whose moments fail the per-leaf gates there are held by the global cosine
+    only (``tests/test_torch_butd_train_step.py``).
     """
     from eda_tpu_torch.entry import build_trainer
     from eda_tpu_torch.losses import criterion
@@ -1244,12 +1287,16 @@ def small_train_check(root_cfg) -> None:
     from eda_tpu_torch.train.optim import group_of
 
     cfg = dataclasses.replace(root_cfg.tiny(), dropout=0.0)
-    cpu, step, cpu_batch = build_trainer(cfg, batch_size=2, device="cpu", seed=1)
-    gpu, _, gpu_batch = build_trainer(cfg, batch_size=2, device="cuda", seed=1)
-    for state in (cpu, gpu):
+
+    def trainer(device):
+        state, step, batch = build_trainer(cfg, batch_size=2, device=device, seed=1)
         for m in state.model.modules():
             if isinstance(m, Dropout):
                 m.p = 0.0
+        return state, step, batch
+
+    cpu, step, cpu_batch = trainer("cpu")
+    gpu, _, gpu_batch = trainer("cuda")
     chosen = {}
 
     def record(fn, key):
@@ -1272,24 +1319,38 @@ def small_train_check(root_cfg) -> None:
         got = {k: float(v) for k, v in step(gpu, gpu_batch).items()}
     if not all(math.isfinite(v) for v in got.values()):
         raise AssertionError(f"tiny train step on the card: non-finite metrics {got}")
-    worst, worst_key = max((abs(got[k] - w) / (abs(w) + 1e-6), k) for k, w in want.items())
+    mu_cpu, mu_gpu = _first_moments(cpu), _first_moments(gpu)
+    noisy = set()
+    for draw in range(noise_draws):
+        moved, _, moved_batch = trainer("cpu")
+        xyz = moved_batch["inputs"]["point_clouds"][..., :3]
+        xyz += torch.empty_like(xyz).uniform_(-1e-6, 1e-6,
+                                              generator=torch.Generator().manual_seed(draw))
+        with patched(grounder, "top_k_indices", lambda logits, k: chosen["kps"]), \
+                patched(criterion, "hungarian_match", lambda *a, **k: chosen["match"]):
+            step(moved, moved_batch)
+        mu_moved = _first_moments(moved)
+        noisy |= {k for k, w in mu_cpu.items() if w.any() and not k.endswith(ZERO_GRAD)
+                  and _leaf_fails(mu_moved[k], w)}
+    if len(noisy) > BUTD_MAX_NOISY:
+        raise AssertionError(f"tiny train step: {len(noisy)} leaves noisy on the CPU itself")
+    rel = {k: abs(got[k] - w) / (abs(w) + 1e-6) for k, w in want.items()}
+    limit = {k: grad_norm_rel if k == "grad_norm" else METRIC_REL for k in rel}
+    worst_key = max(rel, key=lambda k: rel[k] / limit[k])
     loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
-    names = {p: n for n, p in cpu.model.named_parameters()}
-    gnames = {p: n for n, p in gpu.model.named_parameters()}
-    mu_cpu = {names[p]: mu for p, (mu, _) in cpu.optimizer.moments.items()}
-    mu_gpu = {gnames[p]: mu.cpu() for p, (mu, _) in gpu.optimizer.moments.items()}
-    keys = sorted(mu_cpu)
+    # the butd class table takes no gradient: its moments stay zero
+    frozen = [k for k in mu_cpu if k.startswith("butd_class_embeddings.")]
+    bad = [k for k in frozen if mu_cpu[k].any() or mu_gpu[k].any()]
+    keys = sorted(set(mu_cpu) - set(frozen))
     glob = _cos(torch.cat([mu_gpu[k].flatten() for k in keys]),
                 torch.cat([mu_cpu[k].flatten() for k in keys]))
     largest = max(float(v.norm()) for v in mu_cpu.values())
-    bad = []
     for k in keys:
         g, w = mu_gpu[k], mu_cpu[k]
         if k.endswith(ZERO_GRAD):
             if max(float(g.norm()), float(w.norm())) >= ZERO_NORM * largest:
                 bad.append(k)
-        elif (_cos(g, w) < LEAF_COS
-              or not 1 / NORM_RATIO <= float(g.norm() / w.norm()) <= NORM_RATIO):
+        elif k not in noisy and _leaf_fails(g, w):
             bad.append(k)
     lrs = {"main": cpu.optimizer.cfg.lr, "backbone": cpu.optimizer.cfg.lr_backbone, "text": 0.0}
     cstate, gstate = cpu.model.state_dict(), gpu.model.state_dict()
@@ -1310,11 +1371,13 @@ def small_train_check(root_cfg) -> None:
             bad.append(k)
         close += int((diff <= 0.1 * lr).sum())
         total += diff.numel()
-    print(f"tiny train step card vs CPU: loss {got['loss']:.5f} vs {want['loss']:.5f}, "
-          f"grad_norm {got['grad_norm']:.4f} vs {want['grad_norm']:.4f}, worst metric rel "
-          f"{worst:.4f} ({worst_key}), gradient global cos {glob:.4f}, params within 0.1 lr "
-          f"{close / total:.4f}, BN stats rel {bn_err:.5f}")
-    if (loss_err > LOSS_REL or worst > METRIC_REL or glob < GLOBAL_COS or bad
+    print(f"tiny train step card vs CPU{' (butd)' if cfg.butd else ''}: loss "
+          f"{got['loss']:.5f} vs {want['loss']:.5f}, grad_norm {got['grad_norm']:.4f} vs "
+          f"{want['grad_norm']:.4f}, worst metric rel {rel[worst_key]:.4f} ({worst_key}), "
+          f"gradient global cos {glob:.4f}, params within 0.1 lr {close / total:.4f}, BN "
+          f"stats rel {bn_err:.5f}" + (f", {len(noisy)} leaves noisy on the CPU itself "
+                                       f"{sorted(noisy)}" if noise_draws else ""))
+    if (loss_err > LOSS_REL or rel[worst_key] > limit[worst_key] or glob < GLOBAL_COS or bad
             or close < PARAM_CLOSE * total or bn_err > BN_REL):
         raise AssertionError(f"tiny train step on the card is off its CPU twin; leaves {bad}")
 
@@ -1328,20 +1391,36 @@ def positive_sizes(model) -> None:
                 module.dense[2].bias += 1.0
 
 
-def small_eval_check(root_cfg) -> None:
-    """The tiny model's card end points scored on the card and on the CPU."""
+def small_eval_check(root_cfg, filter_non_gt_boxes: bool = False) -> None:
+    """The tiny model's card end points scored on the card and on the CPU; with
+    ``filter_non_gt_boxes`` (``--butd_cls``) a prediction that overlaps no
+    detected box by IoU > 0.25 scores 0: every center head's output layer is
+    zeroed then, so that each box sits on its query's seed (most seeds lie on
+    an object, whose box is a detected box) and some pass the filter, and
+    the predictions that pass must be the same on both sides."""
     from eda_tpu_torch.entry import build_evaluator
     from eda_tpu_torch.eval.grounding import grounding_scores, score_and_iou_multi
+    from eda_tpu_torch.ops.boxes import box_cxcyczwhd_to_xyzxyz, pairwise_box_iou_3d
 
     model, _, evaluator, batch = build_evaluator(root_cfg.tiny(), batch_size=2, device="cuda",
                                                  seed=1)
     positive_sizes(model)
+    if filter_non_gt_boxes:
+        with torch.no_grad():
+            for name, module in model.named_modules():
+                if name.endswith("center_head"):
+                    module.dense[2].weight.zero_()
+                    module.dense[2].bias.zero_()
     kw = dict(prefixes=evaluator.prefixes, modes=evaluator.modes)
+    targets = dict(batch["targets"])
+    if filter_non_gt_boxes:
+        targets.update(__det_boxes=batch["inputs"]["det_boxes"],
+                       __det_mask=batch["inputs"]["det_mask"])
     with torch.inference_mode():
         ends = model(batch["inputs"])
-        got = score_and_iou_multi(ends, batch["targets"], **kw).cpu()
+        got = score_and_iou_multi(ends, targets, **kw).cpu()
         cpu_ends = {k: v.cpu() for k, v in ends.items()}
-        cpu_targets = {k: v.cpu() for k, v in batch["targets"].items()}
+        cpu_targets = {k: v.cpu() for k, v in targets.items()}
         want = score_and_iou_multi(cpu_ends, cpu_targets, **kw)
     excused = torch.zeros_like(want, dtype=torch.bool)
     for pi, prefix in enumerate(evaluator.prefixes):
@@ -1351,8 +1430,24 @@ def small_eval_check(root_cfg) -> None:
             tie = (top[:, :-1] - top[:, 1:]).abs() <= SCORE_TIE  # rank r with rank r + 1
             excused[pi, mi, :, 1:] |= tie[:, :-1]
             excused[pi, mi] |= tie
-    err = (got - want).abs()[~excused].max().item()
-    print(f"tiny eval card vs CPU scoring: IoU stack {tuple(got.shape)}, max IoU "
+    compared = (got - want).abs()[~excused]
+    err = compared.max().item() if compared.numel() else 0.0
+    if filter_non_gt_boxes:
+        passing = []
+        for ends_, targets_ in ((ends, targets), (cpu_ends, cpu_targets)):
+            boxes = torch.cat([ends_["last_center"], ends_["last_pred_size"]], -1)
+            iou, _ = pairwise_box_iou_3d(box_cxcyczwhd_to_xyzxyz(targets_["__det_boxes"]),
+                                         box_cxcyczwhd_to_xyzxyz(boxes))
+            passing.append((torch.where(targets_["__det_mask"].bool()[:, :, None], iou, 0.0)
+                            .amax(1) > 0.25).cpu())
+        if not torch.equal(*passing) or not passing[0].any():
+            raise AssertionError(f"tiny eval: the --butd_cls filter passes "
+                                 f"{int(passing[0].sum())} predictions on the card and "
+                                 f"{int(passing[1].sum())} on the CPU, not the same ones")
+        print(f"tiny eval --butd_cls filter: the same {int(passing[0].sum())} of "
+              f"{passing[0].numel()} last_ predictions pass on the card and the CPU")
+    print(f"tiny eval card vs CPU scoring{' (--butd_cls filter)' if filter_non_gt_boxes else ''}"
+          f": IoU stack {tuple(got.shape)}, max IoU "
           f"{want.max().item():.4f}, max err {err} at compared ranks, "
           f"{int(excused.sum())} of {excused.numel()} ranks excused (score ties)")
     if err > IOU_ATOL or not torch.isfinite(got).all():
@@ -1369,10 +1464,14 @@ def stage_times(model, batch) -> dict:
             "rest": whole - backbone - text}
 
 
-def profile(fn, label: str, also=()) -> None:
+PROFILED: dict = {}  # label -> device busy ms of its profiled call
+
+
+def profile(fn, label: str, also=(), top: int = 15) -> float:
     """Device time by operation and the device's busy share over one call of
-    ``fn``: the 15 busiest operations, and every one whose name holds a string
-    of ``also``."""
+    ``fn``: the ``top`` busiest operations, and every one whose name holds a
+    string of ``also``. Returns the device's busy ms and keeps it in
+    ``PROFILED[label]``."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
@@ -1386,13 +1485,15 @@ def profile(fn, label: str, also=()) -> None:
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    PROFILED[label] = busy_ms
     print(f"profiled {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f}% of wall; profiler on)")
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
     for i, e in enumerate(ranked):
-        if i < 15 or any(a in e.key for a in also):
+        if i < top or any(a in e.key for a in also):
             print(f"  device {e.self_device_time_total / 1e3:9.3f} ms  calls {e.count:5d}  "
                   f"{e.key[:90]}")
+    return busy_ms
 
 
 def sdpa_attention(self, q, k, v, key_valid=None):
@@ -1761,14 +1862,14 @@ def cli_rate(run: Path) -> tuple:
     return rate, first["step"], last["step"]
 
 
-def real_data_phase(root_cfg) -> None:
+def real_data_phase(root_cfg, tmp: Path):
     """The training CLI on real-format data at the flagship's width: pack a
-    fabricated ScanNet tree, train ``REAL_STEPS`` steps on ScanRefer-format
-    annotations with the RoBERTa warm start and, in the same process, as many
-    on synthetic scenes (both rates from ``metrics.jsonl``), score the val
-    split from the checkpoint, and train 2 steps under ``--joint_det``."""
-    import tempfile
-
+    fabricated ScanNet tree under ``tmp``, train ``REAL_STEPS`` steps on
+    ScanRefer-format annotations with the RoBERTa warm start and, in the same
+    process, as many on synthetic scenes (both rates from ``metrics.jsonl``),
+    score the val split from the checkpoint, and train 2 steps under
+    ``--joint_det``. Returns (data root, ids by split, each scene's object
+    labels) for the "butd" phase."""
     sys.path.append(str(Path(__file__).resolve().parent / "tests"))
     from real_data_fixtures import CheckedSteps, fabricate_real_data
 
@@ -1777,123 +1878,322 @@ def real_data_phase(root_cfg) -> None:
     from eda_tpu_torch.ops.cuda import build
     from eda_tpu_torch.train import cli
 
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        t = time.perf_counter()
-        root, scan_dir, ids, encoder, _ = fabricate_real_data(
-            tmp, root_cfg, n_vertices=60_000, scenes={"train": 8, "val": 4},
-            annos_per_scene=REAL_ANNOS)
-        print(f"real data: fabricated {len(ids['train'])} + {len(ids['val'])} scenes of 60000 "
-              f"vertices, {REAL_ANNOS} utterances each, and a {len(encoder.state_dict())}-tensor "
-              f"RoBERTa in {time.perf_counter() - t:.1f} s")
-        # one process: spawned workers would each import this script and torch
-        # first (~11 s on the card); tests/test_torch_scannet_data.py runs them
-        t = time.perf_counter()
-        pack(root, scan_dir, ids, processes=1)
-        print(f"real data: packed the two splits in {time.perf_counter() - t:.2f} s "
-              f"(one process)")
+    t = time.perf_counter()
+    root, scan_dir, ids, encoder, labels = fabricate_real_data(
+        tmp, root_cfg, n_vertices=60_000, scenes={"train": 8, "val": 4},
+        annos_per_scene=REAL_ANNOS)
+    print(f"real data: fabricated {len(ids['train'])} + {len(ids['val'])} scenes of 60000 "
+          f"vertices, {REAL_ANNOS} utterances each, and a {len(encoder.state_dict())}-tensor "
+          f"RoBERTa in {time.perf_counter() - t:.1f} s")
+    # one process: spawned workers would each import this script and torch
+    # first (~11 s on the card); tests/test_torch_scannet_data.py runs them
+    t = time.perf_counter()
+    pack(root, scan_dir, ids, processes=1)
+    print(f"real data: packed the two splits in {time.perf_counter() - t:.2f} s "
+          f"(one process)")
 
-        flags = ["--dataset", "scanrefer", "--use_color", "--data_root", str(root),
-                 "--batch_size", str(BATCH), "--num_workers", "4"]
-        args = cli.parse_args(flags)
-        ds = GroundingDataset.from_args(args, "train")
-        syn = SyntheticScenes(SyntheticConfig(num_points=root_cfg.num_points, num_objects=8,
-                                              text_len=64, max_objects=132, seed=0))
-        n_timed = 32
-        for source in (ds, syn):
-            source.example(0)
-        t = time.perf_counter()
-        for i in range(n_timed):
-            ds.example(i)
-        real_ms = 1e3 * (time.perf_counter() - t) / n_timed
-        t = time.perf_counter()
-        for i in range(n_timed):
-            syn.example(i)
-        syn_ms = 1e3 * (time.perf_counter() - t) / n_timed
-        print(f"real data: host ms per example, one thread, {n_timed} examples: "
-              f"GroundingDataset.example {real_ms:.2f} (50000 points, 256 tokens), the "
-              f"synthetic generator {syn_ms:.2f} (50000 points, 64 tokens)")
+    flags = ["--dataset", "scanrefer", "--use_color", "--data_root", str(root),
+             "--batch_size", str(BATCH), "--num_workers", "4"]
+    args = cli.parse_args(flags)
+    ds = GroundingDataset.from_args(args, "train")
+    syn = SyntheticScenes(SyntheticConfig(num_points=root_cfg.num_points, num_objects=8,
+                                          text_len=64, max_objects=132, seed=0))
+    n_timed = 32
+    for source in (ds, syn):
+        source.example(0)
+    t = time.perf_counter()
+    for i in range(n_timed):
+        ds.example(i)
+    real_ms = 1e3 * (time.perf_counter() - t) / n_timed
+    t = time.perf_counter()
+    for i in range(n_timed):
+        syn.example(i)
+    syn_ms = 1e3 * (time.perf_counter() - t) / n_timed
+    print(f"real data: host ms per example, one thread, {n_timed} examples: "
+          f"GroundingDataset.example {real_ms:.2f} (50000 points, 256 tokens), the "
+          f"synthetic generator {syn_ms:.2f} (50000 points, 64 tokens)")
 
-        want = {k: v.detach().clone() for k, v in encoder.state_dict().items()}
+    want = {k: v.detach().clone() for k, v in encoder.state_dict().items()}
 
-        def same_text_encoder(state):
-            got = state.model.text_encoder.state_dict()
-            if got.keys() != want.keys() or not all(
-                    torch.equal(got[k].cpu(), want[k]) for k in want):
-                raise AssertionError("real data: the warm-started text encoder is not the "
-                                     "seeded encoder bit for bit")
+    def same_text_encoder(state):
+        got = state.model.text_encoder.state_dict()
+        if got.keys() != want.keys() or not all(
+                torch.equal(got[k].cpu(), want[k]) for k in want):
+            raise AssertionError("real data: the warm-started text encoder is not the "
+                                 "seeded encoder bit for bit")
 
-        rates = {}
-        for name, extra, n_steps, freq in (
-                ("scanrefer", [], REAL_STEPS, RATE_FREQ), ("joint_det", ["--joint_det"], 2, 1)):
-            steps = CheckedSteps(cli.make_train_step, same_text_encoder)
-            run = tmp / name
-            for kernel in build.KERNELS.values():
-                kernel.launches = 0
-            with patched(cli, "make_train_step", steps):
-                if cli.main(flags + extra + ["--max_steps", str(n_steps), "--print_freq",
-                                             str(freq), "--log_dir", str(run)]):
-                    raise AssertionError(f"real data: the {name} run failed")
-            metrics = steps.finish()
-            if len(metrics) != n_steps:
-                raise AssertionError(f"real data: {len(metrics)} {name} steps, not {n_steps}")
-            for i, launched in enumerate(steps.launches):
-                want_launches = step_launches("pair")
-                if {s: c for s, c in launched.items() if c} != want_launches:
-                    raise AssertionError(f"real data: {name} step {i} launched {launched}, "
-                                         f"not {want_launches}")
-            log = (run / "log.txt").read_text()
-            loaded = f"text_encoder: loaded {len(want)} RoBERTa leaves"
-            if loaded not in log:
-                raise AssertionError(f"real data: the {name} log lacks '{loaded}'")
-            if n_steps > RATE_FREQ:
-                rates[name] = cli_rate(run)
-            torch.cuda.empty_cache()
-            print(f"real data: {name} run, {n_steps} steps at batch {BATCH}: losses "
-                  f"{[round(m[0], 4) for m in metrics]}, grad_norm "
-                  f"{[round(m[1], 4) for m in metrics]}; {loaded}; the text encoder before "
-                  f"step 1 is the seeded one bit for bit; every step launched "
-                  f"{step_launches('pair')}")
-        # the same CLI on synthetic scenes (64-token texts), same batch and workers
-        if cli.main(["--dataset", "synthetic", "--use_color", "--data_root", str(tmp / "none"),
-                     "--batch_size", str(BATCH), "--num_workers", "4", "--max_steps",
-                     str(REAL_STEPS), "--print_freq", str(RATE_FREQ),
-                     "--log_dir", str(tmp / "synthetic")]):
-            raise AssertionError("real data: the synthetic CLI run failed")
-        rates["synthetic"] = cli_rate(tmp / "synthetic")
-        torch.cuda.empty_cache()
-        for name, (rate, first, last) in rates.items():
-            print(f"real data: CLI on {name} {rate:.3f} steps/s = {rate * BATCH:.2f} scenes/s at "
-                  f"batch {BATCH}, 4 loader threads (metrics.jsonl times, steps {first} -> "
-                  f"{last}, loader waits included)")
-
-        evaluated = tmp / "eval"
+    rates = {}
+    for name, extra, n_steps, freq in (
+            ("scanrefer", [], REAL_STEPS, RATE_FREQ), ("joint_det", ["--joint_det"], 2, 1)):
+        steps = CheckedSteps(cli.make_train_step, same_text_encoder)
+        run = tmp / name
         for kernel in build.KERNELS.values():
             kernel.launches = 0
-        if cli.main(flags + ["--eval", "--checkpoint_path", str(tmp / "scanrefer" / "ckpt"),
-                             "--log_dir", str(evaluated)]):
-            raise AssertionError("real data: the eval run failed")
-        n_val = len(ids["val"]) * REAL_ANNOS
-        batches = -(-n_val // BATCH)
+        with patched(cli, "make_train_step", steps):
+            if cli.main(flags + extra + ["--max_steps", str(n_steps), "--print_freq",
+                                         str(freq), "--log_dir", str(run)]):
+                raise AssertionError(f"real data: the {name} run failed")
+        metrics = steps.finish()
+        if len(metrics) != n_steps:
+            raise AssertionError(f"real data: {len(metrics)} {name} steps, not {n_steps}")
+        for i, launched in enumerate(steps.launches):
+            want_launches = step_launches("pair")
+            if {s: c for s, c in launched.items() if c} != want_launches:
+                raise AssertionError(f"real data: {name} step {i} launched {launched}, "
+                                     f"not {want_launches}")
+        log = (run / "log.txt").read_text()
+        loaded = f"text_encoder: loaded {len(want)} RoBERTa leaves"
+        if loaded not in log:
+            raise AssertionError(f"real data: the {name} log lacks '{loaded}'")
+        if n_steps > RATE_FREQ:
+            rates[name] = cli_rate(run)
+        torch.cuda.empty_cache()
+        print(f"real data: {name} run, {n_steps} steps at batch {BATCH}: losses "
+              f"{[round(m[0], 4) for m in metrics]}, grad_norm "
+              f"{[round(m[1], 4) for m in metrics]}; {loaded}; the text encoder before "
+              f"step 1 is the seeded one bit for bit; every step launched "
+              f"{step_launches('pair')}")
+    # the same CLI on synthetic scenes (64-token texts), same batch and workers
+    if cli.main(["--dataset", "synthetic", "--use_color", "--data_root", str(tmp / "none"),
+                 "--batch_size", str(BATCH), "--num_workers", "4", "--max_steps",
+                 str(REAL_STEPS), "--print_freq", str(RATE_FREQ),
+                 "--log_dir", str(tmp / "synthetic")]):
+        raise AssertionError("real data: the synthetic CLI run failed")
+    rates["synthetic"] = cli_rate(tmp / "synthetic")
+    torch.cuda.empty_cache()
+    for name, (rate, first, last) in rates.items():
+        print(f"real data: CLI on {name} {rate:.3f} steps/s = {rate * BATCH:.2f} scenes/s at "
+              f"batch {BATCH}, 4 loader threads (metrics.jsonl times, steps {first} -> "
+              f"{last}, loader waits included)")
+
+    evaluated = tmp / "eval"
+    for kernel in build.KERNELS.values():
+        kernel.launches = 0
+    if cli.main(flags + ["--eval", "--checkpoint_path", str(tmp / "scanrefer" / "ckpt"),
+                         "--log_dir", str(evaluated)]):
+        raise AssertionError("real data: the eval run failed")
+    n_val = len(ids["val"]) * REAL_ANNOS
+    batches = -(-n_val // BATCH)
+    check_launches({s: 0 for s in launch_counts()},
+                   {s: c * batches for s, c in forward_launches("pair").items()},
+                   "real data eval")
+    log = (evaluated / "log.txt").read_text()
+    (val,) = [json.loads(line) for line in (evaluated / "metrics.jsonl").read_text()
+              .splitlines() if json.loads(line)["group"] == "val"]
+    accs = {k: v for k, v in val.items() if "Acc" in k}
+    if not accs or not all(0.0 <= v <= 1.0 for v in accs.values()):
+        raise AssertionError(f"real data: eval accuracies {accs}")
+    splits = [line for line in log.splitlines()
+              if re.match(r"^(vd|vid|hard|easy|unique|multi): ", line)]
+    rate = re.search(r"scored (\d+) scenes in ([\d.]+) s \(([\d.]+) scenes/s", log)
+    if not splits or rate is None or int(rate.group(1)) != n_val:
+        raise AssertionError("real data: the eval log lacks its rate or hardness splits")
+    print(f"real data: eval of {n_val} val annotations from the checkpoint: "
+          f"{rate.group(3)} scenes/s ({rate.group(2)} s, the first batch and host assembly "
+          f"included), {batches} batches launching {forward_launches('pair')} each; last_ "
+          f"Acc@0.25 top-1 bbs {val['last_Acc0.25Top1_bbs']:.4f}, "
+          f"bbf {val['last_Acc0.25Top1_bbf']:.4f}; by hardness: {'; '.join(splits)}")
+    return root, ids, labels
+
+
+BUTD_CLI_STEPS = 6  # --butd --butd_cls CLI steps; metrics.jsonl rows at steps 1 and 6
+
+
+BUTD_STEPS = 3  # full-width butd training steps
+
+
+def _turns(fns: dict) -> dict:
+    """Mean host-clock ms of each of two callables, run in turns A B B A."""
+    (a, fa), (b, fb) = fns.items()
+    times = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        times[name].append(timed(fn)[1])
+    return {k: statistics.mean(v) for k, v in times.items()}
+
+
+def butd_full_width(root_cfg, butd_cfg) -> None:
+    """The full-width butd serving forward and training step, each against the
+    single-stage one; one trainer of each serves too (its model in eval mode)."""
+    from eda_tpu_torch.entry import build_trainer
+
+    butd = build_trainer(butd_cfg, batch_size=BATCH, device="cuda", seed=0)
+    plain = build_trainer(root_cfg, batch_size=BATCH, device="cuda", seed=0)
+    butd_serving(butd_cfg, butd[0].model.eval(), plain[0].model.eval())
+    butd_training(butd, plain)
+
+
+def butd_serving(butd_cfg, model, plain) -> None:
+    """Five full-width butd serving batches from zeroed counters, each launching
+    K1-K3 four times and nothing else, with a finite (8, 256, 3) ``last_center``;
+    then the butd forward against the single-stage one (``plain``) on the same
+    scenes, in turns; the butd forward profiled, its device busy time beside
+    the "serving" phase's profiled single-stage forward of the same scenes."""
+    from eda_tpu_torch.data.synthetic import DETECTED_SLOTS
+    from eda_tpu_torch.entry import make_batch
+    from eda_tpu_torch.ops.cuda import build
+
+    batches = [make_batch(butd_cfg, range(BATCH * i, BATCH * (i + 1)), "cuda")
+               for i in range(REQUESTS)]
+    inputs = batches[0]
+    if inputs["det_boxes"].shape != (BATCH, DETECTED_SLOTS, 6):
+        raise AssertionError(f"butd: det_boxes {tuple(inputs['det_boxes'].shape)}")
+    for kernel in build.KERNELS.values():
+        kernel.launches = 0
+    times = []
+    with torch.inference_mode():
+        for i, batch in enumerate(batches):
+            before = launch_counts()
+            out, ms = timed(lambda: model(batch)["last_center"])
+            times.append(ms)
+            if out.shape != (BATCH, butd_cfg.num_queries, 3) or not torch.isfinite(out).all():
+                raise AssertionError(f"butd request {i}: bad last_center {tuple(out.shape)}")
+            check_launches(before, forward_launches("pair"), f"butd request {i}")
+        last = batches[-1]
+        single = {k: v for k, v in last.items() if not k.startswith("det_")}
+        med = _turns({"single-stage": lambda: plain(single), "butd": lambda: model(last)})
+        busy = {"single-stage": PROFILED["serving forward"],
+                "butd": profile(lambda: model(last), "butd serving forward", top=3)}
+    print(f"butd serving forward, batch {BATCH}: requests {[round(t, 2) for t in times]} ms, "
+          f"each launching {forward_launches('pair')}, last_center finite")
+    print(f"butd vs single-stage serving forward, same scenes, turns A B B A: "
+          f"{med['butd']:.2f} vs {med['single-stage']:.2f} ms per batch "
+          f"({100 * (med['butd'] / med['single-stage'] - 1):+.1f}%); device busy "
+          f"{busy['butd']:.2f} vs {busy['single-stage']:.2f} ms "
+          f"({100 * (busy['butd'] / busy['single-stage'] - 1):+.1f}%)")
+
+
+def butd_training(butd, plain) -> None:
+    """``BUTD_STEPS`` full-width butd training steps (``butd``: state, step,
+    batch): finite loss and ``grad_norm``, each launching as the single-stage
+    step; after the first, the frozen class table equals p (1 - lr wd) within
+    one f32 ulp and has no gradient. Then the butd step against the
+    single-stage one (``plain``), in turns; the butd step profiled, its device
+    busy time beside the "training" phase's profiled single-stage step."""
+    from eda_tpu_torch.ops.cuda import build
+
+    state, step, batch = butd
+    table = state.model.butd_class_embeddings.weight
+    decayed = table.detach() * (1 - state.optimizer.schedules["main"](0)
+                                * state.optimizer.cfg.weight_decay)
+    ulp = (torch.nextafter(decayed, torch.full_like(decayed, math.inf)) - decayed).abs()
+    for kernel in build.KERNELS.values():
+        kernel.launches = 0
+    times = []
+    for i in range(BUTD_STEPS):
+        before = launch_counts()
+        metrics, ms = timed(lambda: step(state, batch))
+        times.append(ms)
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise AssertionError(f"butd step {i}: loss {loss}, grad_norm {norm}")
+        check_launches(before, step_launches("pair"), f"butd step {i}")
+        if i == 0:
+            off = ((table.detach() - decayed).abs() > ulp).sum().item()
+            if off or table.grad is not None:
+                raise AssertionError(f"butd step 0: {off} class-table entries are not "
+                                     f"p (1 - lr wd) within an ulp, or it has a gradient")
+        print(f"butd step {i}: {BATCH} scenes in {ms:.2f} ms, loss {loss:.4f}, "
+              f"grad_norm {norm:.4f}")
+    plain, plain_step, plain_batch = plain
+    med = _turns({"single-stage": lambda: plain_step(plain, plain_batch),
+                  "butd": lambda: step(state, batch)})
+    busy = {"single-stage": PROFILED["training step"],
+            "butd": profile(lambda: step(state, batch), "butd training step", top=3)}
+    print(f"butd training, batch {BATCH}: every step launched {step_launches('pair')}; the "
+          f"class table after step 0 is p (1 - lr wd) within one f32 ulp, no gradient")
+    print(f"butd vs single-stage training step, turns A B B A: {med['butd']:.2f} vs "
+          f"{med['single-stage']:.2f} ms per step "
+          f"({100 * (med['butd'] / med['single-stage'] - 1):+.1f}%); device busy "
+          f"{busy['butd']:.2f} vs {busy['single-stage']:.2f} ms "
+          f"({100 * (busy['butd'] / busy['single-stage'] - 1):+.1f}%)")
+
+
+def butd_cli(root: Path, ids: dict, labels: dict, tmp: Path) -> None:
+    """The CLI at full width on the "real data" phase's fabricated tree, with
+    GroupFree-format detections for both splits: ``--butd --butd_cls``
+    training steps, the grounding eval with the filter from their checkpoint,
+    and the ScanNet detection eval (``--test_dataset scannet --butd``)."""
+    import numpy as np
+    from real_data_fixtures import CheckedSteps, fabricate_detections
+
+    from eda_tpu_torch.ops.cuda import build
+    from eda_tpu_torch.train import cli
+
+    fabricate_detections(root, ids, labels, np.random.default_rng(0))
+    flags = ["--dataset", "scanrefer", "--use_color", "--data_root", str(root),
+             "--batch_size", str(BATCH), "--num_workers", "4", "--butd"]
+    run = tmp / "butd"
+    steps = CheckedSteps(cli.make_train_step)
+    with patched(cli, "make_train_step", steps):
+        if cli.main(flags + ["--butd_cls", "--max_steps", str(BUTD_CLI_STEPS), "--print_freq",
+                             str(BUTD_CLI_STEPS - 1), "--log_dir", str(run)]):
+            raise AssertionError("butd: the --butd --butd_cls CLI run failed")
+    metrics = steps.finish()
+    for i, launched in enumerate(steps.launches):
+        if {s: c for s, c in launched.items() if c} != step_launches("pair"):
+            raise AssertionError(f"butd: CLI step {i} launched {launched}")
+    rate, first, last = cli_rate(run)
+    print(f"butd: CLI --butd --butd_cls on real-format data, {BUTD_CLI_STEPS} steps at batch "
+          f"{BATCH}: losses {[round(m[0], 4) for m in metrics]}; {rate:.3f} steps/s = "
+          f"{rate * BATCH:.2f} scenes/s (metrics.jsonl times, steps {first} -> {last}, loader "
+          f"waits included); every step launched {step_launches('pair')}")
+    torch.cuda.empty_cache()
+
+    ckpt = str(run / "ckpt")
+    for name, extra in (("grounding", ["--butd_cls"]), ("detection", ["--test_dataset",
+                                                                       "scannet"])):
+        out = tmp / f"butd_{name}"
+        for kernel in build.KERNELS.values():
+            kernel.launches = 0
+        if cli.main(flags + extra + ["--eval", "--checkpoint_path", ckpt, "--log_dir", str(out)]):
+            raise AssertionError(f"butd: the {name} eval failed")
+        log = (out / "log.txt").read_text()
+        scored = re.search(r"scored (\d+) scenes in ([\d.]+) s \(([\d.]+) scenes/s", log)
+        if scored is None:
+            raise AssertionError(f"butd: the {name} eval log lacks its rate")
+        n = int(scored.group(1))
         check_launches({s: 0 for s in launch_counts()},
-                       {s: c * batches for s, c in forward_launches("pair").items()},
-                       "real data eval")
-        log = (evaluated / "log.txt").read_text()
-        (val,) = [json.loads(line) for line in (evaluated / "metrics.jsonl").read_text()
-                  .splitlines() if json.loads(line)["group"] == "val"]
-        accs = {k: v for k, v in val.items() if "Acc" in k}
-        if not accs or not all(0.0 <= v <= 1.0 for v in accs.values()):
-            raise AssertionError(f"real data: eval accuracies {accs}")
-        splits = [line for line in log.splitlines()
-                  if re.match(r"^(vd|vid|hard|easy|unique|multi): ", line)]
-        rate = re.search(r"scored (\d+) scenes in ([\d.]+) s \(([\d.]+) scenes/s", log)
-        if not splits or rate is None or int(rate.group(1)) != n_val:
-            raise AssertionError("real data: the eval log lacks its rate or hardness splits")
-        print(f"real data: eval of {n_val} val annotations from the checkpoint: "
-              f"{rate.group(3)} scenes/s ({rate.group(2)} s, the first batch and host assembly "
-              f"included), {batches} batches launching {forward_launches('pair')} each; last_ "
-              f"Acc@0.25 top-1 bbs {val['last_Acc0.25Top1_bbs']:.4f}, "
-              f"bbf {val['last_Acc0.25Top1_bbf']:.4f}; by hardness: {'; '.join(splits)}")
+                       {s: c * -(-n // BATCH) for s, c in forward_launches("pair").items()},
+                       f"butd {name} eval")
+        if name == "grounding":
+            (val,) = [json.loads(line) for line in (out / "metrics.jsonl").read_text()
+                      .splitlines() if json.loads(line)["group"] == "val"]
+            accs = {k: v for k, v in val.items() if "Acc" in k}
+            if n != len(ids["val"]) * REAL_ANNOS or not accs or not all(
+                    0.0 <= v <= 1.0 for v in accs.values()):
+                raise AssertionError(f"butd: grounding eval of {n} scenes, accuracies {accs}")
+            result = (f"last_ Acc@0.25 top-1 bbs {val['last_Acc0.25Top1_bbs']:.4f}, bbf "
+                      f"{val['last_Acc0.25Top1_bbf']:.4f}")
+        else:
+            maps = {float(t): float(v) for t, v in
+                    re.findall(r"detection mAP@([\d.]+): ([\d.naif]+)", log)}
+            if sorted(maps) != [0.25, 0.5] or not all(0.0 <= v <= 1.0 for v in maps.values()):
+                raise AssertionError(f"butd: detection mAPs {maps}")
+            result = f"mAP@0.25 {maps[0.25]:.4f}, mAP@0.5 {maps[0.5]:.4f}"
+        print(f"butd: CLI {name} eval ({' '.join(extra)}) of {n} val scenes from the "
+              f"checkpoint: {scored.group(3)} scenes/s ({scored.group(2)} s, the first batch "
+              f"and host assembly included), each batch launching {forward_launches('pair')}; "
+              f"{result}")
+        torch.cuda.empty_cache()
+
+
+def butd_phase(root_cfg, root: Path, ids: dict, labels: dict, tmp: Path) -> None:
+    """The two-stage grounder (``butd=True``): the tiny model on the card
+    against its CPU twin (forward, training step, the ``--butd_cls`` IoU
+    stack), the full-width serving forward and training step, and the CLI on
+    the fabricated real-format tree."""
+    butd_cfg = dataclasses.replace(root_cfg, butd=True)
+    for name, fn, args in (
+            ("tiny model", small_model_check, (butd_cfg,)),
+            ("tiny training step", small_train_check,
+             (butd_cfg, BUTD_GRAD_NORM_REL, BUTD_NOISE_DRAWS)),
+            ("tiny eval", small_eval_check, (butd_cfg, True)),
+            ("full width", butd_full_width, (root_cfg, butd_cfg)),
+            ("cli", butd_cli, (root, ids, labels, tmp))):
+        t = time.perf_counter()
+        fn(*args)
+        torch.cuda.empty_cache()
+        print(f"butd {name}: {time.perf_counter() - t:.1f} s")
 
 
 def bench_phase() -> None:
@@ -1959,7 +2259,10 @@ def main() -> int:
     eval_launches = phase("eval", eval_phase, cfg)
     phase("cli", cli_phase, cfg)
     torch.cuda.empty_cache()
-    phase("real data", real_data_phase, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        real = phase("real data", real_data_phase, cfg, Path(tmp))
+        torch.cuda.empty_cache()
+        phase("butd", butd_phase, cfg, *real, Path(tmp))
     torch.cuda.empty_cache()
     phase("bench", bench_phase)
     for mode, mode_row in mode_rows.items():

@@ -2,10 +2,12 @@
 
 Rooms of boxy objects with template utterances ("the red chair next to the
 table ."). ``batch`` gives what the model consumes when it serves
-(``point_clouds``, ``text_ids``, ``text_mask``); ``example`` and
-``train_batch`` add the criterion's targets, built by the text decoupler and
-the positive maps (``butd=False``). The arrays are byte-for-byte those of the
-JAX package's synthetic generator for the same config and index.
+(``point_clouds``, ``text_ids``, ``text_mask``, and with ``butd`` the scene's
+boxes as the detected-box stream: ``det_boxes``, ``det_class_ids``,
+``det_mask`` in 132 slots); ``example`` and ``train_batch`` add the
+criterion's targets, built by the text decoupler and the positive maps. The
+arrays are byte-for-byte those of the JAX package's synthetic generator for
+the same config and index.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ _COLORS = ["red", "blue", "green", "brown", "black", "white", "grey", "yellow"]
 _SIZES = ["small", "large", "tall", "short", "wide", "narrow"]
 _RELATIONS = ["next to", "behind", "in front of", "to the left of",
               "to the right of", "above", "near"]
+DETECTED_SLOTS = 132  # the detected-box stream's length, whatever max_objects is
 
 
 @dataclasses.dataclass
@@ -105,7 +108,7 @@ class SyntheticScenes:
             "utterance": utterance,
         }
 
-    def example(self, idx: int) -> Dict[str, dict]:
+    def example(self, idx: int, butd: bool = False) -> Dict[str, dict]:
         """One training example: model inputs, criterion targets and the caption."""
         scene = self.scene(idx)
         caption = not_mentioned_suffix(scene["utterance"])
@@ -130,6 +133,16 @@ class SyntheticScenes:
             "text_ids": tokens.input_ids[0],
             "text_mask": tokens.attention_mask[0],
         }
+        if butd:  # every scene box a detection, in DETECTED_SLOTS zero-padded slots
+            n = scene["boxes"].shape[0]
+            det_boxes = np.zeros((DETECTED_SLOTS, 6), np.float32)
+            det_mask = np.zeros((DETECTED_SLOTS,), bool)
+            det_boxes[:n] = scene["boxes"]
+            det_mask[:n] = True
+            inputs["det_boxes"] = det_boxes
+            inputs["det_class_ids"] = np.pad(scene["classes"].astype(np.int32),
+                                             (0, DETECTED_SLOTS - n))
+            inputs["det_mask"] = det_mask
         targets = {
             "center_label": center_label,
             "size_gts": size_gts,
@@ -145,12 +158,12 @@ class SyntheticScenes:
         }
         return {"inputs": inputs, "targets": targets, "utterance": caption}
 
-    def batch(self, indices) -> Dict[str, np.ndarray]:
+    def batch(self, indices, butd: bool = False) -> Dict[str, np.ndarray]:
         """Stacked model inputs of the scenes ``indices``."""
-        return self.train_batch(indices)["inputs"]
+        return self.train_batch(indices, butd)["inputs"]
 
-    def train_batch(self, indices) -> Dict[str, Dict[str, np.ndarray]]:
+    def train_batch(self, indices, butd: bool = False) -> Dict[str, Dict[str, np.ndarray]]:
         """Stacked ``{"inputs": ..., "targets": ...}`` of the scenes ``indices``."""
-        examples = [self.example(int(i)) for i in indices]
+        examples = [self.example(int(i), butd) for i in indices]
         return {key: {k: np.stack([e[key][k] for e in examples]) for k in examples[0][key]}
                 for key in ("inputs", "targets")}

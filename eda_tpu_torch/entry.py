@@ -3,6 +3,12 @@
 ``entry`` is the twin of ``__graft_entry__.entry``: ``ModelConfig(use_bf16=True)``,
 a batch of 50 000-point synthetic scenes and a randomly initialised
 ``EDAGrounder`` on the chosen device, returning ``last_center``.
+
+The serving inputs are ``point_clouds`` (B, N, 3 + C) f32, ``text_ids`` (B, L)
+int32 and ``text_mask`` (B, L) bool; a ``butd`` config (the two-stage
+grounder) also takes the detected boxes ``det_boxes`` (B, 132, 6) cxcyczwhd
+f32, their 485-way classes ``det_class_ids`` (B, 132) int32 and ``det_mask``
+(B, 132) bool, which the synthetic batches fill with the scene's boxes.
 ``build_trainer`` gives the same model with its optimizer, the training step
 and a synthetic training batch; ``build_evaluator`` the model in eval mode,
 the fused forward + scoring step, a grounding evaluator and a batch with
@@ -54,7 +60,7 @@ def _scenes(cfg: ModelConfig, text_len: int, num_objects: int) -> SyntheticScene
 
 def make_batch(cfg: ModelConfig, indices, device, text_len: int = 64, num_objects: int = 8):
     """Synthetic serving inputs of the scenes ``indices`` as tensors on ``device``."""
-    batch = _scenes(cfg, text_len, num_objects).batch(indices)
+    batch = _scenes(cfg, text_len, num_objects).batch(indices, butd=cfg.butd)
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
@@ -67,7 +73,8 @@ def to_device(batch: dict, device) -> dict:
 def make_train_batch(cfg: ModelConfig, indices, device, text_len: int = 64,
                      num_objects: int = 8):
     """Synthetic ``{"inputs": ..., "targets": ...}`` of the scenes ``indices`` on ``device``."""
-    return to_device(_scenes(cfg, text_len, num_objects).train_batch(indices), device)
+    return to_device(_scenes(cfg, text_len, num_objects).train_batch(indices, butd=cfg.butd),
+                     device)
 
 
 def build(cfg: Optional[ModelConfig] = None, *, batch_size: int = 2,

@@ -1,3 +1,3 @@
-"""Evaluators: grounding accuracy."""
+"""Evaluators: grounding accuracy, detection AP, NMS."""
 
 from eda_tpu_torch.eval.grounding import GroundingEvaluator  # noqa: F401

@@ -1,11 +1,20 @@
 """EDAGrounder: the 3D visual-grounding model.
 
-Counterpart of ``eda_tpu/models/grounder.py`` with ``butd=False``: PointNet++
-backbone and RoBERTa text encoder feed the cross-modal encoder; the top
-``num_queries`` seeds by objectness (KPS) become queries; a proposal head and
-the decoder layers each predict center, size and soft-token scores. The
-returned ``end_points`` keep the JAX package's keys and prefixes
-(``proposal_``, ``{i}head_``, ``last_``).
+Counterpart of ``eda_tpu/models/grounder.py``: PointNet++ backbone and
+RoBERTa text encoder feed the cross-modal encoder; the top ``num_queries``
+seeds by objectness (KPS) become queries; a proposal head and the decoder
+layers each predict center, size and soft-token scores. The returned
+``end_points`` keep the JAX package's keys and prefixes (``proposal_``,
+``{i}head_``, ``last_``).
+
+With ``cfg.butd`` (the two-stage grounder) the detected boxes are a third
+stream: a learned embedding of each box (``box_embeddings``, whose BatchNorm
+takes its statistics over every slot, the zero padding included, as flax
+does) beside a projection of its class name's row of the frozen
+``butd_class_embeddings`` table, attended to by every encoder and decoder
+layer (``cross_d``) with ``det_mask`` as key validity. The table is a
+parameter without gradient: the optimizer still decays it, as optax decays
+the JAX package's ``stop_gradient``-frozen table.
 
 ``train()`` selects the training forward (dropout, BatchNorm batch statistics,
 the fused SA's kernels with a backward); the frozen text encoder and the
@@ -35,12 +44,12 @@ from eda_tpu_torch.models.roberta import RobertaEncoder
 
 
 class EDAGrounder(nn.Module):
-    """Inputs: point_clouds (B, N, 3 + C) f32, text_ids (B, L) int, text_mask (B, L) bool."""
+    """Inputs: point_clouds (B, N, 3 + C) f32, text_ids (B, L) int, text_mask (B, L) bool;
+    with ``cfg.butd`` also det_boxes (B, D, 6) cxcyczwhd f32, det_class_ids (B, D) int and
+    det_mask (B, D) bool (True = a detected box)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.butd:
-            raise NotImplementedError("the detected-box stream (butd) is not ported yet")
         if cfg.sa_impl != "fused" or not cfg.points_presorted:
             raise NotImplementedError("the port runs the fused SA over presorted clouds only")
         if not cfg.use_bf16:
@@ -64,10 +73,18 @@ class EDAGrounder(nn.Module):
         self.text_projector_dense = Dense(cfg.text_hidden, d)
         self.text_projector_norm = nn.LayerNorm(d, eps=1e-12)
         self.text_dropout = Dropout(cfg.dropout)
+        if cfg.butd:
+            self.box_embeddings = PositionEmbeddingLearned(6, cfg.butd_box_dim, dt)
+            # the class names' 768-wide RoBERTa table, made offline
+            # (tools/gen_class_embeddings.py) and never trained
+            self.butd_class_embeddings = nn.Embedding(cfg.num_obj_class,
+                                                      cfg.butd_class_embed_dim)
+            self.butd_class_embeddings.weight.requires_grad_(False)
+            self.class_embeddings = Dense(cfg.butd_class_embed_dim, d - cfg.butd_box_dim)
         self.pos_embed = PositionEmbeddingLearned(3, d, dt)
         self.cross_encoder = nn.ModuleList([
             BiEncoderLayer(d, cfg.n_heads, cfg.dim_feedforward, cfg.self_attend, dt,
-                           cfg.dropout)
+                           cfg.dropout, butd=cfg.butd)
             for _ in range(cfg.num_encoder_layers)
         ])
         if cfg.contrastive_align:
@@ -78,7 +95,7 @@ class EDAGrounder(nn.Module):
         self.proposal_head = ClsAgnosticPredictHead(cfg.num_class, d, dt)
         self.decoder = nn.ModuleList([
             BiDecoderLayer(d, cfg.n_heads, cfg.dim_feedforward,
-                           cfg.self_position_embedding, dt, cfg.dropout)
+                           cfg.self_position_embedding, dt, cfg.dropout, butd=cfg.butd)
             for _ in range(cfg.num_decoder_layers)
         ])
         self.prediction_head = nn.ModuleList([
@@ -87,19 +104,8 @@ class EDAGrounder(nn.Module):
         ])
 
     def init_weights(self, seed: int) -> None:
-        """Random weights from ``seed`` with the JAX package's initializers:
-        lecun-normal kernels, normal(1/sqrt(dim)) embeddings, zero biases,
-        unit norm scales and identity BatchNorm statistics."""
-        g = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            for module in self.modules():
-                if isinstance(module, Dense):
-                    lecun_normal_(module.weight, module.weight.shape[1], g)
-                elif isinstance(module, FusedSetAbstraction):
-                    for k in module.kernels:
-                        lecun_normal_(k, k.shape[0], g)
-                elif isinstance(module, nn.Embedding):
-                    module.weight.normal_(0.0, module.weight.shape[1] ** -0.5, generator=g)
+        """Random weights from ``seed`` (``init_weights``)."""
+        init_weights(self, seed)
 
     def forward(self, inputs: dict) -> dict:
         cfg = self.cfg
@@ -116,10 +122,20 @@ class EDAGrounder(nn.Module):
         text_feats = self.text_dropout(text_feats)
         end_points["text_feats_prepro"] = text_feats
 
+        detected_feats = detected_valid = None
+        if cfg.butd:
+            detected_valid = inputs["det_mask"].bool()
+            box_emb = self.box_embeddings(inputs["det_boxes"])
+            cls_emb = self.class_embeddings(
+                self.butd_class_embeddings(inputs["det_class_ids"].long()))
+            # flax promotes the bf16 box embedding to the f32 class projection's dtype
+            detected_feats = torch.cat([box_emb.float(), cls_emb], -1)
+
         pos_feats = self.pos_embed(points_xyz)
         for layer in self.cross_encoder:
             points_features, text_feats = layer(
-                points_features, pos_feats, None, text_feats, text_valid
+                points_features, pos_feats, None, text_feats, text_valid,
+                detected_feats, detected_valid,
             )
         end_points["text_memory"] = text_feats
         end_points["seed_features"] = points_features
@@ -152,7 +168,8 @@ class EDAGrounder(nn.Module):
                 query_loc = torch.cat([base_xyz, base_size], -1)
             else:
                 query_loc = base_xyz
-            query = layer(query, points_features, text_feats, query_loc, text_valid)
+            query = layer(query, points_features, text_feats, query_loc, text_valid,
+                          detected_feats, detected_valid)
             if cfg.contrastive_align:
                 end_points[f"{prefix}proj_queries"] = self.contrastive_proj_image(query)
             center, size, sem_cls = head(query, cluster_xyz)
@@ -162,6 +179,23 @@ class EDAGrounder(nn.Module):
             end_points[f"{prefix}sem_cls_scores"] = sem_cls
             base_xyz, base_size = center.detach(), size.detach()
         return end_points
+
+
+def init_weights(model: nn.Module, seed: int) -> None:
+    """Random weights for ``model`` from ``seed`` with the JAX package's
+    initializers: lecun-normal kernels, normal(1/sqrt(dim)) embeddings; the
+    modules' own zero biases, unit norm scales and identity BatchNorm
+    statistics stay."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, Dense):
+                lecun_normal_(module.weight, module.weight.shape[1], g)
+            elif isinstance(module, FusedSetAbstraction):
+                for k in module.kernels:
+                    lecun_normal_(k, k.shape[0], g)
+            elif isinstance(module, nn.Embedding):
+                module.weight.normal_(0.0, module.weight.shape[1] ** -0.5, generator=g)
 
 
 def top_k_indices(logits: torch.Tensor, k: int) -> torch.Tensor:

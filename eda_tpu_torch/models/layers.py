@@ -1,7 +1,6 @@
 """Cross-modal transformer layers, position embeddings and prediction heads.
 
-Counterparts of ``eda_tpu/models/layers.py`` (the detected-box branch waits).
-Conventions kept from the JAX package:
+Counterparts of ``eda_tpu/models/layers.py``. Conventions kept from the JAX package:
 
 * batch-first ``(B, L, F)`` throughout;
 * masks are validity masks: True = real token;
@@ -209,10 +208,13 @@ class BiEncoderLayer(nn.Module):
     Vision self-attention (position embedding on q and k), language
     self-attention, then lang->vis attention + FFN and vis->lang attention
     + FFN, where both directions read the other modality's pre-cross features.
+    With ``butd``, vision also attends to the detected boxes (``cross_d``,
+    no position embedding on the query) before its FFN.
     """
 
     def __init__(self, d_model: int, n_heads: int, dim_feedforward: int,
-                 self_attend: bool, dtype: torch.dtype, dropout: float = 0.0):
+                 self_attend: bool, dtype: torch.dtype, dropout: float = 0.0,
+                 butd: bool = False):
         super().__init__()
         self.self_attend = self_attend
         if self_attend:
@@ -221,40 +223,52 @@ class BiEncoderLayer(nn.Module):
         self.cross_lv = ResidualAttn(d_model, n_heads, dtype, dropout)
         self.ffn_lv = FFN(d_model, dim_feedforward, dtype, dropout)
         self.cross_vl = ResidualAttn(d_model, n_heads, dtype, dropout)
+        if butd:
+            self.cross_d = ResidualAttn(d_model, n_heads, dtype, dropout)
         self.ffn_vl = FFN(d_model, dim_feedforward, dtype, dropout)
 
-    def forward(self, vis_feats, pos_feats, vis_valid, text_feats, text_valid):
+    def forward(self, vis_feats, pos_feats, vis_valid, text_feats, text_valid,
+                detected_feats=None, detected_valid=None):
         if self.self_attend:
             vis_feats = self.self_vis(vis_feats, None, vis_feats, vis_valid, q_pos=pos_feats)
             text_feats = self.self_lang(text_feats, text_feats, text_feats, text_valid)
         text_kv = text_feats
         text_feats = self.ffn_lv(self.cross_lv(text_feats, vis_feats, vis_feats, vis_valid))
         vis_feats = self.cross_vl(vis_feats, text_kv, text_kv, text_valid, q_pos=pos_feats)
+        if hasattr(self, "cross_d"):
+            vis_feats = self.cross_d(vis_feats, detected_feats, detected_feats, detected_valid)
         return self.ffn_vl(vis_feats), text_feats
 
 
 class BiDecoderLayer(nn.Module):
-    """Query self-attention -> cross(text) -> cross(vision) -> FFN.
+    """Query self-attention -> cross(text) -> cross(boxes, ``butd``) -> cross(vision) -> FFN.
 
     The learned embedding of the query location is added to q (and to k in
     self-attention) at every attention call.
     """
 
     def __init__(self, d_model: int, n_heads: int, dim_feedforward: int,
-                 self_position_embedding: str, dtype: torch.dtype, dropout: float = 0.0):
+                 self_position_embedding: str, dtype: torch.dtype, dropout: float = 0.0,
+                 butd: bool = False):
         super().__init__()
         loc_dim = {"xyz_learned": 3, "loc_learned": 6}.get(self_position_embedding)
         if loc_dim is not None:
             self.self_posembed = PositionEmbeddingLearned(loc_dim, d_model, dtype)
         self.self_attn = ResidualAttn(d_model, n_heads, dtype, dropout)
         self.cross_l = ResidualAttn(d_model, n_heads, dtype, dropout)
+        if butd:
+            self.cross_d = ResidualAttn(d_model, n_heads, dtype, dropout)
         self.cross_v = ResidualAttn(d_model, n_heads, dtype, dropout)
         self.ffn = FFN(d_model, dim_feedforward, dtype, dropout)
 
-    def forward(self, query, vis_feats, text_feats, query_loc, text_valid):
+    def forward(self, query, vis_feats, text_feats, query_loc, text_valid,
+                detected_feats=None, detected_valid=None):
         q_pos = self.self_posembed(query_loc) if hasattr(self, "self_posembed") else None
         query = self.self_attn(query, None, query, None, q_pos=q_pos)
         query = self.cross_l(query, text_feats, text_feats, text_valid, q_pos=q_pos)
+        if hasattr(self, "cross_d"):
+            query = self.cross_d(query, detected_feats, detected_feats, detected_valid,
+                                 q_pos=q_pos)
         query = self.cross_v(query, vis_feats, vis_feats, None, q_pos=q_pos)
         return self.ffn(query)
 

@@ -1,4 +1,5 @@
-"""Checkpoint save and restore (counterpart of ``eda_tpu/train/checkpoint.py``).
+"""Checkpoint save and restore (counterpart of ``eda_tpu/train/checkpoint.py``),
+and the reader of the reference's ``.pth`` files.
 
 The reference's semantics (``main_utils.py:126-166``): epoch-tagged entries
 holding the model's ``state_dict`` (parameters and BatchNorm statistics), the
@@ -11,6 +12,7 @@ partial entry; it is read back with ``torch.load(..., weights_only=True)``.
 
 from __future__ import annotations
 
+import argparse
 import os
 import re
 from typing import List, Optional, Tuple
@@ -87,3 +89,28 @@ def load_state(path: str, state: TrainState, restore_optimizer: bool = True) -> 
         state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return payload
+
+
+def read_torch_checkpoint(path: str):
+    """A reference ``.pth`` / ``.pt`` file's payload on the CPU.
+
+    Read with ``weights_only=True``: tensors, numbers, strings and containers,
+    plus the ``argparse.Namespace`` of the run's flags that the reference's
+    checkpoints carry under ``config``; any other object is refused.
+    """
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def torch_state(payload) -> dict:
+    """A payload's state dict (its ``model`` entry where it has one) as numpy
+    arrays, DDP ``module.`` prefixes stripped; entries that are no tensor are
+    dropped. ``torch_state(read_torch_checkpoint(path))`` is the JAX package's
+    ``load_torch_checkpoint(path)``."""
+    out = {}
+    for key, value in payload.get("model", payload).items():
+        while key.startswith("module."):
+            key = key[len("module."):]
+        if torch.is_tensor(value):
+            out[key] = value.detach().cpu().numpy()
+    return out

@@ -20,9 +20,7 @@ Differences from ``train.py``, by design:
 * the model takes its per-point feature width from the first batch, as the
   flax model infers it at init (synthetic scenes always carry RGB);
 * what the port does not have yet is refused with the ROADMAP item that
-  brings it: ScanNet detection evaluation, the detected-box stream, the
-  gather SA, the GroupFree backbone and ``.pth`` weights (Queue 1 item 4),
-  several hosts (item 6).
+  brings it: the gather SA (Queue 1 item 4), several hosts (item 6).
 
 Real data (``--dataset scanrefer|sr3d|sr3d+|nr3d``, ``--joint_det``) reads
 the scan store that ``python -m eda_tpu_torch.tools.pack_scans`` writes under
@@ -31,6 +29,16 @@ gives the byte-level BPE vocabulary and, where it holds ``pytorch_model.bin``
 or ``model.pt``, the text encoder's weights (``train/convert.py``).
 ``--use_multiview`` needs ``h5py``; nothing else needs a package beyond
 PyTorch and numpy.
+
+The two-stage grounder: ``--butd`` feeds the detected boxes
+(``{data_root}/group_free_pred_bboxes``, or the scene's own boxes under
+``--butd_gt`` / ``--butd_cls``) to the model, ``--butd_cls`` also scores
+the grounding eval with the SR3D / NR3D filter, and ``--test_dataset
+scannet`` evaluates detection AP on the fixed 18-class prompt over
+``{data_root}/val_v3scans.pkl``. ``--pp_checkpoint`` warm-starts the backbone
+from a GroupFree ``.pth``, and a ``.pth`` / ``.pt`` ``--checkpoint_path``
+loads a released EDA checkpoint and starts at its epoch
+(``train/convert.py``).
 """
 
 from __future__ import annotations
@@ -47,17 +55,34 @@ import numpy as np
 import torch
 
 from eda_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
-from eda_tpu_torch.data.dataset import GroundingDataset
-from eda_tpu_torch.data.detection_prompt import DetectionPromptDataset, MixedDataset
+from eda_tpu_torch.data.class_config import (
+    NYU40_IDS_18,
+    instance_label_to_class18,
+    raw_to_nyu40,
+)
+from eda_tpu_torch.data.dataset import MAX_NUM_OBJ, GroundingDataset
+from eda_tpu_torch.data.detection_prompt import (
+    PROMPT_NAMES,
+    DetectionPromptDataset,
+    MixedDataset,
+)
+from eda_tpu_torch.data.scannet import load_packed_scans
 from eda_tpu_torch.data.synthetic import SyntheticConfig, SyntheticScenes
 from eda_tpu_torch.entry import resolve_device, to_device
+from eda_tpu_torch.eval.det_branch import evaluate_detection_batch
+from eda_tpu_torch.eval.detection import APCalculator
 from eda_tpu_torch.eval.grounding import GroundingEvaluator
 from eda_tpu_torch.losses.criterion import SetCriterionConfig
 from eda_tpu_torch.models.grounder import EDAGrounder
 from eda_tpu_torch.train.checkpoint import CheckpointManager
-from eda_tpu_torch.train.convert import warm_start
+from eda_tpu_torch.train.convert import load_eda_pth, warm_start
 from eda_tpu_torch.train.optim import AdamW
-from eda_tpu_torch.train.step import TrainState, make_eval_score_step, make_train_step
+from eda_tpu_torch.train.step import (
+    TrainState,
+    make_eval_score_step,
+    make_eval_step,
+    make_train_step,
+)
 from eda_tpu_torch.utils.logger import setup_logger
 from eda_tpu_torch.utils.metrics import MetricWriter
 
@@ -123,7 +148,8 @@ def parse_args(argv=None):
     # io
     p.add_argument("--log_dir", default="logs/eda_tpu")
     p.add_argument("--checkpoint_path", default=None,
-                   help="a checkpoint directory of this port to restore from")
+                   help="a checkpoint directory of this port to restore from, or a "
+                        "released EDA .pth / .pt")
     p.add_argument("--save_freq", type=int, default=5)
     p.add_argument("--val_freq", type=int, default=5)
     p.add_argument("--print_freq", type=int, default=10)
@@ -162,23 +188,9 @@ def parse_args(argv=None):
 def refusals(args):
     """(flag, reason) for every requested feature this port does not have yet."""
     out = []
-    if args.test_dataset == "scannet":
-        out.append(("--test_dataset scannet", "ScanNet detection evaluation is not ported "
-                    "(ROADMAP Queue 1 item 4)"))
-    for flag in ("butd", "butd_gt", "butd_cls"):
-        if getattr(args, flag):
-            out.append((f"--{flag}", "the detected-box stream is not ported "
-                        "(ROADMAP Queue 1 item 4)"))
     if args.sa_impl != "fused":
         out.append((f"--sa_impl {args.sa_impl}", "the gather SA is not ported "
                     "(ROADMAP Queue 1 item 4)"))
-    if args.pp_checkpoint:
-        out.append(("--pp_checkpoint", "the GroupFree backbone converter is not ported "
-                    "(ROADMAP Queue 1 item 4)"))
-    if args.checkpoint_path and args.checkpoint_path.endswith((".pth", ".pt")):
-        out.append((f"--checkpoint_path {args.checkpoint_path}",
-                    "released .pth checkpoints need the converters (ROADMAP Queue 1 item 4); "
-                    "pass a checkpoint directory of this port"))
     return out
 
 
@@ -238,35 +250,35 @@ def build_configs(args):
     return model, train, data
 
 
-def batch_of(source, indices) -> dict:
+def batch_of(source, indices, butd: bool = False) -> dict:
     """The numpy batch of ``indices``: ``{"inputs", "targets"}`` from the
-    synthetic generator, ``{"inputs", "targets", "hardness"}`` from a dataset
-    (the detected-box stream is not ported, so ``butd=False``)."""
+    synthetic generator, ``{"inputs", "targets", "hardness"}`` from a dataset;
+    with ``butd`` the inputs carry the detected-box stream."""
     if isinstance(source, SyntheticScenes):
-        return source.train_batch(indices)
-    return source.batch(indices, butd=False)
+        return source.train_batch(indices, butd)
+    return source.batch(indices, butd=butd)
 
 
-def prefetch_batches(gen, index_chunks, num_workers):
+def prefetch_batches(gen, index_chunks, num_workers, butd: bool = False):
     """Assemble the batches of ``index_chunks`` (``batch_of``) on
     ``num_workers`` background threads with a bounded queue (the reference's
     DataLoader workers); in order."""
     if num_workers <= 0:
         for idx in index_chunks:
-            yield batch_of(gen, idx)
+            yield batch_of(gen, idx, butd)
         return
     with ThreadPoolExecutor(num_workers) as pool:
         pending = collections.deque()
         it = iter(index_chunks)
         for _ in range(num_workers * 2):
             try:
-                pending.append(pool.submit(batch_of, gen, next(it)))
+                pending.append(pool.submit(batch_of, gen, next(it), butd))
             except StopIteration:
                 break
         while pending:
             batch = pending.popleft().result()
             try:
-                pending.append(pool.submit(batch_of, gen, next(it)))
+                pending.append(pool.submit(batch_of, gen, next(it), butd))
             except StopIteration:
                 pass
             yield batch
@@ -341,7 +353,8 @@ def main(argv=None) -> int:
     model_cfg = dataclasses.replace(model_cfg, input_feature_dim=sample.shape[-1] - 3)
     model = EDAGrounder(model_cfg)
     model.init_weights(train_cfg.seed)
-    warm_start(model, model_cfg, data_root=args.data_root, log=logger.info)
+    warm_start(model, model_cfg, data_root=args.data_root, pp_checkpoint=args.pp_checkpoint,
+               log=logger.info)
     model = model.to(device)
     logger.info("params: %.1fM", sum(p.numel() for p in model.parameters()) / 1e6)
 
@@ -354,9 +367,13 @@ def main(argv=None) -> int:
     state = TrainState(model, AdamW(model, train_cfg, steps_per_epoch))
     ckpt = CheckpointManager(os.path.join(args.log_dir, "ckpt"), save_freq=args.save_freq)
     restore_opt = not (args.eval or args.reduce_lr)  # main_utils.py:136
-    source = (CheckpointManager(args.checkpoint_path, save_freq=args.save_freq)
-              if args.checkpoint_path else ckpt)
-    state, start_epoch = source.restore(state, restore_optimizer=restore_opt)
+    if args.checkpoint_path and args.checkpoint_path.endswith((".pth", ".pt")):
+        # a released EDA checkpoint: the accuracy-parity protocol
+        start_epoch = load_eda_pth(args.checkpoint_path, model, model_cfg, log=logger.info)
+    else:
+        source = (CheckpointManager(args.checkpoint_path, save_freq=args.save_freq)
+                  if args.checkpoint_path else ckpt)
+        state, start_epoch = source.restore(state, restore_optimizer=restore_opt)
     if start_epoch:
         logger.info("resumed from epoch %d", start_epoch)
 
@@ -396,7 +413,8 @@ def train(args, state, step_fn, gen, n_train, steps_per_epoch, start_epoch, ckpt
         t_ep = time.time()
         chunks = epoch_chunks(order_rng, n_train, steps_per_epoch, args.batch_size)
         losses = []
-        for it, batch_np in enumerate(prefetch_batches(gen, chunks, args.num_workers)):
+        for it, batch_np in enumerate(prefetch_batches(gen, chunks, args.num_workers,
+                                                       model_cfg.butd)):
             batch_np.pop("hardness", None)  # the evaluator's, not the step's
             metrics = step_fn(state, to_device(batch_np, device))
             total_steps += 1
@@ -454,25 +472,33 @@ def tail_chunks(n: int, bsz: int):
 
 
 def evaluate(args, model, model_cfg, logger, writer=None, step=0, loader=None):
-    """Grounding evaluation of the whole split (``train.py:evaluate``).
+    """Grounding evaluation of the whole split (``train.py:evaluate``), or with
+    ``--test_dataset scannet`` the detection evaluation (``evaluate_detection``).
 
     ``loader``: the split's (source, size) from ``make_loader`` (built here
     when None). The tail batch is padded to the batch size and its padding
     rows are masked out of the counters; a dataset's hardness flags feed the
-    per-split counts. One-deep pipeline: batch i + 1 is scored before batch
-    i's IoU stack is pulled to the host, so the pull overlaps the next batch's
-    work on the card. Returns the evaluator.
+    per-split counts; ``--butd_cls`` drops predictions that overlap no
+    detected box (the SR3D / NR3D protocol, ``train_dist_mod.py:157-161``).
+    One-deep pipeline: batch i + 1 is scored before batch i's IoU stack is
+    pulled to the host, so the pull overlaps the next batch's work on the
+    card. Returns the evaluator.
     """
+    if args.test_dataset == "scannet":
+        return evaluate_detection(args, model, model_cfg, logger)
     device = next(model.parameters()).device
     gen, n_val = loader or make_loader(args, model_cfg, "train" if args.eval_train else "val",
                                        for_eval=True)
-    evaluator = GroundingEvaluator(prefixes=("last_", "proposal_"))
-    score_fn = make_eval_score_step(model, prefixes=evaluator.prefixes, modes=evaluator.modes)
+    evaluator = GroundingEvaluator(prefixes=("last_", "proposal_"),
+                                   filter_non_gt_boxes=args.butd_cls)
+    score_fn = make_eval_score_step(model, prefixes=evaluator.prefixes, modes=evaluator.modes,
+                                    filter_non_gt_boxes=args.butd_cls)
     pairs = tail_chunks(n_val, max(args.batch_size, 1))
     t0 = time.perf_counter()
     pending = None
     for batch_np, (_, valid) in zip(
-            prefetch_batches(gen, [idx for idx, _ in pairs], args.num_workers), pairs):
+            prefetch_batches(gen, [idx for idx, _ in pairs], args.num_workers, model_cfg.butd),
+            pairs):
         hardness = batch_np.pop("hardness", None)
         ious = score_fn(to_device(batch_np, device))
         if pending is not None:
@@ -493,3 +519,63 @@ def evaluate(args, model, model_cfg, logger, writer=None, step=0, loader=None):
             for mode in ("bbs", "bbf")
         }, group="val")
     return evaluator
+
+
+def evaluate_detection(args, model, model_cfg, logger) -> dict:
+    """ScanNet detection AP over the fixed 18-class prompt (``train.py:evaluate_detection``).
+
+    Every scan of ``{data_root}/val_v3scans.pkl`` with a 485-class object, as
+    ``DetectionPromptDataset`` examples (the detected-box stream under
+    ``--butd``), in padded and masked batches; each row's 18-class ground
+    truth is recovered from its scan (strict NYU40 membership, the first
+    ``MAX_NUM_OBJ`` objects). Logs and returns ``mAP@t`` per
+    ``--ap_iou_thresholds`` and the headline ``mAP`` (that of the first
+    threshold above 0.3, else the first).
+    """
+    device = next(model.parameters()).device
+    scans = load_packed_scans(os.path.join(args.data_root, "val_v3scans.pkl"))
+    ds = DetectionPromptDataset(
+        scans, split="val", use_color=args.use_color, augment=False,
+        use_height=args.use_height,
+        multiview_path=(os.path.join(args.data_root, "scanrefer_2d_feats",
+                                     "enet_feats_maxpool.hdf5")
+                        if args.use_multiview else None),
+        detected_dir=os.path.join(args.data_root, "group_free_pred_bboxes"),
+        butd_gt=args.butd_gt, butd_cls=args.butd_cls,
+    )
+    eval_fn = make_eval_step(model)
+    # one calculator per threshold (the reference's ap_calculator_list)
+    thresholds = list(args.ap_iou_thresholds)
+    calcs = [APCalculator(iou_thresh=t) for t in thresholds]
+    bsz = max(args.batch_size, 1)
+    # the prompt is fixed: tokenized once
+    caption = " . ".join(PROMPT_NAMES) + " . not mentioned"
+    tok = ds.tokenizer.encode_batch([caption], max_len=ds.text_len)
+    nyu18 = set(NYU40_IDS_18)
+    t0 = time.perf_counter()
+    for idx, valid in tail_chunks(len(ds), bsz):
+        batch_np = ds.batch(idx, butd=model_cfg.butd)
+        batch_np.pop("hardness")
+        end_points, _ = eval_fn(to_device(batch_np, device))
+        # row i is scan ds.scan_ids[idx[i]]; strict 18-class membership, as the
+        # prompt's targets (an 'other furniture' fallback would admit walls)
+        gt_classes = np.zeros((bsz, MAX_NUM_OBJ), np.int64)
+        for i in range(bsz):
+            scan = ds.scans[ds.scan_ids[int(idx[i]) % len(ds.scan_ids)]]
+            keep = [instance_label_to_class18(o["instance_label"])
+                    for o in scan.three_d_objects
+                    if raw_to_nyu40().get(o["instance_label"]) in nyu18][:MAX_NUM_OBJ]
+            gt_classes[i, :len(keep)] = keep
+        evaluate_detection_batch(calcs, end_points, batch_np["targets"], gt_classes, tok,
+                                 caption, valid=valid)
+    seconds = time.perf_counter() - t0
+    logger.info("detection: scored %d scenes in %.2f s (%.2f scenes/s, scene assembly "
+                "included)", len(ds), seconds, len(ds) / seconds)
+    out = {}
+    for t, calc in zip(thresholds, calcs):
+        metrics = calc.compute_metrics()
+        logger.info("detection mAP@%.2f: %.4f", t, metrics["mAP"])
+        out[f"mAP@{t}"] = metrics["mAP"]
+        if "mAP" not in out or t > 0.3:  # the reference's headline (train_dist_mod.py:314)
+            out["mAP"] = metrics["mAP"]
+    return out

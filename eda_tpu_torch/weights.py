@@ -11,7 +11,9 @@ module path:
 * ``Dense`` kernels (in, out) become ``Linear``-layout weights (out, in);
   attention kernels (d, h, dh) and (h, dh, d) are flattened first;
 * LayerNorm / BatchNorm ``scale`` -> ``weight``, BatchNorm ``mean`` / ``var``
-  -> ``running_mean`` / ``running_var``, ``Embed.embedding`` -> ``weight``;
+  -> ``running_mean`` / ``running_var``, ``Embed.embedding`` -> ``weight``
+  (so the butd stream's ``box_embeddings``, ``butd_class_embeddings``,
+  ``class_embeddings`` and each layer's ``cross_d`` need no rule of their own);
 * the fused SA's ``w{i}``, ``b{i}``, ``ln_scale{i}``, ``ln_bias{i}`` ->
   ``kernels.i``, ``biases.i``, ``ln_scales.i``, ``ln_biases.i`` (layout kept).
 

@@ -3,9 +3,9 @@
 A ScanNet-layout scan tree (mesh vertices, segments, aggregation with a
 duplicate object), ScanRefer annotations, axis alignments, a byte-level BPE
 vocabulary in ``roberta-base``'s format and HF-named ``roberta-base`` weights
-drawn from a seeded ``RobertaEncoder`` (through the inverse of
-``eda_tpu_torch/train/convert.py``'s name map, which stays out of the
-package); and ``CheckedSteps``, which wraps the CLI's training step to check
+drawn from a seeded ``RobertaEncoder`` (under the HF names that
+``eda_tpu_torch/train/convert.py`` reads), GroupFree-format detections; and
+``CheckedSteps``, which wraps the CLI's training step to check
 every real-data batch and count each step's kernel launches.
 
 Imports torch, numpy and ``eda_tpu_torch`` only: ``chip_smoke.py`` imports it
@@ -26,8 +26,8 @@ FIXTURE_OBJECTS = ("chair", "table", "desk", "bed", "sofa", "cabinet", "door", "
 FIXTURE_COLORS = ("brown", "black", "white", "red", "wooden", "small")
 FIXTURE_RELATIONS = ("next to", "on the left of", "near", "behind", "in front of", "under")
 ANNOS_PER_SCENE = 3
-# the RobertaEncoder's names -> HF roberta-base's: the inverse of
-# eda_tpu_torch/train/convert.py's map, kept out of the package
+# the RobertaEncoder's names -> HF roberta-base's (the names that
+# eda_tpu_torch/train/convert.py:convert_hf_roberta reads)
 PORT_TO_HF = {
     "embeddings.word_embeddings.weight": "embeddings.word_embeddings.weight",
     "embeddings.position_embeddings.weight": "embeddings.position_embeddings.weight",
@@ -195,6 +195,24 @@ def fabricate_real_data(tmp: Path, cfg, n_vertices: int, scenes: dict, seed: int
     encoder = seeded_roberta(cfg, seed)
     torch.save(hf_roberta_state(encoder), root / "roberta-base" / "pytorch_model.bin")
     return root, scan_dir, ids, encoder, labels
+
+
+def fabricate_detections(root: Path, ids: dict, labels: dict, rng) -> None:
+    """GroupFree-format detections (``group_free_pred_bboxes_{split}/{scan}.npy``:
+    5 corner boxes, raw class names from the scene's labels, 19 logits) for
+    every scene of ``ids`` (split -> scan ids), drawn from ``rng``."""
+    import numpy as np
+
+    for split, split_ids in ids.items():
+        det_dir = root / "group_free_pred_bboxes" / f"group_free_pred_bboxes_{split}"
+        det_dir.mkdir(parents=True, exist_ok=True)
+        for scan_id in split_ids:
+            lo = rng.uniform(-2, 1, (5, 3))
+            corners = np.concatenate([lo, lo + rng.uniform(0.2, 1.0, (5, 3))], 1)
+            np.save(det_dir / f"{scan_id}.npy", {
+                "box": corners.astype(np.float32),
+                "class": [labels[scan_id][i % len(labels[scan_id])] for i in range(5)],
+                "logits": rng.normal(size=(5, 19)).astype(np.float32)})
 
 
 def launch_counts() -> dict:

@@ -15,6 +15,8 @@
   ``train.make_loader``'s (also under ``--joint_det``), and a tiny run on the
   CPU trains two steps on a fabricated ScanRefer tree with the RoBERTa warm
   start and scores the val split from its checkpoint.
+
+The two-stage grounder's CLI runs are in ``test_torch_cli_butd.py``.
 """
 
 import argparse
@@ -85,14 +87,7 @@ def test_build_configs_equal_train_py(argv):
 
 
 REFUSED = [
-    (["--test_dataset", "scannet"], "item 4"),
-    (["--butd"], "item 4"),
-    (["--butd_gt"], "item 4"),
-    (["--butd_cls"], "item 4"),
     (["--sa_impl", "gather"], "item 4"),
-    (["--pp_checkpoint", "gf.pth"], "item 4"),
-    (["--checkpoint_path", "eda.pth"], "item 4"),
-    (["--checkpoint_path", "eda.pt"], "item 4"),
 ]
 
 
@@ -104,6 +99,30 @@ def test_parser_refuses_what_the_port_lacks(argv, why, capsys):
         cli.parse_args(argv)
     err = capsys.readouterr().err
     assert f"ROADMAP Queue 1 {why}" in err
+
+
+# refused until the two-stage grounder and the converters were ported: each
+# flag is parsed as train.py parses it and reaches its feature
+BUTD_ACCEPTED = [
+    (["--test_dataset", "scannet"], lambda a, m, d: d.test_dataset == "scannet"),
+    (["--butd"], lambda a, m, d: m.butd and d.butd),
+    (["--butd_gt"], lambda a, m, d: d.butd_gt and not m.butd),
+    (["--butd_cls"], lambda a, m, d: d.butd_cls and not m.butd),
+    (["--pp_checkpoint", "gf.pth"], lambda a, m, d: a.pp_checkpoint == "gf.pth"),
+    (["--checkpoint_path", "eda.pth"], lambda a, m, d: a.checkpoint_path == "eda.pth"),
+    (["--checkpoint_path", "eda.pt"], lambda a, m, d: a.checkpoint_path == "eda.pt"),
+]
+
+
+@pytest.mark.parametrize("argv,reaches", BUTD_ACCEPTED, ids=lambda a: " ".join(a)
+                         if isinstance(a, list) else None)
+def test_parser_accepts_the_butd_and_converter_flags(argv, reaches):
+    args, jax_args = cli.parse_args(argv), jax_train.parse_args(argv)
+    assert vars(args) == vars(jax_args) and not cli.refusals(args)
+    configs = cli.build_configs(args)
+    for got, want in zip(configs, jax_train.build_configs(jax_args)):
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert reaches(args, configs[0], configs[2])
 
 
 NOW_ACCEPTED = [
@@ -299,3 +318,4 @@ def test_cli_real_data_train_then_eval(tree, tmp_path, monkeypatch):
     records = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
     (val,) = [r for r in records if r["group"] == "val"]
     assert all(0.0 <= v <= 1.0 for k, v in val.items() if "Acc" in k)
+

@@ -21,8 +21,8 @@ order by seed index. The decoder is equivariant under a permutation of its
 queries, so aligned outputs must agree. KPS's selection and tie order are
 checked against ``lax.top_k`` below.
 
-Tolerances, all absolute: the backbone as in ``test_torch_backbone.py``;
-after it, 0.03 for centers, sizes and class scores (magnitude up to ~3.5,
+Tolerances (``torch_parity.HEAD_ATOL`` etc.), all absolute: the backbone as
+in ``test_torch_backbone.py``; after it, 0.03 for centers, sizes and class scores (magnitude up to ~3.5,
 measured max 0.014), 0.02 for the unit-norm contrastive projections
 (measured max 0.006), ``LOGIT_ATOL`` 0.03 for the objectness logits.
 """
@@ -32,18 +32,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import compiled, jax_tpu_serving_path, perturb, to_numpy  # noqa: F401
+from torch_parity import (  # noqa: F401
+    assert_grounder_outputs_match,
+    grounder_forwards,
+    jax_tpu_serving_path,
+)
 
 from eda_tpu.config import ModelConfig as JaxConfig
-from eda_tpu.models import EDAGrounder as JaxGrounder
 from eda_tpu_torch.config import ModelConfig
 from eda_tpu_torch.data.synthetic import SyntheticConfig, SyntheticScenes
-from eda_tpu_torch.models.grounder import EDAGrounder, decoder_prefixes, top_k_indices
-from eda_tpu_torch.weights import load_flax
-
-HEAD_ATOL = 0.03
-PROJ_ATOL = 0.02
-LOGIT_ATOL = 0.03
+from eda_tpu_torch.models.grounder import top_k_indices
 
 
 @pytest.fixture(scope="module")
@@ -57,50 +55,8 @@ def test_grounder_matches_jax_serving_path(jax_tpu_serving_path, inputs):  # noq
     cfg = ModelConfig(use_bf16=True).tiny()
     jcfg = JaxConfig(use_bf16=True).tiny()
     assert cfg.num_queries == jcfg.num_queries < cfg.sa_npoints[1]
-    jax_model = JaxGrounder(jcfg)
-    jin = {k: jnp.asarray(v) for k, v in inputs.items()}
-    variables = jax.jit(lambda x: jax_model.init(jax.random.key(0), x, train=False))(jin)
-    variables = perturb(to_numpy(variables), seed=2)
-    want = compiled(lambda v, x: jax_model.apply(v, x, train=False), variables, jin)
-    want = {k: np.asarray(v.astype(jnp.float32) if v.dtype == jnp.bfloat16 else v)
-            for k, v in want.items()}
-
-    port = EDAGrounder(cfg)
-    load_flax(port, variables)
-    with torch.inference_mode():
-        got = port.eval()({k: torch.from_numpy(v) for k, v in inputs.items()})
-    got = {k: v.float().numpy() if v.is_floating_point() else v.numpy()
-           for k, v in got.items()}
-    assert set(got) == set(want)
-
-    # backbone and seeds
-    for key in ("sa1_inds", "sa2_inds", "sa3_inds", "sa4_inds", "seed_inds", "seed_xyz"):
-        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-    np.testing.assert_allclose(got["seed_features"], want["seed_features"], atol=HEAD_ATOL,
-                               rtol=0)
-    np.testing.assert_allclose(got["text_feats_prepro"], want["text_feats_prepro"],
-                               atol=1e-4, rtol=0)  # all f32: RoBERTa + projector
-    np.testing.assert_allclose(got["seeds_obj_cls_logits"], want["seeds_obj_cls_logits"],
-                               atol=LOGIT_ATOL, rtol=0)
-
-    # KPS: the same set of seeds; the port's order is descending in the JAX
-    # logits up to the logit tolerance
-    g_inds, w_inds = got["query_points_sample_inds"], want["query_points_sample_inds"]
-    for g_row, w_row, logit_row in zip(g_inds, w_inds, want["seeds_obj_cls_logits"]):
-        assert sorted(g_row) == sorted(w_row)
-        assert (np.diff(logit_row[g_row]) <= 2 * LOGIT_ATOL).all()
-    # align the port's queries to the JAX order
-    perm = np.stack([np.argsort(g)[np.argsort(np.argsort(w))] for g, w in zip(g_inds, w_inds)])
-    align = lambda x: np.take_along_axis(x, perm.reshape(perm.shape + (1,) * (x.ndim - 2)), 1)  # noqa: E731
-    np.testing.assert_array_equal(align(g_inds), w_inds)
-    np.testing.assert_array_equal(align(got["query_points_xyz"]), want["query_points_xyz"])
-
-    for prefix in decoder_prefixes(cfg.num_decoder_layers):
-        for name, atol in (("center", HEAD_ATOL), ("pred_size", HEAD_ATOL),
-                           ("sem_cls_scores", HEAD_ATOL), ("proj_queries", PROJ_ATOL)):
-            key = prefix + name
-            np.testing.assert_allclose(align(got[key]), want[key], atol=atol, rtol=0,
-                                       err_msg=key)
+    got, want = grounder_forwards(jcfg, cfg, inputs)
+    assert_grounder_outputs_match(got, want, cfg)
     assert got["last_center"].shape == (2, cfg.num_queries, 3)
 
 

@@ -5,9 +5,9 @@
   of the JAX package ``eda_tpu``;
 * both import on a machine with no CUDA and no ``nvcc`` (kernels build on use);
 * entry points (``build``, ``entry``, ``build_evaluator``, the training CLI,
-  the bench and the window sweep) run on CUDA unless the caller asks for the
-  CPU, and never fall back to the CPU by themselves; ``chip_smoke.py`` fails
-  without a card;
+  the bench, the window sweep and the class-table tool) run on CUDA unless the
+  caller asks for the CPU, and never fall back to the CPU by themselves;
+  ``chip_smoke.py`` fails without a card;
 * ``weights.load_flax`` maps every flax leaf and sets every port parameter;
 * the port's synthetic inputs and training targets are the JAX package's,
   byte for byte;
@@ -144,6 +144,24 @@ def test_command_line_tools_need_cuda_unless_cpu_is_passed(tool, tmp_path, monke
     assert all(k.launches == 0 for k in build.KERNELS.values())
 
 
+@pytest.mark.usefixtures("one_torch_thread")
+def test_class_table_tool_needs_cuda_unless_cpu_is_passed(tmp_path, monkeypatch):
+    from eda_tpu_torch.tools import gen_class_embeddings
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(gen_class_embeddings, "ModelConfig",
+                        lambda: ModelConfig(use_bf16=True).tiny())
+    argv = ["--roberta_dir", str(tmp_path / "none"), "--out", str(tmp_path / "t.npy")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gen_class_embeddings.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gen_class_embeddings.generate(class_names=["chair"], cfg=ModelConfig().tiny())
+    assert not (tmp_path / "t.npy").exists()
+    assert gen_class_embeddings.main(argv + ["--cpu"]) == 0
+    table = np.load(tmp_path / "t.npy")
+    assert table.shape == (485, ModelConfig().tiny().text_hidden) and np.isfinite(table).all()
+
+
 def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
     import chip_smoke
 
@@ -154,8 +172,7 @@ def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
 
 def test_port_grounder_refuses_what_it_does_not_run():
     cfg = ModelConfig(use_bf16=True).tiny()
-    for change in ({"butd": True}, {"sa_impl": "gather"}, {"points_presorted": False},
-                   {"use_bf16": False}):
+    for change in ({"sa_impl": "gather"}, {"points_presorted": False}, {"use_bf16": False}):
         with pytest.raises(NotImplementedError):
             EDAGrounder(dataclasses.replace(cfg, **change))
 
@@ -168,14 +185,19 @@ def _flax_tree(cfg):
         "text_ids": jax.ShapeDtypeStruct((1, 16), jnp.int32),
         "text_mask": jax.ShapeDtypeStruct((1, 16), jnp.bool_),
     }
+    if cfg.butd:
+        inputs.update(det_boxes=jax.ShapeDtypeStruct((1, 132, 6), jnp.float32),
+                      det_class_ids=jax.ShapeDtypeStruct((1, 132), jnp.int32),
+                      det_mask=jax.ShapeDtypeStruct((1, 132), jnp.bool_))
     shapes = jax.eval_shape(lambda x: model.init(jax.random.key(0), x, train=False), inputs)
     return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
 
 
-def test_from_flax_maps_every_leaf():
-    tree = _flax_tree(JaxConfig(use_bf16=True).tiny())
+@pytest.mark.parametrize("butd", [False, True], ids=["single-stage", "butd"])
+def test_from_flax_maps_every_leaf(butd):
+    tree = _flax_tree(dataclasses.replace(JaxConfig(use_bf16=True).tiny(), butd=butd))
     n_leaves = len(jax.tree_util.tree_leaves(tree))
-    port = EDAGrounder(ModelConfig(use_bf16=True).tiny())
+    port = EDAGrounder(dataclasses.replace(ModelConfig(use_bf16=True).tiny(), butd=butd))
     state = from_flax(tree)
     assert len(state) == n_leaves == len(port.state_dict())
     load_flax(port, tree)

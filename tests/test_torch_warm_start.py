@@ -7,8 +7,8 @@
   gives, every other tensor untouched;
 * the warm-started text encoder's output matches ``eda_tpu``'s within 1e-4
   (f32, as ``tests/test_torch_grounder.py`` holds it);
-* a missing file leaves the weights unchanged and logs; ``model.pt`` is read
-  too; ``pp_checkpoint`` is refused.
+* a missing file (a missing ``pp_checkpoint`` too) leaves the weights
+  unchanged and logs; ``model.pt`` is read too.
 """
 
 import dataclasses
@@ -118,10 +118,11 @@ def test_missing_file_leaves_the_weights(tmp_path, variables):
     warm_start(model, CFG, data_root=str(tmp_path), log=logs.append)
     warm_start(model, CFG, data_root=None, log=logs.append)
     assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
+    warm_start(model, CFG, data_root=None, pp_checkpoint=str(tmp_path / "gf.pth"),
+               log=logs.append)
+    assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
     assert logs == [f"text_encoder: no RoBERTa weights under {tmp_path / 'roberta-base'}, "
-                    "skipping"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        warm_start(model, CFG, data_root=str(tmp_path), pp_checkpoint="gf.pth")
+                    "skipping", f"pp_checkpoint not found, skipping: {tmp_path / 'gf.pth'}"]
 
 
 def test_model_pt_and_geometry_checks(tmp_path, variables):
