@@ -69,15 +69,16 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
 5. Training. Records the training kernels' inputs (K4 pair pool with winners,
    K5 compact and K6 windowed pair-pool backward, K7 prep backward) in one
    full-width training step at batch 8 and holds each against its plain
-   version; times both per SA layer. K5, K6 and K7 must give db_c and every
-   weight and vector gradient bit for bit again on a second launch; per
+   version; times both per SA layer. K5, K6 and K7 must give every output
+   (dA and dpts included) bit for bit again on a second launch; per
    backward layer the live pair rows, the TFLOP/s over the live-row work and
    the peak memory of one call are printed. Then runs five training steps from fresh
    counters: each must give a finite loss and ``grad_norm``, change the
    parameters, and advance K1, K2, K4 and K7 by 4, K5 by 1, K6 by 3 and K3 by
    0. Prints ms per step and scenes/s, the stage times of one step (forward,
    loss, backward, optimizer), the matcher's host syncs and the busiest device
-   operations of one step.
+   operations of one step, and runs two steps from one state, which must agree
+   bit for bit.
 6. Radius-test modes. For ``mxu`` (K8) and ``pre`` (K9a mask, K9b pool), with
    ``EDA_SA_D2`` set in the process, records the mode's kernel calls in one
    full-width serving forward and one training step at batch 8 (each with its
@@ -105,9 +106,11 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    checkpoint, the three ``train`` records and the ``val`` record finite (the
    accuracies in [0, 1]). A tiny training state saved after two steps and
    restored on the card into a model of other weights must be bit-identical
-   to the one saved; one more step from each must give bit-identical metrics
-   and state tensors within ``STEP_REPEAT_ATOL`` (the backward adds with
-   atomics, so the update is not bit-identical; the counts are printed).
+   to the one saved; one more step from each must give every metric, state
+   tensor and AdamW moment bit for bit (every sum of the backward has a
+   fixed order), and so must two steps from one tiny f32 state; then
+   ``GATHER_CLI_STEPS`` tiny ``--sa_impl gather`` steps with finite losses.
+   The "training" phase checks the same at full width in bf16.
 9. Real-format data through the CLI at the flagship's width, fabricated by
    ``tests/real_data_fixtures.py`` from a seed: 8 train and 4 val scenes in
    the ScanNet layout (60 000 vertices each, so the 50 000-point downsample
@@ -152,17 +155,36 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    filter from their checkpoint and the ScanNet detection eval
    (``--test_dataset scannet --butd``; mAP@0.25 and @0.5 finite in [0, 1]),
    each batch launching K1-K3 four times.
-11. The bench (``python -m eda_tpu_torch.bench --eval --batch 8 --iters 8``):
+11. The f32 model (phase "f32", ``ModelConfig()``, ``use_bf16=False``): K2f
+   and K7f (``csrc/sa_prep_f32.cu``) against their plain versions on
+   ``prep_f32_edge_inputs`` (each flagship layer's (in_dim, c1) at ragged
+   row counts, the tiny widths, large points; K2f per element within
+   ``prep_f32_tolerance``, K7f within 1e-4 of each output's largest value,
+   bit-identical on a second launch, dA read unrounded); the tiny f32
+   model, step and scoring against their CPU twins; at full width K2f and
+   K7f against their plain versions on a forward's and a step's inputs,
+   ``REQUESTS`` serving batches (K1, K2f, K3 four launches each) and
+   ``F32_STEPS`` training steps (K1, K2f, K4, K7f four, K5 one, K6 three),
+   one profiled forward and step, and two steps from one state bit for bit.
+12. The gather SA (phase "gather", ``sa_impl="gather"``): the tiny model
+   against its CPU twin under ``nearest`` and ``first``; at full width in
+   f32 one serving batch and ``GATHER_STEPS`` training steps, each launching
+   K1 four times (over the whole 50 000-point cloud at SA1) and nothing
+   else; each layer's ball query timed under both modes; one profiled
+   forward and step; two steps from one state bit for bit. Then the device
+   busy ms of every profiled call.
+13. The bench (``python -m eda_tpu_torch.bench --eval --batch 8 --iters 8``):
    the forward, training and eval timers at full width with few repetitions,
    their spreads on stderr and their JSON lines on stdout.
-12. Prints the per-kernel JSON line, the card line, and as its last line
+14. Prints the per-kernel JSON line, the card line, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Per kernel, the JSON line's ``ms``, ``plain_ms`` and ``bound_ms`` are sums over
-the four SA layers of one batch-8 forward (K1-K3, K8, K9a, K9b) or training
-step (K4-K7, K8 and K9b with winners). ``launches`` is the count of the serving
-run (K1-K3), the training run (K4-K7), the mode's evaluation run (K8, K9a,
-K9b) or the mode's training step (K8 and K9b with winners). Each phase prints
+the four SA layers of one batch-8 forward (K1-K3, K8, K9a, K9b, K2f) or
+training step (K4-K7, K8 and K9b with winners, K7f). ``launches`` is the count
+of the serving run (K1-K3), the training run (K4-K7), the mode's evaluation
+run (K8, K9a, K9b), the mode's training step (K8 and K9b with winners) or the
+f32 serving run and training steps (K2f, K7f). Each phase prints
 its wall time. Any failed check raises, and the script exits non-zero. Without
 CUDA it exits non-zero before printing any result.
 """
@@ -198,6 +220,8 @@ TRAINING = ("sa_pair_pool_winners_launch", "sa_pool_bwd_compact_launch",
             "sa_pool_bwd_window_launch", "sa_prep_bwd_launch")
 MASK = "sa_radius_mask_launch"
 POOL_BWD = ("sa_pool_bwd_compact_launch", "sa_pool_bwd_window_launch")
+F32_PREP, F32_PREP_BWD = "sa_prep_f32_launch", "sa_prep_bwd_f32_launch"
+PREP_BWD = ("sa_prep_bwd_launch", F32_PREP_BWD)
 IOU_SHAPE = (2, 2, BATCH, 10)  # (prefixes, scoring modes, batch, top-k)
 SCORE_TIE, IOU_ATOL = 1e-5, 1e-6  # tiny eval check, card vs CPU scoring
 BOUNDARY = 1e-5  # |d2 - r^2| within which mxu / pre may decide a pair otherwise than pair
@@ -222,7 +246,7 @@ BUTD_GRAD_NORM_REL, BUTD_NOISE_DRAWS, BUTD_MAX_NOISY = 0.2, 3, 10
 # rounding of dx that lands on the other side of a boundary moves an element
 # by ~5e-4 of the leaf's largest value)
 PREP_BWD_REL, POOL_BWD_W_REL, POOL_BWD_A_REL = 0.02, 0.01, 0.005
-STEP_REPEAT_ATOL = 1e-6  # two tiny training steps from one state on the card, any state tensor
+GATHER_CLI_STEPS = 3  # tiny --sa_impl gather CLI steps
 
 
 def pool_symbol(mode: str, winners: bool) -> str:
@@ -231,19 +255,21 @@ def pool_symbol(mode: str, winners: bool) -> str:
     return KERNELS[mode, winners].symbol
 
 
-def forward_launches(mode: str) -> dict:
-    """Kernel launches of one flagship forward under radius-test ``mode``."""
-    out = {"fps_launch": 4, "sa_prep_launch": 4, pool_symbol(mode, False): 4}
+def forward_launches(mode: str, f32: bool = False) -> dict:
+    """Kernel launches of one flagship forward under radius-test ``mode``
+    (``f32``: the f32 model, whose layer 0 is K2f)."""
+    out = {"fps_launch": 4, F32_PREP if f32 else "sa_prep_launch": 4,
+           pool_symbol(mode, False): 4}
     if mode == "pre":
         out[MASK] = 4
     return out
 
 
-def step_launches(mode: str) -> dict:
+def step_launches(mode: str, f32: bool = False) -> dict:
     """Kernel launches of one flagship training step: compact backward at SA1 only."""
-    out = {"fps_launch": 4, "sa_prep_launch": 4, pool_symbol(mode, True): 4,
-           "sa_pool_bwd_compact_launch": 1, "sa_pool_bwd_window_launch": 3,
-           "sa_prep_bwd_launch": 4}
+    out = {"fps_launch": 4, F32_PREP if f32 else "sa_prep_launch": 4,
+           pool_symbol(mode, True): 4, "sa_pool_bwd_compact_launch": 1,
+           "sa_pool_bwd_window_launch": 3, F32_PREP_BWD if f32 else "sa_prep_bwd_launch": 4}
     if mode == "pre":
         out[MASK] = 4
     return out
@@ -369,12 +395,20 @@ def fps_bound(args, kw):
     return bound(ops, PEAK_F32, xyz.numel() * 4 + B * npoint * 4)
 
 
+def f32_prep(kw) -> bool:
+    return kw.get("compute_dtype") == torch.float32
+
+
 def prep_bound(args, kw):
+    """Points read once, A written once (bf16, or f32 for K2f), W1 and the
+    vectors in f32; the products at the bf16 tensor-core peak, or K2f's at
+    the f32 CUDA-core peak."""
     pts, w1 = args[0], args[1]
     B, N, in_dim = pts.shape
     c1 = w1.shape[1]
-    nb = pts.numel() * 4 + B * N * c1 * 2 + (in_dim + 3) * c1 * 4
-    return bound(2 * B * N * in_dim * c1, PEAK_BF16, nb)
+    size, peak = (4, PEAK_F32) if f32_prep(kw) else (2, PEAK_BF16)
+    nb = pts.numel() * 4 + B * N * c1 * size + (in_dim + 3) * c1 * 4
+    return bound(2 * B * N * in_dim * c1, peak, nb)
 
 
 def window_d2(xyz, cen, starts, window: int):
@@ -538,9 +572,11 @@ def prep_bwd_bound(args, kw):
     pts, dA, w1 = args[0], args[1], args[2]
     B, N, in_dim = pts.shape
     c1 = w1.shape[1]
-    # recompute x, dpts = dx @ W1^T, dW1 = pts^T dx: three (B*N, in_dim, c1) products
-    nb = pts.numel() * 4 + dA.numel() * 2 + pts.numel() * 4 + (3 * in_dim + 5) * c1 * 4
-    return bound(6 * B * N * in_dim * c1, PEAK_BF16, nb)
+    # recompute x, dpts = dx @ W1^T, dW1 = pts^T dx: three (B*N, in_dim, c1) products;
+    # dA read in the compute dtype (K7f: f32), dpts written in f32
+    size, peak = (4, PEAK_F32) if f32_prep(kw) else (2, PEAK_BF16)
+    nb = pts.numel() * 4 + dA.numel() * size + pts.numel() * 4 + (3 * in_dim + 5) * c1 * 4
+    return bound(6 * B * N * in_dim * c1, peak, nb)
 
 
 def rel_err(got, want) -> float:
@@ -551,10 +587,11 @@ def abs_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
-def check_kernel(symbol: str, got, want, layer: int) -> float:
+def check_kernel(symbol: str, got, want, layer: int, call=None) -> float:
     """Max abs error of a kernel result against its plain version; raises past
-    tolerance: absolute for K1-K4 (as their CPU tests), relative to each
-    leaf's largest value for the backward kernels."""
+    tolerance: absolute for K1-K4 (as their CPU tests; K2f per element, from
+    its ``call``'s (args, kwargs)), relative to each leaf's largest value for
+    the backward kernels."""
     if symbol == "fps_launch":
         if not torch.equal(got, want):
             raise AssertionError(f"FPS kernel differs from its plain version at SA{layer}")
@@ -566,6 +603,13 @@ def check_kernel(symbol: str, got, want, layer: int) -> float:
         if not ((g - w).abs() <= 0.02 + w.abs() * 2.0 ** -7).all():
             raise AssertionError(f"prep kernel off its plain version at SA{layer}: {err}")
         return err
+    if symbol == F32_PREP:
+        (pts, w1, b1), radius = call[0][:3], call[1]["radius"]
+        err = (got - want).abs()
+        if not (err <= prep_f32_tolerance(pts, w1, b1, radius, want)).all():
+            raise AssertionError(f"f32 prep kernel off its plain version at SA{layer}: "
+                                 f"{err.max().item()}")
+        return err.max().item()
     if symbol == MASK:
         if not torch.equal(got, want):
             raise AssertionError(f"mask kernel differs from its plain version at SA{layer}")
@@ -591,8 +635,8 @@ def check_kernel(symbol: str, got, want, layer: int) -> float:
     errs = [rel_err(g, w) for g, w in zip(got, want)]
     print(f"  SA{layer} errors relative to each output's largest value: "
           f"{[f'{e:.2e}' for e in errs]}")
-    if symbol == "sa_prep_bwd_launch":  # dpts, dW1, db1, dscale, dlnb
-        if max(errs) > PREP_BWD_REL:
+    if symbol in PREP_BWD:  # dpts, dW1, db1, dscale, dlnb
+        if max(errs) > (PREP_F32_BWD_REL if symbol == F32_PREP_BWD else PREP_BWD_REL):
             raise AssertionError(f"prep backward off its plain version at SA{layer}: {errs}")
     elif max(errs[:2]) > POOL_BWD_A_REL or max(errs[2:]) > POOL_BWD_W_REL:
         # dA, db_c | dW2, db2, ds2, dlb2, dW3, db3
@@ -611,6 +655,8 @@ def kernel_specs():
         "sa_pool_bwd_compact_launch": (*bwd, pool_bwd_bound, 5),
         "sa_pool_bwd_window_launch": (*bwd, pool_bwd_bound, 5),
         "sa_prep_bwd_launch": (sa_prep.sa_prep_bwd, sa_prep.sa_prep_bwd_plain, prep_bwd_bound, 10),
+        F32_PREP: (sa_prep.sa_prep, sa_prep.sa_prep_plain, prep_bound, 20),
+        F32_PREP_BWD: (sa_prep.sa_prep_bwd, sa_prep.sa_prep_bwd_plain, prep_bwd_bound, 10),
         MASK: (sa_mask.sa_radius_mask, sa_mask.sa_radius_mask_plain, mask_bound, 20),
     }
     for mode in sa_kernel.D2_MODES:
@@ -642,18 +688,18 @@ def check_kernels(calls, symbols, layers: dict, compare_pair: bool = False) -> l
         bound_ops = bound_bytes = 0.0
         for i, (args, kw) in enumerate(calls[symbol]):
             # the backward runs the layers last to first
-            backward = symbol in ("sa_pool_bwd_window_launch", "sa_prep_bwd_launch")
+            backward = symbol in ("sa_pool_bwd_window_launch",) + PREP_BWD
             layer = 4 - i if backward else i + 1
             got, want = kernel_fn(*args, **kw), plain_fn(*args, **kw)
             torch.cuda.synchronize()
-            err = check_kernel(symbol, got, want, layer)
+            err = check_kernel(symbol, got, want, layer, (args, kw))
             if compare_pair and symbol != MASK:
                 against_pair(symbol, args, kw, got, layer)
-            if symbol in POOL_BWD or symbol == "sa_prep_bwd_launch":
+            if symbol in POOL_BWD + PREP_BWD:
                 again = kernel_fn(*args, **kw)
-                if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
-                    raise AssertionError(f"{name} SA{layer}: db_c or a weight or vector "
-                                         f"gradient differs between two launches")
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{name} SA{layer}: an output differs between two "
+                                         f"launches")
                 del again
             del got, want
             ms = cuda_ms(lambda: kernel_fn(*args, **kw), reps)
@@ -906,14 +952,19 @@ def pool_bwd_edge_check() -> None:
             ckw = dict(kw, compact=compact)
             rows = center_rows(args, ckw)
             got = sa_pool_bwd.sa_pool_bwd(*args, **ckw)
+            again = sa_pool_bwd.sa_pool_bwd(*args, **ckw)
             want = sa_pool_bwd.sa_pool_bwd_plain(*args, **ckw)
             torch.cuda.synchronize()
             check_kernel(bwd_symbol(compact), got, want, layer)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"pool backward edge check SA{layer} W={window}: an "
+                                     f"output differs between two launches")
             empty = int((rows.view(rows.shape[0], -1, 16).sum(-1) == 0).sum())
             print(f"pool backward edge check SA{layer} widths {widths}, W={window}, "
-                  f"{'compact' if compact else 'windowed'}: within tolerance; live rows per "
-                  f"center {int(rows.min())}-{int(rows.max())}, {empty} blocks without a live "
-                  f"row, {int(rows.sum())} rows in all")
+                  f"{'compact' if compact else 'windowed'}: within tolerance, bit-identical "
+                  f"on a second launch; live rows per center {int(rows.min())}-"
+                  f"{int(rows.max())}, {empty} blocks without a live row, {int(rows.sum())} "
+                  f"rows in all")
 
 
 # pool widths inputs: (layer, widths, N, M, window), triples outside the
@@ -1215,6 +1266,98 @@ def mask_edge_check() -> None:
         print(f"mask edge check {name}: bit-exact, {int(want.sum())} of {want.numel()} "
               f"(row, center) pairs in radius; {near} centers with a window point within "
               f"{BOUNDARY} of the radius")
+
+
+# the flagship's prep widths (in_dim, c1) at SA1-SA4 with RGB, and the tiny config's
+F32_PREP_WIDTHS = ((6, 64), (131, 128), (259, 128), (259, 128))
+TINY_PREP_WIDTHS = ((6, 16), (35, 32), (67, 32))
+# K2f / K7f against their plain versions, as tests/test_sa_prep.py holds the f32
+# Pallas prep: A within 2e-5 abs (plus, per row, the one-pass variance's
+# cancellation: PREP_F32_ULPS f32 steps of the row's (S2 / c1) / var times
+# |A| + 1), each gradient within 1e-4 of its largest value
+PREP_F32_ATOL, PREP_F32_BWD_REL, PREP_F32_ULPS = 2e-5, 1e-4, 64
+
+
+def prep_f32_edge_inputs(seed=0) -> dict:
+    """name -> ((pts, w1, b1, scale, lnb, dA) CPU tensors, radius): the f32 prep's
+    edge cases. Each flagship layer's widths at a ragged row count (no multiple
+    of a warp's 4 rows or of the dW1 kernel's 2048-row chunks), the tiny
+    config's widths, and points of large magnitude; dA in f32 with values that
+    bf16 does not hold."""
+    g = torch.Generator().manual_seed(seed)
+
+    def case(B, N, in_dim, c1, radius, scale_xyz=4.0, scale_f=1.0):
+        pts = torch.cat([(torch.rand(B, N, 3, generator=g) * 2 - 1) * scale_xyz,
+                         torch.randn(B, N, in_dim - 3, generator=g) * scale_f], -1)
+        w1 = torch.randn(in_dim, c1, generator=g) * in_dim ** -0.5
+        b1 = torch.randn(c1, generator=g) * 0.1
+        scale = 1 + 0.1 * torch.randn(c1, generator=g)
+        lnb = 0.1 * torch.randn(c1, generator=g)
+        dA = torch.randn(B, N, c1, generator=g)
+        return (pts, w1, b1, scale, lnb, dA), radius
+
+    cases = {}
+    for layer, ((in_dim, c1), radius) in enumerate(zip(F32_PREP_WIDTHS, (0.2, 0.4, 0.8, 1.2)), 1):
+        cases[f"SA{layer} widths ({in_dim}, {c1}), 2 x 2049 rows"] = case(2, 2049, in_dim, c1,
+                                                                          radius)
+    for in_dim, c1 in TINY_PREP_WIDTHS:
+        cases[f"tiny widths ({in_dim}, {c1}), 3 x 101 rows"] = case(3, 101, in_dim, c1, 0.4)
+    cases["SA2 widths, 1 x 3 rows"] = case(1, 3, 131, 128, 0.4)
+    cases["large-magnitude points, SA1 widths, 4100 rows"] = case(1, 4100, 6, 64, 0.2,
+                                                                    500.0, 50.0)
+    return cases
+
+
+def prep_f32_tolerance(pts, w1, b1, radius, want):
+    """Per element: PREP_F32_ATOL + 1e-4 |A| + the one-pass statistics' cancellation."""
+    from eda_tpu_torch.ops.cuda import sa_prep
+
+    _, x = sa_prep._recompute(pts, w1, b1, radius, torch.float32)
+    mean = x.mean(-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    kappa = (x * x).mean(-1, keepdim=True) / (var + sa_prep.EPS)
+    eps = torch.finfo(torch.float32).eps
+    return PREP_F32_ATOL + 1e-4 * want.abs() + PREP_F32_ULPS * eps * kappa * (want.abs() + 1)
+
+
+@torch.no_grad()
+def prep_f32_edge_check() -> None:
+    """K2f and K7f against their plain versions on every ``prep_f32_edge_inputs``
+    case; K7f's gradients bit-identical on a second launch and its dA read
+    unrounded (a bf16-rounded dA gives other gradients)."""
+    from eda_tpu_torch.ops.cuda import sa_prep
+
+    f32 = dict(compute_dtype=torch.float32)
+    for name, (args, radius) in prep_f32_edge_inputs().items():
+        pts, w1, b1, scale, lnb, dA = (a.cuda() for a in args)
+        got = sa_prep.sa_prep(pts, w1, b1, scale, lnb, radius=radius, **f32)
+        want = sa_prep.sa_prep_plain(pts, w1, b1, scale, lnb, radius=radius, **f32)
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32 or got.shape != want.shape:
+            raise AssertionError(f"f32 prep edge check {name}: {got.dtype} {tuple(got.shape)}")
+        err = (got - want).abs()
+        if not (err <= prep_f32_tolerance(pts, w1, b1, radius, want)).all():
+            raise AssertionError(f"f32 prep edge check {name}: K2f off its plain version by "
+                                 f"{err.max().item()}")
+        bwd = (pts, dA, w1, b1, scale)
+        got_b = sa_prep.sa_prep_bwd(*bwd, radius=radius, **f32)
+        again = sa_prep.sa_prep_bwd(*bwd, radius=radius, **f32)
+        want_b = sa_prep.sa_prep_bwd_plain(*bwd, radius=radius, **f32)
+        rounded = sa_prep.sa_prep_bwd(pts, dA.bfloat16().float(), w1, b1, scale, radius=radius,
+                                      **f32)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(got_b, want_b)]
+        if max(errs) > PREP_F32_BWD_REL or not all(torch.isfinite(a).all() for a in got_b):
+            raise AssertionError(f"f32 prep backward edge check {name}: {errs}")
+        if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
+            raise AssertionError(f"f32 prep backward edge check {name}: an output differs "
+                                 f"between two launches")
+        if torch.equal(rounded[1], got_b[1]):
+            raise AssertionError(f"f32 prep backward edge check {name}: dW1 does not see dA "
+                                 f"unrounded")
+        print(f"f32 prep edge check {name}: K2f max err {err.max().item():.3e}; K7f errors "
+              f"relative to each output's largest value {[f'{e:.2e}' for e in errs]}, "
+              f"bit-identical on a second launch, dA read unrounded")
 
 
 def small_model_check(root_cfg) -> None:
@@ -1631,7 +1774,8 @@ def train_phase(cfg):
     print(f"stage ms of one training step: forward {t_fwd:.2f}, loss (matching included) "
           f"{t_loss:.2f}, backward {t_bwd:.2f}, optimizer {t_opt:.2f}")
     del ends, loss
-    profile(lambda: step(state, batch), "training step", also=("pool_bwd", "reduce_records"))
+    profile(lambda: step(state, batch), "training step", also=("pool_bwd", "reduce_"))
+    exact_repeat_check(state, step, batch, "full-width step")
     return rows, launches, state, step, batch
 
 
@@ -1815,24 +1959,36 @@ def cli_phase(root_cfg) -> None:
         restored, _ = mgr.restore(build_trainer(cfg, batch_size=2, device="cuda", seed=1)[0])
         if not _same_state(state, restored):
             raise AssertionError("cli: the state restored on the card is not the state saved")
-    # the same step from bit-identical states, twice
+    # the same step from bit-identical states, twice: every sum of the
+    # backward is a fixed-order sum, so the update repeats bit for bit
     m1, m2 = step(state, batch), step(restored, batch)
-    same_metrics = [k for k in m1 if torch.equal(m1[k], m2[k])]
-    s1, s2 = state.model.state_dict(), restored.model.state_dict()
-    differ = [k for k in s1 if not torch.equal(s1[k], s2[k])]
-    worst = max(((s1[k] - s2[k]).abs().max().item(), k) for k in s1)
+    differ = sorted(k for k in m1 if not torch.equal(m1[k], m2[k]))
+    if differ or not _same_state(state, restored):
+        raise AssertionError(f"cli: two steps from the restored state differ (metrics "
+                             f"{differ}, or a state tensor or moment)")
     print(f"cli: checkpoint restored on the card bit-identical to the state saved; the next "
-          f"step from both: {len(same_metrics)} of {len(m1)} metrics bit-identical, "
-          f"{len(differ)} of {len(s1)} state tensors differ (largest {worst[0]:.3g} at "
-          f"{worst[1]}){'' if differ else ': bit-identical steps'}")
-    # what holds on the card (PERF.md §6): the forward, the loss and every
-    # metric repeat bit for bit; the update does not, since the backward adds
-    # with atomics (the pool backward's dA, PyTorch's gather backward), but
-    # stays within a few ulps of the parameters' magnitude
-    if len(same_metrics) != len(m1) or worst[0] > STEP_REPEAT_ATOL:
-        raise AssertionError(f"cli: two steps from the same state differ: metrics "
-                             f"{sorted(set(m1) - set(same_metrics))}, largest state "
-                             f"difference {worst[0]} at {worst[1]}")
+          f"step from both bit-identical: all {len(m1)} metrics, all "
+          f"{len(state.model.state_dict())} state tensors and every moment")
+    f32_state, f32_step, f32_batch = build_trainer(dataclasses.replace(root_cfg.tiny(),
+                                                                       use_bf16=False),
+                                                   batch_size=2, device="cuda", seed=0)
+    f32_step(f32_state, f32_batch)
+    exact_repeat_check(f32_state, f32_step, f32_batch, "cli: tiny f32 step")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = Path(tmp) / "gather"
+        if cli.main(flags + ["--sa_impl", "gather", "--max_steps", str(GATHER_CLI_STEPS),
+                             "--print_freq", "1", "--log_dir", str(run)]):
+            raise AssertionError("cli: the --sa_impl gather run failed")
+        config = json.loads((run / "config.json").read_text())
+        train = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in train if r["group"] == "train"]
+        if len(losses) != GATHER_CLI_STEPS or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"cli --sa_impl gather: losses {losses}")
+        if "gather" not in json.dumps(config):
+            raise AssertionError("cli --sa_impl gather: config.json does not name the gather SA")
+        print(f"cli --sa_impl gather: {GATHER_CLI_STEPS} steps, losses "
+              f"{[round(v, 4) for v in losses]}")
 
 
 def pack(root: Path, scan_dir: Path, ids: dict, processes: int) -> None:
@@ -2196,6 +2352,163 @@ def butd_phase(root_cfg, root: Path, ids: dict, labels: dict, tmp: Path) -> None
         print(f"butd {name}: {time.perf_counter() - t:.1f} s")
 
 
+def exact_repeat_check(state, step, batch, label: str) -> None:
+    """Two training steps from one state (a deep copy of ``state``) give every
+    metric, parameter, BatchNorm statistic and AdamW moment bit for bit."""
+    import copy
+
+    twin = copy.deepcopy(state)
+    if not _same_state(state, twin):
+        raise AssertionError(f"{label}: the copied state is not the state")
+    m1, m2 = step(state, batch), step(twin, batch)
+    differ = sorted(k for k in m1 if not torch.equal(m1[k], m2[k]))
+    s1, s2 = state.model.state_dict(), twin.model.state_dict()
+    tensors = [k for k in s1 if not torch.equal(s1[k], s2[k])]
+    if differ or tensors or not _same_state(state, twin):
+        worst = max(((s1[k] - s2[k]).abs().max().item(), k) for k in s1)
+        raise AssertionError(f"{label}: two steps from one state differ: metrics {differ}, "
+                             f"{len(tensors)} of {len(s1)} state tensors (largest "
+                             f"{worst[0]:.3g} at {worst[1]}), or the moments")
+    print(f"{label}: two steps from one state: all {len(m1)} metrics, all {len(s1)} state "
+          f"tensors and every AdamW moment bit-identical")
+    del twin
+
+
+F32_STEPS = 3  # full-width f32 training steps
+
+
+def f32_phase(root_cfg) -> list:
+    """The f32 model, ``ModelConfig(use_bf16=False)``: K2f / K7f edge checks,
+    the tiny model, step and scoring against their CPU twins, then at full
+    width K2f / K7f against their plain versions, ``REQUESTS`` serving batches
+    and ``F32_STEPS`` training steps with their launches, a profiled forward
+    and step, and two steps from one state bit for bit. Returns the kernel
+    rows of K2f and K7f."""
+    from eda_tpu_torch.entry import build as build_model
+    from eda_tpu_torch.entry import build_trainer, make_batch
+    from eda_tpu_torch.ops import fused_sa
+    from eda_tpu_torch.ops.cuda import build
+
+    prep_f32_edge_check()
+    small_model_check(root_cfg)
+    small_train_check(root_cfg)
+    small_eval_check(root_cfg)
+
+    cfg = root_cfg
+    prep = lambda kw: F32_PREP if f32_prep(kw) else "sa_prep_launch"  # noqa: E731
+    model, inputs = build_model(cfg, batch_size=BATCH, device="cuda", seed=0)
+    with Recorder([(fused_sa, "sa_prep", prep)]) as rec:
+        with torch.inference_mode():
+            model(inputs)
+    torch.cuda.synchronize()
+    rows = check_kernels(rec.calls, (F32_PREP,), {F32_PREP: 4})
+    del rec
+    for kernel in build.KERNELS.values():
+        kernel.launches = 0
+    times = []
+    with torch.inference_mode():
+        for i in range(REQUESTS):
+            batch = make_batch(cfg, range(BATCH * i, BATCH * (i + 1)), "cuda") if i else inputs
+            before = launch_counts()
+            out, ms = timed(lambda: model(batch)["last_center"])
+            times.append(ms)
+            if out.shape != (BATCH, cfg.num_queries, 3) or not torch.isfinite(out).all():
+                raise AssertionError(f"f32 request {i}: bad last_center {tuple(out.shape)}")
+            check_launches(before, forward_launches("pair", f32=True), f"f32 request {i}")
+        rows[0]["launches"] = launch_counts()[F32_PREP]
+        print(f"f32 serving forward, batch {BATCH}: {statistics.median(times[1:]):.2f} ms per "
+              f"batch (median of requests 1-{REQUESTS - 1}), every launch as counted")
+        profile(lambda: model(batch), "f32 serving forward")
+    del model, inputs, batch
+    torch.cuda.empty_cache()
+
+    state, step, batch = build_trainer(cfg, batch_size=BATCH, device="cuda", seed=0)
+    with Recorder([(fused_sa, "sa_prep_bwd", lambda kw: F32_PREP_BWD)]) as rec:
+        step(state, batch)
+    torch.cuda.synchronize()
+    rows += check_kernels(rec.calls, (F32_PREP_BWD,), {F32_PREP_BWD: 4})
+    del rec
+    for kernel in build.KERNELS.values():
+        kernel.launches = 0
+    times = []
+    for i in range(F32_STEPS):
+        before = launch_counts()
+        metrics, ms = timed(lambda: step(state, batch))
+        times.append(ms)
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise AssertionError(f"f32 step {i}: loss {loss}, grad_norm {norm}")
+        check_launches(before, step_launches("pair", f32=True), f"f32 step {i}")
+        print(f"f32 step {i}: {ms:.2f} ms, loss {loss:.4f}, grad_norm {norm:.4f}")
+    rows[1]["launches"] = launch_counts()[F32_PREP_BWD]
+    profile(lambda: step(state, batch), "f32 training step", also=("prep_bwd_rows",))
+    exact_repeat_check(state, step, batch, "f32 full-width step")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return rows
+
+
+GATHER_STEPS = 2  # full-width gather training steps
+
+
+def gather_phase(root_cfg) -> None:
+    """The gather SA (``sa_impl="gather"``): the tiny model against its CPU
+    twin under ``nearest`` and ``first``; at full width in f32 (the
+    reference's PointNet++) one serving batch and ``GATHER_STEPS`` training
+    steps, each launching K1 four times (FPS over the whole 50 000-point
+    cloud at SA1) and no other kernel; the ball query's time per layer under
+    both modes; a profiled forward and step; two steps from one state."""
+    from eda_tpu_torch.entry import build as build_model
+    from eda_tpu_torch.entry import build_trainer
+    from eda_tpu_torch.ops import pointops
+
+    for mode in ("nearest", "first"):
+        small_model_check(dataclasses.replace(root_cfg, sa_impl="gather", sa_ball_mode=mode))
+    cfg = dataclasses.replace(root_cfg, sa_impl="gather")
+    model, inputs = build_model(cfg, batch_size=BATCH, device="cuda", seed=0)
+    with Recorder([(pointops, "furthest_point_sample", "fps_launch"),
+                   (pointops, "ball_query_nearest", "ball_query_nearest")]) as rec:
+        with torch.inference_mode():
+            before = launch_counts()
+            out, ms = timed(lambda: model(inputs)["last_center"])
+            check_launches(before, {"fps_launch": 4}, "gather forward")
+    if out.shape != (BATCH, cfg.num_queries, 3) or not torch.isfinite(out).all():
+        raise AssertionError(f"gather forward: bad last_center {tuple(out.shape)}")
+    sizes = [tuple(a[0].shape[:2]) for a, _ in rec.calls["fps_launch"]]
+    if sizes[0] != (BATCH, cfg.num_points):
+        raise AssertionError(f"gather SA1 FPS ran over {sizes[0]}, not the whole cloud")
+    print(f"gather forward, batch {BATCH}: {ms:.2f} ms (first call), K1 over {sizes}")
+    for layer, (args, _) in enumerate(rec.calls["ball_query_nearest"], 1):
+        xyz, centers, radius, nsample = args
+        with torch.inference_mode():
+            first = pointops.ball_query(xyz, centers, radius, nsample)
+            ms_first = cuda_ms(lambda: pointops.ball_query(xyz, centers, radius, nsample), 3)
+            ms_near = cuda_ms(lambda: pointops.ball_query_nearest(*args), 3)
+        print(f"gather SA{layer} ball query (B={xyz.shape[0]}, N={xyz.shape[1]}, "
+              f"M={centers.shape[1]}, {nsample} samples): nearest {ms_near:.3f} ms, first "
+              f"{ms_first:.3f} ms; {int((first[..., 1:] != first[..., :1]).any(-1).sum())} of "
+              f"{first.shape[0] * first.shape[1]} centers have more than one point in radius")
+    del rec
+    with torch.inference_mode():
+        profile(lambda: model(inputs), "gather serving forward")
+    del model, inputs
+    torch.cuda.empty_cache()
+
+    state, step, batch = build_trainer(cfg, batch_size=BATCH, device="cuda", seed=0)
+    for i in range(GATHER_STEPS):
+        before = launch_counts()
+        metrics, ms = timed(lambda: step(state, batch))
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise AssertionError(f"gather step {i}: loss {loss}, grad_norm {norm}")
+        check_launches(before, {"fps_launch": 4}, f"gather step {i}")
+        print(f"gather step {i}: {ms:.2f} ms, loss {loss:.4f}, grad_norm {norm:.4f}")
+    profile(lambda: step(state, batch), "gather training step")
+    exact_repeat_check(state, step, batch, "gather full-width step")
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+
 def bench_phase() -> None:
     """The bench's three timers at flagship batch 8 with few repetitions; its
     JSON lines go to stdout."""
@@ -2264,13 +2577,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase("butd", butd_phase, cfg, *real, Path(tmp))
     torch.cuda.empty_cache()
+    f32_rows = phase("f32", f32_phase, ModelConfig())
+    phase("gather", gather_phase, ModelConfig())
+    busy = {k: round(v, 2) for k, v in PROFILED.items()}
+    print(f"device busy ms of the profiled calls: {busy}")
     phase("bench", bench_phase)
     for mode, mode_row in mode_rows.items():
         for row in mode_row:
             if not row["name"].endswith("winners"):
                 row["launches"] = eval_launches[mode][row["name"] + "_launch"]
 
-    rows = serve_rows + train_rows + mode_rows["mxu"] + mode_rows["pre"]
+    rows = serve_rows + train_rows + mode_rows["mxu"] + mode_rows["pre"] + f32_rows
     for row in rows:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on the main path")

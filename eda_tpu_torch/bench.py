@@ -20,10 +20,12 @@ JAX bench's names, ``mfu_accounting`` first and ``grounding_forward_throughput``
 last, unit "scenes/sec/chip"; each line names the device and, on CUDA, the
 card's name and power limit (``nvidia-smi``). ``mfu`` divides the dense-window
 FLOPs (``utils/flops.py``) by the time and the H100 bf16 peak, ``useful_mfu``
-the in-radius FLOPs; both only on CUDA.
+the in-radius FLOPs; both only on CUDA. As in the JAX bench, ``--dry`` and
+``--impl gather`` print no ``mfu_accounting`` line.
 
-Runs on CUDA unless ``--cpu`` is given; ``--dry`` selects the tiny config (on
-either device), batch 2 and 32-token texts.
+Runs on CUDA unless ``--cpu`` is given; ``--dry`` selects the JAX bench's tiny
+config, ``ModelConfig().tiny()`` (f32; on either device), batch 2 and 32-token
+texts; ``--impl gather`` the gather SA.
 
 Usage:
     python -m eda_tpu_torch.bench --eval              # flagship, batch 32, on the card
@@ -185,13 +187,11 @@ def parse_args(argv=None):
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--impl", default="fused", choices=["fused", "gather"],
-                   help="SA implementation; only 'fused' is ported")
+                   help="SA implementation")
     p.add_argument("--no-mfu", action="store_true", help="skip the FLOP accounting")
     p.add_argument("--fused_qkv", type=int, default=None,
                    help="ModelConfig.fused_qkv (0/1); only 0 is ported")
     args = p.parse_args(argv)
-    if args.impl != "fused":
-        p.error("--impl gather: the gather SA is not ported yet (ROADMAP Queue 1 item 4)")
     if args.fused_qkv:
         p.error("--fused_qkv 1: the port computes q, k and v as three products; the fused "
                 "projection is not ported (ROADMAP Queue 1 item 4)")
@@ -203,10 +203,11 @@ def main(argv=None) -> int:
     device = resolve_device("cpu" if args.cpu else None)
     card = card_line() if device.type == "cuda" else None
     where = {"device": device.type, "card": card}
-    cfg = ModelConfig(use_bf16=True)
-    cfg = cfg.tiny() if args.dry else cfg
+    cfg = ModelConfig().tiny() if args.dry else ModelConfig(use_bf16=True)
     if args.fused_qkv is not None:
         cfg = dataclasses.replace(cfg, fused_qkv=bool(args.fused_qkv))
+    if args.impl != "fused":
+        cfg = dataclasses.replace(cfg, sa_impl=args.impl)
     batch_size = 2 if args.dry else args.batch
     text_len = 32 if args.dry else 64
 
@@ -223,7 +224,8 @@ def main(argv=None) -> int:
         print(f"train: {tps:.2f} scenes/sec", file=sys.stderr)
 
     mfu = {}
-    if not args.no_mfu:
+    # as the JAX bench: the fused path at full width only
+    if not args.no_mfu and args.impl == "fused" and not args.dry:
         from eda_tpu_torch.utils.flops import PEAK_NAME, measure_sa_occupancy, mfu_summary
 
         pcs = batch["inputs"]["point_clouds"][:4].cpu().numpy()

@@ -65,14 +65,21 @@
 //     records in a fixed order. Every weight and vector gradient and db_c is
 //     a fixed-order sum: bit-identical across launches.
 //   * dh0 goes through shared memory (f32, swizzled): the threads of a column
-//     add each center's rows into db_c in row order, and all threads add
-//     dh0 (compact: bf16(dh0)) into dA with 16-byte vector atomics. dA is
-//     shared by overlapping windows of other CTAs; its adds are unordered.
+//     add each center's rows into db_c in row order. dA is shared by the
+//     overlapping windows of other CTAs, so each CTA adds into its own f32
+//     record of its window (W x c1, zeroed by the launcher): per tile, the
+//     first row of each position leads, sums the tile's rows of that position
+//     in row order (compact: each bf16(dh0)) and adds the sum to the record;
+//     the tile's leaders hold distinct positions and the tiles follow each
+//     other, so no atomics. A second kernel (reduce_dA) adds, for each point,
+//     the records of the windows that cover it in block order. dA is a
+//     fixed-order sum too: the backward is bit-identical across launches.
 //   * Descriptors are built from shared addresses made opaque where they are
 //     used (`opaque`), so the compiler does not hoist them out of the tile
 //     loop and hold them in registers across the phases.
 //   * Scratch: one record of c1 c2 + c2 c3 + 3 c2 + c3 floats per CTA (SA2:
-//     512 CTAs, 99 MB at batch 8), no pair-row buffers.
+//     512 CTAs, 99 MB at batch 8) and one dA record of W c1 floats per CTA
+//     (SA1: 1024 CTAs, 268 MB at batch 8), no pair-row buffers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -126,7 +133,7 @@ struct Layout {
     dbc = o;    o += align128((size_t)kCenters * C1 * 4);
     vec = o;    o += align128((size_t)3 * C2 * 4);
     xs = o;     o += align128((size_t)4 * kRows * 2 * 4);    // LN row sums of each half
-    meta = o;   o += align128((size_t)3 * kRows * 4);
+    meta = o;   o += align128((size_t)5 * kRows * 4);
     rstart = o; o += align128((size_t)(kCenters + 1) * 4);
     total = o;
   }
@@ -169,8 +176,8 @@ pool_bwd_tiles(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
                const int* __restrict__ starts, const uint16_t* __restrict__ w2,
                const float* __restrict__ b2, const float* __restrict__ s2,
                const float* __restrict__ lb2, const uint16_t* __restrict__ w3, int N, int M,
-               int W, float c2f, float rc2, float* __restrict__ dA, float* __restrict__ dbc,
-               float* __restrict__ records) {
+               int W, float c2f, float rc2, float* __restrict__ dbc,
+               float* __restrict__ records, float* __restrict__ da_records) {
   constexpr int CP1 = pad64(C1), CP2 = pad64(C2);
   constexpr int P = record_floats(C1, C2, C3);
   // a warpgroup's columns of each product: C2 of GEMM1, GEMM2, dW2; C1 of
@@ -206,6 +213,8 @@ pool_bwd_tiles(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
   int* mpos = reinterpret_cast<int*>(smem + L.meta);  // tile row -> A row, or -1
   int* mcc = mpos + kRows;                            // tile row -> center, or -1
   int* mloc = mcc + kRows;                            // tile row -> row of its center
+  int* mnext = mloc + kRows;  // tile row -> the tile's next row of its position, or -1
+  int* mlead = mnext + kRows; // tile row -> 1 where it is its position's first row
   int* rstart = reinterpret_cast<int*>(smem + L.rstart);
 
   const int tid = threadIdx.x;
@@ -218,6 +227,8 @@ pool_bwd_tiles(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
   int start = starts[(size_t)b * gridDim.x + blockIdx.x];
   start = min(max(start, 0), N - W);
   float* rec = records + ((size_t)b * gridDim.x + blockIdx.x) * P;
+  float* drec = da_records + ((size_t)b * gridDim.x + blockIdx.x) * (size_t)W * C1;
+  const int pos0 = b * N + start;  // the A row of the window's first point
 
   // ---- weights, vectors, the centers' bc; zero the padded tiles and db_c
   stage_kmajor<kThreads>(w2s, w2, C1, C2);
@@ -352,6 +363,18 @@ pool_bwd_tiles(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
       mpos[tid] = pos;
     }
     __syncthreads();
+    // ---- the tile's rows of one position: the first leads, each links the next
+    if (tid < rows) {
+      const int pos = mpos[tid];
+      int nx = -1, lead = pos >= 0;
+      for (int r = 0; r < rows; ++r) {
+        if (mpos[r] != pos) continue;
+        if (r < tid) lead = 0;
+        else if (r > tid && nx < 0) nx = r;
+      }
+      mnext[tid] = nx;
+      mlead[tid] = lead;
+    }
     // ---- H0 = bf16(relu(A + bc)) and D, 16 bytes a thread at a time (the
     // 8 threads of a quarter warp on the 8 rows of one core: no conflicts).
     // The thread's A loads are in flight while D is built.
@@ -618,19 +641,31 @@ pool_bwd_tiles(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
         dbcs[cc * C1 + tid] += s;
       }
     }
-    // dA: 16-byte atomic adds
+    // dA: each leader adds its position's rows, in row order, into the record
     for (int i = tid; i < rows * (C1 / 4); i += kThreads) {
       const int r = i / (C1 / 4), q = i % (C1 / 4);
-      const int pos = mpos[r];
-      if (pos < 0) continue;
-      float4 v = *reinterpret_cast<const float4*>(dh0s + dh0_at<C1>(r, 4 * q));
-      if constexpr (COMPACT) {
-        v.x = __bfloat162float(__float2bfloat16_rn(v.x));
-        v.y = __bfloat162float(__float2bfloat16_rn(v.y));
-        v.z = __bfloat162float(__float2bfloat16_rn(v.z));
-        v.w = __bfloat162float(__float2bfloat16_rn(v.w));
+      if (!mlead[r]) continue;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int n = r; n >= 0; n = mnext[n]) {
+        float4 u = *reinterpret_cast<const float4*>(dh0s + dh0_at<C1>(n, 4 * q));
+        if constexpr (COMPACT) {
+          u.x = __bfloat162float(__float2bfloat16_rn(u.x));
+          u.y = __bfloat162float(__float2bfloat16_rn(u.y));
+          u.z = __bfloat162float(__float2bfloat16_rn(u.z));
+          u.w = __bfloat162float(__float2bfloat16_rn(u.w));
+        }
+        v.x += u.x;
+        v.y += u.y;
+        v.z += u.z;
+        v.w += u.w;
       }
-      atomicAdd(reinterpret_cast<float4*>(dA + (size_t)pos * C1 + 4 * q), v);
+      float4* dst = reinterpret_cast<float4*>(drec + (size_t)(mpos[r] - pos0) * C1 + 4 * q);
+      float4 o = *dst;
+      o.x += v.x;
+      o.y += v.y;
+      o.z += v.z;
+      o.w += v.w;
+      *dst = o;
     }
     __syncthreads();  // the tile's buffers are rewritten by the next tile
   }
@@ -673,25 +708,92 @@ pool_bwd_tiles(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
   for (int i = tid; i < kCenters * C1; i += kThreads) dbc[cm0 * C1 + i] = dbcs[i];
 }
 
+// dA (B, N, C1): for each point, the dA records of the windows that cover it,
+// added in block order. A CTA takes kReducePoints points of one batch row;
+// its first warp lists the blocks whose window meets them, in order.
+constexpr int kReducePoints = 64;
+
+template <int C1>
+__global__ void __launch_bounds__(256)
+reduce_dA(const float* __restrict__ da_records, const int* __restrict__ starts, int n_blk,
+          int N, int W, float* __restrict__ dA) {
+  extern __shared__ int hits[];  // [n_blk] block, [n_blk] its window's start
+  __shared__ int n_hits;
+  const int b = blockIdx.y, p0 = blockIdx.x * kReducePoints;
+  const int p1 = min(p0 + kReducePoints, N);
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int n = 0;
+    for (int j0 = 0; j0 < n_blk; j0 += 32) {
+      const int j = j0 + lane;
+      int s = 0;
+      bool hit = false;
+      if (j < n_blk) {
+        s = min(max(starts[(size_t)b * n_blk + j], 0), N - W);
+        hit = s < p1 && s + W > p0;
+      }
+      const uint32_t mask = __ballot_sync(0xffffffffu, hit);
+      if (hit) {
+        const int k = n + __popc(mask & ((1u << lane) - 1u));
+        hits[k] = j;
+        hits[n_blk + k] = s;
+      }
+      n += __popc(mask);
+    }
+    if (lane == 0) n_hits = n;
+  }
+  __syncthreads();
+  const int n = n_hits;
+  for (int i = threadIdx.x; i < kReducePoints * (C1 / 4); i += blockDim.x) {
+    const int p = p0 + i / (C1 / 4), q = i % (C1 / 4);
+    if (p >= p1) break;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < n; ++k) {
+      const int rel = p - hits[n_blk + k];
+      if (rel < 0 || rel >= W) continue;
+      const float4 v = *reinterpret_cast<const float4*>(
+          da_records + (((size_t)b * n_blk + hits[k]) * W + rel) * C1 + 4 * q);
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    *reinterpret_cast<float4*>(dA + ((size_t)b * N + p) * C1 + 4 * q) = acc;
+  }
+}
+
 template <int C1, int C2, int C3, bool COMPACT>
 cudaError_t launch(const uint16_t* A, const uint16_t* bc, const float* g, const int* win,
                    const int* starts, const uint16_t* w2, const float* b2, const float* s2,
                    const float* lb2, const uint16_t* w3, int B, int N, int M, int W,
                    int c2_real, float* dA, float* dbc, float* wout, float* records,
-                   cudaStream_t s) {
+                   float* da_records, cudaStream_t s) {
   constexpr int P = record_floats(C1, C2, C3);
   const Layout<C1, C2, C3> L;
   if (L.total > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
-  const int n_rec = B * (M / kCenters);
+  const int n_blk = M / kCenters, n_rec = B * n_blk;
+  const size_t hit_bytes = (size_t)2 * n_blk * sizeof(int);
+  if (hit_bytes > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
+  cudaError_t err;
   if (n_rec > 0) {
-    cudaError_t err = cudaFuncSetAttribute(pool_bwd_tiles<C1, C2, C3, COMPACT>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)L.total);
+    err = cudaMemsetAsync(da_records, 0, (size_t)n_rec * W * C1 * sizeof(float), s);
     if (err != cudaSuccess) return err;
-    dim3 grid(M / kCenters, B);
+    err = cudaFuncSetAttribute(pool_bwd_tiles<C1, C2, C3, COMPACT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+    if (err != cudaSuccess) return err;
+    dim3 grid(n_blk, B);
     pool_bwd_tiles<C1, C2, C3, COMPACT><<<grid, kThreads, L.total, s>>>(
         A, bc, g, win, starts, w2, b2, s2, lb2, w3, N, M, W, (float)c2_real,
-        1.f / (float)c2_real, dA, dbc, records);
+        1.f / (float)c2_real, dbc, records, da_records);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (B > 0 && N > 0) {
+    err = cudaFuncSetAttribute(reduce_dA<C1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)hit_bytes);
+    if (err != cudaSuccess) return err;
+    dim3 grid((N + kReducePoints - 1) / kReducePoints, B);
+    reduce_dA<C1><<<grid, 256, hit_bytes, s>>>(da_records, starts, n_blk, N, W, dA);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -703,7 +805,7 @@ template <bool COMPACT>
 int dispatch(const void* A, const void* bc, const float* g, const int* win, const int* starts,
              const void* w2, const float* b2, const float* s2, const float* lb2, const void* w3,
              int B, int N, int M, int c1, int c2, int c3, int c2_real, int W, float* dA,
-             float* dbc, float* wout, float* records, void* stream) {
+             float* dbc, float* wout, float* records, float* da_records, void* stream) {
   if (B < 0 || M < 0 || M % kCenters || W <= 0 || W > N || c2_real <= 0 || c2_real > c2)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -714,7 +816,7 @@ int dispatch(const void* A, const void* bc, const float* g, const int* win, cons
 #define EDA_BWD_LAUNCH(X, Y, Z)                                                             \
   if (c1 == X && c2 == Y && c3 == Z)                                                        \
     return launch<X, Y, Z, COMPACT>(a, bcv, g, win, starts, w2v, b2, s2, lb2, w3v, B, N, M, \
-                                    W, c2_real, dA, dbc, wout, records, s);
+                                    W, c2_real, dA, dbc, wout, records, da_records, s);
   EDA_BWD_LAUNCH(16, 16, 32)
   EDA_BWD_LAUNCH(32, 32, 64)
   EDA_BWD_LAUNCH(64, 64, 128)
@@ -734,19 +836,18 @@ extern "C" {
 // (128, 128, 256), the model's layer widths; narrower layers come zero-padded
 // to one of them (zero W2 and W3 rows and columns, b2, s2, lb2, g past the
 // real widths) and c2_real <= c2 is the real interior width, the LayerNorm's
-// divisor. Outputs: dA (B, N, c1) f32, ZEROED by the caller (rows add into
-// it); dbc (B, M, c1) f32; wout
+// divisor. Outputs: dA (B, N, c1) f32; dbc (B, M, c1) f32; wout
 // (c1 c2 + c2 c3 + 3 c2 + c3) f32 = [dW2 (c1, c2); dW3 (c2, c3); db2; ds2;
-// dlb2; db3]. Scratch: records (B * M/16, the same length) f32. Returns
-// cudaGetLastError().
+// dlb2; db3]. Scratch: records (B * M/16, the same length) f32 and
+// da_records (B * M/16, W, c1) f32 (M/16 <= 29056). Returns cudaGetLastError().
 #define EDA_POOL_BWD_ARGS                                                              \
   const void *A, const void *bc, const float *g, const int *win, const int *starts,    \
       const void *w2, const float *b2, const float *s2, const float *lb2,              \
       const void *w3, int B, int N, int M, int c1, int c2, int c3, int c2_real, int W, \
-      float *dA, float *dbc, float *wout, float *records, void *stream
+      float *dA, float *dbc, float *wout, float *records, float *da_records, void *stream
 #define EDA_POOL_BWD_CALL                                                             \
   A, bc, g, win, starts, w2, b2, s2, lb2, w3, B, N, M, c1, c2, c3, c2_real, W, dA, dbc, \
-      wout, records, stream
+      wout, records, da_records, stream
 
 int sa_pool_bwd_compact_launch(EDA_POOL_BWD_ARGS) { return dispatch<true>(EDA_POOL_BWD_CALL); }
 int sa_pool_bwd_window_launch(EDA_POOL_BWD_ARGS) { return dispatch<false>(EDA_POOL_BWD_CALL); }

@@ -1,5 +1,6 @@
 // Hopper tensor-core helpers shared by the pair pool forward (sa_pair_pool.cu),
-// its backward (sa_pair_pool_bwd.cu) and the prep backward (sa_prep_bwd.cu):
+// its backward (sa_pair_pool_bwd.cu) and the prep backward (sa_prep_bwd.cu;
+// sa_prep_f32.cu takes only reduce_records):
 // shared-memory addresses, bf16x2 arithmetic, wgmma descriptors, fences and
 // products, the column sums of an accumulator, and the fixed-order sum of
 // per-CTA records.

@@ -50,10 +50,9 @@ class EDAGrounder(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.sa_impl != "fused" or not cfg.points_presorted:
-            raise NotImplementedError("the port runs the fused SA over presorted clouds only")
-        if not cfg.use_bf16:
-            raise NotImplementedError("the port's fused SA kernels compute in bf16 only")
+        if cfg.sa_impl == "fused" and not cfg.points_presorted:
+            raise NotImplementedError("the port runs the fused SA over presorted clouds only "
+                                      "(the device sort, ROADMAP Queue 1 item 4.4)")
         self.cfg = cfg
         dt = torch.bfloat16 if cfg.use_bf16 else torch.float32
         d = cfg.d_model
@@ -65,6 +64,9 @@ class EDAGrounder(nn.Module):
             fp_mlps=tuple(tuple(m) for m in cfg.fp_mlps),
             sa_windows=tuple(cfg.sa_windows),
             dtype=dt,
+            sa_impl=cfg.sa_impl,
+            nsamples=tuple(cfg.sa_nsamples),
+            sa_ball_mode=cfg.sa_ball_mode,
         )
         self.text_encoder = RobertaEncoder(
             cfg.text_vocab_size, cfg.text_hidden, cfg.text_layers, cfg.text_heads,

@@ -1,10 +1,13 @@
-"""PointNet++ backbone with fused set abstraction, channels-last.
+"""PointNet++ backbone, channels-last.
 
-Counterpart of ``eda_tpu/models/pointnet2.py`` on its serving path: four fused
-SA layers chained in rank order over a Morton-presorted cloud, then two FP
-layers. ``end_points`` keeps the JAX package's keys: ``sa{i}_xyz``,
-``sa{i}_features``, ``sa{i}_inds`` (indices into the input cloud),
-``fp2_features``, ``fp2_xyz`` and ``fp2_inds``.
+Counterpart of ``eda_tpu/models/pointnet2.py``: four SA layers, then two FP
+layers. The SA layers are fused (``sa_impl="fused"``: chained in rank order
+over a Morton-presorted cloud) or gather layers (``"gather"``: FPS over the
+whole cloud, a ball query, the grouped neighbourhoods through a shared MLP
+with BatchNorm, max-pooled; the reference's PointNet++). ``end_points``
+keeps the JAX package's keys: ``sa{i}_xyz``, ``sa{i}_features``,
+``sa{i}_inds`` (indices into the input cloud), ``fp2_features``,
+``fp2_xyz`` and ``fp2_inds``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,34 @@ class SharedMLP(nn.Module):
         return x
 
 
+class SetAbstraction(nn.Module):
+    """Single-scale grouping SA layer (the reference's ``PointnetSAModuleVotes``).
+
+    FPS over the whole cloud, a ball query (``ball_mode``: ``nearest`` or
+    ``first``), the neighbours' xyz relative to the center divided by the
+    radius beside their features, a shared MLP and a max over the neighbours.
+    """
+
+    def __init__(self, npoint: int, radius: float, nsample: int, in_features: int,
+                 mlp_channels: Sequence[int], ball_mode: str = "nearest",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if ball_mode not in ("nearest", "first"):
+            raise ValueError(f"unknown ball_mode {ball_mode!r}")
+        self.npoint, self.radius, self.nsample, self.ball_mode = npoint, radius, nsample, ball_mode
+        self.mlp = SharedMLP(3 + in_features, mlp_channels, dtype)
+
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor):
+        inds = pointops.furthest_point_sample(xyz.contiguous(), self.npoint).long()
+        new_xyz = pointops.gather_points(xyz, inds)
+        query = pointops.ball_query if self.ball_mode == "first" else pointops.ball_query_nearest
+        nbr = query(xyz, new_xyz, self.radius, self.nsample)
+        grouped_xyz = (pointops.group_points(xyz, nbr) - new_xyz[:, :, None]) \
+            / xyz.new_tensor(self.radius)
+        grouped = torch.cat([grouped_xyz, pointops.group_points(features, nbr)], -1)
+        return new_xyz, self.mlp(grouped).amax(2), inds
+
+
 class FusedSetAbstraction(nn.Module):
     """Index-free SA layer: FPS + fused windowed neighbourhood MLP + max pool.
 
@@ -45,10 +76,11 @@ class FusedSetAbstraction(nn.Module):
     """
 
     def __init__(self, npoint: int, radius: float, window: int, in_features: int,
-                 mlp_channels: Sequence[int], block: int = 64, fps_presample: int = 8192):
+                 mlp_channels: Sequence[int], block: int = 64, fps_presample: int = 8192,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.npoint, self.radius, self.window = npoint, radius, window
-        self.block, self.fps_presample = block, fps_presample
+        self.block, self.fps_presample, self.dtype = block, fps_presample, dtype
         widths = [3 + in_features, *mlp_channels]
         self.kernels = nn.ParameterList(
             [nn.Parameter(torch.empty(a, b)) for a, b in zip(widths, widths[1:])]
@@ -75,7 +107,7 @@ class FusedSetAbstraction(nn.Module):
                           tuple(self.ln_scales), tuple(self.ln_biases))
         new_features, inds = fused_set_abstraction(
             xyz, features, inds, params, radius=self.radius, window=self.window,
-            block=self.block,
+            block=self.block, compute_dtype=self.dtype,
         )
         return pointops.gather_points(xyz, inds), new_features, inds
 
@@ -98,7 +130,8 @@ class FeaturePropagation(nn.Module):
 
 
 class PointNetPPBackbone(nn.Module):
-    """4 fused SA + 2 FP layers over a Morton-presorted (B, N, 3 + C) cloud."""
+    """4 SA + 2 FP layers over a (B, N, 3 + C) cloud, Morton-presorted for the
+    fused SA (``sa_impl``)."""
 
     def __init__(self, input_feature_dim: int = 3,
                  npoints: Sequence[int] = (2048, 1024, 512, 256),
@@ -107,12 +140,21 @@ class PointNetPPBackbone(nn.Module):
                                                   (128, 128, 256), (128, 128, 256)),
                  fp_mlps: Sequence[Sequence[int]] = ((256, 256), (256, 288)),
                  sa_windows: Sequence[int] = (1024, 256, 256, 256),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, sa_impl: str = "fused",
+                 nsamples: Sequence[int] = (64, 32, 16, 16), sa_ball_mode: str = "nearest"):
         super().__init__()
+        if sa_impl not in ("fused", "gather"):
+            raise ValueError(f"unknown sa_impl {sa_impl!r}")
+        self.sa_impl = sa_impl
         in_feats = [input_feature_dim] + [m[-1] for m in mlps[:3]]
         for i in range(4):
-            setattr(self, f"sa{i + 1}", FusedSetAbstraction(
-                npoints[i], radii[i], sa_windows[i], in_feats[i], mlps[i]))
+            if sa_impl == "fused":
+                sa = FusedSetAbstraction(npoints[i], radii[i], sa_windows[i], in_feats[i],
+                                         mlps[i], dtype=dtype)
+            else:
+                sa = SetAbstraction(npoints[i], radii[i], nsamples[i], in_feats[i], mlps[i],
+                                    sa_ball_mode, dtype)
+            setattr(self, f"sa{i + 1}", sa)
         self.fp1 = FeaturePropagation(mlps[3][-1] + mlps[2][-1], fp_mlps[0], dtype)
         self.fp2 = FeaturePropagation(fp_mlps[0][-1] + mlps[1][-1], fp_mlps[1], dtype)
 
@@ -135,6 +177,9 @@ class PointNetPPBackbone(nn.Module):
                       end_points["sa2_features"], f1)
         end_points["fp2_features"] = f2
         end_points["fp2_xyz"] = end_points["sa2_xyz"]
-        # the seeds are sa2's points, whose input-cloud indices are tracked exactly
-        end_points["fp2_inds"] = end_points["sa2_inds"]
+        if self.sa_impl == "fused":
+            # the seeds are sa2's points, whose input-cloud indices are tracked exactly
+            end_points["fp2_inds"] = end_points["sa2_inds"]
+        else:  # the reference's approximation (backbone_module.py:142)
+            end_points["fp2_inds"] = end_points["sa1_inds"][:, :f2.shape[1]]
         return end_points

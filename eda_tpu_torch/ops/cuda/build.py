@@ -25,7 +25,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fps", "sa_prep", "sa_prep_bwd", "sa_pair_pool", "sa_pair_pool_bwd", "sa_mask")
+SOURCES = ("fps", "sa_prep", "sa_prep_bwd", "sa_prep_f32", "sa_pair_pool", "sa_pair_pool_bwd",
+           "sa_mask")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",

@@ -20,6 +20,10 @@ Two variants, as on the TPU (``tests/test_sa_kernel_interpret.py:293-436``):
   center, with the cotangents of every channel it won; the row adds ``dh0``
   into ``dA`` in exact f32.
 
+Every output is a fixed-order sum on the card (``dA`` through per-window
+records added in block order), so two launches on the same inputs agree bit
+for bit.
+
 Both round the row cotangent to bf16 before ``W3^T`` and ``dx`` to bf16 before
 ``W2^T``, and sum ``db_c``, ``db2``, ``db3`` and the LayerNorm gradients in f32.
 The model picks compact where the TPU does (``compact_backward``).
@@ -37,7 +41,7 @@ from eda_tpu_torch.ops.cuda.sa_prep import EPS, bf16_round
 
 PLAIN_MAX_ELEMS = 1 << 23  # (center, row, channel) elements the plain version holds at once
 
-_ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,) * 4
+_ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,) * 5
 COMPACT_KERNEL = register(Kernel(
     "sa_pair_pool_bwd", "sa_pool_bwd_compact_launch", _ARGTYPES,
     replaces="eda_tpu/ops/pallas/sa_kernel.py:649",
@@ -175,17 +179,19 @@ def sa_pool_bwd(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, *,
     if M % BLOCK or b_c.shape[:2] != (B, M) or starts.shape != (B, M // BLOCK) \
             or not 0 < window <= N:
         raise ValueError("sa_pool_bwd input shapes do not agree")
-    # one f32 record per CTA (16 centers): [dW2; dW3; db2; ds2; dlb2; db3]
+    # one f32 record per CTA (16 centers): [dW2; dW3; db2; ds2; dlb2; db3], and
+    # its window's dA contributions, which a second kernel adds in block order
     n_w2, n_w3 = C1 * C2, C2 * C3
     f32 = dict(dtype=torch.float32, device=A.device)
-    dA = torch.zeros((B, N, C1), **f32)
+    dA = torch.empty((B, N, C1), **f32)
     dbc = torch.empty((B, M, C1), **f32)
     out = torch.empty(n_w2 + n_w3 + 3 * C2 + C3, **f32)
     records = torch.empty((B * M // BLOCK, out.numel()), **f32)
+    da_records = torch.empty((B * M // BLOCK, window, C1), **f32)
     kernel = COMPACT_KERNEL if compact else WINDOW_KERNEL
     kernel(ptr(A), ptr(b_c), ptr(g), ptr(winners), ptr(starts), ptr(w2), ptr(b2), ptr(s2),
            ptr(lb2), ptr(w3), B, N, M, C1, C2, C3, c2, window, ptr(dA), ptr(dbc), ptr(out),
-           ptr(records))
+           ptr(records), ptr(da_records))
     dw2, dw3 = out[:n_w2].view(C1, C2), out[n_w2:n_w2 + n_w3].view(C2, C3)
     vec = out[n_w2 + n_w3:]
     return (dA[..., :c1], dbc[..., :c1], dw2[:c1, :c2], vec[:c2], vec[C2:C2 + c2],

@@ -31,6 +31,13 @@ compact (K5) or windowed (K6) backward, chosen by the TPU's rule. With
 gradients off the serving pool (K3) runs. The per-center offset ``b_c`` and
 the recomputed self term stay plain autograd.
 
+``compute_dtype`` is the model's (``ModelConfig.use_bf16``): bf16 rounds where
+the reference rounds in bf16; f32 runs layer 0 as the f32 prep kernels (K2f,
+K7f), computes ``b_c``, ``scan_pool`` and the self term in f32, and rounds A
+and ``b_c`` to bf16 only inside the pools, as the reference's pair kernels
+take them (``eda_tpu/ops/pallas/sa_kernel.py:953-954``): the pool backward's
+dA and db_c come back in f32.
+
 The pool's radius test is resolved once per call (``resolve_d2_mode``: the
 ``EDA_SA_D2`` environment variable, else ``pair``). ``mxu`` runs the
 expansion-formula pool (K8); ``pre`` runs the mask kernel (K9a) and then the
@@ -53,7 +60,7 @@ from eda_tpu_torch.ops.cuda.sa_kernel import (
 )
 from eda_tpu_torch.ops.cuda.sa_mask import sa_radius_mask
 from eda_tpu_torch.ops.cuda.sa_pool_bwd import compact_backward, sa_pool_bwd
-from eda_tpu_torch.ops.cuda.sa_prep import bf16_round, sa_prep, sa_prep_bwd
+from eda_tpu_torch.ops.cuda.sa_prep import rounding, sa_prep, sa_prep_bwd
 from eda_tpu_torch.ops.pointops import gather_points
 
 
@@ -72,30 +79,36 @@ class _Prep(torch.autograd.Function):
     """``A = sa_prep(pts, ...)`` with the prep backward kernel as its gradient."""
 
     @staticmethod
-    def forward(ctx, pts, w1, b1, scale, lnb, radius):
+    def forward(ctx, pts, w1, b1, scale, lnb, radius, compute_dtype):
         ctx.save_for_backward(pts, w1, b1, scale)
-        ctx.radius = radius
-        return sa_prep(pts, w1, b1, scale, lnb, radius=radius)
+        ctx.radius, ctx.compute_dtype = radius, compute_dtype
+        return sa_prep(pts, w1, b1, scale, lnb, radius=radius, compute_dtype=compute_dtype)
 
     @staticmethod
     def backward(ctx, dA):
         pts, w1, b1, scale = ctx.saved_tensors
-        dpts, dw1, db1, dscale, dlnb = sa_prep_bwd(pts, dA, w1, b1, scale, radius=ctx.radius)
-        return dpts, dw1, db1, dscale, dlnb, None
+        dpts, dw1, db1, dscale, dlnb = sa_prep_bwd(pts, dA, w1, b1, scale, radius=ctx.radius,
+                                                   compute_dtype=ctx.compute_dtype)
+        return dpts, dw1, db1, dscale, dlnb, None, None
 
 
 class _Pool(torch.autograd.Function):
     """The pair pool with winner export; its gradient is the pair-pool backward
-    kernel (compact or windowed). Geometry, window starts and mask get none."""
+    kernel (compact or windowed). Geometry, window starts and mask get none.
+
+    A and b_c are rounded to bf16 here, for the kernels only: f32 A and b_c
+    (the f32 model) get their gradients back in f32, unrounded."""
 
     @staticmethod
     def forward(ctx, A, xyz, b_c, cen, starts, w2, b2, s2, lb2, w3, b3, radius, window,
                 d2_mode, mask):
+        dtypes = A.dtype, b_c.dtype
+        A, b_c = A.to(torch.bfloat16), b_c.to(torch.bfloat16)
         out, winners = sa_pair_pool_winners(A, xyz, b_c, cen, starts, w2, b2, s2, lb2, w3, b3,
                                             radius=radius, window=window, d2_mode=d2_mode,
                                             mask=mask)
         ctx.save_for_backward(A, b_c, winners, starts, w2, b2, s2, lb2, w3)
-        ctx.window = window
+        ctx.window, ctx.dtypes = window, dtypes
         return out
 
     @staticmethod
@@ -105,7 +118,8 @@ class _Pool(torch.autograd.Function):
             A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, window=ctx.window,
             compact=compact_backward(ctx.window, w3.shape[1]))
         # the TPU wrapper hands dA and db_c back in A's and b_c's dtype
-        return (dA.to(A.dtype), None, dbc.to(b_c.dtype), None, None,
+        a_dtype, bc_dtype = ctx.dtypes
+        return (dA.to(a_dtype), None, dbc.to(bc_dtype), None, None,
                 dw2, db2, ds2, dlb2, dw3, db3, None, None, None, None)
 
 
@@ -124,18 +138,20 @@ def runs_kernels(window: int, n_points: int) -> bool:
     return W % min(128, W) == 0
 
 
-def plain_prep(pts: torch.Tensor, w1, b1, scale, lnb, *, radius: float) -> torch.Tensor:
-    """Layer 0 where the reference has no Pallas kernel: bf16(x_in @ W1 + b1),
-    two-pass LayerNorm, bf16. (B, N, 3 + C) raw points -> (B, N, c1) f32
-    holding bf16 values."""
+def plain_prep(pts: torch.Tensor, w1, b1, scale, lnb, *, radius: float,
+               compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Layer 0 where the reference has no Pallas kernel: x_in @ W1 + b1 and a
+    two-pass LayerNorm, each rounded to compute_dtype. (B, N, 3 + C) raw points
+    -> (B, N, c1) f32 holding compute_dtype values."""
+    rnd = rounding(compute_dtype)
     xyz = pts[..., :3] / pts.new_tensor(radius)
-    x_in = bf16_round(torch.cat([xyz, pts[..., 3:]], -1))
-    h = bf16_round(bf16_round(x_in @ bf16_round(w1.float())) + bf16_round(b1.float()))
-    return bf16_round(layer_norm(h, scale, lnb))
+    x_in = rnd(torch.cat([xyz, pts[..., 3:]], -1))
+    h = rnd(rnd(x_in @ rnd(w1.float())) + rnd(b1.float()))
+    return rnd(layer_norm(h, scale, lnb))
 
 
 def scan_pool(A, xyz, b_c, cen_xyz, ranks, params: SAParams, *, radius: float, window: int,
-              block: int, dense: bool) -> torch.Tensor:
+              block: int, dense: bool, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Plain twin of ``eda_tpu/ops/fused_sa.py:_scan_pool``: the windowed
     masked-max pair MLP, block by block.
 
@@ -144,8 +160,8 @@ def scan_pool(A, xyz, b_c, cen_xyz, ranks, params: SAParams, *, radius: float, w
     h0 = relu(bf16(A + b_c)); each layer bf16(bf16(h @ W) + bf16(b)); the
     interior layer's LayerNorm (two-pass) + ReLU in f32, then bf16; the last
     layer's pre-activations max-pooled over the in-radius pairs (-1e9 where
-    none). Each block is recomputed in the backward, as ``jax.checkpoint``
-    does there.
+    none). In f32 (``compute_dtype``) nothing is rounded. Each block is
+    recomputed in the backward, as ``jax.checkpoint`` does there.
 
     Args:
         A: (B, N, c1) layer-0 projection; b_c / cen_xyz / ranks: (B, M_pad, .)
@@ -157,14 +173,14 @@ def scan_pool(A, xyz, b_c, cen_xyz, ranks, params: SAParams, *, radius: float, w
     B, N, c1 = A.shape
     kernels, biases, scales, lbiases = params
     r2 = radius * radius
+    rnd = rounding(compute_dtype)
 
     def block_compute(a_win, xyz_win, bc_blk, cen_blk):
-        h = torch.relu(bf16_round(a_win[:, None] + bc_blk[:, :, None].float()))
+        h = torch.relu(rnd(a_win[:, None] + bc_blk[:, :, None].float()))
         for i in (1, 2):
-            h = bf16_round(bf16_round(h @ bf16_round(kernels[i].float()))
-                           + bf16_round(biases[i].float()))
+            h = rnd(rnd(h @ rnd(kernels[i].float())) + rnd(biases[i].float()))
             if i == 1:
-                h = bf16_round(torch.relu(layer_norm(h, scales[1], lbiases[1])))
+                h = rnd(torch.relu(layer_norm(h, scales[1], lbiases[1])))
         d2 = ((xyz_win[:, None] - cen_blk[:, :, None]) ** 2).sum(-1)
         return torch.amax(torch.where((d2 <= r2)[..., None], h, h.new_tensor(-1e9)), dim=2)
 
@@ -203,6 +219,7 @@ def fused_set_abstraction(
     radius: float,
     window: int,
     block: int = 64,
+    compute_dtype: torch.dtype = torch.bfloat16,
 ):
     """Fused SA forward in rank order.
 
@@ -215,6 +232,7 @@ def fused_set_abstraction(
         block: centers are padded to a multiple of ``block`` (the last
             center's rank repeats), which fixes the 16-center blocks' windows
             of the kernels and is the block of ``scan_pool``.
+        compute_dtype: bf16 or f32, the model's (see the module docstring).
 
     Returns:
         (features, ranks): (B, M, C_out) f32 pooled features in ascending
@@ -235,20 +253,22 @@ def fused_set_abstraction(
     train = torch.is_grad_enabled() and (
         features.requires_grad or any(p.requires_grad for group in params for p in group))
     kernels = runs_kernels(window, N)
+    cd = compute_dtype
+    rnd = rounding(cd)
 
-    # per-point projection A = LN([xyz/r ; f] @ W1 + b1), in bf16
+    # per-point projection A = LN([xyz/r ; f] @ W1 + b1), in the compute dtype
     pts = torch.cat([xyz, features], -1).contiguous()
     prep_args = (w1, params.biases[0], params.ln_scales[0], params.ln_biases[0])
     if not kernels:
-        A = plain_prep(pts, *prep_args, radius=radius)
+        A = plain_prep(pts, *prep_args, radius=radius, compute_dtype=cd)
     elif train:
-        A = _Prep.apply(pts, *prep_args, radius)
+        A = _Prep.apply(pts, *prep_args, radius, cd)
     else:
-        A = sa_prep(pts, *prep_args, radius=radius)
+        A = sa_prep(pts, *prep_args, radius=radius, compute_dtype=cd)
     # per-center offset b_c = -(x_c / r) @ W1[:3]
     cen_xyz = gather_points(xyz, ranks)
     cen_scaled = cen_xyz / cen_xyz.new_tensor(radius)
-    b_c = (-bf16_round(cen_scaled) @ bf16_round(w1[:3].float())).to(torch.bfloat16)
+    b_c = (-rnd(cen_scaled) @ rnd(w1[:3].float())).to(cd)
 
     n_blocks = -(-M // block)
     m_pad = n_blocks * block - M
@@ -270,24 +290,26 @@ def fused_set_abstraction(
         if train:
             outs = _Pool.apply(*pool_args, radius, W, mode, mask)[:, :M]
         else:
-            outs = sa_pair_pool(*pool_args, radius=radius, window=W, d2_mode=mode,
+            # the pair kernels take A and b_c in bf16
+            bf16 = (A.to(torch.bfloat16), xyz, b_c_p.to(torch.bfloat16))
+            outs = sa_pair_pool(*bf16, *pool_args[3:], radius=radius, window=W, d2_mode=mode,
                                 mask=mask)[:, :M]
     else:
         outs = scan_pool(A, xyz, b_c_p, cen_p, ranks_p, params, radius=radius, window=W,
-                         block=block, dense=dense)[:, :M]
+                         block=block, dense=dense, compute_dtype=cd)[:, :M]
 
     # The center's own point always lies in its ball, but a block-shared
     # window may miss it: max in the self term, recomputed from its inputs.
     self_in = torch.cat([cen_scaled, gather_points(features, ranks)], -1)
-    h = bf16_round(bf16_round(self_in) @ bf16_round(w1.float()))
-    h = bf16_round(h + bf16_round(b[0].float()))
-    h = bf16_round(layer_norm(h, s[0], lb[0]))
-    h = bf16_round(torch.relu(h + b_c.float()))
+    h = rnd(rnd(self_in) @ rnd(w1.float()))
+    h = rnd(h + rnd(b[0].float()))
+    h = rnd(layer_norm(h, s[0], lb[0]))
+    h = rnd(torch.relu(h + b_c.float()))
     for i in (1, 2):
-        h = bf16_round(h @ bf16_round(k[i].float()))
-        h = bf16_round(h + bf16_round(b[i].float()))
+        h = rnd(h @ rnd(k[i].float()))
+        h = rnd(h + rnd(b[i].float()))
         if i == 1:
-            h = bf16_round(torch.relu(layer_norm(h, s[1], lb[1])))
+            h = rnd(torch.relu(layer_norm(h, s[1], lb[1])))
     outs = torch.maximum(outs, h)
     # last LayerNorm + ReLU on the pooled centers
     return torch.relu(layer_norm(outs, s[2], lb[2])), ranks

@@ -15,7 +15,9 @@ config only, on either device); ``--save-params`` / ``--init-params`` write
 and read the port's checkpoint format (``train.checkpoint.save_state``) with
 the saving run's flags, and a resumed run must repeat them. The restored step
 continues the batch rotation and the (seed, step) dropout stream, so a staged
-run is one long run. ``--impl gather`` is refused: the gather SA is not ported.
+run is one long run. ``--dry`` builds ``ModelConfig().tiny()`` (f32), as the
+JAX tool does; ``--impl gather`` trains and evaluates the gather SA, whose
+windows do not exist: its sweep is ``default`` alone.
 
 Usage:
     python -m eda_tpu_torch.tools.window_sweep --dry --eval-on-train \\
@@ -88,8 +90,6 @@ def parse_args(argv=None):
                     help="continue from a --save-params file: same flags, --schedule "
                          "constant; --steps counts ADDITIONAL steps")
     args = ap.parse_args(argv)
-    if args.impl != "fused":
-        ap.error("--impl gather: the gather SA is not ported yet (ROADMAP Queue 1 item 4)")
     if args.init_params and args.schedule != "constant":
         ap.error("--init-params needs --schedule constant: cosine's period is sized to "
                  "--steps, which differs between stages")
@@ -101,8 +101,7 @@ def parse_args(argv=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
     device = resolve_device("cpu" if args.cpu else None)
-    base = ModelConfig(use_bf16=True)
-    base = base.tiny() if args.dry else base
+    base = ModelConfig().tiny() if args.dry else ModelConfig(use_bf16=True)
     gen = SyntheticScenes(
         SyntheticConfig(num_points=base.num_points, num_objects=4 if args.dry else 8,
                         text_len=32 if args.dry else 64,
@@ -113,7 +112,9 @@ def main(argv=None) -> int:
     def make_batch(lo, hi):
         return to_device(gen.train_batch(range(lo, hi)), device)
 
-    train_cfg = base
+    train_cfg = dataclasses.replace(base, sa_impl=args.impl)
+    if args.impl == "gather":
+        args.sweep = ["default"]  # windows are a fused-path knob
     if args.train_windows != "default":
         train_cfg = dataclasses.replace(train_cfg,
                                         sa_windows=parse_windows(args.train_windows, base))
@@ -176,7 +177,8 @@ def main(argv=None) -> int:
     frozen = model.state_dict()
     for spec in args.sweep:
         windows = parse_windows(spec, base)
-        eval_model = EDAGrounder(dataclasses.replace(base, sa_windows=windows)).to(device)
+        eval_model = EDAGrounder(dataclasses.replace(base, sa_windows=windows,
+                                                     sa_impl=args.impl)).to(device)
         eval_model.load_state_dict(frozen)
         fwd = make_eval_step(eval_model)
         ev = GroundingEvaluator(prefixes=("last_",), modes=("bbs",))

@@ -20,7 +20,7 @@ Differences from ``train.py``, by design:
 * the model takes its per-point feature width from the first batch, as the
   flax model infers it at init (synthetic scenes always carry RGB);
 * what the port does not have yet is refused with the ROADMAP item that
-  brings it: the gather SA (Queue 1 item 4), several hosts (item 6).
+  brings it: several hosts (item 6).
 
 Real data (``--dataset scanrefer|sr3d|sr3d+|nr3d``, ``--joint_det``) reads
 the scan store that ``python -m eda_tpu_torch.tools.pack_scans`` writes under
@@ -180,18 +180,7 @@ def parse_args(argv=None):
         p.error(f"--optimizer {args.optimizer}: only adamW is implemented")
     if args.bn_momentum != 0.1:
         p.error("--bn_momentum: only the reference default 0.1 is implemented")
-    for refused, why in refusals(args):
-        p.error(f"{refused}: {why}")
     return args
-
-
-def refusals(args):
-    """(flag, reason) for every requested feature this port does not have yet."""
-    out = []
-    if args.sa_impl != "fused":
-        out.append((f"--sa_impl {args.sa_impl}", "the gather SA is not ported "
-                    "(ROADMAP Queue 1 item 4)"))
-    return out
 
 
 def build_configs(args):

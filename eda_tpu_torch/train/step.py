@@ -5,7 +5,10 @@ A training step is the reference's whole inner loop: forward in train mode
 with every Hungarian match, the backward, the global-norm clip and the AdamW
 update. Its dropout masks come from one generator on the model's device keyed
 by (seed, step), the counterpart of ``fold_in(key(seed), state.step)``: a run
-restored at step n draws the masks of the uninterrupted run. The evaluation
+restored at step n draws the masks of the uninterrupted run. Every sum of
+the backward has a fixed order (the kernels' records, ``pointops.gather_shared``
+where gathered rows repeat), so two steps from one state agree bit for bit on
+the card, as the reference's step does. The evaluation
 steps run the forward in eval mode under ``torch.inference_mode()`` (the
 serving kernels, no autograd) and restore the model's mode afterwards.
 """

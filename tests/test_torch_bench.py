@@ -1,13 +1,14 @@
 """The port's bench (``python -m eda_tpu_torch.bench``) and FLOP accounting (``utils/flops.py``).
 
-* ``--dry --cpu --eval`` prints the JAX bench's four JSON lines in its order
-  (``mfu_accounting`` first, the forward line last) with finite values; on
-  the CPU no MFU share is printed, since a CPU time is no share of the card;
+* ``--dry --cpu --eval`` builds ``ModelConfig().tiny()`` (f32) and prints the
+  JAX bench's JSON lines in its order (the forward line last) with finite
+  values and, as the JAX bench under ``--dry``, no MFU; ``--impl gather``
+  runs the gather grounder;
 * ``forward_flops``, ``total_flops`` and ``train_flops`` equal
   ``eda_tpu/utils/flops.py``'s exactly on the flagship and the tiny config,
   the measured SA occupancy equals the JAX replay's (the port's FPS is
   bit-exact with JAX's), and the MFU shares are the JAX formulas' at one peak;
-* what the bench does not port is refused.
+* what the bench does not port (``--fused_qkv 1``) is refused.
 """
 
 import dataclasses
@@ -45,18 +46,28 @@ def _finite(x) -> bool:
     return not isinstance(x, float) or math.isfinite(x)
 
 
-def test_dry_cpu_prints_the_four_lines(capsys):
+def _build_config(monkeypatch):
+    """The config ``bench.main`` builds its model from."""
+    seen = []
+    build = bench.build
+    monkeypatch.setattr(bench, "build", lambda cfg, *a: seen.append(cfg) or build(cfg, *a))
+    return seen
+
+
+def test_dry_cpu_prints_the_four_lines(capsys, monkeypatch):
+    """``--dry`` builds the JAX bench's tiny config, ``ModelConfig().tiny()`` in
+    f32, and prints the JAX bench's lines for it: the three rates, and (as the
+    JAX bench, ``bench.py:316-321``) no ``mfu_accounting`` line."""
+    seen = _build_config(monkeypatch)
     assert bench.main(["--dry", "--cpu", "--eval", "--iters", "4"]) == 0
-    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line]
-    assert [r["metric"] for r in lines] == [
-        "mfu_accounting", "grounding_train_throughput", "grounding_eval_throughput",
+    assert seen == [ModelConfig().tiny()] and not seen[0].use_bf16
+    rates = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line]
+    assert [r["metric"] for r in rates] == [
+        "grounding_train_throughput", "grounding_eval_throughput",
         "grounding_forward_throughput"]
-    for r in lines:
+    for r in rates:
         assert _finite(r) and r["device"] == "cpu" and r["card"] is None
-        assert not any(k.endswith("mfu") for k in r)  # no card, no share of its peak
-    acct, *rates = lines
-    assert acct["fwd_dense_window_flops_per_scene"] > acct["fwd_in_radius_flops_per_scene"] > 0
-    assert len(acct["occupancy"]) == 4 and acct["peak_flops"] == flops.H100_PEAK_BF16_FLOPS
+        assert not any(k.endswith("mfu") for k in r)
     for r in rates:
         assert r["unit"] == "scenes/sec/chip" and r["value"] > 0 and r["batch"] == 2
         spread = r["spread"]
@@ -97,7 +108,17 @@ def test_occupancy_and_mfu_equal_jax():
     assert np.isclose(got["fwd_mfu"], 8 * got["fwd_dense_window_flops_per_scene"] / 0.02 / 123e12)
 
 
-@pytest.mark.parametrize("argv", [["--impl", "gather"], ["--fused_qkv", "1"]])
+def test_bench_runs_the_gather_sa(capsys, monkeypatch):
+    """``--impl gather`` builds the gather grounder and prints its rates, no MFU."""
+    seen = _build_config(monkeypatch)
+    assert bench.main(["--dry", "--cpu", "--impl", "gather", "--no-train", "--iters", "3"]) == 0
+    assert [c.sa_impl for c in seen] == ["gather"]
+    (line,) = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x]
+    assert line["metric"] == "grounding_forward_throughput" and line["value"] > 0
+    assert _finite(line) and not any(k.endswith("mfu") for k in line)
+
+
+@pytest.mark.parametrize("argv", [["--fused_qkv", "1"]])
 def test_bench_refuses_what_it_does_not_port(argv, capsys):
     with pytest.raises(SystemExit):
         bench.parse_args(["--dry", "--cpu"] + argv)

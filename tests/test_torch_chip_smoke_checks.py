@@ -371,3 +371,18 @@ def test_prep_bound_reads_points_once_and_writes_a_once():
     nb = 2 * 100 * 6 * 4 + 2 * 100 * 64 * 2 + 9 * 64 * 4
     assert got == chip_smoke.bound(2 * 2 * 100 * 6 * 64, chip_smoke.PEAK_BF16, nb)
     assert got[1] == "bytes"
+
+
+def test_prep_bounds_count_the_f32_bytes():
+    """K2f writes A in f32 and K7f reads dA in f32; both at the f32 CUDA-core peak."""
+    f32 = {"compute_dtype": torch.float32}
+    pts, w1 = torch.zeros(2, 100, 6), torch.zeros(6, 64)
+    nb = 2 * 100 * 6 * 4 + 2 * 100 * 64 * 4 + 9 * 64 * 4
+    assert chip_smoke.prep_bound((pts, w1), f32) == chip_smoke.bound(
+        2 * 2 * 100 * 6 * 64, chip_smoke.PEAK_F32, nb)
+    dA = torch.zeros(2, 100, 64)
+    nb = 2 * 2 * 100 * 6 * 4 + 2 * 100 * 64 * 4 + (3 * 6 + 5) * 64 * 4
+    assert chip_smoke.prep_bwd_bound((pts, dA, w1), f32) == chip_smoke.bound(
+        6 * 2 * 100 * 6 * 64, chip_smoke.PEAK_F32, nb)
+    assert chip_smoke.prep_bwd_bound((pts, dA, w1), {})[0] < chip_smoke.prep_bwd_bound(
+        (pts, dA, w1), f32)[0]

@@ -1,9 +1,9 @@
 """The port's training CLI (``python -m eda_tpu_torch.train``) against the root ``train.py``.
 
 * the parser: every flag of ``train.py:parse_args`` with the same option
-  strings, destination, default, type, nargs and choices; the features the
-  port lacks are refused with their ROADMAP item, and the real-data flags are
-  parsed as ``train.py`` parses them;
+  strings, destination, default, type, nargs and choices; the real-data,
+  two-stage and ``--sa_impl gather`` flags are parsed as ``train.py`` parses
+  them and reach their feature;
 * ``build_configs`` gives the JAX package's three configs field for field;
 * ``tail_chunks`` and an epoch's index chunks equal ``train.py``'s;
 * the CLI smoke on the CPU (the twin of ``tests/test_cli_integration.py``):
@@ -32,6 +32,7 @@ import train as jax_train
 from eda_tpu_torch.config import ModelConfig
 from eda_tpu_torch.eval.grounding import GroundingEvaluator
 from eda_tpu_torch.models.grounder import EDAGrounder
+from eda_tpu_torch.models.pointnet2 import SetAbstraction
 from eda_tpu_torch.train import cli
 from eda_tpu_torch.train.step import make_eval_step
 from torch_parity import assert_same_example, one_torch_thread, real_data_tree  # noqa: F401
@@ -86,19 +87,25 @@ def test_build_configs_equal_train_py(argv):
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
-REFUSED = [
-    (["--sa_impl", "gather"], "item 4"),
+# refused until the gather SA was ported: parsed as train.py parses it, and it
+# reaches the model config (the tiny one under --debug on synthetic data)
+GATHER_ACCEPTED = [
+    (["--sa_impl", "gather"], lambda m: m.sa_impl == "gather" and m.num_points == 50000),
+    (["--sa_impl", "gather", "--debug", "--dataset", "synthetic", "--use_color"],
+     lambda m: m.sa_impl == "gather" and m.num_points == 1024 and m.use_bf16),
 ]
 
 
-@pytest.mark.parametrize("argv,why", REFUSED, ids=lambda a: " ".join(a) if isinstance(a, list)
-                         else None)
-def test_parser_refuses_what_the_port_lacks(argv, why, capsys):
-    jax_train.parse_args(argv)  # train.py accepts each of these ...
-    with pytest.raises(SystemExit):  # ... the port refuses it, naming its ROADMAP item
-        cli.parse_args(argv)
-    err = capsys.readouterr().err
-    assert f"ROADMAP Queue 1 {why}" in err
+@pytest.mark.parametrize("argv,reaches", GATHER_ACCEPTED, ids=lambda a: " ".join(a)
+                         if isinstance(a, list) else None)
+def test_parser_accepts_the_gather_sa(argv, reaches):
+    args, jax_args = cli.parse_args(argv), jax_train.parse_args(argv)
+    assert vars(args) == vars(jax_args)
+    configs = cli.build_configs(args)
+    for got, want in zip(configs, jax_train.build_configs(jax_args)):
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert reaches(configs[0])
+    assert isinstance(EDAGrounder(configs[0]).backbone_net.sa1, SetAbstraction)
 
 
 # refused until the two-stage grounder and the converters were ported: each
@@ -118,7 +125,7 @@ BUTD_ACCEPTED = [
                          if isinstance(a, list) else None)
 def test_parser_accepts_the_butd_and_converter_flags(argv, reaches):
     args, jax_args = cli.parse_args(argv), jax_train.parse_args(argv)
-    assert vars(args) == vars(jax_args) and not cli.refusals(args)
+    assert vars(args) == vars(jax_args)
     configs = cli.build_configs(args)
     for got, want in zip(configs, jax_train.build_configs(jax_args)):
         assert dataclasses.asdict(got) == dataclasses.asdict(want)

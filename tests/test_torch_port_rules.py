@@ -38,6 +38,7 @@ from eda_tpu_torch import entry
 from eda_tpu_torch.config import ModelConfig
 from eda_tpu_torch.data.synthetic import SyntheticConfig, SyntheticScenes
 from eda_tpu_torch.models.grounder import EDAGrounder
+from eda_tpu_torch.models.pointnet2 import FusedSetAbstraction, SetAbstraction
 from eda_tpu_torch.ops.cuda import build
 from eda_tpu_torch.weights import from_flax, load_flax, to_flax
 
@@ -98,8 +99,8 @@ def test_entry_needs_cuda_unless_cpu_is_asked(monkeypatch):
         "fps_launch", "sa_pair_pool_launch", "sa_pair_pool_mxu_launch",
         "sa_pair_pool_mxu_winners_launch", "sa_pair_pool_pre_launch",
         "sa_pair_pool_pre_winners_launch", "sa_pair_pool_winners_launch",
-        "sa_pool_bwd_compact_launch", "sa_pool_bwd_window_launch", "sa_prep_bwd_launch",
-        "sa_prep_launch", "sa_radius_mask_launch"]
+        "sa_pool_bwd_compact_launch", "sa_pool_bwd_window_launch", "sa_prep_bwd_f32_launch",
+        "sa_prep_bwd_launch", "sa_prep_f32_launch", "sa_prep_launch", "sa_radius_mask_launch"]
     assert all(k.replaces.startswith("eda_tpu/ops/pallas/") for k in build.KERNELS.values())
 
 
@@ -144,6 +145,15 @@ def test_command_line_tools_need_cuda_unless_cpu_is_passed(tool, tmp_path, monke
     assert all(k.launches == 0 for k in build.KERNELS.values())
 
 
+def test_pool_bwd_timer_needs_a_card(monkeypatch, capsys):
+    """A device timing has no CPU counterpart: without CUDA the tool fails, printing nothing."""
+    from eda_tpu_torch.tools import pool_bwd_times
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pool_bwd_times.main([]) != 0
+    assert capsys.readouterr().out == ""
+
+
 @pytest.mark.usefixtures("one_torch_thread")
 def test_class_table_tool_needs_cuda_unless_cpu_is_passed(tmp_path, monkeypatch):
     from eda_tpu_torch.tools import gen_class_embeddings
@@ -171,10 +181,37 @@ def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
 
 
 def test_port_grounder_refuses_what_it_does_not_run():
+    """The fused SA's device sort (``points_presorted=False``) is not ported;
+    the gather SA never sorts, so it takes either setting, as in JAX."""
     cfg = ModelConfig(use_bf16=True).tiny()
-    for change in ({"sa_impl": "gather"}, {"points_presorted": False}, {"use_bf16": False}):
-        with pytest.raises(NotImplementedError):
-            EDAGrounder(dataclasses.replace(cfg, **change))
+    with pytest.raises(NotImplementedError, match="item 4.4"):
+        EDAGrounder(dataclasses.replace(cfg, points_presorted=False))
+    EDAGrounder(dataclasses.replace(cfg, points_presorted=False, sa_impl="gather"))
+
+
+# refused until the f32 model and the gather SA were ported: each flag reaches
+# its feature, the SA layers' compute dtype and their kind
+NOW_BUILT = [
+    ({"use_bf16": False}, FusedSetAbstraction, torch.float32),
+    ({"sa_impl": "gather"}, SetAbstraction, torch.bfloat16),
+    ({"sa_impl": "gather", "use_bf16": False, "sa_ball_mode": "first"}, SetAbstraction,
+     torch.float32),
+]
+
+
+@pytest.mark.parametrize("change,kind,dtype", NOW_BUILT, ids=["f32", "gather", "gather-f32"])
+def test_port_grounder_builds_the_f32_and_gather_models(change, kind, dtype):
+    cfg = dataclasses.replace(ModelConfig(use_bf16=True).tiny(), **change)
+    backbone = EDAGrounder(cfg).backbone_net
+    for i in range(1, 5):
+        sa = getattr(backbone, f"sa{i}")
+        assert isinstance(sa, kind)
+        if kind is SetAbstraction:
+            assert sa.ball_mode == cfg.sa_ball_mode and sa.nsample == cfg.sa_nsamples[i - 1]
+            assert all(d.dtype == dtype for d in sa.mlp.dense)
+        else:
+            assert sa.dtype == dtype
+    assert backbone.fp1.dtype == dtype
 
 
 def _flax_tree(cfg):
@@ -193,11 +230,12 @@ def _flax_tree(cfg):
     return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
 
 
-@pytest.mark.parametrize("butd", [False, True], ids=["single-stage", "butd"])
-def test_from_flax_maps_every_leaf(butd):
-    tree = _flax_tree(dataclasses.replace(JaxConfig(use_bf16=True).tiny(), butd=butd))
+@pytest.mark.parametrize("over", [{}, {"butd": True}, {"sa_impl": "gather"}],
+                         ids=["single-stage", "butd", "gather"])
+def test_from_flax_maps_every_leaf(over):
+    tree = _flax_tree(dataclasses.replace(JaxConfig(use_bf16=True).tiny(), **over))
     n_leaves = len(jax.tree_util.tree_leaves(tree))
-    port = EDAGrounder(dataclasses.replace(ModelConfig(use_bf16=True).tiny(), butd=butd))
+    port = EDAGrounder(dataclasses.replace(ModelConfig(use_bf16=True).tiny(), **over))
     state = from_flax(tree)
     assert len(state) == n_leaves == len(port.state_dict())
     load_flax(port, tree)

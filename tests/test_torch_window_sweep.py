@@ -12,7 +12,10 @@
   ``tests/test_torch_optim.py``), the text encoder decayed as optax decays it;
 * the twin of ``tests/test_overfit_convergence.py:108``: 30 steps of the
   probe's recipe on 4 scenes, the loss below 0.75 of the first, the evaluator
-  fed by real end points.
+  fed by real end points;
+* ``--dry`` builds ``ModelConfig().tiny()`` (f32) as the JAX tool does, and
+  ``--impl gather`` trains and evaluates the gather SA, its sweep reduced to
+  ``default`` (``eda_tpu/tools/window_sweep.py:168``).
 """
 
 import json
@@ -144,3 +147,24 @@ def test_overfit_smoke_losses_fall_and_eval_wires(capsys):
     assert trace["step"] == 30
     assert trace["loss"] < 0.75 * first, (first, trace["loss"])
     assert 0.0 <= trace["acc_025_top1"] <= 1.0
+
+
+def test_dry_is_f32_and_gather_runs(capsys, monkeypatch):
+    from eda_tpu_torch.models import grounder
+
+    built = []
+    init = grounder.EDAGrounder.__init__
+
+    def record(self, cfg):
+        built.append(cfg)
+        init(self, cfg)
+
+    monkeypatch.setattr(grounder.EDAGrounder, "__init__", record)
+    lines, _ = _run(DRY + ["--impl", "gather", "--steps", "1", "--eval-every", "1", "--batch",
+                           "2", "--train-batches", "1", "--eval-batches", "1", "--sweep",
+                           "default", "dense"], capsys)
+    assert built and all(c.sa_impl == "gather" and not c.use_bf16 for c in built)
+    (trace,) = [r for r in lines if r.get("trace")]
+    finals = [r for r in lines if not r.get("trace")]
+    assert trace["impl"] == "gather" and 0.0 <= trace["acc_025_top1"] <= 1.0
+    assert [f["sa_windows"] for f in finals] == [[256, 128, 64, 64]]  # default only

@@ -367,8 +367,9 @@ def _loss_with_decisions(cfg, end_points, targets):
     return loss, metrics
 
 
-def jax_train_step(batch, variables=None, butd: bool = False):
-    """One JAX training step of the tiny config (``butd`` as given) on its TPU
+def jax_train_step(batch, variables=None, butd: bool = False, overrides=None):
+    """One JAX training step of the tiny config (``butd`` as given, and the
+    config fields of ``overrides``, e.g. ``use_bf16`` or ``sa_impl``) on its TPU
     path, dropout off, with its decisions; random perturbed weights unless
     ``variables`` (a function of the model and batch)."""
     import jax.numpy as jnp
@@ -386,7 +387,8 @@ def jax_train_step(batch, variables=None, butd: bool = False):
     with pytest.MonkeyPatch.context() as mp:
         tpu_path(mp, training=True)
         mp.setattr(jax_step_module, "compute_hungarian_loss", _loss_with_decisions)
-        jcfg = dataclasses.replace(JaxConfig(use_bf16=True).tiny(), dropout=0.0, butd=butd)
+        jcfg = dataclasses.replace(JaxConfig(use_bf16=True).tiny(), dropout=0.0, butd=butd,
+                                   **(overrides or {}))
         batch_j = jax.tree_util.tree_map(jnp.asarray, batch)
         model = JaxGrounder(jcfg)
         if variables is None:
@@ -403,7 +405,7 @@ def jax_train_step(batch, variables=None, butd: bool = False):
         run = step.lower(state, batch_j, rng).compile(compiler_options=NO_EXCESS_PRECISION)
         new_state, metrics = run(state, batch_j, rng)
         return dict(
-            batch=batch, variables=variables,
+            batch=batch, variables=variables, overrides=dict(overrides or {}),
             decisions={k: torch.from_numpy(np.array(metrics[k])) for k in DECISIONS},
             metrics={k: float(v) for k, v in metrics.items() if k not in DECISIONS},
             params=from_flax({"params": to_numpy(new_state.params),
@@ -426,7 +428,8 @@ def port_train_step(jax_run, own_decisions: bool = False, butd: bool = False):
     from eda_tpu_torch.train.step import TrainState, make_train_step
     from eda_tpu_torch.weights import load_flax
 
-    cfg = dataclasses.replace(ModelConfig(use_bf16=True).tiny(), dropout=0.0, butd=butd)
+    cfg = dataclasses.replace(ModelConfig(use_bf16=True).tiny(), dropout=0.0, butd=butd,
+                              **jax_run.get("overrides", {}))
     model = EDAGrounder(cfg)
     load_flax(model, jax_run["variables"])
     for m in model.modules():
