@@ -5,9 +5,10 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
 1. Prints the card's name and power limit and the torch / CUDA versions.
 2. Builds every CUDA kernel from ``eda_tpu_torch/csrc`` (one nvcc per source,
    all started at once) and prints the build time. The pair pool's kernels,
-   its backward's and both prep kernels' must spill no register and, where
-   the toolkit has ``cuobjdump``, every GEMM kernel of the four libraries
-   must hold HGMMA (``wgmma``) instructions; the counts are printed.
+   its backward's, both bf16 prep kernels' and the f32 prep's tensor-core
+   kernels must spill no register and, where the toolkit has ``cuobjdump``,
+   every GEMM kernel of the five libraries must hold HGMMA (``wgmma``)
+   instructions; the counts are printed.
    Then the pool tie check: all six pool variants (``pair``, ``mxu``,
    ``pre``, each with and without winners) on a full-width SA2 input with
    W3 = 0 and distinct b3, where every in-radius pair of a center gives b3
@@ -158,9 +159,13 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
 11. The f32 model (phase "f32", ``ModelConfig()``, ``use_bf16=False``): K2f
    and K7f (``csrc/sa_prep_f32.cu``) against their plain versions on
    ``prep_f32_edge_inputs`` (each flagship layer's (in_dim, c1) at ragged
-   row counts, the tiny widths, large points; K2f per element within
-   ``prep_f32_tolerance``, K7f within 1e-4 of each output's largest value,
-   bit-identical on a second launch, dA read unrounded); the tiny f32
+   row counts and at 63, 64, 65 and 129 rows, the tiny widths over several
+   tiles and within one, widths that are no multiple of 4 or 8, large
+   points; K2f per element within ``prep_f32_tolerance``, K7f within 1e-4
+   of each output's largest value, bit-identical on a second launch, dA read
+   unrounded) and at the largest in_dim each takes at c1 128 (at least the
+   previous kernels' 358 / 333; one more raises, as does c1 above 128 past
+   in_dim 8); the tiny f32
    model, step and scoring against their CPU twins; at full width K2f and
    K7f against their plain versions on a forward's and a step's inputs,
    ``REQUESTS`` serving batches (K1, K2f, K3 four launches each) and
@@ -209,6 +214,7 @@ import torch
 
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 PEAK_F32 = 67e12      # f32 outside the tensor cores, flop/s
+PEAK_TF32 = 495e12    # TF32 tensor cores, dense, flop/s: a true-f32 product as 3xTF32 at a third
 PEAK_BF16 = 989e12    # bf16 tensor cores, dense, flop/s
 BATCH = 8
 REQUESTS = 5
@@ -401,12 +407,12 @@ def f32_prep(kw) -> bool:
 
 def prep_bound(args, kw):
     """Points read once, A written once (bf16, or f32 for K2f), W1 and the
-    vectors in f32; the products at the bf16 tensor-core peak, or K2f's at
-    the f32 CUDA-core peak."""
+    vectors in f32; the products at the bf16 tensor-core peak, or K2f's true
+    f32 products at a third of the TF32 peak (three TF32 products each)."""
     pts, w1 = args[0], args[1]
     B, N, in_dim = pts.shape
     c1 = w1.shape[1]
-    size, peak = (4, PEAK_F32) if f32_prep(kw) else (2, PEAK_BF16)
+    size, peak = (4, PEAK_TF32 / 3) if f32_prep(kw) else (2, PEAK_BF16)
     nb = pts.numel() * 4 + B * N * c1 * size + (in_dim + 3) * c1 * 4
     return bound(2 * B * N * in_dim * c1, peak, nb)
 
@@ -573,8 +579,9 @@ def prep_bwd_bound(args, kw):
     B, N, in_dim = pts.shape
     c1 = w1.shape[1]
     # recompute x, dpts = dx @ W1^T, dW1 = pts^T dx: three (B*N, in_dim, c1) products;
-    # dA read in the compute dtype (K7f: f32), dpts written in f32
-    size, peak = (4, PEAK_F32) if f32_prep(kw) else (2, PEAK_BF16)
+    # dA read in the compute dtype (K7f: f32), dpts written in f32; K7f's
+    # products true f32, as 3xTF32
+    size, peak = (4, PEAK_TF32 / 3) if f32_prep(kw) else (2, PEAK_BF16)
     nb = pts.numel() * 4 + dA.numel() * size + pts.numel() * 4 + (3 * in_dim + 5) * c1 * 4
     return bound(6 * B * N * in_dim * c1, peak, nb)
 
@@ -760,13 +767,15 @@ def hgmma_counts(library: Path):
 
 # tensor-core kernel libraries: source -> the name of its GEMM kernels
 GEMM_KERNELS = {"sa_pair_pool": "sa_pair_pool_kernel", "sa_pair_pool_bwd": "pool_bwd_tiles",
-                "sa_prep_bwd": "prep_bwd_tiles", "sa_prep": "sa_prep_kernel"}
+                "sa_prep_bwd": "prep_bwd_tiles", "sa_prep": "sa_prep_kernel",
+                "sa_prep_f32": "prep_tc"}
 
 
 def check_pool_build(logs: dict, build) -> None:
-    """The pair pool's forward and backward kernels and both prep kernels
-    spill nothing and run their products on tensor cores (HGMMA in every GEMM
-    kernel's SASS, where cuobjdump exists)."""
+    """The pair pool's forward and backward kernels, both bf16 prep kernels
+    and the f32 prep's tensor-core route (SA2-4's widths) spill nothing and
+    run their products on tensor cores (HGMMA in every GEMM kernel's SASS,
+    where cuobjdump exists)."""
     spills = [line.strip() for source in GEMM_KERNELS for line in logs[source].splitlines()
               if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
     if spills:
@@ -1276,14 +1285,23 @@ TINY_PREP_WIDTHS = ((6, 16), (35, 32), (67, 32))
 # cancellation: PREP_F32_ULPS f32 steps of the row's (S2 / c1) / var times
 # |A| + 1), each gradient within 1e-4 of its largest value
 PREP_F32_ATOL, PREP_F32_BWD_REL, PREP_F32_ULPS = 2e-5, 1e-4, 64
+TILE_EDGE_ROWS = (63, 64, 65, 129)  # around the 64-row tiles of csrc/sa_prep_f32.cu
+MANY_TILE_ROWS = {1: 299_969, 2: 40_001}  # SA1 / SA2 widths: several tiles a CTA
+# widths that are no multiple of 8 (the tensor route's) or of 4 (the CUDA-core route's)
+ODD_PREP_WIDTHS = ((12, 21), (7, 30), (6, 150))
+# the largest in_dim of the previous f32 prep kernels at c1 128, forward / backward
+PREP_F32_MIN_LIMITS = (358, 333)
 
 
 def prep_f32_edge_inputs(seed=0) -> dict:
     """name -> ((pts, w1, b1, scale, lnb, dA) CPU tensors, radius): the f32 prep's
     edge cases. Each flagship layer's widths at a ragged row count (no multiple
-    of a warp's 4 rows or of the dW1 kernel's 2048-row chunks), the tiny
-    config's widths, and points of large magnitude; dA in f32 with values that
-    bf16 does not hold."""
+    of a 64-row tile); SA1's and SA2's at 63, 64, 65 and 129 rows (tile
+    boundaries; SA2's in_dim needs five K chunks of the tensor route) and at
+    ``MANY_TILE_ROWS`` (several tiles a CTA, the rings wrapping, a last tile
+    of one row); the tiny config's widths over several tiles and within one;
+    widths that are no multiple of 8 (tensor route) or 4 (CUDA-core route);
+    points of large magnitude; dA in f32 with values that bf16 does not hold."""
     g = torch.Generator().manual_seed(seed)
 
     def case(B, N, in_dim, c1, radius, scale_xyz=4.0, scale_f=1.0):
@@ -1300,8 +1318,14 @@ def prep_f32_edge_inputs(seed=0) -> dict:
     for layer, ((in_dim, c1), radius) in enumerate(zip(F32_PREP_WIDTHS, (0.2, 0.4, 0.8, 1.2)), 1):
         cases[f"SA{layer} widths ({in_dim}, {c1}), 2 x 2049 rows"] = case(2, 2049, in_dim, c1,
                                                                           radius)
+    for layer, (in_dim, c1) in ((1, F32_PREP_WIDTHS[0]), (2, F32_PREP_WIDTHS[1])):
+        for rows in TILE_EDGE_ROWS + (MANY_TILE_ROWS[layer],):
+            cases[f"SA{layer} widths, 1 x {rows} rows"] = case(1, rows, in_dim, c1, 0.4)
     for in_dim, c1 in TINY_PREP_WIDTHS:
         cases[f"tiny widths ({in_dim}, {c1}), 3 x 101 rows"] = case(3, 101, in_dim, c1, 0.4)
+        cases[f"tiny widths ({in_dim}, {c1}), 1 x 50 rows"] = case(1, 50, in_dim, c1, 0.4)
+    for in_dim, c1 in ODD_PREP_WIDTHS:
+        cases[f"widths ({in_dim}, {c1}), 2 x 77 rows"] = case(2, 77, in_dim, c1, 0.4)
     cases["SA2 widths, 1 x 3 rows"] = case(1, 3, 131, 128, 0.4)
     cases["large-magnitude points, SA1 widths, 4100 rows"] = case(1, 4100, 6, 64, 0.2,
                                                                     500.0, 50.0)
@@ -1324,7 +1348,8 @@ def prep_f32_tolerance(pts, w1, b1, radius, want):
 def prep_f32_edge_check() -> None:
     """K2f and K7f against their plain versions on every ``prep_f32_edge_inputs``
     case; K7f's gradients bit-identical on a second launch and its dA read
-    unrounded (a bf16-rounded dA gives other gradients)."""
+    unrounded (a bf16-rounded dA gives other gradients); then the in_dim
+    limits (``prep_f32_limit_check``)."""
     from eda_tpu_torch.ops.cuda import sa_prep
 
     f32 = dict(compute_dtype=torch.float32)
@@ -1358,6 +1383,58 @@ def prep_f32_edge_check() -> None:
         print(f"f32 prep edge check {name}: K2f max err {err.max().item():.3e}; K7f errors "
               f"relative to each output's largest value {[f'{e:.2e}' for e in errs]}, "
               f"bit-identical on a second launch, dA read unrounded")
+    prep_f32_limit_check()
+
+
+@torch.no_grad()
+def prep_f32_limit_check() -> None:
+    """K2f and K7f at the largest in_dim each takes at c1 128 (130 rows) against
+    their plain versions; the limits no lower than the previous kernels'; one
+    more in_dim, and c1 above 128 past the CUDA-core route's in_dim 8, raise."""
+    from eda_tpu_torch.ops.cuda import sa_prep
+
+    f32 = dict(compute_dtype=torch.float32, radius=0.4)
+    limits = [sa_prep.max_in_dim_f32(128, backward) for backward in (False, True)]
+    if any(got < want for got, want in zip(limits, PREP_F32_MIN_LIMITS)):
+        raise AssertionError(f"f32 prep in_dim limits {limits} at c1 128, below "
+                             f"{PREP_F32_MIN_LIMITS}")
+    g = torch.Generator().manual_seed(1)
+
+    def inputs(in_dim, c1, rows=130):
+        """(forward args, backward args) on the card."""
+        pts = torch.randn(1, rows, in_dim, generator=g).cuda()
+        w1 = (torch.randn(in_dim, c1, generator=g) * in_dim ** -0.5).cuda()
+        b1, lnb = (0.1 * torch.randn(2, c1, generator=g)).cuda()
+        scale = (1 + 0.1 * torch.randn(c1, generator=g)).cuda()
+        dA = torch.randn(1, rows, c1, generator=g).cuda()
+        return (pts, w1, b1, scale, lnb), (pts, dA, w1, b1, scale)
+
+    def raises(fn) -> bool:
+        try:
+            fn()
+        except ValueError:
+            return True
+        return False
+
+    fwd, _ = inputs(limits[0], 128)
+    got, want = sa_prep.sa_prep(*fwd, **f32), sa_prep.sa_prep_plain(*fwd, **f32)
+    err = (got - want).abs()
+    if not (err <= prep_f32_tolerance(*fwd[:3], 0.4, want)).all():
+        raise AssertionError(f"f32 prep at in_dim {limits[0]}: {err.max().item()}")
+    _, bwd = inputs(limits[1], 128)
+    errs = [rel_err(a, b) for a, b in zip(sa_prep.sa_prep_bwd(*bwd, **f32),
+                                          sa_prep.sa_prep_bwd_plain(*bwd, **f32))]
+    if max(errs) > PREP_F32_BWD_REL:
+        raise AssertionError(f"f32 prep backward at in_dim {limits[1]}: {errs}")
+    past = (inputs(limits[0] + 1, 128, 4)[0], inputs(limits[1] + 1, 128, 4)[1],
+            *inputs(12, 160, 4))
+    if not all(raises(lambda: fn(*args, **f32)) for fn, args in zip(
+            (sa_prep.sa_prep, sa_prep.sa_prep_bwd, sa_prep.sa_prep, sa_prep.sa_prep_bwd), past)):
+        raise AssertionError("f32 prep past its in_dim limits, or at (12, 160), did not raise")
+    print(f"f32 prep limit check: at c1 128 K2f takes in_dim {limits[0]} (at least "
+          f"{PREP_F32_MIN_LIMITS[0]}; max err {err.max().item():.3e}), K7f {limits[1]} (at least "
+          f"{PREP_F32_MIN_LIMITS[1]}; errors {[f'{e:.2e}' for e in errs]}); one more, and "
+          f"(in_dim 12, c1 160), raise")
 
 
 def small_model_check(root_cfg) -> None:
@@ -2441,7 +2518,8 @@ def f32_phase(root_cfg) -> list:
         check_launches(before, step_launches("pair", f32=True), f"f32 step {i}")
         print(f"f32 step {i}: {ms:.2f} ms, loss {loss:.4f}, grad_norm {norm:.4f}")
     rows[1]["launches"] = launch_counts()[F32_PREP_BWD]
-    profile(lambda: step(state, batch), "f32 training step", also=("prep_bwd_rows",))
+    profile(lambda: step(state, batch), "f32 training step",
+            also=("prep_tc", "prep_fma", "split_w1"))
     exact_repeat_check(state, step, batch, "f32 full-width step")
     del state, step, batch
     torch.cuda.empty_cache()

@@ -115,35 +115,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// One bulk copy (TMA, 1D) of `bytes` (a multiple of 16) from global to
-// shared, counted by the mbarrier `bar`; issued by one thread.
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after the stage's reads
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// Wait for phase `parity` of the mbarrier `bar`; a copy that never lands
-// traps instead of hanging the card.
-__device__ __forceinline__ void bulk_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n > (1u << 22)) __trap();
-  }
-}
-
 template <int C1P>
 __global__ void __launch_bounds__(kThreads)
 sa_prep_kernel(const float* __restrict__ pts, long long n_rows, int in_dim, int c1, int KC,

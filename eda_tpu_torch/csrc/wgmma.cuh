@@ -1,9 +1,10 @@
 // Hopper tensor-core helpers shared by the pair pool forward (sa_pair_pool.cu),
-// its backward (sa_pair_pool_bwd.cu) and the prep backward (sa_prep_bwd.cu;
-// sa_prep_f32.cu takes only reduce_records):
-// shared-memory addresses, bf16x2 arithmetic, wgmma descriptors, fences and
-// products, the column sums of an accumulator, and the fixed-order sum of
-// per-CTA records.
+// its backward (sa_pair_pool_bwd.cu), the prep forward and backward
+// (sa_prep.cu, sa_prep_bwd.cu) and the f32 prep (sa_prep_f32.cu):
+// shared-memory addresses, bulk copies (TMA, 1D) counted by mbarriers, bf16x2
+// arithmetic, wgmma descriptors, fences and products (bf16, and TF32 split
+// in two for true-f32 products), the column sums of an accumulator, and the
+// fixed-order sum of per-CTA records.
 //
 // Shared-memory operands use the no-swizzle ("interleave") core-matrix layout:
 // a (rows x cols) bf16 matrix is stored as 8x8 cores of 128 bytes, core
@@ -13,6 +14,10 @@
 //   MN-major (cols = M or N, rows = K; the transpose flag set): sbo = 128
 //            between M/N core blocks, lbo = cols * 16 between K core blocks
 //            (CUTLASS's canonical GMMA layouts, cute/atom/mma_traits_sm90_gmma.hpp).
+// A TF32 operand has cores of 8 rows x 4 values (16 bytes a row) and is only
+// K-major: core (r/8, c/4) at ((r/8) * (cols/4) + c/4) * 32 elements, element
+// (r%8)*4 + c%4 inside it; lbo = 128, sbo = cols * 32; a k8 step is two cores
+// along K (256 bytes).
 
 #pragma once
 
@@ -23,6 +28,77 @@ namespace wg {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- bulk copies (TMA, 1D) and their mbarriers
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+}
+
+// Expect `bytes` more on the mbarrier `bar` (its one arrival for this phase).
+__device__ __forceinline__ void bulk_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after the stage's reads
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16) from global to shared, counted
+// by the mbarrier `bar`, which was told to expect it; issued by one thread.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// bulk_expect and bulk_load of one copy.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  bulk_expect(bar, bytes);
+  bulk_load(dst, src, bytes, bar);
+}
+
+// Wait for phase `parity` of the mbarrier `bar`; a copy that never lands
+// traps instead of hanging the card.
+__device__ __forceinline__ void bulk_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n > (1u << 22)) __trap();
+  }
+}
+
+// One bulk copy of `bytes` (a multiple of 16) from shared to global, in the
+// issuing thread's bulk group; the writers fenced (fence_async) and synced.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// At most n of the thread's bulk stores still read shared memory.
+template <int n>
+__device__ __forceinline__ void bulk_store_read_wait() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(n) : "memory");
+}
+
+// Every bulk store of the thread has completed.
+__device__ __forceinline__ void bulk_store_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Shared-memory writes of this thread made visible to bulk copies and wgmma.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // bf16x2 relu(a + b), the sum rounded once to bf16
@@ -150,6 +226,87 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
   }
 }
 #undef EDA_D8
+
+
+// ---- TF32 products of f32 values split in two (3xTF32)
+//
+// v = hi + lo with hi = tf32(v) and lo = tf32(v - hi), both rounded to
+// nearest (cvt.rna); a product a b is taken as a_hi b_lo + a_lo b_hi +
+// a_hi b_hi, f32 sums, the a_lo b_lo term dropped: within a few f32 ulps of
+// a true f32 product, where one TF32 product keeps 10 mantissa bits.
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void tf32_split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+#define EDA_T8(i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),          \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D (64 x N, f32) (+)= A (64 x 8, TF32 registers) @ B (8 x N, TF32 shared,
+// K-major). a[0..3] are A's (row g, k t), (g + 8, t), (g, t + 4), (g + 8,
+// t + 4); d as in wgmma_ss (g = lane / 4, t = lane % 4, rows from 16 * warp).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t desc, int accumulate) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : EDA_T8(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : EDA_T8(0), EDA_T8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : EDA_T8(0), EDA_T8(8), EDA_T8(16), EDA_T8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else {
+    static_assert(N == 128, "wgmma widths");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : EDA_T8(0), EDA_T8(8), EDA_T8(16), EDA_T8(24), EDA_T8(32), EDA_T8(40), EDA_T8(48),
+          EDA_T8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+}
+#undef EDA_T8
+
+// D (+)= A B in 3xTF32 over one k8 step: A split in registers (ah, al), B's
+// hi and lo copies at the descriptors bh, bl; the small terms first.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32x3(float (&d)[N / 2], const uint32_t (&ah)[4],
+                                             const uint32_t (&al)[4], uint64_t bh, uint64_t bl,
+                                             int accumulate) {
+  wgmma_tf32<N>(d, ah, bl, accumulate);
+  wgmma_tf32<N>(d, al, bh, 1);
+  wgmma_tf32<N>(d, ah, bh, 1);
+}
 
 // A 64-row product over a tile's 64 rows (K = 64, four k16 steps) of two
 // MN-major operands: X^T (M = 64 columns of X from m0) times Y (N columns

@@ -42,7 +42,7 @@ BWD_KERNEL = register(Kernel(
 F32_KERNEL = register(Kernel(
     "sa_prep_f32", "sa_prep_f32_launch",
     (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int)
-    + (ctypes.c_void_p,) * 4 + (ctypes.c_float, ctypes.c_void_p),
+    + (ctypes.c_void_p,) * 4 + (ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p),
     replaces="eda_tpu/ops/pallas/sa_prep.py:142",
 ))
 BWD_F32_KERNEL = register(Kernel(
@@ -103,9 +103,18 @@ def max_in_dim(c1: int) -> int:
 
 
 def max_in_dim_f32(c1: int, backward: bool = False) -> int:
-    """The largest in_dim the f32 prep forward (or backward) kernel takes at width c1."""
+    """The largest in_dim the f32 prep forward (or backward) kernel takes at width c1:
+    its tensor-core route's up to c1 128, its CUDA-core route's 8 above."""
     return c_function("sa_prep_f32", "sa_prep_f32_max_in_dim",
                       [ctypes.c_int, ctypes.c_int])(c1, int(backward))
+
+
+def _f32_scratch(rows: int, in_dim: int, c1: int, backward: bool, device) -> torch.Tensor:
+    """The f32 kernels' scratch: W1 split for the tensor cores, the CTAs' records."""
+    n = c_function("sa_prep_f32", "sa_prep_f32_scratch",
+                   [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+                   ctypes.c_longlong)(rows, in_dim, c1, int(backward))
+    return torch.empty((n,), dtype=torch.float32, device=device)
 
 
 def _check_widths(name: str, in_dim: int, c1: int, max_in: int) -> None:
@@ -144,8 +153,13 @@ def sa_prep(pts, w1, b1, scale, lnb, *, radius: float,
         raise ValueError("sa_prep parameter shapes do not match the points")
     _check_widths("sa_prep", in_dim, c1, max_in_dim_f32(c1) if f32 else max_in_dim(c1))
     out = torch.empty((B, N, c1), dtype=compute_dtype, device=pts.device)
-    (F32_KERNEL if f32 else KERNEL)(ptr(pts), B * N, in_dim, c1, ptr(w1), ptr(b1), ptr(scale),
-                                    ptr(lnb), float(radius), ptr(out))
+    args = (ptr(pts), B * N, in_dim, c1, ptr(w1), ptr(b1), ptr(scale), ptr(lnb), float(radius),
+            ptr(out))
+    if f32:
+        scratch = _f32_scratch(B * N, in_dim, c1, False, pts.device)
+        F32_KERNEL(*args, ptr(scratch))
+    else:
+        KERNEL(*args)
     return out
 
 
@@ -232,10 +246,7 @@ def _prep_bwd_f32(pts, dA, w1, b1, scale, *, radius: float):
     if rows == 0:
         wout.zero_()
     else:
-        n_scratch = c_function("sa_prep_f32", "sa_prep_bwd_f32_scratch",
-                               [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
-                               ctypes.c_longlong)(rows, in_dim, c1)
-        scratch = torch.empty((n_scratch,), **f32)
+        scratch = _f32_scratch(rows, in_dim, c1, True, pts.device)
         BWD_F32_KERNEL(ptr(pts), ptr(dA), rows, in_dim, c1, ptr(w1), ptr(b1), ptr(scale),
                        float(radius), ptr(dpts), ptr(wout), ptr(scratch))
     vec = wout[in_dim * c1:].view(3, c1)

@@ -209,18 +209,22 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
               "   8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
     spill_log = "   8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads"
     ok = {"sa_pair_pool": ok_log, "sa_pair_pool_bwd": ok_log, "sa_prep_bwd": ok_log,
-          "sa_prep": ok_log, "fps": spill_log}
+          "sa_prep": ok_log, "sa_prep_f32": ok_log, "fps": spill_log}
     monkeypatch.setattr(chip_smoke, "hgmma_counts", lambda lib: None)
     chip_smoke.check_pool_build(ok, FakeBuild)
-    assert capsys.readouterr().out.count("not checked") == 4
-    for source in ("sa_pair_pool", "sa_pair_pool_bwd", "sa_prep_bwd", "sa_prep"):  # any spill
+    assert capsys.readouterr().out.count("not checked") == 5
+    for source in ("sa_pair_pool", "sa_pair_pool_bwd", "sa_prep_bwd", "sa_prep",
+                   "sa_prep_f32"):  # any spill
         with pytest.raises(AssertionError, match="spill"):
             chip_smoke.check_pool_build({**ok, source: spill_log}, FakeBuild)
     sass = {"sa_pair_pool": {"_Z19sa_pair_pool_kernelILi16E": 24, "_Z3fps": 0},
             "sa_pair_pool_bwd": {"_Z14pool_bwd_tilesILi16E": 12, "_Z14pool_bwd_tilesILi32E": 0,
                                  "_Z14reduce_records": 0},
             "sa_prep_bwd": {"_Z14prep_bwd_tilesILi64ELb1E": 6, "_Z14reduce_records": 0},
-            "sa_prep": {"_Z14sa_prep_kernelILi64EE": 1}}
+            "sa_prep": {"_Z14sa_prep_kernelILi64EE": 1},
+            # the f32 prep's tensor-core kernels; its CUDA-core route holds none
+            "sa_prep_f32": {"_Z7prep_tcILi128ELb1E": 36, "_Z8prep_fmaILi64ELb1E": 0,
+                            "_Z8split_w1": 0}}
     monkeypatch.setattr(chip_smoke, "hgmma_counts", lambda lib: sass[lib])
     with pytest.raises(AssertionError, match="sa_pair_pool_bwd GEMM kernel has no HGMMA"):
         chip_smoke.check_pool_build(ok, FakeBuild)
@@ -234,6 +238,10 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
     sass["sa_pair_pool"]["_Z19sa_pair_pool_kernelILi16E"] = 24
     sass["sa_prep_bwd"]["_Z14prep_bwd_tilesILi64ELb1E"] = 0
     with pytest.raises(AssertionError, match="sa_prep_bwd GEMM kernel has no HGMMA"):
+        chip_smoke.check_pool_build(ok, FakeBuild)
+    sass["sa_prep_bwd"]["_Z14prep_bwd_tilesILi64ELb1E"] = 6
+    sass["sa_prep_f32"]["_Z7prep_tcILi128ELb1E"] = 0
+    with pytest.raises(AssertionError, match="sa_prep_f32 GEMM kernel has no HGMMA"):
         chip_smoke.check_pool_build(ok, FakeBuild)
 
 
@@ -374,15 +382,49 @@ def test_prep_bound_reads_points_once_and_writes_a_once():
 
 
 def test_prep_bounds_count_the_f32_bytes():
-    """K2f writes A in f32 and K7f reads dA in f32; both at the f32 CUDA-core peak."""
+    """K2f writes A in f32 and K7f reads dA in f32; their true-f32 products at a
+    third of the TF32 tensor-core peak (3xTF32, the fastest f32 product)."""
     f32 = {"compute_dtype": torch.float32}
     pts, w1 = torch.zeros(2, 100, 6), torch.zeros(6, 64)
     nb = 2 * 100 * 6 * 4 + 2 * 100 * 64 * 4 + 9 * 64 * 4
+    assert chip_smoke.PEAK_TF32 == 495e12
     assert chip_smoke.prep_bound((pts, w1), f32) == chip_smoke.bound(
-        2 * 2 * 100 * 6 * 64, chip_smoke.PEAK_F32, nb)
+        2 * 2 * 100 * 6 * 64, chip_smoke.PEAK_TF32 / 3, nb)
     dA = torch.zeros(2, 100, 64)
     nb = 2 * 2 * 100 * 6 * 4 + 2 * 100 * 64 * 4 + (3 * 6 + 5) * 64 * 4
     assert chip_smoke.prep_bwd_bound((pts, dA, w1), f32) == chip_smoke.bound(
-        6 * 2 * 100 * 6 * 64, chip_smoke.PEAK_F32, nb)
+        6 * 2 * 100 * 6 * 64, chip_smoke.PEAK_TF32 / 3, nb)
     assert chip_smoke.prep_bwd_bound((pts, dA, w1), {})[0] < chip_smoke.prep_bwd_bound(
         (pts, dA, w1), f32)[0]
+
+
+def test_prep_f32_edge_inputs_hold_their_edge_cases():
+    """The f32 prep's edge cases: the flagship's and the tiny config's widths, the
+    64-row tile boundaries, several tiles a CTA with a one-row last tile, widths
+    off the kernels' 8- and 4-column steps on each route, c1 above 128."""
+    cases = chip_smoke.prep_f32_edge_inputs()
+    shapes = [(args[0].shape[0] * args[0].shape[1], *args[1].shape) for args, _ in cases.values()]
+    widths = {(i, c) for _, i, c in shapes}
+    assert set(chip_smoke.F32_PREP_WIDTHS) | set(chip_smoke.TINY_PREP_WIDTHS) <= widths
+    for in_dim, c1 in ((6, 64), (131, 128)):  # SA1 (CUDA-core route), SA2 (tensor route)
+        rows = {r for r, i, c in shapes if (i, c) == (in_dim, c1)}
+        assert set(chip_smoke.TILE_EDGE_ROWS) <= rows
+    many = chip_smoke.MANY_TILE_ROWS
+    assert many[1] % 64 == many[2] % 64 == 1  # a last tile of one row
+    assert (many[1] // 64 > 132 * 4) and (many[2] // 64 > 132 * 2)  # tiles > the grid's CTAs
+    for in_dim, c1 in chip_smoke.TINY_PREP_WIDTHS:  # within one tile too
+        assert any(r < 64 for r, i, c in shapes if (i, c) == (in_dim, c1))
+    odd = chip_smoke.ODD_PREP_WIDTHS
+    assert set(odd) <= widths
+    assert any(i > 8 and c % 8 and c % 2 for i, c in odd)  # tensor route, odd c1
+    assert any(i <= 8 and c % 4 and c <= 128 for i, c in odd)  # CUDA-core route
+    assert any(i <= 8 and c > 128 for i, c in odd)  # c1 above 128 (CUDA-core route only)
+    assert chip_smoke.PREP_F32_MIN_LIMITS == (358, 333)
+    f32 = dict(compute_dtype=torch.float32)
+    for name, (args, radius) in cases.items():
+        if args[0].shape[1] > 5000:
+            continue
+        A = sa_prep.sa_prep_plain(*args[:5], radius=radius, **f32)
+        grads = sa_prep.sa_prep_bwd_plain(args[0], args[5], *args[1:4], radius=radius, **f32)
+        assert A.shape == args[5].shape and torch.isfinite(A).all(), name
+        assert all(torch.isfinite(g).all() for g in grads), name

@@ -154,6 +154,16 @@ def test_pool_bwd_timer_needs_a_card(monkeypatch, capsys):
     assert capsys.readouterr().out == ""
 
 
+@pytest.mark.parametrize("kernels", ["prep_f32", "prep_bf16"])
+def test_kernel_timer_needs_a_card_for_the_prep_kernels(kernels, monkeypatch, capsys):
+    """``--kernels prep_f32`` / ``prep_bf16`` time K2f / K7f and K2 / K7: on the card only."""
+    from eda_tpu_torch.tools import pool_bwd_times
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pool_bwd_times.main(["--kernels", kernels, "--busy"]) != 0
+    assert capsys.readouterr().out == ""
+
+
 @pytest.mark.usefixtures("one_torch_thread")
 def test_class_table_tool_needs_cuda_unless_cpu_is_passed(tmp_path, monkeypatch):
     from eda_tpu_torch.tools import gen_class_embeddings
