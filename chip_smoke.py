@@ -176,12 +176,35 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    f32 one serving batch and ``GATHER_STEPS`` training steps, each launching
    K1 four times (over the whole 50 000-point cloud at SA1) and nothing
    else; each layer's ball query timed under both modes; one profiled
-   forward and step; two steps from one state bit for bit. Then the device
-   busy ms of every profiled call.
-13. The bench (``python -m eda_tpu_torch.bench --eval --batch 8 --iters 8``):
+   forward and step; two steps from one state bit for bit.
+13. The device sort (phase "device sort", ``ModelConfig(use_bf16=True,
+   points_presorted=False)``: every fused SA layer sorts its input on the
+   card by Morton key, FPS runs over all 50 000 points at SA1). The tiny
+   model against its CPU twin; the keys on the card equal the CPU's bit for
+   bit (the clouds and points on cell boundaries); one full-width forward on
+   the pipeline's clouds and one on per-scene permuted copies (the host
+   presort makes SA1's sort the identity on the former), each from zeroed
+   counters launching K1-K3 four times and nothing else, with a finite
+   (8, 256, 3) ``last_center`` and every K1-K3 call held against its plain
+   version; each layer's sort, gathers and output restore timed; one
+   training step on permuted clouds launching ``step_launches("pair")``
+   with its K4-K7 calls against their plain versions, and two steps from
+   one state bit for bit; the forward and the step against the presorted
+   model's in turns, each profiled. The fused q/k/v projection: a
+   flagship-width encoder, decoder (bf16) and RoBERTa layer (f32) in train
+   mode, fused against unfused on one set of weights (outputs and every
+   gradient leaf, ``QKV_ATOL`` / ``QKV_F32_REL``), the flagship forward
+   (the fused run on the unfused run's KPS indices, every compared end
+   point within ``QKV_ATOL``) and one training step each, timed in turns.
+   The ``winner`` pool at SA2's shape in f32: its gradients within
+   ``WINNER_RTOL`` / ``WINNER_ATOL`` of the scan's, two backward passes bit
+   for bit, both timed. The kernel tools: ``sa_kernel_bench`` at every
+   layer (K4, K3, K5 / K6) and ``profile_step --steps 2`` at batch 8. Then
+   the device busy ms of every profiled call.
+14. The bench (``python -m eda_tpu_torch.bench --eval --batch 8 --iters 8``):
    the forward, training and eval timers at full width with few repetitions,
    their spreads on stderr and their JSON lines on stdout.
-14. Prints the per-kernel JSON line, the card line, and as its last line
+15. Prints the per-kernel JSON line, the card line, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Per kernel, the JSON line's ``ms``, ``plain_ms`` and ``bound_ms`` are sums over
@@ -1687,27 +1710,54 @@ def stage_times(model, batch) -> dict:
 PROFILED: dict = {}  # label -> device busy ms of its profiled call
 
 
-def profile(fn, label: str, also=(), top: int = 15) -> float:
+def profile(fn, label: str, also=(), top: int = 15, fps_calls=None) -> float:
     """Device time by operation and the device's busy share over one call of
     ``fn``: the ``top`` busiest operations, and every one whose name holds a
     string of ``also``. Returns the device's busy ms and keeps it in
-    ``PROFILED[label]``."""
+    ``PROFILED[label]``.
+
+    Late in this process the profiler has kept no record of one FPS kernel
+    of a call (SA1's: ~19 ms over 50 000 points on an NVIDIA H100 80GB HBM3
+    at 700 W, while the call's host time grew by as much), where a fresh
+    process keeps it every time. So the FPS records are counted against the
+    FPS launches; when they fall short and ``fps_calls`` (the recorded
+    (args, kwargs) of the call's FPS launches) is given, the busy time counts
+    those calls at their own CUDA-event times in place of the kept records;
+    otherwise the shortfall is printed."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    from eda_tpu_torch.ops.cuda import build
+    from eda_tpu_torch.ops.cuda import fps as fps_module
+
+    launched = build.KERNELS["fps_launch"].launches
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
+    launched = build.KERNELS["fps_launch"].launches - launched
     # device-side events only (kernels, copies): a host op's device time
     # repeats that of the kernels it launched
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    kept = sum(e.count for e in events if "fps_" in e.key)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    note = ""
+    if kept != launched and fps_calls:
+        kept_ms = sum(e.self_device_time_total for e in events if "fps_" in e.key) / 1e3
+        alone_ms = sum(cuda_ms(lambda a=a, k=k: fps_module.fps(*a, **k), 3)
+                       for a, k in fps_calls)
+        busy_ms += alone_ms - kept_ms
+        note = (f"; the profile kept {kept} of {launched} FPS kernel records ({kept_ms:.3f} ms): "
+                f"busy counts the {len(fps_calls)} FPS calls at their CUDA-event times, "
+                f"{alone_ms:.3f} ms")
+    elif kept != launched:
+        note = (f"; the profile kept {kept} of {launched} FPS kernel records, so the busy time "
+                f"lacks the missing ones")
     PROFILED[label] = busy_ms
     print(f"profiled {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}% of wall; profiler on)")
+          f"({100 * busy_ms / wall_ms:.1f}% of wall; profiler on){note}")
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
     for i, e in enumerate(ranked):
         if i < top or any(a in e.key for a in also):
@@ -2587,6 +2637,393 @@ def gather_phase(root_cfg) -> None:
     torch.cuda.empty_cache()
 
 
+DEVICE_SORT_RADII = (0.2, 0.4, 0.8, 1.2)  # the flagship's SA radii: the sort's cell sizes
+QKV_ATOL = 3e-2       # fused against unfused q/k/v in bf16, as tests/test_fused_attention.py
+QKV_F32_REL = 1e-4    # the f32 RoBERTa layer's gradients, relative to the largest of any leaf
+WINNER_RTOL, WINNER_ATOL = 1e-4, 1e-5  # winner against scan gradients, tests/test_fused_sa.py
+
+
+def permuted(batch: dict, seed: int) -> dict:
+    """A serving batch, or a training batch ``{"inputs", "targets"}``, with each
+    scene's points in a random order from ``seed``: the pipeline's host presort
+    at cell 0.2 makes SA1's device sort at r = 0.2 the identity, a permuted
+    cloud does not. Per-point training labels are permuted alike."""
+    inputs = batch.get("inputs", batch)
+    pcs = inputs["point_clouds"]
+    g = torch.Generator().manual_seed(seed)
+    perms = torch.stack([torch.randperm(pcs.shape[1], generator=g)
+                         for _ in range(pcs.shape[0])]).to(pcs.device)
+    out = dict(inputs, point_clouds=pcs.gather(1, perms[..., None].expand(-1, -1, pcs.shape[2])))
+    if "inputs" not in batch:
+        return out
+    targets = dict(batch["targets"])
+    targets["point_instance_label"] = targets["point_instance_label"].gather(1, perms)
+    return {"inputs": out, "targets": targets}
+
+
+def morton_card_check(xyz) -> None:
+    """The device sort's keys on the card equal the CPU's bit for bit, on the
+    clouds and on points exactly on (and one ulp above) cell boundaries."""
+    from eda_tpu_torch.ops.fused_sa import morton_keys
+
+    for r in DEVICE_SORT_RADII:
+        edge = (torch.arange(-200, 200, dtype=torch.float32) * r)[:, None].expand(-1, 3)
+        edge = torch.cat([edge, torch.nextafter(edge, torch.full_like(edge, math.inf))])
+        for pts in (xyz, edge.cuda()):
+            if not torch.equal(morton_keys(pts, r).cpu(), morton_keys(pts.cpu(), r)):
+                raise AssertionError(f"device sort: Morton keys at cell {r} differ between card "
+                                     f"and CPU")
+    print(f"device sort: Morton keys at cells {DEVICE_SORT_RADII} equal on card and CPU "
+          f"({tuple(xyz.shape[:2])} points and cell boundaries)")
+
+
+def sort_times(calls) -> None:
+    """Per SA layer of one device-sort forward, CUDA events: the keys and the
+    stable sort; the gathers of xyz and features into that order; the whole of
+    the layer's sort (with the inverse permutation and the centers' ranks);
+    and the gather that restores the outputs' center order."""
+    from eda_tpu_torch.ops import fused_sa
+    from eda_tpu_torch.ops.pointops import gather_points
+
+    total = 0.0
+    for layer, (args, _) in enumerate(calls, 1):
+        xyz, feats, center_idx, radius = args
+        order = torch.sort(fused_sa.morton_keys(xyz, radius), dim=1, stable=True).indices
+        center_order = fused_sa._sort_points(*args)[3]
+        outs = torch.randn(xyz.shape[0], center_idx.shape[1], 256, device=xyz.device)
+        ms = {
+            "keys + sort": cuda_ms(lambda: torch.sort(fused_sa.morton_keys(xyz, radius), dim=1,
+                                                      stable=True), 10),
+            "xyz + feature gathers": cuda_ms(lambda: (gather_points(xyz, order),
+                                                      gather_points(feats, order)), 10),
+            "whole sort": cuda_ms(lambda: fused_sa._sort_points(*args), 10),
+            "output restore": cuda_ms(lambda: outs.gather(1, torch.argsort(center_order, dim=1)[
+                ..., None].expand(-1, -1, outs.shape[-1])), 10),
+        }
+        total += ms["whole sort"] + ms["output restore"]
+        print(f"device sort SA{layer} (B={xyz.shape[0]}, N={xyz.shape[1]}, C={feats.shape[2]}, "
+              f"M={center_idx.shape[1]}, cell {radius}): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+    print(f"device sort: {total:.4f} ms a forward (whole sorts and output restores, "
+          f"{len(calls)} layers)")
+
+
+def device_sort_serving(cfg, root_cfg) -> None:
+    """Device-sort forwards on the pipeline's clouds and on permuted copies, each
+    from zeroed counters (K1-K3 four launches, nothing else) with every K1-K3
+    call against its plain version; the sort timed per layer; then against the
+    presorted model on the same scenes, in turns, and profiled."""
+    from eda_tpu_torch.entry import build as build_model
+    from eda_tpu_torch.ops import fused_sa, pointops
+    from eda_tpu_torch.ops.cuda import build
+    from eda_tpu_torch.utils.flops import sa_geometry
+
+    model, inputs = build_model(cfg, batch_size=BATCH, device="cuda", seed=0)
+    shuffled = permuted(inputs, seed=1)
+    morton_card_check(shuffled["point_clouds"][..., :3].contiguous())
+    targets = [(pointops, "furthest_point_sample", "fps_launch"),
+               (fused_sa, "sa_prep", "sa_prep_launch"),
+               (fused_sa, "sa_pair_pool", "sa_pair_pool_launch"),
+               (fused_sa, "_sort_points", "sort")]
+    for name, batch in (("pipeline clouds", inputs), ("permuted clouds", shuffled)):
+        for kernel in build.KERNELS.values():
+            kernel.launches = 0
+        with Recorder(targets) as rec:
+            with torch.inference_mode():
+                out = model(batch)["last_center"]
+        torch.cuda.synchronize()
+        check_launches(dict.fromkeys(launch_counts(), 0), forward_launches("pair"),
+                       f"device-sort forward on the {name}")
+        if out.shape != (BATCH, cfg.num_queries, 3) or not torch.isfinite(out).all():
+            raise AssertionError(f"device-sort forward on the {name}: bad last_center "
+                                 f"{tuple(out.shape)}")
+        sizes = [tuple(a[0].shape[:2]) for a, _ in rec.calls["fps_launch"]]
+        windowed = sum(not g.dense for g in sa_geometry(cfg))  # a dense layer needs no order
+        if sizes[0] != (BATCH, cfg.num_points) or len(rec.calls["sort"]) != windowed:
+            raise AssertionError(f"device-sort forward: FPS over {sizes}, "
+                                 f"{len(rec.calls['sort'])} sorted layers")
+        print(f"device-sort forward on the {name}: launched {forward_launches('pair')}, "
+              f"last_center finite {tuple(out.shape)}, K1 over {sizes}")
+        check_kernels(rec.calls, SERVING, {s: 4 for s in SERVING})
+    sort_times(rec.calls["sort"])
+    fps_calls = {"device sort": rec.calls["fps_launch"]}
+    del rec
+    plain, _ = build_model(root_cfg, batch_size=BATCH, device="cuda", seed=0)
+    with torch.inference_mode():
+        with Recorder([(pointops, "furthest_point_sample", "fps_launch")]) as rec:
+            plain(inputs)
+        fps_calls["presorted"] = rec.calls["fps_launch"]
+        med = _turns({"presorted": lambda: plain(inputs), "device sort": lambda: model(shuffled)})
+        busy = {"presorted": profile(lambda: plain(inputs), "presorted forward (device-sort "
+                                     "phase)", top=3, fps_calls=fps_calls["presorted"]),
+                "device sort": profile(lambda: model(shuffled), "device-sort serving forward",
+                                       also=("fps", "Sort", "gather", "scatter"), top=8,
+                                       fps_calls=fps_calls["device sort"])}
+    print(f"device-sort vs presorted serving forward, same scenes, turns A B B A: "
+          f"{med['device sort']:.2f} vs {med['presorted']:.2f} ms per batch; device busy "
+          f"{busy['device sort']:.2f} vs {busy['presorted']:.2f} ms "
+          f"({busy['device sort'] - busy['presorted']:+.2f} ms)")
+
+
+def device_sort_training(cfg, root_cfg) -> None:
+    """One device-sort training step on permuted clouds from zeroed counters
+    (``step_launches("pair")``) with its K4-K7 calls against their plain
+    versions; two steps from one state bit for bit; then against the presorted
+    step, in turns, and profiled."""
+    from eda_tpu_torch.entry import build_trainer
+    from eda_tpu_torch.ops import fused_sa, pointops
+    from eda_tpu_torch.ops.cuda import build
+
+    state, step, batch = build_trainer(cfg, batch_size=BATCH, device="cuda", seed=0)
+    batch = permuted(batch, seed=2)
+    bwd = lambda kw: bwd_symbol(kw["compact"])  # noqa: E731
+    for kernel in build.KERNELS.values():
+        kernel.launches = 0
+    with Recorder([(fused_sa, "sa_pair_pool_winners", "sa_pair_pool_winners_launch"),
+                   (fused_sa, "sa_pool_bwd", bwd),
+                   (fused_sa, "sa_prep_bwd", "sa_prep_bwd_launch"),
+                   (pointops, "furthest_point_sample", "fps_launch")]) as rec:
+        metrics = step(state, batch)
+    torch.cuda.synchronize()
+    check_launches(dict.fromkeys(launch_counts(), 0), step_launches("pair"),
+                   "device-sort training step")
+    loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+    if not (math.isfinite(loss) and math.isfinite(norm)):
+        raise AssertionError(f"device-sort step: loss {loss}, grad_norm {norm}")
+    print(f"device-sort training step: launched {step_launches('pair')}, loss {loss:.4f}, "
+          f"grad_norm {norm:.4f}")
+    layers = {"sa_pair_pool_winners_launch": 4, "sa_pool_bwd_compact_launch": 1,
+              "sa_pool_bwd_window_launch": 3, "sa_prep_bwd_launch": 4}
+    check_kernels(rec.calls, TRAINING, layers)
+    fps_calls = rec.calls["fps_launch"]
+    del rec
+    exact_repeat_check(state, step, batch, "device-sort full-width step")
+    plain, plain_step, plain_batch = build_trainer(root_cfg, batch_size=BATCH, device="cuda",
+                                                   seed=0)
+    with Recorder([(pointops, "furthest_point_sample", "fps_launch")]) as rec:
+        plain_step(plain, plain_batch)
+    med = _turns({"presorted": lambda: plain_step(plain, plain_batch),
+                  "device sort": lambda: step(state, batch)})
+    busy = {"presorted": profile(lambda: plain_step(plain, plain_batch),
+                                 "presorted training step (device-sort phase)", top=3,
+                                 fps_calls=rec.calls["fps_launch"]),
+            "device sort": profile(lambda: step(state, batch), "device-sort training step",
+                                   also=("fps", "Sort"), top=8, fps_calls=fps_calls)}
+    print(f"device-sort vs presorted training step, turns A B B A: {med['device sort']:.2f} vs "
+          f"{med['presorted']:.2f} ms per step; device busy {busy['device sort']:.2f} vs "
+          f"{busy['presorted']:.2f} ms ({busy['device sort'] - busy['presorted']:+.2f} ms)")
+
+
+def _leaf_rel_errs(a: dict, b: dict) -> dict:
+    """Each leaf's largest difference over the largest gradient value of all
+    leaves in ``b``: an absolute tolerance on the layer's gradient scale, as
+    ``tests/test_fused_attention.py`` holds every leaf to one ``atol``. (A
+    leaf's own scale is no yardstick: the attention key biases' gradient is
+    zero in exact arithmetic, and at random flagship-width weights the
+    softmax saturates and the query weights' gradient is rounding noise.)"""
+    largest = max(v.abs().max().item() for v in b.values())
+    return {k: ((a[k] - b[k]).abs().max() / largest).item() for k in b}
+
+
+def fused_qkv_layers() -> None:
+    """One flagship-width encoder, decoder (bf16) and RoBERTa layer (f32) in
+    train mode, dropout off, fused against unfused on one set of weights:
+    outputs within ``QKV_ATOL`` (bf16) or 1e-5 (f32), every gradient leaf
+    within ``QKV_ATOL`` (bf16) or ``QKV_F32_REL`` (f32) of the layer's largest
+    gradient value."""
+    from eda_tpu_torch.models.grounder import init_weights
+    from eda_tpu_torch.models.layers import BiDecoderLayer, BiEncoderLayer
+    from eda_tpu_torch.models.roberta import RobertaLayer
+
+    g = torch.Generator().manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).cuda()
+
+    valid = torch.arange(64)[None].expand(BATCH, -1).cuda() < torch.randint(
+        8, 65, (BATCH, 1), generator=g).cuda()
+    bf16 = torch.bfloat16
+    cases = {
+        "encoder": (lambda f: BiEncoderLayer(288, 8, 256, True, bf16, 0.0, fused_qkv=f),
+                    (rand(BATCH, 1024, 288), rand(BATCH, 1024, 288), None, rand(BATCH, 64, 288),
+                     valid), QKV_ATOL, QKV_ATOL),
+        "decoder": (lambda f: BiDecoderLayer(288, 8, 256, "loc_learned", bf16, 0.0, fused_qkv=f),
+                    (rand(BATCH, 256, 288), rand(BATCH, 1024, 288), rand(BATCH, 64, 288),
+                     rand(BATCH, 256, 6), valid), QKV_ATOL, QKV_ATOL),
+        "roberta": (lambda f: RobertaLayer(768, 12, 3072, fused_qkv=f),
+                    (rand(BATCH, 64, 768), valid), 1e-5, QKV_F32_REL),
+    }
+    for name, (make, args, out_tol, grad_tol) in cases.items():
+        runs = {}
+        for fused in (False, True):
+            layer = make(fused)
+            init_weights(layer, 0)
+            layer = layer.cuda().train()
+            out = layer(*args)
+            out = out if isinstance(out, tuple) else (out,)
+            sum(o.float().pow(2).sum() for o in out).backward()
+            runs[fused] = ([o.detach().float() for o in out],
+                           {n: p.grad for n, p in layer.named_parameters()})
+        out_err = max((a - b).abs().max().item() for a, b in zip(runs[True][0], runs[False][0]))
+        errs = _leaf_rel_errs(runs[True][1], runs[False][1])
+        worst = max(errs, key=errs.get)
+        print(f"fused q/k/v {name} layer (flagship width, batch {BATCH}), fused vs unfused: "
+              f"outputs max abs err {out_err:.3g}, gradients worst leaf {worst} "
+              f"{errs[worst]:.3g} of the largest gradient value")
+        if out_err > out_tol or errs[worst] > grad_tol:
+            raise AssertionError(f"fused q/k/v {name} layer off the unfused one")
+
+
+def fused_qkv_model(root_cfg) -> None:
+    """The flagship forward with fused and unfused q/k/v on one set of weights
+    and inputs (the fused run on the unfused run's KPS indices): every compared
+    end point within ``QKV_ATOL``; both timed in turns. Then one training step
+    of each from one state: finite, the main path's launches, timed in turns."""
+    from eda_tpu_torch.entry import build as build_model
+    from eda_tpu_torch.entry import build_trainer
+    from eda_tpu_torch.models import grounder as grounder_module
+    from eda_tpu_torch.ops.cuda import build
+
+    fused_cfg = dataclasses.replace(root_cfg, fused_qkv=True)
+    plain, inputs = build_model(root_cfg, batch_size=BATCH, device="cuda", seed=0)
+    fused, _ = build_model(fused_cfg, batch_size=BATCH, device="cuda", seed=0)
+    fused.load_state_dict(plain.state_dict())
+    with torch.inference_mode():
+        want = plain(inputs)
+        inds = want["query_points_sample_inds"]
+        with patched(grounder_module, "top_k_indices", lambda logits, k: inds):
+            got = fused(inputs)
+        keys = ("text_memory", "seed_features", "seeds_obj_cls_logits", "proposal_center",
+                "last_center", "last_pred_size", "last_sem_cls_scores")
+        errs = {k: (got[k].float() - want[k].float()).abs().max().item() for k in keys}
+        print(f"fused vs unfused q/k/v flagship forward, max abs errs {errs}")
+        if max(errs.values()) > QKV_ATOL:
+            raise AssertionError("fused q/k/v forward off the unfused one")
+        med = _turns({"unfused": lambda: plain(inputs), "fused": lambda: fused(inputs)})
+    print(f"fused vs unfused q/k/v serving forward, turns A B B A: {med['fused']:.2f} vs "
+          f"{med['unfused']:.2f} ms per batch")
+    del plain, fused, want, got
+    runs = {}
+    for name, cfg in (("unfused", root_cfg), ("fused", fused_cfg)):
+        runs[name] = build_trainer(cfg, batch_size=BATCH, device="cuda", seed=0)
+    metrics = {}
+    for name, (state, step, batch) in runs.items():
+        for kernel in build.KERNELS.values():
+            kernel.launches = 0
+        metrics[name] = {k: float(v) for k, v in step(state, batch).items()}
+        check_launches(dict.fromkeys(launch_counts(), 0), step_launches("pair"),
+                       f"{name} q/k/v step")
+        if not all(math.isfinite(v) for v in metrics[name].values()):
+            raise AssertionError(f"{name} q/k/v step: {metrics[name]}")
+    med = _turns({name: (lambda r=r: r[1](r[0], r[2])) for name, r in runs.items()})
+    print(f"fused vs unfused q/k/v training step: loss {metrics['fused']['loss']:.4f} vs "
+          f"{metrics['unfused']['loss']:.4f}, grad_norm {metrics['fused']['grad_norm']:.4f} vs "
+          f"{metrics['unfused']['grad_norm']:.4f}; turns A B B A {med['fused']:.2f} vs "
+          f"{med['unfused']:.2f} ms per step")
+
+
+def winner_check() -> None:
+    """``fused_set_abstraction(impl="winner")`` at SA2's shape (batch 8, 2048
+    unsorted points, 1024 centers, window 256, widths (128, 128, 256)), f32:
+    its gradients against the scan's (``impl="xla"``), two backward passes
+    bit for bit; the forward and backward of each timed.
+
+    Each gradient element within ``WINNER_ATOL`` + ``WINNER_RTOL`` times its
+    leaf's largest value: the rtol of ``tests/test_fused_sa.py`` taken on the
+    leaf's scale, not the element's. At this size W1's gradient sums 16 384
+    rows whose terms cancel, so an element near 0 carries the f32 rounding
+    of large terms; the scan's own backward adds its gathered rows with
+    atomics, and two scan backward passes differ by the printed amount."""
+    from eda_tpu_torch.ops import fused_sa
+
+    N, M, C, widths = 2048, 1024, 128, (128, 128, 256)
+    g = torch.Generator().manual_seed(0)
+    xyz = (torch.rand(BATCH, N, 3, generator=g) * 5).cuda()
+    feats = torch.randn(BATCH, N, C, generator=g).cuda()
+    cidx = torch.stack([torch.randperm(N, generator=g)[:M] for _ in range(BATCH)]).cuda()
+    groups, prev = ([], [], [], []), 3 + C
+    for c in widths:
+        groups[0].append(torch.randn(prev, c, generator=g) * prev ** -0.5)
+        groups[1].append(torch.randn(c, generator=g) * 0.1)
+        groups[2].append(1 + 0.1 * torch.randn(c, generator=g))
+        groups[3].append(0.1 * torch.randn(c, generator=g))
+        prev = c
+    cot = torch.randn(BATCH, M, widths[-1], generator=g).cuda()
+
+    def run(impl):
+        params = fused_sa.SAParams(*(tuple(p.cuda().requires_grad_() for p in grp)
+                                     for grp in groups))
+        f = feats.clone().requires_grad_()
+        out = fused_sa.fused_set_abstraction(
+            xyz, f, cidx, params, radius=0.4, window=256, compute_dtype=torch.float32,
+            presorted=False, impl=impl, return_rank_order=False)
+        (out * cot).sum().backward()
+        return out.detach(), [f.grad] + [p.grad for grp in params for p in grp]
+
+    out_w, grads_w = run("winner")
+    out_s, grads_s = run("xla")
+    _, again = run("winner")
+    _, scan_again = run("xla")
+    torch.cuda.synchronize()
+    if not torch.allclose(out_w, out_s, rtol=WINNER_RTOL, atol=WINNER_ATOL):
+        raise AssertionError("winner pool forward off the scan's")
+    worst = scan_noise = 0.0
+    for i, (a, b, c) in enumerate(zip(grads_w, grads_s, scan_again)):
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        print(f"  winner gradient {i} {tuple(b.shape)}: largest value {scale:.4g}, largest "
+              f"difference from the scan's {err:.3g} ({err / scale:.3g} of it), two scan "
+              f"passes differ by {(c - b).abs().max().item():.3g}")
+        if err > WINNER_ATOL + WINNER_RTOL * scale:
+            raise AssertionError(f"winner gradient {i} off the scan's: {err} at scale {scale}")
+        worst = max(worst, err / scale)
+        scan_noise = max(scan_noise, (c - b).abs().max().item() / scale)
+    if not all(torch.equal(a, b) for a, b in zip(grads_w, again)):
+        raise AssertionError("winner backward: two passes differ")
+    ms = {impl: cuda_ms(lambda: run(impl), 3) for impl in ("winner", "xla")}
+    print(f"winner pool at SA2's shape, f32: gradients within atol {WINNER_ATOL} + rtol "
+          f"{WINNER_RTOL} of each leaf's scale of the scan's (largest difference {worst:.3g} of "
+          f"its leaf's largest value; two scan passes {scan_noise:.3g}); forward equal to the "
+          f"scan's: {torch.equal(out_w, out_s)}; two winner backward passes bit-identical; "
+          f"forward + backward {ms['winner']:.2f} ms (scan {ms['xla']:.2f} ms)")
+
+
+def tools_check() -> None:
+    """The kernel tools on the card: ``sa_kernel_bench`` at every layer (K4,
+    K3 with ``--no-winners``, K5 / K6 with ``--bwd``) at batch 8, and
+    ``profile_step --steps 2`` at batch 8; a nonzero exit fails."""
+    from eda_tpu_torch.tools import profile_step, sa_kernel_bench
+
+    for layer in sorted(sa_kernel_bench.LAYERS):
+        for extra in ([], ["--no-winners"], ["--bwd"]):
+            argv = ["--layer", layer, "--batch", str(BATCH), "--iters", "8", "--inner", "2"]
+            if sa_kernel_bench.main(argv + extra):
+                raise AssertionError(f"sa_kernel_bench {argv + extra} failed")
+    with tempfile.TemporaryDirectory() as tmp:
+        if profile_step.main(["--steps", "2", "--batch", str(BATCH), "--out", tmp,
+                              "--top", "12"]):
+            raise AssertionError("profile_step failed")
+
+
+def device_sort_phase(root_cfg) -> None:
+    """Phase "device sort": ``ModelConfig(use_bf16=True, points_presorted=False)``
+    (each fused SA layer sorts its input on the card), the fused q/k/v
+    projection, the ``winner`` pool and the kernel tools."""
+    cfg = dataclasses.replace(root_cfg, points_presorted=False)
+    small_model_check(cfg)
+    device_sort_serving(cfg, root_cfg)
+    torch.cuda.empty_cache()
+    device_sort_training(cfg, root_cfg)
+    torch.cuda.empty_cache()
+    fused_qkv_layers()
+    fused_qkv_model(root_cfg)
+    torch.cuda.empty_cache()
+    winner_check()
+    torch.cuda.empty_cache()
+    tools_check()
+    torch.cuda.empty_cache()
+
+
 def bench_phase() -> None:
     """The bench's three timers at flagship batch 8 with few repetitions; its
     JSON lines go to stdout."""
@@ -2657,6 +3094,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_rows = phase("f32", f32_phase, ModelConfig())
     phase("gather", gather_phase, ModelConfig())
+    torch.cuda.empty_cache()
+    phase("device sort", device_sort_phase, cfg)
     busy = {k: round(v, 2) for k, v in PROFILED.items()}
     print(f"device busy ms of the profiled calls: {busy}")
     phase("bench", bench_phase)

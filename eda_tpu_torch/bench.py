@@ -190,12 +190,8 @@ def parse_args(argv=None):
                    help="SA implementation")
     p.add_argument("--no-mfu", action="store_true", help="skip the FLOP accounting")
     p.add_argument("--fused_qkv", type=int, default=None,
-                   help="ModelConfig.fused_qkv (0/1); only 0 is ported")
-    args = p.parse_args(argv)
-    if args.fused_qkv:
-        p.error("--fused_qkv 1: the port computes q, k and v as three products; the fused "
-                "projection is not ported (ROADMAP Queue 1 item 4)")
-    return args
+                   help="override ModelConfig.fused_qkv (0/1) for A/B runs")
+    return p.parse_args(argv)
 
 
 def main(argv=None) -> int:

@@ -50,9 +50,6 @@ class EDAGrounder(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.sa_impl == "fused" and not cfg.points_presorted:
-            raise NotImplementedError("the port runs the fused SA over presorted clouds only "
-                                      "(the device sort, ROADMAP Queue 1 item 4.4)")
         self.cfg = cfg
         dt = torch.bfloat16 if cfg.use_bf16 else torch.float32
         d = cfg.d_model
@@ -67,10 +64,11 @@ class EDAGrounder(nn.Module):
             sa_impl=cfg.sa_impl,
             nsamples=tuple(cfg.sa_nsamples),
             sa_ball_mode=cfg.sa_ball_mode,
+            points_presorted=cfg.points_presorted,
         )
         self.text_encoder = RobertaEncoder(
             cfg.text_vocab_size, cfg.text_hidden, cfg.text_layers, cfg.text_heads,
-            cfg.text_intermediate,
+            cfg.text_intermediate, fused_qkv=cfg.fused_qkv,
         )
         self.text_projector_dense = Dense(cfg.text_hidden, d)
         self.text_projector_norm = nn.LayerNorm(d, eps=1e-12)
@@ -86,7 +84,7 @@ class EDAGrounder(nn.Module):
         self.pos_embed = PositionEmbeddingLearned(3, d, dt)
         self.cross_encoder = nn.ModuleList([
             BiEncoderLayer(d, cfg.n_heads, cfg.dim_feedforward, cfg.self_attend, dt,
-                           cfg.dropout, butd=cfg.butd)
+                           cfg.dropout, butd=cfg.butd, fused_qkv=cfg.fused_qkv)
             for _ in range(cfg.num_encoder_layers)
         ])
         if cfg.contrastive_align:
@@ -97,7 +95,8 @@ class EDAGrounder(nn.Module):
         self.proposal_head = ClsAgnosticPredictHead(cfg.num_class, d, dt)
         self.decoder = nn.ModuleList([
             BiDecoderLayer(d, cfg.n_heads, cfg.dim_feedforward,
-                           cfg.self_position_embedding, dt, cfg.dropout, butd=cfg.butd)
+                           cfg.self_position_embedding, dt, cfg.dropout, butd=cfg.butd,
+                           fused_qkv=cfg.fused_qkv)
             for _ in range(cfg.num_decoder_layers)
         ])
         self.prediction_head = nn.ModuleList([

@@ -121,26 +121,52 @@ class MultiHeadAttention(nn.Module):
     logits, the masked logits (``finfo(dtype).min``), the softmax, and the
     ``probs @ v`` product. In train mode the attention weights drop out with
     one ``(1, 1, Lq, Lk)`` mask shared by every batch row and head.
+
+    With ``fuse`` (``ModelConfig.fused_qkv``; ``eda_tpu/models/layers.py:
+    _FusedMHACore``) the projections whose inputs are the same tensor run as
+    one wide product: ``q is k is v`` as one (d, 3d), ``q is k`` as (d, 2d)
+    beside v, ``k is v`` as q beside (d, 2d). The parameters stay the
+    unfused module's, so checkpoints and conversions do not change.
     """
 
     def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, fuse: bool = False):
         super().__init__()
         self.n_heads = n_heads
         self.dtype = dtype
+        self.fuse = fuse
         self.query = Dense(d_model, d_model, dtype=dtype)
         self.key = Dense(d_model, d_model, dtype=dtype)
         self.value = Dense(d_model, d_model, dtype=dtype)
         self.out = Dense(d_model, d_model, dtype=dtype)
         self.dropout = Dropout(dropout)
 
+    def _project(self, x, *dense: Dense):
+        """``x`` through the ``dense`` projections as one product, split back."""
+        w = torch.cat([m.weight for m in dense]).to(self.dtype)
+        b = torch.cat([m.bias for m in dense]).to(self.dtype)
+        return (F.linear(x.to(self.dtype), w) + b).chunk(len(dense), -1)
+
+    def projections(self, q, k, v):
+        """(q, k, v) projected; with ``fuse``, in one product where their inputs
+        are one tensor."""
+        if self.fuse:
+            if q is k and k is v:
+                return self._project(q, self.query, self.key, self.value)
+            if q is k:
+                return (*self._project(q, self.query, self.key), self.value(v))
+            if k is v:
+                return (self.query(q), *self._project(k, self.key, self.value))
+        return self.query(q), self.key(k), self.value(v)
+
     def forward(self, q, k, v, key_valid: Optional[torch.Tensor] = None):
         B, Lq, d = q.shape
         h = self.n_heads
         dh = d // h
-        qh = self.query(q).view(B, Lq, h, dh).transpose(1, 2)
-        kh = self.key(k).view(B, k.shape[1], h, dh).transpose(1, 2)
-        vh = self.value(v).view(B, v.shape[1], h, dh).transpose(1, 2)
+        qp, kp, vp = self.projections(q, k, v)
+        qh = qp.reshape(B, Lq, h, dh).transpose(1, 2)
+        kh = kp.reshape(B, k.shape[1], h, dh).transpose(1, 2)
+        vh = vp.reshape(B, v.shape[1], h, dh).transpose(1, 2)
         qh = qh / torch.tensor(math.sqrt(dh), dtype=torch.float32).to(self.dtype)
         w = qh @ kh.transpose(-1, -2)  # (B, h, Lq, Lk) in the compute dtype
         if key_valid is not None:
@@ -153,12 +179,14 @@ class MultiHeadAttention(nn.Module):
 class ResidualAttn(nn.Module):
     """``LayerNorm(x + attn(q, k, v))`` with ``q = x + q_pos``.
 
-    ``k=None`` means the keys are the queries (position embedding on both).
+    ``k=None`` means the keys are the queries (position embedding on both):
+    k is then the same tensor as q, which the fused projection reads once.
     """
 
-    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype, dropout: float = 0.0):
+    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype, dropout: float = 0.0,
+                 fuse: bool = False):
         super().__init__()
-        self.attn = MultiHeadAttention(d_model, n_heads, dtype, dropout)
+        self.attn = MultiHeadAttention(d_model, n_heads, dtype, dropout, fuse)
         self.dropout = Dropout(dropout)
         self.norm = nn.LayerNorm(d_model, eps=ATTN_LN_EPS)
 
@@ -209,22 +237,24 @@ class BiEncoderLayer(nn.Module):
     self-attention, then lang->vis attention + FFN and vis->lang attention
     + FFN, where both directions read the other modality's pre-cross features.
     With ``butd``, vision also attends to the detected boxes (``cross_d``,
-    no position embedding on the query) before its FFN.
+    no position embedding on the query) before its FFN. ``fused_qkv`` fuses
+    the attention projections (``MultiHeadAttention``).
     """
 
     def __init__(self, d_model: int, n_heads: int, dim_feedforward: int,
                  self_attend: bool, dtype: torch.dtype, dropout: float = 0.0,
-                 butd: bool = False):
+                 butd: bool = False, fused_qkv: bool = False):
         super().__init__()
         self.self_attend = self_attend
+        fu = fused_qkv
         if self_attend:
-            self.self_vis = ResidualAttn(d_model, n_heads, dtype, dropout)
-            self.self_lang = ResidualAttn(d_model, n_heads, dtype, dropout)
-        self.cross_lv = ResidualAttn(d_model, n_heads, dtype, dropout)
+            self.self_vis = ResidualAttn(d_model, n_heads, dtype, dropout, fu)
+            self.self_lang = ResidualAttn(d_model, n_heads, dtype, dropout, fu)
+        self.cross_lv = ResidualAttn(d_model, n_heads, dtype, dropout, fu)
         self.ffn_lv = FFN(d_model, dim_feedforward, dtype, dropout)
-        self.cross_vl = ResidualAttn(d_model, n_heads, dtype, dropout)
+        self.cross_vl = ResidualAttn(d_model, n_heads, dtype, dropout, fu)
         if butd:
-            self.cross_d = ResidualAttn(d_model, n_heads, dtype, dropout)
+            self.cross_d = ResidualAttn(d_model, n_heads, dtype, dropout, fu)
         self.ffn_vl = FFN(d_model, dim_feedforward, dtype, dropout)
 
     def forward(self, vis_feats, pos_feats, vis_valid, text_feats, text_valid,
@@ -244,21 +274,23 @@ class BiDecoderLayer(nn.Module):
     """Query self-attention -> cross(text) -> cross(boxes, ``butd``) -> cross(vision) -> FFN.
 
     The learned embedding of the query location is added to q (and to k in
-    self-attention) at every attention call.
+    self-attention) at every attention call. ``fused_qkv`` fuses the attention
+    projections (``MultiHeadAttention``).
     """
 
     def __init__(self, d_model: int, n_heads: int, dim_feedforward: int,
                  self_position_embedding: str, dtype: torch.dtype, dropout: float = 0.0,
-                 butd: bool = False):
+                 butd: bool = False, fused_qkv: bool = False):
         super().__init__()
+        fu = fused_qkv
         loc_dim = {"xyz_learned": 3, "loc_learned": 6}.get(self_position_embedding)
         if loc_dim is not None:
             self.self_posembed = PositionEmbeddingLearned(loc_dim, d_model, dtype)
-        self.self_attn = ResidualAttn(d_model, n_heads, dtype, dropout)
-        self.cross_l = ResidualAttn(d_model, n_heads, dtype, dropout)
+        self.self_attn = ResidualAttn(d_model, n_heads, dtype, dropout, fu)
+        self.cross_l = ResidualAttn(d_model, n_heads, dtype, dropout, fu)
         if butd:
-            self.cross_d = ResidualAttn(d_model, n_heads, dtype, dropout)
-        self.cross_v = ResidualAttn(d_model, n_heads, dtype, dropout)
+            self.cross_d = ResidualAttn(d_model, n_heads, dtype, dropout, fu)
+        self.cross_v = ResidualAttn(d_model, n_heads, dtype, dropout, fu)
         self.ffn = FFN(d_model, dim_feedforward, dtype, dropout)
 
     def forward(self, query, vis_feats, text_feats, query_loc, text_valid,

@@ -2,7 +2,8 @@
 
 Counterpart of ``eda_tpu/models/pointnet2.py``: four SA layers, then two FP
 layers. The SA layers are fused (``sa_impl="fused"``: chained in rank order
-over a Morton-presorted cloud) or gather layers (``"gather"``: FPS over the
+over a Morton-presorted cloud, or with ``points_presorted=False`` each
+layer sorting its input on the device) or gather layers (``"gather"``: FPS over the
 whole cloud, a ball query, the grouped neighbourhoods through a shared MLP
 with BatchNorm, max-pooled; the reference's PointNet++). ``end_points``
 keeps the JAX package's keys: ``sa{i}_xyz``, ``sa{i}_features``,
@@ -70,17 +71,19 @@ class SetAbstraction(nn.Module):
 class FusedSetAbstraction(nn.Module):
     """Index-free SA layer: FPS + fused windowed neighbourhood MLP + max pool.
 
-    Returns centers, features and center indices in ascending index order,
-    which over a Morton-sorted cloud is Morton order again: the next layer is
-    presorted too.
+    With ``presorted`` (a Morton-sorted input) it returns centers, features
+    and center indices in ascending index order, which is Morton order again:
+    the next layer is presorted too. Otherwise the fused SA sorts the points
+    on the device and everything comes back in FPS order.
     """
 
     def __init__(self, npoint: int, radius: float, window: int, in_features: int,
                  mlp_channels: Sequence[int], block: int = 64, fps_presample: int = 8192,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, presorted: bool = True):
         super().__init__()
         self.npoint, self.radius, self.window = npoint, radius, window
         self.block, self.fps_presample, self.dtype = block, fps_presample, dtype
+        self.presorted = presorted
         widths = [3 + in_features, *mlp_channels]
         self.kernels = nn.ParameterList(
             [nn.Parameter(torch.empty(a, b)) for a, b in zip(widths, widths[1:])]
@@ -90,10 +93,11 @@ class FusedSetAbstraction(nn.Module):
         self.ln_biases = nn.ParameterList([nn.Parameter(torch.zeros(c)) for c in mlp_channels])
 
     def sample(self, xyz: torch.Tensor) -> torch.Tensor:
-        """(B, npoint) FPS indices; two-stage over a Morton-stride presample of large clouds."""
+        """(B, npoint) FPS indices; two-stage over a Morton-stride presample of
+        large presorted clouds (an unsorted cloud's stride sample is no stratum)."""
         B, N, _ = xyz.shape
         P = self.fps_presample
-        if N >= 4 * P >= 4 * self.npoint:
+        if self.presorted and N >= 4 * P >= 4 * self.npoint:
             # a Morton-stride subsample is already spatially stratified, so FPS
             # over it keeps full-FPS coverage at a fraction of the serial cost
             sub = torch.arange(P, device=xyz.device) * N // P
@@ -105,10 +109,15 @@ class FusedSetAbstraction(nn.Module):
         inds = self.sample(xyz)
         params = SAParams(tuple(self.kernels), tuple(self.biases),
                           tuple(self.ln_scales), tuple(self.ln_biases))
-        new_features, inds = fused_set_abstraction(
+        out = fused_set_abstraction(
             xyz, features, inds, params, radius=self.radius, window=self.window,
-            block=self.block, compute_dtype=self.dtype,
+            block=self.block, compute_dtype=self.dtype, presorted=self.presorted,
+            return_rank_order=self.presorted,
         )
+        if self.presorted:
+            new_features, inds = out
+        else:
+            new_features = out
         return pointops.gather_points(xyz, inds), new_features, inds
 
 
@@ -130,8 +139,9 @@ class FeaturePropagation(nn.Module):
 
 
 class PointNetPPBackbone(nn.Module):
-    """4 SA + 2 FP layers over a (B, N, 3 + C) cloud, Morton-presorted for the
-    fused SA (``sa_impl``)."""
+    """4 SA + 2 FP layers over a (B, N, 3 + C) cloud. The fused SA
+    (``sa_impl``) chains its layers in rank order over a Morton-presorted
+    cloud (``points_presorted``), else each layer sorts on the device."""
 
     def __init__(self, input_feature_dim: int = 3,
                  npoints: Sequence[int] = (2048, 1024, 512, 256),
@@ -141,16 +151,20 @@ class PointNetPPBackbone(nn.Module):
                  fp_mlps: Sequence[Sequence[int]] = ((256, 256), (256, 288)),
                  sa_windows: Sequence[int] = (1024, 256, 256, 256),
                  dtype: torch.dtype = torch.float32, sa_impl: str = "fused",
-                 nsamples: Sequence[int] = (64, 32, 16, 16), sa_ball_mode: str = "nearest"):
+                 nsamples: Sequence[int] = (64, 32, 16, 16), sa_ball_mode: str = "nearest",
+                 points_presorted: bool = True):
         super().__init__()
         if sa_impl not in ("fused", "gather"):
             raise ValueError(f"unknown sa_impl {sa_impl!r}")
         self.sa_impl = sa_impl
+        # rank-order chaining: a rank-ordered subset of a Morton-sorted cloud is
+        # Morton-sorted at every coarser cell, so later layers need no sort
+        self.chain = sa_impl == "fused" and points_presorted
         in_feats = [input_feature_dim] + [m[-1] for m in mlps[:3]]
         for i in range(4):
             if sa_impl == "fused":
                 sa = FusedSetAbstraction(npoints[i], radii[i], sa_windows[i], in_feats[i],
-                                         mlps[i], dtype=dtype)
+                                         mlps[i], dtype=dtype, presorted=self.chain)
             else:
                 sa = SetAbstraction(npoints[i], radii[i], nsamples[i], in_feats[i], mlps[i],
                                     sa_ball_mode, dtype)
@@ -177,7 +191,7 @@ class PointNetPPBackbone(nn.Module):
                       end_points["sa2_features"], f1)
         end_points["fp2_features"] = f2
         end_points["fp2_xyz"] = end_points["sa2_xyz"]
-        if self.sa_impl == "fused":
+        if self.chain:
             # the seeds are sa2's points, whose input-cloud indices are tracked exactly
             end_points["fp2_inds"] = end_points["sa2_inds"]
         else:  # the reference's approximation (backbone_module.py:142)

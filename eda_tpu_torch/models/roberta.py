@@ -2,7 +2,8 @@
 
 Learned word and position embeddings, post-LN transformer blocks, exact-GELU
 FFN, all in f32. Position ids are ``arange(L) + 2`` (after RoBERTa's padding
-id), and attention masks the padding keys only.
+id), and attention masks the padding keys only. ``fused_qkv`` computes each
+layer's q, k and v as one (hidden, 3 hidden) product of the same parameters.
 """
 
 from __future__ import annotations
@@ -31,9 +32,9 @@ class RobertaEmbeddings(nn.Module):
 
 
 class RobertaLayer(nn.Module):
-    def __init__(self, hidden: int, heads: int, intermediate: int):
+    def __init__(self, hidden: int, heads: int, intermediate: int, fused_qkv: bool = False):
         super().__init__()
-        self.attention = MultiHeadAttention(hidden, heads)
+        self.attention = MultiHeadAttention(hidden, heads, fuse=fused_qkv)
         self.attention_norm = nn.LayerNorm(hidden, eps=LAYER_NORM_EPS)
         self.intermediate = Dense(hidden, intermediate)
         self.output = Dense(intermediate, hidden)
@@ -49,11 +50,11 @@ class RobertaEncoder(nn.Module):
     """Token ids (B, L) and validity mask (B, L) -> last hidden state (B, L, hidden)."""
 
     def __init__(self, vocab_size: int = 50265, hidden: int = 768, num_layers: int = 12,
-                 heads: int = 12, intermediate: int = 3072):
+                 heads: int = 12, intermediate: int = 3072, fused_qkv: bool = False):
         super().__init__()
         self.embeddings = RobertaEmbeddings(vocab_size, hidden)
         self.layer = nn.ModuleList(
-            [RobertaLayer(hidden, heads, intermediate) for _ in range(num_layers)]
+            [RobertaLayer(hidden, heads, intermediate, fused_qkv) for _ in range(num_layers)]
         )
 
     def forward(self, input_ids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,8 @@
   ``eda_tpu/utils/flops.py``'s exactly on the flagship and the tiny config,
   the measured SA occupancy equals the JAX replay's (the port's FPS is
   bit-exact with JAX's), and the MFU shares are the JAX formulas' at one peak;
-* what the bench does not port (``--fused_qkv 1``) is refused.
+* ``--fused_qkv 1``, refused until the fused projection was ported, builds
+  the fused model (``test_bench_refuses_what_it_does_not_port`` keeps its name).
 """
 
 import dataclasses
@@ -119,7 +120,11 @@ def test_bench_runs_the_gather_sa(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--fused_qkv", "1"]])
-def test_bench_refuses_what_it_does_not_port(argv, capsys):
-    with pytest.raises(SystemExit):
-        bench.parse_args(["--dry", "--cpu"] + argv)
-    assert "ROADMAP Queue 1 item 4" in capsys.readouterr().err
+def test_bench_refuses_what_it_does_not_port(argv, capsys, monkeypatch):
+    """The bench refused ``--fused_qkv 1`` until the fused projection was
+    ported; a ``--dry`` run now builds the fused model and prints its rate."""
+    seen = _build_config(monkeypatch)
+    assert bench.main(["--dry", "--cpu", "--no-train", "--iters", "2"] + argv) == 0
+    assert [c.fused_qkv for c in seen] == [True]
+    (line,) = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x]
+    assert line["metric"] == "grounding_forward_throughput" and line["value"] > 0

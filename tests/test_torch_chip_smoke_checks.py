@@ -33,7 +33,10 @@ wrong mask and accept a right one, so they run here on small CPU inputs
   ``prep_edge_inputs`` and ``mask_edge_inputs`` hold the edge cases their
   checks name (ragged row counts and windows, the widths and in_dims, clamped
   and unaligned windows, points on the radius); ``prep_bound`` reads the
-  points once and writes A once.
+  points once and writes A once;
+* the device-sort phase's ``permuted`` puts each scene's points in its own
+  random order and the per-point labels with them, and leaves the rest;
+  ``_leaf_rel_errs`` holds each gradient leaf to the largest value of all.
 """
 
 import numpy as np
@@ -428,3 +431,30 @@ def test_prep_f32_edge_inputs_hold_their_edge_cases():
         grads = sa_prep.sa_prep_bwd_plain(args[0], args[5], *args[1:4], radius=radius, **f32)
         assert A.shape == args[5].shape and torch.isfinite(A).all(), name
         assert all(torch.isfinite(g).all() for g in grads), name
+
+
+def test_permuted_batches_move_points_and_labels_together():
+    from eda_tpu_torch.entry import make_train_batch
+
+    cfg = ModelConfig(use_bf16=True).tiny()
+    batch = make_train_batch(cfg, range(2), "cpu")
+    batch["targets"]["point_instance_label"] = torch.arange(2 * cfg.num_points).view(2, -1)
+    out = chip_smoke.permuted(batch, seed=1)
+    pcs, labels = out["inputs"]["point_clouds"], out["targets"]["point_instance_label"]
+    for b in range(2):
+        perm = labels[b] - b * cfg.num_points  # each point's original index
+        assert sorted(perm.tolist()) == list(range(cfg.num_points))
+        assert not torch.equal(perm, torch.arange(cfg.num_points))
+        assert torch.equal(pcs[b], batch["inputs"]["point_clouds"][b][perm])
+    assert not torch.equal(labels[0], labels[1] - cfg.num_points)  # each scene its own order
+    assert torch.equal(out["inputs"]["text_ids"], batch["inputs"]["text_ids"])
+    assert torch.equal(out["targets"]["center_label"], batch["targets"]["center_label"])
+    serving = chip_smoke.permuted(batch["inputs"], seed=1)
+    assert torch.equal(serving["point_clouds"], pcs)
+
+
+def test_leaf_errors_take_the_largest_gradient_as_their_scale():
+    want = {"a": torch.tensor([100.0, -50.0]), "attn.key.bias": torch.tensor([1e-6])}
+    got = {"a": torch.tensor([100.5, -50.0]), "attn.key.bias": torch.tensor([0.1])}
+    errs = chip_smoke._leaf_rel_errs(got, want)
+    assert errs == pytest.approx({"a": 0.005, "attn.key.bias": 0.001}, rel=1e-4)

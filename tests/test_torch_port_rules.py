@@ -5,8 +5,9 @@
   of the JAX package ``eda_tpu``;
 * both import on a machine with no CUDA and no ``nvcc`` (kernels build on use);
 * entry points (``build``, ``entry``, ``build_evaluator``, the training CLI,
-  the bench, the window sweep and the class-table tool) run on CUDA unless the
-  caller asks for the CPU, and never fall back to the CPU by themselves;
+  the bench, the window sweep, the class-table tool, the SA kernel bench and
+  the step profiler) run on CUDA unless the caller asks for the CPU, and never
+  fall back to the CPU by themselves;
   ``chip_smoke.py`` fails without a card;
 * ``weights.load_flax`` maps every flax leaf and sets every port parameter;
 * the port's synthetic inputs and training targets are the JAX package's,
@@ -119,29 +120,40 @@ def test_build_evaluator_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def _tools(tmp_path):
+    """tool -> (main, argv, the flags that ask for the CPU)."""
     from eda_tpu_torch import bench
-    from eda_tpu_torch.tools import window_sweep
+    from eda_tpu_torch.tools import profile_step, sa_kernel_bench, window_sweep
     from eda_tpu_torch.train import cli
 
     return {
         "train": (cli.main, ["--debug", "--use_color", "--max_steps", "1", "--batch_size", "2",
-                             "--log_dir", str(tmp_path / "run")]),
-        "bench": (bench.main, ["--dry", "--no-train", "--no-mfu", "--iters", "1"]),
+                             "--log_dir", str(tmp_path / "run")], ["--cpu"]),
+        "bench": (bench.main, ["--dry", "--no-train", "--no-mfu", "--iters", "1"], ["--cpu"]),
         "window_sweep": (window_sweep.main, ["--dry", "--steps", "1", "--batch", "2",
                                              "--train-batches", "1", "--eval-batches", "1",
-                                             "--sweep", "default"]),
+                                             "--sweep", "default"], ["--cpu"]),
+        # at a tiny layer shape (the test sets LAYERS["sa1"])
+        "sa_kernel_bench": (sa_kernel_bench.main, ["--layer", "sa1", "--batch", "2", "--iters",
+                                                   "1", "--inner", "1", "--bwd"],
+                            ["--device", "cpu"]),
+        "profile_step": (profile_step.main, ["--dry", "--steps", "1", "--batch", "2", "--out",
+                                             str(tmp_path / "trace")], ["--device", "cpu"]),
     }
 
 
 @pytest.mark.usefixtures("one_torch_thread")
-@pytest.mark.parametrize("tool", ["train", "bench", "window_sweep"])
+@pytest.mark.parametrize("tool", ["train", "bench", "window_sweep", "sa_kernel_bench",
+                                  "profile_step"])
 def test_command_line_tools_need_cuda_unless_cpu_is_passed(tool, tmp_path, monkeypatch):
+    from eda_tpu_torch.tools import sa_kernel_bench
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    main, argv = _tools(tmp_path)[tool]
+    monkeypatch.setitem(sa_kernel_bench.LAYERS, "sa1", (1024, 128, 0.3, 256, 16, (16, 16, 32)))
+    main, argv, cpu = _tools(tmp_path)[tool]
     with pytest.raises(RuntimeError, match="CUDA"):
         main(argv)
-    assert not (tmp_path / "run").exists()
-    assert main(argv + ["--cpu"]) == 0
+    assert not (tmp_path / "run").exists() and not (tmp_path / "trace").exists()
+    assert main(argv + cpu) == 0
     assert all(k.launches == 0 for k in build.KERNELS.values())
 
 
@@ -191,12 +203,20 @@ def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
 
 
 def test_port_grounder_refuses_what_it_does_not_run():
-    """The fused SA's device sort (``points_presorted=False``) is not ported;
-    the gather SA never sorts, so it takes either setting, as in JAX."""
+    """The grounder refused the fused SA's device sort (``points_presorted=False``)
+    until it was ported: it now builds fused SA layers that sort their own
+    input and do not chain (no presample, features and centers in FPS order),
+    as ``eda_tpu/models/pointnet2.py:274``; the gather SA never sorts, so it
+    takes either setting, as in JAX."""
     cfg = ModelConfig(use_bf16=True).tiny()
-    with pytest.raises(NotImplementedError, match="item 4.4"):
-        EDAGrounder(dataclasses.replace(cfg, points_presorted=False))
-    EDAGrounder(dataclasses.replace(cfg, points_presorted=False, sa_impl="gather"))
+    for presorted in (True, False):
+        backbone = EDAGrounder(dataclasses.replace(cfg, points_presorted=presorted)).backbone_net
+        assert backbone.chain == presorted
+        for i in range(1, 5):
+            sa = getattr(backbone, f"sa{i}")
+            assert isinstance(sa, FusedSetAbstraction) and sa.presorted == presorted
+    gather = EDAGrounder(dataclasses.replace(cfg, points_presorted=False, sa_impl="gather"))
+    assert not gather.backbone_net.chain
 
 
 # refused until the f32 model and the gather SA were ported: each flag reaches
