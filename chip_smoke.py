@@ -201,10 +201,32 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    for bit, both timed. The kernel tools: ``sa_kernel_bench`` at every
    layer (K4, K3, K5 / K6) and ``profile_step --steps 2`` at batch 8. Then
    the device busy ms of every profiled call.
-14. The bench (``python -m eda_tpu_torch.bench --eval --batch 8 --iters 8``):
+14. Data and tensor parallelism (phase "parallel", ``eda_tpu_torch.parallel``).
+   In this process under a one-rank NCCL group, the flagship bf16 training
+   step at batch 8 must equal the ungrouped step from the same state bit for
+   bit (metrics, every parameter, BatchNorm statistic and AdamW moment) and
+   launch what it launches; the gradient and metric all-reduces go through
+   NCCL (the gradient's all-reduce timed). Then two spawned processes on the
+   one card, gloo named explicitly (NCCL takes one card a rank), every
+   collective staged through host memory: as data = 2 each takes its 4 rows
+   of the batch-8 step, in bf16 and in f32, and as data = 1 x model = 2 the
+   whole batch in bf16 (its forward before KPS within
+   ``PARALLEL_FORWARD_ATOL``), each against the one-process batch-8 step
+   from the same state on the same rows, first on that step's KPS indices and
+   matches, then on its own. The loss is held within ``PARALLEL_LOSS_REL``;
+   every metric, the gradient cosine globally and per leaf, the BatchNorm
+   statistics and the share of new parameters within 0.01 lr under the
+   precision's ``PARALLEL_GATES`` on the same decisions (pinned, or free
+   decisions that all came out equal); the share of decisions that differ
+   is printed. On every rank and in each mode: BatchNorm statistics and
+   losses equal on both ranks, two steps from one state bit for bit, the
+   launches of one training step, the split leaves still parts after the
+   step; each rank's ms a step and its all-reduces' count, bytes and host ms
+   are printed.
+15. The bench (``python -m eda_tpu_torch.bench --eval --batch 8 --iters 8``):
    the forward, training and eval timers at full width with few repetitions,
    their spreads on stderr and their JSON lines on stdout.
-15. Prints the per-kernel JSON line, the card line, and as its last line
+16. Prints the per-kernel JSON line, the card line, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Per kernel, the JSON line's ``ms``, ``plain_ms`` and ``bound_ms`` are sums over
@@ -3024,6 +3046,374 @@ def device_sort_phase(root_cfg) -> None:
     torch.cuda.empty_cache()
 
 
+# the parallel phase: the 2-rank and model = 2 steps against the one-process
+# batch-8 step on the same card. A parallel step differs from it in the order of
+# the BatchNorm sums and of the loss shares (and, tensor-parallel, in the
+# partial products, rounded to bf16 and summed in bf16 as XLA's psum), which
+# the bf16 roundings carry into KPS and match decisions: free-running, the
+# first full-width data = 2 step on an H100 80GB HBM3 at 700 W kept the loss
+# within 0.2% but its global gradient cosine was 0.44. So each step is held on
+# the one-process step's KPS indices and matches (their rows), as the CPU tests
+# hold the port to JAX, and again on its own decisions, where the share of
+# decisions that differ from the one-process step's is printed. Held always:
+# the loss within 1%, as JAX's own DP / TP tests allow (tests/test_train.py:
+# 121-144). Held on the same decisions (pinned, or free-running decisions that
+# all came out equal on every rank): every metric (grad_norm included, which a
+# gradient off by the rank count would miss by 2x), the global and per-leaf
+# gradient cosines, the BatchNorm statistics and the share of new parameters
+# within 0.01 lr of the one-process step's (AdamW's first update is about
+# lr * sign(g), so this is the share of gradient signs that agree; any two
+# first steps from one state lie within 2 lr), under the gates of the
+# precision, set from this phase's readings on an H100 80GB HBM3 at 700 W
+# (the same on every run: two steps from one state agree bit for bit). bf16:
+# the cosines and BatchNorm gates of the tiny card-vs-CPU step (readings:
+# global cosine 0.949 / 0.960 for data = 2 / model = 2, worst leaf 0.62 /
+# 0.64, BatchNorm 1.3e-3 / 1.4e-3, worst metric 2.2% / 3.4%), parameters
+# 0.7 (readings 0.777 / 0.821; 0.44 free-running, where 1.2% of the KPS
+# points and 84% of their positions moved). f32 (ModelConfig(use_bf16=False), where only the order of
+# the sums and the pools' bf16 A differ; readings for data = 2: cosine
+# 0.999997, worst leaf 0.999982, BatchNorm 6.2e-6, worst metric 7.5e-5,
+# parameters 0.9988), as tests/torch_parity.py's parallel gates
+PARALLEL_LOSS_REL = 0.01
+PARALLEL_GATES = {  # by use_bf16
+    True: dict(metric=0.10, metric_atol=1e-3, global_cos=GLOBAL_COS, leaf_cos=LEAF_COS,
+               bn=BN_REL, params=0.7),
+    False: dict(metric=1e-3, metric_atol=1e-6, global_cos=0.9999, leaf_cos=0.999, bn=1e-4,
+                params=0.99),
+}
+PARALLEL_FORWARD_ATOL = HEAD_ATOL
+PARALLEL_RANKS = 2
+
+
+def _fresh_state(cfg, device, mesh=None):
+    """The flagship training state of ``entry.build_trainer`` (seed 0), split on ``mesh``."""
+    from eda_tpu_torch.config import TrainConfig
+    from eda_tpu_torch.entry import STEPS_PER_EPOCH
+    from eda_tpu_torch.models.grounder import EDAGrounder
+    from eda_tpu_torch.parallel.mesh import shard_params
+    from eda_tpu_torch.train.optim import AdamW
+    from eda_tpu_torch.train.step import TrainState
+
+    model = EDAGrounder(cfg)
+    model.init_weights(0)
+    model = model.to(device).train()
+    if mesh is not None:
+        shard_params(model, mesh)
+    return TrainState(model, AdamW(model, TrainConfig(), STEPS_PER_EPOCH, mesh=mesh))
+
+
+def _timed_collectives(mesh) -> list:
+    """Record (bytes, host ms between synchronizes) of each of ``mesh``'s all-reduces
+    until ``del mesh.all_reduce_``."""
+    calls, plain = [], mesh.all_reduce_
+
+    def wrapped(x, axis="data"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = plain(x, axis)
+        torch.cuda.synchronize()
+        calls.append((x.numel() * x.element_size(), 1e3 * (time.perf_counter() - t)))
+        return out
+
+    mesh.all_reduce_ = wrapped
+    return calls
+
+
+def _against_one_process(label, state, ref, m, m_ref, mesh, gates) -> dict:
+    """A parallel step's metrics, gradients (this rank's parts), new parameters
+    and BatchNorm statistics against the one-process step's: the loss always
+    held, the rest under ``gates`` (``PARALLEL_GATES``) unless they are None.
+    Prints every number before any check raises."""
+    from eda_tpu_torch.config import TrainConfig
+    from eda_tpu_torch.parallel.mesh import shard, sharded_names
+    from eda_tpu_torch.train.optim import group_of
+
+    rel = {k: abs(float(m[k]) - float(m_ref[k])) / (abs(float(m_ref[k])) + 1e-9) for k in m_ref}
+    split = sharded_names(state.model, mesh)
+    ref_params = dict(ref.model.named_parameters())
+    got, want, leaves = [], [], {}
+    close = total = 0
+    lr = {"main": TrainConfig().lr, "backbone": TrainConfig().lr_backbone}
+    for name, p in state.model.named_parameters():
+        q = ref_params[name]
+        part = (lambda t: shard(t, split[name], mesh)) if name in split else (lambda t: t)
+        if p.grad is not None:
+            g, w = p.grad.flatten().double(), part(q.grad).flatten().double()
+            got.append(g)
+            want.append(w)
+            if not any(z in name for z in ZERO_GRAD) and w.norm() > 0:
+                leaves[name] = float(g @ w / (g.norm() * w.norm() + 1e-300))
+        if group_of(name) != "text":
+            diff = (p.detach() - part(q.detach())).abs()
+            close += int((diff <= 0.01 * lr[group_of(name)]).sum())
+            total += diff.numel()
+    g, w = torch.cat(got), torch.cat(want)
+    glob = float(g @ w / (g.norm() * w.norm()))
+    ref_stats = ref.model.state_dict()
+    bn = max(float((v - ref_stats[k]).abs().max() / (ref_stats[k].abs().max() + 1e-6))
+             for k, v in state.model.state_dict().items() if "running_" in k)
+    worst_leaf = min((c, n) for n, c in leaves.items())
+    out = dict(loss_rel=rel["loss"], grad_norm_rel=rel["grad_norm"],
+               worst_metric=max((v, k) for k, v in rel.items()), global_cos=glob,
+               worst_leaf_cos=worst_leaf[0], worst_leaf=worst_leaf[1], bn_rel=bn,
+               params_close=close / total, held=gates is not None)
+    print(f"{label} against the one-process step: {out}", flush=True)
+    failures = []
+    if rel["loss"] > PARALLEL_LOSS_REL:
+        failures.append(f"loss {float(m['loss'])} vs {float(m_ref['loss'])}")
+    if gates is not None:
+        bad = [k for k in m_ref if abs(float(m[k]) - float(m_ref[k]))
+               > gates["metric"] * abs(float(m_ref[k])) + gates["metric_atol"]]
+        below = sorted((c, n) for n, c in leaves.items() if c < gates["leaf_cos"])
+        if bad:
+            failures.append(f"metrics beyond {gates['metric']}: {bad}")
+        if glob < gates["global_cos"]:
+            failures.append(f"global gradient cosine {glob:.7f}")
+        if below:
+            failures.append(f"{len(below)} leaves below cosine {gates['leaf_cos']}: {below[:4]}")
+        if bn > gates["bn"]:
+            failures.append(f"BatchNorm statistics {bn:.3g} away")
+        if close < gates["params"] * total:
+            failures.append(f"{close / total:.5f} of the new parameters within 0.01 lr")
+    if failures:
+        raise AssertionError(f"{label}: " + "; ".join(failures))
+    return out
+
+
+def _bn_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        if "running_" in k:
+            h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _recorded_decisions(fn):
+    """``fn()`` and the KPS indices and matches it decided."""
+    from eda_tpu_torch.losses import criterion
+    from eda_tpu_torch.models import grounder
+
+    seen = {}
+
+    def recording(module, name):
+        plain = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            seen[name] = plain(*args, **kwargs)
+            return seen[name]
+
+        return patched(module, name, wrapped)
+
+    with recording(grounder, "top_k_indices"), recording(criterion, "hungarian_match"):
+        out = fn()
+    return out, seen
+
+
+@contextlib.contextmanager
+def _pinned(decisions, rows, batch_size: int):
+    """Inside the block the model takes the recorded KPS indices and the loss the
+    recorded matches, rows ``rows`` of each block of ``batch_size`` rows."""
+    from eda_tpu_torch.losses import criterion
+    from eda_tpu_torch.losses.matcher import MatchResult
+    from eda_tpu_torch.models import grounder
+
+    kps, match = decisions["top_k_indices"], decisions["hungarian_match"]
+    blocks = match.match_q.shape[0] // batch_size
+    idx = torch.cat([b * batch_size + rows for b in range(blocks)])
+    with patched(grounder, "top_k_indices", lambda logits, k: kps[rows]), \
+            patched(criterion, "hungarian_match",
+                    lambda *a, **k: MatchResult(*(t[idx] for t in match))):
+        yield
+
+
+def _decisions_differ(decisions, ref, rows, batch_size: int) -> dict:
+    """The shares that differ from the one-process step's ``ref`` decisions on
+    rows ``rows``: of the KPS indices by position (``kps``), of the KPS points
+    as a set (``kps_points``) and of the matched queries (``matches``)."""
+    kps, match, kps_ref = decisions["top_k_indices"], decisions["hungarian_match"], \
+        ref["top_k_indices"]
+    blocks = match.match_q.shape[0] // len(rows)
+    idx = torch.cat([b * batch_size + rows for b in range(blocks)])
+    want = ref["hungarian_match"].match_q[idx]
+    valid = ref["hungarian_match"].target_valid[idx]
+    chosen = (kps[:, :, None] == kps_ref[rows][:, None, :]).any(-1)
+    return dict(kps=float((kps != kps_ref[rows]).float().mean()),
+                kps_points=float((~chosen).float().mean()),
+                matches=float((match.match_q != want)[valid].float().mean()))
+
+
+def _parallel_steps(label, state, step, batch, ref, m_ref, mesh, decisions, rows,
+                    pinned: bool) -> dict:
+    """Two steps from one state (bit for bit), each rank's launches and ms, the
+    all-reduces' bytes and ms, and the step against the one-process step: on
+    its ``decisions`` (rows ``rows``) when ``pinned``, else on its own, held
+    under the precision's gates where every rank's decisions came out equal
+    to the one-process step's."""
+    import copy
+
+    batch_size = len(decisions["top_k_indices"])
+    decide = (lambda: _pinned(decisions, rows, batch_size)) if pinned else \
+        contextlib.nullcontext
+    twin = copy.deepcopy(state)
+    zero_launches()
+    with decide():
+        (m, own), ms = timed(lambda: _recorded_decisions(lambda: step(state, batch)))
+    check_launches({k: 0 for k in launch_counts()},
+                   step_launches("pair", f32=not state.model.cfg.use_bf16), f"{label} step")
+    calls = _timed_collectives(mesh)
+    try:
+        with decide():
+            m2 = step(twin, batch)
+    finally:
+        del mesh.all_reduce_
+    if not (all(torch.equal(m[k], m2[k]) for k in m) and _same_state(state, twin)):
+        raise AssertionError(f"{label}: two steps from one state differ")
+    del twin
+    differ = _decisions_differ(own, decisions, rows, batch_size)
+    same = not any(v for rank in mesh.gather_object(differ) for v in rank.values())
+    gates = PARALLEL_GATES[state.model.cfg.use_bf16] if pinned or same else None
+    out = _against_one_process(label, state, ref, m, m_ref, mesh, gates)
+    grad = max(calls)  # the flat gradient buffer is the largest all-reduce
+    out.update(ms=ms, loss=float(m["loss"]), digest=_bn_digest(state.model),
+               decisions_differ=differ, collectives=len(calls),
+               collective_ms=sum(c[1] for c in calls), grad_bytes=grad[0], grad_ms=grad[1],
+               shapes={n: tuple(p.shape) for n, p in state.model.named_parameters()})
+    return out
+
+
+def zero_launches() -> None:
+    from eda_tpu_torch.ops.cuda import build
+
+    for kernel in build.KERNELS.values():
+        kernel.launches = 0
+
+
+def parallel_rank(mesh, cfg, batch_size: int) -> dict:
+    """One of two ranks on the card (gloo, named by the caller): the data = 2
+    step on its rows in bf16 and in f32, then data = 1 x model = 2 on the whole
+    batch in bf16, each on the one-process step's decisions and on its own,
+    against the one-process step from the same state on the same rows; and
+    the model = 2 forward."""
+    from eda_tpu_torch.entry import make_train_batch
+    from eda_tpu_torch.losses.criterion import SetCriterionConfig
+    from eda_tpu_torch.parallel.mesh import make_mesh, process_batch_rows
+    from eda_tpu_torch.train.step import make_train_step
+
+    device = mesh.device
+    crit = SetCriterionConfig(num_decoder_layers=cfg.num_decoder_layers)
+    batch = make_train_batch(cfg, range(batch_size), device)
+    rows = torch.from_numpy(process_batch_rows(mesh, batch_size)).to(device)
+    local = {g: {k: v[rows] for k, v in a.items()} for g, a in batch.items()}
+    out = {}
+    for name, c in (("data=2", cfg), ("data=2 f32", dataclasses.replace(cfg, use_bf16=False))):
+        ref = _fresh_state(c, device)
+        m_ref, decisions = _recorded_decisions(lambda: make_train_step(crit)(ref, batch))
+        for label, pinned in ((name, True), (f"{name} free", False)):
+            out[label] = _parallel_steps(label, _fresh_state(c, device, mesh),
+                                         make_train_step(crit, mesh=mesh), local, ref, m_ref,
+                                         mesh, decisions, rows, pinned)
+        del ref
+        torch.cuda.empty_cache()
+
+    tp_mesh = make_mesh(data=1, model=PARALLEL_RANKS, device=device)
+    # the forward in eval mode against the one-process model's, from the same weights
+    model = _fresh_state(cfg, device, tp_mesh).model.eval()
+    fresh = _fresh_state(cfg, device).model.eval()
+    with torch.inference_mode():
+        ends, ends_ref = model(batch["inputs"]), fresh(batch["inputs"])
+    del model, fresh
+    forward = {k: float((ends[k].float() - ends_ref[k].float()).abs().max())
+               for k in ("seeds_obj_cls_logits", "proj_tokens", "text_memory")}
+    same = float((ends["query_points_sample_inds"]
+                  == ends_ref["query_points_sample_inds"]).float().mean())
+    del ends, ends_ref
+    print(f"model=2 forward against the one-process forward: max abs {forward}, {same:.4f} of "
+          "the query indices equal", flush=True)
+    if max(forward.values()) > PARALLEL_FORWARD_ATOL:
+        raise AssertionError(f"model=2 forward: {forward}")
+    ref = _fresh_state(cfg, device)
+    m_ref, decisions = _recorded_decisions(lambda: make_train_step(crit)(ref, batch))
+    every = torch.arange(batch_size, device=device)
+    for label, pinned in (("model=2", True), ("model=2 free", False)):
+        out[label] = _parallel_steps(label, _fresh_state(cfg, device, tp_mesh),
+                                     make_train_step(crit, mesh=tp_mesh), batch, ref, m_ref,
+                                     tp_mesh, decisions, every, pinned)
+    out["model=2"].update(forward=forward, same_queries=same)
+    return out
+
+
+def parallel_phase(root_cfg) -> None:
+    """Phase "parallel": W = 1 under NCCL bit for bit against the ungrouped
+    full-width step, then two gloo ranks on the card as data = 2 and as data = 1
+    x model = 2 against the one-process batch-8 step."""
+    import copy
+
+    import torch.distributed as dist
+
+    from eda_tpu_torch.entry import build_trainer
+    from eda_tpu_torch.losses.criterion import SetCriterionConfig
+    from eda_tpu_torch.parallel.launch import spawn
+    from eda_tpu_torch.parallel.mesh import init_process_group, make_mesh, shard_params
+    from eda_tpu_torch.train.step import make_train_step
+
+    state, step, batch = build_trainer(root_cfg, batch_size=BATCH, device="cuda", seed=0)
+    twin = copy.deepcopy(state)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_process_group(0, 1, f"file://{tmp}/store", "nccl", "cuda:0")
+        try:
+            mesh = make_mesh(device="cuda:0")
+            shard_params(twin.model, mesh)  # data = model = 1: no parameter changes
+            mesh_step = make_train_step(
+                SetCriterionConfig(num_decoder_layers=root_cfg.num_decoder_layers), mesh=mesh)
+            launches = {}
+            for label, fn, st in (("ungrouped", step, state), ("nccl W=1", mesh_step, twin)):
+                zero_launches()
+                launches[label] = (fn(st, batch), launch_counts())
+                check_launches({k: 0 for k in launch_counts()}, step_launches("pair"), label)
+            (m1, _), (m2, _) = launches.values()
+            if not (all(torch.equal(m1[k], m2[k]) for k in m1) and _same_state(state, twin)):
+                raise AssertionError("the W = 1 NCCL step is not the ungrouped step bit for bit")
+            _, ms_plain = timed(lambda: step(state, batch))
+            _, ms_nccl = timed(lambda: mesh_step(twin, batch))
+            flat = torch.cat([p.grad.reshape(-1) for p in twin.optimizer.params
+                              if p.grad is not None])
+            ar_ms = cuda_ms(lambda: mesh.all_reduce_(flat), 10)
+            print(f"parallel W=1 nccl: {len(m1)} metrics, every parameter, BatchNorm statistic "
+                  f"and moment bit-identical to the ungrouped step, launches "
+                  f"{step_launches('pair')} each; step {ms_plain:.2f} ms ungrouped, "
+                  f"{ms_nccl:.2f} ms under NCCL; gradient all-reduce {ar_ms:.3f} ms over "
+                  f"{flat.numel() * 4 / 1e6:.1f} MB")
+            del flat
+        finally:
+            dist.destroy_process_group()
+    del state, twin, step, batch
+    torch.cuda.empty_cache()
+
+    print(f"parallel: {PARALLEL_RANKS} ranks on one card over gloo, every collective staged "
+          "through host memory (gloo's CUDA support does not cover every collective)")
+    ranks = spawn(parallel_rank, PARALLEL_RANKS, root_cfg, BATCH, device="cuda:0",
+                  backend="gloo", timeout=600)
+    for mode in ranks[0]:
+        runs = [r[mode] for r in ranks]
+        if len({r["digest"] for r in runs}) != 1 or len({r["loss"] for r in runs}) != 1:
+            raise AssertionError(f"{mode}: the ranks' BatchNorm statistics or losses differ")
+        for r, run in enumerate(runs):
+            keep = {k: round(v, 6) if isinstance(v, float) else v for k, v in run.items()
+                    if k not in ("shapes", "digest")}
+            print(f"parallel {mode} rank {r}: {json.dumps(keep)}")
+    split = [n for n, shape in ranks[0]["model=2"]["shapes"].items()
+             if shape != ranks[0]["data=2"]["shapes"][n]]
+    from eda_tpu_torch.parallel.mesh import tp_param_spec
+
+    want = [n for n in ranks[0]["data=2"]["shapes"] if tp_param_spec(n) is not None]
+    if split != want:
+        raise AssertionError(f"model=2: {len(split)} leaves are parts after the step, "
+                             f"{len(want)} should be")
+    print(f"parallel model=2: {len(split)} split leaves still parts after the step")
+
+
 def bench_phase() -> None:
     """The bench's three timers at flagship batch 8 with few repetitions; its
     JSON lines go to stdout."""
@@ -3096,6 +3486,8 @@ def main() -> int:
     phase("gather", gather_phase, ModelConfig())
     torch.cuda.empty_cache()
     phase("device sort", device_sort_phase, cfg)
+    torch.cuda.empty_cache()
+    phase("parallel", parallel_phase, cfg)
     busy = {k: round(v, 2) for k, v in PROFILED.items()}
     print(f"device busy ms of the profiled calls: {busy}")
     phase("bench", bench_phase)

@@ -15,6 +15,11 @@ the fused forward + scoring step, a grounding evaluator and a batch with
 targets. The device is CUDA unless the caller passes ``device="cpu"``; without
 CUDA and without an explicit device they raise, they never move to the CPU by
 themselves.
+
+``dryrun_multichip(n)`` is the twin of ``__graft_entry__.dryrun_multichip``:
+one training step of the tiny two-stage model on a data x model mesh of
+``n`` spawned processes, NCCL ranks on ``n`` cards (gloo ranks on the CPU
+with ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -125,6 +130,61 @@ def build_evaluator(cfg: Optional[ModelConfig] = None, *, batch_size: int,
     evaluator = GroundingEvaluator(prefixes=("last_", "proposal_"))
     score_step = make_eval_score_step(model, prefixes=evaluator.prefixes, modes=evaluator.modes)
     return model, score_step, evaluator, make_train_batch(cfg, range(batch_size), dev)
+
+
+def _dryrun_rank(mesh, n: int):
+    """One rank of ``dryrun_multichip``: its rows of the n-scene batch, one step."""
+    import math
+
+    import numpy as np
+
+    from eda_tpu_torch.parallel.mesh import make_global_batch, process_batch_rows, shard_params
+
+    cfg = dataclasses.replace(ModelConfig().tiny(), butd=True)
+    gen = SyntheticScenes(SyntheticConfig(num_points=cfg.num_points, num_objects=4, text_len=32,
+                                          max_objects=16), vocab_size=cfg.text_vocab_size)
+    rows = process_batch_rows(mesh, n)  # one scene per data rank's device, as JAX's
+    batch = make_global_batch(gen.train_batch(np.arange(n)[rows], butd=True), mesh, n)
+    model = EDAGrounder(cfg)
+    model.init_weights(0)
+    model = shard_params(model.to(mesh.device).train(), mesh)
+    optimizer = AdamW(model, TrainConfig(), steps_per_epoch=10, mesh=mesh)
+    state = TrainState(model, optimizer)
+    step = make_train_step(SetCriterionConfig(num_decoder_layers=cfg.num_decoder_layers),
+                           mesh=mesh)
+    loss = float(step(state, batch)["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"non-finite loss {loss}")
+    if state.step != 1:
+        raise AssertionError(f"step count {state.step} after one step")
+    return loss
+
+
+def dryrun_multichip(n_devices: int, device: Optional[str] = None) -> None:
+    """One training step of the tiny two-stage model over ``n_devices`` ranks.
+
+    The batch (one scene a rank) splits over the ``data`` axis, the attention
+    and FFN weights split over ``model`` = 2 when ``n_devices`` is even and at
+    least 4 (else 1): global BatchNorm statistics, the gradient all-reduce and
+    the tensor-parallel sums all run. The ranks are spawned processes: NCCL
+    ranks, rank r on card r, unless ``device="cpu"`` asks for gloo ranks on
+    the CPU; without CUDA and without ``device="cpu"`` it raises. The kernels
+    are built once, before the ranks start. JAX's second pass, an
+    ahead-of-time compile of the flagship step, has no eager counterpart.
+    """
+    from eda_tpu_torch.parallel.launch import spawn
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from eda_tpu_torch.ops.cuda import build
+
+        build.build_all()
+    tp = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
+    losses = spawn(_dryrun_rank, n_devices, n_devices, model=tp, device=str(dev))
+    if len(set(losses)) != 1:
+        raise AssertionError(f"the ranks' losses differ: {losses}")
+    print(f"dryrun_multichip({n_devices}): mesh data={n_devices // tp} model={tp}, "
+          f"loss={losses[0]:.4f} OK")
 
 
 def entry(device: Optional[str] = None, **overrides) -> torch.Tensor:

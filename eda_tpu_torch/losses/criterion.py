@@ -6,6 +6,13 @@ Every loss consumes the dense ``MatchResult`` and the padded targets
 the five token maps (B, G, L), ``point_instance_label`` (B, N),
 ``text_lengths`` (B,)). The matches of all prediction prefixes run as one
 batched auction; the metric names are the JAX package's.
+
+Under data parallelism (a ``mesh`` of W data ranks, each holding B / W rows
+of the global batch) each rank's loss is its share of the global loss, so
+that the shares sum to the loss the JAX package computes over the global
+batch: ``num_boxes`` is the group's count, the matched terms are the rank's
+sums over it, and the batch means (KPS) divide by the global batch. The
+gradients of the shares are then summed over the group, not averaged.
 """
 
 from __future__ import annotations
@@ -32,6 +39,11 @@ class SetCriterionConfig:
     num_decoder_layers: int = 6
     dataset: str = "scanrefer"  # scanrefer | sr3d | nr3d | scannet
     use_contrastive_align: bool = True
+    # the data-parallel width whose DDP gradient averaging the loss reproduces
+    # (eda_tpu/losses/criterion.py:59-66): num_boxes is multiplied by it, so the
+    # Hungarian terms carry the 1 / world_size that DDP's average gives them
+    # and the per-replica KPS mean does not; 1 = the single-GPU recipe
+    num_replicas: int = 1
 
     @property
     def pos_weights(self) -> Tuple[float, float, float, float]:
@@ -55,8 +67,9 @@ def sigmoid_focal_loss(logits, targets, weights, alpha: float = 0.25, gamma: flo
     return alpha_w * (pt ** gamma) * bce * weights
 
 
-def kps_loss(end_points: dict, targets: dict, topk: int) -> torch.Tensor:
-    """Seed objectness loss with hard top-k positives."""
+def kps_loss(end_points: dict, targets: dict, topk: int, batch_total=None) -> torch.Tensor:
+    """Seed objectness loss with hard top-k positives, summed over the rows and
+    divided by ``batch_total`` (default: the rows given)."""
     seed_inds = end_points["seed_inds"].long()  # (B, K)
     seed_xyz = end_points["seed_xyz"]
     logits = end_points["seeds_obj_cls_logits"]
@@ -78,7 +91,7 @@ def kps_loss(end_points: dict, targets: dict, topk: int) -> torch.Tensor:
     objectness.scatter_(1, scatter.reshape(B, -1), 1.0)
     objectness = torch.where(fg, objectness[:, :K], torch.zeros_like(logits))
     weights = torch.full((B, K), 1.0 / max(K, 1), device=logits.device)
-    return sigmoid_focal_loss(logits, objectness, weights).sum() / B
+    return sigmoid_focal_loss(logits, objectness, weights).sum() / (batch_total or B)
 
 
 def _gather_per_query(match: MatchResult, per_target: torch.Tensor) -> torch.Tensor:
@@ -175,15 +188,20 @@ def sem_align_loss(cfg, proj_queries, proj_tokens, match, targets, num_boxes):
     return (box_to_token_loss + token_to_box_loss) / 2.0 / num_boxes
 
 
-def compute_hungarian_loss(cfg: SetCriterionConfig, end_points: dict,
-                           targets: dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(scalar loss, metrics) over all prediction prefixes."""
+def compute_hungarian_loss(cfg: SetCriterionConfig, end_points: dict, targets: dict,
+                           mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(scalar loss, metrics) over all prediction prefixes; with a ``mesh`` of
+    several data ranks, this rank's shares of them."""
     prefixes = decoder_prefixes(cfg.num_decoder_layers)
     P = len(prefixes)
     gt_boxes = torch.cat([targets["center_label"], targets["size_gts"]], -1)
     gt_xyzxyz = box_cxcyczwhd_to_xyzxyz(gt_boxes)
     target_valid = targets["box_label_mask"] > 0
-    num_boxes = torch.clamp(target_valid.float().sum(), min=1.0)
+    count = target_valid.float().sum()
+    shares = mesh is not None and mesh.data > 1
+    if shares:
+        count = mesh.all_reduce_(count, "data")
+    num_boxes = torch.clamp(count, min=1.0) * float(cfg.num_replicas)
 
     boxes = [torch.cat([end_points[f"{p}center"], end_points[f"{p}pred_size"]], -1)
              for p in prefixes]
@@ -213,7 +231,8 @@ def compute_hungarian_loss(cfg: SetCriterionConfig, end_points: dict,
             metrics[f"{prefix}loss_sem_align"] = sem
         for key, value in (("ce", ce), ("bbox", bbox), ("giou", giou), ("sem", sem)):
             totals[key] = totals[key] + value
-    kps = kps_loss(end_points, targets, cfg.query_points_obj_topk)
+    kps = kps_loss(end_points, targets, cfg.query_points_obj_topk,
+                   B * mesh.data if shares else None)
     w = cfg.loss_weight
     loss = 8.0 * kps + (1.0 / (cfg.num_decoder_layers + 1)) * (
         w * totals["ce"] + 5.0 * totals["bbox"] + totals["giou"] + w * totals["sem"])

@@ -13,6 +13,13 @@ Counterparts of ``eda_tpu/models/layers.py``. Conventions kept from the JAX pack
 
 ``train()`` / ``eval()`` switch dropout and BatchNorm's batch statistics as
 flax's ``train`` flag does; dropout sits where the JAX modules put it.
+
+Under data parallelism ``parallel.shard_params`` gives every ``BatchNorm``
+and ``Dropout`` the mesh (``mesh``): in train mode the statistics are those
+of the global batch and each rank draws the global batch's mask and keeps
+its rows; eval mode reads neither. Under tensor parallelism it also sets
+``tp`` on the attention, FFN and RoBERTa layers, which then run their share
+of the heads and hidden units.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from eda_tpu_torch.parallel.mesh import copy_to_model, global_sum, reduce_from_model
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax momentum (eda_tpu/models/pointnet2.py:30)
@@ -46,14 +55,27 @@ class Dense(nn.Module):
         return y
 
 
+def row_parallel(dense: Dense, x: torch.Tensor, mesh) -> torch.Tensor:
+    """``dense(x)`` with ``dense``'s weight split by columns over the model group:
+    the partial products summed in the compute dtype (as XLA's psum), then the
+    replicated bias added once."""
+    y = reduce_from_model(F.linear(x.to(dense.dtype), dense.weight.to(dense.dtype)), mesh)
+    return y if dense.bias is None else y + dense.bias.to(dense.dtype)
+
+
 class BatchNorm(nn.Module):
     """flax ``BatchNorm`` over the last axis, in f32.
 
     Eval mode normalises with the running statistics. Train mode normalises
     with the batch statistics over every other axis, with flax's fast
     variance ``E[x^2] - E[x]^2`` (biased, clipped at 0), and updates the
-    running statistics as flax does: ``r = 0.9 r + 0.1 batch``.
+    running statistics as flax does: ``r = 0.9 r + 0.1 batch``. With a ``mesh``
+    of several data ranks the sums of ``x`` and ``x^2`` are all-reduced over
+    its data group and divided by the global count (the flax statistics of
+    the global batch), so the running statistics stay equal on every rank.
     """
+
+    mesh = None  # parallel.shard_params
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
@@ -67,8 +89,14 @@ class BatchNorm(nn.Module):
         x = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(axes)
-            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            if self.mesh is not None and self.mesh.data > 1:
+                count = x.numel() // x.shape[-1] * self.mesh.data
+                mean, mean2 = global_sum(torch.stack([x.sum(axes), (x * x).sum(axes)]),
+                                         self.mesh) / count
+                var = torch.clamp(mean2 - mean * mean, min=0.0)
+            else:
+                mean = x.mean(axes)
+                var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(BN_MOMENTUM * self.running_mean
                                         + (1 - BN_MOMENTUM) * mean)
@@ -89,20 +117,36 @@ class Dropout(nn.Dropout):
     In train mode the mask is drawn on the input's device from ``generator``,
     which the training step sets for the length of one step
     (``train.step.dropout_generator``), as flax draws from the step's
-    ``dropout`` key; without one the layer raises.
+    ``dropout`` key; without one the layer raises. With a ``mesh``
+    the mask of the input's own shape is drawn over the global batch (the
+    data ranks' rows stacked) and the rank keeps its rows, so W ranks drop
+    what one process drops on the whole batch; ``split`` (a mesh) does the
+    same over the last axis for an input split over the model group.
     """
 
     generator: Optional[torch.Generator] = None
+    mesh = None
 
-    def forward(self, x: torch.Tensor, shape=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shape=None, split=None) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         if self.generator is None:
             raise RuntimeError("train-mode dropout draws from the training step's generator "
                                "(eda_tpu_torch.train.step.dropout_generator)")
         keep_prob = 1.0 - self.p
-        keep = torch.rand(shape if shape is not None else x.shape, device=x.device,
-                          generator=self.generator) < keep_prob
+        if shape is not None:
+            keep = torch.rand(shape, device=x.device, generator=self.generator) < keep_prob
+        else:
+            full = list(x.shape)
+            if self.mesh is not None:
+                full[0] *= self.mesh.data
+            if split is not None:
+                full[-1] *= split.model
+            keep = torch.rand(full, device=x.device, generator=self.generator) < keep_prob
+            if self.mesh is not None:
+                keep = keep.narrow(0, self.mesh.data_rank * x.shape[0], x.shape[0])
+            if split is not None:
+                keep = keep.narrow(-1, split.model_rank * x.shape[-1], x.shape[-1])
         return torch.where(keep, x / torch.tensor(keep_prob, dtype=x.dtype), torch.zeros_like(x))
 
 
@@ -127,7 +171,14 @@ class MultiHeadAttention(nn.Module):
     one wide product: ``q is k is v`` as one (d, 3d), ``q is k`` as (d, 2d)
     beside v, ``k is v`` as q beside (d, 2d). The parameters stay the
     unfused module's, so checkpoints and conversions do not change.
+
+    With ``tp`` (a mesh, ``parallel.shard_params``) the module holds the rows
+    of q / k / v and the columns of ``out`` of its share of the heads, runs
+    those heads, and sums the out projection's partial products over the
+    model group.
     """
+
+    tp = None
 
     def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype = torch.float32,
                  dropout: float = 0.0, fuse: bool = False):
@@ -160,10 +211,12 @@ class MultiHeadAttention(nn.Module):
         return self.query(q), self.key(k), self.value(v)
 
     def forward(self, q, k, v, key_valid: Optional[torch.Tensor] = None):
+        if self.tp is not None:
+            q, k, v = copy_to_model(self.tp, q, k, v)
         B, Lq, d = q.shape
-        h = self.n_heads
-        dh = d // h
+        dh = d // self.n_heads
         qp, kp, vp = self.projections(q, k, v)
+        h = qp.shape[-1] // dh  # the heads this rank runs
         qh = qp.reshape(B, Lq, h, dh).transpose(1, 2)
         kh = kp.reshape(B, k.shape[1], h, dh).transpose(1, 2)
         vh = vp.reshape(B, v.shape[1], h, dh).transpose(1, 2)
@@ -172,8 +225,8 @@ class MultiHeadAttention(nn.Module):
         if key_valid is not None:
             w = w.masked_fill(~key_valid[:, None, None, :].bool(), torch.finfo(w.dtype).min)
         w = self.dropout(softmax_rounded(w), shape=(1, 1) + tuple(w.shape[-2:]))
-        x = w @ vh
-        return self.out(x.transpose(1, 2).reshape(B, Lq, d))
+        x = (w @ vh).transpose(1, 2).reshape(B, Lq, h * dh)
+        return self.out(x) if self.tp is None else row_parallel(self.out, x, self.tp)
 
 
 class ResidualAttn(nn.Module):
@@ -198,7 +251,10 @@ class ResidualAttn(nn.Module):
 
 
 class FFN(nn.Module):
-    """``LayerNorm(x + Dense(relu(Dense(x))))``."""
+    """``LayerNorm(x + Dense(relu(Dense(x))))``; with ``tp`` (a mesh) the hidden
+    units split over the model group (column- then row-parallel)."""
+
+    tp = None
 
     def __init__(self, d_model: int, dim_feedforward: int, dtype: torch.dtype,
                  dropout: float = 0.0):
@@ -211,8 +267,12 @@ class FFN(nn.Module):
         self.norm = nn.LayerNorm(d_model, eps=ATTN_LN_EPS)
 
     def forward(self, x):
-        h = self.dropout(torch.relu(self.dense[0](x)))
-        return self.norm(x + self.dropout(self.dense[1](h)))
+        if self.tp is None:
+            h = self.dropout(torch.relu(self.dense[0](x)))
+            return self.norm(x + self.dropout(self.dense[1](h)))
+        (xs,) = copy_to_model(self.tp, x)
+        h = self.dropout(torch.relu(self.dense[0](xs)), split=self.tp)
+        return self.norm(x + self.dropout(row_parallel(self.dense[1], h, self.tp)))
 
 
 class PositionEmbeddingLearned(nn.Module):

@@ -4,6 +4,9 @@ Learned word and position embeddings, post-LN transformer blocks, exact-GELU
 FFN, all in f32. Position ids are ``arange(L) + 2`` (after RoBERTa's padding
 id), and attention masks the padding keys only. ``fused_qkv`` computes each
 layer's q, k and v as one (hidden, 3 hidden) product of the same parameters.
+With ``tp`` (a mesh, ``parallel.shard_params``) a layer runs its share of the
+heads and of the intermediate units (``intermediate`` column-, ``output``
+row-parallel).
 """
 
 from __future__ import annotations
@@ -12,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from eda_tpu_torch.models.layers import Dense, MultiHeadAttention
+from eda_tpu_torch.models.layers import Dense, MultiHeadAttention, row_parallel
+from eda_tpu_torch.parallel.mesh import copy_to_model
 
 LAYER_NORM_EPS = 1e-5  # roberta-base config
 PAD_TOKEN_ID = 1
@@ -32,6 +36,8 @@ class RobertaEmbeddings(nn.Module):
 
 
 class RobertaLayer(nn.Module):
+    tp = None
+
     def __init__(self, hidden: int, heads: int, intermediate: int, fused_qkv: bool = False):
         super().__init__()
         self.attention = MultiHeadAttention(hidden, heads, fuse=fused_qkv)
@@ -42,7 +48,12 @@ class RobertaLayer(nn.Module):
 
     def forward(self, h: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         h = self.attention_norm(h + self.attention(h, h, h, valid))
-        f = self.output(F.gelu(self.intermediate(h), approximate="none"))
+        if self.tp is None:
+            f = self.output(F.gelu(self.intermediate(h), approximate="none"))
+        else:
+            (hs,) = copy_to_model(self.tp, h)
+            f = row_parallel(self.output, F.gelu(self.intermediate(hs), approximate="none"),
+                             self.tp)
         return self.output_norm(h + f)
 
 

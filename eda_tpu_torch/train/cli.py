@@ -9,18 +9,34 @@ the same epoch permutation and index chunks, checkpoint auto-resume from
     python -m eda_tpu_torch.train --dataset synthetic --debug --max_steps 3 \\
         --log_dir logs/smoke            # on the card
     python -m eda_tpu_torch.train ... --cpu   # on the CPU
+    torchrun --nproc_per_node N -m eda_tpu_torch.train ...   # data-parallel
+
+Data parallelism, as ``train.py`` over its mesh: under torchrun (or with
+``EDA_TPU_MULTIHOST`` set, which then requires torchrun's variables) every
+process is one data rank on ``cuda:LOCAL_RANK`` over NCCL, or on the CPU over
+gloo with ``--cpu``. The global batch is ``--batch_size`` raised to the rank
+count and rounded down to a multiple of it, each rank assembles only its rows
+of every epoch chunk, the loss's ``num_replicas`` is the rank count, and the
+evaluation rounds its batch to the rank count, each rank scoring its rows
+and gathering the IoU stacks (the detection evaluation its end points), so
+every rank counts the global batch. Two ranks may not share a card.
 
 Differences from ``train.py``, by design:
 
 * it runs on CUDA unless ``--cpu`` is given, and raises without CUDA;
-* one device, so the global batch is ``--batch_size``;
+* one process per card (torchrun's idiom) where ``train.py`` runs one
+  process over every local device;
+* the log, ``metrics.jsonl``, ``tb/``, ``config.json``, the profile and the
+  checkpoints are written by rank 0 alone, to its disk (each host of a
+  ``train.py`` run writes its own), so several hosts resume only from a
+  ``--log_dir`` (or ``--checkpoint_path``) that they share: every rank
+  restores the entry rank 0 chose, and a rank that does not see that entry,
+  or sees another file under its name, stops the restore with an error;
 * checkpoints are the port's (``train/checkpoint.py``); orbax directories are
   not read;
 * ``--profile N`` writes a ``torch.profiler`` trace to ``LOG_DIR/profile``;
 * the model takes its per-point feature width from the first batch, as the
-  flax model infers it at init (synthetic scenes always carry RGB);
-* what the port does not have yet is refused with the ROADMAP item that
-  brings it: several hosts (item 6).
+  flax model infers it at init (synthetic scenes always carry RGB).
 
 Real data (``--dataset scanrefer|sr3d|sr3d+|nr3d``, ``--joint_det``) reads
 the scan store that ``python -m eda_tpu_torch.tools.pack_scans`` writes under
@@ -53,6 +69,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from eda_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
 from eda_tpu_torch.data.class_config import (
@@ -74,6 +91,14 @@ from eda_tpu_torch.eval.detection import APCalculator
 from eda_tpu_torch.eval.grounding import GroundingEvaluator
 from eda_tpu_torch.losses.criterion import SetCriterionConfig
 from eda_tpu_torch.models.grounder import EDAGrounder
+from eda_tpu_torch.parallel.mesh import (
+    init_from_env,
+    make_global_batch,
+    process_batch_rows,
+    shard_params,
+    to_host_global,
+    torchrun_env,
+)
 from eda_tpu_torch.train.checkpoint import CheckpointManager
 from eda_tpu_torch.train.convert import load_eda_pth, warm_start
 from eda_tpu_torch.train.optim import AdamW
@@ -140,7 +165,7 @@ def parse_args(argv=None):
                    help="accepted for compatibility; only the reference default 0.1 is "
                         "implemented (a fixed constant)")
     p.add_argument("--syncbn", action="store_true",
-                   help="accepted for compatibility; one device, so BN statistics are the "
+                   help="accepted for compatibility; BN statistics are always the global "
                         "batch's")
     p.add_argument("--start_epoch", type=int, default=1,
                    help="accepted for compatibility; auto-resume restores the epoch from the "
@@ -319,24 +344,48 @@ TRAIN_SCALARS = ("loss", "loss_ce", "loss_bbox", "loss_giou", "loss_sem_align",
                  "query_points_generation_loss", "grad_norm")
 
 
+def data_size(mesh) -> int:
+    return 1 if mesh is None else mesh.data
+
+
+def round_to_data(bsz: int, mesh) -> int:
+    """``bsz`` raised to the data rank count and rounded down to a multiple of it
+    (``train.py:305-307``, ``:536-539``)."""
+    n = data_size(mesh)
+    bsz = max(bsz, n)
+    return bsz - bsz % n
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if os.environ.get("EDA_TPU_MULTIHOST"):
-        raise SystemExit("EDA_TPU_MULTIHOST: several hosts are not ported "
-                         "(ROADMAP Queue 1 item 6)")
-    device = resolve_device("cpu" if args.cpu else None)
+    mesh = None
+    if torchrun_env() or os.environ.get("EDA_TPU_MULTIHOST"):
+        mesh = init_from_env(cpu=args.cpu)
+    try:
+        return run(args, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def run(args, mesh) -> int:
+    device = resolve_device(str(mesh.device) if mesh is not None else "cpu" if args.cpu else None)
+    rank0 = mesh is None or mesh.rank == 0
     model_cfg, train_cfg, _ = build_configs(args)
     os.makedirs(args.log_dir, exist_ok=True)
-    logger = setup_logger(args.log_dir)
+    logger = setup_logger(args.log_dir, write=rank0)
     logger.info("device: %s%s", device,
                 f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
-    with open(os.path.join(args.log_dir, "config.json"), "w") as f:
-        json.dump(dict(vars(args)), f, indent=2, default=str)
+    if mesh is not None:
+        logger.info("mesh: data=%d model=%d (%s)", mesh.data, mesh.model, mesh.backend)
+    if rank0:
+        with open(os.path.join(args.log_dir, "config.json"), "w") as f:
+            json.dump(dict(vars(args)), f, indent=2, default=str)
 
     # eval-only builds the evaluated split alone (main_utils.py:226-227)
     split = ("train" if args.eval_train else "val") if args.eval else "train"
     gen, n_train = make_loader(args, model_cfg, split, for_eval=args.eval)
-    global_batch = args.batch_size
+    global_batch = round_to_data(args.batch_size, mesh)
     steps_per_epoch = args.steps_per_epoch or max(n_train // global_batch, 1)
     sample = batch_of(gen, [0])["inputs"]["point_clouds"]
     model_cfg = dataclasses.replace(model_cfg, input_feature_dim=sample.shape[-1] - 3)
@@ -345,6 +394,8 @@ def main(argv=None) -> int:
     warm_start(model, model_cfg, data_root=args.data_root, pp_checkpoint=args.pp_checkpoint,
                log=logger.info)
     model = model.to(device)
+    if mesh is not None:
+        shard_params(model, mesh)
     logger.info("params: %.1fM", sum(p.numel() for p in model.parameters()) / 1e6)
 
     crit = SetCriterionConfig(
@@ -352,41 +403,49 @@ def main(argv=None) -> int:
         query_points_obj_topk=args.query_points_obj_topk,
         dataset=args.dataset[0] if args.dataset[0] != "synthetic" else "scanrefer",
         use_contrastive_align=model_cfg.contrastive_align,
+        # DDP's per-replica gradient averaging, as train.py:345-349
+        num_replicas=data_size(mesh),
     )
     state = TrainState(model, AdamW(model, train_cfg, steps_per_epoch))
-    ckpt = CheckpointManager(os.path.join(args.log_dir, "ckpt"), save_freq=args.save_freq)
+    ckpt = CheckpointManager(os.path.join(args.log_dir, "ckpt"), save_freq=args.save_freq,
+                             mesh=mesh)
     restore_opt = not (args.eval or args.reduce_lr)  # main_utils.py:136
     if args.checkpoint_path and args.checkpoint_path.endswith((".pth", ".pt")):
         # a released EDA checkpoint: the accuracy-parity protocol
         start_epoch = load_eda_pth(args.checkpoint_path, model, model_cfg, log=logger.info)
     else:
-        source = (CheckpointManager(args.checkpoint_path, save_freq=args.save_freq)
+        source = (CheckpointManager(args.checkpoint_path, save_freq=args.save_freq, mesh=mesh)
                   if args.checkpoint_path else ckpt)
         state, start_epoch = source.restore(state, restore_optimizer=restore_opt)
     if start_epoch:
         logger.info("resumed from epoch %d", start_epoch)
 
-    writer = MetricWriter(args.log_dir)
+    writer = MetricWriter(args.log_dir) if rank0 else None
     try:
         if args.eval:
             # eval-only: the whole split, then exit (main_utils.py:356-362)
             logger.info("Testing evaluation (eval-only mode)...")
             evaluate(args, model, model_cfg, logger, writer=writer, step=state.step,
-                     loader=(gen, n_train))
+                     loader=(gen, n_train), mesh=mesh)
             return 0
-        return train(args, state, make_train_step(crit, seed=train_cfg.seed), gen, n_train,
-                     steps_per_epoch, start_epoch, ckpt, model_cfg, logger, writer, device)
+        step_fn = make_train_step(crit, seed=train_cfg.seed, mesh=mesh)
+        return train(args, state, step_fn, gen, n_train, steps_per_epoch, start_epoch, ckpt,
+                     model_cfg, logger, writer, device, mesh, global_batch)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
 
 
 def train(args, state, step_fn, gen, n_train, steps_per_epoch, start_epoch, ckpt, model_cfg,
-          logger, writer, device) -> int:
-    """The epoch loop of ``train.py:main`` (``:385-466``)."""
-    # the reference's DistributedSampler.set_epoch contract: the epoch's
-    # permutation comes from the seed (main_utils.py:229-242,368)
+          logger, writer, device, mesh, global_batch: int) -> int:
+    """The epoch loop of ``train.py:main`` (``:385-466``); under a mesh each rank
+    assembles and steps on its rows of every global batch."""
+    # the reference's DistributedSampler.set_epoch contract: every rank draws
+    # the epoch's permutation from the seed and keeps its rows
+    # (main_utils.py:229-242,368)
     order_rng = np.random.default_rng(args.seed)
-    profile_left = args.profile
+    local_rows = process_batch_rows(mesh, global_batch)
+    profile_left = args.profile if writer is not None else 0
     prof = None
     if profile_left:
         from torch.profiler import ProfilerActivity, profile
@@ -400,12 +459,15 @@ def train(args, state, step_fn, gen, n_train, steps_per_epoch, start_epoch, ckpt
     val_loader = None
     for epoch in range(start_epoch, args.max_epoch):
         t_ep = time.time()
-        chunks = epoch_chunks(order_rng, n_train, steps_per_epoch, args.batch_size)
+        chunks = epoch_chunks(order_rng, n_train, steps_per_epoch, global_batch)
+        local_chunks = [c[local_rows] for c in chunks]
         losses = []
-        for it, batch_np in enumerate(prefetch_batches(gen, chunks, args.num_workers,
+        for it, batch_np in enumerate(prefetch_batches(gen, local_chunks, args.num_workers,
                                                        model_cfg.butd)):
             batch_np.pop("hardness", None)  # the evaluator's, not the step's
-            metrics = step_fn(state, to_device(batch_np, device))
+            batch = (to_device(batch_np, device) if mesh is None
+                     else make_global_batch(batch_np, mesh, global_batch))
+            metrics = step_fn(state, batch)
             total_steps += 1
             if profile_left:
                 float(metrics["loss"])  # waits for the step
@@ -425,7 +487,8 @@ def train(args, state, step_fn, gen, n_train, steps_per_epoch, start_epoch, ckpt
                     scalars["query_points_generation_loss"], scalars["loss_ce"],
                     scalars["loss_bbox"], scalars["loss_giou"], scalars["loss_sem_align"])
                 # train_loss scalar group (record_tensorboard.py:33-52)
-                writer.write(total_steps, scalars, group="train")
+                if writer is not None:
+                    writer.write(total_steps, scalars, group="train")
             if args.max_steps and total_steps >= args.max_steps:
                 logger.info("max_steps reached")
                 ckpt.save(epoch, state, force=True)
@@ -437,7 +500,7 @@ def train(args, state, step_fn, gen, n_train, steps_per_epoch, start_epoch, ckpt
             if val_loader is None:
                 val_loader = make_loader(args, model_cfg, "val", for_eval=True)
             evaluate(args, state.model, model_cfg, logger, writer=writer, step=total_steps,
-                     loader=val_loader)
+                     loader=val_loader, mesh=mesh)
 
     ckpt.save(args.max_epoch - 1, state, force=True)
     return 0
@@ -460,7 +523,7 @@ def tail_chunks(n: int, bsz: int):
     return chunks
 
 
-def evaluate(args, model, model_cfg, logger, writer=None, step=0, loader=None):
+def evaluate(args, model, model_cfg, logger, writer=None, step=0, loader=None, mesh=None):
     """Grounding evaluation of the whole split (``train.py:evaluate``), or with
     ``--test_dataset scannet`` the detection evaluation (``evaluate_detection``).
 
@@ -471,10 +534,12 @@ def evaluate(args, model, model_cfg, logger, writer=None, step=0, loader=None):
     detected box (the SR3D / NR3D protocol, ``train_dist_mod.py:157-161``).
     One-deep pipeline: batch i + 1 is scored before batch i's IoU stack is
     pulled to the host, so the pull overlaps the next batch's work on the
-    card. Returns the evaluator.
+    card. Under a ``mesh`` the batch rounds to the data rank count, each rank
+    scores its rows, and the IoU stacks and hardness flags are gathered, so
+    every rank's evaluator counts the global batch. Returns the evaluator.
     """
     if args.test_dataset == "scannet":
-        return evaluate_detection(args, model, model_cfg, logger)
+        return evaluate_detection(args, model, model_cfg, logger, mesh)
     device = next(model.parameters()).device
     gen, n_val = loader or make_loader(args, model_cfg, "train" if args.eval_train else "val",
                                        for_eval=True)
@@ -482,21 +547,29 @@ def evaluate(args, model, model_cfg, logger, writer=None, step=0, loader=None):
                                    filter_non_gt_boxes=args.butd_cls)
     score_fn = make_eval_score_step(model, prefixes=evaluator.prefixes, modes=evaluator.modes,
                                     filter_non_gt_boxes=args.butd_cls)
-    pairs = tail_chunks(n_val, max(args.batch_size, 1))
+    bsz = round_to_data(max(args.batch_size, 1), mesh)
+    pairs = tail_chunks(n_val, bsz)
+    rows = process_batch_rows(mesh, bsz)
     t0 = time.perf_counter()
     pending = None
+
+    def count(p_ious, p_hard, p_valid):
+        if mesh is not None:  # the IoU stack is (P, M, B, topk)
+            p_ious = to_host_global(p_ious, mesh, axis=2)
+            p_hard = None if p_hard is None else to_host_global(p_hard, mesh)
+        evaluator.evaluate(None, None, p_hard, valid=p_valid, ious=p_ious)
+
     for batch_np, (_, valid) in zip(
-            prefetch_batches(gen, [idx for idx, _ in pairs], args.num_workers, model_cfg.butd),
+            prefetch_batches(gen, [idx[rows] for idx, _ in pairs], args.num_workers,
+                             model_cfg.butd),
             pairs):
         hardness = batch_np.pop("hardness", None)
         ious = score_fn(to_device(batch_np, device))
         if pending is not None:
-            p_ious, p_hard, p_valid = pending
-            evaluator.evaluate(None, None, p_hard, valid=p_valid, ious=p_ious)
+            count(*pending)
         pending = (ious, hardness, valid)
     if pending is not None:
-        p_ious, p_hard, p_valid = pending
-        evaluator.evaluate(None, None, p_hard, valid=p_valid, ious=p_ious)
+        count(*pending)
     seconds = time.perf_counter() - t0
     logger.info("scored %d scenes in %.2f s (%.2f scenes/s, scene generation included)",
                 n_val, seconds, n_val / seconds)
@@ -510,7 +583,7 @@ def evaluate(args, model, model_cfg, logger, writer=None, step=0, loader=None):
     return evaluator
 
 
-def evaluate_detection(args, model, model_cfg, logger) -> dict:
+def evaluate_detection(args, model, model_cfg, logger, mesh=None) -> dict:
     """ScanNet detection AP over the fixed 18-class prompt (``train.py:evaluate_detection``).
 
     Every scan of ``{data_root}/val_v3scans.pkl`` with a 485-class object, as
@@ -519,7 +592,10 @@ def evaluate_detection(args, model, model_cfg, logger) -> dict:
     truth is recovered from its scan (strict NYU40 membership, the first
     ``MAX_NUM_OBJ`` objects). Logs and returns ``mAP@t`` per
     ``--ap_iou_thresholds`` and the headline ``mAP`` (that of the first
-    threshold above 0.3, else the first).
+    threshold above 0.3, else the first). Under a ``mesh`` every rank assembles
+    the global batch (as ``train.py`` does), runs the model on its rows and
+    gathers the end points the scoring reads, so every rank counts the whole
+    batch.
     """
     device = next(model.parameters()).device
     scans = load_packed_scans(os.path.join(args.data_root, "val_v3scans.pkl"))
@@ -536,7 +612,9 @@ def evaluate_detection(args, model, model_cfg, logger) -> dict:
     # one calculator per threshold (the reference's ap_calculator_list)
     thresholds = list(args.ap_iou_thresholds)
     calcs = [APCalculator(iou_thresh=t) for t in thresholds]
-    bsz = max(args.batch_size, 1)
+    bsz = round_to_data(max(args.batch_size, 1), mesh)
+    rows = process_batch_rows(mesh, bsz)
+    scored = ("last_sem_cls_scores", "last_center", "last_pred_size")
     # the prompt is fixed: tokenized once
     caption = " . ".join(PROMPT_NAMES) + " . not mentioned"
     tok = ds.tokenizer.encode_batch([caption], max_len=ds.text_len)
@@ -545,7 +623,11 @@ def evaluate_detection(args, model, model_cfg, logger) -> dict:
     for idx, valid in tail_chunks(len(ds), bsz):
         batch_np = ds.batch(idx, butd=model_cfg.butd)
         batch_np.pop("hardness")
-        end_points, _ = eval_fn(to_device(batch_np, device))
+        local = {g: {k: v[rows] for k, v in arrays.items()} for g, arrays in batch_np.items()}
+        end_points, _ = eval_fn(to_device(local, device))
+        if mesh is not None:
+            end_points = {k: torch.from_numpy(to_host_global(end_points[k].float(), mesh))
+                          for k in scored}
         # row i is scan ds.scan_ids[idx[i]]; strict 18-class membership, as the
         # prompt's targets (an 'other furniture' fallback would admit walls)
         gt_classes = np.zeros((bsz, MAX_NUM_OBJ), np.int64)

@@ -21,6 +21,12 @@ horizon are offset by the RAW ``warmup_epoch``, its disabled -1 included
 ``optax.chain(clip_by_global_norm(1.0), adamw(lr))``, one group of every
 parameter, the text encoder included (its gradient is zero, so only the
 weight decay of 1e-4 moves it), at a constant rate, with the same arithmetic.
+
+Under tensor parallelism (a ``mesh`` with ``model`` > 1, parameters split by
+``parallel.shard_params`` before the optimizer is built) the moments take
+the parts' shapes and the clip's norm is that of the whole gradient: the
+squares of the split leaves summed over the model group, the replicated
+leaves (equal on every model rank) counted once.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Callable, Dict, List
 import torch
 
 from eda_tpu_torch.config import TrainConfig
+from eda_tpu_torch.parallel.mesh import sharded_names
 
 COSINE_ETA_MIN = 1e-6
 
@@ -82,7 +89,8 @@ class AdamW:
     """
 
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig, steps_per_epoch: int,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, one_group: bool = False):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, one_group: bool = False,
+                 mesh=None):
         self.cfg = cfg
         self.b1, self.b2, self.eps = b1, b2, eps
         if one_group:
@@ -97,6 +105,9 @@ class AdamW:
         self.moments = {p: (torch.zeros_like(p), torch.zeros_like(p))
                         for g in self.trained for p in self.groups[g]}
         self.count = 0
+        self.mesh = mesh
+        split = sharded_names(model, mesh)
+        self.split = {p for n, p in model.named_parameters() if n in split}
 
     @classmethod
     def constant(cls, model: torch.nn.Module, lr: float, clip_norm: float = 1.0,
@@ -135,7 +146,10 @@ class AdamW:
         the parameters' device (no host sync).
         """
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if self.split:
+            norm = self._split_norm()
+        else:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         keep = (norm < self.cfg.clip_norm).float()
         divisor = torch.where(keep > 0, torch.ones_like(norm), norm)  # finite when not clipping
         t = self.count + 1
@@ -171,3 +185,15 @@ class AdamW:
             torch._foreach_add_(params, u)
         self.count = t
         return norm
+
+    def _split_norm(self) -> torch.Tensor:
+        """The global norm of a gradient whose ``split`` leaves are parts over the model group."""
+        with_grad = [p for p in self.params if p.grad is not None]
+        squares = []
+        for part in (True, False):
+            grads = [p.grad for p in with_grad if (p in self.split) == part]
+            sq = torch.stack(torch._foreach_norm(grads)).square().sum() if grads else None
+            squares.append(sq)
+        split_sq, rep_sq = squares
+        split_sq = self.mesh.all_reduce_(split_sq, "model")
+        return torch.sqrt(split_sq + rep_sq) if rep_sq is not None else torch.sqrt(split_sq)

@@ -8,9 +8,20 @@ by (seed, step), the counterpart of ``fold_in(key(seed), state.step)``: a run
 restored at step n draws the masks of the uninterrupted run. Every sum of
 the backward has a fixed order (the kernels' records, ``pointops.gather_shared``
 where gathered rows repeat), so two steps from one state agree bit for bit on
-the card, as the reference's step does. The evaluation
-steps run the forward in eval mode under ``torch.inference_mode()`` (the
-serving kernels, no autograd) and restore the model's mode afterwards.
+the card, as the reference's step does.
+
+With a ``mesh`` (``eda_tpu_torch.parallel``) the step is one rank's part of
+a data-parallel (and tensor-parallel) step over the global batch: the
+forward takes global BatchNorm statistics and global dropout masks, the loss
+is the rank's share, the gradients are summed over the data group as one
+flat buffer (a fixed order, so two steps from one state still agree bit for
+bit) and the metrics are the group's sums, the global values. A mesh of one
+data rank skips the collectives whose result is their input (the BatchNorm
+sums, the box count) and all-reduces the gradients and metrics all the same.
+
+The evaluation steps run the forward in eval mode under
+``torch.inference_mode()`` (the serving kernels, no autograd) and restore the
+model's mode afterwards.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import torch
 from eda_tpu_torch.eval.grounding import score_and_iou_multi
 from eda_tpu_torch.losses.criterion import SetCriterionConfig, compute_hungarian_loss
 from eda_tpu_torch.models.layers import Dropout
+from eda_tpu_torch.parallel.mesh import all_reduce_grads, sum_metrics
 from eda_tpu_torch.train.optim import AdamW
 
 
@@ -56,22 +68,32 @@ def dropout_generator(model: torch.nn.Module, generator: torch.Generator) -> Ite
             m.generator = None
 
 
-def make_train_step(criterion_cfg: SetCriterionConfig, seed: int = 0) -> Callable:
+def make_train_step(criterion_cfg: SetCriterionConfig, seed: int = 0, mesh=None) -> Callable:
     """``step(state, batch) -> metrics`` with ``batch = {"inputs": ..., "targets": ...}``.
 
     The metrics are those of ``compute_hungarian_loss`` plus ``grad_norm``, the
     global gradient norm before clipping, all 0-d tensors on the model's device.
-    Dropout draws from ``step_generator(seed, state.step)``.
+    Dropout draws from ``step_generator(seed, state.step)``. With a ``mesh``,
+    ``batch`` is this rank's rows of the global batch (``parallel.
+    make_global_batch``), the model was put on the mesh (``parallel.
+    shard_params``) and every rank of the mesh runs the step together.
     """
 
     def step(state: TrainState, batch: Dict[str, dict]) -> Dict[str, torch.Tensor]:
+        if mesh is not None and getattr(state.model, "mesh", None) is not mesh:
+            raise RuntimeError("the model is not on the step's mesh: call "
+                               "eda_tpu_torch.parallel.shard_params(model, mesh) before "
+                               "building its optimizer")
         state.model.train()
         device = batch["inputs"]["point_clouds"].device
         with dropout_generator(state.model, step_generator(seed, state.step, device)):
             end_points = state.model(batch["inputs"])
-        loss, metrics = compute_hungarian_loss(criterion_cfg, end_points, batch["targets"])
+        loss, metrics = compute_hungarian_loss(criterion_cfg, end_points, batch["targets"], mesh)
         state.optimizer.zero_grad()
         loss.backward()
+        if mesh is not None:
+            all_reduce_grads(mesh, state.optimizer.params)
+            metrics = sum_metrics(mesh, metrics)
         metrics["grad_norm"] = state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}

@@ -1,7 +1,8 @@
 """Run logging (counterpart of ``eda_tpu/utils/logger.py``, reference ``utils/logger.py:35-99``).
 
 The console and ``log.txt`` in the log directory, in the JAX package's
-format. One process runs the port, so there is no per-rank file yet.
+format. In a multi-process run rank 0 writes them; the other ranks' loggers
+print warnings and errors only (``write=False``).
 """
 
 from __future__ import annotations
@@ -11,9 +12,9 @@ import os
 import sys
 
 
-def setup_logger(log_dir: str, name: str = "eda_tpu_torch") -> logging.Logger:
+def setup_logger(log_dir: str, name: str = "eda_tpu_torch", write: bool = True) -> logging.Logger:
     logger = logging.getLogger(name)
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if write else logging.WARNING)
     for handler in logger.handlers:
         handler.close()
     logger.handlers.clear()
@@ -23,6 +24,8 @@ def setup_logger(log_dir: str, name: str = "eda_tpu_torch") -> logging.Logger:
     console = logging.StreamHandler(sys.stdout)
     console.setFormatter(fmt)
     logger.addHandler(console)
+    if not write:
+        return logger
 
     os.makedirs(log_dir, exist_ok=True)
     fh = logging.FileHandler(os.path.join(log_dir, "log.txt"))

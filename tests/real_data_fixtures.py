@@ -246,8 +246,8 @@ class CheckedSteps:
         self.text_len = text_len
         self.launches, self._recorded = [], []
 
-    def __call__(self, crit, seed=0):
-        step = self.make_train_step(crit, seed=seed)
+    def __call__(self, crit, seed=0, **kw):
+        step = self.make_train_step(crit, seed=seed, **kw)
 
         def checked(state, batch):
             maps_ok = check_real_batch(batch, self.text_len)

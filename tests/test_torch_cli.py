@@ -152,8 +152,8 @@ def test_parser_accepts_the_real_data_flags(argv):
 
 def test_main_refuses_roberta_weights_and_multihost(tmp_path, monkeypatch):
     """A ``roberta-base`` weights file under ``--data_root`` is no longer refused:
-    the run warm-starts its text encoder from it (``train/convert.py``). Several
-    hosts are still refused."""
+    the run warm-starts its text encoder from it (``train/convert.py``).
+    ``EDA_TPU_MULTIHOST`` without torchrun's variables is refused, naming torchrun."""
     encoder = real_data_fixtures.seeded_roberta(ModelConfig(use_bf16=True).tiny(), seed=3)
     (tmp_path / "roberta-base").mkdir()
     torch.save(real_data_fixtures.hf_roberta_state(encoder),
@@ -175,7 +175,9 @@ def test_main_refuses_roberta_weights_and_multihost(tmp_path, monkeypatch):
     assert f"text_encoder: loaded {len(want)} RoBERTa leaves" in (
         tmp_path / "run" / "log.txt").read_text()
     monkeypatch.setenv("EDA_TPU_MULTIHOST", "1")
-    with pytest.raises(SystemExit, match="item 6"):
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match="launch it as torchrun --nproc_per_node N"):
         cli.main(["--cpu", "--log_dir", str(tmp_path / "run")])
 
 

@@ -367,11 +367,14 @@ def _loss_with_decisions(cfg, end_points, targets):
     return loss, metrics
 
 
-def jax_train_step(batch, variables=None, butd: bool = False, overrides=None):
+def jax_train_step(batch, variables=None, butd: bool = False, overrides=None,
+                   data: int = None):
     """One JAX training step of the tiny config (``butd`` as given, and the
     config fields of ``overrides``, e.g. ``use_bf16`` or ``sa_impl``) on its TPU
     path, dropout off, with its decisions; random perturbed weights unless
-    ``variables`` (a function of the model and batch)."""
+    ``variables`` (a function of the model and batch). With ``data``, the step
+    runs over a mesh of the first ``data`` CPU devices, the batch sharded over
+    its data axis, with ``num_replicas=data`` (``train.py``'s mesh step)."""
     import jax.numpy as jnp
 
     from eda_tpu.config import ModelConfig as JaxConfig
@@ -400,8 +403,13 @@ def jax_train_step(batch, variables=None, butd: bool = False, overrides=None):
         tx = make_optimizer(JaxTrainConfig(), variables["params"], STEPS_PER_EPOCH)
         state = JaxTrainState.create(variables["params"], variables["batch_stats"], tx)
         step = jax_make_train_step(
-            model, JaxCriterionConfig(num_decoder_layers=jcfg.num_decoder_layers), donate=False)
+            model, JaxCriterionConfig(num_decoder_layers=jcfg.num_decoder_layers,
+                                      num_replicas=data or 1), donate=False)
         rng = jax.random.key(0)
+        if data:
+            from eda_tpu.parallel import make_mesh, shard_batch
+
+            batch_j = shard_batch(batch_j, make_mesh(jax.devices()[:data]))
         run = step.lower(state, batch_j, rng).compile(compiler_options=NO_EXCESS_PRECISION)
         new_state, metrics = run(state, batch_j, rng)
         return dict(
@@ -781,3 +789,225 @@ def fabricate_eda_state_dict(cfg) -> dict:
         for k, v in sd.items()
         if "num_batches_tracked" not in k
     }
+
+
+# --- parallel steps of the port (tests/test_torch_parallel_*.py) ---
+def parallel_rank_step(mesh, spec: dict) -> dict:
+    """One rank of a data x model parallel port step (``parallel.launch.spawn``),
+    or with ``mesh`` None the one-process step on the whole batch.
+
+    ``spec``: ``overrides`` of the tiny bf16 config, ``variables`` (flax, numpy)
+    or ``seed`` for the weights, ``batch`` (numpy, the global batch), ``crit``
+    (``SetCriterionConfig`` fields), ``dropout`` (False: every Dropout off),
+    ``steps`` and ``repeat`` (two copies of the state take each step; their
+    results must agree bit for bit). Returns the metrics of each step, the
+    new state and the first moments as full tensors (numpy), the local shapes
+    of the parameters and whether the repeats agreed.
+    """
+    import copy
+
+    from eda_tpu_torch.config import ModelConfig, TrainConfig
+    from eda_tpu_torch.losses.criterion import SetCriterionConfig
+    from eda_tpu_torch.models.grounder import EDAGrounder
+    from eda_tpu_torch.models.layers import Dropout
+    from eda_tpu_torch.parallel.mesh import (
+        gather_shards, make_global_batch, process_batch_rows, shard_params, sharded_names)
+    from eda_tpu_torch.train.optim import AdamW
+    from eda_tpu_torch.train.step import TrainState, make_train_step
+    from eda_tpu_torch.weights import load_flax
+
+    cfg = dataclasses.replace(ModelConfig(use_bf16=True).tiny(), **spec.get("overrides", {}))
+    model = EDAGrounder(cfg)
+    if "variables" in spec:
+        load_flax(model, spec["variables"])
+    else:
+        model.init_weights(spec.get("seed", 0))
+    if not spec.get("dropout", True):
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+    device = "cpu" if mesh is None else mesh.device
+    model = model.to(device)
+    if mesh is not None:
+        shard_params(model, mesh)
+    state = TrainState(model, AdamW(model, TrainConfig(), STEPS_PER_EPOCH, mesh=mesh))
+    batch = spec["batch"]
+    n = len(batch["inputs"]["point_clouds"])
+    rows = process_batch_rows(mesh, n)
+    local = {g: {k: np.asarray(v)[rows] for k, v in arrays.items()} for g, arrays in batch.items()}
+    if mesh is None:
+        local = {g: {k: torch.from_numpy(v) for k, v in a.items()} for g, a in local.items()}
+    else:
+        local = make_global_batch(local, mesh, n)
+    crit = SetCriterionConfig(num_decoder_layers=cfg.num_decoder_layers, **spec.get("crit", {}))
+    step = make_train_step(crit, seed=spec.get("seed", 0), mesh=mesh)
+    twin = copy.deepcopy(state) if spec.get("repeat") else None
+    metrics, repeats_agree = [], True
+    for _ in range(spec.get("steps", 1)):
+        m = step(state, local)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if twin is not None:
+            m2 = step(twin, local)
+            s1, s2 = state.model.state_dict(), twin.model.state_dict()
+            repeats_agree &= all(torch.equal(m[k], m2[k]) for k in m)
+            repeats_agree &= all(torch.equal(s1[k], s2[k]) for k in s1)
+            o1, o2 = state.optimizer.state_dict(), twin.optimizer.state_dict()
+            repeats_agree &= all(torch.equal(a, b) for key in ("mu", "nu")
+                                 for a, b in zip(o1[key], o2[key]))
+    split = sharded_names(model, mesh)
+    full = {k: (gather_shards(v, split[k], mesh) if k in split else v).detach().cpu().numpy()
+            for k, v in model.state_dict().items()}
+    names = {p: n for n, p in model.named_parameters()}
+    moments = {names[p]: (gather_shards(mu, split[names[p]], mesh) if names[p] in split else mu)
+               .cpu().numpy() for p, (mu, _) in state.optimizer.moments.items()}
+    return dict(metrics=metrics, state=full, moments=moments, repeats_agree=repeats_agree,
+                shapes={n: tuple(p.shape) for n, p in model.named_parameters()})
+
+
+def port_run_of(result: dict, overrides: dict) -> dict:
+    """A ``port_train_step``-shaped run (``state``, ``metrics``) from the full
+    tensors of ``parallel_rank_step``, for the JAX comparison helpers."""
+    from eda_tpu_torch.config import ModelConfig, TrainConfig
+    from eda_tpu_torch.models.grounder import EDAGrounder
+    from eda_tpu_torch.train.optim import AdamW
+    from eda_tpu_torch.train.step import TrainState
+
+    model = EDAGrounder(dataclasses.replace(ModelConfig(use_bf16=True).tiny(), **overrides))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in result["state"].items()})
+    opt = AdamW(model, TrainConfig(), STEPS_PER_EPOCH)
+    names = {p: n for n, p in model.named_parameters()}
+    for p, (mu, _) in opt.moments.items():
+        mu.copy_(torch.from_numpy(result["moments"][names[p]]))
+    return dict(state=TrainState(model, opt), metrics=result["metrics"][0])
+
+
+def parallel_checkpoint_rank(mesh, spec: dict) -> dict:
+    """One rank of a checkpoint round trip (``parallel.launch.spawn``): the
+    tiny f32 model from ``seed`` on the rank's mesh; with ``save``, one step
+    on ``batch`` and a save to ``directory``; else a restore from it. Returns
+    the full state, the full moments and the update count after the save or
+    the restore, the parameters' local shapes, and with ``step_after`` the
+    loss of one more step."""
+    from eda_tpu_torch.config import ModelConfig, TrainConfig
+    from eda_tpu_torch.losses.criterion import SetCriterionConfig
+    from eda_tpu_torch.models.grounder import EDAGrounder
+    from eda_tpu_torch.parallel.mesh import (
+        gather_shards, make_global_batch, process_batch_rows, shard_params, sharded_names)
+    from eda_tpu_torch.train.checkpoint import CheckpointManager
+    from eda_tpu_torch.train.optim import AdamW
+    from eda_tpu_torch.train.step import TrainState, make_train_step
+
+    cfg = ModelConfig().tiny()
+    model = EDAGrounder(cfg)
+    model.init_weights(spec["seed"])
+    shard_params(model, mesh)
+    state = TrainState(model, AdamW(model, TrainConfig(), STEPS_PER_EPOCH, mesh=mesh))
+    batch = spec["batch"]
+    n = len(batch["inputs"]["point_clouds"])
+    rows = process_batch_rows(mesh, n)
+    local = make_global_batch({g: {k: np.asarray(v)[rows] for k, v in a.items()}
+                               for g, a in batch.items()}, mesh, n)
+    step = make_train_step(SetCriterionConfig(num_decoder_layers=cfg.num_decoder_layers),
+                           mesh=mesh)
+    manager = CheckpointManager(spec["directory"], mesh=mesh)
+    if spec["save"]:
+        step(state, local)
+        manager.save(0, state, force=True)
+    else:
+        manager.restore(state)
+    split = sharded_names(model, mesh)
+    names = {p: n for n, p in model.named_parameters()}
+    out = dict(
+        state={k: (gather_shards(v, split[k], mesh) if k in split else v).numpy().copy()
+               for k, v in model.state_dict().items()},
+        moments={names[p]: [(gather_shards(t, split[names[p]], mesh) if names[p] in split
+                             else t).numpy().copy() for t in mt]
+                 for p, mt in state.optimizer.moments.items()},
+        count=state.optimizer.count, step=state.step,
+        shapes={n: tuple(p.shape) for n, p in model.named_parameters()})
+    if spec.get("step_after"):
+        out["loss"] = float(step(state, local)["loss"])
+    return out
+
+
+# the port's parallel step against its one-process step on the same global
+# batch (tests/test_torch_parallel_{dp,tp}.py): the same arithmetic but for
+# the order of the sums (BatchNorm's global sums, the loss shares, the
+# gradient all-reduce), which f32 and the pools' bf16 rounding of A amplify
+# through one backward; measured on the tiny f32 model, batch 4, dropout on:
+# metrics 5e-6, grad_norm 4.4e-4 (noise in the zero-gradient leaves), global
+# moment cosine 0.999998, the worst per-leaf cosine 0.99989, BatchNorm
+# statistics 1.7e-6
+PARALLEL_METRIC_REL = 1e-4
+PARALLEL_GRAD_NORM_REL = 5e-3
+PARALLEL_GLOBAL_COS = 0.9999
+PARALLEL_LEAF_COS = 0.999
+PARALLEL_BN_ATOL = 1e-4
+PARALLEL_PARAM_CLOSE = 0.99  # share of new parameters within 0.01 lr of the one-process step's
+
+
+def assert_parallel_step_matches(one: dict, ranks: list):
+    """Every rank of a parallel step against the one-process step (both
+    ``parallel_rank_step`` results): equal on every rank, metrics, gradients
+    (AdamW's first moments), BatchNorm statistics and new parameters close."""
+    from eda_tpu_torch.config import TrainConfig
+    from eda_tpu_torch.train.optim import group_of
+
+    first = ranks[0]
+    for res in ranks[1:]:  # one global step: identical on every rank
+        assert res["metrics"] == first["metrics"]
+        for key in first["state"]:
+            assert np.array_equal(res["state"][key], first["state"][key]), key
+        for key in first["moments"]:
+            assert np.array_equal(res["moments"][key], first["moments"][key]), key
+    want, got = one["metrics"][0], first["metrics"][0]
+    assert set(got) == set(want)
+    for key, w in want.items():
+        rel = PARALLEL_GRAD_NORM_REL if key == "grad_norm" else PARALLEL_METRIC_REL
+        assert abs(got[key] - w) <= rel * abs(w) + 1e-6, (key, got[key], w)
+    keys = sorted(one["moments"])
+    flat = [np.concatenate([r["moments"][k].ravel() for k in keys]) for r in (one, first)]
+    glob = float(flat[0] @ flat[1] / np.linalg.norm(flat[0]) / np.linalg.norm(flat[1]))
+    assert glob >= PARALLEL_GLOBAL_COS, glob
+    worst = 1.0
+    for key in keys:
+        w, g = one["moments"][key].ravel(), first["moments"][key].ravel()
+        if ZERO_GRAD.search(key) or not w.any():
+            continue
+        c = float(w @ g / np.linalg.norm(w) / np.linalg.norm(g))
+        worst = min(worst, c)
+        assert c >= PARALLEL_LEAF_COS, (key, c)
+    cfg = TrainConfig()
+    lrs = {"main": cfg.lr, "backbone": cfg.lr_backbone, "text": 0.0}
+    close = total = 0
+    for key, w in one["state"].items():
+        g = first["state"][key]
+        if key.endswith(("running_mean", "running_var")):
+            assert np.abs(g - w).max() <= PARALLEL_BN_ATOL, key
+            continue
+        diff = np.abs(g - w)
+        lr = lrs[group_of(key)]
+        assert diff.max() <= 2 * lr * (1 + 1e-3) + 1e-6 * np.abs(w).max(), key
+        close += int((diff <= 0.01 * lr).sum())
+        total += diff.size
+    print(f"global moment cos {glob:.7f}, worst leaf cos {worst:.6f}, "
+          f"params within 0.01 lr {close / total:.5f}")
+    assert close >= PARALLEL_PARAM_CLOSE * total, close / total
+
+
+def parallel_restore_rank(mesh, directories: list) -> int:
+    """One rank's restore of the tiny f32 model from ``directories[rank]``
+    (``parallel.launch.spawn``); returns the restored step."""
+    from eda_tpu_torch.config import ModelConfig, TrainConfig
+    from eda_tpu_torch.models.grounder import EDAGrounder
+    from eda_tpu_torch.parallel.mesh import shard_params
+    from eda_tpu_torch.train.checkpoint import CheckpointManager
+    from eda_tpu_torch.train.optim import AdamW
+    from eda_tpu_torch.train.step import TrainState
+
+    model = EDAGrounder(ModelConfig().tiny())
+    model.init_weights(0)
+    shard_params(model, mesh)
+    state = TrainState(model, AdamW(model, TrainConfig(), STEPS_PER_EPOCH, mesh=mesh))
+    CheckpointManager(directories[mesh.rank], mesh=mesh).restore(state)
+    return state.step
