@@ -33,14 +33,16 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    2% of each output's largest value on ``prep_bwd_edge_inputs`` (row counts
    that are no multiple of 64, the tiny widths, zero dA, large-magnitude
    points), its weight and vector gradients bit-identical on a second launch.
-   Then the pool widths check: the six pool variants and K5 / K6 at two
+   Then the pool widths check: the six pool variants and K5 / K6 at three
    triples outside the instantiated widths ((48, 48, 96) on an SA1-shaped
-   input at W = 1024, (96, 80, 200) on an SA2-shaped one at W = 256), which
-   the wrappers run zero-padded, against the plain versions at the real
-   widths under the tolerances above; triples above (128, 128, 256) must
-   raise. The prep edge check: K2 within 0.02 plus one bf16 step of its
-   plain version on ``prep_edge_inputs`` (row counts no multiple of 64, c1 of
-   16 to 256 at in_dim 3 and at the kernel's largest, large points). The mask
+   input at W = 1024, (96, 80, 200) and (192, 160, 384) on SA2-shaped ones at
+   W = 256), which the wrappers run zero-padded, and at the wide triple
+   (256, 256, 512) itself at W = 1024 (the compact backward at c3 512),
+   against the plain versions at the real widths under the tolerances above;
+   triples above (256, 256, 512) must raise. The prep edge check: K2 within
+   0.02 plus one bf16 step of its plain version on ``prep_edge_inputs`` (row
+   counts no multiple of 64, c1 of 16 to 256 at in_dim 3 and at the kernel's
+   largest, 2048, where W1 streams, large points). The mask
    edge check: K9a bit-exact on ``mask_edge_inputs`` (windows no multiple of
    a CTA's rows, starts below 0 and past N - W, unaligned windows, a single
    block, points within 1e-5 of the radius).
@@ -171,6 +173,18 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    ``REQUESTS`` serving batches (K1, K2f, K3 four launches each) and
    ``F32_STEPS`` training steps (K1, K2f, K4, K7f four, K5 one, K6 three),
    one profiled forward and step, and two steps from one state bit for bit.
+11a. The width-2 backbone (phase "w2x", ``w2x_configs``: the bf16 flagship
+   with Group-Free-3D's ``width=2`` SA and FP widths, SA2-4 at (256, 256,
+   512), SA3-4's prep at in_dim 515): the wide pool on tie inputs and its
+   backward on edge inputs at SA2's shape (``W2X_TIE_CASES``,
+   ``W2X_BWD_EDGE_CASES``); the tiny W2X model, step and scoring against
+   their CPU twins; at full width, batch 8, K2, K3 / K4, K5 / K6 and K7
+   against their plain versions on a forward's and a step's inputs (the
+   full-width tolerances), ``REQUESTS`` serving batches and ``W2X_STEPS``
+   training steps with the flagship's launch counts, ``radius_mode_phase``
+   under ``mxu`` and ``pre``, one eval batch scored under each radius test,
+   a profiled forward and step, and two steps from one state bit for bit.
+   Its kernel rows join the JSON line named with " (w2x)".
 12. The gather SA (phase "gather", ``sa_impl="gather"``): the tiny model
    against its CPU twin under ``nearest`` and ``first``; at full width in
    f32 one serving batch and ``GATHER_STEPS`` training steps, each launching
@@ -234,7 +248,8 @@ the four SA layers of one batch-8 forward (K1-K3, K8, K9a, K9b, K2f) or
 training step (K4-K7, K8 and K9b with winners, K7f). ``launches`` is the count
 of the serving run (K1-K3), the training run (K4-K7), the mode's evaluation
 run (K8, K9a, K9b), the mode's training step (K8 and K9b with winners) or the
-f32 serving run and training steps (K2f, K7f). Each phase prints
+f32 serving run and training steps (K2f, K7f); a " (w2x)" row's from the w2x
+phase's runs of the same kind. Each phase prints
 its wall time. Any failed check raises, and the script exits non-zero. Without
 CUDA it exits non-zero before printing any result.
 """
@@ -810,10 +825,12 @@ def hgmma_counts(library: Path):
     return counts
 
 
-# tensor-core kernel libraries: source -> the name of its GEMM kernels
-GEMM_KERNELS = {"sa_pair_pool": "sa_pair_pool_kernel", "sa_pair_pool_bwd": "pool_bwd_tiles",
-                "sa_prep_bwd": "prep_bwd_tiles", "sa_prep": "sa_prep_kernel",
-                "sa_prep_f32": "prep_tc"}
+# tensor-core kernel libraries: source -> the names of its GEMM kernels (the
+# pool's and its backward's wide kernels, (256, 256, 512), apart)
+GEMM_KERNELS = {"sa_pair_pool": ("sa_pair_pool_kernel", "sa_pair_pool_wide"),
+                "sa_pair_pool_bwd": ("pool_bwd_tiles", "pool_bwd_wide"),
+                "sa_prep_bwd": ("prep_bwd_tiles",), "sa_prep": ("sa_prep_kernel",),
+                "sa_prep_f32": ("prep_tc",)}
 
 
 def check_pool_build(logs: dict, build) -> None:
@@ -825,12 +842,12 @@ def check_pool_build(logs: dict, build) -> None:
               if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
     if spills:
         raise AssertionError(f"tensor-core kernels spill registers: {spills}")
-    for source, kernel in GEMM_KERNELS.items():
+    for source, kernels in GEMM_KERNELS.items():
         counts = hgmma_counts(build._target(source))
         if counts is None:
             print(f"{source} HGMMA count: not checked (no cuobjdump)")
             continue
-        gemms = {f: n for f, n in counts.items() if kernel in f}
+        gemms = {f: n for f, n in counts.items() if any(k in f for k in kernels)}
         print(f"{source} HGMMA count: {sum(gemms.values())} HGMMA instructions in {len(gemms)} "
               f"GEMM kernels, fewest in one kernel {min(gemms.values(), default=0)}; no spills")
         if not gemms or min(gemms.values()) == 0:
@@ -894,15 +911,15 @@ TIE_CASES = ((2, (128, 128, 256), 2048, 1024, 256), (2, (128, 128, 256), 2048, 1
 
 
 @torch.no_grad()
-def pool_tie_check() -> None:
-    """Every pool variant on ``tie_inputs`` of each ``TIE_CASES`` entry:
+def pool_tie_check(cases=TIE_CASES) -> None:
+    """Every pool variant on ``tie_inputs`` of each entry of ``cases``:
     values and winners equal to the plain version's and to the rule's at every
     (center, channel), -1e9 rows and rank 0 exactly at the centers out of
     reach. Then the same inputs with a random W3: every variant within 0.03 of
     the plain version, winners equal where the best two values are apart."""
     from eda_tpu_torch.ops.cuda import sa_kernel, sa_mask
 
-    for layer, widths, n_points, n_centers, window in TIE_CASES:
+    for layer, widths, n_points, n_centers, window in cases:
         args, kw = tie_inputs(N=n_points, M=n_centers, window=window, widths=widths)
         args = tuple(a.cuda() for a in args)
         N = args[1].shape[1]
@@ -949,12 +966,14 @@ def bwd_edge_inputs(B=2, N=2048, M=1024, window=256, widths=(128, 128, 256), see
     """A pool-backward input with the row packing's edge cases, in every block
     of 16 centers (center m, kind m % 16):
     kind 0: one point wins every channel (windowed: one row carrying all c3);
-    kind 1: every channel won by a different point (c3 rows, several tiles);
+    kind 1: every channel won by a different point (c3 rows, several tiles;
+    where the window is narrower than c3, each of its W points wins a channel
+    or two: W rows);
     kind 2: the odd channels won outside the window (compact: zero A rows);
     other kinds: random in-window winners, 20% of the cotangents 0.
     Every fourth block has g = 0 everywhere (no live row), and the last two
     blocks' windows are clamped at N - W. Returns (args, kw), CPU tensors,
-    ``kw`` without the variant; needs N - W >= c3 and W >= c3."""
+    ``kw`` without the variant; needs N - W >= c3."""
     from eda_tpu_torch.ops.cuda.sa_kernel import BLOCK, window_starts
 
     c1, c2, c3 = widths
@@ -967,7 +986,7 @@ def bwd_edge_inputs(B=2, N=2048, M=1024, window=256, widths=(128, 128, 256), see
     chan = torch.arange(c3)
     winners = start + torch.randint(0, window, (B, M, c3), generator=gen)
     winners = torch.where(kind == 0, winners[..., :1], winners)
-    distinct = torch.rand(B, M, window, generator=gen).argsort(-1)[..., :c3]
+    distinct = torch.rand(B, M, max(window, c3), generator=gen).argsort(-1)[..., :c3] % window
     winners = torch.where(kind == 1, start + distinct, winners)
     outside = torch.where(start + window + chan < N, start + window + chan, start - 1 - chan)
     winners = torch.where((kind == 2) & (chan % 2 == 1), outside, winners)
@@ -994,12 +1013,12 @@ def bwd_symbol(compact: bool) -> str:
 
 
 @torch.no_grad()
-def pool_bwd_edge_check() -> None:
+def pool_bwd_edge_check(cases=BWD_EDGE_CASES) -> None:
     """K5 and K6 against the plain version on ``bwd_edge_inputs`` of each
-    ``BWD_EDGE_CASES`` entry, within the step's tolerances."""
+    entry of ``cases``, within the step's tolerances."""
     from eda_tpu_torch.ops.cuda import sa_pool_bwd
 
-    for layer, widths, n_points, n_centers, window in BWD_EDGE_CASES:
+    for layer, widths, n_points, n_centers, window in cases:
         args, kw = bwd_edge_inputs(N=n_points, M=n_centers, window=window, widths=widths)
         args = tuple(a.cuda() for a in args)
         for compact in (True, False):
@@ -1023,10 +1042,13 @@ def pool_bwd_edge_check() -> None:
 
 # pool widths inputs: (layer, widths, N, M, window), triples outside the
 # instantiated WIDTHS that the wrappers pad: an SA1-shaped input at W = 1024
-# and an SA2-shaped one at W = 256
-WIDTH_CASES = ((1, (48, 48, 96), 8192, 2048, 1024), (2, (96, 80, 200), 2048, 1024, 256))
+# and SA2-shaped ones at W = 256 (the last padded on the wide kernel); and the
+# wide triple itself at W = 1024, where the model picks the compact backward
+# (c3 512 < W)
+WIDTH_CASES = ((1, (48, 48, 96), 8192, 2048, 1024), (2, (96, 80, 200), 2048, 1024, 256),
+               (2, (192, 160, 384), 2048, 1024, 256), (1, (256, 256, 512), 8192, 2048, 1024))
 # triples above the widest instantiation, which must raise on CUDA
-TOO_WIDE = ((160, 128, 256), (128, 144, 256), (128, 128, 288))
+TOO_WIDE = ((288, 256, 512), (256, 272, 512), (256, 256, 576))
 
 
 def random_w3(args, seed: int):
@@ -1039,9 +1061,9 @@ def random_w3(args, seed: int):
 @torch.no_grad()
 def pool_widths_check() -> None:
     """The six pool variants and K5 / K6 at each ``WIDTH_CASES`` triple, which
-    runs zero-padded on the next instantiated triple, against the plain
-    versions at the real widths under the tolerances of the full-width checks;
-    every ``TOO_WIDE`` triple raises."""
+    runs zero-padded on the next instantiated triple (or on its own), against
+    the plain versions at the real widths under the tolerances of the
+    full-width checks; every ``TOO_WIDE`` triple raises."""
     from eda_tpu_torch.ops.cuda import sa_kernel, sa_mask, sa_pool_bwd
 
     for layer, widths, n_points, n_centers, window in WIDTH_CASES:
@@ -1074,8 +1096,8 @@ def pool_widths_check() -> None:
             print(f"pool widths SA{layer} {widths}, W={window}, "
                   f"{'compact' if compact else 'windowed'} backward: within tolerance")
     for widths in TOO_WIDE:
-        args, kw = tie_inputs(B=1, N=1024, M=64, window=512, widths=widths)
-        bargs, bkw = bwd_edge_inputs(B=1, N=1024, M=64, window=512, widths=widths)
+        args, kw = tie_inputs(B=1, N=2048, M=64, window=512, widths=widths)
+        bargs, bkw = bwd_edge_inputs(B=1, N=2048, M=64, window=512, widths=widths)
         args, bargs = (tuple(a.cuda() for a in t) for t in (args, bargs))
         for what, fn in (("pool", lambda: sa_kernel.sa_pair_pool(*args, **kw, d2_mode="pair")),
                          ("pool backward",
@@ -1161,8 +1183,11 @@ def fps_sweep(calls) -> None:
 def prep_bwd_edge_inputs(seed=0) -> dict:
     """name -> ((pts, dA, w1, b1, scale) CPU tensors, radius): the prep
     backward's edge cases. Row counts that are no multiple of the kernel's
-    64-row tile at SA1's and SA3's widths; the tiny config's widths (in_dim
-    6 / 35 / 67, c1 16 / 32); a zero cotangent; points of large magnitude."""
+    64-row tile at SA1's and SA3's widths and at the width-2 backbone's SA2 and
+    SA3 (in_dim 259 and 515 at c1 256, the latter with W1 streamed) and the
+    largest in_dim, 2048 (W1 and P in four K chunks); the tiny config's widths
+    (in_dim 6 / 35 / 67, c1 16 / 32); a zero cotangent; points of large
+    magnitude."""
     g = torch.Generator().manual_seed(seed)
 
     def case(B, N, in_dim, c1, radius, scale_xyz=4.0, scale_f=1.0, zero=False):
@@ -1181,6 +1206,9 @@ def prep_bwd_edge_inputs(seed=0) -> dict:
         "tiny SA2 widths (35, 32), 2 x 250 rows": case(2, 250, 35, 32, 0.4),
         "tiny SA3 widths (67, 32), 2 x 100 rows": case(2, 100, 67, 32, 0.8),
         "zero dA, SA2 widths (131, 128)": case(2, 300, 131, 128, 0.4, zero=True),
+        "W2X SA2 widths (259, 256), 1 x 130 rows": case(1, 130, 259, 256, 0.4),
+        "W2X SA3 widths (515, 256), 2 x 77 rows": case(2, 77, 515, 256, 0.8),
+        "the largest in_dim (2048, 256), 1 x 70 rows": case(1, 70, 2048, 256, 1.2),
         "large-magnitude points, SA1 widths": case(1, 4100, 6, 64, 0.2, 500.0, 50.0),
     }
 
@@ -1219,8 +1247,9 @@ def prep_edge_inputs(max_in_dim, seed=0) -> dict:
     forward's edge cases. ``max_in_dim(c1)`` is the kernel's largest in_dim.
     Each c1 of ``PREP_EDGE_C1`` at in_dim 3 and at ``max_in_dim(c1)``; row
     counts that are no multiple of the 64-point tile (and fewer than one tile);
-    SA1's and SA3's widths at ragged row counts; coordinates and features of
-    large magnitude."""
+    SA1's and SA3's widths at ragged row counts, the width-2 backbone's SA3
+    (W1 streamed) over 126 tiles; coordinates and features of large
+    magnitude."""
     g = torch.Generator().manual_seed(seed)
 
     def case(B, N, in_dim, c1, radius, scale_xyz=4.0, scale_f=1.0):
@@ -1240,6 +1269,8 @@ def prep_edge_inputs(max_in_dim, seed=0) -> dict:
     cases["SA1 widths (6, 64), 3 x 1001 rows"] = case(3, 1001, 6, 64, 0.2)
     cases["SA3 widths (259, 128), 2 x 77 rows"] = case(2, 77, 259, 128, 0.8)
     cases["SA2 widths (131, 128), 1 x 40 rows"] = case(1, 40, 131, 128, 0.4)
+    # W1 streamed over many tiles and CTAs (the width-2 backbone's SA3)
+    cases["W2X SA3 widths (515, 256), 8 x 1001 rows"] = case(8, 1001, 515, 256, 0.8)
     cases["large-magnitude points, SA1 widths, 4100 rows"] = case(1, 4100, 6, 64, 0.2,
                                                                     500.0, 50.0)
     cases["large-magnitude points, SA2 widths, 300 rows"] = case(1, 300, 131, 128, 0.4,
@@ -1534,7 +1565,8 @@ def _first_moments(state) -> dict:
     return {names[p]: mu.cpu() for p, (mu, _) in state.optimizer.moments.items()}
 
 
-def small_train_check(root_cfg, grad_norm_rel: float = METRIC_REL, noise_draws: int = 0) -> None:
+def small_train_check(root_cfg, grad_norm_rel: float = METRIC_REL, noise_draws: int = 0,
+                      pool_noise: float = 0.0) -> None:
     """One tiny training step on the card against its CPU twin, dropout off.
 
     The CPU run's KPS indices and matches are handed to the card run (the
@@ -1543,12 +1575,17 @@ def small_train_check(root_cfg, grad_norm_rel: float = METRIC_REL, noise_draws: 
     ``grad_norm`` within ``grad_norm_rel``. With ``noise_draws`` the CPU step
     also runs on inputs moved by up to 1e-6 that many times, and the leaves
     whose moments fail the per-leaf gates there are held by the global cosine
-    only (``tests/test_torch_butd_train_step.py``).
+    only (``tests/test_torch_butd_train_step.py``). With ``pool_noise`` each of
+    those CPU runs also moves every pooled value of its pair pools by up to
+    that share (the pool kernels round h1 to bf16 after f32 sums in another
+    order than their plain versions: one bf16 step, 2^-8, moves a pooled value
+    by as much).
     """
     from eda_tpu_torch.entry import build_trainer
     from eda_tpu_torch.losses import criterion
     from eda_tpu_torch.models import grounder
     from eda_tpu_torch.models.layers import Dropout
+    from eda_tpu_torch.ops import fused_sa
     from eda_tpu_torch.train.optim import group_of
 
     cfg = dataclasses.replace(root_cfg.tiny(), dropout=0.0)
@@ -1591,8 +1628,17 @@ def small_train_check(root_cfg, grad_norm_rel: float = METRIC_REL, noise_draws: 
         xyz = moved_batch["inputs"]["point_clouds"][..., :3]
         xyz += torch.empty_like(xyz).uniform_(-1e-6, 1e-6,
                                               generator=torch.Generator().manual_seed(draw))
+        gen = torch.Generator().manual_seed(100 + draw)
+
+        def moved_pool(*a, _pool=fused_sa.sa_pair_pool_winners, **k):
+            values, winners = _pool(*a, **k)
+            shift = (torch.rand(values.shape, generator=gen) * 2 - 1) * pool_noise
+            return values * (1 + shift), winners
+
         with patched(grounder, "top_k_indices", lambda logits, k: chosen["kps"]), \
-                patched(criterion, "hungarian_match", lambda *a, **k: chosen["match"]):
+                patched(criterion, "hungarian_match", lambda *a, **k: chosen["match"]), \
+                patched(fused_sa, "sa_pair_pool_winners",
+                        moved_pool if pool_noise else fused_sa.sa_pair_pool_winners):
             step(moved, moved_batch)
         mu_moved = _first_moments(moved)
         noisy |= {k for k, w in mu_cpu.items() if w.any() and not k.endswith(ZERO_GRAD)
@@ -2598,6 +2644,158 @@ def f32_phase(root_cfg) -> list:
     return rows
 
 
+# The width-2 backbone ("W2X"): Group-Free-3D's Pointnet2Backbone(width=2)
+# (models/backbone_module.py; its L12O256w2x / L12O512w2x ScanNet detectors)
+# scales every SA and FP width of the flagship by 2. Its SA2-4 run on the wide
+# pool kernels (256, 256, 512) and its SA3-4 prep at in_dim 515 with W1
+# streamed. The tiny twin keeps the tiny config's depth and d_model (FP2 out 96).
+W2X_SA_MLPS = ((128, 128, 256), (256, 256, 512), (256, 256, 512), (256, 256, 512))
+W2X_FP_MLPS = ((512, 512), (512, 288))
+W2X_TINY_FP_MLPS = ((512, 512), (512, 96))
+# the wide kernels on edge inputs at SA2's shape: ties at the flagship window
+# (W3 = 0, four 64-row stages), the backward at W = 256 (fewer points than
+# channels: a center's W points win all 512) and 512
+W2X_TIE_CASES = ((2, (256, 256, 512), 2048, 1024, 256),)
+W2X_BWD_EDGE_CASES = ((2, (256, 256, 512), 2048, 1024, 256),
+                      (2, (256, 256, 512), 2048, 1024, 512))
+W2X_STEPS = 3  # full-width W2X training steps
+# The tiny W2X step's leaves are held as the flagship's, but those that fail
+# the per-leaf gates on the CPU itself once its pools' values move by one bf16
+# step (its 512-channel pools carry more of that rounding into the heads: a
+# leaf summing L1 signs, such as a center head's bias, flips with it) are held
+# by the global cosine only (at most BUTD_MAX_NOISY), as the butd step's noisy
+# leaves are
+W2X_POOL_NOISE = 2.0 ** -8
+
+
+def w2x_configs(root_cfg):
+    """(W2X at full width, its tiny twin) from ``root_cfg``'s other fields."""
+    cfg = dataclasses.replace(root_cfg, sa_mlps=W2X_SA_MLPS, fp_mlps=W2X_FP_MLPS)
+    tiny = dataclasses.replace(root_cfg.tiny(), sa_mlps=W2X_SA_MLPS, fp_mlps=W2X_TINY_FP_MLPS)
+    return cfg, tiny
+
+
+@dataclasses.dataclass(frozen=True)
+class TinyOf:
+    """A stand-in root config whose ``tiny()`` is ``cfg``: the small checks
+    build their model from ``root_cfg.tiny()``."""
+
+    cfg: object
+
+    def tiny(self):
+        return self.cfg
+
+
+def w2x_phase(root_cfg) -> list:
+    """The width-2 backbone, ``w2x_configs(ModelConfig(use_bf16=True))``: the
+    wide pool on tie inputs and its backward on edge inputs; the tiny W2X
+    model, step and scoring against their CPU twins; at full width (batch 8)
+    K2, K3 / K4, K5 / K6 and K7 against their plain versions on a forward's
+    and a step's inputs, ``REQUESTS`` serving batches and ``W2X_STEPS`` steps
+    with their launches, the ``mxu`` and ``pre`` kernels on a forward and a
+    step (``radius_mode_phase``), one scored eval batch under each radius
+    test, a profiled forward and step, and two steps from one state bit for
+    bit. Returns the kernel rows, named with " (w2x)"."""
+    from eda_tpu_torch.entry import build as build_model
+    from eda_tpu_torch.entry import build_evaluator, build_trainer, make_batch
+    from eda_tpu_torch.ops import fused_sa
+    from eda_tpu_torch.ops.cuda import build
+
+    cfg, tiny = w2x_configs(root_cfg)
+    pool_tie_check(W2X_TIE_CASES)
+    pool_bwd_edge_check(W2X_BWD_EDGE_CASES)
+    small_model_check(TinyOf(tiny))
+    small_train_check(TinyOf(tiny), noise_draws=BUTD_NOISE_DRAWS, pool_noise=W2X_POOL_NOISE)
+    small_eval_check(TinyOf(tiny))
+
+    model, inputs = build_model(cfg, batch_size=BATCH, device="cuda", seed=0)
+    serve = ("sa_prep_launch", "sa_pair_pool_launch")
+    with Recorder([(fused_sa, "sa_prep", serve[0]), (fused_sa, "sa_pair_pool", serve[1])]) as rec:
+        with torch.inference_mode():
+            model(inputs)
+    torch.cuda.synchronize()
+    rows = check_kernels(rec.calls, serve, {s: 4 for s in serve})
+    del rec
+    for kernel in build.KERNELS.values():
+        kernel.launches = 0
+    times = []
+    with torch.inference_mode():
+        for i in range(REQUESTS):
+            batch = make_batch(cfg, range(BATCH * i, BATCH * (i + 1)), "cuda") if i else inputs
+            before = launch_counts()
+            out, ms = timed(lambda: model(batch)["last_center"])
+            times.append(ms)
+            if out.shape != (BATCH, cfg.num_queries, 3) or not torch.isfinite(out).all():
+                raise AssertionError(f"w2x request {i}: bad last_center {tuple(out.shape)}")
+            check_launches(before, forward_launches("pair"), f"w2x request {i}")
+    counts = launch_counts()
+    for row, symbol in zip(rows, serve):
+        row["launches"] = counts[symbol]
+    print(f"w2x serving forward, batch {BATCH}: {statistics.median(times[1:]):.2f} ms per batch "
+          f"(median of requests 1-{REQUESTS - 1}), every launch as counted")
+    with torch.inference_mode():
+        profile(lambda: model(batch), "w2x serving forward", also=("sa_pair_pool",))
+
+    state, step, batch = build_trainer(cfg, batch_size=BATCH, device="cuda", seed=0)
+    bwd = lambda kw: bwd_symbol(kw["compact"])  # noqa: E731
+    with Recorder([(fused_sa, "sa_pair_pool_winners", TRAINING[0]),
+                   (fused_sa, "sa_pool_bwd", bwd),
+                   (fused_sa, "sa_prep_bwd", TRAINING[3])]) as rec:
+        step(state, batch)
+    torch.cuda.synchronize()
+    layers = {TRAINING[0]: 4, POOL_BWD[0]: 1, POOL_BWD[1]: 3, TRAINING[3]: 4}
+    train_rows = check_kernels(rec.calls, TRAINING, layers)
+    del rec
+    for kernel in build.KERNELS.values():
+        kernel.launches = 0
+    times = []
+    for i in range(W2X_STEPS):
+        before = launch_counts()
+        metrics, ms = timed(lambda: step(state, batch))
+        times.append(ms)
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise AssertionError(f"w2x step {i}: loss {loss}, grad_norm {norm}")
+        check_launches(before, step_launches("pair"), f"w2x step {i}")
+        print(f"w2x step {i}: {ms:.2f} ms, loss {loss:.4f}, grad_norm {norm:.4f}")
+    counts = launch_counts()
+    for row, symbol in zip(train_rows, TRAINING):
+        row["launches"] = counts[symbol]
+    rows += train_rows
+    profile(lambda: step(state, batch), "w2x training step", also=("pool_bwd", "sa_pair_pool"))
+
+    for mode in ("mxu", "pre"):
+        rows += radius_mode_phase(mode, model, inputs, state, step, batch)
+    exact_repeat_check(state, step, batch, "w2x full-width step")
+    del model, inputs, state, step, batch
+    torch.cuda.empty_cache()
+
+    evaluator_model, score_step, evaluator, batch = build_evaluator(cfg, batch_size=BATCH,
+                                                                    device="cuda")
+    positive_sizes(evaluator_model)
+    eval_launches = {}
+    for mode in ("pair", "mxu", "pre"):
+        with radius_mode(mode):
+            before = launch_counts()
+            ious, ms = timed(lambda: score_step(batch))
+        check_launches(before, forward_launches(mode), f"w2x {mode} eval batch")
+        eval_launches.update({s: n - before[s] for s, n in launch_counts().items()
+                              if n != before[s]})
+        if (ious.shape != IOU_SHAPE or not torch.isfinite(ious).all() or ious.min() < 0
+                or ious.max() > 1):
+            raise AssertionError(f"w2x {mode} eval batch: bad IoU stack {tuple(ious.shape)}")
+        print(f"w2x eval under {mode}, batch {BATCH}: {ms:.2f} ms, IoU stack finite in [0, 1], "
+              f"largest {ious.max().item():.4f}")
+    for row in rows[len(serve) + len(TRAINING):]:
+        if not row["name"].endswith("winners"):
+            row["launches"] = eval_launches[row["name"] + "_launch"]
+    del evaluator_model, score_step, evaluator, batch
+    torch.cuda.empty_cache()
+    for row in rows:
+        row["name"] += " (w2x)"
+    return rows
+
+
 GATHER_STEPS = 2  # full-width gather training steps
 
 
@@ -3483,6 +3681,8 @@ def main() -> int:
         phase("butd", butd_phase, cfg, *real, Path(tmp))
     torch.cuda.empty_cache()
     f32_rows = phase("f32", f32_phase, ModelConfig())
+    torch.cuda.empty_cache()
+    w2x_rows = phase("w2x", w2x_phase, cfg)
     phase("gather", gather_phase, ModelConfig())
     torch.cuda.empty_cache()
     phase("device sort", device_sort_phase, cfg)
@@ -3496,7 +3696,7 @@ def main() -> int:
             if not row["name"].endswith("winners"):
                 row["launches"] = eval_launches[mode][row["name"] + "_launch"]
 
-    rows = serve_rows + train_rows + mode_rows["mxu"] + mode_rows["pre"] + f32_rows
+    rows = serve_rows + train_rows + mode_rows["mxu"] + mode_rows["pre"] + f32_rows + w2x_rows
     for row in rows:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on the main path")

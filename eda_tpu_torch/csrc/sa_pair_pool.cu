@@ -80,11 +80,36 @@
 //     across the chunks. At the end of a center the 4 warps' partials combine
 //     through shared memory.
 //   * Widths: the kernels are instantiated for the model's four (c1, c2, c3)
-//     triples. A narrower layer comes zero-padded to the next one by the
-//     wrapper (zero channels add nothing to any sum, and zero s2 and lb2 keep
-//     h1 at 0 past c2); its variant (PAD) divides the LN sums by the real c2,
-//     a correctly rounded quotient (div_real), where the unpadded kernels
-//     multiply by 1/C2, exactly, C2 being a power of two.
+//     triples and for the width-2 backbone's (256, 256, 512). A narrower
+//     layer comes zero-padded to the next one by the wrapper (zero channels
+//     add nothing to any sum, and zero s2 and lb2 keep h1 at 0 past c2); its
+//     variant (PAD) divides the LN sums by the real c2, a correctly rounded
+//     quotient (div_real), where the unpadded kernels multiply by 1/C2,
+//     exactly, C2 being a power of two.
+//
+// The wide kernel (sa_pair_pool_wide, (256, 256, 512) only; the four triples
+// above compile as they did). W2 (128 KiB) and W3 (256 KiB) do not fit
+// shared memory, not even one of them beside a window stage, so they stream
+// from L2 (where every CTA finds them) through a ring of three 16 KiB slots:
+// per (center, 64-point tile) 8 K-chunks of W2 (32 rows x 256 columns) for
+// GEMM1, then 16 passes of W3 (256 rows x 32 columns) for GEMM2, 24 ring
+// steps, each copied row-major by 16-byte cp.async into the MN-major core
+// layout, which wgmma reads with the transpose flag. One warpgroup a CTA (at
+// c2 256 GEMM1's accumulator alone is 128 registers a thread, so three
+// warpgroups no longer fit the register file) and two CTAs an SM, whose
+// products and CUDA-core work interleave as the warpgroups of the narrow
+// kernel do. A window comes in stages of one 64-row tile. Shared memory of a
+// CTA, 103 936 bytes with winners (two fit an SM's 228 KB):
+//     A stage   64 x 256 bf16, swizzled            32 768
+//     ring      3 x 16 KiB                         49 152
+//     part      4 warps x 512 x (f32 + int32)      16 384
+//     bits      16 centers x 2 words                  128
+//     vectors   b2, s2, lb2 (256), b3 (512) f32     5 120
+//     centers   17 x 4 f32, to 128 bytes              384
+// The copy of ring step t + 1 is issued when step t starts and lands while
+// step t's products run; a step's slot is rewritten two steps later, after a
+// barrier that follows every warp's wait for its products. Each W2 and W3
+// byte is read from L2 once per (center, tile): 384 KiB per 25 MFLOP.
 
 // Winner export (WIN): the TPU kernel's tie rule (sa_kernel.py:357-382) cuts
 // the window in tiles of wc = min(128, W) points; inside a tile the LAST of
@@ -595,6 +620,387 @@ sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xy
   }
 }
 
+// ---- the wide kernel: (c1, c2, c3) = (256, 256, 512), weights streamed
+
+constexpr int kWideC1 = 256, kWideC2 = 256, kWideC3 = 512;
+constexpr int kWideThreads = 128;   // one warpgroup
+constexpr int kWideSlots = 3;       // ring slots
+constexpr int kWideSlotBytes = 16384;
+constexpr int kWideChunk = 32;      // W2 rows (K) of a GEMM1 ring step
+constexpr int kWidePass = 32;       // W3 columns of a GEMM2 ring step
+constexpr int kWideSteps = kWideC1 / kWideChunk + kWideC3 / kWidePass;  // ring steps a tile
+constexpr int kWideSharedBytes = 115712;  // two CTAs an SM
+
+struct WideLayout {
+  size_t a, ring, part, bits, prm, cen, total;
+  __host__ __device__ WideLayout(bool win) {
+    size_t o = 0;
+    a = o;    o += align128((size_t)kRows * kWideC1 * 2);
+    ring = o; o += (size_t)kWideSlots * kWideSlotBytes;
+    part = o; o += align128((size_t)4 * kWideC3 * (win ? 8 : 4));
+    bits = o; o += align128((size_t)kCenters * (kRows / 32) * 4);
+    prm = o;  o += align128((size_t)(3 * kWideC2 + kWideC3) * 4);
+    cen = o;  o += align128((size_t)(kCenters + 1) * 4 * 4);
+    total = o;
+  }
+};
+
+#define EDA_D8(i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),          \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// As wgmma_rs, with B read MN-major (the transpose flag): rows = K in the
+// core layout, lbo = N * 16 between K cores, sbo = 128 between N cores.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t desc, int accumulate) {
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : EDA_D8(0), EDA_D8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else {
+    static_assert(N == 128, "wgmma widths");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : EDA_D8(0), EDA_D8(8), EDA_D8(16), EDA_D8(24), EDA_D8(32), EDA_D8(40), EDA_D8(48),
+          EDA_D8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+}
+#undef EDA_D8
+
+// Ring step j of a tile: j < 8 the W2 rows 32 j .. + 32 (GEMM1's K-chunk j),
+// else the W3 columns 32 (j - 8) .. + 32 (GEMM2's pass j - 8).
+__device__ __forceinline__ void wide_fetch(uint32_t dst, const uint16_t* __restrict__ w2,
+                                           const uint16_t* __restrict__ w3, int j) {
+  constexpr int n1 = kWideC1 / kWideChunk;
+  if (j < n1)
+    copy_core<kWideThreads, kWideChunk, kWideC2, kWideC2>(dst, w2 + j * kWideChunk * kWideC2);
+  else
+    copy_core<kWideThreads, kWideC2, kWidePass, kWideC3>(dst, w3 + (j - n1) * kWidePass);
+}
+
+template <bool WIN, int D2, bool PAD>
+__global__ void __launch_bounds__(kWideThreads, 2)
+sa_pair_pool_wide(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
+                  const uint16_t* __restrict__ bc, const float* __restrict__ cen,
+                  const uint8_t* __restrict__ mask, const int* __restrict__ starts,
+                  const uint16_t* __restrict__ w2, const float* __restrict__ b2,
+                  const float* __restrict__ s2, const float* __restrict__ lb2,
+                  const uint16_t* __restrict__ w3, const float* __restrict__ b3, int N,
+                  int M, int W, float c2, float rc2, float r2, float* __restrict__ out,
+                  int* __restrict__ winners) {
+  constexpr int C1 = kWideC1, C2 = kWideC2, C3 = kWideC3;
+  constexpr int NP = kWidePass, PASSES = C3 / NP;  // GEMM2 passes of NP columns
+  constexpr int NV = NP / 4;                       // a thread's values of a pass, per row pair
+  constexpr int NCH = C1 / kWideChunk;             // GEMM1 ring steps (two k16 steps each)
+  constexpr int kc = C1 / 8, swz = 7;              // A rows: 16-byte chunks, their swizzle
+  static_assert(NV == 8, "one value a lane after the row reduction");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WideLayout L(WIN);
+  float* part_v = reinterpret_cast<float*>(smem + L.part);  // [warp][C3]
+  int* part_q = reinterpret_cast<int*>(part_v + 4 * C3);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + L.bits);  // [center][2]
+  float* b2s = reinterpret_cast<float*>(smem + L.prm);
+  float* s2s = b2s + C2;
+  float* lb2s = s2s + C2;
+  float* b3s = lb2s + C2;
+  float* cens = reinterpret_cast<float*>(smem + L.cen);  // [center][4], then o
+  const uint32_t a_smem = smem_u32(smem + L.a), ring = smem_u32(smem + L.ring);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;  // warp: tile rows 16 warp ..
+  const int b = blockIdx.y;
+  const int n_blocks = M / kCenters;
+  const int m0 = blockIdx.x * kCenters;
+  int start = starts[(size_t)b * n_blocks + blockIdx.x];
+  start = min(max(start, 0), N - W);
+  const int g = lane / 4, t4 = lane % 4;
+  const int wc = W < 128 ? W : 128;
+  const int nt = (W + wc - 1) / wc;
+  const int ld_row = 16 * warp + (lane & 7) + (lane & 8);
+  const int ld_chunk = lane >> 4;
+  const int base_i = ((lane & 16) ? NV / 2 : 0) + ((lane & 8) ? NV / 4 : 0) +
+                     ((lane & 4) ? NV / 8 : 0);
+
+  for (int i = tid; i < C2; i += kWideThreads) {
+    b2s[i] = b2[i];
+    s2s[i] = s2[i];
+    lb2s[i] = lb2[i];
+  }
+  for (int i = tid; i < C3; i += kWideThreads) b3s[i] = b3[i];
+  if (D2 != kPre && tid < kCenters) {
+    const float* cp = cen + ((size_t)b * M + m0 + tid) * 3;
+    float cx = cp[0], cy = cp[1], cz = cp[2], csq = 0.f;
+    if constexpr (D2 == kMxu) {
+      const float* op = cen + ((size_t)b * M + m0) * 3;
+      cx -= op[0];
+      cy -= op[1];
+      cz -= op[2];
+      csq = cx * cx + cy * cy + cz * cz;
+      if (tid == 0) {
+        cens[kCenters * 4] = op[0];
+        cens[kCenters * 4 + 1] = op[1];
+        cens[kCenters * 4 + 2] = op[2];
+      }
+    }
+    cens[tid * 4] = cx;
+    cens[tid * 4 + 1] = cy;
+    cens[tid * 4 + 2] = cz;
+    cens[tid * 4 + 3] = csq;
+  }
+  __syncthreads();
+
+  // the window in stages of one 64-row tile
+  const int stages = (W + kRows - 1) / kRows;
+  for (int st = 0; st < stages; ++st) {
+    const int s0 = st * kRows;
+    const int sw = min(kRows, W - s0);
+    if (st > 0) __syncthreads();  // the last stage is done
+
+    // 1. the stage's A rows, zeros past the window end
+    {
+      const uint16_t* a_win = A + ((size_t)b * N + start + s0) * C1;
+      for (int i = tid; i < kRows * kc; i += kWideThreads) {
+        const int r = i / kc, ch = i % kc;
+        const uint32_t dst = a_smem + r * C1 * 2 + ((ch ^ (r & swz)) << 4);
+        if (r < sw) {
+          cp_async16(dst, a_win + (size_t)r * C1 + ch * 8);
+        } else {
+          asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(dst), "r"(0u));
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+
+    // 2. the radius test of every (center, stage point), as bits
+    constexpr int nwords = kRows / 32;
+    for (int wi = warp; wi < nwords; wi += kWideThreads / 32) {
+      const int p = s0 + wi * 32 + lane;
+      const bool valid = p < W;
+      if constexpr (D2 == kPre) {
+        const uint8_t* m_win = mask + ((size_t)b * n_blocks + blockIdx.x) * W * kCenters;
+        const uint4 row = valid ? *reinterpret_cast<const uint4*>(m_win + (size_t)p * kCenters)
+                                : make_uint4(0, 0, 0, 0);
+        const uint32_t w[4] = {row.x, row.y, row.z, row.w};
+#pragma unroll
+        for (int c = 0; c < kCenters; ++c) {
+          const bool in = valid && ((w[c / 4] >> (8 * (c % 4))) & 0xffu) != 0;
+          const uint32_t word = __ballot_sync(0xffffffffu, in);
+          if (lane == 0) bits[c * nwords + wi] = word;
+        }
+      } else {
+        const float* xp = xyz + ((size_t)b * N + start + (valid ? p : 0)) * 3;
+        const float x = xp[0], y = xp[1], z = xp[2];
+        float px = 0.f, py = 0.f, pz = 0.f, psq = 0.f;
+        if constexpr (D2 == kMxu) {
+          px = x - cens[kCenters * 4];
+          py = y - cens[kCenters * 4 + 1];
+          pz = z - cens[kCenters * 4 + 2];
+          psq = px * px + py * py + pz * pz;
+        }
+#pragma unroll
+        for (int c = 0; c < kCenters; ++c) {
+          const float cx = cens[c * 4], cy = cens[c * 4 + 1], cz = cens[c * 4 + 2];
+          bool in;
+          if constexpr (D2 == kMxu) {
+            const float pc =
+                (-2.f * px) * cx + (-2.f * py) * cy + (-2.f * pz) * cz + cens[c * 4 + 3];
+            in = pc <= r2 - psq;
+          } else {
+            const float dx = x - cx, dy = y - cy, dz = z - cz;
+            in = dx * dx + dy * dy + dz * dz <= r2;
+          }
+          const uint32_t word = __ballot_sync(0xffffffffu, valid && in);
+          if (lane == 0) bits[c * nwords + wi] = word;
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+
+    // 3. the centers with a pair in radius in the stage's tile, 24 ring steps each
+    int items = 0;
+    for (int c = 0; c < kCenters; ++c) items += (bits[2 * c] | bits[2 * c + 1]) != 0;
+    const int steps = items * kWideSteps;
+    int t = 0;
+    if (steps > 0) wide_fetch(ring, w2, w3, 0);
+    // Ring step t: its copy has landed for every thread (each waits for its
+    // own, then the barrier), and step t - 2's products are done in every
+    // warp (each waited before the barrier), so step t + 1 may take that
+    // slot. Returns step t's slot.
+    auto ring_step = [&]() -> uint32_t {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      fence_async();
+      __syncthreads();
+      if (t + 1 < steps)
+        wide_fetch(ring + ((t + 1) % kWideSlots) * kWideSlotBytes, w2, w3, (t + 1) % kWideSteps);
+      const uint32_t slot = ring + (t % kWideSlots) * kWideSlotBytes;
+      ++t;
+      return slot;
+    };
+
+    for (int c = 0; c < kCenters; ++c) {
+      const uint32_t lo = bits[2 * c], hi = bits[2 * c + 1];
+      const bool any = (lo | hi) != 0;  // uniform: the bits are shared
+      if (any) {
+        const uint32_t word = warp < 2 ? lo : hi;
+        const int sh = (16 * warp + g) & 31;
+        const bool in0 = (word >> sh) & 1u, in1 = (word >> (sh + 8)) & 1u;
+        int q0 = 0, q1 = 0;
+        if constexpr (WIN) {
+          const int p0 = s0 + 16 * warp + g, p1 = p0 + 8;
+          q0 = (nt - 1 - p0 / wc) * wc + p0 % wc;
+          q1 = (nt - 1 - p1 / wc) * wc + p1 % wc;
+        }
+        const uint16_t* bcp = bc + ((size_t)b * M + m0 + c) * C1 + 2 * t4;
+
+        // GEMM1 X = h0 W2: a ring step of 32 W2 rows (two k16 steps), the 256
+        // columns as two n128 products; h0 = relu(A + bc) as register
+        // fragments, double-buffered while a step's products run
+        float acc1[C2 / 2];
+        uint32_t af[2][2][4];
+#pragma unroll
+        for (int j = 0; j < NCH; ++j) {
+          const uint32_t slot = ring_step();
+          uint32_t(&f)[2][4] = af[j & 1];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int s = 2 * j + e, ch = 2 * s + ld_chunk;
+            ldmatrix_x4(f[e], a_smem + ld_row * C1 * 2 + ((ch ^ (ld_row & swz)) << 4));
+            const uint32_t c0 = __ldg(reinterpret_cast<const unsigned int*>(bcp + 16 * s));
+            const uint32_t c8 = __ldg(reinterpret_cast<const unsigned int*>(bcp + 16 * s + 8));
+            f[e][0] = add_relu_bf16x2(f[e][0], c0);
+            f[e][1] = add_relu_bf16x2(f[e][1], c0);
+            f[e][2] = add_relu_bf16x2(f[e][2], c8);
+            f[e][3] = add_relu_bf16x2(f[e][3], c8);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+              wgmma_rs_mn<128>(*reinterpret_cast<float(*)[64]>(acc1 + 64 * n), f[e],
+                               make_desc(slot + e * 32 * C2 + n * 2048, C2 * 16, 128),
+                               j > 0 || e > 0);
+          wgmma_commit();
+          wgmma_wait<1>();
+          if (j > 0) {
+            fence_regs(af[(j - 1) & 1][0]);
+            fence_regs(af[(j - 1) & 1][1]);
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(acc1);
+        fence_regs(af[(NCH - 1) & 1][0]);
+        fence_regs(af[(NCH - 1) & 1][1]);
+
+        uint32_t hf[C2 / 16][4];
+        ln_fragments<C2, PAD>(acc1, b2s, s2s, lb2s, t4, c2, rc2, hf);
+
+        // GEMM2 z = h1 W3: a ring step of 32 W3 columns, two accumulators in
+        // turn; pass h - 1 is masked, maxed over the warp's rows and left in
+        // the warp's partials while pass h runs (a stage is one tile, so the
+        // tile's max is the stage's)
+        float acc2[2][NP / 2];
+        auto fold = [&](const float* acc, int h) {
+          float v = __uint_as_float(kMinusInfBits);
+          int q = 0;
+          fold_max<NV, WIN>(acc, in0, in1, q0, q1, lane, &v, &q);
+          const int col = h * NP + 8 * (base_i / 2) + 2 * t4 + base_i % 2;
+          part_v[warp * C3 + col] = v;
+          if constexpr (WIN) part_q[warp * C3 + col] = q;
+        };
+#pragma unroll
+        for (int h = 0; h < PASSES; ++h) {
+          const uint32_t slot = ring_step();
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < C2 / 16; ++s)
+            wgmma_rs_mn<NP>(acc2[h & 1], hf[s], make_desc(slot + s * 32 * NP, NP * 16, 128),
+                            s > 0);
+          wgmma_commit();
+          if (h > 0) {
+            wgmma_wait<1>();
+            fence_regs(acc2[(h - 1) & 1]);
+            fold(acc2[(h - 1) & 1], h - 1);
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(acc2[(PASSES - 1) & 1]);
+        fold(acc2[(PASSES - 1) & 1], PASSES - 1);
+#pragma unroll
+        for (int s = 0; s < C2 / 16; ++s) fence_regs(hf[s]);
+        __syncthreads();
+      }
+
+      // the 4 warps' partials through shared memory (where the tile ran), the
+      // earlier stages' partial from the output buffers, and b3 and the
+      // output at the last stage
+      for (int col = tid; col < C3; col += kWideThreads) {
+        float v = __uint_as_float(kMinusInfBits);
+        int q = 0;
+        if (any) {
+          v = part_v[col];
+          q = WIN ? part_q[col] : 0;
+#pragma unroll
+          for (int w = 1; w < 4; ++w)
+            combine<WIN>(v, q, part_v[w * C3 + col], WIN ? part_q[w * C3 + col] : 0);
+        }
+        const size_t o = ((size_t)b * M + m0 + c) * C3 + col;
+        // the same thread wrote (out, winners)[o] at the last stage
+        if (st > 0) combine<WIN>(v, q, out[o], WIN ? winners[o] : 0);
+        if (st + 1 < stages) {
+          out[o] = v;
+          if constexpr (WIN) winners[o] = q;
+          continue;
+        }
+        const float zmax = v + b3s[col];
+        const bool hit = zmax > kNeg;
+        out[o] = hit ? zmax : kNeg;
+        if constexpr (WIN) {
+          const int p = (nt - 1 - q / wc) * wc + q % wc;
+          winners[o] = hit ? start + p : 0;
+        }
+      }
+      if (any) __syncthreads();  // part is rewritten for the next center
+    }
+  }
+}
+
+template <bool WIN, int D2, bool PAD>
+cudaError_t launch_wide(const uint16_t* A, const float* xyz, const uint16_t* bc,
+                        const float* cen, const uint8_t* mask, const int* starts,
+                        const uint16_t* w2, const float* b2, const float* s2, const float* lb2,
+                        const uint16_t* w3, const float* b3, int B, int N, int M, int W,
+                        int c2_real, float r2, float* out, int* winners, cudaStream_t s) {
+  const WideLayout L(WIN);
+  if (L.total > (size_t)kWideSharedBytes) return cudaErrorInvalidValue;
+  auto* kernel = sa_pair_pool_wide<WIN, D2, PAD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  dim3 grid(M / kCenters, B);
+  kernel<<<grid, kWideThreads, L.total, s>>>(A, xyz, bc, cen, mask, starts, w2, b2, s2, lb2, w3,
+                                             b3, N, M, W, (float)c2_real, 1.f / (float)c2_real,
+                                             r2, out, winners);
+  return cudaGetLastError();
+}
+
 template <int C1, int C2, int C3, bool WIN, int D2, bool PAD>
 cudaError_t launch(const uint16_t* A, const float* xyz, const uint16_t* bc,
                    const float* cen, const uint8_t* mask, const int* starts,
@@ -650,6 +1056,12 @@ int dispatch(const void* A, const float* xyz, const void* bc, const float* cen,
   EDA_SA_LAUNCH(64, 64, 128)
   EDA_SA_LAUNCH(128, 128, 256)
 #undef EDA_SA_LAUNCH
+  if (c1 == kWideC1 && c2 == kWideC2 && c3 == kWideC3)
+    return c2_real == c2
+               ? launch_wide<WIN, D2, false>(a, xyz, bcv, cen, mask, starts, w2v, b2, s2, lb2,
+                                             w3v, b3, B, N, M, W, c2_real, r2, out, winners, s)
+               : launch_wide<WIN, D2, true>(a, xyz, bcv, cen, mask, starts, w2v, b2, s2, lb2,
+                                            w3v, b3, B, N, M, W, c2_real, r2, out, winners, s);
   return cudaErrorInvalidValue;
 }
 
@@ -661,7 +1073,8 @@ extern "C" {
 // f32; starts: (B, M/16) int32 window starts (multiples of 16, clamped to
 // [0, N-W]); w2: (c1, c2) bf16; b2/s2/lb2: (c2,) f32; w3: (c2, c3) bf16;
 // b3: (c3,) f32; out: (B, M, c3) f32. (c1, c2, c3) must be one of (16, 16,
-// 32), (32, 32, 64), (64, 64, 128), (128, 128, 256), the model's layer widths;
+// 32), (32, 32, 64), (64, 64, 128), (128, 128, 256), the model's layer widths,
+// or (256, 256, 512), the width-2 backbone's (the wide kernel);
 // narrower layers come zero-padded to one of them (zero W2 and W3 rows and
 // columns, zero b2, s2, lb2 and b3 past the real widths) and c2_real <= c2 is
 // the real interior width, the LayerNorm's divisor. Any window 0 < W <= N.

@@ -53,6 +53,14 @@
 //     conflict) and out as coalesced 16-byte stores; the ragged last tile is
 //     masked. The stage shares its bytes with the P tile, which is free once
 //     the tile's products are done.
+//   * Where W1 does not fit whole beside a 16-column P chunk (c1 256 past
+//     in_dim ~432, as the width-2 backbone's SA3 and SA4 at in_dim 515: W1 is
+//     264 KiB), it streams (STREAM): per tile and product chunk of 128
+//     columns, its rows of each K chunk go to shared memory by 16-byte
+//     cp.async into the same core layout, beside that K chunk of P (at in_dim
+//     515 one chunk: W1 132 KiB + P 66 KiB). W1 then comes from L2 once per
+//     tile; at those layers a CTA has one tile or two, so it read W1 once
+//     anyway. Every other width keeps the single-pass plan above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,15 +85,17 @@ __host__ __device__ constexpr int c1_pad(int c1) {
 // columns of the output stage: 64, or all of them below
 __host__ __device__ constexpr int piece_cols(int C1P) { return C1P < 64 ? C1P : 64; }
 
-// The shared buffers of a CTA: W1 (KP x C1P, rows = K), bf16(b1), scale and
-// lnb (f32), with a ring its stages' mbarriers and `ring` raw stages of a
-// tile's points (64 x in_dim f32 each), and the P tile (64 x KC bf16), whose
-// bytes the output stage (64 x piece_cols bf16) reuses.
+// The shared buffers of a CTA: W1 (KP x C1P, rows = K; streamed: KC x 128),
+// bf16(b1), scale and lnb (f32), with a ring its stages' mbarriers and `ring`
+// raw stages of a tile's points (64 x in_dim f32 each), and the P tile (64 x
+// KC bf16), whose bytes the output stage (64 x piece_cols bf16) reuses.
 struct Layout {
   size_t w1, prm, bars, raw, stage, p, total;
-  __host__ __device__ Layout(int in_dim, int KC, int C1P, int ring) {
+  __host__ __device__ Layout(int in_dim, int KC, int C1P, int ring, bool stream = false) {
     size_t o = 0;
-    w1 = o;    o += align128((size_t)round16(in_dim) * C1P * 2);
+    w1 = o;
+    o += align128(stream ? (size_t)KC * (C1P < 128 ? C1P : 128) * 2
+                         : (size_t)round16(in_dim) * C1P * 2);
     prm = o;   o += align128((size_t)3 * C1P * 4);
     bars = o;  o += ring > 0 ? 128 : 0;
     raw = o;   stage = align128((size_t)kRows * in_dim * 4);  o += ring * stage;
@@ -96,9 +106,13 @@ struct Layout {
   }
 };
 
-bool fits(int in_dim, int c1, int KC, int ring) {
-  return Layout(in_dim, KC, c1_pad(c1), ring).total <= (size_t)kMaxSharedBytes;
+bool fits(int in_dim, int c1, int KC, int ring, bool stream = false) {
+  return Layout(in_dim, KC, c1_pad(c1), ring, stream).total <= (size_t)kMaxSharedBytes;
 }
+
+// The largest in_dim the kernel takes. Shared memory sets no limit (W1
+// streams); this is the largest the card checks (chip_smoke.py, prep edges).
+constexpr int kMaxInDim = 2048;
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -115,7 +129,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int C1P>
+template <int C1P, bool STREAM>
 __global__ void __launch_bounds__(kThreads)
 sa_prep_kernel(const float* __restrict__ pts, long long n_rows, int in_dim, int c1, int KC,
                int ring, bool vec, const uint16_t* __restrict__ w1,
@@ -128,7 +142,7 @@ sa_prep_kernel(const float* __restrict__ pts, long long n_rows, int in_dim, int 
   constexpr int PQ = PW / 8;                 // its 16-byte chunks a row
   const int KP = round16(in_dim);
   const int nkc = (KP + KC - 1) / KC;        // K chunks of the P tile
-  const Layout L(in_dim, KC, C1P, ring);
+  const Layout L(in_dim, KC, C1P, ring, STREAM);
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint16_t* w1s = reinterpret_cast<uint16_t*>(smem + L.w1);
@@ -168,47 +182,50 @@ sa_prep_kernel(const float* __restrict__ pts, long long n_rows, int in_dim, int 
   // else 16-byte cp.async copies straight into the core layout (vec), row k
   // and chunk q of copy i = k q1 + q stepped without a division; else element
   // by element.
+  // (STREAM: W1 comes with the products, stage_w1.)
   const int q1 = c1 / 8;
   const uint32_t w1_bytes = (uint32_t)in_dim * c1 * 2;
   const bool w1_bulk = ring > 0 && vec && w1_bytes <= L.stage;
-  if (vec) {
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    for (int i = tid; i < (KP - in_dim) * (C1P / 8); i += kThreads)  // padding rows
-      *reinterpret_cast<uint4*>(w1s + core_at(in_dim + i / (C1P / 8), 8 * (i % (C1P / 8)),
-                                              C1P)) = zero;
-    const int qp = C1P / 8 - q1;  // padding chunks of the real rows
-    for (int i = tid; i < in_dim * qp; i += kThreads)
-      *reinterpret_cast<uint4*>(w1s + core_at(i / qp, 8 * (q1 + i % qp), C1P)) = zero;
-  }
-  const int sk = kThreads / (q1 > 0 ? q1 : 1), sq = kThreads % (q1 > 0 ? q1 : 1);
-  if (w1_bulk) {
-    if (tid == 0) bulk_copy(raw_base, w1, w1_bytes, bar(0));
-    stage_wait(0);
-    const uint4* rows = reinterpret_cast<const uint4*>(raw);
-    for (int k = tid / q1, q = tid % q1; k < in_dim;) {
-      *reinterpret_cast<uint4*>(w1s + core_at(k, 8 * q, C1P)) = rows[k * q1 + q];
-      k += sk;
-      q += sq;
-      if (q >= q1) {
-        q -= q1;
-        ++k;
-      }
+  if constexpr (!STREAM) {
+    if (vec) {
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      for (int i = tid; i < (KP - in_dim) * (C1P / 8); i += kThreads)  // padding rows
+        *reinterpret_cast<uint4*>(w1s + core_at(in_dim + i / (C1P / 8), 8 * (i % (C1P / 8)),
+                                                C1P)) = zero;
+      const int qp = C1P / 8 - q1;  // padding chunks of the real rows
+      for (int i = tid; i < in_dim * qp; i += kThreads)
+        *reinterpret_cast<uint4*>(w1s + core_at(i / qp, 8 * (q1 + i % qp), C1P)) = zero;
     }
-    __syncthreads();  // stage 0 is read: the tiles may land there
-  } else if (vec) {
-    for (int k = tid / q1, q = tid % q1; k < in_dim;) {
-      cp_async16(smem_u32(w1s + core_at(k, 8 * q, C1P)), w1 + (size_t)k * c1 + 8 * q);
-      k += sk;
-      q += sq;
-      if (q >= q1) {
-        q -= q1;
-        ++k;
+    const int sk = kThreads / (q1 > 0 ? q1 : 1), sq = kThreads % (q1 > 0 ? q1 : 1);
+    if (w1_bulk) {
+      if (tid == 0) bulk_copy(raw_base, w1, w1_bytes, bar(0));
+      stage_wait(0);
+      const uint4* rows = reinterpret_cast<const uint4*>(raw);
+      for (int k = tid / q1, q = tid % q1; k < in_dim;) {
+        *reinterpret_cast<uint4*>(w1s + core_at(k, 8 * q, C1P)) = rows[k * q1 + q];
+        k += sk;
+        q += sq;
+        if (q >= q1) {
+          q -= q1;
+          ++k;
+        }
       }
-    }
-  } else {
-    for (int i = tid; i < KP * C1P; i += kThreads) {
-      const int k = i / C1P, n = i - k * C1P;
-      w1s[core_at(k, n, C1P)] = (k < in_dim && n < c1) ? w1[(size_t)k * c1 + n] : uint16_t(0);
+      __syncthreads();  // stage 0 is read: the tiles may land there
+    } else if (vec) {
+      for (int k = tid / q1, q = tid % q1; k < in_dim;) {
+        cp_async16(smem_u32(w1s + core_at(k, 8 * q, C1P)), w1 + (size_t)k * c1 + 8 * q);
+        k += sk;
+        q += sq;
+        if (q >= q1) {
+          q -= q1;
+          ++k;
+        }
+      }
+    } else {
+      for (int i = tid; i < KP * C1P; i += kThreads) {
+        const int k = i / C1P, n = i - k * C1P;
+        w1s[core_at(k, n, C1P)] = (k < in_dim && n < c1) ? w1[(size_t)k * c1 + n] : uint16_t(0);
+      }
     }
   }
   cp_async_commit();
@@ -284,6 +301,30 @@ sa_prep_kernel(const float* __restrict__ pts, long long n_rows, int in_dim, int 
     __syncthreads();
   };
 
+  // STREAM: W1's rows [k0, k0 + KC) and columns [c0, c0 + CW) into its
+  // buffer (core layout, rows = K), zero past in_dim and c1; 16-byte cp.async
+  // where the chunk lies inside (vec), a warp on 8 rows of 4 cores
+  auto stage_w1 = [&](int k0, int c0) {
+    constexpr int CW = C1P < 128 ? C1P : 128, Q = CW / 8;
+    for (int i = tid; i < KC * Q; i += kThreads) {
+      const int kr = i & 7, q = (i >> 3) % Q, k = ((i >> 3) / Q) * 8 + kr;
+      const int n = c0 + 8 * q;
+      uint16_t* dst = w1s + core_at(k, 8 * q, CW);
+      if (vec && k0 + k < in_dim && n < c1) {
+        cp_async16(smem_u32(dst), w1 + (size_t)(k0 + k) * c1 + n);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = k0 + k < in_dim && n + e < c1 ? w1[(size_t)(k0 + k) * c1 + n + e]
+                                                 : uint16_t(0);
+      }
+    }
+    cp_async_commit();  // wait_group counts committed groups only
+    cp_async_wait_all();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  };
+
   int slot = 0;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long row0 = tile * kRows;
@@ -313,15 +354,25 @@ sa_prep_kernel(const float* __restrict__ pts, long long n_rows, int in_dim, int 
       for (int kc = 0; kc < nkc; ++kc) {
         if (nkc > 1) convert_global(row0, kc * KC);
         const uint32_t pb = opaque(p_base);
-        const uint32_t wb = opaque(w1_base) + (ch * CW / 8) * 128 + kc * KC * C1P * 2;
-        wgmma_fence();
-        for (int s = 0; s < KC / 16; ++s)
-          wgmma_ss<CW, 0, 1>(acc, make_desc(pb + 256 * s, 128, KC * 16),
-                             make_desc(wb + s * 32 * C1P, C1P * 16, 128), kc > 0 || s > 0);
+        if constexpr (STREAM) {
+          stage_w1(kc * KC, ch * CW);
+          const uint32_t wb = opaque(w1_base);
+          wgmma_fence();
+          for (int s = 0; s < KC / 16; ++s)
+            wgmma_ss<CW, 0, 1>(acc, make_desc(pb + 256 * s, 128, KC * 16),
+                               make_desc(wb + s * 32 * CW, CW * 16, 128), kc > 0 || s > 0);
+        } else {
+          const uint32_t wb = opaque(w1_base) + (ch * CW / 8) * 128 + kc * KC * C1P * 2;
+          wgmma_fence();
+          for (int s = 0; s < KC / 16; ++s)
+            wgmma_ss<CW, 0, 1>(acc, make_desc(pb + 256 * s, 128, KC * 16),
+                               make_desc(wb + s * 32 * C1P, C1P * 16, 128), kc > 0 || s > 0);
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
-        if (nkc > 1) __syncthreads();  // the chunk is read: the next may replace it
+        // the chunk (and a streamed W1's rows) is read: the next may replace it
+        if (nkc > 1 || STREAM) __syncthreads();
       }
 #pragma unroll
       for (int i = 0; i < NV; i += 2) {
@@ -404,24 +455,28 @@ int k_chunk(int in_dim, int c1) {
 // stages where the tiles are many (SA1: the copies of later tiles overlap
 // this one's work), one where they are few (more CTAs fit an SM); without
 // room for a stage, the P tile straight from device memory, in K chunks if
-// it does not fit whole.
-void plan(long long n_rows, int in_dim, int c1, int sms, int& KC, int& ring) {
+// it does not fit whole; where W1 does not fit whole either, W1 streams, in
+// as few equal K chunks as fit.
+void plan(long long n_rows, int in_dim, int c1, int sms, int& KC, int& ring, bool& stream) {
   const long long tiles = (n_rows + kRows - 1) / kRows;
   KC = round16(in_dim);
+  stream = false;
   for (ring = tiles > 4LL * sms ? 2 : 1; ring > 0; --ring)
     if (fits(in_dim, c1, KC, ring)) return;
   KC = k_chunk(in_dim, c1);
+  if (fits(in_dim, c1, KC, 0)) return;
+  stream = true;
+  const int KP = round16(in_dim);
+  int n = 1;
+  while (!fits(in_dim, c1, round16((KP + n - 1) / n), 0, true)) ++n;
+  KC = round16((KP + n - 1) / n);
 }
 
-template <int C1P>
-cudaError_t launch(const float* pts, long long n_rows, int in_dim, int c1,
+template <int C1P, bool STREAM>
+cudaError_t launch(const float* pts, long long n_rows, int in_dim, int c1, int KC, int ring,
                    const uint16_t* w1, const float* b1, const float* scale, const float* lnb,
-                   float radius, uint16_t* out, cudaStream_t s) {
-  int dev = 0, sms = 0, KC = 0, ring = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  plan(n_rows, in_dim, c1, sms, KC, ring);
+                   float radius, uint16_t* out, int sms, cudaStream_t s) {
+  cudaError_t err;
   // the ring's 16-byte copies need 16-byte aligned points; W1's and A's
   // rows are 16-byte aligned where c1 % 8 == 0
   if ((reinterpret_cast<uintptr_t>(pts) & 15) && ring > 0) {
@@ -430,19 +485,18 @@ cudaError_t launch(const float* pts, long long n_rows, int in_dim, int c1,
   }
   const bool vec = c1 % 8 == 0 && !(reinterpret_cast<uintptr_t>(w1) & 15) &&
                    !(reinterpret_cast<uintptr_t>(out) & 15);
-  const size_t smem = Layout(in_dim, KC, C1P, ring).total;
-  err = cudaFuncSetAttribute(sa_prep_kernel<C1P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  const size_t smem = Layout(in_dim, KC, C1P, ring, STREAM).total;
+  auto* kernel = sa_prep_kernel<C1P, STREAM>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sa_prep_kernel<C1P>, kThreads,
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
   const long long tiles = (n_rows + kRows - 1) / kRows;
   const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const int ctas = (int)(tiles < cap ? tiles : cap);
-  sa_prep_kernel<C1P><<<ctas, kThreads, smem, s>>>(pts, n_rows, in_dim, c1, KC, ring, vec, w1,
-                                                   b1, scale, lnb, radius, out);
+  kernel<<<ctas, kThreads, smem, s>>>(pts, n_rows, in_dim, c1, KC, ring, vec, w1, b1, scale, lnb,
+                                      radius, out);
   return cudaGetLastError();
 }
 
@@ -451,12 +505,7 @@ cudaError_t launch(const float* pts, long long n_rows, int in_dim, int c1,
 extern "C" {
 
 // Largest in_dim the kernel takes for this c1 (0 if c1 is unsupported).
-int sa_prep_max_in_dim(int c1) {
-  if (c1 <= 0 || c1 > 256) return 0;
-  int in_dim = 3;
-  while (fits(in_dim + 1, c1, 16, 0)) ++in_dim;
-  return in_dim;
-}
+int sa_prep_max_in_dim(int c1) { return c1 <= 0 || c1 > 256 ? 0 : kMaxInDim; }
 
 // pts: (n_rows, in_dim) f32; w1: (in_dim, c1) bf16; b1/scale/lnb: (c1,) f32;
 // out: (n_rows, c1) bf16. Returns cudaGetLastError().
@@ -468,9 +517,18 @@ int sa_prep_launch(const float* pts, long long n_rows, int in_dim, int c1,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* w = static_cast<const uint16_t*>(w1);
   auto* o = static_cast<uint16_t*>(out);
-#define EDA_PREP(C1P)  \
-  if (c1_pad(c1) == C1P) \
-    return launch<C1P>(pts, n_rows, in_dim, c1, w, b1, scale, lnb, radius, o, s);
+  int dev = 0, sms = 0, KC = 0, ring = 0;
+  bool streamed = false;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  plan(n_rows, in_dim, c1, sms, KC, ring, streamed);
+#define EDA_PREP(C1P)                                                                        \
+  if (c1_pad(c1) == C1P)                                                                    \
+    return streamed ? launch<C1P, true>(pts, n_rows, in_dim, c1, KC, ring, w, b1, scale, lnb, \
+                                        radius, o, sms, s)                                  \
+                    : launch<C1P, false>(pts, n_rows, in_dim, c1, KC, ring, w, b1, scale,   \
+                                         lnb, radius, o, sms, s);
   EDA_PREP(16)
   EDA_PREP(32)
   EDA_PREP(64)

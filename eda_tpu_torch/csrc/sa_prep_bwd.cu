@@ -41,8 +41,14 @@
 // Padding rows, K columns and c1 columns are zero in P, W1, b1, scale and dA;
 // dx is masked to the real columns, so no padding reaches an output. Clouds
 // whose P tile does not fit beside W1 stage P in K chunks (X accumulates
-// over them; dW1 stages them again). Every weight and vector gradient is a
-// fixed-order sum: bit-identical across launches, no atomics.
+// over them; dW1 stages them again). Where W1 does not fit whole beside a
+// 16-column P chunk (c1 256 past in_dim ~288, as the width-2 backbone's SA3
+// and SA4 at in_dim 515: W1 alone is 264 KiB), it streams (STREAM): for
+// step 1 each 64-column chunk's rows of W1 come by 16-byte cp.async into
+// shared memory in its natural layout (rows = K, read MN-major), for step 3
+// each block of 64 W1 rows (read K-major); W1 comes from L2 twice a tile, a
+// cost the few tiles of those layers bear. Every weight and vector gradient
+// is a fixed-order sum: bit-identical across launches, no atomics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,15 +73,17 @@ __host__ __device__ constexpr int c1_pad(int c1) {
   return c1 <= 16 ? 16 : c1 <= 32 ? 32 : c1 <= 64 ? 64 : c1 <= 128 ? 128 : 256;
 }
 
-// The shared buffers of a CTA: W1^T (C1P x KP), the P tile (64 x KC), the dx
-// tile (64 x max(64, C1P)), the x stash (bf16, [value][thread]), the warps'
-// column sums, and bf16(b1) and scale.
+// The shared buffers of a CTA: W1^T (C1P x KP; streamed: KC x CW rows of W1
+// or 64 x C1P, whichever is larger), the P tile (64 x KC), the dx tile (64 x
+// max(64, C1P)), the x stash (bf16, [value][thread]), the warps' column sums,
+// and bf16(b1) and scale.
 struct Layout {
   size_t w1, p, dx, xs, red, bs, ss, total;
-  __host__ __device__ Layout(int KP, int KC, int C1P) {
+  __host__ __device__ Layout(int KP, int KC, int C1P, bool stream = false) {
     const int DXC = C1P < 64 ? 64 : C1P;
+    const size_t piece = (size_t)KC * (C1P <= 128 ? C1P : 64), block = (size_t)64 * C1P;
     size_t o = 0;
-    w1 = o;  o += align128((size_t)C1P * KP * 2);
+    w1 = o;  o += align128((stream ? (piece > block ? piece : block) : (size_t)C1P * KP) * 2);
     p = o;   o += align128((size_t)kRows * KC * 2);
     dx = o;  o += align128((size_t)kRows * DXC * 2);
     xs = o;  o += C1P > 128 ? align128((size_t)kRows * C1P * 2) : 0;
@@ -86,15 +94,25 @@ struct Layout {
   }
 };
 
-bool fits(int in_dim, int c1, int KC) {
-  return Layout(round16(in_dim), KC, c1_pad(c1)).total <= (size_t)kMaxSharedBytes;
+bool fits(int in_dim, int c1, int KC, bool stream = false) {
+  return Layout(round16(in_dim), KC, c1_pad(c1), stream).total <= (size_t)kMaxSharedBytes;
 }
 
-// K columns of P staged at once: all of them if they fit, else the most that do
-int k_chunk(int in_dim, int c1) {
+// The largest in_dim the kernel takes. Shared memory sets no limit (W1
+// streams); this is the largest the card checks (chip_smoke.py).
+constexpr int kMaxInDim = 2048;
+
+// K columns of P staged at once: all of them if they fit, else the most that
+// do; with W1 streamed, as few equal chunks as fit (then `stream` is set)
+int k_chunk(int in_dim, int c1, bool& stream) {
+  stream = false;
   for (int KC = round16(in_dim); KC >= 16; KC -= 16)
     if (fits(in_dim, c1, KC)) return KC;
-  return 0;
+  stream = true;
+  const int KP = round16(in_dim);
+  int n = 1;
+  while (!fits(in_dim, c1, round16((KP + n - 1) / n), true)) ++n;
+  return round16((KP + n - 1) / n);
 }
 
 // the dW1 sum held in registers (8 floats a thread) instead of the record
@@ -127,7 +145,7 @@ __device__ __forceinline__ void load_g(const uint16_t* __restrict__ dA, long lon
   }
 }
 
-template <int C1P, bool HOLD>
+template <int C1P, bool HOLD, bool STREAM>
 __global__ void __launch_bounds__(kThreads)
 prep_bwd_tiles(const float* __restrict__ pts, const uint16_t* __restrict__ dA,
                long long n_rows, int in_dim, int c1, int KC,
@@ -144,7 +162,7 @@ prep_bwd_tiles(const float* __restrict__ pts, const uint16_t* __restrict__ dA,
   using F = Fold<CW>;
   const int KP = round16(in_dim);
   const int nkc = (KP + KC - 1) / KC;        // K chunks of P
-  const Layout L(KP, KC, C1P);
+  const Layout L(KP, KC, C1P, STREAM);
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint16_t* w1s = reinterpret_cast<uint16_t*>(smem + L.w1);
@@ -162,11 +180,37 @@ prep_bwd_tiles(const float* __restrict__ pts, const uint16_t* __restrict__ dA,
   const int RF = (in_dim + 3) * c1;
   float* rec = records + (size_t)blockIdx.x * RF;
 
-  // W1^T as a (C1P x KP) K-major operand, zero padded; the dx tile's padding
-  // columns stay zero
-  for (int k = warp; k < KP; k += 4)
-    for (int c = lane; c < C1P; c += 32)
-      w1s[core_at(c, k, KP)] = (k < in_dim && c < c1) ? w1[(size_t)k * c1 + c] : uint16_t(0);
+  // W1^T as a (C1P x KP) K-major operand, zero padded (STREAM: W1 comes
+  // with the products, stage_w1); the dx tile's padding columns stay zero
+  if constexpr (!STREAM) {
+    for (int k = warp; k < KP; k += 4)
+      for (int c = lane; c < C1P; c += 32)
+        w1s[core_at(c, k, KP)] = (k < in_dim && c < c1) ? w1[(size_t)k * c1 + c] : uint16_t(0);
+  }
+  // STREAM: W1's rows [k0, k0 + nk) and columns [c0, c0 + nc) into its buffer
+  // in the natural core layout (rows = K), zero past in_dim and c1; 16-byte
+  // cp.async where a core row lies inside, a warp on 8 rows of 4 cores
+  const bool vec = c1 % 8 == 0 && !(reinterpret_cast<uintptr_t>(w1) & 15);
+  auto stage_w1 = [&](int k0, int nk, int c0, int nc) {
+    const int Q = nc / 8;
+    for (int i = tid; i < nk * Q; i += kThreads) {
+      const int kr = i & 7, q = (i >> 3) % Q, k = ((i >> 3) / Q) * 8 + kr;
+      const int n = c0 + 8 * q;
+      uint16_t* dst = w1s + core_at(k, 8 * q, nc);
+      if (vec && k0 + k < in_dim && n < c1) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
+                     "l"(w1 + (size_t)(k0 + k) * c1 + n));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = k0 + k < in_dim && n + e < c1 ? w1[(size_t)(k0 + k) * c1 + n + e]
+                                                 : uint16_t(0);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  };
   for (int i = tid; i < kRows * DXC / 2; i += kThreads)
     reinterpret_cast<uint32_t*>(dxs)[i] = 0u;
   for (int c = tid; c < C1P; c += kThreads) {
@@ -223,15 +267,25 @@ prep_bwd_tiles(const float* __restrict__ pts, const uint16_t* __restrict__ dA,
       for (int kc = 0; kc < nkc; ++kc) {
         if (nkc > 1) stage_p(row0, kc * KC);
         const uint32_t pb = opaque(p_base);
-        const uint32_t wb = opaque(w1_base) + (ch * CW / 8) * KP * 16 + (kc * KC / 8) * 128;
-        wgmma_fence();
-        for (int s = 0; s < KC / 16; ++s)
-          wgmma_ss<CW, 0, 0>(xa, make_desc(pb + 256 * s, 128, KC * 16),
-                             make_desc(wb + 256 * s, 128, KP * 16), kc > 0 || s > 0);
+        if constexpr (STREAM) {
+          stage_w1(kc * KC, KC, ch * CW, CW);
+          const uint32_t wb = opaque(w1_base);
+          wgmma_fence();
+          for (int s = 0; s < KC / 16; ++s)
+            wgmma_ss<CW, 0, 1>(xa, make_desc(pb + 256 * s, 128, KC * 16),
+                               make_desc(wb + s * 32 * CW, CW * 16, 128), kc > 0 || s > 0);
+        } else {
+          const uint32_t wb = opaque(w1_base) + (ch * CW / 8) * KP * 16 + (kc * KC / 8) * 128;
+          wgmma_fence();
+          for (int s = 0; s < KC / 16; ++s)
+            wgmma_ss<CW, 0, 0>(xa, make_desc(pb + 256 * s, 128, KC * 16),
+                               make_desc(wb + 256 * s, 128, KP * 16), kc > 0 || s > 0);
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(xa);
-        if (nkc > 1) __syncthreads();  // the chunk is read: the next may replace it
+        // the chunk (and a streamed W1's rows) is read: the next may replace it
+        if (nkc > 1 || STREAM) __syncthreads();
       }
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
@@ -319,15 +373,28 @@ prep_bwd_tiles(const float* __restrict__ pts, const uint16_t* __restrict__ dA,
     // (the last block's columns past K read the next buffer and are dropped)
     for (int n0 = 0; n0 < KP; n0 += DN) {
       float acc[DN / 2];
-      const uint32_t db = opaque(dx_base), wb = opaque(w1_base) + (n0 / 8) * 128;
-      wgmma_fence();
+      const uint32_t db = opaque(dx_base);
+      if constexpr (STREAM) {
+        // W1's rows [n0, n0 + DN), read K-major (N = the rows)
+        stage_w1(n0, DN, 0, C1P);
+        const uint32_t wb = opaque(w1_base);
+        wgmma_fence();
 #pragma unroll
-      for (int s = 0; s < C1P / 16; ++s)
-        wgmma_ss<DN, 0, 1>(acc, make_desc(db + 256 * s, 128, DXC * 16),
-                           make_desc(wb + s * 32 * KP, KP * 16, 128), s > 0);
+        for (int s = 0; s < C1P / 16; ++s)
+          wgmma_ss<DN, 0, 0>(acc, make_desc(db + 256 * s, 128, DXC * 16),
+                             make_desc(wb + 256 * s, 128, C1P * 16), s > 0);
+      } else {
+        const uint32_t wb = opaque(w1_base) + (n0 / 8) * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < C1P / 16; ++s)
+          wgmma_ss<DN, 0, 1>(acc, make_desc(db + 256 * s, 128, DXC * 16),
+                             make_desc(wb + s * 32 * KP, KP * 16, 128), s > 0);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
+      if (STREAM) __syncthreads();  // the block is read: the next may replace it
 #pragma unroll
       for (int i = 0; i < DN / 2; ++i) {
         const long long row = rows[(i >> 1) & 1];
@@ -400,17 +467,17 @@ prep_bwd_tiles(const float* __restrict__ pts, const uint16_t* __restrict__ dA,
   }
 }
 
-template <int C1P, bool HOLD>
+template <int C1P, bool HOLD, bool STREAM>
 cudaError_t launch(const float* pts, const uint16_t* dA, long long n_rows, int in_dim, int c1,
                    int KC, const uint16_t* w1, const float* b1, const float* scale,
                    float radius, float* dpts, float* wout, float* records, cudaStream_t s) {
-  const Layout L(round16(in_dim), KC, C1P);
-  cudaError_t err = cudaFuncSetAttribute(prep_bwd_tiles<C1P, HOLD>,
+  const Layout L(round16(in_dim), KC, C1P, STREAM);
+  cudaError_t err = cudaFuncSetAttribute(prep_bwd_tiles<C1P, HOLD, STREAM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.total);
   if (err != cudaSuccess) return err;
   const int n_ctas = ctas(n_rows, in_dim, c1);
-  prep_bwd_tiles<C1P, HOLD><<<n_ctas, kThreads, L.total, s>>>(
+  prep_bwd_tiles<C1P, HOLD, STREAM><<<n_ctas, kThreads, L.total, s>>>(
       pts, dA, n_rows, in_dim, c1, KC, w1, b1, scale, radius, dpts, records);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -427,13 +494,8 @@ extern "C" {
 // of (in_dim + 3) * c1 floats.
 int sa_prep_bwd_ctas(long long n_rows, int in_dim, int c1) { return ctas(n_rows, in_dim, c1); }
 
-// Largest in_dim that fits shared memory for this c1 (0 if c1 is unsupported).
-int sa_prep_bwd_max_in_dim(int c1) {
-  if (c1 <= 0 || c1 > 256) return 0;
-  int in_dim = 3;
-  while (fits(in_dim + 1, c1, 16)) ++in_dim;
-  return in_dim;
-}
+// Largest in_dim the kernel takes for this c1 (0 if c1 is unsupported).
+int sa_prep_bwd_max_in_dim(int c1) { return c1 <= 0 || c1 > 256 ? 0 : kMaxInDim; }
 
 // pts: (n_rows, in_dim) f32; dA: (n_rows, c1) bf16; w1: (in_dim, c1) bf16;
 // b1/scale: (c1,) f32. Outputs: dpts (n_rows, in_dim) f32 and wout
@@ -448,14 +510,18 @@ int sa_prep_bwd_launch(const float* pts, const void* dA, long long n_rows, int i
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* g = static_cast<const uint16_t*>(dA);
   const auto* w = static_cast<const uint16_t*>(w1);
-  const int KC = k_chunk(in_dim, c1);
+  bool streamed = false;
+  const int KC = k_chunk(in_dim, c1, streamed);
   const bool hold = holds_dw1(in_dim, c1);
 #define EDA_PREP_BWD(C1P)                                                                    \
   if (c1_pad(c1) == C1P)                                                                    \
-    return hold ? (int)launch<C1P, (C1P <= 64)>(pts, g, n_rows, in_dim, c1, KC, w, b1,       \
-                                                 scale, radius, dpts, wout, records, s)      \
-                : (int)launch<C1P, false>(pts, g, n_rows, in_dim, c1, KC, w, b1, scale,      \
-                                          radius, dpts, wout, records, s);
+    return hold       ? (int)launch<C1P, (C1P <= 64), false>(pts, g, n_rows, in_dim, c1, KC, \
+                                                             w, b1, scale, radius, dpts,     \
+                                                             wout, records, s)               \
+           : streamed ? (int)launch<C1P, false, true>(pts, g, n_rows, in_dim, c1, KC, w, b1,  \
+                                                      scale, radius, dpts, wout, records, s) \
+                      : (int)launch<C1P, false, false>(pts, g, n_rows, in_dim, c1, KC, w, b1, \
+                                                       scale, radius, dpts, wout, records, s);
   EDA_PREP_BWD(16)
   EDA_PREP_BWD(32)
   EDA_PREP_BWD(64)

@@ -3,8 +3,9 @@
 // (sa_prep.cu, sa_prep_bwd.cu) and the f32 prep (sa_prep_f32.cu):
 // shared-memory addresses, bulk copies (TMA, 1D) counted by mbarriers, bf16x2
 // arithmetic, wgmma descriptors, fences and products (bf16, and TF32 split
-// in two for true-f32 products), the column sums of an accumulator, and the
-// fixed-order sum of per-CTA records.
+// in two for true-f32 products), the column sums of an accumulator, the
+// fixed-order sum of per-CTA records, and the wide pools' cp.async copies
+// of a weight block into the core layout.
 //
 // Shared-memory operands use the no-swizzle ("interleave") core-matrix layout:
 // a (rows x cols) bf16 matrix is stored as 8x8 cores of 128 bytes, core
@@ -326,6 +327,27 @@ __device__ __forceinline__ void wgmma_rows(float (&d)[N / 2], uint32_t x, int XC
 __device__ __forceinline__ uint32_t opaque(uint32_t v) {
   asm volatile("" : "+r"(v));
   return v;
+}
+
+// ROWS x COLS of a row-major bf16 matrix (row stride LD) into the core layout
+// at `dst` (rows of cores = ROWS / 8), 16 bytes a cp.async by each of THREADS
+// threads, committed as one group: the wide pools' weight streams. A warp
+// moves 8 rows of 4 cores: 64 contiguous bytes a row from global, 512
+// contiguous bytes to shared. The thread index is opaque, so the offsets are
+// computed here, not hoisted out of a caller's loop and held in registers.
+template <int THREADS, int ROWS, int COLS, int LD>
+__device__ __forceinline__ void copy_core(uint32_t dst, const uint16_t* __restrict__ src) {
+  constexpr int Q = COLS / 8;  // cores a row of cores
+  static_assert(ROWS * Q % THREADS == 0, "whole copies a thread");
+#pragma unroll
+  for (int n = 0; n < ROWS * Q / THREADS; ++n) {
+    const int i = (int)opaque(threadIdx.x) + n * THREADS;
+    const int kr = i & 7, q = (i >> 3) % Q, kb = (i >> 3) / Q;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     dst + ((kb * Q + q) * 64 + kr * 8) * 2),
+                 "l"(src + (8 * kb + kr) * LD + 8 * q));
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // x / c, correctly rounded, from rc = RN(1/c): q = RN(x rc) corrected once,

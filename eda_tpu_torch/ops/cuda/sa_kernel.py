@@ -50,10 +50,11 @@ BLOCK = 16  # centers per window block
 NEG = -1e9
 PLAIN_MAX_PAIRS = 1 << 22  # pairs the plain version holds at once (SA1's grid is ~1 GB a scene)
 # (c1, c2, c3) widths the kernels are instantiated for (csrc/sa_pair_pool.cu,
-# csrc/sa_pair_pool_bwd.cu): the model's layer widths, full and tiny, in
-# ascending order. Other widths up to (128, 128, 256) run zero-padded on the
-# smallest triple that covers them (``kernel_widths``, ``pad_widths``).
-WIDTHS = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128, 256))
+# csrc/sa_pair_pool_bwd.cu): the model's layer widths, full and tiny, and the
+# width-2 backbone's SA2-4 (Group-Free-3D's ``width=2``), in ascending order.
+# Other widths up to (256, 256, 512) run zero-padded on the smallest triple
+# that covers them (``kernel_widths``, ``pad_widths``).
+WIDTHS = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128, 256), (256, 256, 512))
 
 D2_MODES = ("pair", "mxu", "pre")
 

@@ -220,9 +220,10 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
                    "sa_prep_f32"):  # any spill
         with pytest.raises(AssertionError, match="spill"):
             chip_smoke.check_pool_build({**ok, source: spill_log}, FakeBuild)
-    sass = {"sa_pair_pool": {"_Z19sa_pair_pool_kernelILi16E": 24, "_Z3fps": 0},
+    sass = {"sa_pair_pool": {"_Z19sa_pair_pool_kernelILi16E": 24, "_Z3fps": 0,
+                             "_Z17sa_pair_pool_wideILb1ELi0ELb0E": 48},
             "sa_pair_pool_bwd": {"_Z14pool_bwd_tilesILi16E": 12, "_Z14pool_bwd_tilesILi32E": 0,
-                                 "_Z14reduce_records": 0},
+                                 "_Z14reduce_records": 0, "_Z13pool_bwd_wideILb1E": 40},
             "sa_prep_bwd": {"_Z14prep_bwd_tilesILi64ELb1E": 6, "_Z14reduce_records": 0},
             "sa_prep": {"_Z14sa_prep_kernelILi64EE": 1},
             # the f32 prep's tensor-core kernels; its CUDA-core route holds none
@@ -234,7 +235,11 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
     sass["sa_pair_pool_bwd"]["_Z14pool_bwd_tilesILi32E"] = 16
     chip_smoke.check_pool_build(ok, FakeBuild)
     out = capsys.readouterr().out
-    assert "24 HGMMA instructions in 1" in out and "28 HGMMA instructions in 2" in out
+    assert "72 HGMMA instructions in 2" in out and "68 HGMMA instructions in 3" in out
+    sass["sa_pair_pool"]["_Z17sa_pair_pool_wideILb1ELi0ELb0E"] = 0  # a wide kernel counts too
+    with pytest.raises(AssertionError, match="sa_pair_pool GEMM kernel has no HGMMA"):
+        chip_smoke.check_pool_build(ok, FakeBuild)
+    sass["sa_pair_pool"]["_Z17sa_pair_pool_wideILb1ELi0ELb0E"] = 48
     sass["sa_pair_pool"]["_Z19sa_pair_pool_kernelILi16E"] = 0
     with pytest.raises(AssertionError, match="sa_pair_pool GEMM kernel has no HGMMA"):
         chip_smoke.check_pool_build(ok, FakeBuild)
@@ -250,7 +255,8 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
 
 @pytest.mark.parametrize("N,M,W,widths", [(256, 64, 128, (16, 16, 32)),
                                           (512, 128, 64, (16, 16, 32)),
-                                          (640, 64, 256, (32, 32, 64))])
+                                          (640, 64, 256, (32, 32, 64)),
+                                          (640, 64, 64, (32, 32, 128))])
 def test_bwd_edge_inputs_hold_their_edge_cases(N, M, W, widths):
     args, kw = chip_smoke.bwd_edge_inputs(N=N, M=M, window=W, widths=widths)
     A, b_c, g, win, starts = args[:5]
@@ -269,7 +275,8 @@ def test_bwd_edge_inputs_hold_their_edge_cases(N, M, W, widths):
             live = (g[b, m] != 0) & (compact | ((rel[b, m] >= 0) & (rel[b, m] < W)))
             want = int(live.sum()) if compact else len(set(win[b, m][live].tolist()))
             assert rows[b, m] == want
-        assert rows.max() == c3
+        # kind 1: c3 rows, or (windowed, a window narrower than c3) one a point
+        assert rows.max() == (c3 if compact else min(c3, W))
         blocks = rows.view(2, -1, 16).sum(-1)
         assert (blocks == 0).any() and (blocks > 0).any()  # blocks with no live row
         if not compact:
@@ -319,12 +326,20 @@ def test_pool_widths_cases_lie_between_the_instantiations():
     from eda_tpu_torch.ops.cuda import sa_pool_bwd
 
     for layer, widths, N, M, W in chip_smoke.WIDTH_CASES:
-        assert widths not in sa_kernel.WIDTHS
         big = sa_kernel.kernel_widths(*widths)
-        assert big != widths and all(c <= b for c, b in zip(widths, big))
-        assert N - W >= widths[2] and W >= widths[2]  # as bwd_edge_inputs needs
-    assert {w for _, w, *_ in chip_smoke.WIDTH_CASES} == {(48, 48, 96), (96, 80, 200)}
+        assert all(c <= b for c, b in zip(widths, big))
+        assert (big != widths) == (widths not in sa_kernel.WIDTHS)
+        assert N - W >= widths[2]  # as bwd_edge_inputs needs
+    assert {w for _, w, *_ in chip_smoke.WIDTH_CASES} == {(48, 48, 96), (96, 80, 200),
+                                                           (192, 160, 384), (256, 256, 512)}
+    # padded on each of the three widest instantiations; the widest itself at a
+    # window where the model's backward is the compact one
+    assert {sa_kernel.kernel_widths(*w) for _, w, *_ in chip_smoke.WIDTH_CASES} == set(
+        sa_kernel.WIDTHS[2:])
+    wide = [(N, W) for _, w, N, _, W in chip_smoke.WIDTH_CASES if w == sa_kernel.WIDTHS[-1]]
+    assert wide == [(8192, 1024)] and sa_pool_bwd.compact_backward(1024, 512)
     assert {(N, W) for _, _, N, _, W in chip_smoke.WIDTH_CASES} == {(8192, 1024), (2048, 256)}
+    assert sa_kernel.WIDTHS[-1] == (256, 256, 512)
     for widths in chip_smoke.TOO_WIDE:
         assert any(c > m for c, m in zip(widths, sa_kernel.WIDTHS[-1]))
         with pytest.raises(ValueError):
@@ -458,3 +473,56 @@ def test_leaf_errors_take_the_largest_gradient_as_their_scale():
     got = {"a": torch.tensor([100.5, -50.0]), "attn.key.bias": torch.tensor([0.1])}
     errs = chip_smoke._leaf_rel_errs(got, want)
     assert errs == pytest.approx({"a": 0.005, "attn.key.bias": 0.001}, rel=1e-4)
+
+
+def test_w2x_phase_inputs_hold_their_edge_cases():
+    """The w2x phase's inputs: the tie inputs at the wide widths make every
+    in-radius pair of a center tie (the plain winners are the rule's under
+    every radius test); the backward's edge inputs at a window narrower than
+    c3 give a center one row for each of its W points; the phase's configs."""
+    (layer, widths, N, M, W), = chip_smoke.W2X_TIE_CASES
+    assert widths == sa_kernel.WIDTHS[-1] and W == 256 and W % 64 == 0
+    args, kw = chip_smoke.tie_inputs(B=1, N=512, M=32, window=W, widths=widths)
+    rule, none = chip_smoke.rule_winners(args, kw)
+    mask = sa_mask.sa_radius_mask(args[1], args[3], args[4], **kw)
+    for mode in ("pair", "mxu", "pre"):
+        v, w = sa_kernel.sa_pair_pool_winners_plain(
+            *args, **kw, d2_mode=mode, mask=mask if mode == "pre" else None)
+        assert torch.equal(w, rule[..., None].expand_as(w).int())
+        assert torch.equal((v == -1e9).all(-1), none) and none.any() and not none.all()
+    assert {W for *_, W in chip_smoke.W2X_BWD_EDGE_CASES} == {256, 512}
+    bargs, bkw = chip_smoke.bwd_edge_inputs(B=1, N=1024, M=32, window=256, widths=widths)
+    rows = chip_smoke.center_rows(bargs, {**bkw, "compact": False})
+    assert rows.max() == 256 and (rows == 1).any()  # W rows for kind 1; one row for kind 0
+    assert chip_smoke.center_rows(bargs, {**bkw, "compact": True}).max() == 512
+    cfg, tiny = chip_smoke.w2x_configs(ModelConfig(use_bf16=True))
+    assert cfg.sa_mlps[1:] == (widths,) * 3 and cfg.use_bf16 and tiny.use_bf16
+    assert chip_smoke.TinyOf(tiny).tiny() is tiny
+
+
+def test_pool_bounds_at_the_wide_widths():
+    """``pool_bound`` and ``pool_bwd_bound`` at (256, 256, 512): the pair MLP's
+    flops a pair, 4x those of (128, 128, 256) on the same pairs; the
+    backward's flops from the live rows and won channels."""
+    args, W = _pool_args(c1=256, c2=256, c3=512)
+    kw = {"radius": RADIUS, "window": W, "d2_mode": "pair"}
+    pairs = chip_smoke.in_radius_pairs(args[1], args[3], args[4], RADIUS, W)
+    wide = chip_smoke.pool_bound(args, kw)
+    A, xyz, b_c, cen, starts, w2, b2, s2, lb2, w3, b3 = args
+    nb = (chip_smoke.nbytes(A, b_c, starts, b2, s2, lb2, b3, xyz, cen)
+          + (w2.numel() + w3.numel()) * 2 + 2 * 32 * 512 * 4)
+    assert wide == chip_smoke.bound(pairs * 2 * (256 * 256 + 256 * 512), chip_smoke.PEAK_BF16, nb)
+    narrow_args, _ = _pool_args(c1=128, c2=128, c3=256)
+    narrow = chip_smoke.pool_bound(narrow_args, kw)
+    assert wide[1] == narrow[1] == "operations" and wide[0] == pytest.approx(4 * narrow[0])
+
+    bargs, bkw = chip_smoke.bwd_edge_inputs(B=1, N=1024, M=32, window=256,
+                                            widths=(256, 256, 512))
+    for compact in (True, False):
+        ckw = {**bkw, "compact": compact}
+        rows, channels = chip_smoke.live_rows(bargs, ckw)
+        assert chip_smoke.pool_bwd_ops(bargs, ckw) == rows * 6 * 256 * 256 + channels * 4 * 256
+        ms, by = chip_smoke.pool_bwd_bound(bargs, ckw)
+        assert by == "operations"
+        assert ms == pytest.approx(1e3 * chip_smoke.pool_bwd_ops(bargs, ckw)
+                                   / chip_smoke.PEAK_BF16)

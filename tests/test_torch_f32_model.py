@@ -1,6 +1,7 @@
 """The f32 grounder (``ModelConfig(use_bf16=False)``) and the gather grounder vs ``eda_tpu``: forward and eval scoring.
 
-Tiny configs, synthetic scenes, the JAX model's own perturbed variables carried
+Tiny configs (the fused one also at the width-2 backbone's SA widths,
+``chip_smoke.W2X_SA_MLPS``, FP2 out the tiny d_model), synthetic scenes, the JAX model's own perturbed variables carried
 with ``weights.load_flax``, eval mode; the JAX side on its TPU serving path
 with every Pallas kernel interpreted (the gather SA has none).
 
@@ -37,6 +38,7 @@ from torch_parity import (  # noqa: F401
     to_numpy,
 )
 
+import chip_smoke
 from eda_tpu.config import ModelConfig as JaxConfig
 from eda_tpu.models import EDAGrounder as JaxGrounder
 from eda_tpu.train.step import make_eval_score_step as jax_score_step
@@ -51,6 +53,8 @@ from eda_tpu_torch.weights import load_flax
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SEED_ATOL, LOGIT_ATOL, HEAD_ATOL, TEXT_ATOL = 0.01, 2e-3, 1e-3, 1e-4
+# the width-2 backbone's SA widths (chip_smoke.W2X_SA_MLPS), FP2 out the tiny d_model
+W2X = dict(sa_mlps=chip_smoke.W2X_SA_MLPS, fp_mlps=chip_smoke.W2X_TINY_FP_MLPS)
 IOU_ATOL = 1e-4
 MIN_DECIDED = 40
 PREFIXES, MODES = ("last_", "proposal_"), ("bbs", "bbf")
@@ -77,8 +81,8 @@ def assert_f32_outputs_match(got, want, cfg):
 
 
 @pytest.mark.parametrize("over", [dict(), dict(sa_impl="gather"),
-                                  dict(sa_impl="gather", sa_ball_mode="first")],
-                         ids=["fused", "gather-nearest", "gather-first"])
+                                  dict(sa_impl="gather", sa_ball_mode="first"), W2X],
+                         ids=["fused", "gather-nearest", "gather-first", "fused-w2x"])
 def test_f32_grounder_matches_jax(jax_tpu_serving_path, scenes, over):  # noqa: F811
     cfg = dataclasses.replace(ModelConfig().tiny(), **over)
     jcfg = dataclasses.replace(JaxConfig().tiny(), **over)

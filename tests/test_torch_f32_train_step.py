@@ -1,5 +1,8 @@
 """One tiny training step of the f32 model (``ModelConfig(use_bf16=False)``), port vs JAX, on the port's own decisions.
 
+At the tiny widths and at the width-2 backbone's SA widths
+(``chip_smoke.W2X_SA_MLPS``, FP2 out the tiny d_model), under the same gates.
+
 The JAX side runs ``make_train_step`` on its TPU training path with every
 Pallas kernel interpreted (``torch_parity.jax_train_step``: the f32 prep
 kernel and its backward, the pair pools with A rounded to bf16 inside, the
@@ -38,12 +41,16 @@ from torch_parity import (
     port_train_step,
 )
 
+import chip_smoke
 from eda_tpu.data.synthetic import SyntheticConfig as JaxSyntheticConfig
 from eda_tpu.data.synthetic import SyntheticScenes as JaxSyntheticScenes
 
 F32_GLOBAL_COS = 0.98
 OVERRIDES = {"fused": dict(use_bf16=False),
-             "gather": dict(use_bf16=False, sa_impl="gather")}
+             "gather": dict(use_bf16=False, sa_impl="gather"),
+             # the width-2 backbone's SA widths, FP2 out the tiny d_model
+             "fused-w2x": dict(use_bf16=False, sa_mlps=chip_smoke.W2X_SA_MLPS,
+                               fp_mlps=chip_smoke.W2X_TINY_FP_MLPS)}
 
 
 def own_step(overrides):
@@ -87,7 +94,7 @@ def assert_f32_step_matches(jax_run, port_run):
     assert all(abs(g[k] - w[k]) <= METRIC_REL * abs(w[k]) + 1e-6 for k in w)
 
 
-@pytest.mark.parametrize("impl", ["fused"])
+@pytest.mark.parametrize("impl", ["fused", "fused-w2x"])
 def test_f32_step_matches_jax_on_its_own_decisions(impl):
     jax_run, port_run = own_step(OVERRIDES[impl])
     assert not port_run["state"].model.cfg.use_bf16

@@ -108,6 +108,77 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+def sa_layer_setup(seed, N, M, C, widths):
+    """Two Morton-sorted clouds of N points with C features, M centers each,
+    random fused SA parameters of the given widths (input 3 + C) and a random
+    cotangent of the output: (xyz, feats, cidx, groups, G), numpy."""
+    from eda_tpu_torch.data.presort import morton_sort
+
+    rng = np.random.default_rng(seed)
+    xyz = np.stack([morton_sort(rng.uniform(-1.5, 1.5, (N, 3)).astype(np.float32),
+                                cell_size=0.3)[0] for _ in range(2)])
+    feats = rng.normal(size=(2, N, C)).astype(np.float32)
+    groups = ([], [], [], [])
+    prev = 3 + C
+    for c in widths:
+        groups[0].append((rng.normal(size=(prev, c)) * prev ** -0.5).astype(np.float32))
+        groups[1].append((rng.normal(size=c) * 0.1).astype(np.float32))
+        groups[2].append((1 + 0.1 * rng.normal(size=c)).astype(np.float32))
+        groups[3].append((0.1 * rng.normal(size=c)).astype(np.float32))
+        prev = c
+    cidx = np.stack([rng.permutation(N)[:M] for _ in range(2)]).astype(np.int32)
+    G = rng.normal(size=(2, M, widths[-1])).astype(np.float32)
+    return xyz, feats, cidx, groups, G
+
+
+FUSED_SA_ATOL, FUSED_SA_REL = 0.03, 0.02
+
+
+def fused_sa_layer_vs_jax(N, M, window, radius, C, widths):
+    """The port's fused SA layer (bf16, plain versions on the CPU), forward and
+    backward, against ``eda_tpu``'s on its interpreted Pallas training path
+    (the ``jax_tpu_training_path`` fixture), on ``sa_layer_setup``'s inputs:
+    the features within ``FUSED_SA_ATOL``, every gradient leaf within
+    ``FUSED_SA_REL`` of its largest value (``tests/test_torch_fused_sa_train.py``)."""
+    import jax.numpy as jnp
+
+    from eda_tpu.ops import fused_sa as jax_fsa
+    from eda_tpu_torch.ops import fused_sa as port_fsa
+
+    xyz, feats, cidx, groups, G = sa_layer_setup(N + M + C, N, M, C, widths)
+    kw = dict(radius=radius, window=window, block=64, compute_dtype=jnp.bfloat16,
+              presorted=True, impl="pallas_train", return_rank_order=True)
+
+    def loss(feats_, params):
+        out, _ = jax_fsa.fused_set_abstraction(jnp.asarray(xyz), feats_, jnp.asarray(cidx),
+                                               params, **kw)
+        return jnp.sum(out * G), out
+
+    params = jax_fsa.SAParams(*(tuple(jnp.asarray(v) for v in g) for g in groups))
+    (_, want), (want_df, want_dp) = compiled(
+        lambda f, p: jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(f, p),
+        jnp.asarray(feats), params)
+
+    port_params = port_fsa.SAParams(*(tuple(torch.tensor(v, requires_grad=True) for v in g)
+                                      for g in groups))
+    f = torch.tensor(feats, requires_grad=True)
+    got, _ = port_fsa.fused_set_abstraction(torch.from_numpy(xyz), f, torch.from_numpy(cidx),
+                                            port_params, radius=radius, window=window, block=64)
+    (got * torch.from_numpy(G)).sum().backward()
+
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=FUSED_SA_ATOL,
+                               rtol=0)
+    pairs = [("features", f.grad, want_df)]
+    for gi, name in enumerate(("kernels", "biases", "ln_scales", "ln_biases")):
+        for i, (p, w) in enumerate(zip(port_params[gi], getattr(want_dp, name))):
+            pairs.append((f"{name}[{i}]", p.grad, w))
+    for name, g, w in pairs:
+        w = np.asarray(w)
+        assert g is not None and g.shape == w.shape, name
+        err = np.abs(g.numpy() - w).max() / (np.abs(w).max() + 1e-6)
+        assert err < FUSED_SA_REL, (name, err)
+
+
 def real_data_tree(tmp, n_vertices: int = 3000, scenes=(("train", 3), ("val", 2)),
                    text_vocab_size: int = 4096, multiview: bool = False):
     """A real-format data root under ``tmp``, packed by the JAX package.
