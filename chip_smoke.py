@@ -165,9 +165,9 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    tiles and within one, widths that are no multiple of 4 or 8, large
    points; K2f per element within ``prep_f32_tolerance``, K7f within 1e-4
    of each output's largest value, bit-identical on a second launch, dA read
-   unrounded) and at the largest in_dim each takes at c1 128 (at least the
-   previous kernels' 358 / 333; one more raises, as does c1 above 128 past
-   in_dim 8); the tiny f32
+   unrounded; the cases of the tensor route above c1 128 run in "w2x f32")
+   and at the largest in_dim each takes at c1 128 (at least the previous
+   kernels' 358 / 333; one more raises, as does c1 257); the tiny f32
    model, step and scoring against their CPU twins; at full width K2f and
    K7f against their plain versions on a forward's and a step's inputs,
    ``REQUESTS`` serving batches (K1, K2f, K3 four launches each) and
@@ -185,6 +185,22 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    under ``mxu`` and ``pre``, one eval batch scored under each radius test,
    a profiled forward and step, and two steps from one state bit for bit.
    Its kernel rows join the JSON line named with " (w2x)".
+11b. The width-2 backbone in f32 (phase "w2x f32", ``w2x_configs(ModelConfig())``,
+   SA2-4's prep at c1 256, in_dim 259 / 515): K2f and K7f on the edge
+   inputs of the tensor route above c1 128 (the W2X SA2 and SA3 widths at
+   ragged rows, SA2's at the tile edges and over 626 tiles, SA3's at 3
+   rows, (131, 250) and (35, 201)) as in phase "f32", and at the largest
+   in_dim each takes at c1 256 (at least 515; one more, and c1 257, raise);
+   the tiny f32 W2X model, step and scoring against their CPU twins, the
+   step under the f32 gates (gradient cosine ``F32_GLOBAL_COS``,
+   ``grad_norm`` within ``F32_GRAD_NORM_REL``) and every leaf under the
+   per-leaf gates, none excused; at full width, batch 8, K2f and K7f against
+   their plain versions on a forward's and a step's inputs,
+   ``W2X_F32_REQUESTS`` serving batches and ``W2X_STEPS`` training steps
+   with the f32 launch counts, a
+   profiled forward and step, two steps from one state bit for bit and one
+   eval batch scored under ``pair``. Its kernel rows join the JSON line
+   named with " (w2x f32)".
 12. The gather SA (phase "gather", ``sa_impl="gather"``): the tiny model
    against its CPU twin under ``nearest`` and ``first``; at full width in
    f32 one serving batch and ``GATHER_STEPS`` training steps, each launching
@@ -248,8 +264,8 @@ the four SA layers of one batch-8 forward (K1-K3, K8, K9a, K9b, K2f) or
 training step (K4-K7, K8 and K9b with winners, K7f). ``launches`` is the count
 of the serving run (K1-K3), the training run (K4-K7), the mode's evaluation
 run (K8, K9a, K9b), the mode's training step (K8 and K9b with winners) or the
-f32 serving run and training steps (K2f, K7f); a " (w2x)" row's from the w2x
-phase's runs of the same kind. Each phase prints
+f32 serving run and training steps (K2f, K7f); a " (w2x)" or " (w2x f32)"
+row's from that phase's runs of the same kind. Each phase prints
 its wall time. Any failed check raises, and the script exits non-zero. Without
 CUDA it exits non-zero before printing any result.
 """
@@ -1363,10 +1379,20 @@ TINY_PREP_WIDTHS = ((6, 16), (35, 32), (67, 32))
 PREP_F32_ATOL, PREP_F32_BWD_REL, PREP_F32_ULPS = 2e-5, 1e-4, 64
 TILE_EDGE_ROWS = (63, 64, 65, 129)  # around the 64-row tiles of csrc/sa_prep_f32.cu
 MANY_TILE_ROWS = {1: 299_969, 2: 40_001}  # SA1 / SA2 widths: several tiles a CTA
-# widths that are no multiple of 8 (the tensor route's) or of 4 (the CUDA-core route's)
-ODD_PREP_WIDTHS = ((12, 21), (7, 30), (6, 150))
-# the largest in_dim of the previous f32 prep kernels at c1 128, forward / backward
-PREP_F32_MIN_LIMITS = (358, 333)
+# widths that are no multiple of 8 (the tensor route's) or of 4 (the CUDA-core route's),
+# on each route below and above c1 128
+ODD_PREP_WIDTHS = ((12, 21), (7, 30), (6, 150), (131, 250), (35, 201))
+# the width-2 backbone's f32 prep widths at SA1-SA4 with RGB: SA2-4 on the
+# tensor route at c1 256, their backward direct
+W2X_F32_PREP_WIDTHS = ((6, 128), (259, 256), (515, 256), (515, 256))
+# by c1, the least in_dim the f32 prep kernels must take, forward / backward:
+# at 128 the previous kernels' limits, at 256 the width-2 backbone's SA3-4
+PREP_F32_MIN_LIMITS = {128: (358, 333), 256: (515, 515)}
+
+
+def wide_prep(in_dim: int, c1: int) -> bool:
+    """The f32 prep runs these widths on its tensor route above c1 128."""
+    return in_dim > 8 and c1 > 128
 
 
 def prep_f32_edge_inputs(seed=0) -> dict:
@@ -1375,9 +1401,12 @@ def prep_f32_edge_inputs(seed=0) -> dict:
     of a 64-row tile); SA1's and SA2's at 63, 64, 65 and 129 rows (tile
     boundaries; SA2's in_dim needs five K chunks of the tensor route) and at
     ``MANY_TILE_ROWS`` (several tiles a CTA, the rings wrapping, a last tile
-    of one row); the tiny config's widths over several tiles and within one;
-    widths that are no multiple of 8 (tensor route) or 4 (CUDA-core route);
-    points of large magnitude; dA in f32 with values that bf16 does not hold."""
+    of one row); the width-2 backbone's SA2 and SA3 widths (c1 256) at a
+    ragged row count, SA2's also at the tile edges and ``MANY_TILE_ROWS[2]``,
+    SA3's at 3 rows; the tiny config's widths over several tiles and within
+    one; widths that are no multiple of 8 (tensor route) or 4 (CUDA-core
+    route), below and above c1 128; points of large magnitude; dA in f32
+    with values that bf16 does not hold."""
     g = torch.Generator().manual_seed(seed)
 
     def case(B, N, in_dim, c1, radius, scale_xyz=4.0, scale_f=1.0):
@@ -1397,6 +1426,13 @@ def prep_f32_edge_inputs(seed=0) -> dict:
     for layer, (in_dim, c1) in ((1, F32_PREP_WIDTHS[0]), (2, F32_PREP_WIDTHS[1])):
         for rows in TILE_EDGE_ROWS + (MANY_TILE_ROWS[layer],):
             cases[f"SA{layer} widths, 1 x {rows} rows"] = case(1, rows, in_dim, c1, 0.4)
+    for layer, radius in ((2, 0.4), (3, 0.8)):
+        in_dim, c1 = W2X_F32_PREP_WIDTHS[layer - 1]
+        cases[f"W2X SA{layer} widths ({in_dim}, {c1}), 2 x 2049 rows"] = case(2, 2049, in_dim,
+                                                                              c1, radius)
+    for rows in TILE_EDGE_ROWS + (MANY_TILE_ROWS[2],):
+        cases[f"W2X SA2 widths, 1 x {rows} rows"] = case(1, rows, *W2X_F32_PREP_WIDTHS[1], 0.4)
+    cases["W2X SA3 widths, 1 x 3 rows"] = case(1, 3, *W2X_F32_PREP_WIDTHS[2], 0.8)
     for in_dim, c1 in TINY_PREP_WIDTHS:
         cases[f"tiny widths ({in_dim}, {c1}), 3 x 101 rows"] = case(3, 101, in_dim, c1, 0.4)
         cases[f"tiny widths ({in_dim}, {c1}), 1 x 50 rows"] = case(1, 50, in_dim, c1, 0.4)
@@ -1421,15 +1457,18 @@ def prep_f32_tolerance(pts, w1, b1, radius, want):
 
 
 @torch.no_grad()
-def prep_f32_edge_check() -> None:
-    """K2f and K7f against their plain versions on every ``prep_f32_edge_inputs``
-    case; K7f's gradients bit-identical on a second launch and its dA read
+def prep_f32_edge_check(wide: bool = False) -> None:
+    """K2f and K7f against their plain versions on the ``prep_f32_edge_inputs``
+    cases whose widths the tensor route takes above c1 128 (``wide``) or the
+    others; K7f's gradients bit-identical on a second launch and its dA read
     unrounded (a bf16-rounded dA gives other gradients); then the in_dim
-    limits (``prep_f32_limit_check``)."""
+    limits at c1 256 (``wide``) or 128 (``prep_f32_limit_check``)."""
     from eda_tpu_torch.ops.cuda import sa_prep
 
     f32 = dict(compute_dtype=torch.float32)
     for name, (args, radius) in prep_f32_edge_inputs().items():
+        if wide_prep(*args[1].shape) != wide:
+            continue
         pts, w1, b1, scale, lnb, dA = (a.cuda() for a in args)
         got = sa_prep.sa_prep(pts, w1, b1, scale, lnb, radius=radius, **f32)
         want = sa_prep.sa_prep_plain(pts, w1, b1, scale, lnb, radius=radius, **f32)
@@ -1459,21 +1498,21 @@ def prep_f32_edge_check() -> None:
         print(f"f32 prep edge check {name}: K2f max err {err.max().item():.3e}; K7f errors "
               f"relative to each output's largest value {[f'{e:.2e}' for e in errs]}, "
               f"bit-identical on a second launch, dA read unrounded")
-    prep_f32_limit_check()
+    prep_f32_limit_check(256 if wide else 128)
 
 
 @torch.no_grad()
-def prep_f32_limit_check() -> None:
-    """K2f and K7f at the largest in_dim each takes at c1 128 (130 rows) against
-    their plain versions; the limits no lower than the previous kernels'; one
-    more in_dim, and c1 above 128 past the CUDA-core route's in_dim 8, raise."""
+def prep_f32_limit_check(c1: int) -> None:
+    """K2f and K7f at the largest in_dim each takes at ``c1`` (130 rows) against
+    their plain versions; the limits no lower than ``PREP_F32_MIN_LIMITS``;
+    one more in_dim, and c1 257, raise."""
     from eda_tpu_torch.ops.cuda import sa_prep
 
     f32 = dict(compute_dtype=torch.float32, radius=0.4)
-    limits = [sa_prep.max_in_dim_f32(128, backward) for backward in (False, True)]
-    if any(got < want for got, want in zip(limits, PREP_F32_MIN_LIMITS)):
-        raise AssertionError(f"f32 prep in_dim limits {limits} at c1 128, below "
-                             f"{PREP_F32_MIN_LIMITS}")
+    least = PREP_F32_MIN_LIMITS[c1]
+    limits = [sa_prep.max_in_dim_f32(c1, backward) for backward in (False, True)]
+    if any(got < want for got, want in zip(limits, least)):
+        raise AssertionError(f"f32 prep in_dim limits {limits} at c1 {c1}, below {least}")
     g = torch.Generator().manual_seed(1)
 
     def inputs(in_dim, c1, rows=130):
@@ -1492,25 +1531,25 @@ def prep_f32_limit_check() -> None:
             return True
         return False
 
-    fwd, _ = inputs(limits[0], 128)
+    fwd, _ = inputs(limits[0], c1)
     got, want = sa_prep.sa_prep(*fwd, **f32), sa_prep.sa_prep_plain(*fwd, **f32)
     err = (got - want).abs()
     if not (err <= prep_f32_tolerance(*fwd[:3], 0.4, want)).all():
-        raise AssertionError(f"f32 prep at in_dim {limits[0]}: {err.max().item()}")
-    _, bwd = inputs(limits[1], 128)
+        raise AssertionError(f"f32 prep at ({limits[0]}, {c1}): {err.max().item()}")
+    _, bwd = inputs(limits[1], c1)
     errs = [rel_err(a, b) for a, b in zip(sa_prep.sa_prep_bwd(*bwd, **f32),
                                           sa_prep.sa_prep_bwd_plain(*bwd, **f32))]
     if max(errs) > PREP_F32_BWD_REL:
-        raise AssertionError(f"f32 prep backward at in_dim {limits[1]}: {errs}")
-    past = (inputs(limits[0] + 1, 128, 4)[0], inputs(limits[1] + 1, 128, 4)[1],
-            *inputs(12, 160, 4))
+        raise AssertionError(f"f32 prep backward at ({limits[1]}, {c1}): {errs}")
+    past = (inputs(limits[0] + 1, c1, 4)[0], inputs(limits[1] + 1, c1, 4)[1],
+            *inputs(12, 257, 4))
     if not all(raises(lambda: fn(*args, **f32)) for fn, args in zip(
             (sa_prep.sa_prep, sa_prep.sa_prep_bwd, sa_prep.sa_prep, sa_prep.sa_prep_bwd), past)):
-        raise AssertionError("f32 prep past its in_dim limits, or at (12, 160), did not raise")
-    print(f"f32 prep limit check: at c1 128 K2f takes in_dim {limits[0]} (at least "
-          f"{PREP_F32_MIN_LIMITS[0]}; max err {err.max().item():.3e}), K7f {limits[1]} (at least "
-          f"{PREP_F32_MIN_LIMITS[1]}; errors {[f'{e:.2e}' for e in errs]}); one more, and "
-          f"(in_dim 12, c1 160), raise")
+        raise AssertionError(f"f32 prep past its in_dim limits at c1 {c1}, or at c1 257, did "
+                             f"not raise")
+    print(f"f32 prep limit check: at c1 {c1} K2f takes in_dim {limits[0]} (at least "
+          f"{least[0]}; max err {err.max().item():.3e}), K7f {limits[1]} (at least "
+          f"{least[1]}; errors {[f'{e:.2e}' for e in errs]}); one more, and c1 257, raise")
 
 
 def small_model_check(root_cfg) -> None:
@@ -1566,20 +1605,22 @@ def _first_moments(state) -> dict:
 
 
 def small_train_check(root_cfg, grad_norm_rel: float = METRIC_REL, noise_draws: int = 0,
-                      pool_noise: float = 0.0) -> None:
+                      pool_noise: float = 0.0, global_cos: float = GLOBAL_COS) -> None:
     """One tiny training step on the card against its CPU twin, dropout off.
 
     The CPU run's KPS indices and matches are handed to the card run (the
     discrete choices that near-ties make noise-sensitive), and the tolerances
     are those ``tests/test_torch_train_step.py`` holds the port to JAX with,
-    ``grad_norm`` within ``grad_norm_rel``. With ``noise_draws`` the CPU step
+    ``grad_norm`` within ``grad_norm_rel`` and the gradient's global cosine
+    at least ``global_cos``. With ``noise_draws`` the CPU step
     also runs on inputs moved by up to 1e-6 that many times, and the leaves
     whose moments fail the per-leaf gates there are held by the global cosine
     only (``tests/test_torch_butd_train_step.py``). With ``pool_noise`` each of
     those CPU runs also moves every pooled value of its pair pools by up to
     that share (the pool kernels round h1 to bf16 after f32 sums in another
     order than their plain versions: one bf16 step, 2^-8, moves a pooled value
-    by as much).
+    by as much). The noisy leaves that fail the per-leaf gates on the card
+    are the ones excused, and are counted.
     """
     from eda_tpu_torch.entry import build_trainer
     from eda_tpu_torch.losses import criterion
@@ -1656,13 +1697,14 @@ def small_train_check(root_cfg, grad_norm_rel: float = METRIC_REL, noise_draws: 
     glob = _cos(torch.cat([mu_gpu[k].flatten() for k in keys]),
                 torch.cat([mu_cpu[k].flatten() for k in keys]))
     largest = max(float(v.norm()) for v in mu_cpu.values())
+    excused = []
     for k in keys:
         g, w = mu_gpu[k], mu_cpu[k]
         if k.endswith(ZERO_GRAD):
             if max(float(g.norm()), float(w.norm())) >= ZERO_NORM * largest:
                 bad.append(k)
-        elif k not in noisy and _leaf_fails(g, w):
-            bad.append(k)
+        elif _leaf_fails(g, w):
+            (excused if k in noisy else bad).append(k)
     lrs = {"main": cpu.optimizer.cfg.lr, "backbone": cpu.optimizer.cfg.lr_backbone, "text": 0.0}
     cstate, gstate = cpu.model.state_dict(), gpu.model.state_dict()
     close = total = 0
@@ -1687,8 +1729,10 @@ def small_train_check(root_cfg, grad_norm_rel: float = METRIC_REL, noise_draws: 
           f"{want['grad_norm']:.4f}, worst metric rel {rel[worst_key]:.4f} ({worst_key}), "
           f"gradient global cos {glob:.4f}, params within 0.1 lr {close / total:.4f}, BN "
           f"stats rel {bn_err:.5f}" + (f", {len(noisy)} leaves noisy on the CPU itself "
-                                       f"{sorted(noisy)}" if noise_draws else ""))
-    if (loss_err > LOSS_REL or rel[worst_key] > limit[worst_key] or glob < GLOBAL_COS or bad
+                                       f"{sorted(noisy)}, of which {len(excused)} fail the "
+                                       f"per-leaf gates on the card and are excused {excused}"
+                                       if noise_draws else ""))
+    if (loss_err > LOSS_REL or rel[worst_key] > limit[worst_key] or glob < global_cos or bad
             or close < PARAM_CLOSE * total or bn_err > BN_REL):
         raise AssertionError(f"tiny train step on the card is off its CPU twin; leaves {bad}")
 
@@ -2796,6 +2840,107 @@ def w2x_phase(root_cfg) -> list:
     return rows
 
 
+# the f32 gates of the tiny f32 step against its twin, as
+# tests/test_torch_f32_train_step.py holds the f32 step to JAX: the gradient's
+# global cosine and grad_norm
+F32_GLOBAL_COS, F32_GRAD_NORM_REL = 0.98, 0.05
+W2X_F32_REQUESTS = 3  # full-width f32 W2X serving batches (the smoke's time)
+
+
+def w2x_f32_phase(root_cfg) -> list:
+    """The f32 width-2 backbone, ``w2x_configs(ModelConfig())``: K2f and K7f on
+    the edge inputs of the tensor route above c1 128 and at the in_dim limits
+    of c1 256 (``prep_f32_edge_check(wide=True)``); the tiny f32 W2X model,
+    step and scoring against their CPU twins (the step under the f32 gates,
+    ``F32_GLOBAL_COS`` and ``F32_GRAD_NORM_REL``, every leaf under the
+    per-leaf gates: no leaf excused); at full width (batch 8) K2f and K7f
+    against their plain versions on a forward's and a step's inputs,
+    ``W2X_F32_REQUESTS`` serving batches and ``W2X_STEPS`` training steps
+    with their launches, a profiled forward and step, two steps from one state bit for
+    bit and one eval batch scored under ``pair``. Its pools are the bf16 W2X
+    phase's kernels. Returns the K2f and K7f rows, named with " (w2x f32)"."""
+    from eda_tpu_torch.entry import build as build_model
+    from eda_tpu_torch.entry import build_evaluator, build_trainer, make_batch
+    from eda_tpu_torch.ops import fused_sa
+    from eda_tpu_torch.ops.cuda import build
+
+    cfg, tiny = w2x_configs(root_cfg)
+    prep_f32_edge_check(wide=True)
+    small_model_check(TinyOf(tiny))
+    small_train_check(TinyOf(tiny), grad_norm_rel=F32_GRAD_NORM_REL,
+                      global_cos=F32_GLOBAL_COS)
+    small_eval_check(TinyOf(tiny))
+
+    prep = lambda kw: F32_PREP if f32_prep(kw) else "sa_prep_launch"  # noqa: E731
+    model, inputs = build_model(cfg, batch_size=BATCH, device="cuda", seed=0)
+    with Recorder([(fused_sa, "sa_prep", prep)]) as rec:
+        with torch.inference_mode():
+            model(inputs)
+    torch.cuda.synchronize()
+    rows = check_kernels(rec.calls, (F32_PREP,), {F32_PREP: 4})
+    del rec
+    for kernel in build.KERNELS.values():
+        kernel.launches = 0
+    times = []
+    with torch.inference_mode():
+        for i in range(W2X_F32_REQUESTS):
+            batch = make_batch(cfg, range(BATCH * i, BATCH * (i + 1)), "cuda") if i else inputs
+            before = launch_counts()
+            out, ms = timed(lambda: model(batch)["last_center"])
+            times.append(ms)
+            if out.shape != (BATCH, cfg.num_queries, 3) or not torch.isfinite(out).all():
+                raise AssertionError(f"w2x f32 request {i}: bad last_center {tuple(out.shape)}")
+            check_launches(before, forward_launches("pair", f32=True), f"w2x f32 request {i}")
+        rows[0]["launches"] = launch_counts()[F32_PREP]
+        print(f"w2x f32 serving forward, batch {BATCH}: {statistics.median(times[1:]):.2f} ms "
+              f"per batch (median of requests 1-{W2X_F32_REQUESTS - 1}), every launch as "
+              f"counted")
+        profile(lambda: model(batch), "w2x f32 serving forward", also=("prep_tc", "split_w1"))
+    del model, inputs, batch
+    torch.cuda.empty_cache()
+
+    state, step, batch = build_trainer(cfg, batch_size=BATCH, device="cuda", seed=0)
+    with Recorder([(fused_sa, "sa_prep_bwd", lambda kw: F32_PREP_BWD)]) as rec:
+        step(state, batch)
+    torch.cuda.synchronize()
+    rows += check_kernels(rec.calls, (F32_PREP_BWD,), {F32_PREP_BWD: 4})
+    del rec
+    for kernel in build.KERNELS.values():
+        kernel.launches = 0
+    for i in range(W2X_STEPS):
+        before = launch_counts()
+        metrics, ms = timed(lambda: step(state, batch))
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise AssertionError(f"w2x f32 step {i}: loss {loss}, grad_norm {norm}")
+        check_launches(before, step_launches("pair", f32=True), f"w2x f32 step {i}")
+        print(f"w2x f32 step {i}: {ms:.2f} ms, loss {loss:.4f}, grad_norm {norm:.4f}")
+    rows[1]["launches"] = launch_counts()[F32_PREP_BWD]
+    profile(lambda: step(state, batch), "w2x f32 training step",
+            also=("prep_tc", "prep_fma", "split_w1", "reduce_records"))
+    exact_repeat_check(state, step, batch, "w2x f32 full-width step")
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    evaluator_model, score_step, evaluator, batch = build_evaluator(cfg, batch_size=BATCH,
+                                                                    device="cuda")
+    positive_sizes(evaluator_model)
+    with radius_mode("pair"):
+        before = launch_counts()
+        ious, ms = timed(lambda: score_step(batch))
+    check_launches(before, forward_launches("pair", f32=True), "w2x f32 pair eval batch")
+    if (ious.shape != IOU_SHAPE or not torch.isfinite(ious).all() or ious.min() < 0
+            or ious.max() > 1):
+        raise AssertionError(f"w2x f32 eval batch: bad IoU stack {tuple(ious.shape)}")
+    print(f"w2x f32 eval under pair, batch {BATCH}: {ms:.2f} ms, IoU stack finite in [0, 1], "
+          f"largest {ious.max().item():.4f}")
+    del evaluator_model, score_step, evaluator, batch
+    torch.cuda.empty_cache()
+    for row in rows:
+        row["name"] += " (w2x f32)"
+    return rows
+
+
 GATHER_STEPS = 2  # full-width gather training steps
 
 
@@ -3683,6 +3828,9 @@ def main() -> int:
     f32_rows = phase("f32", f32_phase, ModelConfig())
     torch.cuda.empty_cache()
     w2x_rows = phase("w2x", w2x_phase, cfg)
+    torch.cuda.empty_cache()
+    w2x_f32_rows = phase("w2x f32", w2x_f32_phase, ModelConfig())
+    torch.cuda.empty_cache()
     phase("gather", gather_phase, ModelConfig())
     torch.cuda.empty_cache()
     phase("device sort", device_sort_phase, cfg)
@@ -3696,7 +3844,8 @@ def main() -> int:
             if not row["name"].endswith("winners"):
                 row["launches"] = eval_launches[mode][row["name"] + "_launch"]
 
-    rows = serve_rows + train_rows + mode_rows["mxu"] + mode_rows["pre"] + f32_rows + w2x_rows
+    rows = (serve_rows + train_rows + mode_rows["mxu"] + mode_rows["pre"] + f32_rows + w2x_rows
+            + w2x_f32_rows)
     for row in rows:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on the main path")

@@ -1,7 +1,7 @@
 """Model, training and data configuration of the PyTorch port.
 
 The port keeps its own copies of the JAX package's ``ModelConfig``,
-``TrainConfig`` and ``DataConfig``: same fields, same defaults, same
+``LossConfig``, ``TrainConfig`` and ``DataConfig``: same fields, same defaults, same
 ``tiny()`` miniature, so a configuration written for one package describes
 the same network and run in the other.
 """
@@ -80,6 +80,22 @@ class ModelConfig:
             butd_box_dim=32,
             max_detected_boxes=16,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss weights: the JAX package's ``LossConfig`` (reference
+    ``models/losses.py`` and ``main_utils.py:262-273``), field for field."""
+
+    matcher_cost_class: float = 1.0
+    matcher_cost_bbox: float = 0.0   # main_utils.py:264 passes 0
+    matcher_cost_giou: float = 2.0
+    eos_coef: float = 0.1
+    temperature: float = 0.07
+    query_points_obj_topk: int = 4   # train_dist_mod.py flag default (KPS top-k)
+    use_contrastive_align: bool = True
+    use_soft_token_loss: bool = True
+    # dataset-conditional weights live in losses/criterion.py
 
 
 @dataclasses.dataclass(frozen=True)

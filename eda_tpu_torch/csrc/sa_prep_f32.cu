@@ -28,6 +28,8 @@
 // (0.031 / 0.036 ms at 3.35 TB/s). SA2-4 (16 384 / 8 192 / 4 096 points,
 // in_dim 131 / 259 / 259, c1 128) are bound by their products: a true-f32
 // product runs fastest as three TF32 products (495 TFLOP/s, ~165 effective).
+// The width-2 backbone's SA2-4 (in_dim 259 / 515 / 515, c1 256) do 5.4 GFLOP
+// of such products a forward, three times that a backward.
 //
 // Design: a persistent grid of one-warpgroup CTAs over tiles of 64 rows, the
 // tile-to-CTA assignment a function of the row count only (tile blockIdx.x,
@@ -48,27 +50,43 @@
 //     by two shuffles. Backward, dx and g xhat go to shared tiles, and one
 //     column pass adds dW1 (in registers across the CTA's tiles) and db1,
 //     dscale, dlnb over the tile's rows in row order.
-//   * Tensor route (in_dim > 8, c1 <= 128: SA2-4): a prologue kernel splits
-//     W1 into TF32 hi / lo once per launch, in the layouts the products read,
-//     into a small buffer in device memory (split_w1); its chunks stream
-//     through a second ring (two to four stages) from L2, so any in_dim up to
-//     the points' stage fits (645 forward, 391 backward at c1 128), or stay
-//     in the ring when a tile's chunks all fit it. Per tile:
+//   * Tensor route (in_dim > 8, c1 up to 256: SA2-4): a prologue kernel
+//     splits W1 into TF32 hi / lo once per launch, in the layouts the
+//     products read, into a small buffer in device memory (split_w1); its
+//     chunks stream through a second ring (two to four stages) from L2, so
+//     any in_dim up to the points' stage fits (645 forward, 391 backward at
+//     c1 128; 639 forward at c1 256), or stay in the ring when a tile's
+//     chunks all fit it. Per tile:
 //       X = P W1: A = P from registers (read from the tile's stage, xyz / r,
-//         split), B the K-major W1^T chunks of 32 K values; the next chunk's
-//         A fragments are built while a chunk's products run. The LayerNorm
-//         in the accumulator layout (quad shuffles); forward, A to the stage
-//         and out.
-//       Backward: the LayerNorm backward in the same layout, a column half at
-//         a time (g read from the stage twice, never held whole beside xhat);
-//         dscale, dlnb and db1 as column sums folded in registers across tiles
-//         (wgmma.cuh); dx split and stored transposed into shared memory (its
-//         hi half over the consumed dA). dW1 = P^T dx per 64-row block of
-//         k_in, A = P^T from registers, B = dx^T, added to the CTA's own
-//         record in tile order (float2 rows, whole sectors). dpts = dx W1^T
-//         per 64 k_in columns, A = dx read back from dx^T, B the W1 chunks,
-//         into the points' stage and out.
+//         split), B the K-major W1^T chunks of 32 K values by up to 128
+//         columns (above c1 128, two chunks a K step, one a column half of
+//         the accumulator, both on the same A fragments); at c1 <= 128 the
+//         next chunk's A fragments are built while a chunk's products run.
+//         The LayerNorm in the accumulator layout (quad shuffles); forward, A
+//         to the stage and out.
+//       Backward: the LayerNorm backward in the same layout, a column slice
+//         at a time (g read from the stage twice, never held whole beside
+//         xhat); dscale, dlnb and db1 as column sums folded in registers
+//         across tiles (wgmma.cuh); dx split and stored transposed into shared
+//         memory (its hi half over the consumed dA). dW1 = P^T dx per 64-row
+//         block of k_in (and 128 columns), A = P^T from registers, B = dx^T,
+//         added to the CTA's own record in tile order (float2 rows, whole
+//         sectors). dpts = dx W1^T per 64 k_in columns, A = dx read back from
+//         dx^T, B the W1 chunks, into the points' stage and out.
 //     No (rows, c1) intermediate goes to device memory.
+//   * The backward above c1 128 ("direct": the width-2 backbone's SA2-4)
+//     computes the same, but its points' tile, dA and dx^T together (257 KB
+//     at in_dim 515) do not fit a block's shared memory, nor a 128-value
+//     accumulator its registers beside the LayerNorm backward's: the points
+//     and dA are read from device memory (L2) straight into the fragments;
+//     X runs a column half at a time (its chunks taken half-major), and each
+//     thread puts x = X + b1 into dx^T lo's place at its own dx^T offsets, so
+//     that the LayerNorm backward reads it back a 64-column slice at a time
+//     and writes dx^T over it, no thread touching another's values; dpts is
+//     written from the accumulators. Shared memory holds dx^T (hi and lo),
+//     the W1 ring and the column sums (added per tile by the lane that owns
+//     a column, so their order stays fixed). Its in_dim is bound by
+//     kDirectMaxIn only.
 //   * reduce_records (wgmma.cuh) adds the CTAs' records in a fixed order.
 
 #include <cuda_runtime.h>
@@ -87,6 +105,8 @@ constexpr int kRows = 64;              // rows a tile (the wgmma M)
 constexpr int kChunk = 32;             // K values of an X chunk
 constexpr int kDRows = 64;             // k_in rows of a dpts chunk
 constexpr int kFmaMaxIn = 8;           // in_dim of the FMA route
+constexpr int kXCols = 128;            // c1 columns of an X chunk (wider c1 in two)
+constexpr int kDirectMaxIn = 2048;     // in_dim of the direct backward (c1 above 128)
 constexpr int kMaxRing = 4;            // W1 chunk stages
 constexpr float kEps = 1e-5f;
 constexpr int kMaxSharedBytes = 232448;
@@ -101,24 +121,31 @@ __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(
 __host__ __device__ constexpr int c1_pad(int c1) {
   return c1 <= 16 ? 16 : c1 <= 32 ? 32 : c1 <= 64 ? 64 : c1 <= 128 ? 128 : 256;
 }
+// columns of an X chunk: c1 (padded) up to 128, else half of it
+__host__ __device__ constexpr int x_cols(int CP) { return CP < kXCols ? CP : kXCols; }
 
 // Shared memory of the tensor route: mbarriers (tiles, then W1 chunks);
 // b1, scale (and forward lnb); T tile stages (points, then dA, whose bytes
-// take dx^T hi; forward, the points' bytes take A out); dx^T lo; R W1 chunk
-// stages (hi and lo of an X chunk, 32 K values by CP, or of a dpts chunk, 64
+// take dx^T hi; forward, the points' bytes take A out); the direct backward's
+// dx^T hi apart (it has no tile stages); dx^T lo; the direct backward's
+// column sums (four warps' rows of db1, dscale, dlnb); R W1 chunk stages (hi
+// and lo of an X chunk, 32 K values by x_cols(CP), or of a dpts chunk, 64
 // k_in rows by dpts_cols(CP)).
 struct TcLayout {
-  size_t bars, vec, tiles, pbytes, tstage, dxlo, wring, wstage, total;
+  size_t bars, vec, tiles, pbytes, tstage, dxhi, dxlo, red, wring, wstage, total;
   __host__ __device__ TcLayout(int in_dim, int c1, int CP, bool bwd, int T, int R) {
+    const bool direct = bwd && CP > kXCols;
     size_t o = 0;
     bars = o;   o += 64;
     vec = o;    o += (size_t)(bwd ? 2 : 3) * CP * 4;
     pbytes = align16((size_t)kRows * in_dim * 4);
     const size_t ab = (size_t)kRows * (bwd ? CP : c1) * 4;
-    tstage = bwd ? pbytes + ab : (pbytes > ab ? pbytes : ab);
+    tstage = direct ? 0 : bwd ? pbytes + ab : (pbytes > ab ? pbytes : ab);
     tiles = o;  o += T * tstage;
+    dxhi = o;   o += direct ? (size_t)kRows * CP * 4 : 0;
     dxlo = o;   o += bwd ? (size_t)kRows * CP * 4 : 0;
-    wstage = (size_t)8 * kDRows * dpts_cols(CP);  // at least an X chunk's 8 kChunk CP
+    red = o;    o += direct ? (size_t)4 * 3 * CP * 4 : 0;
+    wstage = (size_t)8 * kDRows * dpts_cols(CP);  // at least an X chunk's 8 kChunk x_cols(CP)
     wring = o;  o += R * wstage;
     total = o;
   }
@@ -150,23 +177,24 @@ struct FmaLayout {
 // zero past in_dim and c1, in whole chunks (so that every chunk's products
 // are one unconditional sequence), each chunk its hi then its lo part in the
 // K-major TF32 core layout:
-//   X chunks q: K values 32 q .. 32 q + 32, CP rows (c) x 32 columns (k);
+//   X chunks (q, h), q-major: K values 32 q .. 32 q + 32, XW = x_cols(CP)
+//     rows (c from XW h) x 32 columns (k);
 //   backward, then dpts chunks (b, h), b-major: k_in rows 64 b .. 64 b + 64 x
 //     DC = dpts_cols(CP) columns (c from DC h).
 // One thread a destination float, so that the stores coalesce.
 __global__ void split_w1(const float* __restrict__ w1, int in_dim, int c1, int CP, int bwd,
                          float* __restrict__ dst) {
-  const int DC = dpts_cols(CP), n1 = 2 * CP * round32(in_dim);
+  const int DC = dpts_cols(CP), XW = x_cols(CP), n1 = 2 * CP * round32(in_dim);
   const int n = n1 + (bwd ? 2 * CP * round64(in_dim) : 0);
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
     int k, c, lo;
     if (i < n1) {
-      const int q = i / (2 * kChunk * CP);
-      int off = i - q * 2 * kChunk * CP;
-      lo = off >= kChunk * CP;
-      off -= lo * kChunk * CP;
+      const int qh = i / (2 * kChunk * XW), q = qh / (CP / XW), h = qh % (CP / XW);
+      int off = i - qh * 2 * kChunk * XW;
+      lo = off >= kChunk * XW;
+      off -= lo * kChunk * XW;
       const int core = off >> 5;
-      c = (core / (kChunk / 4)) * 8 + ((off & 31) >> 2);
+      c = XW * h + (core / (kChunk / 4)) * 8 + ((off & 31) >> 2);
       k = kChunk * q + (core % (kChunk / 4)) * 4 + (off & 3);
     } else {
       const int e = i - n1, q = e / (2 * kDRows * DC), b = q / (CP / DC), h = q % (CP / DC);
@@ -282,13 +310,17 @@ prep_tc(const float* __restrict__ pts, const float* __restrict__ dA, long long n
         const float* __restrict__ scale, const float* __restrict__ lnb, float radius, int T,
         int R, bool bulk, float* __restrict__ out, float* __restrict__ records) {
   constexpr int NV = CP / 2;               // accumulator values a thread
-  constexpr int FH = CP > 64 ? 2 : 1;      // column halves of the LayerNorm backward
+  constexpr int XW = x_cols(CP);           // columns of an X chunk
+  constexpr int NH = CP / XW;              // X chunks a K step (column halves of c1)
+  constexpr bool DIRECT = BWD && CP > kXCols;  // points and dA from device memory
+  constexpr int FH = CP > 128 ? 4 : CP > 64 ? 2 : 1;  // column slices of the LayerNorm backward
   constexpr int FW = CP / FH;              // and their width
   using F = Fold<FW>;
   constexpr int DC = dpts_cols(CP);        // columns of a dpts chunk
-  const int nX = round32(in_dim) / kChunk;  // W1 chunks of X
+  const int nX = round32(in_dim) / kChunk;  // K steps of X, NH W1 chunks each
   const int nB = round64(in_dim) / kDRows;  // k_in blocks of dpts, CP / DC chunks each
-  const int NQ = BWD ? nX + nB * (CP / DC) : nX;  // W1 chunks a tile
+  const int nXQ = NH * nX;                  // W1 chunks of X
+  const int NQ = BWD ? nXQ + nB * (CP / DC) : nXQ;  // W1 chunks a tile
   const TcLayout L(in_dim, c1, CP, BWD, T, R);
 
   extern __shared__ __align__(128) unsigned char smem[];
@@ -297,6 +329,9 @@ prep_tc(const float* __restrict__ pts, const float* __restrict__ dA, long long n
   float* ss = bs + CP;
   float* ls = ss + CP;  // forward
   float* dxlo = reinterpret_cast<float*>(smem + L.dxlo);
+  // the column sums of the four warps: direct, added per tile; else written
+  // once the tiles are done, over dx^T lo
+  float* red = DIRECT ? reinterpret_cast<float*>(smem + L.red) : dxlo;
   const uint32_t wring = smem_u32(smem + L.wring);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -318,10 +353,12 @@ prep_tc(const float* __restrict__ pts, const float* __restrict__ dA, long long n
   uint32_t wpar = 0;
   auto issue_chunk = [&]() {
     if (pit >= (resident ? 1 : tl.my_tiles)) return;
-    const bool x = pj < nX;
-    const uint32_t bytes = x ? 8u * kChunk * CP : 8u * kDRows * DC;
-    const size_t off = x ? (size_t)2 * kChunk * CP * pj
-                         : (size_t)2 * kChunk * CP * nX + (size_t)2 * kDRows * DC * (pj - nX);
+    const bool x = pj < nXQ;
+    // the direct backward takes X's chunks a column half at a time
+    const int xq = DIRECT ? pj % nX * NH + pj / nX : pj;
+    const uint32_t bytes = x ? 8u * kChunk * XW : 8u * kDRows * DC;
+    const size_t off = x ? (size_t)2 * kChunk * XW * xq
+                         : (size_t)2 * kChunk * XW * nXQ + (size_t)2 * kDRows * DC * (pj - nXQ);
     bulk_copy(wring + (uint32_t)pst * (uint32_t)L.wstage, wsplit + off, bytes,
               smem_u32(&bars[T + pst]));
     pst = pst + 1 == R ? 0 : pst + 1;
@@ -357,37 +394,52 @@ prep_tc(const float* __restrict__ pts, const float* __restrict__ dA, long long n
     ss[c] = c < c1 ? scale[c] : 0.f;
     if (!BWD) ls[c] = c < c1 ? lnb[c] : 0.f;
   }
+  if constexpr (DIRECT)
+    for (int i = tid; i < 4 * 3 * CP; i += kThreads) red[i] = 0.f;
   __syncthreads();
   if (tid == 0) {
     for (int i = 0; i < T; ++i) tl.fetch(i, i);
     for (int i = 0; i < R; ++i) issue_chunk();
   }
 
-  float run[FH][3][F::NR];  // backward: column sums of db1, dscale, dlnb per column half
+  // backward: column sums of db1, dscale, dlnb per column slice, across the
+  // tiles (direct: per tile, then added to `red`)
+  float run[DIRECT ? 1 : FH][3][F::NR];
 #pragma unroll
-  for (int hh = 0; hh < FH; ++hh)
+  for (int hh = 0; hh < (DIRECT ? 1 : FH); ++hh)
 #pragma unroll
     for (int v = 0; v < 3; ++v)
 #pragma unroll
       for (int i = 0; i < F::NR; ++i) run[hh][v][i] = 0.f;
+  // direct: a tile's column sums t of slice hh, output v, into the warp's row
+  // of `red` by the lane that owns each column
+  auto add_sums = [&](const float (&t)[F::NR], int hh, int v) {
+    if (col_owner<F::NVH>(lane)) {
+#pragma unroll
+      for (int i = 0; i < F::NR; ++i)
+        red[(warp * 3 + v) * CP + FW * hh + F::column(i, lane, t4)] += t[i];
+    }
+  };
 
   for (int it = 0, st = 0; it < tl.my_tiles; ++it, st = st + 1 == T ? 0 : st + 1) {
     const long long tile = tl.tile(it), row0 = tile * kRows;
     const int nr = tl.rows(tile);
-    tl.arrive(it, st);
+    if constexpr (!DIRECT) tl.arrive(it, st);
     float* P = tl.stage(st);
+    const float* Pin = DIRECT ? pts + row0 * in_dim : P;  // the tile's points
     // [xyz/r ; f] at (row r of the tile, column k), zero past the rows and
     // in_dim; branch-free, so that a fragment's loads issue back to back
     auto pval = [&](int r, int k) {
       const bool on = r < nr && k < in_dim;
-      const float v = P[on ? r * in_dim + k : 0];
+      const float v = Pin[on ? r * in_dim + k : 0];
       return on ? (k < 3 ? div_real(v, radius, rr) : v) : 0.f;
     };
 
-    // ---- X = P W1, 3xTF32, a W1 chunk of 32 K values at a time; forward,
-    // the next chunk's A fragments are built while this chunk's products run
-    // (the backward has no registers to spare for a second set)
-    float acc[NV];
+    const bool pair = !(c1 & 1);
+    // ---- X = P W1, 3xTF32, a K step of 32 values at a time: its A fragments
+    // from the points (xyz / r, split), B a W1 chunk of 32 K values by XW
+    // columns (above c1 128, NH chunks a K step, one a column half of the
+    // accumulator)
     uint32_t fa[2][2][4][4];  // [buffer][hi, lo][k8 step][register]
     auto build = [&](uint32_t (&f)[2][4][4], int q) {
 #pragma unroll
@@ -399,229 +451,344 @@ prep_tc(const float* __restrict__ pts, const float* __restrict__ dA, long long n
         tf32_split(pval(r0 + 8, k + 4), f[0][s][3], f[1][s][3]);
       }
     };
-    auto products = [&](uint32_t (&f)[2][4][4], uint32_t (&next)[2][4][4], int q) {
-      const uint32_t wb = opaque(take_chunk());
-      const uint32_t lo = (uint32_t)CP * kChunk * 4;
-      wgmma_fence();
+    constexpr uint32_t xlo = (uint32_t)XW * kChunk * 4;  // a chunk's lo part
+    // backward: dx^T (CP x 64, K-major over the tile's rows) split, hi over
+    // the consumed dA (direct: apart), lo apart; g = dA at the accumulator
+    // layout's (row, column) pairs of column slice hh, zero past the rows and c1
+    float* dxhi = DIRECT ? reinterpret_cast<float*>(smem + L.dxhi) : tl.dA_stage(st);
+    const float* G = DIRECT ? dA + row0 * c1 : tl.dA_stage(st);
+    auto load_g = [&](float (&gh)[FW / 2], int hh) {
 #pragma unroll
-      for (int s = 0; s < 4; ++s)
-        wgmma_tf32x3<CP>(acc, f[0][s], f[1][s], make_desc(wb + 256 * s, 128, kChunk * 32),
-                         make_desc(wb + lo + 256 * s, 128, kChunk * 32), q > 0 || s > 0);
-      wgmma_commit();
-      if (!BWD && q + 1 < nX) build(next, q + 1);
-      wgmma_wait<0>();
-      fence_regs(acc);
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        fence_regs(f[0][s]);
-        fence_regs(f[1][s]);
-      }
-      release_chunk();
-    };
-    if constexpr (BWD) {
-      for (int q = 0; q < nX; ++q) {
-        build(fa[0], q);
-        products(fa[0], fa[0], q);
-      }
-    } else {
-      build(fa[0], 0);
-      for (int q = 0; q < nX; q += 2) {
-        products(fa[0], fa[1], q);
-        if (q + 1 < nX) products(fa[1], fa[0], q + 1);
-      }
-    }
-
-    // ---- x = X + b1; the LayerNorm statistics by quad shuffles
-    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int c = 8 * (i / 4) + 2 * t4 + (i & 1), h = (i >> 1) & 1;
-      const float x = acc[i] + bs[c];
-      acc[i] = x;
-      s1[h] += x;
-      s2[h] += x * x;
-    }
-    float mean[2], rstd[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      ln_stats(quad_sum(s1[h]), quad_sum(s2[h]), fc1, rc1, mean[h], rstd[h]);
-    const bool pair = !(c1 & 1);
-
-    if constexpr (!BWD) {
-      __syncthreads();  // every warp has read its points: the stage takes A
-      float* O = P;
-#pragma unroll
-      for (int i = 0; i < NV; i += 2) {
-        const int c = 8 * (i / 4) + 2 * t4, h = (i >> 1) & 1, r = r0 + 8 * h;
-        if (r >= nr || c >= c1) continue;
-        const float y0 = (acc[i] - mean[h]) * rstd[h] * ss[c] + ls[c];
-        const float y1 = (acc[i + 1] - mean[h]) * rstd[h] * ss[c + 1] + ls[c + 1];
-        float* o = O + r * c1 + c;
-        if (pair) {
-          *reinterpret_cast<float2*>(o) = make_float2(y0, y1);
-        } else {
-          o[0] = y0;
-          if (c + 1 < c1) o[1] = y1;
-        }
-      }
-      store_tile(O, out + row0 * c1, nr * c1, bulk);
-      if (tid == 0) {
-        bulk_store_read_wait<0>();
-        tl.fetch(it + T, st);
-      }
-    } else {
-      // ---- the LayerNorm backward in the accumulator layout, a half of the
-      // columns at a time: g = dA read from the stage twice (once for the
-      // column sums of dscale and dlnb and the row means m1, m2; once for dx),
-      // so that it is never held whole beside xhat; acc <- xhat <- dx
-      const float* G = tl.dA_stage(st);
-      auto load_g = [&](float (&gh)[FW / 2], int hh) {
-#pragma unroll
-        for (int i = 0; i < FW / 2; i += 2) {
-          const int c = FW * hh + 8 * (i / 4) + 2 * t4, r = r0 + 8 * ((i >> 1) & 1);
-          float v0 = 0.f, v1 = 0.f;
-          if (r < nr && c < c1) {
-            const float* p = G + r * c1 + c;
-            if (pair) {
-              const float2 v = *reinterpret_cast<const float2*>(p);
-              v0 = v.x;
-              v1 = v.y;
-            } else {
-              v0 = p[0];
-              if (c + 1 < c1) v1 = p[1];
-            }
+      for (int i = 0; i < FW / 2; i += 2) {
+        const int c = FW * hh + 8 * (i / 4) + 2 * t4, r = r0 + 8 * ((i >> 1) & 1);
+        float v0 = 0.f, v1 = 0.f;
+        if (r < nr && c < c1) {
+          const float* p = G + r * c1 + c;
+          if (pair && !DIRECT) {
+            const float2 v = *reinterpret_cast<const float2*>(p);
+            v0 = v.x;
+            v1 = v.y;
+          } else {
+            v0 = p[0];
+            if (c + 1 < c1) v1 = p[1];
           }
-          gh[i] = v0;
-          gh[i + 1] = v1;
         }
-      };
-      auto half = [&](int hh) -> float (&)[FW / 2] {
-        return *reinterpret_cast<float (*)[FW / 2]>(&acc[FW / 2 * hh]);
-      };
-      float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+        gh[i] = v0;
+        gh[i + 1] = v1;
+      }
+    };
+    // (row r, column c) of dx^T in the TF32 core layout
+    auto at = [](int c, int r) {
+      return ((c >> 3) * (kRows / 4) + (r >> 2)) * 32 + (c & 7) * 4 + (r & 3);
+    };
+
+    if constexpr (DIRECT) {
+      // ---- X a column half at a time (the A fragments built again for the
+      // second), x = X + b1 put by each thread into dx^T lo's place at its
+      // own dx^T offsets, so that no thread reads another's; the LayerNorm
+      // backward then reads x back a column slice at a time, and holds no
+      // whole row of the tile in registers
+      __syncthreads();  // every warp has read the last tile's dx^T
+      float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll 1
+      for (int h = 0; h < NH; ++h) {
+        float xa[XW / 2];
+        for (int q = 0; q < nX; ++q) {
+          build(fa[0], q);
+          const uint32_t wb = opaque(take_chunk());
+          wgmma_fence();
 #pragma unroll
+          for (int s = 0; s < 4; ++s)
+            wgmma_tf32x3<XW>(xa, fa[0][0][s], fa[0][1][s],
+                             make_desc(wb + 256 * s, 128, kChunk * 32),
+                             make_desc(wb + xlo + 256 * s, 128, kChunk * 32), q > 0 || s > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(xa);
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            fence_regs(fa[0][0][s]);
+            fence_regs(fa[0][1][s]);
+          }
+          release_chunk();
+        }
+#pragma unroll
+        for (int i = 0; i < XW / 2; ++i) {
+          const int c = XW * h + 8 * (i / 4) + 2 * t4 + (i & 1), rh = (i >> 1) & 1;
+          const float x = xa[i] + bs[c];
+          s1[rh] += x;
+          s2[rh] += x * x;
+          dxlo[at(c, r0 + 8 * rh)] = x;
+        }
+      }
+      float mean[2], rstd[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        ln_stats(quad_sum(s1[h]), quad_sum(s2[h]), fc1, rc1, mean[h], rstd[h]);
+      // the row means m1, m2 and the column sums of dscale and dlnb
+      float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+#pragma unroll 1
       for (int hh = 0; hh < FH; ++hh) {
-        float gh[FW / 2];
+        float gh[FW / 2], xh[FW / 2];
         load_g(gh, hh);
-        float (&xh)[FW / 2] = half(hh);
 #pragma unroll
         for (int i = 0; i < FW / 2; ++i) {
           const int c = FW * hh + 8 * (i / 4) + 2 * t4 + (i & 1), h = (i >> 1) & 1;
-          xh[i] = (xh[i] - mean[h]) * rstd[h];
+          xh[i] = (dxlo[at(c, r0 + 8 * h)] - mean[h]) * rstd[h];
           const float dxh = gh[i] * ss[c];
           m1[h] += dxh;
           m2[h] += dxh * xh[i];
         }
-        fold_columns<FW, true>(gh, xh, lane, run[hh][1]);
-        fold_columns<FW, false>(gh, gh, lane, run[hh][2]);
+        float t1[F::NR] = {}, t2[F::NR] = {};
+        fold_columns<FW, true>(gh, xh, lane, t1);
+        fold_columns<FW, false>(gh, gh, lane, t2);
+        add_sums(t1, hh, 1);
+        add_sums(t2, hh, 2);
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         m1[h] = div_real(quad_sum(m1[h]), fc1, rc1);
         m2[h] = div_real(quad_sum(m2[h]), fc1, rc1);
       }
-#pragma unroll
+      // dx (zero past c1), its column sums (db1), split over x into dx^T
+#pragma unroll 1
       for (int hh = 0; hh < FH; ++hh) {
-        float gh[FW / 2];
+        float gh[FW / 2], dx[FW / 2];
         load_g(gh, hh);
-        float (&xh)[FW / 2] = half(hh);
 #pragma unroll
-        for (int i = 0; i < FW / 2; ++i) {  // xhat <- dx, zero past c1
+        for (int i = 0; i < FW / 2; ++i) {
           const int c = FW * hh + 8 * (i / 4) + 2 * t4 + (i & 1), h = (i >> 1) & 1;
-          xh[i] = c < c1 ? rstd[h] * (gh[i] * ss[c] - m1[h] - xh[i] * m2[h]) : 0.f;
+          const int off = at(c, r0 + 8 * h);
+          const float xhat = (dxlo[off] - mean[h]) * rstd[h];
+          dx[i] = c < c1 ? rstd[h] * (gh[i] * ss[c] - m1[h] - xhat * m2[h]) : 0.f;
+          uint32_t hi, lo;
+          tf32_split(dx[i], hi, lo);
+          dxhi[off] = __uint_as_float(hi);
+          dxlo[off] = __uint_as_float(lo);
         }
-        fold_columns<FW, false>(xh, xh, lane, run[hh][0]);
-      }
-
-      // ---- dx^T (CP x 64, K-major over the tile's rows), hi over dA, lo apart
-      __syncthreads();  // every warp has read its dA
-      float* dxhi = tl.dA_stage(st);
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int c = 8 * (i / 4) + 2 * t4 + (i & 1), r = r0 + 8 * ((i >> 1) & 1);
-        const int off = ((c >> 3) * (kRows / 4) + (r >> 2)) * 32 + (c & 7) * 4 + (r & 3);
-        uint32_t hi, lo;
-        tf32_split(acc[i], hi, lo);
-        dxhi[off] = __uint_as_float(hi);
-        dxlo[off] = __uint_as_float(lo);
+        float t0[F::NR] = {};
+        fold_columns<FW, false>(dx, dx, lane, t0);
+        add_sums(t0, hh, 0);
       }
       fence_async();
       __syncthreads();
+    } else {
+      // at c1 <= 128 in the forward, the next step's A fragments are built
+      // while this step's products run (the backward, and the wider
+      // accumulator, have no registers to spare for a second set)
+      float acc[NV];
+      auto products = [&](uint32_t (&f)[2][4][4], uint32_t (&next)[2][4][4], int q) {
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          const uint32_t wb = opaque(take_chunk());
+          float (&d)[XW / 2] = *reinterpret_cast<float (*)[XW / 2]>(&acc[XW / 2 * h]);
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            wgmma_tf32x3<XW>(d, f[0][s], f[1][s], make_desc(wb + 256 * s, 128, kChunk * 32),
+                             make_desc(wb + xlo + 256 * s, 128, kChunk * 32), q > 0 || s > 0);
+          wgmma_commit();
+          if (NH == 1 && !BWD && q + 1 < nX) build(next, q + 1);
+          wgmma_wait<0>();
+          fence_regs(acc);
+          if (h + 1 == NH) {
+#pragma unroll
+            for (int s = 0; s < 4; ++s) {
+              fence_regs(f[0][s]);
+              fence_regs(f[1][s]);
+            }
+          }
+          release_chunk();
+        }
+      };
+      if constexpr (BWD || NH > 1) {
+        for (int q = 0; q < nX; ++q) {
+          build(fa[0], q);
+          products(fa[0], fa[0], q);
+        }
+      } else {
+        build(fa[0], 0);
+        for (int q = 0; q < nX; q += 2) {
+          products(fa[0], fa[1], q);
+          if (q + 1 < nX) products(fa[1], fa[0], q + 1);
+        }
+      }
 
+      // ---- x = X + b1; the LayerNorm statistics by quad shuffles
+      float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int c = 8 * (i / 4) + 2 * t4 + (i & 1), h = (i >> 1) & 1;
+        const float x = acc[i] + bs[c];
+        acc[i] = x;
+        s1[h] += x;
+        s2[h] += x * x;
+      }
+      float mean[2], rstd[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        ln_stats(quad_sum(s1[h]), quad_sum(s2[h]), fc1, rc1, mean[h], rstd[h]);
+
+      if constexpr (!BWD) {
+        __syncthreads();  // every warp has read its points: the stage takes A
+        float* O = P;
+#pragma unroll
+        for (int i = 0; i < NV; i += 2) {
+          const int c = 8 * (i / 4) + 2 * t4, h = (i >> 1) & 1, r = r0 + 8 * h;
+          if (r >= nr || c >= c1) continue;
+          const float y0 = (acc[i] - mean[h]) * rstd[h] * ss[c] + ls[c];
+          const float y1 = (acc[i + 1] - mean[h]) * rstd[h] * ss[c + 1] + ls[c + 1];
+          float* o = O + r * c1 + c;
+          if (pair) {
+            *reinterpret_cast<float2*>(o) = make_float2(y0, y1);
+          } else {
+            o[0] = y0;
+            if (c + 1 < c1) o[1] = y1;
+          }
+        }
+        store_tile(O, out + row0 * c1, nr * c1, bulk);
+        if (tid == 0) {
+          bulk_store_read_wait<0>();
+          tl.fetch(it + T, st);
+        }
+      } else {
+        // ---- the LayerNorm backward in the accumulator layout, a column
+        // slice at a time: g = dA read from the stage twice (once for the
+        // column sums of dscale and dlnb and the row means m1, m2; once for
+        // dx), so that it is never held whole beside xhat; acc <- xhat <- dx
+        auto half = [&](int hh) -> float (&)[FW / 2] {
+          return *reinterpret_cast<float (*)[FW / 2]>(&acc[FW / 2 * hh]);
+        };
+        float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+#pragma unroll
+        for (int hh = 0; hh < FH; ++hh) {
+          float gh[FW / 2];
+          load_g(gh, hh);
+          float (&xh)[FW / 2] = half(hh);
+#pragma unroll
+          for (int i = 0; i < FW / 2; ++i) {
+            const int c = FW * hh + 8 * (i / 4) + 2 * t4 + (i & 1), h = (i >> 1) & 1;
+            xh[i] = (xh[i] - mean[h]) * rstd[h];
+            const float dxh = gh[i] * ss[c];
+            m1[h] += dxh;
+            m2[h] += dxh * xh[i];
+          }
+          fold_columns<FW, true>(gh, xh, lane, run[hh][1]);
+          fold_columns<FW, false>(gh, gh, lane, run[hh][2]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          m1[h] = div_real(quad_sum(m1[h]), fc1, rc1);
+          m2[h] = div_real(quad_sum(m2[h]), fc1, rc1);
+        }
+#pragma unroll
+        for (int hh = 0; hh < FH; ++hh) {
+          float gh[FW / 2];
+          load_g(gh, hh);
+          float (&xh)[FW / 2] = half(hh);
+#pragma unroll
+          for (int i = 0; i < FW / 2; ++i) {  // xhat <- dx, zero past c1
+            const int c = FW * hh + 8 * (i / 4) + 2 * t4 + (i & 1), h = (i >> 1) & 1;
+            xh[i] = c < c1 ? rstd[h] * (gh[i] * ss[c] - m1[h] - xh[i] * m2[h]) : 0.f;
+          }
+          fold_columns<FW, false>(xh, xh, lane, run[hh][0]);
+        }
+
+        __syncthreads();  // every warp has read its dA
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+          const int c = 8 * (i / 4) + 2 * t4 + (i & 1), r = r0 + 8 * ((i >> 1) & 1);
+          const int off = at(c, r);
+          uint32_t hi, lo;
+          tf32_split(acc[i], hi, lo);
+          dxhi[off] = __uint_as_float(hi);
+          dxlo[off] = __uint_as_float(lo);
+        }
+        fence_async();
+        __syncthreads();
+      }
+    }
+
+    if constexpr (BWD) {
       // ---- dW1 (k_in x c) = P^T dx over the tile's rows, a 64-row block of
-      // k_in at a time, into the CTA's record in tile order
+      // k_in (and XW columns) at a time, into the CTA's record in tile order
       const uint32_t dh = smem_u32(dxhi), dl = smem_u32(dxlo);
       for (int m0 = 0; m0 < in_dim; m0 += 64) {
         const int ka = m0 + r0;  // the fragment's k_in rows ka and ka + 8
-        float aw[NV];
 #pragma unroll 1
-        for (int half = 0; half < 2; ++half) {
-          uint32_t ah[4][4], al[4][4];
+        for (int h2 = 0; h2 < NH; ++h2) {
+          const uint32_t ho = (uint32_t)h2 * XW * kRows * 4;  // dx^T rows of the columns
+          float aw[XW / 2];
+#pragma unroll 1
+          for (int half = 0; half < 2; ++half) {
+            uint32_t ah[4][4], al[4][4];
 #pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            const int r = 8 * (4 * half + s) + t4;
-            tf32_split(pval(r, ka), ah[s][0], al[s][0]);
-            tf32_split(pval(r, ka + 8), ah[s][1], al[s][1]);
-            tf32_split(pval(r + 4, ka), ah[s][2], al[s][2]);
-            tf32_split(pval(r + 4, ka + 8), ah[s][3], al[s][3]);
-          }
-          wgmma_fence();
+            for (int s = 0; s < 4; ++s) {
+              const int r = 8 * (4 * half + s) + t4;
+              tf32_split(pval(r, ka), ah[s][0], al[s][0]);
+              tf32_split(pval(r, ka + 8), ah[s][1], al[s][1]);
+              tf32_split(pval(r + 4, ka), ah[s][2], al[s][2]);
+              tf32_split(pval(r + 4, ka + 8), ah[s][3], al[s][3]);
+            }
+            wgmma_fence();
 #pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            const uint32_t o = (4 * half + s) * 256;
-            wgmma_tf32x3<CP>(aw, ah[s], al[s], make_desc(opaque(dh) + o, 128, 2048),
-                             make_desc(opaque(dl) + o, 128, 2048), half > 0 || s > 0);
-          }
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(aw);
+            for (int s = 0; s < 4; ++s) {
+              const uint32_t o = ho + (4 * half + s) * 256;
+              wgmma_tf32x3<XW>(aw, ah[s], al[s], make_desc(opaque(dh) + o, 128, 2048),
+                               make_desc(opaque(dl) + o, 128, 2048), half > 0 || s > 0);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(aw);
 #pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            fence_regs(ah[s]);
-            fence_regs(al[s]);
-          }
-        }
-        // the thread's pairs of columns as float2, so that a warp's accesses
-        // cover whole 32-byte sectors (eight rows of 8 columns); a row's
-        // earlier sums all loaded before any store
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (ka + 8 * h >= in_dim) continue;
-          float* row = rec + (size_t)(ka + 8 * h) * c1;
-          float2 o[NV / 4];
-#pragma unroll
-          for (int j = 0; j < NV / 4; ++j) {
-            const int c = 8 * j + 2 * t4;
-            o[j] = make_float2(0.f, 0.f);
-            if (it > 0 && c < c1) {
-              if (pair) {
-                o[j] = *reinterpret_cast<const float2*>(row + c);
-              } else {
-                o[j].x = row[c];
-                if (c + 1 < c1) o[j].y = row[c + 1];
-              }
+            for (int s = 0; s < 4; ++s) {
+              fence_regs(ah[s]);
+              fence_regs(al[s]);
             }
           }
+          // the thread's pairs of columns as float2, so that a warp's accesses
+          // cover whole 32-byte sectors (eight rows of 8 columns); a row's
+          // earlier sums all loaded before any store
 #pragma unroll
-          for (int j = 0; j < NV / 4; ++j) {
-            const int c = 8 * j + 2 * t4;
-            if (c >= c1) continue;
-            const float2 v = make_float2(o[j].x + aw[4 * j + 2 * h], o[j].y + aw[4 * j + 2 * h + 1]);
-            if (pair) {
-              *reinterpret_cast<float2*>(row + c) = v;
-            } else {
-              row[c] = v.x;
-              if (c + 1 < c1) row[c + 1] = v.y;
+          for (int h = 0; h < 2; ++h) {
+            if (ka + 8 * h >= in_dim) continue;
+            float* row = rec + (size_t)(ka + 8 * h) * c1;
+            float2 o[XW / 8];
+#pragma unroll
+            for (int j = 0; j < XW / 8; ++j) {
+              const int c = XW * h2 + 8 * j + 2 * t4;
+              o[j] = make_float2(0.f, 0.f);
+              if (it > 0 && c < c1) {
+                if (pair) {
+                  o[j] = *reinterpret_cast<const float2*>(row + c);
+                } else {
+                  o[j].x = row[c];
+                  if (c + 1 < c1) o[j].y = row[c + 1];
+                }
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < XW / 8; ++j) {
+              const int c = XW * h2 + 8 * j + 2 * t4;
+              if (c >= c1) continue;
+              const float2 v =
+                  make_float2(o[j].x + aw[4 * j + 2 * h], o[j].y + aw[4 * j + 2 * h + 1]);
+              if (pair) {
+                *reinterpret_cast<float2*>(row + c) = v;
+              } else {
+                row[c] = v.x;
+                if (c + 1 < c1) row[c + 1] = v.y;
+              }
             }
           }
         }
       }
 
       // ---- dpts = dx W1^T, a block of 64 k_in columns at a time over its
-      // CP / DC chunks, into the points' stage; A = dx, its split halves read
-      // back from dx^T, GK k8 steps at a time
+      // CP / DC chunks, into the points' stage (direct: into device memory);
+      // A = dx, its split halves read back from dx^T, GK k8 steps at a time
       __syncthreads();  // every warp has read its points: the stage takes dpts
-      float* D = P;
+      float* D = DIRECT ? out + row0 * in_dim : P;
       constexpr int GK = DC / 8 < 4 ? DC / 8 : 4;
       for (int b = 0; b < nB; ++b) {
         float ad[kDRows / 2];
@@ -666,28 +833,31 @@ prep_tc(const float* __restrict__ pts, const float* __restrict__ dA, long long n
           if (r < nr && k < in_dim) D[r * in_dim + k] = k < 3 ? div_real(ad[i], radius, rr) : ad[i];
         }
       }
-      store_tile(D, out + row0 * in_dim, nr * in_dim, bulk);
-      if (tid == 0) {
-        bulk_store_read_wait<0>();
-        tl.fetch(it + T, st);
+      if constexpr (!DIRECT) {
+        store_tile(D, out + row0 * in_dim, nr * in_dim, bulk);
+        if (tid == 0) {
+          bulk_store_read_wait<0>();
+          tl.fetch(it + T, st);
+        }
       }
     }
   }
 
   if constexpr (BWD) {
     // the column sums: each warp its rows, then the four warps in order
-    float* red = dxlo;  // free once the tiles are done
     __syncthreads();
-    if (col_owner<F::NVH>(lane)) {
+    if constexpr (!DIRECT) {
+      if (col_owner<F::NVH>(lane)) {
 #pragma unroll
-      for (int hh = 0; hh < FH; ++hh)
+        for (int hh = 0; hh < FH; ++hh)
 #pragma unroll
-        for (int v = 0; v < 3; ++v)
+          for (int v = 0; v < 3; ++v)
 #pragma unroll
-          for (int i = 0; i < F::NR; ++i)
-            red[(warp * 3 + v) * CP + FW * hh + F::column(i, lane, t4)] = run[hh][v][i];
+            for (int i = 0; i < F::NR; ++i)
+              red[(warp * 3 + v) * CP + FW * hh + F::column(i, lane, t4)] = run[hh][v][i];
+      }
+      __syncthreads();
     }
-    __syncthreads();
     for (int i = tid; i < 3 * c1; i += kThreads) {
       const int v = i / c1, c = i % c1;
       float s = 0.f;
@@ -1041,11 +1211,12 @@ bool make_plan(long long n_rows, int in_dim, int c1, bool bwd, Plan& p) {
     }
     return false;
   }
-  if (c1 > 128) return false;
   p.tc = true;
-  const int nq = round32(in_dim) / kChunk +                 // W1 chunks a tile
+  const bool direct = bwd && p.CP > kXCols;  // no tile stages
+  if (direct && in_dim > kDirectMaxIn) return false;
+  const int nq = p.CP / x_cols(p.CP) * (round32(in_dim) / kChunk) +  // W1 chunks a tile
                  (bwd ? round64(in_dim) / kDRows * (p.CP / dpts_cols(p.CP)) : 0);
-  for (p.T = tiles > kSms ? 2 : 1; p.T >= 1; --p.T)
+  for (p.T = direct ? 0 : tiles > kSms ? 2 : 1; p.T >= (direct ? 0 : 1); --p.T)
     for (p.R = std::min(kMaxRing, nq); p.R >= std::min(2, nq); --p.R) {
       p.smem = TcLayout(in_dim, c1, p.CP, bwd, p.T, p.R).total;
       if (p.smem <= (size_t)kMaxSharedBytes) {
@@ -1071,21 +1242,18 @@ cudaError_t launch(const Plan& p, const float* pts, const float* dA, long long n
   const bool bulk = aligned(pts) && aligned(out) && (!BWD || aligned(dA));
   float* records = scratch + split_floats(p, in_dim, BWD);
   cudaError_t err = cudaSuccess;
-  if constexpr (CP <= 128) {
-    if (p.tc) {
-      const long long n = split_floats(p, in_dim, BWD);
-      const int blocks = (int)std::min((n + 255) / 256, 2LL * kSms);
-      split_w1<<<blocks, 256, 0, s>>>(w1, in_dim, c1, CP, BWD, scratch);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-      err = cudaFuncSetAttribute(prep_tc<CP, BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)p.smem);
-      if (err != cudaSuccess) return err;
-      prep_tc<CP, BWD><<<p.grid, kThreads, p.smem, s>>>(pts, dA, n_rows, in_dim, c1, scratch,
-                                                        b1, scale, lnb, radius, p.T, p.R, bulk,
-                                                        out, records);
-    }
-  }
-  if (!p.tc) {
+  if (p.tc) {
+    const long long n = split_floats(p, in_dim, BWD);
+    const int blocks = (int)std::min((n + 255) / 256, 2LL * kSms);
+    split_w1<<<blocks, 256, 0, s>>>(w1, in_dim, c1, CP, BWD, scratch);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(prep_tc<CP, BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)p.smem);
+    if (err != cudaSuccess) return err;
+    prep_tc<CP, BWD><<<p.grid, kThreads, p.smem, s>>>(pts, dA, n_rows, in_dim, c1, scratch,
+                                                      b1, scale, lnb, radius, p.T, p.R, bulk,
+                                                      out, records);
+  } else {
     err = cudaFuncSetAttribute(prep_fma<CP, BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)p.smem);
     if (err != cudaSuccess) return err;
@@ -1127,8 +1295,8 @@ cudaError_t dispatch(const float* pts, const float* dA, long long n_rows, int in
 extern "C" {
 
 // Largest in_dim the forward (bwd = 0) or the backward (bwd = 1) takes at this
-// c1: the tensor route's, whose points' stage grows with in_dim, up to c1
-// 128; the FMA route's 8 above; 0 if c1 is unsupported.
+// c1: the tensor route's, whose points' stage grows with in_dim (the direct
+// backward above c1 128: kDirectMaxIn); 0 if c1 is unsupported.
 int sa_prep_f32_max_in_dim(int c1, int bwd) {
   if (c1 < 1 || c1 > 256) return 0;
   Plan p;

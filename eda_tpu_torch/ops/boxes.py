@@ -44,3 +44,24 @@ def generalized_box_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.
     hi = torch.maximum(boxes1[..., :, None, 3:6], boxes2[..., None, :, 3:6])
     hull = _prod3(torch.clamp(hi - lo, min=0.0))
     return iou - (hull - union) / torch.clamp(hull, min=MIN_EXTENT)
+
+
+def box_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Elementwise IoU of aligned xyzxyz boxes: (..., 6), (..., 6) -> (...)."""
+    lo = torch.maximum(boxes1[..., 0:3], boxes2[..., 0:3])
+    hi = torch.minimum(boxes1[..., 3:6], boxes2[..., 3:6])
+    inter = _prod3(torch.clamp(hi - lo, min=0.0))
+    union = box_volume(boxes1) + box_volume(boxes2) - inter
+    return inter / torch.clamp(union, min=MIN_EXTENT)
+
+
+# the corners' signs, x fastest (the order of the reference's get_3d_box)
+_CORNER_SIGNS = ((-1, -1, -1), (1, -1, -1), (-1, 1, -1), (1, 1, -1),
+                 (-1, -1, 1), (1, -1, 1), (-1, 1, 1), (1, 1, 1))
+
+
+def box_center_to_corner(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 6) cxcyczwhd boxes -> (..., 8, 3) corners, (+-x, +-y, +-z) with x
+    fastest: the axis-aligned ``get_3d_box`` (the grounding boxes have no heading)."""
+    signs = torch.tensor(_CORNER_SIGNS, dtype=boxes.dtype, device=boxes.device)
+    return boxes[..., None, 0:3] + 0.5 * boxes[..., None, 3:6] * signs

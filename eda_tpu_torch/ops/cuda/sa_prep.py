@@ -103,8 +103,10 @@ def max_in_dim(c1: int) -> int:
 
 
 def max_in_dim_f32(c1: int, backward: bool = False) -> int:
-    """The largest in_dim the f32 prep forward (or backward) kernel takes at width c1:
-    its tensor-core route's up to c1 128, its CUDA-core route's 8 above."""
+    """The largest in_dim the f32 prep forward (or backward) kernel takes at width c1
+    (0: c1 unsupported): its tensor-core route's, set by the points' tile in shared
+    memory (645 / 391 at c1 128, 639 forward at c1 256), or by a fixed 2048 for the
+    backward above c1 128, which reads the points from device memory."""
     return c_function("sa_prep_f32", "sa_prep_f32_max_in_dim",
                       [ctypes.c_int, ctypes.c_int])(c1, int(backward))
 

@@ -417,16 +417,21 @@ def test_prep_bounds_count_the_f32_bytes():
 
 
 def test_prep_f32_edge_inputs_hold_their_edge_cases():
-    """The f32 prep's edge cases: the flagship's and the tiny config's widths, the
-    64-row tile boundaries, several tiles a CTA with a one-row last tile, widths
-    off the kernels' 8- and 4-column steps on each route, c1 above 128."""
+    """The f32 prep's edge cases: the flagship's, the width-2 backbone's and the
+    tiny config's widths, the 64-row tile boundaries, several tiles a CTA with a
+    one-row last tile, widths off the kernels' 8- and 4-column steps on each
+    route, c1 above 128 on each route."""
     cases = chip_smoke.prep_f32_edge_inputs()
     shapes = [(args[0].shape[0] * args[0].shape[1], *args[1].shape) for args, _ in cases.values()]
     widths = {(i, c) for _, i, c in shapes}
     assert set(chip_smoke.F32_PREP_WIDTHS) | set(chip_smoke.TINY_PREP_WIDTHS) <= widths
-    for in_dim, c1 in ((6, 64), (131, 128)):  # SA1 (CUDA-core route), SA2 (tensor route)
+    assert set(chip_smoke.W2X_F32_PREP_WIDTHS[1:]) <= widths
+    # SA1 (CUDA-core route), SA2 (tensor route), W2X SA2 (tensor route at c1 256)
+    for in_dim, c1 in ((6, 64), (131, 128), (259, 256)):
         rows = {r for r, i, c in shapes if (i, c) == (in_dim, c1)}
         assert set(chip_smoke.TILE_EDGE_ROWS) <= rows
+    assert chip_smoke.MANY_TILE_ROWS[2] in {r for r, i, c in shapes if (i, c) == (259, 256)}
+    assert any(r % 64 and r > 64 for r, i, c in shapes if (i, c) == (515, 256))
     many = chip_smoke.MANY_TILE_ROWS
     assert many[1] % 64 == many[2] % 64 == 1  # a last tile of one row
     assert (many[1] // 64 > 132 * 4) and (many[2] // 64 > 132 * 2)  # tiles > the grid's CTAs
@@ -436,8 +441,10 @@ def test_prep_f32_edge_inputs_hold_their_edge_cases():
     assert set(odd) <= widths
     assert any(i > 8 and c % 8 and c % 2 for i, c in odd)  # tensor route, odd c1
     assert any(i <= 8 and c % 4 and c <= 128 for i, c in odd)  # CUDA-core route
-    assert any(i <= 8 and c > 128 for i, c in odd)  # c1 above 128 (CUDA-core route only)
-    assert chip_smoke.PREP_F32_MIN_LIMITS == (358, 333)
+    assert any(i <= 8 and c > 128 for i, c in odd)  # c1 above 128 on the CUDA-core route
+    assert any(i > 8 and c > 128 and c % 8 for i, c in odd)  # and on the tensor route
+    assert any(i > 8 and c > 128 and c % 2 for i, c in odd)  # odd c1 on the tensor route
+    assert chip_smoke.PREP_F32_MIN_LIMITS == {128: (358, 333), 256: (515, 515)}
     f32 = dict(compute_dtype=torch.float32)
     for name, (args, radius) in cases.items():
         if args[0].shape[1] > 5000:
@@ -498,6 +505,45 @@ def test_w2x_phase_inputs_hold_their_edge_cases():
     cfg, tiny = chip_smoke.w2x_configs(ModelConfig(use_bf16=True))
     assert cfg.sa_mlps[1:] == (widths,) * 3 and cfg.use_bf16 and tiny.use_bf16
     assert chip_smoke.TinyOf(tiny).tiny() is tiny
+
+
+def test_prep_f32_edge_cases_split_between_the_f32_phases():
+    """Each f32 prep edge case runs in one phase: the tensor route above c1 128
+    (the width-2 backbone's widths, the odd ones above 128) in "w2x f32", the
+    rest (the CUDA-core route at c1 150 too) in "f32"; each phase checks the
+    in_dim limits of its widest c1 against their least values."""
+    wide = {(i, c) for args, _ in chip_smoke.prep_f32_edge_inputs().values()
+            for i, c in [tuple(args[1].shape)] if chip_smoke.wide_prep(i, c)}
+    assert wide == {(259, 256), (515, 256), (131, 250), (35, 201)}
+    assert not chip_smoke.wide_prep(6, 150) and not chip_smoke.wide_prep(259, 128)
+    least = chip_smoke.PREP_F32_MIN_LIMITS
+    assert least[256] >= (max(i for i, _ in chip_smoke.W2X_F32_PREP_WIDTHS),) * 2
+    assert least[128][0] >= max(i for i, _ in chip_smoke.F32_PREP_WIDTHS)
+
+
+def test_w2x_f32_phase_configs_and_gates():
+    """The "w2x f32" phase runs the width-2 backbone in f32 (the JAX default),
+    its SA2-4 prep at the widths the edge cases hold, launching K2f and K7f
+    where the bf16 model launches K2 and K7, under the f32 step's gates."""
+    cfg, tiny = chip_smoke.w2x_configs(ModelConfig())
+    assert not cfg.use_bf16 and not tiny.use_bf16
+    assert cfg.sa_mlps == tiny.sa_mlps == chip_smoke.W2X_SA_MLPS
+    prev = 3 + cfg.input_feature_dim
+    widths = []
+    for mlp in cfg.sa_mlps:
+        widths.append((prev, mlp[0]))
+        prev = 3 + mlp[-1]
+    assert tuple(widths) == chip_smoke.W2X_F32_PREP_WIDTHS
+    f32 = chip_smoke.forward_launches("pair", f32=True)
+    assert f32 == {"fps_launch": 4, chip_smoke.F32_PREP: 4, "sa_pair_pool_launch": 4}
+    assert chip_smoke.step_launches("pair", f32=True) == {
+        "fps_launch": 4, chip_smoke.F32_PREP: 4, "sa_pair_pool_winners_launch": 4,
+        "sa_pool_bwd_compact_launch": 1, "sa_pool_bwd_window_launch": 3,
+        chip_smoke.F32_PREP_BWD: 4}
+    assert (chip_smoke.F32_GLOBAL_COS, chip_smoke.F32_GRAD_NORM_REL) == (0.98, 0.05)
+    assert 2 <= chip_smoke.W2X_F32_REQUESTS <= chip_smoke.REQUESTS  # a median past the first
+    assert chip_smoke.F32_GLOBAL_COS > chip_smoke.GLOBAL_COS
+    assert chip_smoke.F32_GRAD_NORM_REL < chip_smoke.METRIC_REL
 
 
 def test_pool_bounds_at_the_wide_widths():

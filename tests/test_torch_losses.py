@@ -48,6 +48,64 @@ def test_boxes_match_jax():
                                rtol=1e-5, atol=1e-6)
 
 
+def test_elementwise_box_iou_matches_jax():
+    """Aligned pairs: random, a zero-extent box in every row, a box with itself
+    (IoU 1) and disjoint boxes (IoU 0)."""
+    rng = np.random.default_rng(1)
+    a, b = _boxes(rng, (4, 9)), _boxes(rng, (4, 9))
+    b[:, 1] = a[:, 1]
+    b[:, 2, :3] = a[:, 2, :3] + 10.0
+    xa, xb = jax_boxes.box_cxcyczwhd_to_xyzxyz(a), jax_boxes.box_cxcyczwhd_to_xyzxyz(b)
+    want = np.asarray(jax_boxes.box_iou_3d(xa, xb))
+    got = port_boxes.box_iou_3d(T(np.array(xa)), T(np.array(xb)))
+    assert got.shape == want.shape == (4, 9)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(got[:, 1].numpy(), 1.0, rtol=1e-6)
+    assert (got[:, 2] == 0).all() and torch.isfinite(got).all()
+    np.testing.assert_allclose(got[:, 0].numpy(), 0.0, atol=1e-5)  # a zero-extent box
+
+
+def test_box_corners_match_jax_x_fastest():
+    rng = np.random.default_rng(2)
+    boxes = _boxes(rng, (2, 5))
+    got = port_boxes.box_center_to_corner(T(boxes))
+    want = np.asarray(jax_boxes.box_center_to_corner(jnp.asarray(boxes)))
+    assert got.shape == want.shape == (2, 5, 8, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+    c = got[0, 1]  # corner i has x high for odd i, y high for i % 4 >= 2, z high for i >= 4
+    lo, hi = T(boxes[0, 1, :3] - boxes[0, 1, 3:] / 2), T(boxes[0, 1, :3] + boxes[0, 1, 3:] / 2)
+    for i in range(8):
+        bits = [(i >> a) & 1 for a in range(3)]
+        torch.testing.assert_close(c[i], torch.where(torch.tensor(bits, dtype=torch.bool), hi, lo))
+    assert torch.equal(got[0, 0], got[0, 0, :1].expand(8, 3))  # zero extent: one point
+
+
+def test_ops_export_the_jax_packages_box_helpers():
+    import eda_tpu.ops as jax_ops
+    import eda_tpu_torch.ops as port_ops
+
+    names = [n for n in dir(jax_ops)
+             if not n.startswith("_") and getattr(jax_ops, n) is getattr(jax_boxes, n, None)]
+    assert {"box_iou_3d", "box_center_to_corner", "generalized_box_iou_3d"} <= set(names)
+    for name in names:
+        assert getattr(port_ops, name) is getattr(port_boxes, name), name
+
+
+def test_loss_config_matches_jax():
+    import dataclasses
+
+    from eda_tpu.config import LossConfig as JaxLossConfig
+    from eda_tpu_torch.config import LossConfig
+
+    def fields(cls):
+        return [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(LossConfig) == fields(JaxLossConfig)
+    assert dataclasses.asdict(LossConfig()) == dataclasses.asdict(JaxLossConfig())
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        LossConfig().eos_coef = 0.2
+
+
 @pytest.mark.parametrize("seed,decimals", [(0, 1), (1, 0), (2, 4)])
 def test_auction_matches_jax_with_ties(seed, decimals):
     rng = np.random.default_rng(seed)

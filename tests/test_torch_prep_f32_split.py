@@ -8,8 +8,8 @@ product is taken as hi lo + lo hi + hi hi with f32 sums, lo lo dropped. Here
 that arithmetic is emulated in plain PyTorch (it is not a plain version of a
 kernel: nothing on a path calls it) and the prep forward and backward computed
 with it are held against the interpreted Pallas kernels (``_prep_fwd`` /
-``_prep_bwd`` at ``dtype=float32``) at the flagship's and the tiny config's
-layer widths, with ``tests/test_sa_prep.py``'s f32 tolerances (``:59`` A within
+``_prep_bwd`` at ``dtype=float32``) at the flagship's, the width-2 backbone's
+and the tiny config's layer widths, with ``tests/test_sa_prep.py``'s f32 tolerances (``:59`` A within
 2e-5 abs, ``:79`` each gradient within 1e-4 of its largest value). One TF32
 product (1xTF32) misses them at SA3's widths, so a shortcut to it fails here.
 The tensor cores' own accumulation rounding is not emulated: the card's check
@@ -32,7 +32,8 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 ATOL, GRAD_REL = 2e-5, 1e-4
 EPS = 1e-5
 
-# (in_dim, c1, rows, radius): the flagship's SA1-SA4 widths, the tiny config's
+# (in_dim, c1, rows, radius): the flagship's SA1-SA4 widths, the tiny config's,
+# the width-2 backbone's SA2 and SA3/SA4 (c1 256: two column halves of the products)
 CASES = [
     (6, 64, 2000, 0.2),
     (131, 128, 1000, 0.4),
@@ -41,6 +42,8 @@ CASES = [
     (6, 16, 500, 0.2),
     (35, 32, 500, 0.4),
     (67, 32, 500, 0.8),
+    (259, 256, 300, 0.4),
+    (515, 256, 300, 0.8),
 ]
 
 

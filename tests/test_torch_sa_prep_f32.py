@@ -36,12 +36,15 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 ATOL, GRAD_REL = 2e-5, 1e-4
 F32 = dict(compute_dtype=torch.float32)
 
-# (in_dim, c1, B, N, radius): the flagship's SA1-SA4 widths, the tiny config's
+# (in_dim, c1, B, N, radius): the flagship's SA1-SA4 widths, the tiny config's,
+# the width-2 backbone's SA2 and SA3/SA4 (c1 256)
 CASES = [
     (6, 64, 2, 1000, 0.2),     # SA1; N no multiple of 16
     (131, 128, 1, 2050, 0.4),  # SA2; N above the 2048-row block: one block of 2050 rows
     (259, 128, 1, 4112, 0.8),  # SA3/SA4; 4112 = 257 x 16 rows, blocks of 16
     (35, 32, 2, 77, 0.4),      # tiny SA2
+    (259, 256, 1, 300, 0.4),   # W2X SA2; 300 rows, no multiple of a 64-row tile
+    (515, 256, 2, 130, 0.8),   # W2X SA3/SA4; 2 x 130 rows
 ]
 
 
