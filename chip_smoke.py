@@ -175,9 +175,12 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    one profiled forward and step, and two steps from one state bit for bit.
 11a. The width-2 backbone (phase "w2x", ``w2x_configs``: the bf16 flagship
    with Group-Free-3D's ``width=2`` SA and FP widths, SA2-4 at (256, 256,
-   512), SA3-4's prep at in_dim 515): the wide pool on tie inputs and its
-   backward on edge inputs at SA2's shape (``W2X_TIE_CASES``,
-   ``W2X_BWD_EDGE_CASES``); the tiny W2X model, step and scoring against
+   512), SA3-4's prep at in_dim 515): the wide pool (a cluster of four CTAs
+   a block) on tie inputs (``W2X_TIE_CASES``: SA2's shape at W = 256 and
+   1024, a ragged last stage with an odd count of blocks, one cluster in
+   all) and its backward (the staged fold) on edge inputs
+   (``W2X_BWD_EDGE_CASES``: blocks of more than 16 tiles, CTAs of fewer rows
+   than a tile, more blocks than SMs); the tiny W2X model, step and scoring against
    their CPU twins; at full width, batch 8, K2, K3 / K4, K5 / K6 and K7
    against their plain versions on a forward's and a step's inputs (the
    full-width tolerances), ``REQUESTS`` serving batches and ``W2X_STEPS``
@@ -868,6 +871,13 @@ def check_pool_build(logs: dict, build) -> None:
               f"GEMM kernels, fewest in one kernel {min(gemms.values(), default=0)}; no spills")
         if not gemms or min(gemms.values()) == 0:
             raise AssertionError(f"a {source} GEMM kernel has no HGMMA instruction")
+        wide = [n for f, n in gemms.items() if "wide" in f]
+        if source in ("sa_pair_pool", "sa_pair_pool_bwd"):
+            # the wide kernels (the cluster forward, the staged-fold backward)
+            # are built and hold HGMMA like the others
+            if not wide:
+                raise AssertionError(f"{source} holds no wide kernel")
+            print(f"  of which {len(wide)} wide kernels, fewest HGMMA in one {min(wide)}")
 
 
 def tie_inputs(B=BATCH, N=2048, M=1024, window=256, widths=(128, 128, 256), seed=0):
@@ -935,8 +945,9 @@ def pool_tie_check(cases=TIE_CASES) -> None:
     the plain version, winners equal where the best two values are apart."""
     from eda_tpu_torch.ops.cuda import sa_kernel, sa_mask
 
-    for layer, widths, n_points, n_centers, window in cases:
-        args, kw = tie_inputs(N=n_points, M=n_centers, window=window, widths=widths)
+    for layer, widths, n_points, n_centers, window, *batch in cases:
+        B = batch[0] if batch else BATCH
+        args, kw = tie_inputs(B=B, N=n_points, M=n_centers, window=window, widths=widths)
         args = tuple(a.cuda() for a in args)
         N = args[1].shape[1]
         if boundary_centers(args[1], args[3], args[4], kw["radius"], window).any():
@@ -974,7 +985,7 @@ def pool_tie_check(cases=TIE_CASES) -> None:
               f"channel) pairs with W3 = 0; {int(empty.sum())} centers with no point in "
               f"radius give -1e9 and rank 0; {clamped} windows clamped at N - W; with a "
               f"random W3 within 0.03 of the plain version; pair pool {ms:.4f} ms, with "
-              f"winners {win_ms:.4f} ms (batch {BATCH}, {n_centers} centers, "
+              f"winners {win_ms:.4f} ms (batch {B}, {n_centers} centers, "
               f"{dense_flops(random_w3, kw) / ms / 1e9:.1f} TFLOP/s over the dense window work)")
 
 
@@ -2696,12 +2707,20 @@ def f32_phase(root_cfg) -> list:
 W2X_SA_MLPS = ((128, 128, 256), (256, 256, 512), (256, 256, 512), (256, 256, 512))
 W2X_FP_MLPS = ((512, 512), (512, 288))
 W2X_TINY_FP_MLPS = ((512, 512), (512, 96))
-# the wide kernels on edge inputs at SA2's shape: ties at the flagship window
-# (W3 = 0, four 64-row stages), the backward at W = 256 (fewer points than
-# channels: a center's W points win all 512) and 512
-W2X_TIE_CASES = ((2, (256, 256, 512), 2048, 1024, 256),)
+# the wide kernels on edge inputs: ties (W3 = 0) at SA2's shape and the
+# flagship window (four 64-row stages), at W = 1024 (sixteen), at W = 100 (a
+# ragged last stage) with an odd count of 16-center blocks, and one cluster
+# in all (batch 1, one block); (layer, widths, N, M, W[, batch]). The
+# backward at W = 256 (fewer points than channels: a center's W points win
+# all 512) and 512 (blocks of more than 16 tiles: the record folded several
+# times), at W = 4 (every CTA fewer rows than one tile) and with more blocks
+# than the card has SMs (a CTA takes several blocks in turn)
+W2X_TIE_CASES = ((2, (256, 256, 512), 2048, 1024, 256), (2, (256, 256, 512), 2048, 1024, 1024),
+                 (2, (256, 256, 512), 2048, 48, 100, 2), (2, (256, 256, 512), 2048, 16, 256, 1))
 W2X_BWD_EDGE_CASES = ((2, (256, 256, 512), 2048, 1024, 256),
-                      (2, (256, 256, 512), 2048, 1024, 512))
+                      (2, (256, 256, 512), 2048, 1024, 512),
+                      (2, (256, 256, 512), 1024, 64, 4),
+                      (2, (256, 256, 512), 8192, 4096, 256))
 W2X_STEPS = 3  # full-width W2X training steps
 # The tiny W2X step's leaves are held as the flagship's, but those that fail
 # the per-leaf gates on the CPU itself once its pools' values move by one bf16

@@ -88,28 +88,41 @@
 //     exactly, C2 being a power of two.
 //
 // The wide kernel (sa_pair_pool_wide, (256, 256, 512) only; the four triples
-// above compile as they did). W2 (128 KiB) and W3 (256 KiB) do not fit
-// shared memory, not even one of them beside a window stage, so they stream
-// from L2 (where every CTA finds them) through a ring of three 16 KiB slots:
-// per (center, 64-point tile) 8 K-chunks of W2 (32 rows x 256 columns) for
-// GEMM1, then 16 passes of W3 (256 rows x 32 columns) for GEMM2, 24 ring
-// steps, each copied row-major by 16-byte cp.async into the MN-major core
-// layout, which wgmma reads with the transpose flag. One warpgroup a CTA (at
-// c2 256 GEMM1's accumulator alone is 128 registers a thread, so three
-// warpgroups no longer fit the register file) and two CTAs an SM, whose
-// products and CUDA-core work interleave as the warpgroups of the narrow
-// kernel do. A window comes in stages of one 64-row tile. Shared memory of a
-// CTA, 103 936 bytes with winners (two fit an SM's 228 KB):
-//     A stage   64 x 256 bf16, swizzled            32 768
-//     ring      3 x 16 KiB                         49 152
-//     part      4 warps x 512 x (f32 + int32)      16 384
-//     bits      16 centers x 2 words                  128
-//     vectors   b2, s2, lb2 (256), b3 (512) f32     5 120
-//     centers   17 x 4 f32, to 128 bytes              384
-// The copy of ring step t + 1 is issued when step t starts and lands while
-// step t's products run; a step's slot is rewritten two steps later, after a
-// barrier that follows every warp's wait for its products. Each W2 and W3
-// byte is read from L2 once per (center, tile): 384 KiB per 25 MFLOP.
+// above compile as they did). W2 (128 KiB) and W3 (256 KiB) do not fit one
+// CTA's shared memory, so a cluster of four CTAs (the grid's third axis,
+// (M/16, B, 4): any M/16 and B) shares them: CTA q holds for its life W2's
+// columns 64 q .. + 64 and W3's 128 q .. + 128 (96 KiB, MN-major for the
+// transposed wgmma B), so each weight byte is read from L2 once per CTA, not
+// once per (center, tile). Per (center, 64-point tile) each CTA computes X for
+// its 64 columns of c2 (GEMM1, K = 256, A from registers), sends each row's
+// partial LN sums to every CTA of the cluster (st.async into their shared
+// memory), adds the four CTAs' sums in rank order, writes its bf16 h1 block
+// into its own shared memory and by bulk copy into every other CTA's, and
+// runs GEMM2 over the full K = 256 for its own 128 output columns: its own
+// block while the others land, then theirs. The max and the winners of those
+// columns stay in the CTA: nothing of the output is reduced across CTAs. Two
+// warpgroups (256 threads, so 255 registers a thread) read each 64-row A tile
+// into registers, test their own centers' pairs against its points (ballots
+// into bits) and take the centers in turn (wg, wg + 2, ...; a tile without a
+// pair in radius for a center is skipped, alike in every CTA), so that one
+// warpgroup's exchanges overlap the other's products. Once both hold a tile,
+// warp 0 of the one that reached it second brings the next tile's rows by
+// bulk copy (padded to 528 bytes, so ldmatrix is conflict-free; rows past the
+// window's end zeroed). mbarriers stand in for block-wide barriers: the A
+// tile landed / was read; per warpgroup the LN sums landed (two slots, items
+// in turn), the h1 blocks landed, and every CTA has read its h1 (before any
+// CTA sends the next). A center's max over its earlier tiles waits in the
+// output buffers, read back by the thread that wrote it;
+// b3 and the -1e9 rule come after the last tile. Shared memory of a CTA,
+// 216 064 bytes (one CTA an SM):
+//     W2 and W3 slices                    98 304
+//     A tile   64 x 528                   33 792
+//     h1       2 warpgroups x 4 x 8 KiB   65 536
+//     LN sums  2 x 2 slots x 4 x 512       8 192
+//     partials 2 x 4 warps x 128 x 8       8 192
+//     bits, vectors, centers, barriers     2 048
+// The LN sums add in another order than the narrow kernels' (per CTA, then
+// the four CTAs in rank order); the winners' total order below is unchanged.
 
 // Winner export (WIN): the TPU kernel's tie rule (sa_kernel.py:357-382) cuts
 // the window in tiles of wc = min(128, W) points; inside a tile the LAST of
@@ -620,27 +633,32 @@ sa_pair_pool_kernel(const uint16_t* __restrict__ A, const float* __restrict__ xy
   }
 }
 
-// ---- the wide kernel: (c1, c2, c3) = (256, 256, 512), weights streamed
+// ---- the wide kernel: (c1, c2, c3) = (256, 256, 512) on a cluster of four CTAs
 
 constexpr int kWideC1 = 256, kWideC2 = 256, kWideC3 = 512;
-constexpr int kWideThreads = 128;   // one warpgroup
-constexpr int kWideSlots = 3;       // ring slots
-constexpr int kWideSlotBytes = 16384;
-constexpr int kWideChunk = 32;      // W2 rows (K) of a GEMM1 ring step
-constexpr int kWidePass = 32;       // W3 columns of a GEMM2 ring step
-constexpr int kWideSteps = kWideC1 / kWideChunk + kWideC3 / kWidePass;  // ring steps a tile
-constexpr int kWideSharedBytes = 115712;  // two CTAs an SM
+constexpr int kWideCluster = 4;                   // CTAs of a cluster, along the grid's z
+constexpr int kWideN1 = kWideC2 / kWideCluster;   // a CTA's X and h1 columns: 64
+constexpr int kWideN3 = kWideC3 / kWideCluster;   // a CTA's output columns: 128
+constexpr int kWideGroups = 2;                    // warpgroups, each every other center
+constexpr int kWideThreads = 128 * kWideGroups;
+constexpr int kWideRowBytes = kWideC1 * 2 + 16;   // an A row in shared memory, padded
+constexpr int kWideSliceBytes = kRows * kWideN1 * 2;  // a CTA's h1 block of a tile
+constexpr int kWideStatBytes = kRows * 8;         // a CTA's LN sums (sum, sq) of a tile
 
 struct WideLayout {
-  size_t a, ring, part, bits, prm, cen, total;
-  __host__ __device__ WideLayout(bool win) {
+  size_t w2, w3, a, h1, stats, part, bits, prm, cen, bar, total;
+  __host__ __device__ WideLayout() {
     size_t o = 0;
-    a = o;    o += align128((size_t)kRows * kWideC1 * 2);
-    ring = o; o += (size_t)kWideSlots * kWideSlotBytes;
-    part = o; o += align128((size_t)4 * kWideC3 * (win ? 8 : 4));
-    bits = o; o += align128((size_t)kCenters * (kRows / 32) * 4);
-    prm = o;  o += align128((size_t)(3 * kWideC2 + kWideC3) * 4);
-    cen = o;  o += align128((size_t)(kCenters + 1) * 4 * 4);
+    w2 = o;    o += (size_t)kWideC1 * kWideN1 * 2;
+    w3 = o;    o += (size_t)kWideC2 * kWideN3 * 2;
+    a = o;     o += (size_t)kRows * kWideRowBytes;
+    h1 = o;    o += (size_t)kWideGroups * kWideCluster * kWideSliceBytes;
+    stats = o; o += (size_t)kWideGroups * 2 * kWideCluster * kWideStatBytes;
+    part = o;  o += (size_t)kWideGroups * 4 * kWideN3 * 8;
+    bits = o;  o += (size_t)2 * kCenters * 2 * 4;
+    prm = o;   o += (size_t)(3 * kWideN1 + kWideN3) * 4;
+    cen = o;   o += align128((size_t)(kCenters + 1) * 4 * 4);
+    bar = o;   o += 128;
     total = o;
   }
 };
@@ -654,44 +672,103 @@ struct WideLayout {
 template <int N>
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4],
                                             uint64_t desc, int accumulate) {
-  if constexpr (N == 32) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : EDA_D8(0), EDA_D8(8)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
-  } else {
-    static_assert(N == 128, "wgmma widths");
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : EDA_D8(0), EDA_D8(8), EDA_D8(16), EDA_D8(24), EDA_D8(32), EDA_D8(40), EDA_D8(48),
-          EDA_D8(56)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
-  }
+  static_assert(N == 64, "wgmma widths");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : EDA_D8(0), EDA_D8(8), EDA_D8(16), EDA_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 #undef EDA_D8
 
-// Ring step j of a tile: j < 8 the W2 rows 32 j .. + 32 (GEMM1's K-chunk j),
-// else the W3 columns 32 (j - 8) .. + 32 (GEMM2's pass j - 8).
-__device__ __forceinline__ void wide_fetch(uint32_t dst, const uint16_t* __restrict__ w2,
-                                           const uint16_t* __restrict__ w3, int j) {
-  constexpr int n1 = kWideC1 / kWideChunk;
-  if (j < n1)
-    copy_core<kWideThreads, kWideChunk, kWideC2, kWideC2>(dst, w2 + j * kWideChunk * kWideC2);
-  else
-    copy_core<kWideThreads, kWideC2, kWidePass, kWideC3>(dst, w3 + (j - n1) * kWidePass);
+// A descriptor built where it is used: the address is opaque, so the many
+// descriptors of a GEMM are not computed ahead and held in registers.
+__device__ __forceinline__ uint64_t desc_at(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return make_desc(opaque(addr), lbo, sbo);
+}
+
+// ---- the cluster: ranks, peers' shared memory, mbarriers across CTAs
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The address of the same shared-memory byte in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t peer(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init_n(uint32_t bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(arrivals));
+}
+
+// The CTA's one arrival on `bar` for this phase, which also expects `bytes`
+// (copies from any CTA may have counted them already).
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// An arrival on a barrier of any CTA of the cluster (a `peer` address).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait for phase `parity` of the CTA's barrier `bar`, acquiring what CTAs of
+// the cluster released into it; a phase that never completes traps instead
+// of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n > (1u << 22)) __trap();
+  }
+}
+
+// 8 bytes into a `peer` address, counted by that CTA's barrier `bar` (a
+// `peer` address too): data and completion in one message.
+__device__ __forceinline__ void st_async2(uint32_t addr, float x, float y, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n"
+      ::"r"(addr), "r"(__float_as_uint(x)), "r"(__float_as_uint(y)), "r"(bar)
+      : "memory");
+}
+
+// A bulk copy of `bytes` of the CTA's shared memory into a `peer` address,
+// counted by that CTA's barrier `bar`.
+__device__ __forceinline__ void bulk_to_peer(uint32_t dst, uint32_t src, uint32_t bytes,
+                                             uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst), "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 template <bool WIN, int D2, bool PAD>
-__global__ void __launch_bounds__(kWideThreads, 2)
+__global__ void __cluster_dims__(1, 1, kWideCluster) __launch_bounds__(kWideThreads, 1)
 sa_pair_pool_wide(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
                   const uint16_t* __restrict__ bc, const float* __restrict__ cen,
                   const uint8_t* __restrict__ mask, const int* __restrict__ starts,
@@ -700,46 +777,75 @@ sa_pair_pool_wide(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
                   const uint16_t* __restrict__ w3, const float* __restrict__ b3, int N,
                   int M, int W, float c2, float rc2, float r2, float* __restrict__ out,
                   int* __restrict__ winners) {
-  constexpr int C1 = kWideC1, C2 = kWideC2, C3 = kWideC3;
-  constexpr int NP = kWidePass, PASSES = C3 / NP;  // GEMM2 passes of NP columns
-  constexpr int NV = NP / 4;                       // a thread's values of a pass, per row pair
-  constexpr int NCH = C1 / kWideChunk;             // GEMM1 ring steps (two k16 steps each)
-  constexpr int kc = C1 / 8, swz = 7;              // A rows: 16-byte chunks, their swizzle
-  static_assert(NV == 8, "one value a lane after the row reduction");
+  constexpr int C1 = kWideC1, C3 = kWideC3, N1 = kWideN1, N3 = kWideN3;
+  constexpr int NK = C1 / 16;  // k16 steps of GEMM1, and of GEMM2 (c2 = c1)
+  constexpr int NV = 8;        // a thread's values of a 32-column fold, per row pair
+  static_assert(kWideC2 == C1 && NK % 4 == 0, "GEMM2's K runs over the four h1 blocks");
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const WideLayout L(WIN);
-  float* part_v = reinterpret_cast<float*>(smem + L.part);  // [warp][C3]
-  int* part_q = reinterpret_cast<int*>(part_v + 4 * C3);
-  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + L.bits);  // [center][2]
-  float* b2s = reinterpret_cast<float*>(smem + L.prm);
-  float* s2s = b2s + C2;
-  float* lb2s = s2s + C2;
-  float* b3s = lb2s + C2;
+  const WideLayout L;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t w2_base = base + L.w2, w3_base = base + L.w3, a_base = base + L.a;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + L.bits);  // [tile & 1][center][2]
+  float* b2s = reinterpret_cast<float*>(smem + L.prm);          // the CTA's N1 columns
+  float* s2s = b2s + N1;
+  float* lb2s = s2s + N1;
+  float* b3s = lb2s + N1;                                // its N3 output columns
   float* cens = reinterpret_cast<float*>(smem + L.cen);  // [center][4], then o
-  const uint32_t a_smem = smem_u32(smem + L.a), ring = smem_u32(smem + L.ring);
+  // barriers: the A tile landed / read; per warpgroup, every CTA's h1 block
+  // landed, every CTA has read its h1, every CTA's LN sums landed (two slots,
+  // items in turn)
+  const uint32_t full_a = base + L.bar, empty_a = full_a + 8;
+  const auto h1_full = [&](int w) { return full_a + 16 + 8 * w; };
+  const auto h1_empty = [&](int w) { return full_a + 32 + 8 * w; };
+  const auto stats_full = [&](int w, int s) { return full_a + 48 + 8 * (2 * w + s); };
+  // the warpgroups' arrivals at their tiles so far
+  int* tiles_seen = reinterpret_cast<int*>(smem + L.bar + 96);
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;  // warp: tile rows 16 warp ..
+  const int warp = tid / 32, lane = tid % 32;
+  const uint32_t rank = cluster_rank();
   const int b = blockIdx.y;
   const int n_blocks = M / kCenters;
   const int m0 = blockIdx.x * kCenters;
   int start = starts[(size_t)b * n_blocks + blockIdx.x];
   start = min(max(start, 0), N - W);
-  const int g = lane / 4, t4 = lane % 4;
   const int wc = W < 128 ? W : 128;
   const int nt = (W + wc - 1) / wc;
-  const int ld_row = 16 * warp + (lane & 7) + (lane & 8);
-  const int ld_chunk = lane >> 4;
-  const int base_i = ((lane & 16) ? NV / 2 : 0) + ((lane & 8) ? NV / 4 : 0) +
-                     ((lane & 4) ? NV / 8 : 0);
+  const int stages = (W + kRows - 1) / kRows;
 
-  for (int i = tid; i < C2; i += kWideThreads) {
-    b2s[i] = b2[i];
-    s2s[i] = s2[i];
-    lb2s[i] = lb2[i];
+  if (tid == 0) {
+    mbar_init_n(full_a, 1);
+    *tiles_seen = 0;
+    mbar_init_n(empty_a, 128 * kWideGroups);
+    for (int w = 0; w < kWideGroups; ++w) {
+      mbar_init_n(h1_full(w), 1);
+      mbar_init_n(h1_empty(w), kWideCluster);
+      mbar_init_n(stats_full(w, 0), 1);
+      mbar_init_n(stats_full(w, 1), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = tid; i < C3; i += kWideThreads) b3s[i] = b3[i];
+  // The CTA's weight slices for its life, MN-major (rows = K) for the
+  // transposed wgmma B: W2's columns N1 rank .. + N1 and W3's N3 rank .. + N3,
+  // a row's 16-byte chunks one cp.async each
+  for (int i = tid; i < C1 * (N1 / 8); i += kWideThreads) {
+    const int k = i / (N1 / 8), q = i % (N1 / 8);
+    cp_async16(w2_base + (((k / 8) * (N1 / 8) + q) * 64 + (k % 8) * 8) * 2,
+               w2 + (size_t)k * kWideC2 + N1 * rank + 8 * q);
+  }
+  for (int i = tid; i < kWideC2 * (N3 / 8); i += kWideThreads) {
+    const int k = i / (N3 / 8), q = i % (N3 / 8);
+    cp_async16(w3_base + (((k / 8) * (N3 / 8) + q) * 64 + (k % 8) * 8) * 2,
+               w3 + (size_t)k * C3 + N3 * rank + 8 * q);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int i = tid; i < N1; i += kWideThreads) {
+    b2s[i] = b2[N1 * rank + i];
+    s2s[i] = s2[N1 * rank + i];
+    lb2s[i] = lb2[N1 * rank + i];
+  }
+  for (int i = tid; i < N3; i += kWideThreads) b3s[i] = b3[N3 * rank + i];
   if (D2 != kPre && tid < kCenters) {
     const float* cp = cen + ((size_t)b * M + m0 + tid) * 3;
     float cx = cp[0], cy = cp[1], cz = cp[2], csq = 0.f;
@@ -760,223 +866,329 @@ sa_pair_pool_wide(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
     cens[tid * 4 + 2] = cz;
     cens[tid * 4 + 3] = csq;
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  fence_async();  // the weights are read by wgmma, through the async proxy
   __syncthreads();
+  cluster_sync();  // every CTA's barriers are set up before any CTA signals one
 
-  // the window in stages of one 64-row tile
-  const int stages = (W + kRows - 1) / kRows;
-  for (int st = 0; st < stages; ++st) {
+  // ---- a tile's A rows, by one warp once both warpgroups hold the last tile
+  // in registers: by bulk copy, rows past the window's end zeroed
+  const auto produce = [&](int st) {
     const int s0 = st * kRows;
     const int sw = min(kRows, W - s0);
-    if (st > 0) __syncthreads();  // the last stage is done
-
-    // 1. the stage's A rows, zeros past the window end
-    {
-      const uint16_t* a_win = A + ((size_t)b * N + start + s0) * C1;
-      for (int i = tid; i < kRows * kc; i += kWideThreads) {
-        const int r = i / kc, ch = i % kc;
-        const uint32_t dst = a_smem + r * C1 * 2 + ((ch ^ (r & swz)) << 4);
-        if (r < sw) {
-          cp_async16(dst, a_win + (size_t)r * C1 + ch * 8);
-        } else {
-          asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(dst), "r"(0u));
-        }
+    const uint16_t* a_win = A + ((size_t)b * N + start + s0) * C1;
+    for (int r = lane; r < kRows; r += 32) {
+      const uint32_t dst = a_base + r * kWideRowBytes;
+      if (r < sw) {
+        bulk_load(dst, a_win + (size_t)r * C1, C1 * 2, full_a);
+      } else {
+        for (int ch = 0; ch < C1 / 8; ++ch)
+          asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(dst + 16 * ch),
+                       "r"(0u));
       }
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
-
-    // 2. the radius test of every (center, stage point), as bits
-    constexpr int nwords = kRows / 32;
-    for (int wi = warp; wi < nwords; wi += kWideThreads / 32) {
-      const int p = s0 + wi * 32 + lane;
+    __syncwarp();
+    if (lane == 0) mbar_expect(full_a, sw * C1 * 2);
+  };
+  if (warp == 0) produce(0);
+  {
+    // ---- the warpgroups: warpgroup wg takes the centers wg, wg + 2, ... of
+    // every tile, in the same order in every CTA of the cluster; warp 0 of the
+    // warpgroup that reaches a tile second brings the next tile's A rows
+    const int wg = tid / 128, wt = tid % 128;
+    const int wq = wt / 32;                 // warp of the warpgroup: tile rows 16 wq ..
+    const int g = lane / 4, t4 = lane % 4;  // the thread's rows r0, r0 + 8; columns 2 t4 (+1)
+    const int r0 = 16 * wq + g;
+    const int ld_row = 16 * wq + (lane & 7) + (lane & 8);
+    const int ld_chunk = lane >> 4;
+    const int base_i = ((lane & 16) ? NV / 2 : 0) + ((lane & 8) ? NV / 4 : 0) +
+                       ((lane & 4) ? NV / 8 : 0);
+    // the warpgroup's h1 of a tile: four blocks of 64 x N1, block q from CTA q
+    const uint32_t h1_buf = base + L.h1 + wg * kWideCluster * kWideSliceBytes;
+    const uint32_t h1_mine = h1_buf + rank * kWideSliceBytes;
+    // the LN sums: [slot][CTA][row] (sum, sq)
+    const uint32_t stats_buf = base + L.stats + wg * 2 * kWideCluster * kWideStatBytes;
+    const float2* stats = reinterpret_cast<const float2*>(smem + L.stats) +
+                          wg * 2 * kWideCluster * kRows;
+    float* part_v = reinterpret_cast<float*>(smem + L.part) + wg * 4 * N3 * 2;  // [warp][N3]
+    int* part_q = reinterpret_cast<int*>(part_v + 4 * N3);
+    int k = 0;          // the warpgroup's items so far
+    uint32_t seen = 0;  // the centers with an item so far (alike in every thread)
+    // The radius test of the warpgroup's centers, each tile: warp wq takes
+    // points 32 (wq % 2) .. + 32 of the tile and the centers wg + 2 i, i in
+    // 4 (wq / 2) .. + 4, as ballots; a thread's point is loaded a tile ahead
+    const int bit_word = wq & 1, bit_c0 = 4 * (wq >> 1);
+    const uint8_t* m_win = mask + ((size_t)b * n_blocks + blockIdx.x) * W * kCenters;
+    float3 pt = make_float3(0.f, 0.f, 0.f);
+    uint4 mrow = make_uint4(0, 0, 0, 0);
+    const auto load_point = [&](int st) {
+      const int p = st * kRows + 32 * bit_word + lane;
       const bool valid = p < W;
       if constexpr (D2 == kPre) {
-        const uint8_t* m_win = mask + ((size_t)b * n_blocks + blockIdx.x) * W * kCenters;
-        const uint4 row = valid ? *reinterpret_cast<const uint4*>(m_win + (size_t)p * kCenters)
-                                : make_uint4(0, 0, 0, 0);
-        const uint32_t w[4] = {row.x, row.y, row.z, row.w};
-#pragma unroll
-        for (int c = 0; c < kCenters; ++c) {
-          const bool in = valid && ((w[c / 4] >> (8 * (c % 4))) & 0xffu) != 0;
-          const uint32_t word = __ballot_sync(0xffffffffu, in);
-          if (lane == 0) bits[c * nwords + wi] = word;
-        }
+        mrow = valid ? *reinterpret_cast<const uint4*>(m_win + (size_t)p * kCenters)
+                     : make_uint4(0, 0, 0, 0);
       } else {
         const float* xp = xyz + ((size_t)b * N + start + (valid ? p : 0)) * 3;
-        const float x = xp[0], y = xp[1], z = xp[2];
+        pt = make_float3(xp[0], xp[1], xp[2]);
+      }
+    };
+    load_point(0);
+    for (int st = 0; st < stages; ++st) {
+      const int s0 = st * kRows;
+      mbar_wait(full_a, st & 1);
+      // the tile's A rows as GEMM1's register fragments, for all of its centers
+      uint32_t af[NK][4];
+#pragma unroll
+      for (int s = 0; s < NK; ++s)
+        ldmatrix_x4(af[s], a_base + ld_row * kWideRowBytes + (2 * s + ld_chunk) * 16);
+      mbar_arrive(empty_a);
+      if (wq == 0 && st + 1 < stages) {
+        int order = 0;
+        if (lane == 0) order = atomicAdd(tiles_seen, 1);
+        if (__shfl_sync(0xffffffffu, order, 0) & 1) {  // the second warpgroup at this tile
+          mbar_wait(empty_a, st & 1);
+          produce(st + 1);
+        }
+      }
+      uint32_t* bw = bits + (st & 1) * kCenters * 2;
+      {
+        const bool valid = s0 + 32 * bit_word + lane < W;
         float px = 0.f, py = 0.f, pz = 0.f, psq = 0.f;
         if constexpr (D2 == kMxu) {
-          px = x - cens[kCenters * 4];
-          py = y - cens[kCenters * 4 + 1];
-          pz = z - cens[kCenters * 4 + 2];
+          px = pt.x - cens[kCenters * 4];
+          py = pt.y - cens[kCenters * 4 + 1];
+          pz = pt.z - cens[kCenters * 4 + 2];
           psq = px * px + py * py + pz * pz;
         }
 #pragma unroll
-        for (int c = 0; c < kCenters; ++c) {
-          const float cx = cens[c * 4], cy = cens[c * 4 + 1], cz = cens[c * 4 + 2];
+        for (int i = 0; i < 4; ++i) {
+          const int c = wg + 2 * (bit_c0 + i);
           bool in;
-          if constexpr (D2 == kMxu) {
-            const float pc =
-                (-2.f * px) * cx + (-2.f * py) * cy + (-2.f * pz) * cz + cens[c * 4 + 3];
+          if constexpr (D2 == kPre) {
+            const uint32_t w4 = c < 8 ? (c < 4 ? mrow.x : mrow.y) : (c < 12 ? mrow.z : mrow.w);
+            in = ((w4 >> (8 * (c % 4))) & 0xffu) != 0;
+          } else if constexpr (D2 == kMxu) {
+            const float pc = (-2.f * px) * cens[c * 4] + (-2.f * py) * cens[c * 4 + 1] +
+                             (-2.f * pz) * cens[c * 4 + 2] + cens[c * 4 + 3];
             in = pc <= r2 - psq;
           } else {
-            const float dx = x - cx, dy = y - cy, dz = z - cz;
+            const float dx = pt.x - cens[c * 4], dy = pt.y - cens[c * 4 + 1],
+                        dz = pt.z - cens[c * 4 + 2];
             in = dx * dx + dy * dy + dz * dz <= r2;
           }
           const uint32_t word = __ballot_sync(0xffffffffu, valid && in);
-          if (lane == 0) bits[c * nwords + wi] = word;
+          if (lane == 0) bw[c * 2 + bit_word] = word;
         }
+        if (st + 1 < stages) load_point(st + 1);
+        bar_sync(1 + wg, 128);
       }
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
 
-    // 3. the centers with a pair in radius in the stage's tile, 24 ring steps each
-    int items = 0;
-    for (int c = 0; c < kCenters; ++c) items += (bits[2 * c] | bits[2 * c + 1]) != 0;
-    const int steps = items * kWideSteps;
-    int t = 0;
-    if (steps > 0) wide_fetch(ring, w2, w3, 0);
-    // Ring step t: its copy has landed for every thread (each waits for its
-    // own, then the barrier), and step t - 2's products are done in every
-    // warp (each waited before the barrier), so step t + 1 may take that
-    // slot. Returns step t's slot.
-    auto ring_step = [&]() -> uint32_t {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-      fence_async();
-      __syncthreads();
-      if (t + 1 < steps)
-        wide_fetch(ring + ((t + 1) % kWideSlots) * kWideSlotBytes, w2, w3, (t + 1) % kWideSteps);
-      const uint32_t slot = ring + (t % kWideSlots) * kWideSlotBytes;
-      ++t;
-      return slot;
-    };
-
-    for (int c = 0; c < kCenters; ++c) {
-      const uint32_t lo = bits[2 * c], hi = bits[2 * c + 1];
-      const bool any = (lo | hi) != 0;  // uniform: the bits are shared
-      if (any) {
-        const uint32_t word = warp < 2 ? lo : hi;
-        const int sh = (16 * warp + g) & 31;
+      for (int c = wg; c < kCenters; c += kWideGroups) {
+        const uint32_t lo = bw[2 * c], hi = bw[2 * c + 1];
+        if ((lo | hi) == 0) continue;  // no pair of the tile in radius: the same in every CTA
+        const uint32_t word = wq < 2 ? lo : hi;
+        const int sh = r0 & 31;
         const bool in0 = (word >> sh) & 1u, in1 = (word >> (sh + 8)) & 1u;
         int q0 = 0, q1 = 0;
         if constexpr (WIN) {
-          const int p0 = s0 + 16 * warp + g, p1 = p0 + 8;
+          const int p0 = s0 + r0, p1 = p0 + 8;
           q0 = (nt - 1 - p0 / wc) * wc + p0 % wc;
           q1 = (nt - 1 - p1 / wc) * wc + p1 % wc;
         }
-        const uint16_t* bcp = bc + ((size_t)b * M + m0 + c) * C1 + 2 * t4;
 
-        // GEMM1 X = h0 W2: a ring step of 32 W2 rows (two k16 steps), the 256
-        // columns as two n128 products; h0 = relu(A + bc) as register
-        // fragments, double-buffered while a step's products run
-        float acc1[C2 / 2];
-        uint32_t af[2][2][4];
-#pragma unroll
-        for (int j = 0; j < NCH; ++j) {
-          const uint32_t slot = ring_step();
-          uint32_t(&f)[2][4] = af[j & 1];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int s = 2 * j + e, ch = 2 * s + ld_chunk;
-            ldmatrix_x4(f[e], a_smem + ld_row * C1 * 2 + ((ch ^ (ld_row & swz)) << 4));
-            const uint32_t c0 = __ldg(reinterpret_cast<const unsigned int*>(bcp + 16 * s));
-            const uint32_t c8 = __ldg(reinterpret_cast<const unsigned int*>(bcp + 16 * s + 8));
-            f[e][0] = add_relu_bf16x2(f[e][0], c0);
-            f[e][1] = add_relu_bf16x2(f[e][1], c0);
-            f[e][2] = add_relu_bf16x2(f[e][2], c8);
-            f[e][3] = add_relu_bf16x2(f[e][3], c8);
-          }
-          wgmma_fence();
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-#pragma unroll
-            for (int n = 0; n < 2; ++n)
-              wgmma_rs_mn<128>(*reinterpret_cast<float(*)[64]>(acc1 + 64 * n), f[e],
-                               make_desc(slot + e * 32 * C2 + n * 2048, C2 * 16, 128),
-                               j > 0 || e > 0);
-          wgmma_commit();
-          wgmma_wait<1>();
-          if (j > 0) {
-            fence_regs(af[(j - 1) & 1][0]);
-            fence_regs(af[(j - 1) & 1][1]);
-          }
+        // the center's max over its earlier tiles, which the same thread wrote
+        // to the output buffers: loaded now, used after GEMM2
+        const size_t o = ((size_t)b * M + m0 + c) * C3 + N3 * rank + wt;
+        const bool again = (seen >> c) & 1u;
+        float prev_v = 0.f;
+        int prev_q = 0;
+        if (again) {
+          prev_v = out[o];
+          if constexpr (WIN) prev_q = winners[o];
         }
+
+        // GEMM1 X = h0 W2 over the CTA's N1 columns, h0 = relu(A + bc) as
+        // register fragments, all sixteen k16 steps in one group
+        const uint16_t* bcp = bc + ((size_t)b * M + m0 + c) * C1 + 2 * t4;
+        float acc1[N1 / 2];
+        uint32_t hf[NK][4];
+#pragma unroll
+        for (int s = 0; s < NK; ++s) {
+          const uint32_t c0 = __ldg(reinterpret_cast<const unsigned int*>(bcp + 16 * s));
+          const uint32_t c8 = __ldg(reinterpret_cast<const unsigned int*>(bcp + 16 * s + 8));
+          hf[s][0] = add_relu_bf16x2(af[s][0], c0);
+          hf[s][1] = add_relu_bf16x2(af[s][1], c0);
+          hf[s][2] = add_relu_bf16x2(af[s][2], c8);
+          hf[s][3] = add_relu_bf16x2(af[s][3], c8);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < NK; ++s)
+          wgmma_rs_mn<N1>(acc1, hf[s], desc_at(w2_base + s * 2 * N1 * 16, N1 * 16, 128), s > 0);
+        wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc1);
-        fence_regs(af[(NCH - 1) & 1][0]);
-        fence_regs(af[(NCH - 1) & 1][1]);
-
-        uint32_t hf[C2 / 16][4];
-        ln_fragments<C2, PAD>(acc1, b2s, s2s, lb2s, t4, c2, rc2, hf);
-
-        // GEMM2 z = h1 W3: a ring step of 32 W3 columns, two accumulators in
-        // turn; pass h - 1 is masked, maxed over the warp's rows and left in
-        // the warp's partials while pass h runs (a stage is one tile, so the
-        // tile's max is the stage's)
-        float acc2[2][NP / 2];
-        auto fold = [&](const float* acc, int h) {
-          float v = __uint_as_float(kMinusInfBits);
-          int q = 0;
-          fold_max<NV, WIN>(acc, in0, in1, q0, q1, lane, &v, &q);
-          const int col = h * NP + 8 * (base_i / 2) + 2 * t4 + base_i % 2;
-          part_v[warp * C3 + col] = v;
-          if constexpr (WIN) part_q[warp * C3 + col] = q;
-        };
 #pragma unroll
-        for (int h = 0; h < PASSES; ++h) {
-          const uint32_t slot = ring_step();
-          wgmma_fence();
+        for (int s = 0; s < NK; ++s) fence_regs(hf[s]);
+
+        // the rows' LN sums over the CTA's columns (f32, one pass), to every
+        // CTA of the cluster; then the four CTAs' sums added in rank order
+        float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
 #pragma unroll
-          for (int s = 0; s < C2 / 16; ++s)
-            wgmma_rs_mn<NP>(acc2[h & 1], hf[s], make_desc(slot + s * 32 * NP, NP * 16, 128),
-                            s > 0);
-          wgmma_commit();
-          if (h > 0) {
-            wgmma_wait<1>();
-            fence_regs(acc2[(h - 1) & 1]);
-            fold(acc2[(h - 1) & 1], h - 1);
+        for (int j = 0; j < N1 / 8; ++j) {
+          const float2 bias = *reinterpret_cast<const float2*>(b2s + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float z = acc1[4 * j + e] + (e % 2 ? bias.y : bias.x);
+            acc1[4 * j + e] = z;
+            sum[e / 2] += z;
+            sq[e / 2] = __fmaf_rn(z, z, sq[e / 2]);
           }
         }
-        wgmma_wait<0>();
-        fence_regs(acc2[(PASSES - 1) & 1]);
-        fold(acc2[(PASSES - 1) & 1], PASSES - 1);
 #pragma unroll
-        for (int s = 0; s < C2 / 16; ++s) fence_regs(hf[s]);
-        __syncthreads();
-      }
+        for (int h = 0; h < 2; ++h) {
+          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+          sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
+          sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
+        }
+        const int slot = k & 1;
+        const uint32_t sbar = stats_full(wg, slot);
+        if (t4 == 0) {
+          const uint32_t row0 = stats_buf + (slot * kWideCluster + rank) * kWideStatBytes + r0 * 8;
+#pragma unroll
+          for (uint32_t d = 0; d < kWideCluster; ++d) {
+            st_async2(peer(row0, d), sum[0], sq[0], peer(sbar, d));
+            st_async2(peer(row0 + 64, d), sum[1], sq[1], peer(sbar, d));
+          }
+        }
+        if (wt == 0) mbar_expect(sbar, kWideCluster * kWideStatBytes);
+        mbar_wait(sbar, (k >> 1) & 1);
+        float mean_r[2], rstd[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float s = 0.f, q = 0.f;
+#pragma unroll
+          for (int d = 0; d < kWideCluster; ++d) {
+            const float2 v = stats[(slot * kWideCluster + d) * kRows + r0 + 8 * h];
+            s += v.x;
+            q += v.y;
+          }
+          const float mean = PAD ? div_real(s, c2, rc2) : s * (1.f / kWideC2);
+          const float var =
+              fmaxf((PAD ? div_real(q, c2, rc2) : q * (1.f / kWideC2)) - mean * mean, 0.f);
+          rstd[h] = rsqrtf(var + kEps);
+          mean_r[h] = -mean * rstd[h];
+        }
 
-      // the 4 warps' partials through shared memory (where the tile ran), the
-      // earlier stages' partial from the output buffers, and b3 and the
-      // output at the last stage
-      for (int col = tid; col < C3; col += kWideThreads) {
-        float v = __uint_as_float(kMinusInfBits);
-        int q = 0;
-        if (any) {
-          v = part_v[col];
-          q = WIN ? part_q[col] : 0;
+        // h1 = bf16(relu(LN)) of the CTA's columns, once every CTA of the
+        // cluster has read the warpgroup's last h1: into the CTA's own block;
+        // each warp's 16 rows (2 KiB of the block) then by bulk copy into the
+        // same place of every other CTA, as soon as the warp has written them
+        if (k > 0) mbar_wait(h1_empty(wg), (k - 1) & 1);
+        uint16_t* h1s = reinterpret_cast<uint16_t*>(smem + L.h1) +
+                        (wg * kWideCluster + rank) * (kWideSliceBytes / 2);
 #pragma unroll
-          for (int w = 1; w < 4; ++w)
-            combine<WIN>(v, q, part_v[w * C3 + col], WIN ? part_q[w * C3 + col] : 0);
+        for (int j = 0; j < N1 / 8; ++j) {
+          const float2 sc = *reinterpret_cast<const float2*>(s2s + 8 * j + 2 * t4);
+          const float2 sf = *reinterpret_cast<const float2*>(lb2s + 8 * j + 2 * t4);
+          float y[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float xn = __fmaf_rn(acc1[4 * j + e], rstd[e / 2], mean_r[e / 2]);
+            y[e] = fmaxf(__fmaf_rn(xn, e % 2 ? sc.y : sc.x, e % 2 ? sf.y : sf.x), 0.f);
+          }
+          *reinterpret_cast<uint32_t*>(h1s + core_at(r0, 8 * j + 2 * t4, N1)) =
+              pack_bf16x2(y[0], y[1]);
+          *reinterpret_cast<uint32_t*>(h1s + core_at(r0 + 8, 8 * j + 2 * t4, N1)) =
+              pack_bf16x2(y[2], y[3]);
         }
-        const size_t o = ((size_t)b * M + m0 + c) * C3 + col;
-        // the same thread wrote (out, winners)[o] at the last stage
-        if (st > 0) combine<WIN>(v, q, out[o], WIN ? winners[o] : 0);
-        if (st + 1 < stages) {
-          out[o] = v;
-          if constexpr (WIN) winners[o] = q;
-          continue;
+        fence_async();
+        __syncwarp();
+        const uint32_t hbar = h1_full(wg);
+        if (lane == 0) {
+          const uint32_t rows = h1_mine + wq * (kWideSliceBytes / 4);
+#pragma unroll
+          for (uint32_t d = 1; d < kWideCluster; ++d) {
+            const uint32_t to = (rank + d) % kWideCluster;
+            bulk_to_peer(peer(rows, to), rows, kWideSliceBytes / 4, peer(hbar, to));
+          }
         }
-        const float zmax = v + b3s[col];
-        const bool hit = zmax > kNeg;
-        out[o] = hit ? zmax : kNeg;
-        if constexpr (WIN) {
-          const int p = (nt - 1 - q / wc) * wc + q % wc;
-          winners[o] = hit ? start + p : 0;
+        bar_sync(1 + wg, 128);  // the own block is whole for GEMM2
+        if (wt == 0) mbar_expect(hbar, (kWideCluster - 1) * kWideSliceBytes);
+
+        // GEMM2 z = h1 W3 over the CTA's N3 columns, K over the four blocks:
+        // the CTA's own block first, while the others land, then theirs in
+        // rank order after it (a fixed order for each CTA's columns)
+        float acc2[N3 / 2];
+        const auto gemm2_block = [&](uint32_t q, bool first) {
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            wgmma_ss<N3, 0, 1>(acc2, desc_at(h1_buf + q * kWideSliceBytes + s * 256, 128, N1 * 16),
+                               desc_at(w3_base + (4 * q + s) * 2 * N3 * 16, N3 * 16, 128),
+                               !first || s > 0);
+        };
+        wgmma_fence();
+        gemm2_block(rank, true);
+        wgmma_commit();
+        mbar_wait(hbar, k & 1);
+        wgmma_fence();
+#pragma unroll
+        for (uint32_t d = 1; d < kWideCluster; ++d) gemm2_block((rank + d) % kWideCluster, false);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc2);
+
+        // the tile's max over each warp's rows, 32 columns at a time, into the
+        // warps' partials; then (all four warps done with h1: every CTA may
+        // send the next) the four warps' partials, and the center's earlier
+        // tiles' partial from the output buffers, by the thread of the column
+#pragma unroll
+        for (int h = 0; h < N3 / 32; ++h) {
+          float v = __uint_as_float(kMinusInfBits);
+          int q = 0;
+          fold_max<NV, WIN>(acc2 + 16 * h, in0, in1, q0, q1, lane, &v, &q);
+          const int col = 32 * h + 8 * (base_i / 2) + 2 * t4 + base_i % 2;
+          part_v[wq * N3 + col] = v;
+          if constexpr (WIN) part_q[wq * N3 + col] = q;
         }
+        bar_sync(1 + wg, 128);
+        if (wt == 0) {
+#pragma unroll
+          for (uint32_t d = 0; d < kWideCluster; ++d) mbar_arrive_cluster(peer(h1_empty(wg), d));
+        }
+        float v = part_v[wt];
+        int q = WIN ? part_q[wt] : 0;
+#pragma unroll
+        for (int w = 1; w < 4; ++w)
+          combine<WIN>(v, q, part_v[w * N3 + wt], WIN ? part_q[w * N3 + wt] : 0);
+        if (again) combine<WIN>(v, q, prev_v, prev_q);
+        out[o] = v;
+        if constexpr (WIN) winners[o] = q;
+        ++k;
+        seen |= 1u << c;
       }
-      if (any) __syncthreads();  // part is rewritten for the next center
+    }
+
+    // b3 and the output: -1e9 and rank 0 where no pair was in radius
+    for (int c = wg; c < kCenters; c += kWideGroups) {
+      const size_t o = ((size_t)b * M + m0 + c) * C3 + N3 * rank + wt;
+      float v = __uint_as_float(kMinusInfBits);
+      int q = 0;
+      if ((seen >> c) & 1u) {
+        v = out[o];
+        if constexpr (WIN) q = winners[o];
+      }
+      const float zmax = v + b3s[wt];
+      const bool hit = zmax > kNeg;
+      out[o] = hit ? zmax : kNeg;
+      if constexpr (WIN) {
+        const int p = (nt - 1 - q / wc) * wc + q % wc;
+        winners[o] = hit ? start + p : 0;
+      }
     }
   }
+  cluster_sync();  // no CTA leaves while a peer may still write into its shared memory
 }
 
 template <bool WIN, int D2, bool PAD>
@@ -985,16 +1197,13 @@ cudaError_t launch_wide(const uint16_t* A, const float* xyz, const uint16_t* bc,
                         const uint16_t* w2, const float* b2, const float* s2, const float* lb2,
                         const uint16_t* w3, const float* b3, int B, int N, int M, int W,
                         int c2_real, float r2, float* out, int* winners, cudaStream_t s) {
-  const WideLayout L(WIN);
-  if (L.total > (size_t)kWideSharedBytes) return cudaErrorInvalidValue;
+  const WideLayout L;
+  if (L.total > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
   auto* kernel = sa_pair_pool_wide<WIN, D2, PAD>;
-  cudaError_t err =
+  const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  dim3 grid(M / kCenters, B);
+  dim3 grid(M / kCenters, B, kWideCluster);
   kernel<<<grid, kWideThreads, L.total, s>>>(A, xyz, bc, cen, mask, starts, w2, b2, s2, lb2, w3,
                                              b3, N, M, W, (float)c2_real, 1.f / (float)c2_real,
                                              r2, out, winners);

@@ -85,8 +85,12 @@
 //     through a ring, since the tile buffers alone take most of a block's
 //     shared memory (its note below). Its hash tables have 1024 slots a warp
 //     (up to min(c3, W) = 512 winners a center). Its record is 197 888 floats
-//     (792 KB) a CTA: SA2 at batch 8 has 512 CTAs, 405 MB of records and 134
-//     MB of dA records (W c1 floats a CTA).
+//     (792 KB): a read-modify-write of it every tile would move 1.5 MB
+//     through device memory a tile, as records this large do not stay in L2.
+//     So one persistent CTA an SM keeps one record and folds up to
+//     kWideStage staged tiles into it at a time. SA2 at batch 8: 132 records
+//     (104 MB), 198 MB of staged tiles and 134 MB of dA records (W c1 floats
+//     a block), where a CTA a block would hold 512 records (405 MB).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -729,15 +733,23 @@ pool_bwd_tiles(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
 
 constexpr int kWideC1 = 256, kWideC2 = 256, kWideC3 = 512;
 constexpr int kWideHashLog = 10, kWideHashOb = 9;  // 1024 slots a warp for up to 512 entries
-constexpr int kWideSlotBytes = 16384;
-constexpr int kWideChunk = 32;  // K of a ring step
+constexpr int kWideSlots = 4;  // ring slots
+constexpr int kWideSlotBytes = 8192;
+constexpr int kWideChunk = 16;  // K of a ring step
 // ring steps of a tile: GEMM1's W2 row chunks, GEMM2's W3 column chunks,
 // GEMM3's W2 column chunks
 constexpr int kWideG1 = kWideC1 / kWideChunk, kWideG2 = kWideC3 / kWideChunk;
 constexpr int kWideSteps = kWideG1 + kWideG2 + kWideC2 / kWideChunk;
+// the staged operands of a tile, images of its buffers in their core layout:
+// H0, H1 and bf16(dx) (64 x 256 bf16), of up to kWideStage tiles a fold
+constexpr int kWideStage = 16;
+constexpr int kWideTileElems = kRows * kWideC2;
+constexpr uint32_t kWideTileBytes = kWideTileElems * 2;
+constexpr int kWideSlotElems = 3 * kWideTileElems;  // a tile's slot: H0, H1, bf16(dx)
+static_assert(kWideC1 == kWideC2, "one image size");
 
 struct WideLayout {
-  size_t h0, h1, u, ring, row_of, row_ch, gb, runs, vec, xs, meta, rstart, total;
+  size_t h0, h1, u, ring, row_of, row_ch, gb, runs, vec, xs, meta, rstart, bars, total;
   __host__ __device__ WideLayout() {
     size_t o = 0;
     h0 = o;     o += (size_t)kRows * kWideC1 * 2;
@@ -745,7 +757,7 @@ struct WideLayout {
     // D (bf16) then dh0 (f32); the hash tables before the tiles, the column
     // sums after them
     u = o;      o += (size_t)kRows * kWideC3 * 2;
-    ring = o;   o += 2 * (size_t)kWideSlotBytes;
+    ring = o;   o += (size_t)kWideSlots * kWideSlotBytes;
     row_of = o; o += (size_t)kCenters * kWideC3 * 2;  // (center, channel) -> row
     row_ch = o; o += (size_t)kCenters * kWideC3 * 2;  // (center, row) -> its channel
     gb = o;     o += (size_t)kCenters * kWideC3 * 2;  // bf16(g) of the centers
@@ -754,14 +766,15 @@ struct WideLayout {
     xs = o;     o += (size_t)4 * kRows * 2 * 4;
     meta = o;   o += (size_t)5 * kRows * 4;
     rstart = o; o += align128((size_t)(kCenters + 1) * 4);
+    bars = o;   o += 128;  // the fold's two mbarriers
     total = o;
   }
 };
 
-// Ring step j of a tile: j < 8 the W2 rows 32 j .. + 32 (rows = K: GEMM1's
-// MN-major B); then the W3 columns 32 (j - 8) .. + 32 of every row (rows = N:
-// GEMM2's K-major B = W3^T); then the W2 columns 32 (j - 24) .. + 32 of every
-// row (GEMM3's K-major B = W2^T).
+// Ring step j of a tile (chunks of kWideChunk = 16 along K): j < 16 the W2
+// rows 16 j .. + 16 (rows = K: GEMM1's MN-major B); then the W3 columns
+// 16 (j - 16) .. + 16 of every row (rows = N: GEMM2's K-major B = W3^T); then
+// the W2 columns 16 (j - 48) .. + 16 of every row (GEMM3's K-major B = W2^T).
 __device__ __forceinline__ void wide_fetch(uint32_t dst, const uint16_t* __restrict__ w2,
                                            const uint16_t* __restrict__ w3, int j) {
   if (j < kWideG1)
@@ -774,35 +787,49 @@ __device__ __forceinline__ void wide_fetch(uint32_t dst, const uint16_t* __restr
 }
 
 // The wide layer's tiles: the rows and the sums of pool_bwd_tiles, with W2
-// and W3 streamed from L2 through a ring of two 16 KiB slots (32 steps a
-// tile: 8 for GEMM1, 16 for GEMM2, 8 for GEMM3), so that the tile buffers
-// fit: H0, h1 and D (whose bytes dh0 takes). At c2 256 a warpgroup's X and
-// dh1 accumulators are 64 registers a thread each, too many to hold together
-// beside the rest, so the order differs: after the LN forward (h1 to shared)
-// xhat waits in shared memory (half in H0's bytes, half in h1's once dW3 =
-// H1^T D has read h1) while GEMM2 runs, and the LN backward reads it back
-// where it is used; bf16(dx) then takes h1's place, and H0 is gathered again
-// for dW2, GEMM3's ReLU mask and dA. The row list keeps each row's channel instead of its
-// window position (the winner gives the position); bf16(g) stays in shared
-// memory, bc is read from L2, db_c is added into the output in place (each CTA owns its
-// centers' rows). Shared memory: H0, h1 / dx 32 KiB each, D / dh0 64 KiB, the
-// ring 32 KiB, row_of, row_ch and bf16(g) 16 KiB each, the threads' column
-// sums 12 KiB, vectors and row metadata 6.4 KiB: 231 808 bytes.
+// and W3 streamed from L2 through a ring of four 8 KiB slots, three steps
+// ahead (64 steps a tile: 16 for GEMM1, 32 for GEMM2, 16 for GEMM3), so that
+// the tile buffers fit: H0, h1 and D (whose bytes dh0 takes). At c2 256 a
+// warpgroup's X and dh1 accumulators are 64 registers a thread each, too
+// many to hold together beside the rest, so the order differs: after the LN
+// forward (h1 to shared) xhat waits in shared memory (half in H0's bytes,
+// half in h1's once H1's staging copy has read h1) while GEMM2 runs, and the
+// LN backward reads it back where it is used; bf16(dx) then takes h1's
+// place, and H0 is gathered again for GEMM3's ReLU mask and dA. The row list
+// keeps each row's channel instead of its window position (the winner gives
+// the position); bf16(g) stays in shared memory, bc is read from L2, db_c is
+// added into the output in place (the CTA owns its block's rows).
+// The weight gradients do not go to the record tile by tile: one CTA an SM
+// (the grid is ctas = min(blocks, SMs); CTA i takes blocks i, i + ctas, ...
+// in order, so every sum's order is fixed) copies each tile's H0, H1 and
+// bf16(dx) into its staging slots in device memory (96 KiB a tile, kWideStage
+// tiles) and, after the last slot's tile or at its block's end, folds them:
+// dW2 = H0^T DX and dW3 = H1^T D (D rebuilt from the block's tables) with K =
+// 64 rows a staged tile in the accumulator, six passes of 64 x 256 a
+// warpgroup (odd passes take the tiles backwards, so that the last pass's
+// latest loads are read again from L2), the staged images loaded one tile
+// ahead into the tile buffers, the pass's record rows prefetched into L2,
+// and one read-modify-write of the CTA's record a fold. Shared memory: H0,
+// h1 / dx 32 KiB each, D / dh0 64 KiB, the ring 32 KiB, row_of, row_ch and
+// bf16(g) 16 KiB each, the threads' column sums 12 KiB, vectors, row
+// metadata and the fold's barriers 6.5 KiB: 231 936 bytes.
 template <bool COMPACT>
 __global__ void __launch_bounds__(kThreads, 1)
 pool_bwd_wide(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
               const float* __restrict__ g, const int* __restrict__ win,
               const int* __restrict__ starts, const uint16_t* __restrict__ w2,
               const float* __restrict__ b2, const float* __restrict__ s2,
-              const float* __restrict__ lb2, const uint16_t* __restrict__ w3, int N, int M,
-              int W, float c2f, float rc2, float* __restrict__ dbc,
-              float* __restrict__ records, float* __restrict__ da_records) {
+              const float* __restrict__ lb2, const uint16_t* __restrict__ w3, int B, int N,
+              int M, int W, float c2f, float rc2, float* __restrict__ dbc,
+              float* __restrict__ records, float* __restrict__ da_records,
+              uint16_t* __restrict__ stage) {
   constexpr int C1 = kWideC1, C2 = kWideC2, C3 = kWideC3;
   constexpr int P = record_floats(C1, C2, C3);
   constexpr int H1 = C1 / 2, H2 = C2 / 2;
   constexpr int NO = C3 / 32;  // a lane's channels when listing
   using F = Fold<H2>;
   static_assert(C1 == kThreads, "db_c: one column a thread");
+  constexpr int KS = kWideChunk / 16;  // k16 steps a ring step
 
   extern __shared__ __align__(128) unsigned char smem[];
   const WideLayout L;
@@ -833,122 +860,28 @@ pool_bwd_wide(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
   const int warp = tid / 32, lane = tid % 32;
   const int wg = tid / 128, wq = warp % 4;
   const int g8 = lane / 4, t4 = lane % 4;
-  const int b = blockIdx.y;
-  const int m0 = blockIdx.x * kCenters;
-  const size_t cm0 = (size_t)b * M + m0;
-  int start = starts[(size_t)b * gridDim.x + blockIdx.x];
-  start = min(max(start, 0), N - W);
-  float* rec = records + ((size_t)b * gridDim.x + blockIdx.x) * P;
-  float* drec = da_records + ((size_t)b * gridDim.x + blockIdx.x) * (size_t)W * C1;
-  const int pos0 = b * N + start;
+  const int n_blk = M / kCenters;
+  float* rec = records + (size_t)blockIdx.x * P;
+  // the CTA's staging slots: [tile][H0, H1, bf16(dx)]
+  const auto staged = [&](int j, int op) {
+    return stage + ((size_t)blockIdx.x * kWideStage + j) * kWideSlotElems +
+           (size_t)op * kWideTileElems;
+  };
+  const uint32_t fold_bar = smem_u32(smem + L.bars);  // the fold's two buffers landed
+  // the block's b M + m0, window start, b N + start and index, read back at
+  // each tile rather than held in registers across the tiles
+  int* blk_vals = reinterpret_cast<int*>(smem + L.bars + 16);
 
-  // ---- vectors; db_c zeroed, column tid by thread tid
+  // ---- vectors, once
   for (int i = tid; i < C2; i += kThreads) {
     b2s[i] = b2[i];
     s2s[i] = s2[i];
     lb2s[i] = lb2[i];
   }
-  for (int cc = 0; cc < kCenters; ++cc) dbc[(cm0 + cc) * C1 + tid] = 0.f;
-
-  // ---- each warp lists its centers' live rows, in channel order
-  {
-    uint32_t* T = hash + warp * (1 << kWideHashLog);
-    const uint32_t lt = (1u << lane) - 1u;
-    for (int cc = warp; cc < kCenters; cc += kWarps) {
-      const float* gc = g + (cm0 + cc) * C3;
-      const int* wc = win + (cm0 + cc) * C3;
-      int16_t* rof = row_of + cc * C3;
-      int16_t* rch = row_ch + cc * C3;
-      for (int o = lane; o < C3; o += 32)
-        gbs[cc * C3 + o] = __bfloat16_as_ushort(__float2bfloat16_rn(gc[o]));
-      int n = 0;
-      if constexpr (COMPACT) {
-#pragma unroll
-        for (int i = 0; i < NO; ++i) {
-          const int o = 32 * i + lane;
-          const bool live = gc[o] != 0.f;
-          const uint32_t mask = __ballot_sync(0xffffffffu, live);
-          const int idx = n + __popc(mask & lt);
-          rof[o] = live ? idx : -1;
-          if (live) rch[idx] = o;
-          n += __popc(mask);
-        }
-      } else {
-        for (int i = lane; i < (1 << kWideHashLog); i += 32) T[i] = kEmpty;
-        __syncwarp();
-        int rel[NO];
-        bool live[NO];
-#pragma unroll
-        for (int i = 0; i < NO; ++i) {
-          const int o = 32 * i + lane;
-          rel[i] = wc[o] - start;
-          live[i] = gc[o] != 0.f && rel[i] >= 0 && rel[i] < W;
-          if (live[i]) hash_insert<kWideHashLog, kWideHashOb>(T, rel[i], o);
-        }
-        __syncwarp();
-        int lead[NO];
-#pragma unroll
-        for (int i = 0; i < NO; ++i) {
-          const int o = 32 * i + lane;
-          lead[i] = live[i] ? hash_leader<kWideHashLog, kWideHashOb>(T, rel[i]) : -1;
-          const uint32_t mask = __ballot_sync(0xffffffffu, lead[i] == o);
-          const int idx = n + __popc(mask & lt);
-          if (lead[i] == o) {
-            rof[o] = idx;
-            rch[idx] = o;
-          }
-          n += __popc(mask);
-        }
-        __syncwarp();
-#pragma unroll
-        for (int i = 0; i < NO; ++i) {
-          const int o = 32 * i + lane;
-          if (lead[i] < 0) rof[o] = -1;
-          else if (lead[i] != o) rof[o] = rof[lead[i]];
-        }
-        __syncwarp();  // the table is cleared for the warp's next center
-      }
-      if (lane == 0) rstart[cc + 1] = n;
-    }
-  }
-  __syncthreads();
   if (tid == 0) {
-    rstart[0] = 0;
-    for (int cc = 0; cc < kCenters; ++cc) rstart[cc + 1] += rstart[cc];
+    mbar_init(fold_bar);
+    mbar_init(fold_bar + 8);
   }
-  // db3: the live channels' cotangents, summed over the centers in order
-  for (int o = tid; o < C3; o += kThreads) {
-    float s = 0.f;
-    for (int cc = 0; cc < kCenters; ++cc)
-      if (row_of[cc * C3 + o] >= 0) s += g[(cm0 + cc) * C3 + o];
-    rec[C1 * C2 + C2 * C3 + 3 * C2 + o] = s;
-  }
-  __syncthreads();
-
-  const int nr = rstart[kCenters];
-  const int tiles = (nr + kRows - 1) / kRows;
-  const uint32_t h0_base = smem_u32(h0s), h1_base = smem_u32(h1s), d_base = smem_u32(ds);
-  const uint32_t dx_base = h1_base;
-  const int r0 = 16 * wq + g8;  // the thread's tile rows r0, r0 + 8
-  const int c2 = wg * H2;       // the warpgroup's first column of C2 (C1: wg * H1)
-
-  // Ring step `step`: its copy has landed for every thread (each waits for
-  // its own, then the barrier), and every warp has waited for the products of
-  // step - 1, so step + 1 may take their slot. Returns the step's slot.
-  const int steps = tiles * kWideSteps;
-  int step = 0;
-  if (steps > 0) wide_fetch(ring, w2, w3, 0);
-  auto ring_step = [&]() -> uint32_t {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    fence_async();
-    __syncthreads();
-    if (step + 1 < steps)
-      wide_fetch(ring + ((step + 1) & 1) * kWideSlotBytes, w2, w3, (step + 1) % kWideSteps);
-    const uint32_t slot = ring + (step & 1) * kWideSlotBytes;
-    ++step;
-    return slot;
-  };
-
   // the thread's db2, ds2, dlb2 column sums (run(q) + i), in shared memory:
   // registers are what this kernel lacks
   auto run = [&](int q) {
@@ -956,425 +889,657 @@ pool_bwd_wide(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
   };
 #pragma unroll
   for (int i = 0; i < 3 * F::NR; ++i) run(0)[i] = 0.f;
+  bool folded = false;     // the record holds a fold (alike in every thread)
+  uint32_t fold_phase = 0;  // bit b: the phase parity of the fold's barrier b
 
-  for (int t = 0; t < tiles; ++t) {
-    // The thread's index and what derives from it, opaque at each tile, so
-    // that the many addresses built from them are computed where they are
-    // used, not hoisted out of the loop and held in registers across it.
-    const int tid = (int)opaque(threadIdx.x);
-    const int lane = tid % 32, t4 = lane % 4, wg = tid / 128;
-    const int r0 = 16 * ((tid / 32) % 4) + lane / 4;  // the thread's tile rows r0, r0 + 8
-    const int c2 = wg * H2;  // the warpgroup's first column of C2 (C1: wg * H1)
-    const int rows = min(kRows, nr - t * kRows);
-    // ---- the tile's rows: center, row of the center, A row (from the
-    // winner of the row's channel; -1 outside the window)
-    if (tid < kRows) {
-      const int r = t * kRows + tid;
-      int cc = -1, loc = 0, pos = -1;
-      if (tid < rows) {
-        cc = 0;
-        while (rstart[cc + 1] <= r) ++cc;
-        loc = r - rstart[cc];
-        const int rel = win[(cm0 + cc) * C3 + row_ch[cc * C3 + loc]] - start;
-        if (rel >= 0 && rel < W) pos = b * N + start + rel;
+  // ---- the CTA's blocks of 16 centers, blockIdx.x + gridDim.x k, in order
+  for (int blk = blockIdx.x; blk < B * n_blk; blk += gridDim.x) {
+    const int b = blk / n_blk;
+    const int m0 = (blk % n_blk) * kCenters;
+    const size_t cm0 = (size_t)b * M + m0;
+    int start = starts[blk];
+    start = min(max(start, 0), N - W);
+    __syncthreads();  // the last block's tables and buffers are read
+    if (tid == 0) {
+      blk_vals[0] = (int)cm0;
+      blk_vals[1] = start;
+      blk_vals[2] = b * N + start;
+      blk_vals[3] = blk;
+    }
+    for (int cc = 0; cc < kCenters; ++cc) dbc[(cm0 + cc) * C1 + tid] = 0.f;
+
+    // ---- each warp lists its centers' live rows, in channel order (the lane
+    // opaque: its channel offsets are computed for each block, not hoisted
+    // out of the block loop and held in registers through the tiles)
+    {
+      const int lane = (int)opaque(tid) % 32, warp = (int)opaque(tid) / 32;
+      uint32_t* T = hash + warp * (1 << kWideHashLog);
+      const uint32_t lt = (1u << lane) - 1u;
+      for (int cc = warp; cc < kCenters; cc += kWarps) {
+        const float* gc = g + (cm0 + cc) * C3;
+        const int* wc = win + (cm0 + cc) * C3;
+        int16_t* rof = row_of + cc * C3;
+        int16_t* rch = row_ch + cc * C3;
+        for (int o = lane; o < C3; o += 32)
+          gbs[cc * C3 + o] = __bfloat16_as_ushort(__float2bfloat16_rn(gc[o]));
+        int n = 0;
+        if constexpr (COMPACT) {
+#pragma unroll
+          for (int i = 0; i < NO; ++i) {
+            const int o = 32 * i + lane;
+            const bool live = gc[o] != 0.f;
+            const uint32_t mask = __ballot_sync(0xffffffffu, live);
+            const int idx = n + __popc(mask & lt);
+            rof[o] = live ? idx : -1;
+            if (live) rch[idx] = o;
+            n += __popc(mask);
+          }
+        } else {
+          for (int i = lane; i < (1 << kWideHashLog); i += 32) T[i] = kEmpty;
+          __syncwarp();
+          int rel[NO];
+          bool live[NO];
+#pragma unroll
+          for (int i = 0; i < NO; ++i) {
+            const int o = 32 * i + lane;
+            rel[i] = wc[o] - start;
+            live[i] = gc[o] != 0.f && rel[i] >= 0 && rel[i] < W;
+            if (live[i]) hash_insert<kWideHashLog, kWideHashOb>(T, rel[i], o);
+          }
+          __syncwarp();
+          int lead[NO];
+#pragma unroll
+          for (int i = 0; i < NO; ++i) {
+            const int o = 32 * i + lane;
+            lead[i] = live[i] ? hash_leader<kWideHashLog, kWideHashOb>(T, rel[i]) : -1;
+            const uint32_t mask = __ballot_sync(0xffffffffu, lead[i] == o);
+            const int idx = n + __popc(mask & lt);
+            if (lead[i] == o) {
+              rof[o] = idx;
+              rch[idx] = o;
+            }
+            n += __popc(mask);
+          }
+          __syncwarp();
+#pragma unroll
+          for (int i = 0; i < NO; ++i) {
+            const int o = 32 * i + lane;
+            if (lead[i] < 0) rof[o] = -1;
+            else if (lead[i] != o) rof[o] = rof[lead[i]];
+          }
+          __syncwarp();  // the table is cleared for the warp's next center
+        }
+        if (lane == 0) rstart[cc + 1] = n;
       }
-      mcc[tid] = cc;
-      mloc[tid] = loc;
-      mpos[tid] = pos;
     }
     __syncthreads();
-    // ---- the tile's rows of one position: the first leads, each links the next
-    if (tid < rows) {
-      const int pos = mpos[tid];
-      int nx = -1, lead = pos >= 0;
-      for (int r = 0; r < rows; ++r) {
-        if (mpos[r] != pos) continue;
-        if (r < tid) lead = 0;
-        else if (r > tid && nx < 0) nx = r;
-      }
-      mnext[tid] = nx;
-      mlead[tid] = lead;
+    if (tid == 0) {
+      rstart[0] = 0;
+      for (int cc = 0; cc < kCenters; ++cc) rstart[cc + 1] += rstart[cc];
     }
-    // ---- H0 = bf16(relu(A + bc)), 16 bytes a thread at a time (the 8
-    // threads of a quarter warp on the 8 rows of one core: no conflicts)
-    auto build_h0 = [&]() {
-      constexpr int NA = kRows * C1 / 8 / kThreads;
-      const int tid_o = (int)opaque(tid);  // offsets computed here, not hoisted
-      uint4 a[NA];
-#pragma unroll
-      for (int k = 0; k < NA; ++k) {
-        const int i = tid_o + k * kThreads;
-        const int kb = (i >> 3) % (C1 / 8), r = ((i >> 3) / (C1 / 8)) * 8 + (i & 7);
-        const int pos = mpos[r];
-        a[k] = pos >= 0 ? __ldg(reinterpret_cast<const uint4*>(A + (size_t)pos * C1) + kb)
-                        : make_uint4(0, 0, 0, 0);
-      }
-#pragma unroll
-      for (int k = 0; k < NA; ++k) {
-        const int i = tid_o + k * kThreads;
-        const int kb = (i >> 3) % (C1 / 8), r = ((i >> 3) / (C1 / 8)) * 8 + (i & 7);
-        const int cc = mcc[r];
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (cc >= 0) {
-          const uint4 c = __ldg(reinterpret_cast<const uint4*>(bc + (cm0 + cc) * C1) + kb);
-          v = make_uint4(add_relu_bf16x2(a[k].x, c.x), add_relu_bf16x2(a[k].y, c.y),
-                         add_relu_bf16x2(a[k].z, c.z), add_relu_bf16x2(a[k].w, c.w));
-        }
-        *reinterpret_cast<uint4*>(h0s + core_at(r, 8 * kb, C1)) = v;
-      }
-    };
-    // D, the rows' bf16 cotangents, and H0
-    {
-      for (int i = (int)opaque(tid); i < kRows * C3 / 8; i += kThreads) {
-        const int ob = (i >> 3) % (C3 / 8), r = ((i >> 3) / (C3 / 8)) * 8 + (i & 7);
-        const int cc = mcc[r];
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (cc >= 0) {
-          const int16_t loc = int16_t(mloc[r]);
-          const uint4 ro = reinterpret_cast<const uint4*>(row_of + cc * C3)[ob];
-          const uint4 gb = reinterpret_cast<const uint4*>(gbs + cc * C3)[ob];
-          const uint32_t rw[4] = {ro.x, ro.y, ro.z, ro.w}, gw[4] = {gb.x, gb.y, gb.z, gb.w};
-          uint32_t w[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            w[e] = (int16_t(rw[e] & 0xffffu) == loc ? gw[e] & 0xffffu : 0u) |
-                   (int16_t(rw[e] >> 16) == loc ? gw[e] & 0xffff0000u : 0u);
-          v = make_uint4(w[0], w[1], w[2], w[3]);
-        }
-        *reinterpret_cast<uint4*>(ds + core_at(r, 8 * ob, C3)) = v;
-      }
+    // db3: the live channels' cotangents, summed over the block's centers in
+    // order, then over the CTA's blocks (in its record: the first block writes)
+    for (int o = tid; o < C3; o += kThreads) {
+      float s = 0.f;
+      for (int cc = 0; cc < kCenters; ++cc)
+        if (row_of[cc * C3 + o] >= 0) s += g[(cm0 + cc) * C3 + o];
+      float* db3 = rec + C1 * C2 + C2 * C3 + 3 * C2 + o;
+      *db3 = blk == (int)blockIdx.x ? s : *db3 + s;
     }
-    build_h0();
-    fence_async();
     __syncthreads();
 
-    // ---- GEMM1 X = H0 W2 (W2's rows by ring step, read MN-major), each
-    // warpgroup its H2 columns
-    // One accumulator array for every product of the tile, X, dh1, dh0 and
-    // the dW chunks in turn: each wgmma accumulator is a block of consecutive
-    // registers, and one block for all of them leaves the rest unfragmented.
-    static_assert(H1 == H2, "one accumulator block");
-    float acc[H2 / 2];
-    float(&acc1)[H2 / 2] = acc;
-#pragma unroll 1
-    for (int j = 0; j < kWideG1; ++j) {
-      const uint32_t slot = ring_step();
-      const uint32_t h0b = opaque(h0_base);
-      wgmma_fence();
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        wgmma_ss<H2, 0, 1>(acc1, make_desc(h0b + 256 * (2 * j + e), 128, C1 * 16),
-                           make_desc(slot + e * 32 * C2 + (c2 / 8) * 128, C2 * 16, 128),
-                           j > 0 || e > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-    }
-    fence_regs(acc1);
+    const int nr = rstart[kCenters];
+    const int tiles = (nr + kRows - 1) / kRows;
+    const uint32_t h0_base = smem_u32(h0s), h1_base = smem_u32(h1s), d_base = smem_u32(ds);
+    const uint32_t dx_base = h1_base;
+    const int r0 = 16 * wq + g8;  // the thread's tile rows r0, r0 + 8
+    const int c2 = wg * H2;       // the warpgroup's first column of C2 (C1: wg * H1)
 
-    // ---- LN forward in the accumulator: acc1 becomes xhat. A row's
-    // statistics: the quad's sums, then both warpgroups' halves in order
-    // through shared memory.
-    float mean[2], rstd[2];
-    {
-      float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
-      const int cb = (int)opaque(c2 + 2 * t4);
-#pragma unroll
-      for (int j = 0; j < H2 / 8; ++j) {
-        const float2 bias = *reinterpret_cast<const float2*>(b2s + cb + 8 * j);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float z = acc1[4 * j + e] + (e & 1 ? bias.y : bias.x);
-          acc1[4 * j + e] = z;
-          sum[e / 2] += z;
-          sq[e / 2] += z * z;
-        }
-        compiler_fence();
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-        sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
-        sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
-        if (t4 == 0)
-          *reinterpret_cast<float2*>(xs + (wg * kRows + r0 + 8 * h) * 2) =
-              make_float2(sum[h], sq[h]);
-      }
-      __syncthreads();  // also: both warpgroups' GEMM1 products have read H0
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float2 p0 = *reinterpret_cast<const float2*>(xs + (r0 + 8 * h) * 2);
-        const float2 p1 = *reinterpret_cast<const float2*>(xs + (kRows + r0 + 8 * h) * 2);
-        mean[h] = div_width<C2>(p0.x + p1.x, c2f, rc2);
-        const float var = fmaxf(div_width<C2>(p0.y + p1.y, c2f, rc2) - mean[h] * mean[h], 0.f);
-        rstd[h] = rsqrtf(var + kEps);
-      }
-    }
-    // xhat; h1 = bf16(relu(xhat s2 + lb2)) to shared; h1 > 0 exactly where
-    // xhat s2 + lb2 > 0, kept as bits. The thread's xhat waits in shared
-    // memory ([value][thread]) while dW3 and GEMM2 run: its first half in H0's
-    // bytes at once (both warpgroups' GEMM1 products have read H0: the LN
-    // statistics' barrier), its second in h1's once dW3 has read h1. A
-    // compiler fence a column block keeps the scale and bias loads of later
-    // blocks from being issued early into registers the kernel lacks.
-    constexpr int NX = H2 / 4;  // values a thread stashes in each place
-    float xr[H2 / 2 - NX];
-    uint32_t pos_bits[(H2 / 2 + 31) / 32] = {};  // one bit an accumulator
-    const int rp = (int)opaque(r0), cp = (int)opaque(c2 + 2 * t4), tp = (int)opaque(tid);
-#pragma unroll
-    for (int j = 0; j < H2 / 8; ++j) {
-      const int c = cp + 8 * j;
-      const float2 sc = *reinterpret_cast<const float2*>(s2s + c);
-      const float2 sh = *reinterpret_cast<const float2*>(lb2s + c);
-      float y[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * j + e;
-        const float xh = (acc1[i] - mean[e / 2]) * rstd[e / 2];
-        const float pre = xh * (e & 1 ? sc.y : sc.x) + (e & 1 ? sh.y : sh.x);
-        if (pre > 0.f) pos_bits[i / 32] |= 1u << (i % 32);
-        y[e] = fmaxf(pre, 0.f);
-        if (i < NX) stash[i * kThreads + tp] = xh;
-        else xr[i < NX ? 0 : i - NX] = xh;
-      }
-      *reinterpret_cast<uint32_t*>(h1s + core_at(rp, c, C2)) = pack_bf16x2(y[0], y[1]);
-      *reinterpret_cast<uint32_t*>(h1s + core_at(rp + 8, c, C2)) = pack_bf16x2(y[2], y[3]);
-      compiler_fence();
-    }
-    float* stash2 = reinterpret_cast<float*>(h1s) - NX * kThreads;  // values NX.. in h1's bytes
-    auto xhat = [&](int i) {
-      return i < NX ? stash[i * kThreads + tp] : stash2[i * kThreads + tp];
+    // Ring step `step`: its copy has landed for every thread (each waits for
+    // its own, then the barrier; the copies of the next kWideSlots - 2 steps
+    // may still fly), and every warp has waited for the products of step - 1,
+    // so step + kWideSlots - 1 may take their slot. One copy group a step (an
+    // empty one past the block's last), so the count of groups in flight is
+    // fixed. Returns the step's slot.
+    int step = 0;
+    const auto fetch = [&](int f) {
+      if (f < tiles * kWideSteps)
+        wide_fetch(ring + (f % kWideSlots) * kWideSlotBytes, w2, w3, f % kWideSteps);
+      else
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
     };
-    fence_async();
-    __syncthreads();
-
-    // ---- weight gradients over the tile's rows, 64 x 64 chunks added to the
-    // CTA's record by the element's owner (a chunk's record loads are in
-    // flight while its product runs): dW3 = H1^T D now, dW2 = H0^T DX below.
-    // Warpgroup wg takes the column blocks 2k + wg.
-    // (The record's values come in two halves of 8 loads, the first in
-    // flight while the product runs: registers are what this kernel lacks.)
-    auto chunk = [&](uint32_t x, int XC, int mi, uint32_t y, int YC, int ni, float* out) {
-      float(&acc)[32] = *reinterpret_cast<float(*)[32]>(&acc1[0]);
-      wgmma_fence();
-      wgmma_rows<64>(acc, opaque(x), XC, 64 * mi, opaque(y), YC, 64 * ni, 0);
-      wgmma_commit();
-      float* base = out + (size_t)(64 * mi + r0) * YC + 64 * ni + 2 * t4;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float2 old[8];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int kk = 8 * half + k;
-          old[k] = t > 0
-                       ? *reinterpret_cast<const float2*>(base + (kk & 1) * 8 * YC + 8 * (kk >> 1))
-                       : make_float2(0.f, 0.f);
-        }
-        if (half == 0) {
-          wgmma_wait<0>();
-          fence_regs(acc);
-        }
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int kk = 8 * half + k, j = kk >> 1, h = kk & 1;
-          *reinterpret_cast<float2*>(base + h * 8 * YC + 8 * j) =
-              make_float2(old[k].x + acc[4 * j + 2 * h], old[k].y + acc[4 * j + 2 * h + 1]);
-        }
-      }
+    for (int f = 0; f < kWideSlots - 1; ++f) fetch(f);
+    auto ring_step = [&]() -> uint32_t {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kWideSlots - 2) : "memory");
+      fence_async();
+      __syncthreads();
+      fetch(step + kWideSlots - 1);
+      const uint32_t slot = ring + (step % kWideSlots) * kWideSlotBytes;
+      ++step;
+      return slot;
     };
-#pragma unroll 1
-    for (int mi = 0; mi < C2 / 64; ++mi)
-#pragma unroll 1
-      for (int k = 0; k < C3 / 128; ++k)
-        chunk(h1_base, C2, mi, d_base, C3, 2 * k + wg, rec + C1 * C2);
-    __syncthreads();  // every warp's dW3 products have read h1
-#pragma unroll
-    for (int i = NX; i < H2 / 2; ++i) stash2[i * kThreads + tp] = xr[i - NX];
 
-    // ---- GEMM2 dh1 = D W3^T (W3's columns by ring step, K-major), each
-    // warpgroup its H2 columns
-    float(&accd)[H2 / 2] = acc;
-#pragma unroll 1
-    for (int j = 0; j < kWideG2; ++j) {
-      const uint32_t slot = ring_step();
-      const uint32_t db = opaque(d_base);
-      wgmma_fence();
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        wgmma_ss<H2, 0, 0>(accd, make_desc(db + 256 * (2 * j + e), 128, C3 * 16),
-                           make_desc(slot + (c2 / 8) * kWideChunk * 16 + 256 * e, 128,
-                                     kWideChunk * 16),
-                           j > 0 || e > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-    }
-    fence_regs(accd);
-
-    // ---- LN + ReLU backward: accd becomes dln, then dxhat, then dx; bf16(dx)
-    // takes h1's place
-    {
-#pragma unroll
-      for (int i = 0; i < H2 / 2; ++i)
-        if (!((pos_bits[i / 32] >> (i % 32)) & 1u)) accd[i] = 0.f;
-      // ds2 (dln * xhat) column sums, as fold_columns; dlb2 (dln)
-#pragma unroll
-      for (int h = 0; h < F::NH; ++h) {
-        float v[F::NVH];
-#pragma unroll
-        for (int jj = 0; jj < F::NVH; ++jj) {
-          const int i = 4 * ((h * F::NVH + jj) / 2) + (jj & 1);
-          v[jj] = accd[i] * xhat(i) + accd[i + 2] * xhat(i + 2);
-          if (jj % 4 == 3) compiler_fence();
+    for (int t = 0; t < tiles; ++t) {
+      const int j = t % kWideStage;  // the tile's staging slot
+      const volatile int* bv = blk_vals;
+      const size_t cm0 = (size_t)bv[0];
+      const int start = bv[1], pos0 = bv[2];
+      float* drec = da_records + (size_t)bv[3] * W * C1;
+      // The thread's index and what derives from it, opaque at each tile, so
+      // that the many addresses built from them are computed where they are
+      // used, not hoisted out of the loop and held in registers across it.
+      const int tid = (int)opaque(threadIdx.x);
+      const int lane = tid % 32, t4 = lane % 4, wg = tid / 128;
+      const int r0 = 16 * ((tid / 32) % 4) + lane / 4;  // the thread's tile rows r0, r0 + 8
+      const int c2 = wg * H2;  // the warpgroup's first column of C2 (C1: wg * H1)
+      const int rows = min(kRows, nr - t * kRows);
+      // ---- the tile's rows: center, row of the center, A row (from the
+      // winner of the row's channel; -1 outside the window)
+      if (tid < kRows) {
+        const int r = t * kRows + tid;
+        int cc = -1, loc = 0, pos = -1;
+        if (tid < rows) {
+          cc = 0;
+          while (rstart[cc + 1] <= r) ++cc;
+          loc = r - rstart[cc];
+          const int rel = win[(cm0 + cc) * C3 + row_ch[cc * C3 + loc]] - start;
+          if (rel >= 0 && rel < W) pos = pos0 + rel;
         }
-        column_sums<F::NVH>(v, lane, run(1) + h * F::NRH);
-      }
-      fold_columns<H2, false>(accd, accd, lane, run(2));
-      float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < H2 / 8; ++j) {
-        const float2 sc = *reinterpret_cast<const float2*>(s2s + cp + 8 * j);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float dxh = accd[4 * j + e] * (e & 1 ? sc.y : sc.x);
-          accd[4 * j + e] = dxh;
-          m1[e / 2] += dxh;
-          m2[e / 2] += dxh * xhat(4 * j + e);
-        }
-        compiler_fence();
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        m1[h] += __shfl_xor_sync(0xffffffffu, m1[h], 1);
-        m1[h] += __shfl_xor_sync(0xffffffffu, m1[h], 2);
-        m2[h] += __shfl_xor_sync(0xffffffffu, m2[h], 1);
-        m2[h] += __shfl_xor_sync(0xffffffffu, m2[h], 2);
-        if (t4 == 0)
-          *reinterpret_cast<float2*>(xs + ((2 + wg) * kRows + r0 + 8 * h) * 2) =
-              make_float2(m1[h], m2[h]);
+        mcc[tid] = cc;
+        mloc[tid] = loc;
+        mpos[tid] = pos;
       }
       __syncthreads();
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float2 p0 = *reinterpret_cast<const float2*>(xs + (2 * kRows + r0 + 8 * h) * 2);
-        const float2 p1 = *reinterpret_cast<const float2*>(xs + (3 * kRows + r0 + 8 * h) * 2);
-        m1[h] = div_width<C2>(p0.x + p1.x, c2f, rc2);
-        m2[h] = div_width<C2>(p0.y + p1.y, c2f, rc2);
+      // ---- the tile's rows of one position: the first leads, each links the next
+      if (tid < rows) {
+        const int pos = mpos[tid];
+        int nx = -1, lead = pos >= 0;
+        for (int r = 0; r < rows; ++r) {
+          if (mpos[r] != pos) continue;
+          if (r < tid) lead = 0;
+          else if (r > tid && nx < 0) nx = r;
+        }
+        mnext[tid] = nx;
+        mlead[tid] = lead;
       }
+      // ---- H0 = bf16(relu(A + bc)), 16 bytes a thread at a time (the 8
+      // threads of a quarter warp on the 8 rows of one core: no conflicts)
+      auto build_h0 = [&]() {
+        constexpr int NA = kRows * C1 / 8 / kThreads;
+        const int tid_o = (int)opaque(tid);  // offsets computed here, not hoisted
+        uint4 a[NA];
 #pragma unroll
-      for (int i = 0; i < H2 / 2; ++i) {
-        const int h = (i >> 1) & 1;
-        accd[i] = rstd[h] * (accd[i] - m1[h] - xhat(i) * m2[h]);
-        if (i % 8 == 7) compiler_fence();
+        for (int k = 0; k < NA; ++k) {
+          const int i = tid_o + k * kThreads;
+          const int kb = (i >> 3) % (C1 / 8), r = ((i >> 3) / (C1 / 8)) * 8 + (i & 7);
+          const int pos = mpos[r];
+          a[k] = pos >= 0 ? __ldg(reinterpret_cast<const uint4*>(A + (size_t)pos * C1) + kb)
+                          : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int k = 0; k < NA; ++k) {
+          const int i = tid_o + k * kThreads;
+          const int kb = (i >> 3) % (C1 / 8), r = ((i >> 3) / (C1 / 8)) * 8 + (i & 7);
+          const int cc = mcc[r];
+          uint4 v = make_uint4(0, 0, 0, 0);
+          if (cc >= 0) {
+            const uint4 c = __ldg(reinterpret_cast<const uint4*>(bc + (cm0 + cc) * C1) + kb);
+            v = make_uint4(add_relu_bf16x2(a[k].x, c.x), add_relu_bf16x2(a[k].y, c.y),
+                           add_relu_bf16x2(a[k].z, c.z), add_relu_bf16x2(a[k].w, c.w));
+          }
+          *reinterpret_cast<uint4*>(h0s + core_at(r, 8 * kb, C1)) = v;
+        }
+      };
+      // D, the rows' bf16 cotangents, and H0
+      {
+        for (int i = (int)opaque(tid); i < kRows * C3 / 8; i += kThreads) {
+          const int ob = (i >> 3) % (C3 / 8), r = ((i >> 3) / (C3 / 8)) * 8 + (i & 7);
+          const int cc = mcc[r];
+          uint4 v = make_uint4(0, 0, 0, 0);
+          if (cc >= 0) {
+            const int16_t loc = int16_t(mloc[r]);
+            const uint4 ro = reinterpret_cast<const uint4*>(row_of + cc * C3)[ob];
+            const uint4 gb = reinterpret_cast<const uint4*>(gbs + cc * C3)[ob];
+            const uint32_t rw[4] = {ro.x, ro.y, ro.z, ro.w}, gw[4] = {gb.x, gb.y, gb.z, gb.w};
+            uint32_t w[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              w[e] = (int16_t(rw[e] & 0xffffu) == loc ? gw[e] & 0xffffu : 0u) |
+                     (int16_t(rw[e] >> 16) == loc ? gw[e] & 0xffff0000u : 0u);
+            v = make_uint4(w[0], w[1], w[2], w[3]);
+          }
+          *reinterpret_cast<uint4*>(ds + core_at(r, 8 * ob, C3)) = v;
+        }
       }
-      fold_columns<H2, false>(accd, accd, lane, run(0));  // db2
-    }
-    // every thread has read its stash: bf16(dx) takes h1's place, and H0 is
-    // gathered again, for dW2, GEMM3's ReLU mask and dA
-    __syncthreads();
-    {
-      const int rp = (int)opaque(r0), cp = (int)opaque(c2 + 2 * t4);
+      build_h0();
+      fence_async();
+      __syncthreads();
+      if (tid == 0) bulk_store(staged(j, 0), h0_base, kWideTileBytes);  // H0 to the slot
+
+      // ---- GEMM1 X = H0 W2 (W2's rows by ring step, read MN-major), each
+      // warpgroup its H2 columns
+      // One accumulator array for every product of the tile, X, dh1, dh0 and
+      // the dW chunks in turn: each wgmma accumulator is a block of consecutive
+      // registers, and one block for all of them leaves the rest unfragmented.
+      static_assert(H1 == H2, "one accumulator block");
+      float acc[H2 / 2];
+      float(&acc1)[H2 / 2] = acc;
+#pragma unroll 1
+      for (int j = 0; j < kWideG1; ++j) {
+        const uint32_t slot = ring_step();
+        const uint32_t h0b = opaque(h0_base);
+        wgmma_fence();
+#pragma unroll
+        for (int e = 0; e < KS; ++e)
+          wgmma_ss<H2, 0, 1>(acc1, make_desc(h0b + 256 * (KS * j + e), 128, C1 * 16),
+                             make_desc(slot + e * 32 * C2 + (c2 / 8) * 128, C2 * 16, 128),
+                             j > 0 || e > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+      fence_regs(acc1);
+
+      // ---- LN forward in the accumulator: acc1 becomes xhat. A row's
+      // statistics: the quad's sums, then both warpgroups' halves in order
+      // through shared memory.
+      float mean[2], rstd[2];
+      {
+        float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+        const int cb = (int)opaque(c2 + 2 * t4);
+#pragma unroll
+        for (int j = 0; j < H2 / 8; ++j) {
+          const float2 bias = *reinterpret_cast<const float2*>(b2s + cb + 8 * j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float z = acc1[4 * j + e] + (e & 1 ? bias.y : bias.x);
+            acc1[4 * j + e] = z;
+            sum[e / 2] += z;
+            sq[e / 2] += z * z;
+          }
+          compiler_fence();
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+          sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
+          sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
+          if (t4 == 0)
+            *reinterpret_cast<float2*>(xs + (wg * kRows + r0 + 8 * h) * 2) =
+                make_float2(sum[h], sq[h]);
+        }
+        if (tid == 0) bulk_store_read_wait<0>();  // H0's staging copy has read it
+        __syncthreads();  // also: both warpgroups' GEMM1 products have read H0
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 p0 = *reinterpret_cast<const float2*>(xs + (r0 + 8 * h) * 2);
+          const float2 p1 = *reinterpret_cast<const float2*>(xs + (kRows + r0 + 8 * h) * 2);
+          mean[h] = div_width<C2>(p0.x + p1.x, c2f, rc2);
+          const float var = fmaxf(div_width<C2>(p0.y + p1.y, c2f, rc2) - mean[h] * mean[h], 0.f);
+          rstd[h] = rsqrtf(var + kEps);
+        }
+      }
+      // xhat, and h1 > 0 (exactly where xhat s2 + lb2 > 0) as bits. The
+      // thread's xhat waits in shared memory ([value][thread]) while GEMM2
+      // runs, its first half in H0's bytes (both warpgroups' GEMM1 products
+      // and H0's staging copy have read H0: the LN statistics' barrier), its
+      // second in h1's; h1 = bf16(relu(xhat s2 + lb2)) itself is rebuilt from
+      // it after GEMM2, for its staging copy. A compiler fence a column block
+      // keeps the scale and bias loads of later blocks from being issued early
+      // into registers the kernel lacks.
+      constexpr int NX = H2 / 4;  // values a thread stashes in each place
+      uint32_t pos_bits[(H2 / 2 + 31) / 32] = {};  // one bit an accumulator
+      const int cp = (int)opaque(c2 + 2 * t4), tp = (int)opaque(tid);
+      float* stash2 = reinterpret_cast<float*>(h1s) - NX * kThreads;  // values NX.. in h1's bytes
+      const auto xhat_at = [&](int i) -> float& {
+        return i < NX ? stash[i * kThreads + tp] : stash2[i * kThreads + tp];
+      };
+      const auto xhat = [&](int i) { return xhat_at(i); };
+      // h1's pre-activation and its value, as the forward computes them
+      const auto h1_pre = [&](float xh, float sc, float sh) { return xh * sc + sh; };
 #pragma unroll
       for (int j = 0; j < H2 / 8; ++j) {
         const int c = cp + 8 * j;
-        *reinterpret_cast<uint32_t*>(dxs + core_at(rp, c, C2)) =
-            pack_bf16x2(accd[4 * j], accd[4 * j + 1]);
-        *reinterpret_cast<uint32_t*>(dxs + core_at(rp + 8, c, C2)) =
-            pack_bf16x2(accd[4 * j + 2], accd[4 * j + 3]);
+        const float2 sc = *reinterpret_cast<const float2*>(s2s + c);
+        const float2 sh = *reinterpret_cast<const float2*>(lb2s + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const float xh = (acc1[i] - mean[e / 2]) * rstd[e / 2];
+          if (h1_pre(xh, e & 1 ? sc.y : sc.x, e & 1 ? sh.y : sh.x) > 0.f)
+            pos_bits[i / 32] |= 1u << (i % 32);
+          xhat_at(i) = xh;
+        }
+        compiler_fence();
       }
-    }
-    build_h0();
-    fence_async();
-    __syncthreads();
-#pragma unroll 1
-    for (int mi = 0; mi < C1 / 64; ++mi)
-#pragma unroll 1
-      for (int k = 0; k < C2 / 128; ++k)
-        chunk(h0_base, C1, mi, dx_base, C2, 2 * k + wg, rec);
 
-    // ---- GEMM3 dh0 = bf16(dx) W2^T (W2's columns by ring step, K-major),
-    // each warpgroup its H1 columns
-    float(&acc3)[H1 / 2] = acc;
+      // ---- GEMM2 dh1 = D W3^T (W3's columns by ring step, K-major), each
+      // warpgroup its H2 columns
+      float(&accd)[H2 / 2] = acc;
 #pragma unroll 1
-    for (int j = 0; j < C2 / kWideChunk; ++j) {
-      const uint32_t slot = ring_step();
-      const uint32_t dxb = opaque(dx_base);
-      wgmma_fence();
+      for (int j = 0; j < kWideG2; ++j) {
+        const uint32_t slot = ring_step();
+        const uint32_t db = opaque(d_base);
+        wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        wgmma_ss<H1, 0, 0>(acc3, make_desc(dxb + 256 * (2 * j + e), 128, C2 * 16),
-                           make_desc(slot + (wg * H1 / 8) * kWideChunk * 16 + 256 * e, 128,
-                                     kWideChunk * 16),
-                           j > 0 || e > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-    }
-    fence_regs(acc3);
-    __syncthreads();  // every product that reads D is done: dh0 takes its place
-    // dh0 through the first ReLU (h0 > 0 exactly where A + bc > 0; the sign
-    // bit is masked off, since max(-0, 0) may keep -0)
-    {
-      // addresses from here on, not held from the tile's start
-      const int rp = (int)opaque(r0), cp = (int)opaque(wg * H1 + 2 * t4);
+        for (int e = 0; e < KS; ++e)
+          wgmma_ss<H2, 0, 0>(accd, make_desc(db + 256 * (KS * j + e), 128, C3 * 16),
+                             make_desc(slot + (c2 / 8) * kWideChunk * 16 + 256 * e, 128,
+                                       kWideChunk * 16),
+                             j > 0 || e > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+      fence_regs(accd);
+
+      // ---- LN + ReLU backward: accd becomes dln, then dxhat, then dx; bf16(dx)
+      // takes h1's place
+      {
 #pragma unroll
-      for (int j = 0; j < H1 / 8; ++j) {
+        for (int i = 0; i < H2 / 2; ++i)
+          if (!((pos_bits[i / 32] >> (i % 32)) & 1u)) accd[i] = 0.f;
+        // ds2 (dln * xhat) column sums, as fold_columns; dlb2 (dln)
+#pragma unroll
+        for (int h = 0; h < F::NH; ++h) {
+          float v[F::NVH];
+#pragma unroll
+          for (int jj = 0; jj < F::NVH; ++jj) {
+            const int i = 4 * ((h * F::NVH + jj) / 2) + (jj & 1);
+            v[jj] = accd[i] * xhat(i) + accd[i + 2] * xhat(i + 2);
+            if (jj % 4 == 3) compiler_fence();
+          }
+          column_sums<F::NVH>(v, lane, run(1) + h * F::NRH);
+        }
+        fold_columns<H2, false>(accd, accd, lane, run(2));
+        float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < H2 / 8; ++j) {
+          const float2 sc = *reinterpret_cast<const float2*>(s2s + cp + 8 * j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float dxh = accd[4 * j + e] * (e & 1 ? sc.y : sc.x);
+            accd[4 * j + e] = dxh;
+            m1[e / 2] += dxh;
+            m2[e / 2] += dxh * xhat(4 * j + e);
+          }
+          compiler_fence();
+        }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int r = rp + 8 * h, c = cp + 8 * j;
-          const uint32_t hb = *reinterpret_cast<const uint32_t*>(h0s + core_at(r, c, C1));
-          const float2 v = make_float2((hb & 0x7fffu) ? acc3[4 * j + 2 * h] : 0.f,
-                                       (hb & 0x7fff0000u) ? acc3[4 * j + 2 * h + 1] : 0.f);
-          *reinterpret_cast<float2*>(dh0s + dh0_at<C1>(r, c)) = v;
+          m1[h] += __shfl_xor_sync(0xffffffffu, m1[h], 1);
+          m1[h] += __shfl_xor_sync(0xffffffffu, m1[h], 2);
+          m2[h] += __shfl_xor_sync(0xffffffffu, m2[h], 1);
+          m2[h] += __shfl_xor_sync(0xffffffffu, m2[h], 2);
+          if (t4 == 0)
+            *reinterpret_cast<float2*>(xs + ((2 + wg) * kRows + r0 + 8 * h) * 2) =
+                make_float2(m1[h], m2[h]);
+        }
+        __syncthreads();  // also: both warpgroups' GEMM2 products have read D
+        // h1 = bf16(relu(xhat s2 + lb2)) again, into D's bytes, for its staging copy
+        {
+          uint16_t* h1d = ds;
+          const int rp = (int)opaque(r0);
+#pragma unroll 1
+          for (int j = 0; j < H2 / 8; ++j) {
+            const int c = cp + 8 * j;
+            const float2 sc = *reinterpret_cast<const float2*>(s2s + c);
+            const float2 sh = *reinterpret_cast<const float2*>(lb2s + c);
+            float y[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              y[e] = fmaxf(h1_pre(xhat(4 * j + e), e & 1 ? sc.y : sc.x, e & 1 ? sh.y : sh.x), 0.f);
+            *reinterpret_cast<uint32_t*>(h1d + core_at(rp, c, C2)) = pack_bf16x2(y[0], y[1]);
+            *reinterpret_cast<uint32_t*>(h1d + core_at(rp + 8, c, C2)) = pack_bf16x2(y[2], y[3]);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 p0 = *reinterpret_cast<const float2*>(xs + (2 * kRows + r0 + 8 * h) * 2);
+          const float2 p1 = *reinterpret_cast<const float2*>(xs + (3 * kRows + r0 + 8 * h) * 2);
+          m1[h] = div_width<C2>(p0.x + p1.x, c2f, rc2);
+          m2[h] = div_width<C2>(p0.y + p1.y, c2f, rc2);
+        }
+#pragma unroll
+        for (int i = 0; i < H2 / 2; ++i) {
+          const int h = (i >> 1) & 1;
+          accd[i] = rstd[h] * (accd[i] - m1[h] - xhat(i) * m2[h]);
+          if (i % 8 == 7) compiler_fence();
+        }
+        fold_columns<H2, false>(accd, accd, lane, run(0));  // db2
+      }
+      // every thread has read its stash: bf16(dx) takes h1's place, and H0 is
+      // gathered again, for GEMM3's ReLU mask and dA; h1 goes to its slot
+      fence_async();
+      __syncthreads();
+      if (tid == 0) bulk_store(staged(j, 1), d_base, kWideTileBytes);
+      {
+        const int rp = (int)opaque(r0), cp = (int)opaque(c2 + 2 * t4);
+#pragma unroll
+        for (int j = 0; j < H2 / 8; ++j) {
+          const int c = cp + 8 * j;
+          *reinterpret_cast<uint32_t*>(dxs + core_at(rp, c, C2)) =
+              pack_bf16x2(accd[4 * j], accd[4 * j + 1]);
+          *reinterpret_cast<uint32_t*>(dxs + core_at(rp + 8, c, C2)) =
+              pack_bf16x2(accd[4 * j + 2], accd[4 * j + 3]);
         }
       }
-    }
-    __syncthreads();
-    // db_c: each center's rows, in row order, center by center, added into
-    // the output by the thread of the column
-    for (int cc = mcc[0], r = 0; r < rows; ++cc) {
-      const int end = min(rstart[cc + 1] - t * kRows, rows);
-      float s = 0.f;
-#pragma unroll 4
-      for (; r < end; ++r) s += dh0s[dh0_at<C1>(r, tid)];
-      dbc[(cm0 + cc) * C1 + tid] += s;
-    }
-    // dA: each leader adds its position's rows, in row order, into the record
-    for (int i = tid; i < rows * (C1 / 4); i += kThreads) {
-      const int r = i / (C1 / 4), q = i % (C1 / 4);
-      if (!mlead[r]) continue;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int n = r; n >= 0; n = mnext[n]) {
-        float4 u = *reinterpret_cast<const float4*>(dh0s + dh0_at<C1>(n, 4 * q));
-        if constexpr (COMPACT) {
-          u.x = __bfloat162float(__float2bfloat16_rn(u.x));
-          u.y = __bfloat162float(__float2bfloat16_rn(u.y));
-          u.z = __bfloat162float(__float2bfloat16_rn(u.z));
-          u.w = __bfloat162float(__float2bfloat16_rn(u.w));
-        }
-        v.x += u.x;
-        v.y += u.y;
-        v.z += u.z;
-        v.w += u.w;
-      }
-      float4* dst = reinterpret_cast<float4*>(drec + (size_t)(mpos[r] - pos0) * C1 + 4 * q);
-      float4 o = *dst;
-      o.x += v.x;
-      o.y += v.y;
-      o.z += v.z;
-      o.w += v.w;
-      *dst = o;
-    }
-    __syncthreads();  // the tile's buffers are rewritten by the next tile
-  }
+      build_h0();
+      fence_async();
+      __syncthreads();
+      if (tid == 0) bulk_store(staged(j, 2), dx_base, kWideTileBytes);  // bf16(dx) too
 
-  // ---- the CTA's record: weight gradients (a CTA without rows), column sums
-  if (tiles == 0)
+      // ---- GEMM3 dh0 = bf16(dx) W2^T (W2's columns by ring step, K-major),
+      // each warpgroup its H1 columns
+      float(&acc3)[H1 / 2] = acc;
+#pragma unroll 1
+      for (int j = 0; j < C2 / kWideChunk; ++j) {
+        const uint32_t slot = ring_step();
+        const uint32_t dxb = opaque(dx_base);
+        wgmma_fence();
+#pragma unroll
+        for (int e = 0; e < KS; ++e)
+          wgmma_ss<H1, 0, 0>(acc3, make_desc(dxb + 256 * (KS * j + e), 128, C2 * 16),
+                             make_desc(slot + (wg * H1 / 8) * kWideChunk * 16 + 256 * e, 128,
+                                       kWideChunk * 16),
+                             j > 0 || e > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+      fence_regs(acc3);
+      if (tid == 0) bulk_store_read_wait<0>();  // H1's staging copy has read D's bytes
+      __syncthreads();  // every product that reads D is done: dh0 takes its place
+      // dh0 through the first ReLU (h0 > 0 exactly where A + bc > 0; the sign
+      // bit is masked off, since max(-0, 0) may keep -0)
+      {
+        // addresses from here on, not held from the tile's start
+        const int rp = (int)opaque(r0), cp = (int)opaque(wg * H1 + 2 * t4);
+#pragma unroll
+        for (int j = 0; j < H1 / 8; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = rp + 8 * h, c = cp + 8 * j;
+            const uint32_t hb = *reinterpret_cast<const uint32_t*>(h0s + core_at(r, c, C1));
+            const float2 v = make_float2((hb & 0x7fffu) ? acc3[4 * j + 2 * h] : 0.f,
+                                         (hb & 0x7fff0000u) ? acc3[4 * j + 2 * h + 1] : 0.f);
+            *reinterpret_cast<float2*>(dh0s + dh0_at<C1>(r, c)) = v;
+          }
+        }
+      }
+      __syncthreads();
+      // db_c: each center's rows, in row order, center by center, added into
+      // the output by the thread of the column
+      for (int cc = mcc[0], r = 0; r < rows; ++cc) {
+        const int end = min(rstart[cc + 1] - t * kRows, rows);
+        float s = 0.f;
+#pragma unroll 4
+        for (; r < end; ++r) s += dh0s[dh0_at<C1>(r, tid)];
+        dbc[(cm0 + cc) * C1 + tid] += s;
+      }
+      // dA: each leader adds its position's rows, in row order, into the record
+      for (int i = tid; i < rows * (C1 / 4); i += kThreads) {
+        const int r = i / (C1 / 4), q = i % (C1 / 4);
+        if (!mlead[r]) continue;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int n = r; n >= 0; n = mnext[n]) {
+          float4 u = *reinterpret_cast<const float4*>(dh0s + dh0_at<C1>(n, 4 * q));
+          if constexpr (COMPACT) {
+            u.x = __bfloat162float(__float2bfloat16_rn(u.x));
+            u.y = __bfloat162float(__float2bfloat16_rn(u.y));
+            u.z = __bfloat162float(__float2bfloat16_rn(u.z));
+            u.w = __bfloat162float(__float2bfloat16_rn(u.w));
+          }
+          v.x += u.x;
+          v.y += u.y;
+          v.z += u.z;
+          v.w += u.w;
+        }
+        float4* dst = reinterpret_cast<float4*>(drec + (size_t)(mpos[r] - pos0) * C1 + 4 * q);
+        float4 o = *dst;
+        o.x += v.x;
+        o.y += v.y;
+        o.z += v.z;
+        o.w += v.w;
+        *dst = o;
+      }
+      if (tid == 0) bulk_store_read_wait<0>();  // bf16(dx)'s staging copy has read it
+      __syncthreads();  // the tile's buffers are rewritten by the next tile or the fold
+
+      // ---- the fold, after the last staging slot's tile or the block's last
+      // tile: dW2 = H0^T DX and dW3 = H1^T D over the staged tiles' rows (K =
+      // 64 a tile) in the accumulator, added to the CTA's record once
+      if (j == kWideStage - 1 || t == tiles - 1) {
+        const int n = j + 1, t0 = t - j;
+        if (tid == 0) {
+          bulk_store_wait();
+          asm volatile("fence.proxy.async;\n" ::: "memory");  // the slots, for the bulk loads
+        }
+        fence_async();  // the tile buffers' last generic accesses, before the bulk loads
+        __syncthreads();
+        // two buffers of 64 KiB: H0's and h1's bytes, D's; X (H0 or H1) then Y (DX or D)
+        const auto fbuf = [&](int i) { return (i & 1) ? ds : h0s; };
+        // pass 0-1 dW2, rows 64 (2 pass + wg) of c1, all c2 columns; pass 2-5
+        // dW3, rows 64 (2 a + wg) of c2 (a = pass % 2), c3 columns 256 h .. + 256
+        // (h = (pass - 2) / 2); two accumulators of 128 columns
+#pragma unroll 1
+        for (int pass = 0; pass < 6; ++pass) {
+          const bool w3p = pass >= 2;
+          const int mi = 2 * (pass % 2) + wg;
+          const int n0 = w3p ? 256 * ((pass - 2) / 2) : 0;
+          // the pass's i-th staged tile: odd passes take them backwards, so that
+          // the last pass's latest loads are the first to be read again (in L2)
+          const auto si = [&](int i) { return (pass & 1) ? n - 1 - i : i; };
+          const auto load = [&](int i) {  // that tile's X (and DX) into buffer i & 1
+            if (tid != 0) return;
+            const uint32_t bar = fold_bar + 8 * (i & 1), dst = smem_u32(fbuf(i));
+            if (w3p) {
+              bulk_copy(dst, staged(si(i), 1), kWideTileBytes, bar);
+            } else {
+              bulk_expect(bar, 2 * kWideTileBytes);
+              bulk_load(dst, staged(si(i), 0), kWideTileBytes, bar);
+              bulk_load(dst + kWideTileBytes, staged(si(i), 2), kWideTileBytes, bar);
+            }
+          };
+          if (folded && tid < 128) {  // the pass's record rows into L2 while its tiles run
+            const int ldr = w3p ? C3 : C2;
+            const float* rp =
+                (w3p ? rec + C1 * C2 : rec) + (size_t)(128 * (pass % 2) + tid) * ldr + n0;
+            asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(rp), "r"(256 * 4)
+                         : "memory");
+          }
+          float facc[2][64];
+          load(0);
+#pragma unroll 1
+          for (int i = 0; i < n; ++i) {
+            if (i + 1 < n) load(i + 1);
+            uint16_t* yp = fbuf(i) + kWideTileElems;
+            if (w3p) {
+              // D's columns n0 .. + 256 of the tile, from the tables
+              for (int e = (int)opaque(tid); e < kRows * 256 / 8; e += kThreads) {
+                const int ob = (e >> 3) % 32, r = ((e >> 3) / 32) * 8 + (e & 7);
+                const int R = (t0 + si(i)) * kRows + r;
+                uint4 v = make_uint4(0, 0, 0, 0);
+                if (R < nr) {
+                  int cc = 0;
+                  while (rstart[cc + 1] <= R) ++cc;
+                  const int16_t loc = int16_t(R - rstart[cc]);
+                  const uint4 ro = *reinterpret_cast<const uint4*>(row_of + cc * C3 + n0 + 8 * ob);
+                  const uint4 gq = *reinterpret_cast<const uint4*>(gbs + cc * C3 + n0 + 8 * ob);
+                  const uint32_t rw[4] = {ro.x, ro.y, ro.z, ro.w}, gw[4] = {gq.x, gq.y, gq.z, gq.w};
+                  uint32_t w[4];
+#pragma unroll
+                  for (int q = 0; q < 4; ++q)
+                    w[q] = (int16_t(rw[q] & 0xffffu) == loc ? gw[q] & 0xffffu : 0u) |
+                           (int16_t(rw[q] >> 16) == loc ? gw[q] & 0xffff0000u : 0u);
+                  v = make_uint4(w[0], w[1], w[2], w[3]);
+                }
+                *reinterpret_cast<uint4*>(yp + core_at(r, 8 * ob, 256)) = v;
+              }
+              fence_async();
+            }
+            bulk_wait(fold_bar + 8 * (i & 1), (fold_phase >> (i & 1)) & 1u);
+            fold_phase ^= 1u << (i & 1);
+            __syncthreads();
+            // X^T (its columns 64 mi ..) times Y over the tile's 64 rows, the
+            // descriptors built where they are used
+            const uint32_t xb = smem_u32(fbuf(i)) + (64 * mi / 8) * 128;
+            const uint32_t yb = smem_u32(fbuf(i)) + kWideTileBytes;
+            wgmma_fence();
+#pragma unroll
+            for (int s = 0; s < 4; ++s)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                wgmma_ss<128, 1, 1>(facc[h], make_desc(opaque(xb + s * 32 * 256), 256 * 16, 128),
+                                    make_desc(opaque(yb + h * 16 * 128 + s * 32 * 256), 256 * 16,
+                                              128),
+                                    i > 0 || s > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(facc[0]);
+            fence_regs(facc[1]);
+            __syncthreads();  // buffer i & 1 is free for tile i + 2
+          }
+          // into the record, by the element's owner: the first fold writes
+          float* out = w3p ? rec + C1 * C2 + n0 : rec;
+          const int ld = w3p ? C3 : C2;
+          float* base = out + (size_t)(64 * mi + r0) * ld + 2 * t4;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int q = 0; q < 16; q += 8) {
+              float2 old[16];
+#pragma unroll
+              for (int k = 0; k < 16; ++k) {
+                const int jj = q + k / 2, hh = k % 2;
+                old[k] = folded ? *reinterpret_cast<const float2*>(base + hh * 8 * ld + 128 * h +
+                                                                    8 * jj)
+                                : make_float2(0.f, 0.f);
+              }
+#pragma unroll
+              for (int k = 0; k < 16; ++k) {
+                const int jj = q + k / 2, hh = k % 2;
+                *reinterpret_cast<float2*>(base + hh * 8 * ld + 128 * h + 8 * jj) =
+                    make_float2(old[k].x + facc[h][4 * jj + 2 * hh],
+                                old[k].y + facc[h][4 * jj + 2 * hh + 1]);
+              }
+            }
+          }
+        }
+        folded = true;
+      }
+    }
+
+  }  // the CTA's blocks
+
+  // ---- the CTA's record: weight gradients (a CTA without rows), column sums, db3
+  if (!folded)
     for (int i = tid; i < C1 * C2 + C2 * C3; i += kThreads) rec[i] = 0.f;
+  __syncthreads();  // the tile buffers' last reads, before the partials take them
   if (col_owner<F::NVH>(lane)) {
 #pragma unroll
     for (int q = 0; q < 3; ++q)
 #pragma unroll
       for (int i = 0; i < F::NR; ++i)
-        red[(wq * 3 + q) * C2 + c2 + F::column(i, lane, t4)] = run(q)[i];
+        red[(wq * 3 + q) * C2 + wg * H2 + F::column(i, lane, t4)] = run(q)[i];
   }
   __syncthreads();
   for (int i = tid; i < 3 * C2; i += kThreads) {
@@ -1483,13 +1648,16 @@ cudaError_t launch_wide(const uint16_t* A, const uint16_t* bc, const float* g, c
                         const int* starts, const uint16_t* w2, const float* b2, const float* s2,
                         const float* lb2, const uint16_t* w3, int B, int N, int M, int W,
                         int c2_real, float* dA, float* dbc, float* wout, float* records,
-                        float* da_records, cudaStream_t s) {
+                        float* da_records, uint16_t* stage, int ctas, cudaStream_t s) {
   constexpr int C1 = kWideC1, P = record_floats(kWideC1, kWideC2, kWideC3);
   const WideLayout L;
   if (L.total > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
   const int n_blk = M / kCenters, n_rec = B * n_blk;
   const size_t hit_bytes = (size_t)2 * n_blk * sizeof(int);
   if (hit_bytes > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
+  // one record a CTA, each CTA over blocks blockIdx.x + ctas k (fixed: the
+  // sums' order does not depend on the scheduling)
+  if (n_rec > 0 && (ctas <= 0 || ctas > n_rec || stage == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err;
   if (n_rec > 0) {
     err = cudaMemsetAsync(da_records, 0, (size_t)n_rec * W * C1 * sizeof(float), s);
@@ -1497,10 +1665,9 @@ cudaError_t launch_wide(const uint16_t* A, const uint16_t* bc, const float* g, c
     err = cudaFuncSetAttribute(pool_bwd_wide<COMPACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)L.total);
     if (err != cudaSuccess) return err;
-    dim3 grid(n_blk, B);
-    pool_bwd_wide<COMPACT><<<grid, kThreads, L.total, s>>>(
-        A, bc, g, win, starts, w2, b2, s2, lb2, w3, N, M, W, (float)c2_real,
-        1.f / (float)c2_real, dbc, records, da_records);
+    pool_bwd_wide<COMPACT><<<ctas, kThreads, L.total, s>>>(
+        A, bc, g, win, starts, w2, b2, s2, lb2, w3, B, N, M, W, (float)c2_real,
+        1.f / (float)c2_real, dbc, records, da_records, stage);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -1513,7 +1680,7 @@ cudaError_t launch_wide(const uint16_t* A, const uint16_t* bc, const float* g, c
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  reduce_records<8><<<(P + 31) / 32, 256, 0, s>>>(records, n_rec, P, wout);
+  reduce_records<8><<<(P + 31) / 32, 256, 0, s>>>(records, n_rec > 0 ? ctas : 0, P, wout);
   return cudaGetLastError();
 }
 
@@ -1521,7 +1688,8 @@ template <bool COMPACT>
 int dispatch(const void* A, const void* bc, const float* g, const int* win, const int* starts,
              const void* w2, const float* b2, const float* s2, const float* lb2, const void* w3,
              int B, int N, int M, int c1, int c2, int c3, int c2_real, int W, float* dA,
-             float* dbc, float* wout, float* records, float* da_records, void* stream) {
+             float* dbc, float* wout, float* records, float* da_records, void* stage, int ctas,
+             void* stream) {
   if (B < 0 || M < 0 || M % kCenters || W <= 0 || W > N || c2_real <= 0 || c2_real > c2)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1540,7 +1708,8 @@ int dispatch(const void* A, const void* bc, const float* g, const int* win, cons
 #undef EDA_BWD_LAUNCH
   if (c1 == kWideC1 && c2 == kWideC2 && c3 == kWideC3)
     return launch_wide<COMPACT>(a, bcv, g, win, starts, w2v, b2, s2, lb2, w3v, B, N, M, W,
-                                c2_real, dA, dbc, wout, records, da_records, s);
+                                c2_real, dA, dbc, wout, records, da_records,
+                                static_cast<uint16_t*>(stage), ctas, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1559,15 +1728,20 @@ extern "C" {
 // divisor. Outputs: dA (B, N, c1) f32; dbc (B, M, c1) f32; wout
 // (c1 c2 + c2 c3 + 3 c2 + c3) f32 = [dW2 (c1, c2); dW3 (c2, c3); db2; ds2;
 // dlb2; db3]. Scratch: records (B * M/16, the same length) f32 and
-// da_records (B * M/16, W, c1) f32 (M/16 <= 29056). Returns cudaGetLastError().
+// da_records (B * M/16, W, c1) f32 (M/16 <= 29056); at (256, 256, 512)
+// records (ctas, the same length), one a CTA of ctas (1 <= ctas <= B * M/16)
+// that each take every ctas-th block, and stage (ctas, 16 x 3 x 64 x 256) bf16,
+// the CTAs' staged tiles (unused by the narrower triples: NULL and 0).
+// Returns cudaGetLastError().
 #define EDA_POOL_BWD_ARGS                                                              \
   const void *A, const void *bc, const float *g, const int *win, const int *starts,    \
       const void *w2, const float *b2, const float *s2, const float *lb2,              \
       const void *w3, int B, int N, int M, int c1, int c2, int c3, int c2_real, int W, \
-      float *dA, float *dbc, float *wout, float *records, float *da_records, void *stream
+      float *dA, float *dbc, float *wout, float *records, float *da_records,           \
+      void *stage, int ctas, void *stream
 #define EDA_POOL_BWD_CALL                                                             \
   A, bc, g, win, starts, w2, b2, s2, lb2, w3, B, N, M, c1, c2, c3, c2_real, W, dA, dbc, \
-      wout, records, da_records, stream
+      wout, records, da_records, stage, ctas, stream
 
 int sa_pool_bwd_compact_launch(EDA_POOL_BWD_ARGS) { return dispatch<true>(EDA_POOL_BWD_CALL); }
 int sa_pool_bwd_window_launch(EDA_POOL_BWD_ARGS) { return dispatch<false>(EDA_POOL_BWD_CALL); }

@@ -40,8 +40,16 @@ from eda_tpu_torch.ops.cuda.sa_kernel import BLOCK, kernel_widths, pad_widths, w
 from eda_tpu_torch.ops.cuda.sa_prep import EPS, bf16_round
 
 PLAIN_MAX_ELEMS = 1 << 23  # (center, row, channel) elements the plain version holds at once
+# The wide kernel (csrc/sa_pair_pool_bwd.cu, pool_bwd_wide): one CTA an SM,
+# each over every ctas-th block of 16 centers with one record; it stages the
+# H0, H1 and bf16(dx) images (64 x 256 bf16 each) of up to WIDE_STAGE tiles of
+# 64 rows before folding their weight gradients into its record.
+WIDE = (256, 256, 512)
+WIDE_STAGE = 16
+WIDE_STAGE_ELEMS = WIDE_STAGE * 3 * 64 * 256
 
-_ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,) * 5
+_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,) * 6
+             + (ctypes.c_int,))
 COMPACT_KERNEL = register(Kernel(
     "sa_pair_pool_bwd", "sa_pool_bwd_compact_launch", _ARGTYPES,
     replaces="eda_tpu/ops/pallas/sa_kernel.py:649",
@@ -56,6 +64,23 @@ def compact_backward(window: int, c_out: int) -> bool:
     """The TPU's choice (``eda_tpu/ops/fused_sa.py:370-374``): compact when the
     winner-slot grid (c_out rounded up to 128 lanes) is smaller than the window."""
     return window % 128 == 0 and -(-c_out // 128) * 128 < window
+
+
+def scratch_plan(widths, B: int, M: int, window: int, sms: int) -> dict:
+    """The kernels' scratch for a call: ``ctas`` (the grid; 0 where a CTA
+    takes one block), and the shapes of ``records`` (f32, a record a CTA, or
+    a block), ``da_records`` (f32, a window's dA a block) and ``stage`` (bf16,
+    the wide kernel's staged tiles a CTA; None for the narrower triples).
+    ``sms``: the card's SM count, the wide kernel's CTAs at most."""
+    C1, C2, C3 = widths
+    blocks = B * M // BLOCK
+    record = C1 * C2 + C2 * C3 + 3 * C2 + C3
+    plan = {"ctas": 0, "records": (blocks, record), "da_records": (blocks, window, C1),
+            "stage": None}
+    if tuple(widths) == WIDE and blocks > 0:
+        ctas = min(blocks, sms)
+        plan.update(ctas=ctas, records=(ctas, record), stage=(ctas, WIDE_STAGE_ELEMS))
+    return plan
 
 
 def sa_pool_bwd_plain(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, *,
@@ -179,19 +204,23 @@ def sa_pool_bwd(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, *,
     if M % BLOCK or b_c.shape[:2] != (B, M) or starts.shape != (B, M // BLOCK) \
             or not 0 < window <= N:
         raise ValueError("sa_pool_bwd input shapes do not agree")
-    # one f32 record per CTA (16 centers): [dW2; dW3; db2; ds2; dlb2; db3], and
-    # its window's dA contributions, which a second kernel adds in block order
+    # one f32 record per CTA: [dW2; dW3; db2; ds2; dlb2; db3], and each block's
+    # window's dA contributions, which a second kernel adds in block order
     n_w2, n_w3 = C1 * C2, C2 * C3
     f32 = dict(dtype=torch.float32, device=A.device)
+    plan = scratch_plan(widths, B, M, window,
+                        torch.cuda.get_device_properties(A.device).multi_processor_count)
     dA = torch.empty((B, N, C1), **f32)
     dbc = torch.empty((B, M, C1), **f32)
     out = torch.empty(n_w2 + n_w3 + 3 * C2 + C3, **f32)
-    records = torch.empty((B * M // BLOCK, out.numel()), **f32)
-    da_records = torch.empty((B * M // BLOCK, window, C1), **f32)
+    records = torch.empty(plan["records"], **f32)
+    da_records = torch.empty(plan["da_records"], **f32)
+    stage = (None if plan["stage"] is None
+             else torch.empty(plan["stage"], dtype=torch.bfloat16, device=A.device))
     kernel = COMPACT_KERNEL if compact else WINDOW_KERNEL
     kernel(ptr(A), ptr(b_c), ptr(g), ptr(winners), ptr(starts), ptr(w2), ptr(b2), ptr(s2),
            ptr(lb2), ptr(w3), B, N, M, C1, C2, C3, c2, window, ptr(dA), ptr(dbc), ptr(out),
-           ptr(records), ptr(da_records))
+           ptr(records), ptr(da_records), ptr(stage), plan["ctas"])
     dw2, dw3 = out[:n_w2].view(C1, C2), out[n_w2:n_w2 + n_w3].view(C2, C3)
     vec = out[n_w2 + n_w3:]
     return (dA[..., :c1], dbc[..., :c1], dw2[:c1, :c2], vec[:c2], vec[C2:C2 + c2],

@@ -1,12 +1,17 @@
 """Device time of the SA kernels of one training step at the flagship's shapes, layer by layer.
 
-Records the kernel calls of one training step at batch 8 on 50 000-point
-synthetic scenes (random weights, seed 0), then times each call with CUDA
-events: ``--reps`` launches queued behind a device sleep, after one warm-up.
-``--kernels`` picks what is recorded:
+Records the kernel calls of one training step (and, for the pools, of one
+serving forward) at batch 8 on 50 000-point synthetic scenes (random weights,
+seed 0), then times each call with CUDA events: ``--reps`` launches queued
+behind a device sleep, after one warm-up. ``--kernels`` picks what is
+recorded:
 
-* ``pool`` (default): the pool backward (K5 compact at SA1, K6 windowed at
-  SA2-4, ``ops.fused_sa.sa_pool_bwd``) of ``ModelConfig(use_bf16=True)``;
+* ``pool`` (default): the pool forward of a serving forward (K3,
+  ``ops.fused_sa.sa_pair_pool``) and of a training step (K4, with winners,
+  ``sa_pair_pool_winners``) and the pool backward (K5 compact at SA1, K6
+  windowed at SA2-4, ``sa_pool_bwd``) of ``ModelConfig(use_bf16=True)``;
+* ``pool_w2x``: the same kernels of the width-2 backbone (``W2X_SA_MLPS``,
+  ``W2X_FP_MLPS``: SA2-4 on the wide (256, 256, 512) kernels);
 * ``prep_f32``: the f32 prep forward and backward (K2f, K7f,
   ``ops.fused_sa.sa_prep`` / ``sa_prep_bwd``) of ``ModelConfig()``;
 * ``prep_bf16``: the bf16 prep forward and backward (K2, K7) of
@@ -34,12 +39,34 @@ import sys
 import torch
 
 SLEEP_CYCLES = 50_000_000  # ~25 ms of device sleep ahead of the timed launches
-# --kernels -> (use_bf16, recorded fused_sa functions and the kernel each runs)
+# The width-2 backbone ("W2X"): Group-Free-3D's Pointnet2Backbone(width=2)
+# (models/backbone_module.py) doubles every SA and FP width of the flagship
+W2X_SA_MLPS = ((128, 128, 256), (256, 256, 512), (256, 256, 512), (256, 256, 512))
+W2X_FP_MLPS = ((512, 512), (512, 288))
+_POOL_STEP = {"sa_pair_pool_winners": "K4", "sa_pool_bwd": None}
+_POOL_SERVE = {"sa_pair_pool": "K3"}
+# --kernels -> (use_bf16, W2X widths, the recorded fused_sa functions of a
+# training step and of a serving forward, each with the kernel it runs; None:
+# K5 or K6 by the call's variant)
 KERNELS = {
-    "pool": (True, {"sa_pool_bwd": None}),
-    "prep_f32": (False, {"sa_prep": "K2f", "sa_prep_bwd": "K7f"}),
-    "prep_bf16": (True, {"sa_prep": "K2", "sa_prep_bwd": "K7"}),
+    "pool": (True, False, _POOL_STEP, _POOL_SERVE),
+    "pool_w2x": (True, True, _POOL_STEP, _POOL_SERVE),
+    "prep_f32": (False, False, {"sa_prep": "K2f", "sa_prep_bwd": "K7f"}, {}),
+    "prep_bf16": (True, False, {"sa_prep": "K2", "sa_prep_bwd": "K7"}, {}),
 }
+# the functions called SA1 -> SA4; the others (backward) SA4 -> SA1
+FORWARD = ("sa_prep", "sa_pair_pool", "sa_pair_pool_winners")
+
+
+def model_config(kernels: str):
+    """The model whose kernels ``--kernels`` times."""
+    import dataclasses
+
+    from eda_tpu_torch.config import ModelConfig
+
+    use_bf16, w2x = KERNELS[kernels][:2]
+    cfg = ModelConfig(use_bf16=use_bf16)
+    return dataclasses.replace(cfg, sa_mlps=W2X_SA_MLPS, fp_mlps=W2X_FP_MLPS) if w2x else cfg
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -89,29 +116,42 @@ def main(argv=None) -> int:
         print("pool_bwd_times: no CUDA device", file=sys.stderr)
         return 1
     from eda_tpu_torch.bench import card_line
-    from eda_tpu_torch.config import ModelConfig
     from eda_tpu_torch.entry import build, build_trainer
     from eda_tpu_torch.ops import fused_sa
 
-    use_bf16, recorded = KERNELS[args.kernels]
-    cfg = ModelConfig(use_bf16=use_bf16)
-    state, step, batch = build_trainer(cfg, batch_size=args.batch, device="cuda", seed=0)
-    calls = []
+    _, _, step_recorded, serve_recorded = KERNELS[args.kernels]
+    cfg = model_config(args.kernels)
+    recorded = {**step_recorded, **serve_recorded}
     kernels = {name: getattr(fused_sa, name) for name in recorded}
+    calls = []
 
-    def recorder(name):
-        def record(*a, **kw):
-            calls.append((name, a, kw))
-            return kernels[name](*a, **kw)
-        return record
+    def run_recorded(names, fn):
+        def recorder(name):
+            def record(*a, **kw):
+                calls.append((name, a, kw))
+                return kernels[name](*a, **kw)
+            return record
 
-    for name in recorded:
-        setattr(fused_sa, name, recorder(name))
-    try:
-        step(state, batch)
-    finally:
-        for name, fn in kernels.items():
-            setattr(fused_sa, name, fn)
+        for name in names:
+            setattr(fused_sa, name, recorder(name))
+        try:
+            fn()
+        finally:
+            for name in names:
+                setattr(fused_sa, name, kernels[name])
+
+    state, step, batch = build_trainer(cfg, batch_size=args.batch, device="cuda", seed=0)
+    run_recorded(step_recorded, lambda: step(state, batch))
+    busy = {"step": busy_ms(lambda: step(state, batch))} if args.busy else {}
+    del state, step, batch
+    torch.cuda.empty_cache()
+    model, inputs = build(cfg, batch_size=args.batch, device="cuda", seed=0)
+    with torch.inference_mode():
+        run_recorded(serve_recorded, lambda: model(inputs))
+        if args.busy:
+            model(inputs)
+            busy["forward"] = busy_ms(lambda: model(inputs))
+    del model, inputs
     torch.cuda.synchronize()
     layers, sums, repeat, seen = [], {}, True, {}
     for name, a, kw in calls:
@@ -121,9 +161,8 @@ def main(argv=None) -> int:
         repeat &= all(torch.equal(x, y) for x, y in outs)
         del first, again
         kernel = recorded[name] or ("K5" if kw["compact"] else "K6")
-        # forward calls run SA1 -> SA4, backward calls SA4 -> SA1
         i = seen[name] = seen.get(name, -1) + 1
-        layer = f"SA{i + 1}" if name == "sa_prep" else f"SA{4 - i}"
+        layer = f"SA{i + 1}" if name in FORWARD else f"SA{4 - i}"
         ms = cuda_ms(lambda: fn(*a, **kw), args.reps)
         sums[kernel] = sums.get(kernel, 0.0) + ms
         layers.append({"layer": layer, "kernel": kernel, "ms": ms,
@@ -131,14 +170,8 @@ def main(argv=None) -> int:
     out = {"label": args.label, "card": card_line(), "batch": args.batch,
            "kernels": args.kernels, "layers": layers,
            **{f"{k}_ms": v for k, v in sums.items()}, "bit_identical_repeat": repeat}
-    if args.busy:
-        out["busy_ms"] = {"step": busy_ms(lambda: step(state, batch))}
-        del calls, state, step, batch
-        torch.cuda.empty_cache()
-        model, inputs = build(cfg, batch_size=args.batch, device="cuda", seed=0)
-        with torch.inference_mode():
-            model(inputs)
-            out["busy_ms"]["forward"] = busy_ms(lambda: model(inputs))
+    if busy:
+        out["busy_ms"] = busy
     print(json.dumps(out), flush=True)
     return 0
 

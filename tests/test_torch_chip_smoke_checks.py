@@ -485,10 +485,26 @@ def test_leaf_errors_take_the_largest_gradient_as_their_scale():
 def test_w2x_phase_inputs_hold_their_edge_cases():
     """The w2x phase's inputs: the tie inputs at the wide widths make every
     in-radius pair of a center tie (the plain winners are the rule's under
-    every radius test); the backward's edge inputs at a window narrower than
-    c3 give a center one row for each of its W points; the phase's configs."""
-    (layer, widths, N, M, W), = chip_smoke.W2X_TIE_CASES
-    assert widths == sa_kernel.WIDTHS[-1] and W == 256 and W % 64 == 0
+    every radius test), at SA2's shape and window, at W = 1024, at a window
+    no multiple of the 64-row tile with an odd count of blocks, and in one
+    cluster of the forward's grid (one block in all); the backward's edge
+    inputs at a window narrower than c3 give a center one row for each of
+    its W points, and the cases hold blocks of more than 16 tiles (several
+    folds), CTAs of fewer rows than one tile and more blocks than SMs (a CTA
+    takes several in turn); the phase's configs."""
+    widths = sa_kernel.WIDTHS[-1]
+    cases = chip_smoke.W2X_TIE_CASES
+    assert all(c[1] == widths for c in cases)
+    assert (2, widths, 2048, 1024, 256) in cases  # SA2's shape, four 64-row stages
+    batch = {c: c[5] if len(c) > 5 else chip_smoke.BATCH for c in cases}
+    assert any(c[4] == 1024 for c in cases)  # sixteen stages
+    assert any(c[4] % 64 and (c[3] // 16) % 2 for c in cases)  # ragged stage, odd blocks
+    assert any(batch[c] * c[3] // 16 == 1 for c in cases)  # one cluster in the grid
+    for layer, _, N, M, W, *_ in cases:
+        assert M % 16 == 0 and 0 < W <= N
+        args, kw = chip_smoke.tie_inputs(B=1, N=N, M=M, window=W, widths=(16, 16, 32))
+        assert not chip_smoke.boundary_centers(args[1], args[3], args[4], kw["radius"], W).any()
+    W = 256
     args, kw = chip_smoke.tie_inputs(B=1, N=512, M=32, window=W, widths=widths)
     rule, none = chip_smoke.rule_winners(args, kw)
     mask = sa_mask.sa_radius_mask(args[1], args[3], args[4], **kw)
@@ -497,7 +513,19 @@ def test_w2x_phase_inputs_hold_their_edge_cases():
             *args, **kw, d2_mode=mode, mask=mask if mode == "pre" else None)
         assert torch.equal(w, rule[..., None].expand_as(w).int())
         assert torch.equal((v == -1e9).all(-1), none) and none.any() and not none.all()
-    assert {W for *_, W in chip_smoke.W2X_BWD_EDGE_CASES} == {256, 512}
+    bwd = chip_smoke.W2X_BWD_EDGE_CASES
+    assert {c[4] for c in bwd} == {4, 256, 512} and all(c[1] == widths for c in bwd)
+    assert all(N - W >= widths[2] for _, _, N, _, W in bwd)  # as bwd_edge_inputs needs
+    assert max(2 * M // 16 for _, _, _, M, _ in bwd) > 132  # more blocks than an H100's SMs
+    for _, _, N, M, W in bwd:
+        if W == 256:
+            continue
+        bargs, bkw = chip_smoke.bwd_edge_inputs(B=2, N=N, M=M, window=W, widths=widths)
+        blocks = chip_smoke.center_rows(bargs, {**bkw, "compact": False}).view(2, -1, 16).sum(-1)
+        if W == 4:  # every block (a CTA's) fewer live rows than one 64-row tile
+            assert blocks.max() < 64 and blocks.max() > 0
+        else:  # blocks of more than 16 tiles: the record folded several times
+            assert blocks.max() > 16 * 64
     bargs, bkw = chip_smoke.bwd_edge_inputs(B=1, N=1024, M=32, window=256, widths=widths)
     rows = chip_smoke.center_rows(bargs, {**bkw, "compact": False})
     assert rows.max() == 256 and (rows == 1).any()  # W rows for kind 1; one row for kind 0
