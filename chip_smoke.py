@@ -8,7 +8,9 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    its backward's, both bf16 prep kernels' and the f32 prep's tensor-core
    kernels must spill no register and, where the toolkit has ``cuobjdump``,
    every GEMM kernel of the five libraries must hold HGMMA (``wgmma``)
-   instructions; the counts are printed.
+   instructions; the counts are printed (the wide pool kernels, the compact
+   pool backward at (128, 128, 256) and the prep backward's cluster kernel
+   among them).
    Then the pool tie check: all six pool variants (``pair``, ``mxu``,
    ``pre``, each with and without winners) on a full-width SA2 input with
    W3 = 0 and distinct b3, where every in-radius pair of a center gives b3
@@ -32,7 +34,10 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    variant, N = 1001 and 8191). And the prep backward edge check: K7 within
    2% of each output's largest value on ``prep_bwd_edge_inputs`` (row counts
    that are no multiple of 64, the tiny widths, zero dA, large-magnitude
-   points), its weight and vector gradients bit-identical on a second launch.
+   points, the width-2 backbone's SA1 over more tiles than CTAs and its
+   SA2 / SA3 widths on the cluster kernel, SA2's over more tiles than
+   clusters, an odd c1 above 64 at K = 16), every output bit-identical on a
+   second launch.
    Then the pool widths check: the six pool variants and K5 / K6 at three
    triples outside the instantiated widths ((48, 48, 96) on an SA1-shaped
    input at W = 1024, (96, 80, 200) and (192, 160, 384) on SA2-shaped ones at
@@ -180,7 +185,9 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    1024, a ragged last stage with an odd count of blocks, one cluster in
    all) and its backward (the staged fold) on edge inputs
    (``W2X_BWD_EDGE_CASES``: blocks of more than 16 tiles, CTAs of fewer rows
-   than a tile, more blocks than SMs); the tiny W2X model, step and scoring against
+   than a tile, more blocks than SMs; and SA1's compact kernel at its own
+   shape, with winners outside the window, every channel of a center live
+   and rows of many centers tied on one point); the tiny W2X model, step and scoring against
    their CPU twins; at full width, batch 8, K2, K3 / K4, K5 / K6 and K7
    against their plain versions on a forward's and a step's inputs (the
    full-width tolerances), ``REQUESTS`` serving batches and ``W2X_STEPS``
@@ -844,11 +851,13 @@ def hgmma_counts(library: Path):
     return counts
 
 
-# tensor-core kernel libraries: source -> the names of its GEMM kernels (the
-# pool's and its backward's wide kernels, (256, 256, 512), apart)
+# tensor-core kernel libraries: source -> the names of its GEMM kernels; the
+# pool's and its backward's wide kernels, (256, 256, 512), the backward's
+# compact kernel at (128, 128, 256) and the prep backward's cluster kernel at
+# c1 256 must be among them
 GEMM_KERNELS = {"sa_pair_pool": ("sa_pair_pool_kernel", "sa_pair_pool_wide"),
-                "sa_pair_pool_bwd": ("pool_bwd_tiles", "pool_bwd_wide"),
-                "sa_prep_bwd": ("prep_bwd_tiles",), "sa_prep": ("sa_prep_kernel",),
+                "sa_pair_pool_bwd": ("pool_bwd_tiles", "pool_bwd_wide", "pool_bwd_compact"),
+                "sa_prep_bwd": ("prep_bwd_tiles", "prep_bwd_cluster"), "sa_prep": ("sa_prep_kernel",),
                 "sa_prep_f32": ("prep_tc",)}
 
 
@@ -878,6 +887,14 @@ def check_pool_build(logs: dict, build) -> None:
             if not wide:
                 raise AssertionError(f"{source} holds no wide kernel")
             print(f"  of which {len(wide)} wide kernels, fewest HGMMA in one {min(wide)}")
+        for kind, name in (("sa_pair_pool_bwd", "pool_bwd_compact"),
+                           ("sa_prep_bwd", "prep_bwd_cluster")):
+            if source != kind:
+                continue
+            found = [n for f, n in gemms.items() if name in f]
+            if not found:
+                raise AssertionError(f"{source} holds no {name} kernel")
+            print(f"  of which {name}: {found[0]} HGMMA")
 
 
 def tie_inputs(B=BATCH, N=2048, M=1024, window=256, widths=(128, 128, 256), seed=0):
@@ -989,7 +1006,8 @@ def pool_tie_check(cases=TIE_CASES) -> None:
               f"{dense_flops(random_w3, kw) / ms / 1e9:.1f} TFLOP/s over the dense window work)")
 
 
-def bwd_edge_inputs(B=2, N=2048, M=1024, window=256, widths=(128, 128, 256), seed=0):
+def bwd_edge_inputs(B=2, N=2048, M=1024, window=256, widths=(128, 128, 256), seed=0,
+                    tie_pool=None):
     """A pool-backward input with the row packing's edge cases, in every block
     of 16 centers (center m, kind m % 16):
     kind 0: one point wins every channel (windowed: one row carrying all c3);
@@ -997,7 +1015,9 @@ def bwd_edge_inputs(B=2, N=2048, M=1024, window=256, widths=(128, 128, 256), see
     where the window is narrower than c3, each of its W points wins a channel
     or two: W rows);
     kind 2: the odd channels won outside the window (compact: zero A rows);
-    other kinds: random in-window winners, 20% of the cotangents 0.
+    other kinds: random in-window winners, 20% of the cotangents 0; with
+    ``tie_pool`` drawn from the window's first ``tie_pool`` points only, so
+    that the rows of many centers and channels tie on one point.
     Every fourth block has g = 0 everywhere (no live row), and the last two
     blocks' windows are clamped at N - W. Returns (args, kw), CPU tensors,
     ``kw`` without the variant; needs N - W >= c3."""
@@ -1011,7 +1031,7 @@ def bwd_edge_inputs(B=2, N=2048, M=1024, window=256, widths=(128, 128, 256), see
     start = window_starts(starts, N, window).repeat_interleave(BLOCK, dim=1)[..., None]
     kind = (torch.arange(M) % BLOCK)[None, :, None]
     chan = torch.arange(c3)
-    winners = start + torch.randint(0, window, (B, M, c3), generator=gen)
+    winners = start + torch.randint(0, tie_pool or window, (B, M, c3), generator=gen)
     winners = torch.where(kind == 0, winners[..., :1], winners)
     distinct = torch.rand(B, M, max(window, c3), generator=gen).argsort(-1)[..., :c3] % window
     winners = torch.where(kind == 1, start + distinct, winners)
@@ -1042,11 +1062,13 @@ def bwd_symbol(compact: bool) -> str:
 @torch.no_grad()
 def pool_bwd_edge_check(cases=BWD_EDGE_CASES) -> None:
     """K5 and K6 against the plain version on ``bwd_edge_inputs`` of each
-    entry of ``cases``, within the step's tolerances."""
+    entry of ``cases`` ((layer, widths, N, M, window[, tie pool])), within the
+    step's tolerances, every output bit for bit on a second launch."""
     from eda_tpu_torch.ops.cuda import sa_pool_bwd
 
-    for layer, widths, n_points, n_centers, window in cases:
-        args, kw = bwd_edge_inputs(N=n_points, M=n_centers, window=window, widths=widths)
+    for layer, widths, n_points, n_centers, window, *tie in cases:
+        args, kw = bwd_edge_inputs(N=n_points, M=n_centers, window=window, widths=widths,
+                                   tie_pool=tie[0] if tie else None)
         args = tuple(a.cuda() for a in args)
         for compact in (True, False):
             ckw = dict(kw, compact=compact)
@@ -1212,7 +1234,12 @@ def prep_bwd_edge_inputs(seed=0) -> dict:
     backward's edge cases. Row counts that are no multiple of the kernel's
     64-row tile at SA1's and SA3's widths and at the width-2 backbone's SA2 and
     SA3 (in_dim 259 and 515 at c1 256, the latter with W1 streamed) and the
-    largest in_dim, 2048 (W1 and P in four K chunks); the tiny config's widths
+    largest in_dim, 2048 (W1 and P in four K chunks); the width-2 backbone's
+    SA1 (in_dim 6 at c1 128, dW1 held) over more 64-row tiles than the kernel
+    has CTAs (so that a CTA holds several tiles' sums) and its SA2 over more
+    tiles than the cluster kernel has clusters (each adding several tiles into
+    its record); an odd c1 above 64 at K = 16 (the record path, not the held
+    one); the tiny config's widths
     (in_dim 6 / 35 / 67, c1 16 / 32); a zero cotangent; points of large
     magnitude."""
     g = torch.Generator().manual_seed(seed)
@@ -1228,12 +1255,15 @@ def prep_bwd_edge_inputs(seed=0) -> dict:
 
     return {
         "SA1 widths (6, 64), 1000 rows": case(1, 1000, 6, 64, 0.2),
+        "W2X SA1 widths (6, 128), 70 001 rows": case(1, 70001, 6, 128, 0.2),
         "SA3 widths (259, 128), 3 x 77 rows": case(3, 77, 259, 128, 0.8),
         "tiny SA1 widths (6, 16), 2 x 1000 rows": case(2, 1000, 6, 16, 0.2),
         "tiny SA2 widths (35, 32), 2 x 250 rows": case(2, 250, 35, 32, 0.4),
         "tiny SA3 widths (67, 32), 2 x 100 rows": case(2, 100, 67, 32, 0.8),
         "zero dA, SA2 widths (131, 128)": case(2, 300, 131, 128, 0.4, zero=True),
         "W2X SA2 widths (259, 256), 1 x 130 rows": case(1, 130, 259, 256, 0.4),
+        "W2X SA2 widths (259, 256), 40 001 rows": case(1, 40001, 259, 256, 0.4),
+        "odd c1 at K 16 (6, 127), 2 x 1000 rows": case(2, 1000, 6, 127, 0.2),
         "W2X SA3 widths (515, 256), 2 x 77 rows": case(2, 77, 515, 256, 0.8),
         "the largest in_dim (2048, 256), 1 x 70 rows": case(1, 70, 2048, 256, 1.2),
         "large-magnitude points, SA1 widths": case(1, 4100, 6, 64, 0.2, 500.0, 50.0),
@@ -1243,8 +1273,8 @@ def prep_bwd_edge_inputs(seed=0) -> dict:
 @torch.no_grad()
 def prep_bwd_edge_check() -> None:
     """K7 against its plain version on every ``prep_bwd_edge_inputs`` case,
-    within ``PREP_BWD_REL``, and its weight and vector gradients bit-identical
-    on a second launch."""
+    within ``PREP_BWD_REL``, and every output bit-identical on a second
+    launch."""
     from eda_tpu_torch.ops.cuda import sa_prep
 
     for name, (args, radius) in prep_bwd_edge_inputs().items():
@@ -1256,12 +1286,12 @@ def prep_bwd_edge_check() -> None:
         errs = [rel_err(a, b) for a, b in zip(got, want)]
         if max(errs) > PREP_BWD_REL or not all(torch.isfinite(a).all() for a in got):
             raise AssertionError(f"prep backward edge check {name}: {errs}")
-        if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
-            raise AssertionError(f"prep backward edge check {name}: a weight or vector "
-                                 f"gradient differs between two launches")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"prep backward edge check {name}: an output differs "
+                                 f"between two launches")
         print(f"prep backward edge check {name}: errors relative to each output's largest "
-              f"value {[f'{e:.2e}' for e in errs]}; dW1, db1, dscale, dlnb bit-identical on a "
-              f"second launch")
+              f"value {[f'{e:.2e}' for e in errs]}; dpts, dW1, db1, dscale, dlnb bit-identical "
+              f"on a second launch")
 
 
 # the prep forward's edge widths: c1 with its instantiation's padding, in_dim
@@ -2714,13 +2744,18 @@ W2X_TINY_FP_MLPS = ((512, 512), (512, 96))
 # backward at W = 256 (fewer points than channels: a center's W points win
 # all 512) and 512 (blocks of more than 16 tiles: the record folded several
 # times), at W = 4 (every CTA fewer rows than one tile) and with more blocks
-# than the card has SMs (a CTA takes several blocks in turn)
+# than the card has SMs (a CTA takes several blocks in turn); and SA1's own
+# shape, compact at (128, 128, 256) with W = 1024 over 50 000 points
+# (pool_bwd_compact, 256 blocks over the SMs), the random winners drawn from
+# a window's first 4 points, so that rows of many centers and channels tie
+# on one point ((layer, widths, N, M, W[, tie pool]))
 W2X_TIE_CASES = ((2, (256, 256, 512), 2048, 1024, 256), (2, (256, 256, 512), 2048, 1024, 1024),
                  (2, (256, 256, 512), 2048, 48, 100, 2), (2, (256, 256, 512), 2048, 16, 256, 1))
 W2X_BWD_EDGE_CASES = ((2, (256, 256, 512), 2048, 1024, 256),
                       (2, (256, 256, 512), 2048, 1024, 512),
                       (2, (256, 256, 512), 1024, 64, 4),
-                      (2, (256, 256, 512), 8192, 4096, 256))
+                      (2, (256, 256, 512), 8192, 4096, 256),
+                      (1, (128, 128, 256), 50000, 2048, 1024, 4))
 W2X_STEPS = 3  # full-width W2X training steps
 # The tiny W2X step's leaves are held as the flagship's, but those that fail
 # the per-leaf gates on the CPU itself once its pools' values move by one bf16

@@ -690,25 +690,8 @@ __device__ __forceinline__ uint64_t desc_at(uint32_t addr, uint32_t lbo, uint32_
   return make_desc(opaque(addr), lbo, sbo);
 }
 
-// ---- the cluster: ranks, peers' shared memory, mbarriers across CTAs
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// The address of the same shared-memory byte in CTA `rank` of the cluster.
-__device__ __forceinline__ uint32_t peer(uint32_t addr, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
+// ---- the cluster: mbarriers across CTAs (ranks, peers' addresses and the
+// cluster barrier in wgmma.cuh)
 
 __device__ __forceinline__ void mbar_init_n(uint32_t bar, uint32_t arrivals) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(arrivals));

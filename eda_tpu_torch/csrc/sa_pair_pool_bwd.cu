@@ -53,21 +53,31 @@
 //     are folded by a transposing lane butterfly into a few running sums a
 //     lane. bf16(dx) goes to shared memory; GEMM3 dh0 = DX W2^T reads W2
 //     transposed (MN-major) from the copy GEMM1 reads. The compact variant
-//     runs GEMM2 over its one-hot D as well: one code path for both.
+//     runs GEMM2 over its one-hot D as well: one code path for both. The
+//     per-tile LayerNorm (ln_stats, ln_h1, ln_relu_backward), the row sums'
+//     exchange and the record's column sums (write_column_sums) are device
+//     helpers that the three kernels share (pool_bwd_wide: the exchange and
+//     the column sums; its LayerNorm keeps xhat in shared memory).
 //   * Weight gradients on the tensor cores, over live rows only: dW2 =
 //     H0^T DX and dW3 = H1^T D read both operands MN-major from the tile's
 //     buffers, K = the tile's 64 rows. At (64, 64, 128) and narrower the two
 //     f32 sums stay in registers across the CTA's tiles (48 a thread at SA1);
-//     at (128, 128, 256) they would take 192, and each tile's product is
-//     added in 64 x 64 chunks to the CTA's own f32 record in device memory by
-//     the thread that owns the element (no atomics; the record's loads are
-//     in flight while the chunk's product runs). A second kernel adds the
-//     records in a fixed order. Every weight and vector gradient and db_c is
-//     a fixed-order sum: bit-identical across launches.
+//     at (128, 128, 256) (windowed rows: K6 at SA2-4, where a block's tiles
+//     are few) they would take 192, and each tile's product is added in 64 x
+//     64 chunks to the CTA's own f32 record in device memory by the thread
+//     that owns the element (no atomics; the record's loads are in flight
+//     while the chunk's product runs). A second kernel adds the records in a
+//     fixed order. Every weight and vector gradient and db_c is a fixed-order
+//     sum: bit-identical across launches.
+//   * The compact rows at (128, 128, 256), 64 tiles a block at the width-2
+//     backbone's SA1, run pool_bwd_compact (its note below): one persistent
+//     CTA an SM, the one-hot products a quarter of the channels at a time,
+//     the weight-gradient sums in shared memory, no per-tile record update.
 //   * dh0 goes through shared memory (f32, swizzled): the threads of a column
 //     add each center's rows into db_c in row order. dA is shared by the
 //     overlapping windows of other CTAs, so each CTA adds into its own f32
-//     record of its window (W x c1, zeroed by the launcher): per tile, the
+//     record of its window (W x c1, zeroed by the launcher; pool_bwd_compact
+//     zeroes its blocks' own): per tile, the
 //     first row of each position leads, sums the tile's rows of that position
 //     in row order (compact: each bf16(dh0)) and adds the sum to the record;
 //     the tile's leaders hold distinct positions and the tiles follow each
@@ -78,8 +88,8 @@
 //     used (`opaque`), so the compiler does not hoist them out of the tile
 //     loop and hold them in registers across the phases.
 //   * Scratch: one record of c1 c2 + c2 c3 + 3 c2 + c3 floats per CTA (SA2:
-//     512 CTAs, 99 MB at batch 8) and one dA record of W c1 floats per CTA
-//     (SA1: 1024 CTAs, 268 MB at batch 8), no pair-row buffers.
+//     512 CTAs, 99 MB at batch 8) and one dA record of W c1 floats per block
+//     (SA1: 1024 blocks, 268 MB at batch 8), no pair-row buffers.
 //   * The width-2 backbone's (256, 256, 512) runs in pool_bwd_wide: the same
 //     rows and sums, with W2 (128 KiB) and W3 (256 KiB) streamed from L2
 //     through a ring, since the tile buffers alone take most of a block's
@@ -188,6 +198,177 @@ __device__ __forceinline__ void compiler_fence() { asm volatile("" ::: "memory")
 template <int C1>
 __device__ __forceinline__ int dh0_at(int r, int c) {
   return r * C1 + (c ^ (((r & 7) << 3) & (C1 - 1)));
+}
+
+// ---- The per-tile LayerNorm of h1 in the accumulator layout, shared by the
+// kernels below. Warpgroup wg holds the C2 / 2 = H2 columns c2 = wg H2 .. of
+// a tile's 64 rows, a thread its rows r0 and r0 + 8 at columns c2 + 8 j + 2 t4
+// (and + 1). A row's sums over C2: the quad's, then the two warpgroups'
+// halves added in order through shared memory (xs: [2 uses][2 warpgroups][64
+// rows][2] floats).
+
+// the thread's rows' partial sums (a, b) into its warpgroup's slot of `use`
+__device__ __forceinline__ void row_sums_put(float (&a)[2], float (&b)[2], float* xs, int use,
+                                             int wg, int r0, int t4) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    a[h] += __shfl_xor_sync(0xffffffffu, a[h], 1);
+    a[h] += __shfl_xor_sync(0xffffffffu, a[h], 2);
+    b[h] += __shfl_xor_sync(0xffffffffu, b[h], 1);
+    b[h] += __shfl_xor_sync(0xffffffffu, b[h], 2);
+    if (t4 == 0)
+      *reinterpret_cast<float2*>(xs + ((2 * use + wg) * kRows + r0 + 8 * h) * 2) =
+          make_float2(a[h], b[h]);
+  }
+}
+
+// after a barrier: the rows' sums of `use`, the two warpgroups' halves in order
+__device__ __forceinline__ void row_sums_get(float (&a)[2], float (&b)[2], const float* xs,
+                                             int use, int r0) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float2 p0 = *reinterpret_cast<const float2*>(xs + (2 * use * kRows + r0 + 8 * h) * 2);
+    const float2 p1 =
+        *reinterpret_cast<const float2*>(xs + ((2 * use + 1) * kRows + r0 + 8 * h) * 2);
+    a[h] = p0.x + p1.x;
+    b[h] = p0.y + p1.y;
+  }
+}
+
+// a row's mean and rstd from its sums of z and z^2 over C2 columns
+template <int C2>
+__device__ __forceinline__ void row_stats(const float (&sum)[2], const float (&sq)[2], float c2f,
+                                          float rc2, float (&mean)[2], float (&rstd)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mean[h] = div_width<C2>(sum[h], c2f, rc2);
+    const float var = fmaxf(div_width<C2>(sq[h], c2f, rc2) - mean[h] * mean[h], 0.f);
+    rstd[h] = rsqrtf(var + kEps);
+  }
+}
+
+// LN forward: acc (X, the warpgroup's columns) becomes z = X + b2; the rows'
+// mean and rstd (a CTA barrier)
+template <int C2, int H2>
+__device__ __forceinline__ void ln_stats(float (&acc)[H2 / 2], const float* b2s, float* xs,
+                                         int wg, int r0, int t4, float c2f, float rc2,
+                                         float (&mean)[2], float (&rstd)[2]) {
+  const int c2 = wg * H2;
+  float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < H2 / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float z = acc[4 * j + e] + b2s[c2 + 8 * j + 2 * t4 + (e & 1)];
+      acc[4 * j + e] = z;
+      sum[e / 2] += z;
+      sq[e / 2] += z * z;
+    }
+  }
+  row_sums_put(sum, sq, xs, 0, wg, r0, t4);
+  __syncthreads();
+  row_sums_get(sum, sq, xs, 0, r0);
+  row_stats<C2>(sum, sq, c2f, rc2, mean, rstd);
+}
+
+// acc (z) becomes xhat; h1 = bf16(relu(xhat s2 + lb2)) into the h1 tile (row
+// stride ld); pos_bits: h1 > 0, one bit an accumulator
+template <int H2>
+__device__ __forceinline__ void ln_h1(float (&acc)[H2 / 2], const float (&mean)[2],
+                                      const float (&rstd)[2], const float* s2s, const float* lb2s,
+                                      uint16_t* h1s, int ld, int wg, int r0, int t4,
+                                      uint32_t (&pos_bits)[(H2 / 2 + 31) / 32]) {
+#pragma unroll
+  for (int i = 0; i < (H2 / 2 + 31) / 32; ++i) pos_bits[i] = 0u;
+#pragma unroll
+  for (int j = 0; j < H2 / 8; ++j) {
+    const int c = wg * H2 + 8 * j + 2 * t4;
+    float y[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float xh = (acc[4 * j + e] - mean[e / 2]) * rstd[e / 2];
+      acc[4 * j + e] = xh;
+      const float pre = xh * s2s[c + (e & 1)] + lb2s[c + (e & 1)];
+      // h1 = bf16(relu(pre)) > 0 exactly where pre > 0
+      if (pre > 0.f) pos_bits[(4 * j + e) / 32] |= 1u << ((4 * j + e) % 32);
+      y[e] = fmaxf(pre, 0.f);
+    }
+    *reinterpret_cast<uint32_t*>(h1s + core_at(r0, c, ld)) = pack_bf16x2(y[0], y[1]);
+    *reinterpret_cast<uint32_t*>(h1s + core_at(r0 + 8, c, ld)) = pack_bf16x2(y[2], y[3]);
+  }
+}
+
+// LN + ReLU backward: accd (dh1) becomes dln (zero where h1 = 0), then
+// dxhat, then dx; bf16(dx) into the dx tile (row stride C2); the thread's
+// db2, ds2 and dlb2 column sums added into run[0], run[1], run[2] (a CTA
+// barrier)
+template <int C2, int H2>
+__device__ __forceinline__ void ln_relu_backward(
+    float (&accd)[H2 / 2], const float (&xhat)[H2 / 2],
+    const uint32_t (&pos_bits)[(H2 / 2 + 31) / 32], const float (&rstd)[2], const float* s2s,
+    uint16_t* dxs, float* xs, int wg, int r0, int t4, int lane, float c2f, float rc2,
+    float (&run)[3][Fold<H2>::NR]) {
+  const int c2 = wg * H2;
+#pragma unroll
+  for (int i = 0; i < H2 / 2; ++i)
+    if (!((pos_bits[i / 32] >> (i % 32)) & 1u)) accd[i] = 0.f;
+  fold_columns<H2, true>(accd, xhat, lane, run[1]);   // ds2
+  fold_columns<H2, false>(accd, xhat, lane, run[2]);  // dlb2
+  float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < H2 / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float dxh = accd[4 * j + e] * s2s[c2 + 8 * j + 2 * t4 + (e & 1)];
+      accd[4 * j + e] = dxh;
+      m1[e / 2] += dxh;
+      m2[e / 2] += dxh * xhat[4 * j + e];
+    }
+  }
+  row_sums_put(m1, m2, xs, 1, wg, r0, t4);
+  __syncthreads();
+  row_sums_get(m1, m2, xs, 1, r0);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m1[h] = div_width<C2>(m1[h], c2f, rc2);
+    m2[h] = div_width<C2>(m2[h], c2f, rc2);
+  }
+#pragma unroll
+  for (int j = 0; j < H2 / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      accd[4 * j + e] = rstd[e / 2] * (accd[4 * j + e] - m1[e / 2] - xhat[4 * j + e] * m2[e / 2]);
+    const int c = c2 + 8 * j + 2 * t4;
+    *reinterpret_cast<uint32_t*>(dxs + core_at(r0, c, C2)) =
+        pack_bf16x2(accd[4 * j], accd[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(dxs + core_at(r0 + 8, c, C2)) =
+        pack_bf16x2(accd[4 * j + 2], accd[4 * j + 3]);
+  }
+  fold_columns<H2, false>(accd, xhat, lane, run[0]);  // db2
+}
+
+// The record's column sums: each thread's db2, ds2 and dlb2 sums (run + q NR,
+// its rows at its warpgroup's columns) through `red` (4 x 3 x C2 floats), the
+// four warps of a warpgroup added in order into out[0 .. 3 C2) (a CTA barrier)
+template <int C2, int H2>
+__device__ __forceinline__ void write_column_sums(const float* run, float* red, float* out,
+                                                  int tid) {
+  using F = Fold<H2>;
+  const int lane = tid % 32, wq = (tid / 32) % 4, t4 = lane % 4, c2 = (tid / 128) * H2;
+  if (col_owner<F::NVH>(lane)) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int i = 0; i < F::NR; ++i)
+        red[(wq * 3 + q) * C2 + c2 + F::column(i, lane, t4)] = run[q * F::NR + i];
+  }
+  __syncthreads();
+  for (int i = tid; i < 3 * C2; i += kThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) s += red[w * 3 * C2 + i];
+    out[i] = s;
+  }
 }
 
 template <int C1, int C2, int C3, bool COMPACT>
@@ -465,112 +646,17 @@ pool_bwd_tiles(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
     wgmma_wait<1>();
     fence_regs(acc1);
 
-    // ---- LN forward in the accumulator: acc1 becomes xhat; h1 to shared.
-    // A row's statistics: the quad's sums, then both warpgroups' halves in
-    // order through shared memory.
+    // ---- LN forward in the accumulator: acc1 becomes xhat; h1 to shared
     float mean[2], rstd[2];
-    {
-      float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < H2 / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float z = acc1[4 * j + e] + b2s[c2 + 8 * j + 2 * t4 + (e & 1)];
-          acc1[4 * j + e] = z;
-          sum[e / 2] += z;
-          sq[e / 2] += z * z;
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-        sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
-        sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
-        if (t4 == 0)
-          *reinterpret_cast<float2*>(xs + (wg * kRows + r0 + 8 * h) * 2) =
-              make_float2(sum[h], sq[h]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float2 p0 = *reinterpret_cast<const float2*>(xs + (r0 + 8 * h) * 2);
-        const float2 p1 = *reinterpret_cast<const float2*>(xs + (kRows + r0 + 8 * h) * 2);
-        mean[h] = div_width<C2>(p0.x + p1.x, c2f, rc2);
-        const float var = fmaxf(div_width<C2>(p0.y + p1.y, c2f, rc2) - mean[h] * mean[h], 0.f);
-        rstd[h] = rsqrtf(var + kEps);
-      }
-    }
-    uint32_t pos_bits[(H2 / 2 + 31) / 32] = {};  // h1 > 0, one bit an accumulator
-#pragma unroll
-    for (int j = 0; j < H2 / 8; ++j) {
-      const int c = c2 + 8 * j + 2 * t4;
-      float y[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float xh = (acc1[4 * j + e] - mean[e / 2]) * rstd[e / 2];
-        acc1[4 * j + e] = xh;
-        const float pre = xh * s2s[c + (e & 1)] + lb2s[c + (e & 1)];
-        // h1 = bf16(relu(pre)) > 0 exactly where pre > 0
-        if (pre > 0.f) pos_bits[(4 * j + e) / 32] |= 1u << ((4 * j + e) % 32);
-        y[e] = fmaxf(pre, 0.f);
-      }
-      *reinterpret_cast<uint32_t*>(h1s + core_at(r0, c, CP2)) = pack_bf16x2(y[0], y[1]);
-      *reinterpret_cast<uint32_t*>(h1s + core_at(r0 + 8, c, CP2)) = pack_bf16x2(y[2], y[3]);
-    }
+    ln_stats<C2, H2>(acc1, b2s, xs, wg, r0, t4, c2f, rc2, mean, rstd);
+    uint32_t pos_bits[(H2 / 2 + 31) / 32];  // h1 > 0, one bit an accumulator
+    ln_h1<H2>(acc1, mean, rstd, s2s, lb2s, h1s, CP2, wg, r0, t4, pos_bits);
     wgmma_wait<0>();
     fence_regs(accd);
 
     // ---- LN + ReLU backward: accd becomes dln, then dxhat, then dx
-    {
-#pragma unroll
-      for (int i = 0; i < H2 / 2; ++i)
-        if (!((pos_bits[i / 32] >> (i % 32)) & 1u)) accd[i] = 0.f;
-      fold_columns<H2, true>(accd, acc1, lane, run[1]);   // ds2
-      fold_columns<H2, false>(accd, acc1, lane, run[2]);  // dlb2
-      float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < H2 / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float dxh = accd[4 * j + e] * s2s[c2 + 8 * j + 2 * t4 + (e & 1)];
-          accd[4 * j + e] = dxh;
-          m1[e / 2] += dxh;
-          m2[e / 2] += dxh * acc1[4 * j + e];
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        m1[h] += __shfl_xor_sync(0xffffffffu, m1[h], 1);
-        m1[h] += __shfl_xor_sync(0xffffffffu, m1[h], 2);
-        m2[h] += __shfl_xor_sync(0xffffffffu, m2[h], 1);
-        m2[h] += __shfl_xor_sync(0xffffffffu, m2[h], 2);
-        if (t4 == 0)
-          *reinterpret_cast<float2*>(xs + ((2 + wg) * kRows + r0 + 8 * h) * 2) =
-              make_float2(m1[h], m2[h]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float2 p0 = *reinterpret_cast<const float2*>(xs + (2 * kRows + r0 + 8 * h) * 2);
-        const float2 p1 = *reinterpret_cast<const float2*>(xs + (3 * kRows + r0 + 8 * h) * 2);
-        m1[h] = div_width<C2>(p0.x + p1.x, c2f, rc2);
-        m2[h] = div_width<C2>(p0.y + p1.y, c2f, rc2);
-      }
-#pragma unroll
-      for (int j = 0; j < H2 / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          accd[4 * j + e] =
-              rstd[e / 2] * (accd[4 * j + e] - m1[e / 2] - acc1[4 * j + e] * m2[e / 2]);
-        const int c = c2 + 8 * j + 2 * t4;
-        *reinterpret_cast<uint32_t*>(dxs + core_at(r0, c, C2)) =
-            pack_bf16x2(accd[4 * j], accd[4 * j + 1]);
-        *reinterpret_cast<uint32_t*>(dxs + core_at(r0 + 8, c, C2)) =
-            pack_bf16x2(accd[4 * j + 2], accd[4 * j + 3]);
-      }
-      fold_columns<H2, false>(accd, acc1, lane, run[0]);  // db2
-    }
+    ln_relu_backward<C2, H2>(accd, acc1, pos_bits, rstd, s2s, dxs, xs, wg, r0, t4, lane, c2f,
+                             rc2, run);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
 
@@ -711,22 +797,601 @@ pool_bwd_tiles(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
   } else if (tiles == 0) {
     for (int i = tid; i < C1 * C2 + C2 * C3; i += kThreads) rec[i] = 0.f;
   }
-  // the column sums: warp wq of warpgroup wg owns its rows at the wg's columns
-  if (col_owner<F::NVH>(lane)) {
-#pragma unroll
-    for (int q = 0; q < 3; ++q)
-#pragma unroll
-      for (int i = 0; i < F::NR; ++i)
-        red[(wq * 3 + q) * C2 + c2 + F::column(i, lane, t4)] = run[q][i];
-  }
-  __syncthreads();
-  for (int i = tid; i < 3 * C2; i += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) s += red[w * 3 * C2 + i];
-    rec[C1 * C2 + C2 * C3 + i] = s;
-  }
+  write_column_sums<C2, H2>(run[0], red, rec + C1 * C2 + C2 * C3, tid);
   for (int i = tid; i < kCenters * C1; i += kThreads) dbc[cm0 * C1 + i] = dbcs[i];
+}
+
+// ---- the compact kernel at (c1, c2, c3) = (128, 128, 256): the width-2
+// backbone's SA1, 4.16 M live rows (65 000 tiles) at batch 8
+
+constexpr int kCpC1 = 128, kCpC2 = 128, kCpC3 = 256;
+constexpr int kCpQ = 64;              // channels a quarter of c3
+constexpr int kCpNQ = kCpC3 / kCpQ;   // quarters
+constexpr int kCpAccLd = kCpQ + 8;    // f32 row stride of the dW3 quarter sums (no conflicts)
+
+struct CompactLayout {
+  size_t w2, w3q, h0, h1, dx, dq, dw2, acc, rows, dbc, vec, xs, meta, masks, qs, total;
+  __host__ __device__ CompactLayout() {
+    size_t o = 0;
+    w2 = o;    o += align128((size_t)kCpC1 * kCpC2 * 2);
+    w3q = o;   o += align128((size_t)kCpC2 * kCpQ * 2);    // W3's columns of a quarter
+    h0 = o;    o += align128((size_t)kRows * kCpC1 * 2);
+    h1 = o;    o += align128((size_t)kRows * kCpC2 * 2);  // h1, then dx: dh0 (f32) takes both
+    dx = o;    o += align128((size_t)kRows * kCpC2 * 2);
+    dq = o;    o += align128((size_t)kRows * kCpQ * 2);
+    dw2 = o;   o += align128((size_t)kCpC1 * kCpC2 * 4);
+    acc = o;   o += align128((size_t)kCpC2 * kCpAccLd * 4);
+    rows = o;  o += align128((size_t)kCenters * kCpC3 * 2);
+    dbc = o;   o += align128((size_t)kCenters * kCpC1 * 4);
+    vec = o;   o += align128((size_t)3 * kCpC2 * 4);
+    xs = o;    o += align128((size_t)4 * kRows * 2 * 4);
+    meta = o;  o += align128((size_t)10 * kRows * 4);  // two tiles' rows, positions
+    masks = o; o += align128((size_t)kCenters * (kCpC3 / 32) * 4);
+    qs = o;    o += align128((size_t)(kCpNQ * (kCenters + 1) + 2 * (kCpNQ + 1) + 1) * 4);
+    total = o;
+  }
+};
+static_assert((size_t)kRows * kCpC2 * 2 * 2 >= (size_t)kRows * kCpC1 * 4,
+              "dh0 fits in h1's and dx's bytes");
+
+// Row r of a tile whose rows start at list entry `first` (n rows in all):
+// its center, channel, A row (-1 outside the window) and bf16(g) bits, from
+// the row list and device memory; past the tile's rows -1, 0, -1, 0.
+struct TileRow {
+  int cc = -1, o = 0, pos = -1, gb = 0;
+};
+__device__ __forceinline__ TileRow tile_row(const int16_t* rowl, int first, int n, int r,
+                                            const float* __restrict__ g,
+                                            const int* __restrict__ win, size_t cm0, int start,
+                                            int W, int pos0) {
+  TileRow v;
+  if (r < n) {
+    const int e = rowl[first + r];
+    v.cc = e >> 8;
+    v.o = e & 255;
+    const size_t at = (cm0 + v.cc) * kCpC3 + v.o;
+    const float gv = g[at];
+    const int rel = win[at] - start;
+    if (rel >= 0 && rel < W) v.pos = pos0 + rel;
+    v.gb = __bfloat16_as_ushort(__float2bfloat16_rn(gv));
+  }
+  return v;
+}
+
+// `bytes` (a multiple of 16) at `p` into L2, without waiting
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
+}
+
+// The distinct positions of a tile's 64 rows, by one warp (lane l holds rows
+// l and l + 32; a key < 0 is no position): rank[r] the index of row r's
+// position among them in order of first appearance (-1 for none), pos[p] the
+// position of index p, *n their number.
+__device__ __forceinline__ void rank_rows(int key_lo, int key_hi, int lane, int* rank,
+                                          int* pos, int* n) {
+  const int klo = key_lo >= 0 ? key_lo : -1 - lane, khi = key_hi >= 0 ? key_hi : -33 - lane;
+  const uint32_t m_lo = __match_any_sync(0xffffffffu, klo);
+  const uint32_t m_hi = __match_any_sync(0xffffffffu, khi);
+  int first_lo = -1;  // the first low row with the high row's key
+  for (int j = 0; j < 32; ++j)
+    if (__shfl_sync(0xffffffffu, klo, j) == khi && first_lo < 0) first_lo = j;
+  const uint32_t below = (1u << lane) - 1u;
+  const bool lead_lo = key_lo >= 0 && !(m_lo & below);
+  const bool lead_hi = key_hi >= 0 && !(m_hi & below) && first_lo < 0;
+  const uint32_t l_lo = __ballot_sync(0xffffffffu, lead_lo);
+  const uint32_t l_hi = __ballot_sync(0xffffffffu, lead_hi);
+  const auto rank_lo = [&](int lead) { return __popc(l_lo & ((1u << lead) - 1u)); };
+  const auto rank_hi = [&](int lead) { return __popc(l_lo) + __popc(l_hi & ((1u << lead) - 1u)); };
+  const int r_lo = key_lo >= 0 ? rank_lo(__ffs(m_lo) - 1) : -1;
+  const int r_hi = key_hi < 0 ? -1 : first_lo >= 0 ? rank_lo(first_lo) : rank_hi(__ffs(m_hi) - 1);
+  rank[lane] = r_lo;
+  rank[32 + lane] = r_hi;
+  if (lead_lo) pos[r_lo] = key_lo;
+  if (lead_hi) pos[r_hi] = key_hi;
+  if (lane == 0) *n = __popc(l_lo) + __popc(l_hi);
+}
+
+// dW2's sums in shared memory: (row k, column c) at k C2 + (c ^ 8 (k % 4)),
+// so that the accumulator layout's float2 adds do not conflict
+__device__ __forceinline__ int dw2_at(int k, int c) { return k * kCpC2 + (c ^ ((k & 3) << 3)); }
+
+// The compact rows at (128, 128, 256), one persistent CTA an SM. A CTA a block
+// that added each tile's dW2 and dense dW3 products (64 x 64 chunks) to the
+// block's record in device memory (pool_bwd_tiles) would move 393 KB of
+// read-modify-write a tile, 26 GB a batch-8 call, and run GEMM2 and dW3 over
+// the one-hot D as dense products. Here:
+//   * CTA i of ctas = min(blocks, SMs) takes blocks i, i + ctas, ... in order
+//     and keeps one record; reduce_records adds ctas records.
+//   * A block's rows go quarter by quarter of c3 (channels 64 q .. + 64),
+//     center by center, in channel order; a quarter starts a new tile.
+//   * The one-hot products cover the tile's quarter only: D_q (64 rows x 64
+//     channels, one bf16(g) a row) times the quarter's W3 columns (GEMM2, K =
+//     64; the columns staged at the quarter's first tile) and H1^T D_q (dW3's
+//     quarter), a quarter of the dense products' work; exact products as
+//     before.
+//   * dW2 = H0^T DX is summed over all the CTA's tiles in shared memory (f32):
+//     each tile's product, 64 rows at a time, added by the thread that holds
+//     it. dW3's tile product likewise into the quarter's sums, added to the
+//     record once a quarter. No weight-gradient sum lives in registers
+//     across the tile, so the tile's products have the registers they need.
+//   * dA: a tile's rows of one position are summed by a one-hot product,
+//     P^T bf16(dh0) (positions x rows times rows x c1: the rows' exact bf16
+//     values, f32 sums), and each position's sums added to its record row by
+//     the thread that holds them, the loads in flight together. db_c is
+//     summed on the CUDA cores meanwhile, a half of the rows a warpgroup.
+//     A block's dA record is zeroed by its CTA at the block's start, in the
+//     background of its work, where a memset pass over all of them (537 MB
+//     at batch 8) took 0.16 ms of the call's 5.7 on an H100.
+//   * A tile's rows (list entry, g, winner) are loaded during the last tile,
+//     and its A rows and dA record rows sent to L2 then; a quarter's record
+//     columns go to L2 at its last tile.
+// Shared memory: W2 32 KiB, W3's quarter, H0, h1 and dx 16 KiB each (dh0 in
+// h1's and dx's bytes), D_q 8 KiB, dW2 64 KiB, the dW3 quarter 36 KiB, the row
+// list and db_c 8 KiB each, vectors and row metadata 7 KiB: 232 320 bytes.
+__global__ void __launch_bounds__(kThreads, 1)
+pool_bwd_compact(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
+                 const float* __restrict__ g, const int* __restrict__ win,
+                 const int* __restrict__ starts, const uint16_t* __restrict__ w2,
+                 const float* __restrict__ b2, const float* __restrict__ s2,
+                 const float* __restrict__ lb2, const uint16_t* __restrict__ w3, int B, int N,
+                 int M, int W, float c2f, float rc2, float* __restrict__ dbc,
+                 float* __restrict__ records, float* __restrict__ da_records) {
+  constexpr int C1 = kCpC1, C2 = kCpC2, C3 = kCpC3;
+  constexpr int P = record_floats(C1, C2, C3);
+  constexpr int H1 = C1 / 2, H2 = C2 / 2;
+  constexpr int NO = C3 / 32;  // a lane's channels when listing
+  using F = Fold<H2>;
+  static_assert(C3 == kThreads, "db3: one channel a thread");
+  static_assert(H1 == H2 && H2 == kCpQ, "one accumulator size");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const CompactLayout L;
+  uint16_t* w2s = reinterpret_cast<uint16_t*>(smem + L.w2);
+  uint16_t* w3q = reinterpret_cast<uint16_t*>(smem + L.w3q);  // rows k, the quarter's columns
+  uint16_t* h0s = reinterpret_cast<uint16_t*>(smem + L.h0);
+  uint16_t* h1s = reinterpret_cast<uint16_t*>(smem + L.h1);
+  uint16_t* dxs = reinterpret_cast<uint16_t*>(smem + L.dx);
+  uint16_t* dqs = reinterpret_cast<uint16_t*>(smem + L.dq);
+  float* dh0s = reinterpret_cast<float*>(smem + L.h1);   // over h1 and dx
+  float* dw2s = reinterpret_cast<float*>(smem + L.dw2);  // dW2 (dw2_at)
+  float* accq = reinterpret_cast<float*>(smem + L.acc);  // dW3 quarter: [k][channel]
+  float* red = accq;  // the column sums' partials, at the end
+  int16_t* rowl = reinterpret_cast<int16_t*>(smem + L.rows);  // center << 8 | channel
+  float* dbcs = reinterpret_cast<float*>(smem + L.dbc);
+  float* b2s = reinterpret_cast<float*>(smem + L.vec);
+  float* s2s = b2s + C2;
+  float* lb2s = s2s + C2;
+  float* xs = reinterpret_cast<float*>(smem + L.xs);  // [2 uses][2 warpgroups][64 rows][2]
+  // a tile's rows, two tiles' in turn ([4][64] each): row -> A row, or -1;
+  // center, or -1; channel (0 past the rows); bf16(g) bits (0 past the rows)
+  int* meta = reinterpret_cast<int*>(smem + L.meta);
+  int* mrank = meta + 8 * kRows;  // row -> the index of its position in the tile, or -1
+  int* mppos = mrank + kRows;     // index -> the A row of the tile's position
+  uint32_t* masks = reinterpret_cast<uint32_t*>(smem + L.masks);  // [center][32 channels] live
+  int* qoff = reinterpret_cast<int*>(smem + L.qs);  // [quarter][center] rows before; [q][16] all
+  int* qbase = qoff + kCpNQ * (kCenters + 1);       // [q] the quarter's first row of the list
+  int* qtile = qbase + kCpNQ + 1;                    // [q] the quarter's first tile
+  int* mnpos = qtile + kCpNQ + 1;                    // the tile's number of positions
+
+  const int n_blk = M / kCenters;
+  float* rec = records + (size_t)blockIdx.x * P;
+  const uint32_t w2_base = smem_u32(w2s), w3_base = smem_u32(w3q), h0_base = smem_u32(h0s);
+  const uint32_t h1_base = smem_u32(h1s), dx_base = smem_u32(dxs), dq_base = smem_u32(dqs);
+
+  // ---- weights and vectors, once; the sums zeroed, and the record's dW3,
+  // which the quarters add to (each element by the thread that adds to it)
+  {
+    const int tid = threadIdx.x;
+    stage_kmajor<kThreads>(w2s, w2, C1, C2);
+    for (int i = tid; i < C2; i += kThreads) {
+      b2s[i] = b2[i];
+      s2s[i] = s2[i];
+      lb2s[i] = lb2[i];
+    }
+    for (int i = tid; i < C1 * C2; i += kThreads) dw2s[i] = 0.f;
+    for (int i = tid; i < C2 * kCpAccLd; i += kThreads) accq[i] = 0.f;
+    for (int q = 0; q < kCpNQ; ++q)
+      for (int i = tid; i < C2 * kCpQ; i += kThreads)
+        rec[C1 * C2 + (i / kCpQ) * C3 + kCpQ * q + i % kCpQ] = 0.f;
+  }
+
+  float run[3][F::NR];  // db2, ds2, dlb2 column sums
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+#pragma unroll
+    for (int i = 0; i < F::NR; ++i) run[q][i] = 0.f;
+  float db3 = 0.f;  // channel threadIdx.x
+
+  // ---- the CTA's blocks of 16 centers, blockIdx.x + gridDim.x k, in order
+  for (int blk = blockIdx.x; blk < B * n_blk; blk += gridDim.x) {
+    // the thread's index opaque in each block, so that the many offsets
+    // derived from it are computed where they are used
+    const int tid = (int)opaque(threadIdx.x);
+    const int warp = tid / 32, lane = tid % 32;
+    const int b = blk / n_blk;
+    const size_t cm0 = (size_t)b * M + (blk % n_blk) * kCenters;
+    int start = starts[blk];
+    start = min(max(start, 0), N - W);
+    const int pos0 = b * N + start;  // the A row of the window's first point
+    float* drec = da_records + (size_t)blk * W * C1;
+    // the block's dA record zeroed here, in the background of the block's
+    // work, instead of by a memset pass over all records; the block's adds
+    // into it follow the barriers below
+    for (int i = tid; i < W * C1 / 4; i += kThreads)
+      reinterpret_cast<float4*>(drec)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();  // the last block's tables are read
+    for (int i = tid; i < kCenters * C1; i += kThreads) dbcs[i] = 0.f;
+    // each warp its centers' live channels
+    for (int cc = warp; cc < kCenters; cc += kWarps) {
+      const float* gc = g + (cm0 + cc) * C3;
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+        const uint32_t m = __ballot_sync(0xffffffffu, gc[32 * i + lane] != 0.f);
+        if (lane == 0) masks[cc * NO + i] = m;
+      }
+    }
+    // db3: the live channels' cotangents, over the block's centers in order
+    {
+      float s = 0.f;
+      for (int cc = 0; cc < kCenters; ++cc) {
+        const float gv = g[(cm0 + cc) * C3 + tid];
+        if (gv != 0.f) s += gv;
+      }
+      db3 += s;
+    }
+    __syncthreads();
+    if (tid < kCpNQ) {  // a quarter's rows before each center
+      int n = 0;
+      for (int cc = 0; cc < kCenters; ++cc) {
+        qoff[tid * (kCenters + 1) + cc] = n;
+        n += __popc(masks[cc * NO + 2 * tid]) + __popc(masks[cc * NO + 2 * tid + 1]);
+      }
+      qoff[tid * (kCenters + 1) + kCenters] = n;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      qbase[0] = qtile[0] = 0;
+      for (int q = 0; q < kCpNQ; ++q) {
+        const int n = qoff[q * (kCenters + 1) + kCenters];
+        qbase[q + 1] = qbase[q] + n;
+        qtile[q + 1] = qtile[q] + (n + kRows - 1) / kRows;
+      }
+    }
+    __syncthreads();
+    // the row list: each warp its centers' rows
+    for (int cc = warp; cc < kCenters; cc += kWarps) {
+      const uint32_t lt = (1u << lane) - 1u;
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+        const int q = i / 2;
+        const uint32_t m = masks[cc * NO + i];
+        if ((m >> lane) & 1u) {
+          const int at = qbase[q] + qoff[q * (kCenters + 1) + cc] +
+                         ((i & 1) ? __popc(masks[cc * NO + i - 1]) : 0) + __popc(m & lt);
+          rowl[at] = int16_t((cc << 8) | (32 * i + lane));
+        }
+      }
+    }
+    __syncthreads();
+
+    const int tiles = qtile[kCpNQ];
+    // tile t's quarter, first row of the list and rows
+    const auto tile_range = [&](int t, int& q, int& first, int& rows) {
+      q = 0;
+      while (qtile[q + 1] <= t) ++q;
+      first = qbase[q] + (t - qtile[q]) * kRows;
+      rows = min(kRows, qbase[q + 1] - first);
+    };
+    // a tile's rows into meta buffer `buf`, row tid % 64 (the dA record row
+    // into L2); the first tile's here, each next tile's during the last one
+    const auto put_row = [&](int buf, int r, const TileRow& v) {
+      int* m = meta + buf * 4 * kRows;
+      m[r] = v.pos;
+      m[kRows + r] = v.cc;
+      m[2 * kRows + r] = v.o;
+      m[3 * kRows + r] = v.gb;
+      if (v.pos >= 0) prefetch_l2(drec + (size_t)(v.pos - pos0) * C1, C1 * 4);
+    };
+    if (tid < kRows && tiles > 0) {
+      int q0, f0, n0;
+      tile_range(0, q0, f0, n0);
+      put_row(0, tid, tile_row(rowl, f0, n0, tid, g, win, cm0, start, W, pos0));
+    }
+    __syncthreads();
+    for (int t = 0; t < tiles; ++t) {
+      const int tid = (int)opaque(threadIdx.x);
+      const int warp = tid / 32, lane = tid % 32;
+      const int wg = tid / 128;                 // warpgroup
+      const int g8 = lane / 4, t4 = lane % 4;
+      const int r0 = 16 * (warp % 4) + g8;      // the thread's tile rows r0, r0 + 8
+      const int c2 = wg * H2;                   // the warpgroup's first column of C2 (and C1)
+      int q, first, rows;  // the tile's quarter, first row of the list, rows
+      tile_range(t, q, first, rows);
+      const int* mpos = meta + (t & 1) * 4 * kRows;  // the tile's rows
+      const int* mcc = mpos + kRows;
+      const int* mo = mcc + kRows;
+      const int* mg = mo + kRows;
+      // ---- the quarter's first tile: its W3 columns (rows c2, K-major); its
+      // last: into L2, the record columns that it adds to
+      if (t == qtile[q])
+        for (int i = tid; i < C2 * kCpQ / 8; i += kThreads) {
+          const int k = i / (kCpQ / 8), cb = i % (kCpQ / 8);
+          *reinterpret_cast<uint4*>(w3q + core_at(k, 8 * cb, kCpQ)) =
+              __ldg(reinterpret_cast<const uint4*>(w3 + (size_t)k * C3 + kCpQ * q + 8 * cb));
+        }
+      if (t + 1 == qtile[q + 1] && tid >= 2 * kRows)
+        for (int k = tid - 2 * kRows; k < C2; k += kThreads - 2 * kRows)
+          prefetch_l2(rec + C1 * C2 + (size_t)k * C3 + kCpQ * q, kCpQ * 4);
+      // ---- the next tile's rows, by warps 2-3: the loads issued here, the
+      // rows stored (and its A rows and dA record rows sent to L2) once
+      // GEMM1 and GEMM2 are issued
+      TileRow next;
+      if (tid >= kRows && tid < 2 * kRows && t + 1 < tiles) {
+        int qn, fn, nn;
+        tile_range(t + 1, qn, fn, nn);
+        next = tile_row(rowl, fn, nn, tid - kRows, g, win, cm0, start, W, pos0);
+      }
+      // ---- H0 = bf16(relu(A + bc)), 16 bytes a thread at a time (the 8
+      // threads of a quarter warp on the 8 rows of one core: no conflicts)
+      {
+        constexpr int NA = kRows * C1 / 8 / kThreads;
+        uint4 a[NA], c[NA];
+#pragma unroll
+        for (int k = 0; k < NA; ++k) {
+          const int i = tid + k * kThreads;
+          const int kb = (i >> 3) % (C1 / 8), r = ((i >> 3) / (C1 / 8)) * 8 + (i & 7);
+          const int pos = mpos[r], cc = mcc[r];
+          a[k] = pos >= 0 ? __ldg(reinterpret_cast<const uint4*>(A + (size_t)pos * C1) + kb)
+                          : make_uint4(0, 0, 0, 0);
+          c[k] = cc >= 0 ? __ldg(reinterpret_cast<const uint4*>(bc + (cm0 + cc) * C1) + kb)
+                         : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int k = 0; k < NA; ++k) {
+          const int i = tid + k * kThreads;
+          const int kb = (i >> 3) % (C1 / 8), r = ((i >> 3) / (C1 / 8)) * 8 + (i & 7);
+          uint4 v = make_uint4(0, 0, 0, 0);
+          if (mcc[r] >= 0)
+            v = make_uint4(add_relu_bf16x2(a[k].x, c[k].x), add_relu_bf16x2(a[k].y, c[k].y),
+                           add_relu_bf16x2(a[k].z, c[k].z), add_relu_bf16x2(a[k].w, c[k].w));
+          *reinterpret_cast<uint4*>(h0s + core_at(r, 8 * kb, C1)) = v;
+        }
+      }
+      // D_q: row r holds bf16(g) at its channel of the quarter (zero past the rows)
+      for (int i = tid; i < kRows * kCpQ / 8; i += kThreads) {
+        const int ob = (i >> 3) % (kCpQ / 8), r = ((i >> 3) / (kCpQ / 8)) * 8 + (i & 7);
+        const int o = mo[r] & (kCpQ - 1);
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (o / 8 == ob) w[(o & 7) / 2] = uint32_t(mg[r]) << (16 * (o & 1));
+        *reinterpret_cast<uint4*>(dqs + core_at(r, 8 * ob, kCpQ)) =
+            make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      fence_async();
+      __syncthreads();
+
+      // ---- GEMM1 X = H0 W2 and GEMM2 dh1 = D_q W3_q^T, issued together;
+      // each warpgroup computes its H2 columns
+      float acc1[H2 / 2], accd[H2 / 2];
+      {
+        const uint32_t h0b = opaque(h0_base), w2b = opaque(w2_base) + (c2 / 8) * C1 * 16;
+        const uint32_t db = opaque(dq_base), w3b = opaque(w3_base) + (c2 / 8) * kCpQ * 16;
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < C1 / 16; ++s)
+          wgmma_ss<H2, 0, 0>(acc1, make_desc(h0b + 256 * s, 128, C1 * 16),
+                             make_desc(w2b + 256 * s, 128, C1 * 16), s > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int s = 0; s < kCpQ / 16; ++s)
+          wgmma_ss<H2, 0, 0>(accd, make_desc(db + 256 * s, 128, kCpQ * 16),
+                             make_desc(w3b + 256 * s, 128, kCpQ * 16), s > 0);
+        wgmma_commit();
+      }
+      // the tile's distinct positions, while they run (rows past the tile's
+      // have position -1)
+      if (tid < 32) rank_rows(mpos[tid], mpos[tid + 32], tid, mrank, mppos, mnpos);
+      wgmma_wait<1>();
+      fence_regs(acc1);
+
+      // ---- LN forward in the accumulator: acc1 becomes xhat; h1 to shared
+      float mean[2], rstd[2];
+      ln_stats<C2, H2>(acc1, b2s, xs, wg, r0, t4, c2f, rc2, mean, rstd);
+      uint32_t pos_bits[(H2 / 2 + 31) / 32];  // h1 > 0, one bit an accumulator
+      ln_h1<H2>(acc1, mean, rstd, s2s, lb2s, h1s, C2, wg, r0, t4, pos_bits);
+      wgmma_wait<0>();
+      fence_regs(accd);
+
+      // ---- LN + ReLU backward: accd becomes dln, then dxhat, then dx
+      ln_relu_backward<C2, H2>(accd, acc1, pos_bits, rstd, s2s, dxs, xs, wg, r0, t4, lane, c2f,
+                               rc2, run);
+      fence_async();
+      __syncthreads();
+
+      // ---- the tile's dW3 H1^T D_q (warpgroup wg its rows 64 wg ..) and the
+      // first half of its dW2 H0^T DX (rows 0-63, the warpgroup's columns),
+      // then GEMM3 dh0 = bf16(dx) W2^T (W2 read MN-major), issued together;
+      // dW2's second half (rows 64-127) once the first products are added.
+      // Each tile product is added into its sums by the thread that holds it;
+      // acc1 and accd hold them in turn.
+      float acc3[H1 / 2];
+      {
+        wgmma_fence();
+        wgmma_rows<kCpQ>(acc1, opaque(h1_base), C2, 64 * wg, opaque(dq_base), kCpQ, 0, 0);
+        wgmma_rows<H2>(accd, opaque(h0_base), C1, 0, opaque(dx_base), C2, c2, 0);
+        wgmma_commit();
+        const uint32_t dxb = opaque(dx_base), w2b = opaque(w2_base) + (wg * H1 / 8) * 128;
+#pragma unroll
+        for (int s = 0; s < C2 / 16; ++s)
+          wgmma_ss<H1, 0, 1>(acc3, make_desc(dxb + 256 * s, 128, C2 * 16),
+                             make_desc(w2b + s * 32 * C1, C1 * 16, 128), s > 0);
+        wgmma_commit();
+      }
+      wgmma_wait<1>();
+      fence_regs(acc1);
+      fence_regs(accd);
+      auto add_tile = [&](const float(&v)[H2 / 2], float* base, int ld, int k0, int col0,
+                          bool swz) {
+#pragma unroll
+        for (int j = 0; j < H2 / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = k0 + r0 + 8 * h, c = col0 + 8 * j + 2 * t4;
+            float2* a = reinterpret_cast<float2*>(base + (swz ? dw2_at(k, c) : k * ld + c));
+            const float2 o = *a;
+            *a = make_float2(o.x + v[4 * j + 2 * h], o.y + v[4 * j + 2 * h + 1]);
+          }
+      };
+      add_tile(acc1, accq, kCpAccLd, 64 * wg, 0, false);
+      add_tile(accd, dw2s, C2, 0, c2, true);
+      wgmma_fence();
+      wgmma_rows<H2>(accd, opaque(h0_base), C1, 64, opaque(dx_base), C2, c2, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc3);
+      fence_regs(accd);
+      add_tile(accd, dw2s, C2, 64, c2, true);
+      __syncthreads();  // every reader of h1, dx and D_q is done
+      // dh0 through the first ReLU (h0 > 0 exactly where A + bc > 0; the sign
+      // bit is masked off, since max(-0, 0) may keep -0): f32 in h1's and dx's
+      // bytes for db_c, bf16 in H0's place for dA (each thread reads the
+      // signs of its own elements before it writes them)
+#pragma unroll
+      for (int j = 0; j < H1 / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h, c = wg * H1 + 8 * j + 2 * t4;
+          uint32_t* hp = reinterpret_cast<uint32_t*>(h0s + core_at(r, c, C1));
+          const uint32_t hb = *hp;
+          const float2 v = make_float2((hb & 0x7fffu) ? acc3[4 * j + 2 * h] : 0.f,
+                                       (hb & 0x7fff0000u) ? acc3[4 * j + 2 * h + 1] : 0.f);
+          *reinterpret_cast<float2*>(dh0s + dh0_at<C1>(r, c)) = v;
+          *hp = pack_bf16x2(v.x, v.y);
+        }
+      }
+      // P^T in D_q's place: (position index p, row r) is 1 where row r has
+      // the tile's p-th position
+      for (int i = tid; i < kRows * kRows / 8; i += kThreads) {
+        const int rb = (i >> 3) % (kRows / 8), pi = ((i >> 3) / (kRows / 8)) * 8 + (i & 7);
+        uint32_t w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w[e] = (mrank[8 * rb + 2 * e] == pi ? 0x3f80u : 0u) |
+                 (mrank[8 * rb + 2 * e + 1] == pi ? 0x3f800000u : 0u);
+        *reinterpret_cast<uint4*>(dqs + core_at(pi, 8 * rb, kRows)) =
+            make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      fence_async();
+      __syncthreads();
+      // ---- dA of the tile's positions: P^T bf16(dh0) (the rows' exact bf16
+      // values summed in f32; warpgroup wg its columns 64 wg ..), while db_c
+      // runs on the CUDA cores
+      {
+        const uint32_t pb = opaque(dq_base), hb = opaque(h0_base) + (wg * H1 / 8) * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < kRows / 16; ++s)
+          wgmma_ss<H1, 0, 1>(acc1, make_desc(pb + 256 * s, 128, kRows * 16),
+                             make_desc(hb + s * 32 * C1, C1 * 16, 128), s > 0);
+        wgmma_commit();
+      }
+      // db_c: the thread of a column and a half of the rows adds them, in row
+      // order, into their centers' sums (a center's rows of the quarter are
+      // adjacent); the second half's first center after the first half's
+      {
+        const int c = tid % C1, half = tid / C1, r1 = min(rows, 32 * half + 32);
+        float s = 0.f, held = 0.f;
+        int held_cc = -1;
+        for (int rb = 32 * half; rb < r1; rb += 4) {  // four rows' loads in flight
+          float v[4];
+          int cc[5];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            v[u] = rb + u < r1 ? dh0s[dh0_at<C1>(rb + u, c)] : 0.f;
+            cc[u] = mcc[rb + u];  // -1 past the tile's rows
+          }
+          cc[4] = rb + 4 < kRows ? mcc[rb + 4] : -1;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (rb + u >= r1) break;
+            s += v[u];
+            if (rb + u + 1 == r1 || cc[u + 1] != cc[u]) {
+              if (half == 1 && held_cc < 0) {
+                held_cc = cc[u];
+                held = s;
+              } else {
+                dbcs[cc[u] * C1 + c] += s;
+              }
+              s = 0.f;
+            }
+          }
+        }
+        __syncthreads();
+        if (held_cc >= 0) dbcs[held_cc * C1 + c] += held;
+      }
+      wgmma_wait<0>();
+      fence_regs(acc1);
+      // each position's sums into its record row, the loads in flight together
+      {
+        const int n = *mnpos;
+        float2 old[H1 / 4];
+        float* dst[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          dst[h] = r0 + 8 * h < n ? drec + (size_t)(mppos[r0 + 8 * h] - pos0) * C1 + wg * H1 + 2 * t4
+                                  : nullptr;
+#pragma unroll
+        for (int j = 0; j < H1 / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            old[2 * j + h] = dst[h] ? *reinterpret_cast<const float2*>(dst[h] + 8 * j)
+                                    : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int j = 0; j < H1 / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (dst[h])
+              *reinterpret_cast<float2*>(dst[h] + 8 * j) =
+                  make_float2(old[2 * j + h].x + acc1[4 * j + 2 * h],
+                              old[2 * j + h].y + acc1[4 * j + 2 * h + 1]);
+      }
+      // the next tile's rows (loaded at this one's start), and its A rows into L2
+      if (tid >= kRows && tid < 2 * kRows && t + 1 < tiles) {
+        put_row((t + 1) & 1, tid - kRows, next);
+        if (next.pos >= 0) prefetch_l2(A + (size_t)next.pos * C1, C1 * 2);
+      }
+      __syncthreads();  // the tile's buffers are rewritten by the next tile
+      // the quarter's last tile: its dW3 columns into the record (the loads
+      // in flight together), the sums zeroed for the next quarter
+      if (t + 1 == qtile[q + 1]) {
+        constexpr int NF = C2 * kCpQ / kThreads, NB = 16;
+#pragma unroll
+        for (int u0 = 0; u0 < NF; u0 += NB) {
+          float old[NB];
+#pragma unroll
+          for (int u = 0; u < NB; ++u) {
+            const int i = tid + (u0 + u) * kThreads;
+            old[u] = rec[C1 * C2 + (i / kCpQ) * C3 + kCpQ * q + i % kCpQ];
+          }
+#pragma unroll
+          for (int u = 0; u < NB; ++u) {
+            const int i = tid + (u0 + u) * kThreads;
+            float* a = accq + (i / kCpQ) * kCpAccLd + i % kCpQ;
+            rec[C1 * C2 + (i / kCpQ) * C3 + kCpQ * q + i % kCpQ] = old[u] + *a;
+            *a = 0.f;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    for (int i = tid; i < kCenters * C1; i += kThreads) dbc[cm0 * C1 + i] = dbcs[i];
+  }  // the CTA's blocks
+
+  // ---- the CTA's record: dW2, the column sums, db3 (dW3 is added above)
+  const int tid = threadIdx.x;
+  __syncthreads();  // the sums' last adds and the quarter sums' last reads
+  for (int i = tid; i < C1 * C2; i += kThreads) rec[i] = dw2s[dw2_at(i / C2, i % C2)];
+  write_column_sums<C2, H2>(run[0], red, rec + C1 * C2 + C2 * C3, tid);
+  rec[C1 * C2 + C2 * C3 + 3 * C2 + tid] = db3;
 }
 
 // ---- the wide kernel: (c1, c2, c3) = (256, 256, 512), weights streamed
@@ -857,9 +1522,6 @@ pool_bwd_wide(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
   const uint32_t ring = smem_u32(smem + L.ring);
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wg = tid / 128, wq = warp % 4;
-  const int g8 = lane / 4, t4 = lane % 4;
   const int n_blk = M / kCenters;
   float* rec = records + (size_t)blockIdx.x * P;
   // the CTA's staging slots: [tile][H0, H1, bf16(dx)]
@@ -992,8 +1654,6 @@ pool_bwd_wide(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
     const int tiles = (nr + kRows - 1) / kRows;
     const uint32_t h0_base = smem_u32(h0s), h1_base = smem_u32(h1s), d_base = smem_u32(ds);
     const uint32_t dx_base = h1_base;
-    const int r0 = 16 * wq + g8;  // the thread's tile rows r0, r0 + 8
-    const int c2 = wg * H2;       // the warpgroup's first column of C2 (C1: wg * H1)
 
     // Ring step `step`: its copy has landed for every thread (each waits for
     // its own, then the barrier; the copies of the next kWideSlots - 2 steps
@@ -1158,26 +1818,11 @@ pool_bwd_wide(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
           }
           compiler_fence();
         }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-          sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
-          sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
-          if (t4 == 0)
-            *reinterpret_cast<float2*>(xs + (wg * kRows + r0 + 8 * h) * 2) =
-                make_float2(sum[h], sq[h]);
-        }
+        row_sums_put(sum, sq, xs, 0, wg, r0, t4);
         if (tid == 0) bulk_store_read_wait<0>();  // H0's staging copy has read it
         __syncthreads();  // also: both warpgroups' GEMM1 products have read H0
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float2 p0 = *reinterpret_cast<const float2*>(xs + (r0 + 8 * h) * 2);
-          const float2 p1 = *reinterpret_cast<const float2*>(xs + (kRows + r0 + 8 * h) * 2);
-          mean[h] = div_width<C2>(p0.x + p1.x, c2f, rc2);
-          const float var = fmaxf(div_width<C2>(p0.y + p1.y, c2f, rc2) - mean[h] * mean[h], 0.f);
-          rstd[h] = rsqrtf(var + kEps);
-        }
+        row_sums_get(sum, sq, xs, 0, r0);
+        row_stats<C2>(sum, sq, c2f, rc2, mean, rstd);
       }
       // xhat, and h1 > 0 (exactly where xhat s2 + lb2 > 0) as bits. The
       // thread's xhat waits in shared memory ([value][thread]) while GEMM2
@@ -1264,16 +1909,7 @@ pool_bwd_wide(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
           }
           compiler_fence();
         }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          m1[h] += __shfl_xor_sync(0xffffffffu, m1[h], 1);
-          m1[h] += __shfl_xor_sync(0xffffffffu, m1[h], 2);
-          m2[h] += __shfl_xor_sync(0xffffffffu, m2[h], 1);
-          m2[h] += __shfl_xor_sync(0xffffffffu, m2[h], 2);
-          if (t4 == 0)
-            *reinterpret_cast<float2*>(xs + ((2 + wg) * kRows + r0 + 8 * h) * 2) =
-                make_float2(m1[h], m2[h]);
-        }
+        row_sums_put(m1, m2, xs, 1, wg, r0, t4);
         __syncthreads();  // also: both warpgroups' GEMM2 products have read D
         // h1 = bf16(relu(xhat s2 + lb2)) again, into D's bytes, for its staging copy
         {
@@ -1292,12 +1928,11 @@ pool_bwd_wide(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
             *reinterpret_cast<uint32_t*>(h1d + core_at(rp + 8, c, C2)) = pack_bf16x2(y[2], y[3]);
           }
         }
+        row_sums_get(m1, m2, xs, 1, r0);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float2 p0 = *reinterpret_cast<const float2*>(xs + (2 * kRows + r0 + 8 * h) * 2);
-          const float2 p1 = *reinterpret_cast<const float2*>(xs + (3 * kRows + r0 + 8 * h) * 2);
-          m1[h] = div_width<C2>(p0.x + p1.x, c2f, rc2);
-          m2[h] = div_width<C2>(p0.y + p1.y, c2f, rc2);
+          m1[h] = div_width<C2>(m1[h], c2f, rc2);
+          m2[h] = div_width<C2>(m2[h], c2f, rc2);
         }
 #pragma unroll
         for (int i = 0; i < H2 / 2; ++i) {
@@ -1534,20 +2169,7 @@ pool_bwd_wide(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
   if (!folded)
     for (int i = tid; i < C1 * C2 + C2 * C3; i += kThreads) rec[i] = 0.f;
   __syncthreads();  // the tile buffers' last reads, before the partials take them
-  if (col_owner<F::NVH>(lane)) {
-#pragma unroll
-    for (int q = 0; q < 3; ++q)
-#pragma unroll
-      for (int i = 0; i < F::NR; ++i)
-        red[(wq * 3 + q) * C2 + wg * H2 + F::column(i, lane, t4)] = run(q)[i];
-  }
-  __syncthreads();
-  for (int i = tid; i < 3 * C2; i += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) s += red[w * 3 * C2 + i];
-    rec[C1 * C2 + C2 * C3 + i] = s;
-  }
+  write_column_sums<C2, H2>(run(0), red, rec + C1 * C2 + C2 * C3, tid);
 }
 
 // dA (B, N, C1): for each point, the dA records of the windows that cover it,
@@ -1684,6 +2306,44 @@ cudaError_t launch_wide(const uint16_t* A, const uint16_t* bc, const float* g, c
   return cudaGetLastError();
 }
 
+cudaError_t launch_compact(const uint16_t* A, const uint16_t* bc, const float* g, const int* win,
+                           const int* starts, const uint16_t* w2, const float* b2, const float* s2,
+                           const float* lb2, const uint16_t* w3, int B, int N, int M, int W,
+                           int c2_real, float* dA, float* dbc, float* wout, float* records,
+                           float* da_records, int ctas, cudaStream_t s) {
+  constexpr int C1 = kCpC1, P = record_floats(kCpC1, kCpC2, kCpC3);
+  const CompactLayout L;
+  if (L.total > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
+  const int n_blk = M / kCenters, n_rec = B * n_blk;
+  const size_t hit_bytes = (size_t)2 * n_blk * sizeof(int);
+  if (hit_bytes > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
+  // one record a CTA, each CTA over blocks blockIdx.x + ctas k (fixed: the
+  // sums' order does not depend on the scheduling)
+  if (n_rec > 0 && (ctas <= 0 || ctas > n_rec)) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (n_rec > 0) {  // (the kernel zeroes each block's dA record)
+    err = cudaFuncSetAttribute(pool_bwd_compact, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)L.total);
+    if (err != cudaSuccess) return err;
+    pool_bwd_compact<<<ctas, kThreads, L.total, s>>>(
+        A, bc, g, win, starts, w2, b2, s2, lb2, w3, B, N, M, W, (float)c2_real,
+        1.f / (float)c2_real, dbc, records, da_records);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (B > 0 && N > 0) {
+    err = cudaFuncSetAttribute(reduce_dA<C1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)hit_bytes);
+    if (err != cudaSuccess) return err;
+    dim3 grid((N + kReducePoints - 1) / kReducePoints, B);
+    reduce_dA<C1><<<grid, 256, hit_bytes, s>>>(da_records, starts, n_blk, N, W, dA);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  reduce_records<8><<<(P + 31) / 32, 256, 0, s>>>(records, n_rec > 0 ? ctas : 0, P, wout);
+  return cudaGetLastError();
+}
+
 template <bool COMPACT>
 int dispatch(const void* A, const void* bc, const float* g, const int* win, const int* starts,
              const void* w2, const float* b2, const float* s2, const float* lb2, const void* w3,
@@ -1704,7 +2364,15 @@ int dispatch(const void* A, const void* bc, const float* g, const int* win, cons
   EDA_BWD_LAUNCH(16, 16, 32)
   EDA_BWD_LAUNCH(32, 32, 64)
   EDA_BWD_LAUNCH(64, 64, 128)
-  EDA_BWD_LAUNCH(128, 128, 256)
+  if (c1 == kCpC1 && c2 == kCpC2 && c3 == kCpC3) {
+    // compact rows at (128, 128, 256) run pool_bwd_compact (no tile kernel
+    // is built for them); windowed rows the tile kernel
+    if constexpr (COMPACT)
+      return launch_compact(a, bcv, g, win, starts, w2v, b2, s2, lb2, w3v, B, N, M, W, c2_real,
+                            dA, dbc, wout, records, da_records, ctas, s);
+    else
+      EDA_BWD_LAUNCH(128, 128, 256)
+  }
 #undef EDA_BWD_LAUNCH
   if (c1 == kWideC1 && c2 == kWideC2 && c3 == kWideC3)
     return launch_wide<COMPACT>(a, bcv, g, win, starts, w2v, b2, s2, lb2, w3v, B, N, M, W,
@@ -1728,10 +2396,11 @@ extern "C" {
 // divisor. Outputs: dA (B, N, c1) f32; dbc (B, M, c1) f32; wout
 // (c1 c2 + c2 c3 + 3 c2 + c3) f32 = [dW2 (c1, c2); dW3 (c2, c3); db2; ds2;
 // dlb2; db3]. Scratch: records (B * M/16, the same length) f32 and
-// da_records (B * M/16, W, c1) f32 (M/16 <= 29056); at (256, 256, 512)
-// records (ctas, the same length), one a CTA of ctas (1 <= ctas <= B * M/16)
-// that each take every ctas-th block, and stage (ctas, 16 x 3 x 64 x 256) bf16,
-// the CTAs' staged tiles (unused by the narrower triples: NULL and 0).
+// da_records (B * M/16, W, c1) f32 (M/16 <= 29056); at (256, 256, 512), and
+// for the compact rows at (128, 128, 256), records (ctas, the same length),
+// one a CTA of ctas (1 <= ctas <= B * M/16) that each take every ctas-th
+// block; at (256, 256, 512) also stage (ctas, 16 x 3 x 64 x 256) bf16, the
+// CTAs' staged tiles (unused otherwise: NULL; ctas 0 where a CTA takes a block).
 // Returns cudaGetLastError().
 #define EDA_POOL_BWD_ARGS                                                              \
   const void *A, const void *bc, const float *g, const int *win, const int *starts,    \

@@ -34,10 +34,16 @@
 //      reads W1 transposed (MN-major) from the same staged copy, 64 columns
 //      a product (16 at SA1's K = 16).
 //   4. dW1^T = bf16(dx)^T P over the tile's 64 rows, both operands read
-//      MN-major from the tile buffers. When it is small (K = 16, c1 <= 64:
-//      SA1) the sum stays in registers across the CTA's tiles; otherwise each
-//      tile adds its product into the CTA's own f32 record, the element's
-//      owner reading and writing it.
+//      MN-major from the tile buffers. When it is small (K = 16, c1 <= 128:
+//      SA1) the sum stays in registers across the CTA's tiles (8 floats a
+//      thread a 64 columns of c1) and the CTAs are not capped at two an SM;
+//      otherwise each tile adds its product into the CTA's own f32 record,
+//      the element's owner reading and writing it.
+// At the width-2 backbone's SA1 (c1 128, dW1 held) a tile's P rows are read
+// as float4 from their contiguous span and its dA pairs all in flight before
+// their first use (the general path waits on each load in turn); that
+// instance needs the points 16-byte and dA 4-byte aligned, and c1 even (an
+// odd c1 of 65-128 at K = 16 runs the record path).
 // Padding rows, K columns and c1 columns are zero in P, W1, b1, scale and dA;
 // dx is masked to the real columns, so no padding reaches an output. Clouds
 // whose P tile does not fit beside W1 stage P in K chunks (X accumulates
@@ -46,9 +52,13 @@
 // and SA4 at in_dim 515: W1 alone is 264 KiB), it streams (STREAM): for
 // step 1 each 64-column chunk's rows of W1 come by 16-byte cp.async into
 // shared memory in its natural layout (rows = K, read MN-major), for step 3
-// each block of 64 W1 rows (read K-major); W1 comes from L2 twice a tile, a
-// cost the few tiles of those layers bear. Every weight and vector gradient
-// is a fixed-order sum: bit-identical across launches, no atomics.
+// each block of 64 W1 rows (read K-major).
+// At c1 = 256 and in_dim up to 528 (the width-2 backbone's SA2-4) the tiles
+// run on persistent clusters of four CTAs instead (prep_bwd_cluster, its note
+// below), one record a cluster: one warpgroup takes 190-300 us a tile there on
+// an H100, each phase a chain of dependent loads and products. Every weight
+// and vector gradient is a fixed-order sum: bit-identical across launches, no
+// atomics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,13 +125,27 @@ int k_chunk(int in_dim, int c1, bool& stream) {
   return round16((KP + n - 1) / n);
 }
 
-// the dW1 sum held in registers (8 floats a thread) instead of the record
-bool holds_dw1(int in_dim, int c1) { return round16(in_dim) == 16 && c1 <= 64; }
+// the dW1 sum held in registers (8 floats a thread a 64 columns of c1)
+// instead of the record; above c1 64 only for an even c1 (the batched dA
+// pair loads of that instance)
+bool holds_dw1(int in_dim, int c1) {
+  return round16(in_dim) == 16 && (c1 <= 64 || (c1 <= 128 && c1 % 2 == 0));
+}
 
+bool cluster_route(int in_dim, int c1);
+int clusters(long long tiles, int in_dim);
+
+// The records the kernel adds: a CTA's each (a cluster's each on the cluster
+// route); 0 if the cluster kernel cannot be placed.
 int ctas(long long n_rows, int in_dim, int c1) {
   const long long tiles = (n_rows + kRows - 1) / kRows;
+  if (cluster_route(in_dim, c1)) return clusters(tiles > 0 ? tiles : 1, in_dim);
   const long long cap = (long long)kSms * (holds_dw1(in_dim, c1) ? kCtasPerSm : 2);
   return (int)(tiles < cap ? (tiles > 0 ? tiles : 1) : cap);
+}
+
+bool misaligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) & (bytes - 1);
 }
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -159,6 +183,11 @@ prep_bwd_tiles(const float* __restrict__ pts, const uint16_t* __restrict__ dA,
   constexpr int DXC = C1P < 64 ? 64 : C1P;
   constexpr int NV = CW / 2;                 // accumulator values a thread
   constexpr int DN = HOLD ? 16 : 64;         // columns of a dpts or dW1 product
+  constexpr int MB = DXC / 64;               // 64-column blocks of c1 (dW1's rows)
+  // the width-2 backbone's SA1 (c1 128, dW1 held): a tile's P and dA loads
+  // in flight together before their first use (c1 even, the points 16-byte
+  // and dA 4-byte aligned: holds_dw1 and the launcher see to it)
+  constexpr bool BATCH = HOLD && C1P == 128;
   using F = Fold<CW>;
   const int KP = round16(in_dim);
   const int nkc = (KP + KC - 1) / KC;        // K chunks of P
@@ -213,6 +242,10 @@ prep_bwd_tiles(const float* __restrict__ pts, const uint16_t* __restrict__ dA,
   };
   for (int i = tid; i < kRows * DXC / 2; i += kThreads)
     reinterpret_cast<uint32_t*>(dxs)[i] = 0u;
+  if constexpr (BATCH) {  // the P tile's padding columns, which stage_p leaves
+    for (int i = tid; i < kRows * KC / 2; i += kThreads) reinterpret_cast<uint32_t*>(ps)[i] = 0u;
+    __syncthreads();
+  }
   for (int c = tid; c < C1P; c += kThreads) {
     bs[c] = c < c1 ? bf16_round(b1[c]) : 0.f;
     ss[c] = c < c1 ? scale[c] : 0.f;
@@ -223,18 +256,61 @@ prep_bwd_tiles(const float* __restrict__ pts, const uint16_t* __restrict__ dA,
   // at SA1's KC = 16), its (r, k) stepped without a division
   const int step_r = kThreads / KC, step_k = kThreads % KC;
   auto stage_p = [&](long long row0, int k0) {
-    for (int r = tid / KC, k = tid % KC; r < kRows;) {
-      float v = 0.f;
-      if (row0 + r < n_rows && k0 + k < in_dim) {
-        v = pts[(row0 + r) * in_dim + k0 + k];
-        if (k0 + k < 3) v = v / radius;
+    if constexpr (BATCH) {
+      // the tile's rows whole (K = 16 >= in_dim): one contiguous span of nr
+      // in_dim floats, 16-byte aligned (a tile starts at 64 in_dim floats),
+      // read as float4; the padding columns stay zero from the prologue, rows
+      // past n_rows are zeroed
+      const int nr = (int)(n_rows - row0 < kRows ? n_rows - row0 : kRows);
+      const int total = nr * in_dim;
+      const float* src = pts + row0 * in_dim;
+      for (int i0 = tid; i0 < (total + 3) / 4; i0 += 4 * kThreads) {
+        float4 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u * kThreads;
+          if (4 * i + 3 < total) {
+            v[u] = __ldg(reinterpret_cast<const float4*>(src) + i);
+          } else {
+            v[u].x = 4 * i < total ? __ldg(src + 4 * i) : 0.f;
+            v[u].y = 4 * i + 1 < total ? __ldg(src + 4 * i + 1) : 0.f;
+            v[u].z = 4 * i + 2 < total ? __ldg(src + 4 * i + 2) : 0.f;
+            v[u].w = 0.f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u * kThreads;
+          const float e4[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+          int r = (4 * i) / in_dim, k = 4 * i - r * in_dim;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (4 * i + e < total)
+              ps[core_at(r, k, KC)] =
+                  __bfloat16_as_ushort(__float2bfloat16_rn(k < 3 ? e4[e] / radius : e4[e]));
+            if (++k == in_dim) {
+              k = 0;
+              ++r;
+            }
+          }
+        }
       }
-      ps[core_at(r, k, KC)] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
-      r += step_r;
-      k += step_k;
-      if (k >= KC) {
-        k -= KC;
-        ++r;
+      for (int i = tid; i < (kRows - nr) * KC; i += kThreads)
+        ps[core_at(nr + i / KC, i % KC, KC)] = 0;
+    } else {
+      for (int r = tid / KC, k = tid % KC; r < kRows;) {
+        float v = 0.f;
+        if (row0 + r < n_rows && k0 + k < in_dim) {
+          v = pts[(row0 + r) * in_dim + k0 + k];
+          if (k0 + k < 3) v = v / radius;
+        }
+        ps[core_at(r, k, KC)] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+        r += step_r;
+        k += step_k;
+        if (k >= KC) {
+          k -= KC;
+          ++r;
+        }
       }
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -248,9 +324,11 @@ prep_bwd_tiles(const float* __restrict__ pts, const uint16_t* __restrict__ dA,
     for (int q = 0; q < 3; ++q)
 #pragma unroll
       for (int i = 0; i < F::NR; ++i) run[ch][q][i] = 0.f;
-  float accw[8];  // dW1^T (64 x 16) when held
+  float accw[MB][8];  // dW1^T (c1 x 16) when held, a 64-row block each
 #pragma unroll
-  for (int i = 0; i < 8; ++i) accw[i] = 0.f;
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) accw[mb][i] = 0.f;
 
   const long long n_tiles = (n_rows + kRows - 1) / kRows;
   int done = 0;
@@ -317,10 +395,29 @@ prep_bwd_tiles(const float* __restrict__ pts, const uint16_t* __restrict__ dA,
         if (NCH > 1) xa[i] = bf16_bits(xs[(size_t)(ch * NV + i) * kThreads + tid]);
         xa[i] = (xa[i] - mean[h]) * rstd[h];
       }
+      if constexpr (BATCH) {
+        // every pair's load in flight before the first use (c1 even: a pair
+        // never straddles the real columns' end)
+        uint32_t raw[NV / 2];
 #pragma unroll
-      for (int i = 0; i < NV; i += 2) {
-        const int c = ch * CW + 8 * (i / 4) + 2 * t4;
-        load_g(dA, rows[(i >> 1) & 1], c, c1, n_rows, ga[i], ga[i + 1]);
+        for (int i = 0; i < NV; i += 2) {
+          const int c = ch * CW + 8 * (i / 4) + 2 * t4;
+          const long long row = rows[(i >> 1) & 1];
+          raw[i / 2] = row < n_rows && c < c1
+                           ? __ldg(reinterpret_cast<const unsigned int*>(dA + row * c1 + c))
+                           : 0u;
+        }
+#pragma unroll
+        for (int i = 0; i < NV; i += 2) {
+          ga[i] = bf16_bits(raw[i / 2] & 0xffffu);
+          ga[i + 1] = bf16_bits(raw[i / 2] >> 16);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < NV; i += 2) {
+          const int c = ch * CW + 8 * (i / 4) + 2 * t4;
+          load_g(dA, rows[(i >> 1) & 1], c, c1, n_rows, ga[i], ga[i + 1]);
+        }
       }
     };
 
@@ -406,10 +503,13 @@ prep_bwd_tiles(const float* __restrict__ pts, const uint16_t* __restrict__ dA,
     // ---- 4. dW1^T += bf16(dx)^T P over the tile's rows
     if constexpr (HOLD) {
       wgmma_fence();
-      wgmma_rows<16>(accw, opaque(dx_base), DXC, 0, opaque(p_base), KC, 0, 1);
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb)
+        wgmma_rows<16>(accw[mb], opaque(dx_base), DXC, 64 * mb, opaque(p_base), KC, 0, 1);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(accw);
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) fence_regs(accw[mb]);
     } else {
       for (int kc = 0; kc < nkc; ++kc) {
         if (nkc > 1) {
@@ -442,10 +542,12 @@ prep_bwd_tiles(const float* __restrict__ pts, const uint16_t* __restrict__ dA,
 
   if constexpr (HOLD) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = r0 + 8 * ((i >> 1) & 1), k = 8 * (i / 4) + 2 * t4 + (i & 1);
-      if (c < c1 && k < in_dim) rec[(size_t)k * c1 + c] = accw[i];
-    }
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int c = 64 * mb + r0 + 8 * ((i >> 1) & 1), k = 8 * (i / 4) + 2 * t4 + (i & 1);
+        if (c < c1 && k < in_dim) rec[(size_t)k * c1 + c] = accw[mb][i];
+      }
   }
   // the column sums: each warp its rows, then the four warps in order
   if (col_owner<F::NVH>(lane)) {
@@ -465,6 +567,414 @@ prep_bwd_tiles(const float* __restrict__ pts, const uint16_t* __restrict__ dA,
     for (int w = 0; w < 4; ++w) s += red[(w * 3 + q) * C1P + c];
     rec[(size_t)in_dim * c1 + i] = s;
   }
+}
+
+// ---- c1 256 on a cluster of four CTAs: the width-2 backbone's SA2-4
+
+constexpr int kQuarters = 4;      // CTAs of a cluster, one a quarter of c1
+constexpr int kQW = 64;           // c1 columns of a CTA
+constexpr int kClusterMaxKP = 528;  // in_dim padded to 16: W1's quarter and P whole in shared memory
+constexpr int kPRows = kRows / kQuarters;  // P rows each CTA converts for the cluster
+
+// W1's quarter (its KP x kQW block, rows = K), the P tile (64 x KP), the tile's bf16(dx)
+// quarter (64 x kQW), the dpts partial blocks the CTA sums ([rank][64][64]
+// f32), the LayerNorm row sums of each rank ([2 uses][rank][64][2]), the
+// warps' column sums and bf16(b1) and scale of the quarter.
+struct ClusterLayout {
+  size_t w1, p, dx, slots, lnx, red, bs, ss, total;
+  __host__ __device__ ClusterLayout(int KP) {
+    size_t o = 0;
+    w1 = o;    o += align128((size_t)kQW * KP * 2);
+    p = o;     o += align128((size_t)kRows * KP * 2);
+    dx = o;    o += align128((size_t)kRows * kQW * 2);
+    slots = o; o += align128((size_t)kQuarters * kRows * 64 * 4);
+    lnx = o;   o += align128((size_t)2 * kQuarters * kRows * 2 * 4);
+    red = o;   o += align128((size_t)4 * 3 * kQW * 4);
+    bs = o;    o += align128((size_t)kQW * 4);
+    ss = o;    o += align128((size_t)kQW * 4);
+    total = o;
+  }
+};
+
+bool cluster_route(int in_dim, int c1) { return c1 == 256 && round16(in_dim) <= kClusterMaxKP; }
+
+// Persistent clusters at c1 = 256, in_dim up to 528 (on one warpgroup, as
+// prep_bwd_tiles runs the other widths, every phase of such a tile is a chain
+// of dependent loads and products). Cluster j of n (n = min(tiles, the
+// clusters the card holds at once)) takes tiles j, j + n, ... in order and
+// keeps one record. CTA q of a cluster holds W1's columns 64 q .. in shared
+// memory for its life (no stream) and, a tile at a time,
+//   1. converts the tile's P rows 16 q .. and stores them into every CTA's P;
+//   2. computes X_q = P W1_q, its quarter of x, and the rows' partial
+//      LayerNorm sums, which every CTA adds in rank order (distributed shared
+//      memory, cluster barriers); the same for the backward's row means;
+//   3. adds dW1's columns (dx_q^T P) into the cluster's record (each element
+//      by the thread that holds it) and keeps its columns' db1, dscale and
+//      dlnb in registers;
+//   4. computes dpts's partial over its c1 quarter, dx_q W1_q^T, in 64-column
+//      blocks: block b's partials go to CTA b % 4, which adds the four in rank
+//      order and writes dpts.
+// A tile's last cluster barrier (step 4) follows every CTA's last read of its
+// P, dx and row sums, so the next tile may write them. Every sum has a fixed
+// order: bit-identical across launches, no atomics.
+__global__ void __cluster_dims__(kQuarters, 1, 1) __launch_bounds__(kThreads, 1)
+prep_bwd_cluster(const float* __restrict__ pts, const uint16_t* __restrict__ dA,
+                 long long n_rows, int in_dim, int c1, const uint16_t* __restrict__ w1,
+                 const float* __restrict__ b1, const float* __restrict__ scale, float radius,
+                 float* __restrict__ dpts, float* __restrict__ records) {
+  using F = Fold<kQW>;
+  constexpr int NV = kQW / 2;  // accumulator values a thread
+  const int KP = round16(in_dim);
+  const ClusterLayout L(KP);
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint16_t* w1s = reinterpret_cast<uint16_t*>(smem + L.w1);
+  uint16_t* ps = reinterpret_cast<uint16_t*>(smem + L.p);
+  uint16_t* dxs = reinterpret_cast<uint16_t*>(smem + L.dx);
+  float* slots = reinterpret_cast<float*>(smem + L.slots);
+  float* lnx = reinterpret_cast<float*>(smem + L.lnx);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  float* bs = reinterpret_cast<float*>(smem + L.bs);
+  float* ss = reinterpret_cast<float*>(smem + L.ss);
+  const uint32_t w1_base = smem_u32(w1s), p_base = smem_u32(ps), dx_base = smem_u32(dxs);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * warp + g4;  // the thread's rows r0 and r0 + 8 of a tile
+  const int q = (int)cluster_rank(), c0 = kQW * q;  // the CTA's first column of c1
+  const int cl = blockIdx.x / kQuarters, n_cl = gridDim.x / kQuarters;
+  float* rec = records + (size_t)cl * (in_dim + 3) * c1;
+
+  // W1's quarter in its natural layout (rows = K, zero past in_dim), 16-byte
+  // cp.async copies all in flight; bf16(b1) and scale of the quarter
+  for (int i = tid; i < KP * kQW / 8; i += kThreads) {
+    const int k = i / (kQW / 8), cb = i % (kQW / 8);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     w1_base + 2 * core_at(k, 8 * cb, kQW)),
+                 "l"(w1 + (size_t)(k < in_dim ? k : 0) * c1 + c0 + 8 * cb),
+                 "r"(k < in_dim ? 16 : 0));
+  }
+  for (int c = tid; c < kQW; c += kThreads) {
+    bs[c] = bf16_round(b1[c0 + c]);
+    ss[c] = scale[c0 + c];
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  cluster_sync();  // every CTA of the cluster runs before any writes into a peer
+
+  float run[3][F::NR];  // the quarter's db1, dscale and dlnb column sums
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int i = 0; i < F::NR; ++i) run[k][i] = 0.f;
+
+  const long long n_tiles = (n_rows + kRows - 1) / kRows;
+  int done = 0;
+  for (long long tile = cl; tile < n_tiles; tile += n_cl, ++done) {
+    const long long row0 = tile * kRows;
+    const long long rows[2] = {row0 + r0, row0 + r0 + 8};
+
+    // ---- 1. P rows 16 q .. + 16 (bf16, xyz divided by r) into every CTA's
+    // P, a 16-byte core row at a time, all of a thread's loads in flight at
+    // once (16 x 66 core rows at KP 528: 9 a thread)
+    {
+      constexpr int U = (kPRows * kClusterMaxKP / 8 + kThreads - 1) / kThreads;
+      const int nk = KP / 8, n = kPRows * nk;
+      for (int i0 = tid; i0 < n; i0 += U * kThreads) {
+        float v[U][8];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int i = i0 + u * kThreads, r = kPRows * q + i / nk, k0 = 8 * (i % nk);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            v[u][e] = i < n && row0 + r < n_rows && k0 + e < in_dim
+                          ? __ldg(pts + (row0 + r) * in_dim + k0 + e)
+                          : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int i = i0 + u * kThreads, r = kPRows * q + i / nk, k0 = 8 * (i % nk);
+          if (i >= n) break;
+          uint32_t w[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lo = k0 + 2 * e < 3 ? v[u][2 * e] / radius : v[u][2 * e];
+            const float hi = k0 + 2 * e + 1 < 3 ? v[u][2 * e + 1] / radius : v[u][2 * e + 1];
+            w[e] = uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+                   (uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+          }
+          const uint32_t at = p_base + 2 * core_at(r, k0, KP);
+#pragma unroll
+          for (int d = 0; d < kQuarters; ++d)
+            asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(peer(at, d)),
+                         "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+                         : "memory");
+        }
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    cluster_sync();  // the tile's P is whole in every CTA
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+
+    // ---- 2. X_q = P W1_q; x = bf16(bf16(X) + bf16(b1)); the rows' partial sums
+    float xa[NV], ga[NV];
+    {
+      const uint32_t pb = opaque(p_base), wb = opaque(w1_base);
+      wgmma_fence();
+      for (int s = 0; s < KP / 16; ++s)  // W1's rows read MN-major
+        wgmma_ss<kQW, 0, 1>(xa, make_desc(pb + 256 * s, 128, KP * 16),
+                            make_desc(wb + s * 32 * kQW, kQW * 16, 128), s > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(xa);
+    }
+    // a row's sums of this CTA's columns into every CTA's slot q of `use`;
+    // then the four slots added in rank order
+    const auto exchange = [&](int use, float (&a)[2], float (&b)[2]) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int m = 1; m <= 2; m <<= 1) {
+          a[h] += __shfl_xor_sync(0xffffffffu, a[h], m);
+          b[h] += __shfl_xor_sync(0xffffffffu, b[h], m);
+        }
+        if (t4 == 0) {
+          const uint32_t at = smem_u32(lnx + ((use * kQuarters + q) * kRows + r0 + 8 * h) * 2);
+#pragma unroll
+          for (int d = 0; d < kQuarters; ++d)
+            asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(peer(at, d)),
+                         "f"(a[h]), "f"(b[h])
+                         : "memory");
+        }
+      }
+      cluster_sync();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        a[h] = b[h] = 0.f;
+#pragma unroll
+        for (int d = 0; d < kQuarters; ++d) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              lnx + ((use * kQuarters + d) * kRows + r0 + 8 * h) * 2);
+          a[h] += v.x;
+          b[h] += v.y;
+        }
+      }
+    };
+    float mean[2], rstd[2];
+    {
+      float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int c = 8 * (i / 4) + 2 * t4 + (i & 1), h = (i >> 1) & 1;
+        const float x = bf16_round(bf16_round(xa[i]) + bs[c]);
+        xa[i] = x;
+        s1[h] += x;
+        s2[h] += x * x;
+      }
+      exchange(0, s1, s2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mean[h] = s1[h] / c1;
+        rstd[h] = rsqrtf(fmaxf(s2[h] / c1 - mean[h] * mean[h], 0.f) + kEps);
+      }
+    }
+    // xhat and the quarter's dA (every pair's load in flight before the first use)
+    {
+      uint32_t raw[NV / 2];
+#pragma unroll
+      for (int i = 0; i < NV; i += 2) {
+        const int c = c0 + 8 * (i / 4) + 2 * t4;
+        const long long row = rows[(i >> 1) & 1];
+        raw[i / 2] =
+            row < n_rows ? __ldg(reinterpret_cast<const unsigned int*>(dA + row * c1 + c)) : 0u;
+      }
+#pragma unroll
+      for (int i = 0; i < NV; ++i) xa[i] = (xa[i] - mean[(i >> 1) & 1]) * rstd[(i >> 1) & 1];
+#pragma unroll
+      for (int i = 0; i < NV; i += 2) {
+        ga[i] = bf16_bits(raw[i / 2] & 0xffffu);
+        ga[i + 1] = bf16_bits(raw[i / 2] >> 16);
+      }
+    }
+    // the backward's row means, dscale and dlnb; dx of the real columns, db1;
+    // bf16(dx) to the quarter's dx tile
+    {
+      float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int c = 8 * (i / 4) + 2 * t4 + (i & 1), h = (i >> 1) & 1;
+        const float dxh = ga[i] * ss[c];
+        m1[h] += dxh;
+        m2[h] += dxh * xa[i];
+      }
+      fold_columns<kQW, true>(ga, xa, lane, run[1]);
+      fold_columns<kQW, false>(ga, ga, lane, run[2]);
+      exchange(1, m1, m2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m1[h] /= c1;
+        m2[h] /= c1;
+      }
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int c = 8 * (i / 4) + 2 * t4 + (i & 1), h = (i >> 1) & 1;
+        ga[i] = rstd[h] * (ga[i] * ss[c] - m1[h] - xa[i] * m2[h]);
+      }
+      fold_columns<kQW, false>(ga, ga, lane, run[0]);
+#pragma unroll
+      for (int i = 0; i < NV; i += 2) {
+        const int c = 8 * (i / 4) + 2 * t4, r = r0 + 8 * ((i >> 1) & 1);
+        *reinterpret_cast<uint32_t*>(dxs + core_at(r, c, kQW)) = pack_bf16x2(ga[i], ga[i + 1]);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // ---- 3. dW1's columns: dW1_q^T += bf16(dx_q)^T P, 64 K columns at a
+    // time, into the cluster's record; each block's record loads are issued a
+    // block ahead, in flight while the last block's product runs and is
+    // written (the last block's columns past KP read the next buffer and are
+    // dropped)
+    {
+      // the thread's record elements of the block at n0 (0 at the first tile)
+      const auto load_old = [&](int n0, float (&old)[32]) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int c = c0 + r0 + 8 * ((i >> 1) & 1), k = n0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+          old[i] = done > 0 && k < in_dim ? rec[(size_t)k * c1 + c] : 0.f;
+        }
+      };
+      float old[32];
+      load_old(0, old);
+      for (int n0 = 0; n0 < KP; n0 += 64) {
+        float acc[32], next[32];
+        wgmma_fence();
+        wgmma_rows<64>(acc, opaque(dx_base), kQW, 0, opaque(p_base), KP, n0, 0);
+        wgmma_commit();
+        load_old(n0 + 64, next);
+        wgmma_wait<0>();
+        fence_regs(acc);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int c = c0 + r0 + 8 * ((i >> 1) & 1), k = n0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+          if (k < in_dim) rec[(size_t)k * c1 + c] = old[i] + acc[i];
+          old[i] = next[i];
+        }
+      }
+    }
+
+    // ---- 4. dpts: the partial over the quarter, dx_q W1_q^T, a 64-column
+    // block at a time into the slot q of the block's owner (rank b % 4); the
+    // owner adds the four slots in rank order, four blocks a round
+    const int nb = (in_dim + 63) / 64;
+    for (int b0 = 0; b0 < nb; b0 += kQuarters) {
+      for (int d = 0; d < kQuarters && b0 + d < nb; ++d) {
+        float acc[32];
+        // W1's rows 64 (b0 + d) .. read K-major (N = the rows; past KP the
+        // next buffer's bytes, dropped)
+        const uint32_t db = opaque(dx_base), wb = opaque(w1_base) + (8 * (b0 + d)) * kQW * 16;
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < kQW / 16; ++s)
+          wgmma_ss<64, 0, 0>(acc, make_desc(db + 256 * s, 128, kQW * 16),
+                             make_desc(wb + 256 * s, 128, kQW * 16), s > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t at = smem_u32(slots + (q * kRows + r0 + 8 * h) * 64 + 8 * j + 2 * t4);
+            asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(peer(at, d)),
+                         "f"(acc[4 * j + 2 * h]), "f"(acc[4 * j + 2 * h + 1])
+                         : "memory");
+          }
+      }
+      cluster_sync();  // the round's partials have landed
+      if (b0 + q < nb) {
+        // four columns a thread at a time, two such of each slot's loads in flight
+        const int k0 = 64 * (b0 + q);
+        for (int e0 = 4 * tid; e0 < kRows * 64; e0 += 2 * 4 * kThreads) {
+          float4 v[2][kQuarters];
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int d = 0; d < kQuarters; ++d)
+              v[u][d] =
+                  *reinterpret_cast<const float4*>(slots + d * kRows * 64 + e0 + u * 4 * kThreads);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int e = e0 + u * 4 * kThreads, r = e / 64;
+            float sum[4] = {v[u][0].x, v[u][0].y, v[u][0].z, v[u][0].w};
+#pragma unroll
+            for (int d = 1; d < kQuarters; ++d) {
+              sum[0] += v[u][d].x;
+              sum[1] += v[u][d].y;
+              sum[2] += v[u][d].z;
+              sum[3] += v[u][d].w;
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int k = k0 + e % 64 + j;
+              if (row0 + r < n_rows && k < in_dim)
+                dpts[(row0 + r) * in_dim + k] = k < 3 ? sum[j] / radius : sum[j];
+            }
+          }
+        }
+      }
+      cluster_sync();  // the slots are read: the next round or tile may fill them
+    }
+  }
+
+  // ---- the column sums of the quarter: each warp its rows, then the four
+  // warps in order
+  if (col_owner<F::NVH>(lane)) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int i = 0; i < F::NR; ++i)
+        red[(warp * 3 + k) * kQW + F::column(i, lane, t4)] = run[k][i];
+  }
+  __syncthreads();
+  for (int i = tid; i < 3 * kQW; i += kThreads) {
+    const int k = i / kQW, c = i % kQW;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) s += red[(w * 3 + k) * kQW + c];
+    rec[(size_t)in_dim * c1 + k * c1 + c0 + c] = s;
+  }
+}
+
+// The clusters of a launch over `tiles` tiles: as many as the card holds at
+// once (one CTA an SM), at most one a tile; 0 if it holds none.
+int clusters(long long tiles, int in_dim) {
+  const ClusterLayout L(round16(in_dim));
+  if (L.total > (size_t)kMaxSharedBytes) return 0;
+  if (cudaFuncSetAttribute(prep_bwd_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)L.total) != cudaSuccess)
+    return 0;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kQuarters * kSms, 1, 1);
+  config.blockDim = dim3(kThreads, 1, 1);
+  config.dynamicSmemBytes = L.total;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, prep_bwd_cluster, &config) != cudaSuccess) return 0;
+  return (int)(tiles < n ? tiles : n);
+}
+
+cudaError_t launch_cluster(const float* pts, const uint16_t* dA, long long n_rows, int in_dim,
+                           int c1, const uint16_t* w1, const float* b1, const float* scale,
+                           float radius, float* dpts, float* wout, float* records,
+                           cudaStream_t s) {
+  const long long tiles = (n_rows + kRows - 1) / kRows;
+  const int n_cl = clusters(tiles, in_dim);  // also sets the shared memory size
+  if (n_cl <= 0) return cudaErrorInvalidConfiguration;
+  prep_bwd_cluster<<<(unsigned)(kQuarters * n_cl), kThreads, ClusterLayout(round16(in_dim)).total,
+                     s>>>(pts, dA, n_rows, in_dim, c1, w1, b1, scale, radius, dpts, records);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int P = (in_dim + 3) * c1;
+  reduce_records<8><<<(P + 31) / 32, 256, 0, s>>>(records, n_cl, P, wout);
+  return cudaGetLastError();
 }
 
 template <int C1P, bool HOLD, bool STREAM>
@@ -490,8 +1000,9 @@ cudaError_t launch(const float* pts, const uint16_t* dA, long long n_rows, int i
 
 extern "C" {
 
-// CTAs of the tile kernel for n_rows points: the wrapper gives each a record
-// of (in_dim + 3) * c1 floats.
+// Records of the kernel for n_rows points (CTAs of the tile kernel, clusters
+// of the cluster kernel; 0 if it cannot run): the wrapper gives each
+// (in_dim + 3) * c1 floats.
 int sa_prep_bwd_ctas(long long n_rows, int in_dim, int c1) { return ctas(n_rows, in_dim, c1); }
 
 // Largest in_dim the kernel takes for this c1 (0 if c1 is unsupported).
@@ -510,12 +1021,22 @@ int sa_prep_bwd_launch(const float* pts, const void* dA, long long n_rows, int i
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* g = static_cast<const uint16_t*>(dA);
   const auto* w = static_cast<const uint16_t*>(w1);
+  // the cluster kernel's 16-byte W1 and 4-byte dA loads and the batched
+  // loads of the held c1-128 instance (16-byte points, 4-byte dA) need them
+  // aligned (the wrapper sees to it)
+  const bool hold = holds_dw1(in_dim, c1);
+  if (cluster_route(in_dim, c1)) {
+    if (misaligned(w1, 16) || misaligned(dA, 4)) return cudaErrorInvalidValue;
+    return (int)launch_cluster(pts, g, n_rows, in_dim, c1, w, b1, scale, radius, dpts, wout,
+                               records, s);
+  }
+  if (hold && c1_pad(c1) == 128 && (misaligned(pts, 16) || misaligned(dA, 4)))
+    return cudaErrorInvalidValue;
   bool streamed = false;
   const int KC = k_chunk(in_dim, c1, streamed);
-  const bool hold = holds_dw1(in_dim, c1);
 #define EDA_PREP_BWD(C1P)                                                                    \
   if (c1_pad(c1) == C1P)                                                                    \
-    return hold       ? (int)launch<C1P, (C1P <= 64), false>(pts, g, n_rows, in_dim, c1, KC, \
+    return hold       ? (int)launch<C1P, (C1P <= 128), false>(pts, g, n_rows, in_dim, c1, KC, \
                                                              w, b1, scale, radius, dpts,     \
                                                              wout, records, s)               \
            : streamed ? (int)launch<C1P, false, true>(pts, g, n_rows, in_dim, c1, KC, w, b1,  \

@@ -4,8 +4,9 @@
 // shared-memory addresses, bulk copies (TMA, 1D) counted by mbarriers, bf16x2
 // arithmetic, wgmma descriptors, fences and products (bf16, and TF32 split
 // in two for true-f32 products), the column sums of an accumulator, the
-// fixed-order sum of per-CTA records, and the wide pools' cp.async copies
-// of a weight block into the core layout.
+// fixed-order sum of per-CTA records, the wide pools' cp.async copies of a
+// weight block into the core layout, and cluster ranks, peer addresses and
+// the cluster barrier.
 //
 // Shared-memory operands use the no-swizzle ("interleave") core-matrix layout:
 // a (rows x cols) bf16 matrix is stored as 8x8 cores of 128 bytes, core
@@ -348,6 +349,28 @@ __device__ __forceinline__ void copy_core(uint32_t dst, const uint16_t* __restri
                  "l"(src + (8 * kb + kr) * LD + 8 * q));
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// ---- thread block clusters (the wide pool forward, the prep backward at c1 256)
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The address of the same shared-memory byte in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t peer(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Every thread of the cluster's CTAs: their shared-memory writes before it,
+// peers' included, are seen after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // x / c, correctly rounded, from rc = RN(1/c): q = RN(x rc) corrected once,

@@ -47,6 +47,11 @@ PLAIN_MAX_ELEMS = 1 << 23  # (center, row, channel) elements the plain version h
 WIDE = (256, 256, 512)
 WIDE_STAGE = 16
 WIDE_STAGE_ELEMS = WIDE_STAGE * 3 * 64 * 256
+# The compact rows at these widths (the width-2 backbone's SA1) run
+# pool_bwd_compact: one CTA an SM as well, each over every ctas-th block with
+# one record, nothing staged (its dW2 stays in registers, dW3 is added to the
+# record a quarter of the channels at a time).
+PERSISTENT_COMPACT = (128, 128, 256)
 
 _ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,) * 6
              + (ctypes.c_int,))
@@ -66,20 +71,24 @@ def compact_backward(window: int, c_out: int) -> bool:
     return window % 128 == 0 and -(-c_out // 128) * 128 < window
 
 
-def scratch_plan(widths, B: int, M: int, window: int, sms: int) -> dict:
+def scratch_plan(widths, B: int, M: int, window: int, sms: int, compact: bool = False) -> dict:
     """The kernels' scratch for a call: ``ctas`` (the grid; 0 where a CTA
     takes one block), and the shapes of ``records`` (f32, a record a CTA, or
     a block), ``da_records`` (f32, a window's dA a block) and ``stage`` (bf16,
-    the wide kernel's staged tiles a CTA; None for the narrower triples).
-    ``sms``: the card's SM count, the wide kernel's CTAs at most."""
+    the wide kernel's staged tiles a CTA; None otherwise). ``sms``: the
+    card's SM count, the persistent kernels' CTAs at most (the wide triple,
+    and ``PERSISTENT_COMPACT`` with ``compact``)."""
     C1, C2, C3 = widths
     blocks = B * M // BLOCK
     record = C1 * C2 + C2 * C3 + 3 * C2 + C3
     plan = {"ctas": 0, "records": (blocks, record), "da_records": (blocks, window, C1),
             "stage": None}
-    if tuple(widths) == WIDE and blocks > 0:
+    persistent = tuple(widths) == WIDE or (compact and tuple(widths) == PERSISTENT_COMPACT)
+    if persistent and blocks > 0:
         ctas = min(blocks, sms)
-        plan.update(ctas=ctas, records=(ctas, record), stage=(ctas, WIDE_STAGE_ELEMS))
+        plan.update(ctas=ctas, records=(ctas, record))
+        if tuple(widths) == WIDE:
+            plan["stage"] = (ctas, WIDE_STAGE_ELEMS)
     return plan
 
 
@@ -209,7 +218,7 @@ def sa_pool_bwd(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, *,
     n_w2, n_w3 = C1 * C2, C2 * C3
     f32 = dict(dtype=torch.float32, device=A.device)
     plan = scratch_plan(widths, B, M, window,
-                        torch.cuda.get_device_properties(A.device).multi_processor_count)
+                        torch.cuda.get_device_properties(A.device).multi_processor_count, compact)
     dA = torch.empty((B, N, C1), **f32)
     dbc = torch.empty((B, M, C1), **f32)
     out = torch.empty(n_w2 + n_w3 + 3 * C2 + C3, **f32)

@@ -217,9 +217,14 @@ def sa_prep_bwd(pts, dA, w1, b1, scale, *, radius: float, compute_dtype=torch.bf
         raise ValueError("sa_prep_bwd parameter shapes do not match the points")
     _check_widths("sa_prep_bwd", in_dim, c1,
                   c_function("sa_prep_bwd", "sa_prep_bwd_max_in_dim", [ctypes.c_int])(c1))
+    # the kernel's vector loads need 16-byte aligned rows' bases: a view that
+    # starts elsewhere is copied
+    pts, dA, w1 = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (pts, dA, w1))
     rows = B * N
     n_ctas = c_function("sa_prep_bwd", "sa_prep_bwd_ctas",
                         [ctypes.c_longlong, ctypes.c_int, ctypes.c_int])(rows, in_dim, c1)
+    if n_ctas < 1:
+        raise RuntimeError(f"sa_prep_bwd: the kernel cannot be placed at in_dim {in_dim}, c1 {c1}")
     f32 = dict(dtype=torch.float32, device=pts.device)
     dpts = torch.empty((B, N, in_dim), **f32)
     wout = torch.empty(((in_dim + 3) * c1,), **f32)

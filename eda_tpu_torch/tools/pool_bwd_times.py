@@ -15,13 +15,18 @@ recorded:
 * ``prep_f32``: the f32 prep forward and backward (K2f, K7f,
   ``ops.fused_sa.sa_prep`` / ``sa_prep_bwd``) of ``ModelConfig()``;
 * ``prep_bf16``: the bf16 prep forward and backward (K2, K7) of
-  ``ModelConfig(use_bf16=True)``.
+  ``ModelConfig(use_bf16=True)``;
+* ``prep_w2x``: the same kernels of the width-2 backbone (SA1 at c1 128,
+  SA2-4 at c1 256, SA3-4 at in_dim 515 with W1 streamed).
 
 Prints one JSON line: the card's name and power limit, ms and the peak device
 memory of one call (above what was allocated before it) per layer, the sums
 per kernel, and whether a second launch gave every output bit for bit. With
 ``--busy`` it also profiles one forward and one training step of the same
-model and gives the device's busy ms in each (``torch.profiler``).
+model and gives the device's busy ms in each (``torch.profiler``). With
+``--split`` it profiles one call per layer and gives the device ms of each of
+its launches by name (the kernel, its scratch memsets, the fixed-order
+reductions of its records).
 
 It uses only the port's public entry points (``entry.build_trainer``,
 ``entry.build``, ``ops.fused_sa``), so the same file times another checkout
@@ -53,6 +58,7 @@ KERNELS = {
     "pool_w2x": (True, True, _POOL_STEP, _POOL_SERVE),
     "prep_f32": (False, False, {"sa_prep": "K2f", "sa_prep_bwd": "K7f"}, {}),
     "prep_bf16": (True, False, {"sa_prep": "K2", "sa_prep_bwd": "K7"}, {}),
+    "prep_w2x": (True, True, {"sa_prep": "K2", "sa_prep_bwd": "K7"}, {}),
 }
 # the functions called SA1 -> SA4; the others (backward) SA4 -> SA1
 FORWARD = ("sa_prep", "sa_pair_pool", "sa_pair_pool_winners")
@@ -104,12 +110,34 @@ def busy_ms(fn) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
+def split_ms(fn) -> dict:
+    """Device ms of one call of ``fn`` by launch: kernels by their function's
+    name, memsets and copies as the profiler names them."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or not e.self_device_time_total:
+            continue
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+        name = re.split(r"[<(]", name)[0] if not name.startswith("Mem") else name
+        out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--kernels", choices=sorted(KERNELS), default="pool")
     ap.add_argument("--busy", action="store_true")
+    ap.add_argument("--split", action="store_true")
     ap.add_argument("--label", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -167,6 +195,8 @@ def main(argv=None) -> int:
         sums[kernel] = sums.get(kernel, 0.0) + ms
         layers.append({"layer": layer, "kernel": kernel, "ms": ms,
                        "peak_mib": peak_mib(lambda: fn(*a, **kw))})
+        if args.split:
+            layers[-1]["split_ms"] = split_ms(lambda: fn(*a, **kw))
     out = {"label": args.label, "card": card_line(), "batch": args.batch,
            "kernels": args.kernels, "layers": layers,
            **{f"{k}_ms": v for k, v in sums.items()}, "bit_identical_repeat": repeat}

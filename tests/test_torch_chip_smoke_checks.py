@@ -47,7 +47,7 @@ import chip_smoke
 from eda_tpu_torch.config import ModelConfig
 from eda_tpu_torch.entry import build_evaluator
 from eda_tpu_torch.eval.grounding import score_and_iou_multi
-from eda_tpu_torch.ops.cuda import fps, sa_kernel, sa_mask, sa_prep
+from eda_tpu_torch.ops.cuda import fps, sa_kernel, sa_mask, sa_pool_bwd, sa_prep
 
 RADIUS = float(np.sqrt(0.0913))  # r^2 off the 0.05 grid's d2 values
 T = torch.from_numpy
@@ -223,8 +223,10 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
     sass = {"sa_pair_pool": {"_Z19sa_pair_pool_kernelILi16E": 24, "_Z3fps": 0,
                              "_Z17sa_pair_pool_wideILb1ELi0ELb0E": 48},
             "sa_pair_pool_bwd": {"_Z14pool_bwd_tilesILi16E": 12, "_Z14pool_bwd_tilesILi32E": 0,
-                                 "_Z14reduce_records": 0, "_Z13pool_bwd_wideILb1E": 40},
-            "sa_prep_bwd": {"_Z14prep_bwd_tilesILi64ELb1E": 6, "_Z14reduce_records": 0},
+                                 "_Z14reduce_records": 0, "_Z13pool_bwd_wideILb1E": 40,
+                                 "_Z16pool_bwd_compact": 30},
+            "sa_prep_bwd": {"_Z14prep_bwd_tilesILi64ELb1E": 6, "_Z14reduce_records": 0,
+                            "_Z16prep_bwd_cluster": 10},
             "sa_prep": {"_Z14sa_prep_kernelILi64EE": 1},
             # the f32 prep's tensor-core kernels; its CUDA-core route holds none
             "sa_prep_f32": {"_Z7prep_tcILi128ELb1E": 36, "_Z8prep_fmaILi64ELb1E": 0,
@@ -235,7 +237,14 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
     sass["sa_pair_pool_bwd"]["_Z14pool_bwd_tilesILi32E"] = 16
     chip_smoke.check_pool_build(ok, FakeBuild)
     out = capsys.readouterr().out
-    assert "72 HGMMA instructions in 2" in out and "68 HGMMA instructions in 3" in out
+    assert "72 HGMMA instructions in 2" in out and "98 HGMMA instructions in 4" in out
+    assert "pool_bwd_compact: 30 HGMMA" in out and "prep_bwd_cluster: 10 HGMMA" in out
+    for source, name in (("sa_pair_pool_bwd", "_Z16pool_bwd_compact"),
+                         ("sa_prep_bwd", "_Z16prep_bwd_cluster")):  # each must be built
+        n = sass[source].pop(name)
+        with pytest.raises(AssertionError, match=f"{source} holds no"):
+            chip_smoke.check_pool_build(ok, FakeBuild)
+        sass[source][name] = n
     sass["sa_pair_pool"]["_Z17sa_pair_pool_wideILb1ELi0ELb0E"] = 0  # a wide kernel counts too
     with pytest.raises(AssertionError, match="sa_pair_pool GEMM kernel has no HGMMA"):
         chip_smoke.check_pool_build(ok, FakeBuild)
@@ -309,7 +318,14 @@ def test_fps_edge_inputs_hold_their_edge_cases():
 def test_prep_bwd_edge_inputs_hold_their_edge_cases():
     cases = chip_smoke.prep_bwd_edge_inputs()
     widths = {(args[2].shape[0], args[2].shape[1]) for args, _ in cases.values()}
-    assert {(6, 16), (35, 32), (67, 32), (6, 64), (259, 128), (131, 128)} <= widths
+    assert {(6, 16), (35, 32), (67, 32), (6, 64), (259, 128), (131, 128), (6, 128)} <= widths
+    assert {(259, 256), (515, 256)} <= widths  # the cluster kernel's (c1 256)
+    (held, _), = [v for k, v in cases.items() if k.startswith("W2X SA1")]
+    assert held[0].shape[1] > 64 * 132 * 8  # more 64-row tiles than the held kernel's CTAs
+    # more 64-row tiles than the cluster kernel's clusters (at most one an SM)
+    assert any(args[2].shape[1] == 256 and args[0].shape[:2].numel() > 64 * 132 * 4
+               for args, _ in cases.values())
+    assert (6, 127) in widths  # an odd c1 above 64 at K = 16: the record path
     rows = [args[0].shape[0] * args[0].shape[1] for args, _ in cases.values()]
     assert sum(r % 64 != 0 for r in rows) >= 5  # ragged last tiles
     (zero, _), = [v for k, v in cases.items() if k.startswith("zero dA")]
@@ -513,8 +529,8 @@ def test_w2x_phase_inputs_hold_their_edge_cases():
             *args, **kw, d2_mode=mode, mask=mask if mode == "pre" else None)
         assert torch.equal(w, rule[..., None].expand_as(w).int())
         assert torch.equal((v == -1e9).all(-1), none) and none.any() and not none.all()
-    bwd = chip_smoke.W2X_BWD_EDGE_CASES
-    assert {c[4] for c in bwd} == {4, 256, 512} and all(c[1] == widths for c in bwd)
+    bwd = [c for c in chip_smoke.W2X_BWD_EDGE_CASES if c[1] == widths]
+    assert {c[4] for c in bwd} == {4, 256, 512}
     assert all(N - W >= widths[2] for _, _, N, _, W in bwd)  # as bwd_edge_inputs needs
     assert max(2 * M // 16 for _, _, _, M, _ in bwd) > 132  # more blocks than an H100's SMs
     for _, _, N, M, W in bwd:
@@ -530,7 +546,25 @@ def test_w2x_phase_inputs_hold_their_edge_cases():
     rows = chip_smoke.center_rows(bargs, {**bkw, "compact": False})
     assert rows.max() == 256 and (rows == 1).any()  # W rows for kind 1; one row for kind 0
     assert chip_smoke.center_rows(bargs, {**bkw, "compact": True}).max() == 512
+    # SA1's own shape for the compact kernel at (128, 128, 256): winners
+    # outside the window, centers with every channel live, and the random
+    # winners of a block tied on a window's first points
+    (sa1,) = [c for c in chip_smoke.W2X_BWD_EDGE_CASES if c[1] != widths]
+    layer, w1, N, M, W, tie = sa1
     cfg, tiny = chip_smoke.w2x_configs(ModelConfig(use_bf16=True))
+    assert layer == 1 and w1 == cfg.sa_mlps[0] == (128, 128, 256) and (M, W) == (2048, 1024)
+    assert N == 50000 and sa_pool_bwd.compact_backward(W, w1[2]) and N - W >= w1[2]
+    bargs, bkw = chip_smoke.bwd_edge_inputs(B=1, N=N, M=M, window=W, widths=w1, tie_pool=tie)
+    g, win, starts = bargs[2], bargs[3].long(), bargs[4]
+    start = sa_kernel.window_starts(starts.long(), N, W).repeat_interleave(16, dim=1)[..., None]
+    rel = win - start
+    assert ((g != 0) & ((rel < 0) | (rel >= W))).any()  # compact winners outside the window
+    assert ((g != 0).all(-1)).any()  # centers with every channel live
+    kind = torch.arange(M) % 16
+    tied = win[0, kind > 2] - start[0, kind > 2]
+    assert tied.max() < tie and (g[0, kind > 2] != 0).sum() > 100 * tie  # many rows, 4 points
+    compact_rows = chip_smoke.center_rows(bargs, {**bkw, "compact": True})
+    assert compact_rows.max() == w1[2] and (compact_rows.view(-1, 16).sum(-1) == 0).any()
     assert cfg.sa_mlps[1:] == (widths,) * 3 and cfg.use_bf16 and tiny.use_bf16
     assert chip_smoke.TinyOf(tiny).tiny() is tiny
 

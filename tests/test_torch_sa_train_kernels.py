@@ -159,7 +159,7 @@ def test_compact_choice_follows_the_tpu_rule():
     assert not port_bwd.compact_backward(64, 64)      # tiny SA3-4
 
 
-@pytest.mark.parametrize("c1,in_dim", [(16, 6), (64, 6), (32, 67)])
+@pytest.mark.parametrize("c1,in_dim", [(16, 6), (64, 6), (32, 67), (128, 4), (256, 515)])
 def test_prep_backward_plain_matches_pallas(c1, in_dim):
     radius = 0.4
     rng = np.random.default_rng(c1 + in_dim)

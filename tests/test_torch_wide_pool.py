@@ -1,14 +1,16 @@
-"""The wide pool kernels' host-side planning and their timer, on the CPU.
+"""The width-2 backbone's kernels' host-side planning and their timer, on the CPU.
 
 * ``ops/cuda/sa_pool_bwd.scratch_plan``: the wide backward (``pool_bwd_wide``,
   (256, 256, 512)) runs one CTA an SM, each over every ``ctas``-th block of 16
   centers with one record and the staged H0, H1 and bf16(dx) images of up to
-  ``WIDE_STAGE`` tiles; the narrower triples keep a record a block. At the
-  width-2 backbone's SA2 (batch 8) its scratch stays below the record a block
-  it replaces.
-* ``tools/pool_bwd_times.py --kernels pool_w2x`` times the width-2
-  backbone's pools: its widths are ``chip_smoke``'s, and without a card it
-  fails, printing nothing.
+  ``WIDE_STAGE`` tiles; so do the compact rows at (128, 128, 256)
+  (``pool_bwd_compact``, the backbone's SA1), with nothing staged. The
+  windowed rows at (128, 128, 256) and every narrower triple keep a record a
+  block. At the backbone's SA2 and SA1 (batch 8) the persistent plans' scratch
+  stays below the record a block they replace.
+* ``tools/pool_bwd_times.py --kernels pool_w2x`` / ``prep_w2x`` time the
+  width-2 backbone's pools and prep kernels: their widths are ``chip_smoke``'s,
+  and without a card they fail, printing nothing.
 
 The kernels themselves run on the card only (``chip_smoke.py``).
 """
@@ -22,6 +24,7 @@ from eda_tpu_torch.tools import pool_bwd_times
 
 WIDE = (256, 256, 512)
 RECORD = 256 * 256 + 256 * 512 + 3 * 256 + 512  # dW2, dW3, db2, ds2, dlb2, db3
+RECORD_128 = 128 * 128 + 128 * 256 + 3 * 128 + 256
 H100_SMS = 132
 
 
@@ -53,10 +56,46 @@ def test_wide_backward_stages_sixteen_tiles_a_cta():
                                           ((64, 64, 128), 8, 512, 256),
                                           ((16, 16, 32), 2, 128, 64)])
 def test_narrow_backward_keeps_a_record_a_block(widths, B, M, W):
+    """The windowed rows at (128, 128, 256) (W2X's SA1 shape) and the narrower
+    triples' windowed rows keep a record a block."""
     C1, C2, C3 = widths
-    plan = sa_pool_bwd.scratch_plan(widths, B, M, W, H100_SMS)
+    plan = sa_pool_bwd.scratch_plan(widths, B, M, W, H100_SMS, compact=False)
     assert plan == {"ctas": 0, "records": (B * M // 16, C1 * C2 + C2 * C3 + 3 * C2 + C3),
                     "da_records": (B * M // 16, W, C1), "stage": None}
+
+
+@pytest.mark.parametrize("widths,B,M,W", [((64, 64, 128), 8, 2048, 1024),
+                                          ((32, 32, 64), 2, 512, 256),
+                                          ((16, 16, 32), 2, 128, 64)])
+def test_narrow_compact_backward_keeps_a_record_a_block(widths, B, M, W):
+    """Below (128, 128, 256) the compact rows run the tile kernel, a record a
+    block, as the windowed rows do (the flagship's SA1 among them)."""
+    assert (sa_pool_bwd.scratch_plan(widths, B, M, W, H100_SMS, compact=True)
+            == sa_pool_bwd.scratch_plan(widths, B, M, W, H100_SMS, compact=False))
+    assert sa_pool_bwd.scratch_plan(widths, B, M, W, H100_SMS, compact=True)["ctas"] == 0
+
+
+@pytest.mark.parametrize("B,M,W,ctas", [(8, 2048, 1024, 132), (8, 512, 1024, 132),
+                                        (1, 16, 64, 1), (2, 256, 256, 32)])
+def test_compact_backward_at_128_takes_one_cta_an_sm(B, M, W, ctas):
+    """pool_bwd_compact: one CTA an SM over every ctas-th block, one record a
+    CTA, a window's dA a block as before, nothing staged."""
+    plan = sa_pool_bwd.scratch_plan(sa_pool_bwd.PERSISTENT_COMPACT, B, M, W, H100_SMS,
+                                    compact=True)
+    assert plan == {"ctas": ctas, "records": (ctas, RECORD_128),
+                    "da_records": (B * M // 16, W, 128), "stage": None}
+    assert ctas == min(B * M // 16, H100_SMS)
+
+
+def test_compact_backward_scratch_at_w2x_sa1_below_a_record_a_block():
+    """W2X's SA1 at batch 8 (2048 centers, window 1024): 132 records in place
+    of the 1024 a block (26 MB instead of 204 MB)."""
+    args = ((128, 128, 256), 8, 2048, 1024, H100_SMS)
+    plan = sa_pool_bwd.scratch_plan(*args, compact=True)
+    per_block = sa_pool_bwd.scratch_plan(*args, compact=False)
+    assert per_block["records"] == (1024, RECORD_128) and plan["records"] == (132, RECORD_128)
+    assert plan["da_records"] == per_block["da_records"]
+    assert plan_bytes(per_block) - plan_bytes(plan) == 4 * (1024 - 132) * RECORD_128
 
 
 def test_wide_backward_scratch_at_w2x_sa2_below_a_record_a_block():
@@ -87,6 +126,22 @@ def test_pool_w2x_timer_widths_are_the_smokes():
 @pytest.mark.parametrize("argv", [["--kernels", "pool_w2x"], ["--kernels", "pool_w2x", "--busy"],
                                   ["--kernels", "pool"]])
 def test_pool_w2x_timer_needs_a_card(argv, monkeypatch, capsys):
+    """A device timing has no CPU counterpart: without CUDA the tool fails, printing nothing."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pool_bwd_times.main(argv) != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_prep_w2x_timer_widths_are_the_smokes():
+    cfg = pool_bwd_times.model_config("prep_w2x")
+    assert cfg.use_bf16 and cfg.sa_mlps == chip_smoke.W2X_SA_MLPS
+    assert cfg.fp_mlps == chip_smoke.W2X_FP_MLPS
+    assert pool_bwd_times.KERNELS["prep_w2x"][2:] == pool_bwd_times.KERNELS["prep_bf16"][2:]
+    assert pool_bwd_times.model_config("prep_bf16").sa_mlps != cfg.sa_mlps
+
+
+@pytest.mark.parametrize("argv", [["--kernels", "prep_w2x"], ["--kernels", "prep_w2x", "--busy"]])
+def test_prep_w2x_timer_needs_a_card(argv, monkeypatch, capsys):
     """A device timing has no CPU counterpart: without CUDA the tool fails, printing nothing."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert pool_bwd_times.main(argv) != 0
