@@ -853,12 +853,15 @@ def hgmma_counts(library: Path):
 
 # tensor-core kernel libraries: source -> the names of its GEMM kernels; the
 # pool's and its backward's wide kernels, (256, 256, 512), the backward's
-# compact kernel at (128, 128, 256) and the prep backward's cluster kernel at
-# c1 256 must be among them
+# compact kernel at (128, 128, 256) and the prep kernels' cluster routes at c1
+# 256 (REQUIRED_KERNELS) must be among them
 GEMM_KERNELS = {"sa_pair_pool": ("sa_pair_pool_kernel", "sa_pair_pool_wide"),
                 "sa_pair_pool_bwd": ("pool_bwd_tiles", "pool_bwd_wide", "pool_bwd_compact"),
-                "sa_prep_bwd": ("prep_bwd_tiles", "prep_bwd_cluster"), "sa_prep": ("sa_prep_kernel",),
+                "sa_prep_bwd": ("prep_bwd_tiles", "prep_bwd_cluster"),
+                "sa_prep": ("sa_prep_kernel", "sa_prep_cluster"),
                 "sa_prep_f32": ("prep_tc",)}
+REQUIRED_KERNELS = (("sa_pair_pool_bwd", "pool_bwd_compact"), ("sa_prep_bwd", "prep_bwd_cluster"),
+                    ("sa_prep", "sa_prep_cluster"), ("sa_prep_f32", "prep_tc_cluster"))
 
 
 def check_pool_build(logs: dict, build) -> None:
@@ -887,8 +890,7 @@ def check_pool_build(logs: dict, build) -> None:
             if not wide:
                 raise AssertionError(f"{source} holds no wide kernel")
             print(f"  of which {len(wide)} wide kernels, fewest HGMMA in one {min(wide)}")
-        for kind, name in (("sa_pair_pool_bwd", "pool_bwd_compact"),
-                           ("sa_prep_bwd", "prep_bwd_cluster")):
+        for kind, name in REQUIRED_KERNELS:
             if source != kind:
                 continue
             found = [n for f, n in gemms.items() if name in f]
@@ -1297,16 +1299,23 @@ def prep_bwd_edge_check() -> None:
 # the prep forward's edge widths: c1 with its instantiation's padding, in_dim
 # at 3 and at the kernel's largest
 PREP_EDGE_C1 = (16, 48, 64, 128, 256)
+# rows of the cluster route's wrapping edge case: more 64-row tiles (257) than
+# the clusters a card holds, the last of 8 rows
+W2X_WRAP_ROWS = 16_392
 
 
-def prep_edge_inputs(max_in_dim, seed=0) -> dict:
+def prep_edge_inputs(max_in_dim, seed=0, cluster_max=None) -> dict:
     """name -> ((pts, w1, b1, scale, lnb) CPU tensors, radius): the prep
     forward's edge cases. ``max_in_dim(c1)`` is the kernel's largest in_dim.
     Each c1 of ``PREP_EDGE_C1`` at in_dim 3 and at ``max_in_dim(c1)``; row
     counts that are no multiple of the 64-point tile (and fewer than one tile);
     SA1's and SA3's widths at ragged row counts, the width-2 backbone's SA3
-    (W1 streamed) over 126 tiles; coordinates and features of large
-    magnitude."""
+    over 126 tiles; coordinates and features of large magnitude. At the
+    width-2 backbone's widths (``w2x_prep``; in_dim 515 on the cluster route,
+    259 beside it): fewer tiles than the clusters the card holds (1 x 3 and 1
+    x 130 rows), more (``W2X_WRAP_ROWS``, the persistent clusters wrapping, a
+    ragged last tile), SA4's 4 096 rows, and, given ``cluster_max(c1)``, the
+    route's largest in_dim and one past it (W1 streamed on one CTA)."""
     g = torch.Generator().manual_seed(seed)
 
     def case(B, N, in_dim, c1, radius, scale_xyz=4.0, scale_f=1.0):
@@ -1326,8 +1335,16 @@ def prep_edge_inputs(max_in_dim, seed=0) -> dict:
     cases["SA1 widths (6, 64), 3 x 1001 rows"] = case(3, 1001, 6, 64, 0.2)
     cases["SA3 widths (259, 128), 2 x 77 rows"] = case(2, 77, 259, 128, 0.8)
     cases["SA2 widths (131, 128), 1 x 40 rows"] = case(1, 40, 131, 128, 0.4)
-    # W1 streamed over many tiles and CTAs (the width-2 backbone's SA3)
+    # the width-2 backbone's SA2-4 widths on the cluster route
     cases["W2X SA3 widths (515, 256), 8 x 1001 rows"] = case(8, 1001, 515, 256, 0.8)
+    for in_dim, radius in ((259, 0.4), (515, 0.8)):
+        for B, N in ((1, 3), (1, 130), (1, W2X_WRAP_ROWS)):
+            cases[f"W2X widths ({in_dim}, 256), {B} x {N} rows"] = case(B, N, in_dim, 256, radius)
+    cases["W2X SA4 widths (515, 256), 1 x 4096 rows"] = case(1, 4096, 515, 256, 1.2)
+    if cluster_max is not None:
+        top = cluster_max(256)
+        for in_dim, what in ((top, "the cluster route's largest"), (top + 1, "one past it")):
+            cases[f"c1 256, in_dim {in_dim} ({what}), 130 rows"] = case(1, 130, in_dim, 256, 0.4)
     cases["large-magnitude points, SA1 widths, 4100 rows"] = case(1, 4100, 6, 64, 0.2,
                                                                     500.0, 50.0)
     cases["large-magnitude points, SA2 widths, 300 rows"] = case(1, 300, 131, 128, 0.4,
@@ -1335,21 +1352,36 @@ def prep_edge_inputs(max_in_dim, seed=0) -> dict:
     return cases
 
 
+def w2x_prep(in_dim: int, c1: int) -> bool:
+    """The width-2 backbone's prep widths and those around the bf16 forward's
+    cluster route (c1 256, in_dim 433 up to ``sa_prep.cluster_max_in_dim``):
+    the "w2x" phase's edge cases."""
+    return c1 == 256 and in_dim >= 256
+
+
 @torch.no_grad()
-def prep_edge_check() -> None:
-    """K2 against its plain version on every ``prep_edge_inputs`` case,
-    within 0.02 plus one bf16 step of the value."""
+def prep_edge_check(wide: bool = False) -> None:
+    """K2 against its plain version on the ``prep_edge_inputs`` cases at the
+    width-2 backbone's c1 256 (``wide``: ``w2x_prep``) or the others, within
+    0.02 plus one bf16 step of the value, and bit-identical on a second
+    launch."""
     from eda_tpu_torch.ops.cuda import sa_prep
 
-    for name, (args, radius) in prep_edge_inputs(sa_prep.max_in_dim).items():
+    for name, (args, radius) in prep_edge_inputs(
+            sa_prep.max_in_dim, cluster_max=sa_prep.cluster_max_in_dim).items():
+        if w2x_prep(*args[1].shape) != wide:
+            continue
         args = tuple(a.cuda() for a in args)
         got = sa_prep.sa_prep(*args, radius=radius)
+        again = sa_prep.sa_prep(*args, radius=radius)
         want = sa_prep.sa_prep_plain(*args, radius=radius)
         torch.cuda.synchronize()
         if got.shape != want.shape:
             raise AssertionError(f"prep edge check {name}: shape {tuple(got.shape)}")
         err = check_kernel("sa_prep_launch", got, want, 0)
-        print(f"prep edge check {name}: max err {err:.3e}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"prep edge check {name}: A differs between two launches")
+        print(f"prep edge check {name}: max err {err:.3e}, bit-identical on a second launch")
 
 
 def mask_edge_inputs(seed=0) -> dict:
@@ -1436,7 +1468,7 @@ def wide_prep(in_dim: int, c1: int) -> bool:
     return in_dim > 8 and c1 > 128
 
 
-def prep_f32_edge_inputs(seed=0) -> dict:
+def prep_f32_edge_inputs(seed=0, cluster_tiles=None) -> dict:
     """name -> ((pts, w1, b1, scale, lnb, dA) CPU tensors, radius): the f32 prep's
     edge cases. Each flagship layer's widths at a ragged row count (no multiple
     of a 64-row tile); SA1's and SA2's at 63, 64, 65 and 129 rows (tile
@@ -1447,7 +1479,13 @@ def prep_f32_edge_inputs(seed=0) -> dict:
     SA3's at 3 rows; the tiny config's widths over several tiles and within
     one; widths that are no multiple of 8 (tensor route) or 4 (CUDA-core
     route), below and above c1 128; points of large magnitude; dA in f32
-    with values that bf16 does not hold."""
+    with values that bf16 does not hold. Around the backward's cluster route
+    (c1 256, any in_dim it takes, no more tiles than the clusters the card
+    holds): 3 and 129 rows and SA4's 4 096 (on it), 40 001 rows (a last tile
+    of one row, the direct backward), and, given ``cluster_tiles``, the
+    route's most 64-row tiles (a ragged last one) and one tile more (the
+    direct backward) at W2X SA3's widths; its largest in_dim is the
+    backward's (``prep_f32_limit_check``)."""
     g = torch.Generator().manual_seed(seed)
 
     def case(B, N, in_dim, c1, radius, scale_xyz=4.0, scale_f=1.0):
@@ -1474,6 +1512,12 @@ def prep_f32_edge_inputs(seed=0) -> dict:
     for rows in TILE_EDGE_ROWS + (MANY_TILE_ROWS[2],):
         cases[f"W2X SA2 widths, 1 x {rows} rows"] = case(1, rows, *W2X_F32_PREP_WIDTHS[1], 0.4)
     cases["W2X SA3 widths, 1 x 3 rows"] = case(1, 3, *W2X_F32_PREP_WIDTHS[2], 0.8)
+    cases["W2X SA4 widths, 1 x 4096 rows"] = case(1, 4096, *W2X_F32_PREP_WIDTHS[3], 1.2)
+    if cluster_tiles is not None:
+        for rows, what in ((64 * cluster_tiles - 5, "the cluster route's most tiles"),
+                           (64 * cluster_tiles + 1, "one tile more")):
+            cases[f"W2X SA3 widths, 1 x {rows} rows ({what})"] = case(
+                1, rows, *W2X_F32_PREP_WIDTHS[2], 0.8)
     for in_dim, c1 in TINY_PREP_WIDTHS:
         cases[f"tiny widths ({in_dim}, {c1}), 3 x 101 rows"] = case(3, 101, in_dim, c1, 0.4)
         cases[f"tiny widths ({in_dim}, {c1}), 1 x 50 rows"] = case(1, 50, in_dim, c1, 0.4)
@@ -1507,7 +1551,8 @@ def prep_f32_edge_check(wide: bool = False) -> None:
     from eda_tpu_torch.ops.cuda import sa_prep
 
     f32 = dict(compute_dtype=torch.float32)
-    for name, (args, radius) in prep_f32_edge_inputs().items():
+    cases = prep_f32_edge_inputs(cluster_tiles=sa_prep.cluster_max_tiles_f32())
+    for name, (args, radius) in cases.items():
         if wide_prep(*args[1].shape) != wide:
             continue
         pts, w1, b1, scale, lnb, dA = (a.cuda() for a in args)
@@ -1539,7 +1584,49 @@ def prep_f32_edge_check(wide: bool = False) -> None:
         print(f"f32 prep edge check {name}: K2f max err {err.max().item():.3e}; K7f errors "
               f"relative to each output's largest value {[f'{e:.2e}' for e in errs]}, "
               f"bit-identical on a second launch, dA read unrounded")
+    if wide:
+        prep_f32_wrap_check(cases)
     prep_f32_limit_check(256 if wide else 128)
+
+
+# clusters of K7f's cluster route in the wrapping check: each takes three or
+# four of the route's most tiles
+PREP_F32_WRAP_CLUSTERS = 20
+
+
+@torch.no_grad()
+def prep_f32_wrap_check(cases: dict) -> None:
+    """K7f on its cluster route with the clusters capped at
+    ``PREP_F32_WRAP_CLUSTERS`` (``sa_prep.set_max_clusters_f32``), so that
+    they take several tiles in turn, the last ragged (the ``cases`` with the
+    route's most tiles): within ``PREP_F32_BWD_REL`` of the plain version and
+    bit-identical on a second launch. The cap is lifted after."""
+    from eda_tpu_torch.ops.cuda import sa_prep
+
+    f32 = dict(compute_dtype=torch.float32)
+    names = [n for n in cases if "the cluster route's most tiles" in n]
+    if not names:
+        raise AssertionError("f32 prep wrap check: no case with the cluster route's most tiles")
+    sa_prep.set_max_clusters_f32(PREP_F32_WRAP_CLUSTERS)
+    try:
+        for name in names:
+            args, radius = cases[name]
+            pts, w1, b1, scale, _, dA = (a.cuda() for a in args)
+            bwd = (pts, dA, w1, b1, scale)
+            got = sa_prep.sa_prep_bwd(*bwd, radius=radius, **f32)
+            again = sa_prep.sa_prep_bwd(*bwd, radius=radius, **f32)
+            want = sa_prep.sa_prep_bwd_plain(*bwd, radius=radius, **f32)
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) for a, b in zip(got, want)]
+            if max(errs) > PREP_F32_BWD_REL or not all(torch.isfinite(a).all() for a in got):
+                raise AssertionError(f"f32 prep wrap check {name}: {errs}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"f32 prep wrap check {name}: an output differs between "
+                                     f"two launches")
+            print(f"f32 prep wrap check {name} on {PREP_F32_WRAP_CLUSTERS} clusters: K7f errors "
+                  f"{[f'{e:.2e}' for e in errs]}, bit-identical on a second launch")
+    finally:
+        sa_prep.set_max_clusters_f32(0)
 
 
 @torch.no_grad()
@@ -2786,7 +2873,8 @@ class TinyOf:
 
 def w2x_phase(root_cfg) -> list:
     """The width-2 backbone, ``w2x_configs(ModelConfig(use_bf16=True))``: the
-    wide pool on tie inputs and its backward on edge inputs; the tiny W2X
+    wide pool on tie inputs and its backward on edge inputs; K2 on the edge
+    inputs at c1 256 (``prep_edge_check(wide=True)``); the tiny W2X
     model, step and scoring against their CPU twins; at full width (batch 8)
     K2, K3 / K4, K5 / K6 and K7 against their plain versions on a forward's
     and a step's inputs, ``REQUESTS`` serving batches and ``W2X_STEPS`` steps
@@ -2802,6 +2890,7 @@ def w2x_phase(root_cfg) -> list:
     cfg, tiny = w2x_configs(root_cfg)
     pool_tie_check(W2X_TIE_CASES)
     pool_bwd_edge_check(W2X_BWD_EDGE_CASES)
+    prep_edge_check(wide=True)
     small_model_check(TinyOf(tiny))
     small_train_check(TinyOf(tiny), noise_draws=BUTD_NOISE_DRAWS, pool_noise=W2X_POOL_NOISE)
     small_eval_check(TinyOf(tiny))

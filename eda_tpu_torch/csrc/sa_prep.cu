@@ -60,7 +60,13 @@
 //     cp.async into the same core layout, beside that K chunk of P (at in_dim
 //     515 one chunk: W1 132 KiB + P 66 KiB). W1 then comes from L2 once per
 //     tile; at those layers a CTA has one tile or two, so it read W1 once
-//     anyway. Every other width keeps the single-pass plan above.
+//     anyway.
+//   * At c1 = 256 where W1 would stream (in_dim 433 to 576: the width-2
+//     backbone's SA3-4, in_dim 515) the tiles run on persistent clusters of
+//     four CTAs instead (sa_prep_cluster, its note below): W1 a quarter a
+//     CTA, resident for the CTA's life, the points by bulk copies into a ring,
+//     converted once per cluster. Every other width keeps the single-pass
+//     plan above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -442,6 +448,308 @@ sa_prep_kernel(const float* __restrict__ pts, long long n_rows, int in_dim, int 
   }
 }
 
+// ---- c1 256 on a cluster of four CTAs: the width-2 backbone's SA3-4
+
+constexpr int kQuarters = 4;                // CTAs of a cluster, one a quarter of c1
+constexpr int kQW = 64;                     // c1 columns of a CTA
+constexpr int kPRows = kRows / kQuarters;   // tile rows each CTA loads and converts
+constexpr int kClusterRing = 4;             // raw stages at most
+
+// The shared buffers of a cluster CTA: the raw stages' mbarriers, W1's quarter
+// (KP x kQW, rows = K), the P tile (64 x KP, every CTA's whole copy), `ring`
+// raw stages of the CTA's 16 rows of a tile (16 x in_dim f32 each), the
+// LayerNorm row sums of each rank, the output stage (64 x kQW bf16) and
+// bf16(b1), scale and lnb of the quarter.
+struct ClusterLayout {
+  size_t bars, w1, p, raw, stage, lnx, out, prm, total;
+  __host__ __device__ ClusterLayout(int in_dim, int ring) {
+    const int KP = round16(in_dim);
+    size_t o = 0;
+    bars = o;  o += 128;
+    w1 = o;    o += align128((size_t)KP * kQW * 2);
+    p = o;     o += align128((size_t)kRows * KP * 2);
+    stage = align128((size_t)kPRows * in_dim * 4);
+    raw = o;   o += ring * stage;
+    lnx = o;   o += align128((size_t)kQuarters * kRows * 2 * 4);
+    out = o;   o += align128((size_t)kRows * kQW * 2);
+    prm = o;   o += align128((size_t)3 * kQW * 4);
+    total = o;
+  }
+};
+
+// The cluster route: c1 = 256 where the single-CTA plan streams W1 (in_dim
+// from 433: W1 does not fit whole beside a 16-column P chunk), up to the
+// in_dim whose layout fits with two raw stages. Below 433 (the width-2
+// backbone's SA2, in_dim 259, where W1 fits whole) the single-CTA plan
+// measured faster on an H100 (PERF.md §6).
+bool cluster_route(int in_dim, int c1) {
+  return c1 == 256 && !fits(in_dim, c1, 16, 0) &&
+         ClusterLayout(in_dim, 2).total <= (size_t)kMaxSharedBytes;
+}
+
+// Raw stages of the cluster route: as many as fit, up to kClusterRing.
+int cluster_ring(int in_dim) {
+  int ring = kClusterRing;
+  while (ring > 2 && ClusterLayout(in_dim, ring).total > (size_t)kMaxSharedBytes) --ring;
+  return ring;
+}
+
+// Persistent clusters at c1 = 256 and in_dim 433 to 576 (on one CTA, as
+// sa_prep_kernel runs the other widths, W1 does not fit whole there: 264 KiB
+// at 515, so it streamed once per tile, each copy waited on before the
+// products). Cluster j of n (n = min(tiles, the
+// clusters the card holds at once)) takes tiles j, j + n, ... CTA q of a
+// cluster holds W1's columns 64 q .. in shared memory for its life, loaded
+// once, and keeps its 16 rows of the next tiles in flight: the tile's rows
+// 16 q .. 16 q + 15 come by one bulk copy into a ring of raw stages. A tile at
+// a time it
+//   1. converts its raw rows (xyz / r, bf16) and stores them into every CTA's
+//      P tile (distributed shared memory), then frees the stage for the copy
+//      `ring` tiles on; a cluster barrier: the tile's P is whole everywhere;
+//   2. computes X_q = P W1_q (wgmma, its 64 columns), x = bf16(bf16(X) +
+//      bf16(b1)) and the rows' partial LayerNorm sums, which every CTA adds
+//      in rank order (a cluster barrier, which also frees P for the next
+//      tile);
+//   3. normalizes its 64 columns and writes them through a swizzled stage as
+//      16-byte stores (128 bytes a row).
+// A ragged last tile whose rows' bytes are no multiple of 16, or unaligned
+// points, is converted from device memory. The rounding points are the single
+// CTA kernel's; only the order of the LayerNorm sums differs.
+__global__ void __cluster_dims__(kQuarters, 1, 1) __launch_bounds__(kThreads, 1)
+sa_prep_cluster(const float* __restrict__ pts, long long n_rows, int in_dim, int c1, int ring,
+                bool bulk, const uint16_t* __restrict__ w1, const float* __restrict__ b1,
+                const float* __restrict__ scale, const float* __restrict__ lnb, float radius,
+                uint16_t* __restrict__ out) {
+  constexpr int NV = kQW / 2;  // accumulator values a thread
+  constexpr int PQ = kQW / 8;  // 16-byte chunks of an output row
+  const int KP = round16(in_dim);
+  const ClusterLayout L(in_dim, ring);
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint16_t* os = reinterpret_cast<uint16_t*>(smem + L.out);
+  float* lnx = reinterpret_cast<float*>(smem + L.lnx);
+  float* bs = reinterpret_cast<float*>(smem + L.prm);
+  float* ss = bs + kQW;
+  float* ls = ss + kQW;
+  const uint32_t w1_base = smem_u32(smem + L.w1), p_base = smem_u32(smem + L.p);
+  const uint32_t raw_base = smem_u32(smem + L.raw);
+  const float* raw = reinterpret_cast<const float*>(smem + L.raw);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * warp + g4;  // the thread's rows r0 and r0 + 8 of a tile
+  const int q = (int)cluster_rank(), c0 = kQW * q;  // the CTA's first column of c1
+  const int cl = blockIdx.x / kQuarters, n_cl = gridDim.x / kQuarters;
+  const long long n_tiles = (n_rows + kRows - 1) / kRows;
+  const int my_tiles = (int)((n_tiles - 1 - cl) / n_cl) + 1;
+
+  // the CTA's rows of tile `it` (0 to 16) and whether one bulk copy brings them
+  auto my_rows = [&](int it) {
+    const long long left = n_rows - (cl + (long long)it * n_cl) * kRows - kPRows * q;
+    return (int)(left < 0 ? 0 : left < kPRows ? left : kPRows);
+  };
+  auto by_bulk = [&](int it) {
+    const int nr = my_rows(it);
+    return bulk && nr > 0 && (nr * in_dim) % 4 == 0;
+  };
+  auto bar = [&](int st) { return smem_u32(&bars[st]); };
+  // thread 0: the CTA's rows of tile `it` into raw stage st
+  auto fetch = [&](int it, int st) {
+    if (it >= my_tiles || !by_bulk(it)) return;
+    const long long row = (cl + (long long)it * n_cl) * kRows + kPRows * q;
+    bulk_copy(raw_base + (uint32_t)(st * L.stage), pts + row * in_dim,
+              (uint32_t)my_rows(it) * in_dim * 4, bar(st));
+  };
+
+  // W1's quarter in its natural layout (rows = K, zero past in_dim), 16-byte
+  // cp.async copies all in flight; bf16(b1), scale and lnb of the quarter
+  for (int i = tid; i < KP * kQW / 8; i += kThreads) {
+    const int k = i / (kQW / 8), cb = i % (kQW / 8);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     w1_base + 2 * core_at(k, 8 * cb, kQW)),
+                 "l"(w1 + (size_t)(k < in_dim ? k : 0) * c1 + c0 + 8 * cb),
+                 "r"(k < in_dim ? 16 : 0));
+  }
+  cp_async_commit();
+  if (tid == 0) {
+    for (int st = 0; st < ring; ++st) mbar_init(bar(st));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int st = 0; st < ring; ++st) fetch(st, st);
+  }
+  for (int c = tid; c < kQW; c += kThreads) {
+    bs[c] = bf16_round(b1[c0 + c]);
+    ss[c] = scale[c0 + c];
+    ls[c] = lnb[c0 + c];
+  }
+  cp_async_wait_all();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  cluster_sync();  // every CTA of the cluster runs before any writes into a peer
+
+  uint32_t parity = 0;
+  for (int it = 0, st = 0; it < my_tiles; ++it, st = st + 1 == ring ? 0 : st + 1) {
+    const long long row0 = (cl + (long long)it * n_cl) * kRows;
+
+    // ---- 1. the CTA's rows 16 q .. + 16 of P (bf16, xyz / r) into every
+    // CTA's P, a 16-byte core row at a time, neighbouring threads on
+    // neighbouring rows (an odd in_dim puts their loads in distinct banks)
+    {
+      const int nr = my_rows(it);
+      const bool staged = by_bulk(it);
+      if (staged) {
+        bulk_wait(bar(st), (parity >> st) & 1u);
+        parity ^= 1u << st;
+      }
+      const float* src = staged ? raw + (size_t)st * (L.stage / 4)
+                                : pts + (row0 + kPRows * q) * in_dim;
+      for (int i = tid; i < kPRows * (KP / 8); i += kThreads) {
+        const int r = i % kPRows, kq = i / kPRows;
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int k = 8 * kq + e;
+          v[e] = r < nr && k < in_dim ? src[r * in_dim + k] : 0.f;
+        }
+        if (kq == 0) {
+#pragma unroll
+          for (int e = 0; e < 3; ++e) v[e] = __fdiv_rn(v[e], radius);
+        }
+        const uint32_t at = p_base + 2 * core_at(kPRows * q + r, 8 * kq, KP);
+#pragma unroll
+        for (int d = 0; d < kQuarters; ++d)
+          asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(peer(at, d)),
+                       "r"(pack_bf16x2(v[0], v[1])), "r"(pack_bf16x2(v[2], v[3])),
+                       "r"(pack_bf16x2(v[4], v[5])), "r"(pack_bf16x2(v[6], v[7]))
+                       : "memory");
+      }
+      __syncthreads();  // the stage is read: it takes the tile `ring` on
+      if (tid == 0) fetch(it + ring, st);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    cluster_sync();  // the tile's P is whole in every CTA
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+
+    // ---- 2. X_q = P W1_q; x = bf16(bf16(X) + bf16(b1)), kept packed; the
+    // rows' partial sums, added in rank order across the cluster
+    float acc[NV];
+    {
+      const uint32_t pb = opaque(p_base), wb = opaque(w1_base);
+      wgmma_fence();
+      for (int s = 0; s < KP / 16; ++s)  // W1's rows read MN-major
+        wgmma_ss<kQW, 0, 1>(acc, make_desc(pb + 256 * s, 128, KP * 16),
+                            make_desc(wb + s * 32 * kQW, kQW * 16, 128), s > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    uint32_t xs[NV / 2];
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < NV; i += 2) {
+      const int c = 8 * (i / 4) + 2 * t4, h = (i >> 1) & 1;
+      float x[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        x[e] = bf16_round(bf16_round(acc[i + e]) + bs[c + e]);
+        s1[h] += x[e];
+        s2[h] += x[e] * x[e];
+      }
+      xs[i / 2] = pack_bf16x2(x[0], x[1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int m = 1; m <= 2; m <<= 1) {
+        s1[h] += __shfl_xor_sync(0xffffffffu, s1[h], m);
+        s2[h] += __shfl_xor_sync(0xffffffffu, s2[h], m);
+      }
+      if (t4 == 0) {
+        const uint32_t at = smem_u32(lnx + (q * kRows + r0 + 8 * h) * 2);
+#pragma unroll
+        for (int d = 0; d < kQuarters; ++d)
+          asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(peer(at, d)),
+                       "f"(s1[h]), "f"(s2[h])
+                       : "memory");
+      }
+    }
+    cluster_sync();  // the row sums have landed; every CTA's products have read P
+    float mean[2], rstd[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int d = 0; d < kQuarters; ++d) {
+        const float2 v = *reinterpret_cast<const float2*>(lnx + (d * kRows + r0 + 8 * h) * 2);
+        a += v.x;
+        b += v.y;
+      }
+      mean[h] = __fdiv_rn(a, (float)c1);
+      rstd[h] = rsqrtf(fmaxf(__fdiv_rn(b, (float)c1) - mean[h] * mean[h], 0.f) + kEps);
+    }
+
+    // ---- 3. the normalized quarter through the stage, 16-byte stores
+#pragma unroll
+    for (int jj = 0; jj < PQ; ++jj) {
+      const int c = 8 * jj + 2 * t4;
+      const float2 sc = *reinterpret_cast<const float2*>(ss + c);
+      const float2 lb = *reinterpret_cast<const float2*>(ls + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t v = xs[2 * jj + h];
+        const float y0 = (__uint_as_float(v << 16) - mean[h]) * rstd[h] * sc.x + lb.x;
+        const float y1 = (__uint_as_float(v & 0xffff0000u) - mean[h]) * rstd[h] * sc.y + lb.y;
+        const int r = r0 + 8 * h;
+        *reinterpret_cast<uint32_t*>(os + r * kQW + 8 * (jj ^ (r & (PQ - 1))) + 2 * t4) =
+            pack_bf16x2(y0, y1);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < kRows * PQ; i += kThreads) {
+      const int r = i / PQ, qq = i - r * PQ;
+      if (row0 + r >= n_rows) continue;
+      *reinterpret_cast<uint4*>(out + (row0 + r) * c1 + c0 + 8 * qq) =
+          *reinterpret_cast<const uint4*>(os + r * kQW + 8 * (qq ^ (r & (PQ - 1))));
+    }
+    // the stage is rewritten after the next tile's first cluster barrier
+  }
+}
+
+// The clusters of a launch over `tiles` tiles: as many as the card holds at
+// once (one CTA an SM), at most one a tile; 0 if it holds none. Also sets the
+// kernel's shared memory size.
+int clusters(long long tiles, size_t smem) {
+  if (cudaFuncSetAttribute(sa_prep_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return 0;
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kQuarters * sms, 1, 1);
+  config.blockDim = dim3(kThreads, 1, 1);
+  config.dynamicSmemBytes = smem;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, sa_prep_cluster, &config) != cudaSuccess) return 0;
+  return (int)(tiles < n ? tiles : n);
+}
+
+cudaError_t launch_cluster(const float* pts, long long n_rows, int in_dim, int c1,
+                           const uint16_t* w1, const float* b1, const float* scale,
+                           const float* lnb, float radius, uint16_t* out, cudaStream_t s) {
+  // W1's 16-byte copies and A's 16-byte stores need them aligned (the wrapper
+  // sees to it); unaligned points are converted from device memory
+  if ((reinterpret_cast<uintptr_t>(w1) & 15) || (reinterpret_cast<uintptr_t>(out) & 15))
+    return cudaErrorInvalidValue;
+  const bool bulk = !(reinterpret_cast<uintptr_t>(pts) & 15);
+  const int ring = cluster_ring(in_dim);
+  const size_t smem = ClusterLayout(in_dim, ring).total;
+  const int n_cl = clusters((n_rows + kRows - 1) / kRows, smem);
+  if (n_cl <= 0) return cudaErrorInvalidConfiguration;
+  sa_prep_cluster<<<(unsigned)(kQuarters * n_cl), kThreads, smem, s>>>(
+      pts, n_rows, in_dim, c1, ring, bulk, w1, b1, scale, lnb, radius, out);
+  return cudaGetLastError();
+}
+
 // The largest K chunk of the P tile that fits without a ring: a divisor of
 // KP, so that no chunk reads W1 rows past its end
 int k_chunk(int in_dim, int c1) {
@@ -507,6 +815,15 @@ extern "C" {
 // Largest in_dim the kernel takes for this c1 (0 if c1 is unsupported).
 int sa_prep_max_in_dim(int c1) { return c1 <= 0 || c1 > 256 ? 0 : kMaxInDim; }
 
+// Largest in_dim the cluster route takes at this c1 (0: none); the next one
+// runs the single-CTA plan with W1 streamed.
+int sa_prep_cluster_max_in_dim(int c1) {
+  int top = 0;
+  for (int in_dim = 3; in_dim <= kMaxInDim; ++in_dim)
+    if (cluster_route(in_dim, c1)) top = in_dim;
+  return top;
+}
+
 // pts: (n_rows, in_dim) f32; w1: (in_dim, c1) bf16; b1/scale/lnb: (c1,) f32;
 // out: (n_rows, c1) bf16. Returns cudaGetLastError().
 int sa_prep_launch(const float* pts, long long n_rows, int in_dim, int c1,
@@ -517,6 +834,8 @@ int sa_prep_launch(const float* pts, long long n_rows, int in_dim, int c1,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* w = static_cast<const uint16_t*>(w1);
   auto* o = static_cast<uint16_t*>(out);
+  if (cluster_route(in_dim, c1))
+    return launch_cluster(pts, n_rows, in_dim, c1, w, b1, scale, lnb, radius, o, s);
   int dev = 0, sms = 0, KC = 0, ring = 0;
   bool streamed = false;
   cudaError_t err = cudaGetDevice(&dev);

@@ -87,7 +87,15 @@
 //     the W1 ring and the column sums (added per tile by the lane that owns
 //     a column, so their order stays fixed). Its in_dim is bound by
 //     kDirectMaxIn only.
-//   * reduce_records (wgmma.cuh) adds the CTAs' records in a fixed order.
+//   * The backward at c1 = 256 with few tiles (no more than kSms / kNQ = 66:
+//     the width-2 backbone's SA4 at batch 8 or less, where the direct
+//     backward leaves half the SMs idle) runs on clusters of two CTAs
+//     (prep_tc_cluster, its note below): c1 a half a CTA, W1's half chunks
+//     streaming (split_w1_cluster), the LayerNorm sums added in rank order
+//     across the cluster, dpts a block of 64 k_in columns a CTA from both
+//     CTAs' dx^T, one record a cluster.
+//   * reduce_records (wgmma.cuh) adds the CTAs' (clusters') records in a
+//     fixed order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1181,15 +1189,652 @@ prep_fma(const float* __restrict__ pts, const float* __restrict__ dA, long long 
   if (tid == 0) bulk_store_wait();
 }
 
+// ---- the backward at c1 256 on a cluster of CTAs, c1 split among them
+
+// CTAs of the cluster backward's cluster (clusters of four, a 64-column
+// quarter of c1 each, measured slower on an H100), and c1's columns of each
+constexpr int kNQ = 2, kQW = 256 / kNQ;
+constexpr int kPChunk = 2 * kDRows * 32;  // floats of a dpts W1 chunk: 64 k_in x 32 columns, hi and lo
+constexpr int kQRing = 8;                 // W1 chunk stages at most
+constexpr int kQMinRing = 3;              // and at least
+constexpr int kStageLd = 68;              // row stride of the dpts stage
+
+// Floats of an X chunk of 32 K values by kQW columns (hi and lo), and of a
+// ring stage, which holds an X chunk or a dpts chunk.
+constexpr int kXChunk = 2 * kChunk * kQW;
+constexpr int kStage = kXChunk > kPChunk ? kXChunk : kPChunk;
+
+// Shared memory of the cluster backward: mbarriers (the W1 chunks); b1 and
+// scale of the CTA's columns; dx_q^T hi and lo (kQW columns x 64 rows, the
+// TF32 core layout); the stage (the tile's dA columns, the record elements of
+// a dW1 block, or dpts rows); the LayerNorm row sums of each rank ([2 uses][rank][64][2]); the
+// warps' column sums; R W1 chunk stages.
+struct ClusterLayout {
+  size_t bars, vec, dxhi, dxlo, stage, lnx, red, wring, total;
+  __host__ __device__ ClusterLayout(int R) {
+    const size_t rows = (size_t)kRows * kStageLd * 4, rec = (size_t)kThreads * (kQW / 2) * 4;
+    const size_t g = (size_t)kRows * (kQW + 8) * 4;  // dA's columns
+    const size_t st = rows > rec ? rows : rec;
+    size_t o = 0;
+    bars = o;   o += 128;
+    vec = o;    o += (size_t)2 * kQW * 4;
+    dxhi = o;   o += (size_t)kQW * kRows * 4;
+    dxlo = o;   o += (size_t)kQW * kRows * 4;
+    stage = o;  o += st > g ? st : g;
+    lnx = o;    o += (size_t)2 * kNQ * kRows * 2 * 4;
+    red = o;    o += (size_t)4 * 3 * kQW * 4;
+    wring = o;  o += (size_t)R * kStage * 4;
+    total = o;
+  }
+};
+
+// The cluster backward's route: c1 = 256 on the tensor route, in_dim up to
+// kDirectMaxIn (the points come from device memory, so shared memory sets no
+// limit), where the tiles are no more than the clusters the card can hold
+// (kSms / kNQ): there the direct backward, one tile a CTA, leaves
+// SMs idle; with more tiles it measured faster (PERF.md §6).
+bool cluster_route(long long tiles, int in_dim, int c1, bool bwd) {
+  return bwd && c1 == 256 && in_dim > kFmaMaxIn && in_dim <= kDirectMaxIn &&
+         tiles <= kSms / kNQ;
+}
+
+// W1 stages of the cluster backward: as many as fit, up to kQRing.
+int cluster_ring() {
+  int R = kQRing;
+  while (R > kQMinRing && ClusterLayout(R).total > (size_t)kMaxSharedBytes) --R;
+  return R;
+}
+
+// dpts blocks (64 columns of k_in) that CTA q adds up: b = q, q + kNQ, ...
+__host__ __device__ inline int owned_blocks(int nB, int q) { return (nB - q + kNQ - 1) / kNQ; }
+// floats of a rank's share of the split W1: its X chunks, then its dpts
+// chunks (rank 0 has the most blocks)
+__host__ __device__ inline long long rank_floats(int in_dim) {
+  return (long long)(round32(in_dim) / kChunk) * kXChunk +
+         8LL * owned_blocks(round64(in_dim) / kDRows, 0) * kPChunk;
+}
+
+// W1 split into TF32 hi / lo for the cluster backward, rank-major: rank q's
+// chunks in the order its CTA takes them a tile, each its hi then its lo part
+// in the K-major TF32 core layout:
+//   X chunks j < nX (XChunk floats): K values 32 j .. 32 j + 32 (columns) x
+//     c1's columns kQW q .. kQW q + kQW (rows);
+//   then the dpts chunks (kPChunk floats) of q's blocks b = q, q + kNQ, ...,
+//     for each block and each quarter p of c1 and half h: k_in rows 64 b ..
+//     64 b + 64 x c1 columns 64 p + 32 h .. + 32.
+// Zero past in_dim; one thread a destination float.
+__global__ void split_w1_cluster(const float* __restrict__ w1, int in_dim, int c1,
+                                 float* __restrict__ dst) {
+  const int nX = round32(in_dim) / kChunk, nB = round64(in_dim) / kDRows;
+  const long long per = rank_floats(in_dim), xf = (long long)nX * kXChunk;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < kNQ * per;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int qtr = (int)(i / per);
+    const long long e = i - qtr * per;
+    int k = in_dim, c = 0;  // zero unless set
+    int off, cols;
+    if (e < xf) {  // X chunk j: rows = c1 columns, kQW of them; columns = 32 K values
+      const int j = (int)(e / kXChunk);
+      off = (int)(e - (long long)j * kXChunk);
+      cols = kChunk;
+      const int lo = off >= kXChunk / 2;
+      off -= lo * (kXChunk / 2);
+      const int core = off >> 5;
+      c = kQW * qtr + (core / (cols / 4)) * 8 + ((off & 31) >> 2);
+      k = kChunk * j + (core % (cols / 4)) * 4 + (off & 3);
+      uint32_t hi, lw;
+      const float v = k < in_dim ? w1[(size_t)k * c1 + c] : 0.f;
+      tf32_split(v, hi, lw);
+      dst[i] = __uint_as_float(lo ? lw : hi);
+      continue;
+    }
+    const int jj = (int)((e - xf) / kPChunk);
+    off = (int)(e - xf - (long long)jj * kPChunk);
+    const int lo = off >= kPChunk / 2;
+    off -= lo * (kPChunk / 2);
+    const int core = off >> 5;
+    if (jj < 8 * owned_blocks(nB, qtr)) {  // rows = 64 k_in, columns = 32 of c1
+      const int b = qtr + kNQ * (jj >> 3), p = (jj & 7) >> 1, h = jj & 1;
+      k = kDRows * b + (core >> 3) * 8 + ((off & 31) >> 2);
+      c = 64 * p + 32 * h + (core & 7) * 4 + (off & 3);
+    }
+    uint32_t hi, lw;
+    const float v = k < in_dim ? w1[(size_t)k * c1 + c] : 0.f;
+    tf32_split(v, hi, lw);
+    dst[i] = __uint_as_float(lo ? lw : hi);
+  }
+}
+
+// One f32 from shared memory at a shared::cluster address (peer()).
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// The backward at c1 = 256 on persistent clusters of kNQ CTAs, where the
+// tiles are at most kSms / kNQ = 66 (cluster_route: the width-2 backbone's
+// SA4 at batch 8 or less; there the direct backward, one warpgroup a tile,
+// left half the SMs idle). Cluster j of n (n = min(tiles, the clusters the
+// card holds at once, max_clusters)) takes tiles j, j + n, ... and keeps one
+// record: on an H100, which holds 66, one tile a cluster; a card that holds
+// fewer, or a cap set by sa_prep_f32_set_max_clusters, makes the clusters
+// take several (a launch with one tile a cluster and the tile loop and the
+// record's read-modify-write removed compiled to 188 registers in place of
+// 254 and ran 20% slower). CTA q holds c1's columns kQW q .. (a 64 x kQW
+// accumulator, dx_q^T in shared memory) and, a tile at a time:
+//   1. X_q = P W1_q in 3xTF32, a K step of 32 a product group: A from the
+//      points in device memory (the tile's rows, read through L1), B the
+//      CTA's W1 chunks streaming through a ring of bulk copies
+//      (split_w1_cluster);
+//   2. dA's columns into the stage by cp.async; the LayerNorm statistics and
+//      the backward's row means, each added in rank order across the cluster
+//      (distributed shared memory), the backward a 64-column slice at a time;
+//      db1, dscale, dlnb folded in registers across the tiles; dx_q split
+//      into dx_q^T in shared memory;
+//   3. dW1's columns, P^T dx_q a 64-row block of k_in in two product groups
+//      (A = P^T from the points, B = dx_q^T), added into the cluster's record
+//      (the block's record elements come into the stage by cp.async while
+//      the products run); a cluster barrier: every dx^T is written;
+//   4. dpts for its blocks of 64 k_in columns (b = q, q + kNQ, ...): the full
+//      dx W1^T, A = dx's quarters of 64 columns from their CTAs' dx^T in
+//      order, B the block's W1 chunks; each block's rows through the stage, a
+//      warp's lanes on consecutive columns.
+// In X and dW1 a group's next operands are loaded once its products are
+// issued, so the loads run during them (issuing a group while the last one
+// still ran, or loading dpts's next values into a second buffer, left too
+// few registers: the compiler serialized the products, C7512, or spilled).
+// Every sum has a fixed order: bit-identical across launches, no atomics.
+__global__ void __cluster_dims__(kNQ, 1, 1) __launch_bounds__(kThreads, 1)
+prep_tc_cluster(const float* __restrict__ pts, const float* __restrict__ dA, long long n_rows,
+                int in_dim, const float* __restrict__ wsplit, const float* __restrict__ b1,
+                const float* __restrict__ scale, float radius, int R,
+                float* __restrict__ dpts, float* __restrict__ records) {
+  constexpr int NV = kQW / 2;  // accumulator values a thread
+  constexpr int FW = 64, FH = kQW / FW;  // column slices of the LayerNorm backward
+  using F = Fold<FW>;
+  constexpr int c1 = 256;
+  constexpr uint32_t kXLo = kXChunk / 2 * 4, kPLo = kPChunk / 2 * 4;  // bytes to a chunk's lo part
+  const int nX = round32(in_dim) / kChunk, nB = round64(in_dim) / kDRows;
+  const ClusterLayout L(R);
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  float* bs = reinterpret_cast<float*>(smem + L.vec);
+  float* ss = bs + kQW;
+  float* dxhi = reinterpret_cast<float*>(smem + L.dxhi);
+  float* dxlo = reinterpret_cast<float*>(smem + L.dxlo);
+  float* stage = reinterpret_cast<float*>(smem + L.stage);
+  float* lnx = reinterpret_cast<float*>(smem + L.lnx);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  const uint32_t wring = smem_u32(smem + L.wring);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * warp + g4;  // the thread's rows r0 and r0 + 8 of a tile
+  const int q = (int)cluster_rank(), c0 = kQW * q;  // the CTA's first column of c1
+  const int cl = blockIdx.x / kNQ, n_cl = gridDim.x / kNQ;
+  const int n_own = owned_blocks(nB, q);
+  const int NQc = nX + 8 * n_own;  // W1 chunks the CTA takes a tile
+  const float rr = 1.f / radius, fc1 = (float)c1, rc1 = 1.f / fc1;
+  const long long n_tiles = (n_rows + kRows - 1) / kRows;
+  const int my_tiles = (int)((n_tiles - 1 - cl) / n_cl) + 1;
+  float* rec = records + (size_t)cl * (in_dim + 3) * c1;
+  const float* wq = wsplit + (size_t)q * rank_floats(in_dim);
+  auto bar = [&](int i) { return smem_u32(&bars[i]); };
+
+  // The W1 ring: the CTA's chunks in order (each tile's NQc), the k-th in
+  // stage k % R; thread 0 issues them (pj, pit: the next chunk and its tile;
+  // pst its stage), the threads take them (wst, wpar) and release them in
+  // order.
+  int pj = 0, pit = 0, pst = 0, wst = 0;
+  uint32_t wpar = 0;
+  auto issue_chunk = [&]() {
+    if (pit >= my_tiles) return;
+    const bool x = pj < nX;
+    const float* src = x ? wq + (size_t)pj * kXChunk
+                         : wq + (size_t)nX * kXChunk + (size_t)(pj - nX) * kPChunk;
+    bulk_copy(wring + (uint32_t)pst * (kStage * 4), src, (x ? kXChunk : kPChunk) * 4, bar(pst));
+    pst = pst + 1 == R ? 0 : pst + 1;
+    if (++pj == NQc) {
+      pj = 0;
+      ++pit;
+    }
+  };
+  auto take_chunk = [&]() {
+    bulk_wait(bar(wst), (wpar >> wst) & 1u);
+    wpar ^= 1u << wst;
+    const uint32_t at = wring + (uint32_t)wst * (kStage * 4);
+    wst = wst + 1 == R ? 0 : wst + 1;
+    return opaque(at);
+  };
+  // after every warp's products read the n chunks taken longest ago
+  auto release_chunks = [&](int n) {
+    __syncthreads();
+    if (tid == 0)
+      for (int i = 0; i < n; ++i) issue_chunk();
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < R; ++i) mbar_init(bar(i));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < R; ++i) issue_chunk();
+  }
+  for (int c = tid; c < kQW; c += kThreads) {
+    bs[c] = b1[c0 + c];
+    ss[c] = scale[c0 + c];
+  }
+  __syncthreads();  // the mbarriers are initialized before any thread waits on them
+  cluster_sync();   // every CTA of the cluster runs before any reads or writes a peer
+
+  float run[FH][3][F::NR];  // the CTA's db1, dscale and dlnb column sums, by slice
+#pragma unroll
+  for (int hh = 0; hh < FH; ++hh)
+#pragma unroll
+    for (int v = 0; v < 3; ++v)
+#pragma unroll
+      for (int i = 0; i < F::NR; ++i) run[hh][v][i] = 0.f;
+
+  // a row's partial sums of this CTA's columns (after the quad's) into every
+  // CTA's slot q of `use`; then the kNQ slots added in rank order
+  const auto exchange = [&](int use, float (&a)[2], float (&b)[2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      a[h] = quad_sum(a[h]);
+      b[h] = quad_sum(b[h]);
+      if (t4 == 0) {
+        const uint32_t at = smem_u32(lnx + ((use * kNQ + q) * kRows + r0 + 8 * h) * 2);
+#pragma unroll
+        for (int d = 0; d < kNQ; ++d)
+          asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(peer(at, d)),
+                       "f"(a[h]), "f"(b[h])
+                       : "memory");
+      }
+    }
+    cluster_sync();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      a[h] = b[h] = 0.f;
+#pragma unroll
+      for (int d = 0; d < kNQ; ++d) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            lnx + ((use * kNQ + d) * kRows + r0 + 8 * h) * 2);
+        a[h] += v.x;
+        b[h] += v.y;
+      }
+    }
+  };
+  // (row r, column c) of dx_q^T in the TF32 core layout
+  auto at = [](int c, int r) {
+    return ((c >> 3) * (kRows / 4) + (r >> 2)) * 32 + (c & 7) * 4 + (r & 3);
+  };
+
+  for (int it = 0; it < my_tiles; ++it) {
+    const long long row0 = (cl + (long long)it * n_cl) * kRows;
+    const int nr = (int)(n_rows - row0 < kRows ? n_rows - row0 : kRows);
+    const float* P = pts + row0 * in_dim;
+
+    // the point at (row r of the tile, column k), loaded with the row and
+    // column clamped to the tile's; pfix then makes it [xyz/r ; f], zero past
+    // the rows and in_dim. Split so that a load's value is first used where
+    // the next group's products need it.
+    auto pload = [&](int r, int k) {
+      return __ldg(P + (r < nr ? r : 0) * in_dim + (k < in_dim ? k : 0));
+    };
+    auto pfix = [&](float v, int r, int k) {
+      return r < nr && k < in_dim ? (k < 3 ? div_real(v, radius, rr) : v) : 0.f;
+    };
+
+    // ---- 1. X_q = P W1_q, 3xTF32, a K step of 32 values (a W1 chunk) a
+    // product group: A's (row, k) = (r0, t), (r0 + 8, t), (r0, t + 4),
+    // (r0 + 8, t + 4) of k8 step s, value e of step s at row r0 + 8 (e & 1),
+    // k 8 s + t + 4 (e >> 1); step j + 1's values are loaded once step j's
+    // products are issued, and stay in flight while they run
+    float acc[NV];
+    {
+      float pv[16];
+      // (lane-derived offsets opaque: recomputed a call, not held in registers
+      // across the loop)
+      auto load = [&](int j) {
+        const int lr = (int)opaque(r0), lk = kChunk * j + (int)opaque(t4);
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            pv[4 * s + e] = pload(lr + 8 * (e & 1), lk + 8 * s + 4 * (e >> 1));
+      };
+      load(0);
+      for (int j = 0; j < nX; ++j) {
+        uint32_t fh[4][4], fl[4][4];
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            tf32_split(pfix(pv[4 * s + e], r0 + 8 * (e & 1), kChunk * j + 8 * s + t4 + 4 * (e >> 1)),
+                       fh[s][e], fl[s][e]);
+        const uint32_t wb = take_chunk();
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          wgmma_tf32x3<kQW>(acc, fh[s], fl[s], make_desc(wb + 256 * s, 128, kChunk * 32),
+                           make_desc(wb + kXLo + 256 * s, 128, kChunk * 32), j > 0 || s > 0);
+        wgmma_commit();
+        if (j + 1 < nX) load(j + 1);
+        wgmma_wait<0>();
+        fence_regs(acc);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          fence_regs(fh[s]);
+          fence_regs(fl[s]);
+        }
+        release_chunks(1);
+      }
+    }
+    // dA's columns of the tile into the stage (64 x kQW, row stride kQW + 8) by
+    // cp.async, in flight during the LayerNorm statistics and their exchange
+    {
+      constexpr int Q4 = kQW / 4;  // 16-byte pieces a row
+      for (int i = tid; i < kRows * Q4; i += kThreads) {
+        const int r = i / Q4, cq = i % Q4;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         smem_u32(stage + r * (kQW + 8) + 4 * cq)),
+                     "l"(dA + (row0 + (r < nr ? r : 0)) * c1 + c0 + 4 * cq), "r"(r < nr ? 16 : 0));
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+
+    // ---- 2. x = X + b1; the LayerNorm statistics; its backward in the
+    // accumulator layout, a 64-column slice at a time with g = dA read from
+    // the stage (twice: never held whole beside xhat); acc <- xhat
+    float mean[2], rstd[2];
+    {
+      float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int c = 8 * (i / 4) + 2 * t4 + (i & 1), h = (i >> 1) & 1;
+        const float x = acc[i] + bs[c];
+        acc[i] = x;
+        s1[h] += x;
+        s2[h] += x * x;
+      }
+      exchange(0, s1, s2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) ln_stats(s1[h], s2[h], fc1, rc1, mean[h], rstd[h]);
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // every thread's dA pieces have landed
+    // g of slice hh at the accumulator layout's (row, column) pairs
+    auto load_g = [&](float (&gh)[FW / 2], int hh) {
+#pragma unroll
+      for (int i = 0; i < FW / 2; i += 2) {
+        const int c = FW * hh + 8 * (i / 4) + 2 * t4, r = r0 + 8 * ((i >> 1) & 1);
+        const float2 v = *reinterpret_cast<const float2*>(stage + r * (kQW + 8) + c);
+        gh[i] = v.x;
+        gh[i + 1] = v.y;
+      }
+    };
+    auto slice = [&](int hh) -> float (&)[FW / 2] {
+      return *reinterpret_cast<float (*)[FW / 2]>(&acc[FW / 2 * hh]);
+    };
+    {
+      float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hh = 0; hh < FH; ++hh) {
+        float gh[FW / 2];
+        load_g(gh, hh);
+        float (&xh)[FW / 2] = slice(hh);
+#pragma unroll
+        for (int i = 0; i < FW / 2; ++i) {
+          const int c = FW * hh + 8 * (i / 4) + 2 * t4 + (i & 1), h = (i >> 1) & 1;
+          xh[i] = (xh[i] - mean[h]) * rstd[h];
+          const float dxh = gh[i] * ss[c];
+          m1[h] += dxh;
+          m2[h] += dxh * xh[i];
+        }
+        fold_columns<FW, true>(gh, xh, lane, run[hh][1]);
+        fold_columns<FW, false>(gh, gh, lane, run[hh][2]);
+      }
+      exchange(1, m1, m2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m1[h] = div_real(m1[h], fc1, rc1);
+        m2[h] = div_real(m2[h], fc1, rc1);
+      }
+      // dx, its column sums (db1), split into dx_q^T
+#pragma unroll
+      for (int hh = 0; hh < FH; ++hh) {
+        float gh[FW / 2];
+        load_g(gh, hh);
+        float (&xh)[FW / 2] = slice(hh);
+#pragma unroll
+        for (int i = 0; i < FW / 2; ++i) {
+          const int c = FW * hh + 8 * (i / 4) + 2 * t4 + (i & 1), h = (i >> 1) & 1;
+          gh[i] = rstd[h] * (gh[i] * ss[c] - m1[h] - xh[i] * m2[h]);
+          const int off = at(c, r0 + 8 * h);
+          uint32_t hi, lo;
+          tf32_split(gh[i], hi, lo);
+          dxhi[off] = __uint_as_float(hi);
+          dxlo[off] = __uint_as_float(lo);
+        }
+        fold_columns<FW, false>(gh, gh, lane, run[hh][0]);
+      }
+    }
+    fence_async();
+    __syncthreads();
+
+    // ---- 3. dW1's columns (k_in x the CTA's) += P^T dx_q over the tile's
+    // rows, a 64-row block of k_in at a time in two product groups (k8 steps
+    // 4 hf .. 4 hf + 3), into the cluster's record: A = P^T, value e of k8
+    // step s at tile row 8 s + t + 4 (e >> 1), k_in m0 + r0 + 8 (e & 1). The
+    // second group's values load while the first's products run, the block's
+    // record elements (into the stage, by cp.async) and the next block's
+    // values while the second's do.
+    {
+      const uint32_t dh = smem_u32(dxhi), dl = smem_u32(dxlo);
+      float pv[16];
+      auto load = [&](int m0, int hf) {
+        const int lr = 32 * hf + (int)opaque(t4), lk = m0 + (int)opaque(r0);
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            pv[4 * s + e] = pload(lr + 8 * s + 4 * (e >> 1), lk + 8 * (e & 1));
+      };
+      float aw[NV];
+      auto half = [&](int m0, int hf, uint32_t (&f)[2][4][4]) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            tf32_split(pfix(pv[4 * s + e], 8 * (4 * hf + s) + t4 + 4 * (e >> 1),
+                            m0 + r0 + 8 * (e & 1)),
+                       f[0][s][e], f[1][s][e]);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const uint32_t o = (4 * hf + s) * 256;
+          wgmma_tf32x3<kQW>(aw, f[0][s], f[1][s], make_desc(opaque(dh) + o, 128, 2048),
+                           make_desc(opaque(dl) + o, 128, 2048), hf > 0 || s > 0);
+        }
+        wgmma_commit();
+      };
+      load(0, 0);
+      for (int m0 = 0; m0 < in_dim; m0 += kDRows) {
+        uint32_t fa[2][4][4];
+        half(m0, 0, fa);
+        load(m0, 1);
+        wgmma_wait<0>();
+        fence_regs(aw);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          fence_regs(fa[0][s]);
+          fence_regs(fa[1][s]);
+        }
+        half(m0, 1, fa);
+        // the thread's record elements of the block (none at the first tile)
+        // by 8-byte cp.async into the stage (its own NV floats), so that no
+        // register waits for them during the products
+        if (it > 0) {
+          const int lk = m0 + (int)opaque(r0), lc = c0 + 2 * (int)opaque(t4);
+          const uint32_t dst = smem_u32(stage + opaque(tid) * NV);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = lk + 8 * h;
+            const float* src = rec + (size_t)(k < in_dim ? k : 0) * c1 + lc;
+            const uint32_t bytes = k < in_dim ? 8 : 0;
+#pragma unroll
+            for (int j = 0; j < kQW / 8; ++j)
+              asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                               dst + 4 * (4 * j + 2 * h)),
+                           "l"(src + 8 * j), "r"(bytes));
+          }
+          asm volatile("cp.async.commit_group;\n" ::: "memory");
+        }
+        if (m0 + kDRows < in_dim) load(m0 + kDRows, 0);
+        wgmma_wait<0>();
+        fence_regs(aw);
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          fence_regs(fa[0][s]);
+          fence_regs(fa[1][s]);
+        }
+#pragma unroll
+        for (int j = 0; j < kQW / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = m0 + r0 + 8 * h, c = c0 + 8 * j + 2 * t4;
+            const float2 o = it > 0 ? *reinterpret_cast<const float2*>(stage + tid * NV + 4 * j + 2 * h)
+                                    : make_float2(0.f, 0.f);
+            if (k < in_dim)
+              *reinterpret_cast<float2*>(rec + (size_t)k * c1 + c) =
+                  make_float2(o.x + aw[4 * j + 2 * h], o.y + aw[4 * j + 2 * h + 1]);
+          }
+      }
+    }
+    cluster_sync();  // every dx^T is written
+
+    // ---- 4. dpts for the CTA's blocks b = q, q + kNQ, ...: for each quarter p
+    // of c1 (64 columns, in CTA p / (4 / kNQ)'s dx^T) and half h (32 columns),
+    // a product group with A = dx's columns (value j of k8 step s at row
+    // r0 + 8 (j & 1), column 32 h + 8 s + t + 4 (j >> 1) of the quarter) and
+    // B the block's W1 chunk (p, h)
+    {
+      const uint32_t dh = smem_u32(dxhi), dl = smem_u32(dxlo);
+      auto load = [&](int ph, uint32_t (&v)[2][4][4]) {
+        const int p = ph >> 1, src = p * kNQ / 4;
+        const int lc = 64 * (p - src * (4 / kNQ)) + 32 * (ph & 1) + (int)opaque(t4);
+        const int lr = (int)opaque(r0);
+        const uint32_t hb = peer(dh, src), lb = peer(dl, src);
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const uint32_t off = 4 * at(lc + 8 * s + 4 * (jj >> 1), lr + 8 * (jj & 1));
+            v[0][s][jj] = __float_as_uint(ld_cluster(hb + off));
+            v[1][s][jj] = __float_as_uint(ld_cluster(lb + off));
+          }
+      };
+      for (int ob = 0; ob < n_own; ++ob) {
+        const int k0 = kDRows * (q + kNQ * ob);
+        float ad[32];
+#pragma unroll 1
+        for (int ph = 0; ph < 8; ++ph) {
+          uint32_t f[2][4][4];
+          load(ph, f);
+          const uint32_t wb = take_chunk();
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            wgmma_tf32x3<kDRows>(ad, f[0][s], f[1][s], make_desc(wb + 256 * s, 128, 32 * 32),
+                                 make_desc(wb + kPLo + 256 * s, 128, 32 * 32), ph > 0 || s > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(ad);
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            fence_regs(f[0][s]);
+            fence_regs(f[1][s]);
+          }
+          release_chunks(1);
+        }
+        // the block's rows through the stage: warp w writes and stores its
+        // own rows 16 w .. 16 w + 15, its lanes on consecutive columns
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          stage[(r0 + 8 * ((i >> 1) & 1)) * kStageLd + 8 * (i / 4) + 2 * t4 + (i & 1)] = ad[i];
+        __syncwarp();
+#pragma unroll 4
+        for (int i = 0; i < kRows / 4; ++i) {
+          const int r = 16 * warp + i;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int col = lane + 32 * h, k = k0 + col;
+            const float v = stage[r * kStageLd + col];
+            if (r < nr && k < in_dim)
+              dpts[(row0 + r) * in_dim + k] = k < 3 ? div_real(v, radius, rr) : v;
+          }
+        }
+        __syncwarp();
+      }
+    }
+    // the next tile's first exchange barrier follows every CTA's dpts reads
+    // of the dx^T it then writes again
+  }
+
+  // ---- the column sums of the CTA's columns: each warp its rows, then the
+  // four warps in order
+  if (col_owner<F::NVH>(lane)) {
+#pragma unroll
+    for (int hh = 0; hh < FH; ++hh)
+#pragma unroll
+      for (int v = 0; v < 3; ++v)
+#pragma unroll
+        for (int i = 0; i < F::NR; ++i)
+          red[(warp * 3 + v) * kQW + FW * hh + F::column(i, lane, t4)] = run[hh][v][i];
+  }
+  __syncthreads();
+  for (int i = tid; i < 3 * kQW; i += kThreads) {
+    const int v = i / kQW, c = i % kQW;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) s += red[(w * 3 + v) * kQW + c];
+    rec[(size_t)in_dim * c1 + v * c1 + c0 + c] = s;
+  }
+  cluster_sync();  // no CTA leaves while a peer may still read its dx^T
+}
+
 // ---- launch plans
 
 // The route, widths and rings of a launch; a function of the rows and the
-// widths only (so are the grid and with it every sum's order).
+// widths only (so are the grid and with it every sum's order; on the cluster
+// route the grid is the clusters the card holds, cluster_count).
 struct Plan {
-  bool tc = false;
+  bool tc = false, cluster = false;
   int CP = 0, T = 0, R = 0, grid = 0;
   size_t smem = 0;
 };
+
+// The most clusters a cluster backward runs (0: no cap), set by
+// sa_prep_f32_set_max_clusters.
+int max_clusters = 0;
+
+// The clusters of a cluster backward over `tiles` tiles: as many as the card
+// holds at once (one CTA an SM), at most one a tile and at most max_clusters;
+// 0 if it holds none. Also sets the kernel's shared memory size.
+int cluster_count(long long tiles, size_t smem) {
+  auto* kernel = prep_tc_cluster;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+      cudaSuccess)
+    return 0;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kNQ * kSms, 1, 1);
+  config.blockDim = dim3(kThreads, 1, 1);
+  config.dynamicSmemBytes = smem;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &config) != cudaSuccess) return 0;
+  if (max_clusters > 0 && max_clusters < n) n = max_clusters;
+  return (int)(tiles < n ? tiles : n);
+}
 
 int per_sm(size_t smem, int cap) {
   return std::max(1, std::min(cap, (int)(kSmBytes / (smem + 1024))));
@@ -1212,6 +1857,13 @@ bool make_plan(long long n_rows, int in_dim, int c1, bool bwd, Plan& p) {
     return false;
   }
   p.tc = true;
+  if (cluster_route(tiles, in_dim, c1, bwd)) {  // the grid: cluster_count at the launch
+    p.cluster = true;
+    p.T = 0;
+    p.R = cluster_ring();
+    p.smem = ClusterLayout(p.R).total;
+    return true;
+  }
   const bool direct = bwd && p.CP > kXCols;  // no tile stages
   if (direct && in_dim > kDirectMaxIn) return false;
   const int nq = p.CP / x_cols(p.CP) * (round32(in_dim) / kChunk) +  // W1 chunks a tile
@@ -1227,8 +1879,9 @@ bool make_plan(long long n_rows, int in_dim, int c1, bool bwd, Plan& p) {
   return false;
 }
 
-// Floats of the split W1 (tensor route) and the CTAs' records (backward).
+// Floats of the split W1 (tensor route; the cluster backward's rank-major).
 long long split_floats(const Plan& p, int in_dim, bool bwd) {
+  if (p.cluster) return kNQ * rank_floats(in_dim);
   return p.tc ? 2LL * p.CP * (round32(in_dim) + (bwd ? round64(in_dim) : 0)) : 0;
 }
 
@@ -1242,6 +1895,25 @@ cudaError_t launch(const Plan& p, const float* pts, const float* dA, long long n
   const bool bulk = aligned(pts) && aligned(out) && (!BWD || aligned(dA));
   float* records = scratch + split_floats(p, in_dim, BWD);
   cudaError_t err = cudaSuccess;
+  if constexpr (CP == 256 && BWD) {
+    if (p.cluster) {
+      // dA's 16-byte cp.async pieces need it 16-byte aligned (the wrapper sees
+      // to it)
+      if (!aligned(dA)) return cudaErrorInvalidValue;
+      const long long n = split_floats(p, in_dim, BWD);
+      split_w1_cluster<<<(int)std::min((n + 255) / 256, 2LL * kSms), 256, 0, s>>>(w1, in_dim, c1,
+                                                                                   scratch);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      const int n_cl = cluster_count((n_rows + kRows - 1) / kRows, p.smem);
+      if (n_cl <= 0) return cudaErrorInvalidConfiguration;
+      prep_tc_cluster<<<kNQ * n_cl, kThreads, p.smem, s>>>(
+          pts, dA, n_rows, in_dim, scratch, b1, scale, radius, p.R, out, records);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      const int P = (in_dim + 3) * c1;
+      reduce_records<8><<<(P + 31) / 32, 256, 0, s>>>(records, n_cl, P, wout);
+      return cudaGetLastError();
+    }
+  }
   if (p.tc) {
     const long long n = split_floats(p, in_dim, BWD);
     const int blocks = (int)std::min((n + 255) / 256, 2LL * kSms);
@@ -1310,8 +1982,19 @@ int sa_prep_f32_max_in_dim(int c1, int bwd) {
 long long sa_prep_f32_scratch(long long n_rows, int in_dim, int c1, int bwd) {
   Plan p;
   if (!make_plan(n_rows, in_dim, c1, bwd, p)) return 0;
-  return split_floats(p, in_dim, bwd) + (bwd ? (long long)p.grid * (in_dim + 3) * c1 : 0);
+  const int records = p.cluster ? cluster_count((n_rows + kRows - 1) / kRows, p.smem) : p.grid;
+  return split_floats(p, in_dim, bwd) + (bwd ? (long long)records * (in_dim + 3) * c1 : 0);
 }
+
+// Most 64-row tiles the backward runs on its cluster route (c1 256); with
+// more it runs the direct backward.
+int sa_prep_f32_cluster_max_tiles() { return kSms / kNQ; }
+
+// Caps the clusters of the backward's cluster route at n (0: as many as the
+// card holds, the default), so that each cluster takes several tiles in turn
+// on a card that holds one for every tile. Takes effect at the next scratch
+// size and launch, which must see the same cap.
+void sa_prep_f32_set_max_clusters(int n) { max_clusters = n > 0 ? n : 0; }
 
 // pts: (n_rows, in_dim) f32; w1: (in_dim, c1) f32; b1/scale/lnb: (c1,) f32;
 // out: (n_rows, c1) f32; scratch: sa_prep_f32_scratch(n_rows, in_dim, c1, 0)

@@ -102,11 +102,32 @@ def max_in_dim(c1: int) -> int:
     return c_function("sa_prep", "sa_prep_max_in_dim", [ctypes.c_int])(c1)
 
 
+def cluster_max_in_dim(c1: int) -> int:
+    """The largest in_dim the bf16 prep forward runs on its cluster route at width c1
+    (0: none; c1 256 from in_dim 433); one more runs the single-CTA plan, W1 streamed."""
+    return c_function("sa_prep", "sa_prep_cluster_max_in_dim", [ctypes.c_int])(c1)
+
+
+def cluster_max_tiles_f32() -> int:
+    """The most 64-row tiles the f32 prep backward runs on its cluster route (c1 256,
+    any in_dim it takes); with more it runs the direct backward."""
+    return c_function("sa_prep_f32", "sa_prep_f32_cluster_max_tiles", [])()
+
+
+def set_max_clusters_f32(n: int) -> None:
+    """Cap the clusters of the f32 prep backward's cluster route at ``n`` (0: as many
+    as the card holds, the default). An H100 holds a cluster for every tile that
+    route takes; a cap below the tiles makes each cluster take several in turn, as
+    on a card that holds fewer."""
+    c_function("sa_prep_f32", "sa_prep_f32_set_max_clusters", [ctypes.c_int], None)(n)
+
+
 def max_in_dim_f32(c1: int, backward: bool = False) -> int:
     """The largest in_dim the f32 prep forward (or backward) kernel takes at width c1
     (0: c1 unsupported): its tensor-core route's, set by the points' tile in shared
     memory (645 / 391 at c1 128, 639 forward at c1 256), or by a fixed 2048 for the
-    backward above c1 128, which reads the points from device memory."""
+    backward above c1 128, which reads the points from device memory (at c1 256 and
+    few tiles on clusters of two CTAs)."""
     return c_function("sa_prep_f32", "sa_prep_f32_max_in_dim",
                       [ctypes.c_int, ctypes.c_int])(c1, int(backward))
 
@@ -154,6 +175,8 @@ def sa_prep(pts, w1, b1, scale, lnb, *, radius: float,
     if w1.shape[0] != in_dim or any(v.shape != (c1,) for v in (b1, scale, lnb)):
         raise ValueError("sa_prep parameter shapes do not match the points")
     _check_widths("sa_prep", in_dim, c1, max_in_dim_f32(c1) if f32 else max_in_dim(c1))
+    # the bf16 cluster route's 16-byte W1 copies need its base 16-byte aligned
+    w1 = w1 if f32 or w1.data_ptr() % 16 == 0 else w1.clone()
     out = torch.empty((B, N, c1), dtype=compute_dtype, device=pts.device)
     args = (ptr(pts), B * N, in_dim, c1, ptr(w1), ptr(b1), ptr(scale), ptr(lnb), float(radius),
             ptr(out))
@@ -246,6 +269,8 @@ def _prep_bwd_f32(pts, dA, w1, b1, scale, *, radius: float):
     if pts.dtype != torch.float32 or dA.shape != (B, N, c1) or w1.shape[0] != in_dim:
         raise ValueError("sa_prep_bwd takes float32 points and a (B, N, c1) cotangent")
     _check_widths("sa_prep_bwd", in_dim, c1, max_in_dim_f32(c1, backward=True))
+    # the cluster route's 16-byte dA copies need its base aligned
+    dA = dA if dA.data_ptr() % 16 == 0 else dA.clone()
     rows = B * N
     f32 = dict(dtype=torch.float32, device=pts.device)
     dpts = torch.empty((B, N, in_dim), **f32)

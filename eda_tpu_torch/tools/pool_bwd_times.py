@@ -17,7 +17,9 @@ recorded:
 * ``prep_bf16``: the bf16 prep forward and backward (K2, K7) of
   ``ModelConfig(use_bf16=True)``;
 * ``prep_w2x``: the same kernels of the width-2 backbone (SA1 at c1 128,
-  SA2-4 at c1 256, SA3-4 at in_dim 515 with W1 streamed).
+  SA2-4 at c1 256, in_dim 259 / 515 / 515);
+* ``prep_f32_w2x``: the f32 prep forward and backward (K2f, K7f) of the
+  width-2 backbone in ``ModelConfig()`` (SA2-4 at c1 256).
 
 Prints one JSON line: the card's name and power limit, ms and the peak device
 memory of one call (above what was allocated before it) per layer, the sums
@@ -59,6 +61,7 @@ KERNELS = {
     "prep_f32": (False, False, {"sa_prep": "K2f", "sa_prep_bwd": "K7f"}, {}),
     "prep_bf16": (True, False, {"sa_prep": "K2", "sa_prep_bwd": "K7"}, {}),
     "prep_w2x": (True, True, {"sa_prep": "K2", "sa_prep_bwd": "K7"}, {}),
+    "prep_f32_w2x": (False, True, {"sa_prep": "K2f", "sa_prep_bwd": "K7f"}, {}),
 }
 # the functions called SA1 -> SA4; the others (backward) SA4 -> SA1
 FORWARD = ("sa_prep", "sa_pair_pool", "sa_pair_pool_winners")

@@ -227,10 +227,11 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
                                  "_Z16pool_bwd_compact": 30},
             "sa_prep_bwd": {"_Z14prep_bwd_tilesILi64ELb1E": 6, "_Z14reduce_records": 0,
                             "_Z16prep_bwd_cluster": 10},
-            "sa_prep": {"_Z14sa_prep_kernelILi64EE": 1},
+            "sa_prep": {"_Z14sa_prep_kernelILi64EE": 1, "_Z15sa_prep_cluster": 33},
             # the f32 prep's tensor-core kernels; its CUDA-core route holds none
             "sa_prep_f32": {"_Z7prep_tcILi128ELb1E": 36, "_Z8prep_fmaILi64ELb1E": 0,
-                            "_Z8split_w1": 0}}
+                            "_Z8split_w1": 0, "_Z15prep_tc_cluster": 72,
+                            "_Z17split_w1_cluster": 0}}
     monkeypatch.setattr(chip_smoke, "hgmma_counts", lambda lib: sass[lib])
     with pytest.raises(AssertionError, match="sa_pair_pool_bwd GEMM kernel has no HGMMA"):
         chip_smoke.check_pool_build(ok, FakeBuild)
@@ -239,8 +240,11 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "72 HGMMA instructions in 2" in out and "98 HGMMA instructions in 4" in out
     assert "pool_bwd_compact: 30 HGMMA" in out and "prep_bwd_cluster: 10 HGMMA" in out
+    assert "sa_prep_cluster: 33 HGMMA" in out and "prep_tc_cluster: 72 HGMMA" in out
     for source, name in (("sa_pair_pool_bwd", "_Z16pool_bwd_compact"),
-                         ("sa_prep_bwd", "_Z16prep_bwd_cluster")):  # each must be built
+                         ("sa_prep_bwd", "_Z16prep_bwd_cluster"),
+                         ("sa_prep", "_Z15sa_prep_cluster"),
+                         ("sa_prep_f32", "_Z15prep_tc_cluster")):  # each must be built
         n = sass[source].pop(name)
         with pytest.raises(AssertionError, match=f"{source} holds no"):
             chip_smoke.check_pool_build(ok, FakeBuild)
@@ -260,6 +264,13 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
     sass["sa_prep_f32"]["_Z7prep_tcILi128ELb1E"] = 0
     with pytest.raises(AssertionError, match="sa_prep_f32 GEMM kernel has no HGMMA"):
         chip_smoke.check_pool_build(ok, FakeBuild)
+    sass["sa_prep_f32"]["_Z7prep_tcILi128ELb1E"] = 36
+    for source, name in (("sa_prep", "_Z15sa_prep_cluster"),
+                         ("sa_prep_f32", "_Z15prep_tc_cluster")):  # a cluster route counts too
+        sass[source][name] = 0
+        with pytest.raises(AssertionError, match=f"{source} GEMM kernel has no HGMMA"):
+            chip_smoke.check_pool_build(ok, FakeBuild)
+        sass[source][name] = 1
 
 
 @pytest.mark.parametrize("N,M,W,widths", [(256, 64, 128, (16, 16, 32)),
@@ -379,14 +390,35 @@ def test_prep_edge_inputs_hold_their_edge_cases():
     for c1 in chip_smoke.PREP_EDGE_C1:
         assert (3, c1) in widths and (top[c1], c1) in widths
     assert {(6, 64), (131, 128), (259, 128)} <= widths
-    rows = [args[0].shape[0] * args[0].shape[1] for args, _ in cases.values()]
-    assert all(r % 64 for r in rows) and min(rows) < 64  # ragged, and less than a tile
+    rows = {name: args[0].shape[0] * args[0].shape[1] for name, (args, _) in cases.items()}
+    # ragged, and less than a tile; SA4's 4 096 rows of the width-2 backbone whole
+    assert all(r % 64 for name, r in rows.items() if "SA4" not in name)
+    assert min(rows.values()) < 64
     large = [args for name, (args, _) in cases.items() if name.startswith("large")]
     assert len(large) == 2 and all(a[0][..., :3].abs().max() > 100 for a in large)
-    for args, radius in list(cases.values())[:4] + list(cases.values())[-5:]:
+    for name in ("SA3 widths (259, 128), 2 x 77 rows", "SA2 widths (131, 128), 1 x 40 rows",
+                 "W2X SA3 widths (515, 256), 8 x 1001 rows"):
+        assert name in cases
+    for args, radius in cases.values():  # every case, the W2X ones too (~0.2 s in all)
         out = sa_prep.sa_prep_plain(*args, radius=radius)
         assert out.shape == args[0].shape[:2] + (args[1].shape[1],)
         assert torch.isfinite(out.float()).all()
+    # the cluster route at c1 256: fewer tiles than the clusters a card holds
+    # (33 of four CTAs), more (the persistent clusters wrapping, a ragged last
+    # tile), SA4's rows, the route's largest in_dim and one past it; all of them,
+    # and only the c1-256 widths from in_dim 256, in the "w2x" phase
+    cases = chip_smoke.prep_edge_inputs(lambda c1: top[c1], cluster_max=lambda c1: 576)
+    shapes = {(args[0].shape[0] * args[0].shape[1], *args[1].shape) for args, _ in cases.values()}
+    wrap = chip_smoke.W2X_WRAP_ROWS
+    assert wrap // 64 + 1 > 132 // 4 and wrap % 64 and (1001 * 8) // 64 + 1 > 132 // 4
+    for in_dim in (259, 515):
+        assert {(3, in_dim, 256), (130, in_dim, 256), (wrap, in_dim, 256)} <= shapes
+    assert {(4096, 515, 256), (130, 576, 256), (130, 577, 256)} <= shapes
+    w2x = {(r, i, c) for r, i, c in shapes if chip_smoke.w2x_prep(i, c)}
+    assert {(i, c) for _, i, c in w2x} == {(259, 256), (515, 256), (576, 256), (577, 256),
+                                           (top[256], 256)}
+    assert not chip_smoke.w2x_prep(3, 256) and not chip_smoke.w2x_prep(876, 128)
+    assert not chip_smoke.w2x_prep(255, 256) and chip_smoke.w2x_prep(256, 256)
 
 
 def test_mask_edge_inputs_hold_their_edge_cases():
@@ -453,6 +485,21 @@ def test_prep_f32_edge_inputs_hold_their_edge_cases():
     assert (many[1] // 64 > 132 * 4) and (many[2] // 64 > 132 * 2)  # tiles > the grid's CTAs
     for in_dim, c1 in chip_smoke.TINY_PREP_WIDTHS:  # within one tile too
         assert any(r < 64 for r, i, c in shapes if (i, c) == (in_dim, c1))
+    # around the backward's cluster route at c1 256 (no more tiles than the
+    # 66 clusters of two a card holds): 3 and 129 rows and SA4's rows on it,
+    # more tiles with a one-row last tile (the direct backward)
+    assert {(3, 515, 256), (129, 259, 256), (many[2], 259, 256), (4096, 515, 256)} <= set(shapes)
+    assert many[2] // 64 + 1 > 132 // 2 and 4096 // 64 <= 132 // 2
+    # the route's most tiles (the last ragged) and one tile more (the direct backward)
+    tiles = chip_smoke.prep_f32_edge_inputs(cluster_tiles=66)
+    extra = {(args[0].shape[1], *args[1].shape) for name, (args, _) in tiles.items()
+             if name not in cases}
+    assert extra == {(66 * 64 - 5, 515, 256), (66 * 64 + 1, 515, 256)}
+    # the wrapping check caps the clusters below those 66 tiles: each takes three
+    # or four in turn, the last of them ragged
+    wrap = chip_smoke.PREP_F32_WRAP_CLUSTERS
+    assert 66 // wrap == 3 and 66 % wrap and (66 * 64 - 5) % 64
+    assert [n for n in tiles if "the cluster route's most tiles" in n]
     odd = chip_smoke.ODD_PREP_WIDTHS
     assert set(odd) <= widths
     assert any(i > 8 and c % 8 and c % 2 for i, c in odd)  # tensor route, odd c1
@@ -577,6 +624,10 @@ def test_prep_f32_edge_cases_split_between_the_f32_phases():
     wide = {(i, c) for args, _ in chip_smoke.prep_f32_edge_inputs().values()
             for i, c in [tuple(args[1].shape)] if chip_smoke.wide_prep(i, c)}
     assert wide == {(259, 256), (515, 256), (131, 250), (35, 201)}
+    # the cluster route's tile-count cases, in "w2x f32" too
+    rows = {args[0].shape[1] for args, _ in chip_smoke.prep_f32_edge_inputs(
+        cluster_tiles=66).values() if chip_smoke.wide_prep(*args[1].shape)}
+    assert {66 * 64 - 5, 66 * 64 + 1} <= rows
     assert not chip_smoke.wide_prep(6, 150) and not chip_smoke.wide_prep(259, 128)
     least = chip_smoke.PREP_F32_MIN_LIMITS
     assert least[256] >= (max(i for i, _ in chip_smoke.W2X_F32_PREP_WIDTHS),) * 2

@@ -8,17 +8,21 @@
   windowed rows at (128, 128, 256) and every narrower triple keep a record a
   block. At the backbone's SA2 and SA1 (batch 8) the persistent plans' scratch
   stays below the record a block they replace.
-* ``tools/pool_bwd_times.py --kernels pool_w2x`` / ``prep_w2x`` time the
-  width-2 backbone's pools and prep kernels: their widths are ``chip_smoke``'s,
-  and without a card they fail, printing nothing.
+* ``tools/pool_bwd_times.py --kernels pool_w2x`` / ``prep_w2x`` /
+  ``prep_f32_w2x`` time the width-2 backbone's pools and prep kernels (the
+  last in f32): their widths are ``chip_smoke``'s, and without a card they
+  fail, printing nothing.
 
 The kernels themselves run on the card only (``chip_smoke.py``).
 """
+
+import dataclasses
 
 import pytest
 import torch
 
 import chip_smoke
+from eda_tpu_torch.config import ModelConfig
 from eda_tpu_torch.ops.cuda import sa_kernel, sa_pool_bwd
 from eda_tpu_torch.tools import pool_bwd_times
 
@@ -140,7 +144,20 @@ def test_prep_w2x_timer_widths_are_the_smokes():
     assert pool_bwd_times.model_config("prep_bf16").sa_mlps != cfg.sa_mlps
 
 
-@pytest.mark.parametrize("argv", [["--kernels", "prep_w2x"], ["--kernels", "prep_w2x", "--busy"]])
+def test_prep_f32_w2x_timer_widths_are_the_smokes():
+    """The f32 width-2 backbone: ``ModelConfig()`` (f32) at the smoke's W2X widths,
+    timing K2f and K7f as ``prep_f32`` does for the flagship."""
+    cfg = pool_bwd_times.model_config("prep_f32_w2x")
+    assert not cfg.use_bf16 and cfg.sa_mlps == chip_smoke.W2X_SA_MLPS
+    assert cfg.fp_mlps == chip_smoke.W2X_FP_MLPS
+    assert dataclasses.replace(cfg, sa_mlps=ModelConfig().sa_mlps,
+                               fp_mlps=ModelConfig().fp_mlps) == ModelConfig()
+    assert pool_bwd_times.KERNELS["prep_f32_w2x"][2:] == pool_bwd_times.KERNELS["prep_f32"][2:]
+    assert pool_bwd_times.model_config("prep_f32").sa_mlps != cfg.sa_mlps
+
+
+@pytest.mark.parametrize("argv", [["--kernels", "prep_w2x"], ["--kernels", "prep_w2x", "--busy"],
+                                  ["--kernels", "prep_f32_w2x"]])
 def test_prep_w2x_timer_needs_a_card(argv, monkeypatch, capsys):
     """A device timing has no CPU counterpart: without CUDA the tool fails, printing nothing."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
