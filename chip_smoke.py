@@ -196,11 +196,14 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    a profiled forward and step, and two steps from one state bit for bit.
    Its kernel rows join the JSON line named with " (w2x)".
 11b. The width-2 backbone in f32 (phase "w2x f32", ``w2x_configs(ModelConfig())``,
-   SA2-4's prep at c1 256, in_dim 259 / 515): K2f and K7f on the edge
-   inputs of the tensor route above c1 128 (the W2X SA2 and SA3 widths at
-   ragged rows, SA2's at the tile edges and over 626 tiles, SA3's at 3
-   rows, (131, 250) and (35, 201)) as in phase "f32", and at the largest
-   in_dim each takes at c1 256 (at least 515; one more, and c1 257, raise);
+   SA2-4's prep at c1 256, in_dim 259 / 515; K2f on 2-CTA clusters,
+   ``prep_fwd_cluster``): K2f and K7f on the edge inputs of the tensor route
+   above c1 128 (the W2X SA2 and SA3 widths at ragged rows and the tile
+   edges, SA2's over 626 tiles, SA3's at 3 rows and batch 8's 8 192, (131,
+   250), (35, 201) and (259, 129)) as in phase "f32", K2f also following an
+   in-place update of W1 (its split is kept a W1 version), and at the
+   largest in_dim each takes at c1 256 (at least 515; one more, and c1 257,
+   raise);
    the tiny f32 W2X model, step and scoring against their CPU twins, the
    step under the f32 gates (gradient cosine ``F32_GLOBAL_COS``,
    ``grad_norm`` within ``F32_GRAD_NORM_REL``) and every leaf under the
@@ -271,7 +274,9 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
 
 Per kernel, the JSON line's ``ms``, ``plain_ms`` and ``bound_ms`` are sums over
 the four SA layers of one batch-8 forward (K1-K3, K8, K9a, K9b, K2f) or
-training step (K4-K7, K8 and K9b with winners, K7f). ``launches`` is the count
+training step (K4-K7, K8 and K9b with winners, K7f), and ``layers`` holds each
+layer's ``ms``, ``bound_ms`` and ``bound_by`` (K2f (w2x f32): bound by bytes at
+SA1, by operations at SA2-4). ``launches`` is the count
 of the serving run (K1-K3), the training run (K4-K7), the mode's evaluation
 run (K8, K9a, K9b), the mode's training step (K8 and K9b with winners) or the
 f32 serving run and training steps (K2f, K7f); a " (w2x)" or " (w2x f32)"
@@ -779,6 +784,7 @@ def check_kernels(calls, symbols, layers: dict, compare_pair: bool = False) -> l
                                  f"not {layers[symbol]}")
         total = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
         bound_ops = bound_bytes = 0.0
+        per_layer = []
         for i, (args, kw) in enumerate(calls[symbol]):
             # the backward runs the layers last to first
             backward = symbol in ("sa_pool_bwd_window_launch",) + PREP_BWD
@@ -800,6 +806,8 @@ def check_kernels(calls, symbols, layers: dict, compare_pair: bool = False) -> l
             bound_ms, by = bound_fn(args, kw)
             bound_ops += bound_ms if by == "operations" else 0.0
             bound_bytes += bound_ms if by == "bytes" else 0.0
+            per_layer.append({"layer": f"SA{layer}", "ms": ms, "bound_ms": bound_ms,
+                              "bound_by": by})
             shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)][:2]
             print(f"kernel {name} SA{layer} {shapes}: max_err {err} ms {ms:.4f} "
                   f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({by})")
@@ -828,7 +836,7 @@ def check_kernels(calls, symbols, layers: dict, compare_pair: bool = False) -> l
             "replaces": kernel.replaces, "launches": 0, "max_abs_err": total["err"],
             "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
-            "library_ms": None,
+            "library_ms": None, "layers": per_layer,
         })
     return rows
 
@@ -854,14 +862,15 @@ def hgmma_counts(library: Path):
 # tensor-core kernel libraries: source -> the names of its GEMM kernels; the
 # pool's and its backward's wide kernels, (256, 256, 512), the backward's
 # compact kernel at (128, 128, 256) and the prep kernels' cluster routes at c1
-# 256 (REQUIRED_KERNELS) must be among them
+# 256, the f32 forward's and backward's (REQUIRED_KERNELS), must be among them
 GEMM_KERNELS = {"sa_pair_pool": ("sa_pair_pool_kernel", "sa_pair_pool_wide"),
                 "sa_pair_pool_bwd": ("pool_bwd_tiles", "pool_bwd_wide", "pool_bwd_compact"),
                 "sa_prep_bwd": ("prep_bwd_tiles", "prep_bwd_cluster"),
                 "sa_prep": ("sa_prep_kernel", "sa_prep_cluster"),
-                "sa_prep_f32": ("prep_tc",)}
+                "sa_prep_f32": ("prep_tc", "prep_fwd_cluster")}
 REQUIRED_KERNELS = (("sa_pair_pool_bwd", "pool_bwd_compact"), ("sa_prep_bwd", "prep_bwd_cluster"),
-                    ("sa_prep", "sa_prep_cluster"), ("sa_prep_f32", "prep_tc_cluster"))
+                    ("sa_prep", "sa_prep_cluster"), ("sa_prep_f32", "prep_tc_cluster"),
+                    ("sa_prep_f32", "prep_fwd_cluster"))
 
 
 def check_pool_build(logs: dict, build) -> None:
@@ -1454,10 +1463,11 @@ TILE_EDGE_ROWS = (63, 64, 65, 129)  # around the 64-row tiles of csrc/sa_prep_f3
 MANY_TILE_ROWS = {1: 299_969, 2: 40_001}  # SA1 / SA2 widths: several tiles a CTA
 # widths that are no multiple of 8 (the tensor route's) or of 4 (the CUDA-core route's),
 # on each route below and above c1 128
-ODD_PREP_WIDTHS = ((12, 21), (7, 30), (6, 150), (131, 250), (35, 201))
+ODD_PREP_WIDTHS = ((12, 21), (7, 30), (6, 150), (131, 250), (35, 201), (259, 129))
 # the width-2 backbone's f32 prep widths at SA1-SA4 with RGB: SA2-4 on the
 # tensor route at c1 256, their backward direct
 W2X_F32_PREP_WIDTHS = ((6, 128), (259, 256), (515, 256), (515, 256))
+W2X_SA3_ROWS = 8 * 1024  # W2X SA3's rows at batch 8: on the forward's cluster route two tiles a set
 # by c1, the least in_dim the f32 prep kernels must take, forward / backward:
 # at 128 the previous kernels' limits, at 256 the width-2 backbone's SA3-4
 PREP_F32_MIN_LIMITS = {128: (358, 333), 256: (515, 515)}
@@ -1476,10 +1486,14 @@ def prep_f32_edge_inputs(seed=0, cluster_tiles=None) -> dict:
     ``MANY_TILE_ROWS`` (several tiles a CTA, the rings wrapping, a last tile
     of one row); the width-2 backbone's SA2 and SA3 widths (c1 256) at a
     ragged row count, SA2's also at the tile edges and ``MANY_TILE_ROWS[2]``,
-    SA3's at 3 rows; the tiny config's widths over several tiles and within
-    one; widths that are no multiple of 8 (tensor route) or 4 (CUDA-core
-    route), below and above c1 128; points of large magnitude; dA in f32
-    with values that bf16 does not hold. Around the backward's cluster route
+    SA3's at 3 rows, the tile edges and batch 8's ``W2X_SA3_ROWS`` (the
+    forward's cluster route with one warpgroup a cluster, with two, one of
+    them idle in the last set, and many sets a cluster); the tiny config's
+    widths over several tiles and within one; widths that are no multiple of
+    8 (tensor route) or 4 (CUDA-core route), below and above c1 128 (c1 129:
+    one column in the cluster forward's second CTA); points of large
+    magnitude; dA in f32 with values that bf16 does not hold. Around the
+    backward's cluster route
     (c1 256, any in_dim it takes, no more tiles than the clusters the card
     holds): 3 and 129 rows and SA4's 4 096 (on it), 40 001 rows (a last tile
     of one row, the direct backward), and, given ``cluster_tiles``, the
@@ -1512,6 +1526,8 @@ def prep_f32_edge_inputs(seed=0, cluster_tiles=None) -> dict:
     for rows in TILE_EDGE_ROWS + (MANY_TILE_ROWS[2],):
         cases[f"W2X SA2 widths, 1 x {rows} rows"] = case(1, rows, *W2X_F32_PREP_WIDTHS[1], 0.4)
     cases["W2X SA3 widths, 1 x 3 rows"] = case(1, 3, *W2X_F32_PREP_WIDTHS[2], 0.8)
+    for rows in TILE_EDGE_ROWS + (W2X_SA3_ROWS,):
+        cases[f"W2X SA3 widths, 1 x {rows} rows"] = case(1, rows, *W2X_F32_PREP_WIDTHS[2], 0.8)
     cases["W2X SA4 widths, 1 x 4096 rows"] = case(1, 4096, *W2X_F32_PREP_WIDTHS[3], 1.2)
     if cluster_tiles is not None:
         for rows, what in ((64 * cluster_tiles - 5, "the cluster route's most tiles"),
@@ -1545,9 +1561,11 @@ def prep_f32_tolerance(pts, w1, b1, radius, want):
 def prep_f32_edge_check(wide: bool = False) -> None:
     """K2f and K7f against their plain versions on the ``prep_f32_edge_inputs``
     cases whose widths the tensor route takes above c1 128 (``wide``) or the
-    others; K7f's gradients bit-identical on a second launch and its dA read
-    unrounded (a bf16-rounded dA gives other gradients); then the in_dim
-    limits at c1 256 (``wide``) or 128 (``prep_f32_limit_check``)."""
+    others; K2f's A and K7f's gradients bit-identical on a second launch, K2f
+    following an in-place update of W1 where it keeps W1's split
+    (``prep_f32_inplace_check``), K7f's dA read unrounded (a bf16-rounded dA
+    gives other gradients); then the in_dim limits at c1 256 (``wide``) or 128
+    (``prep_f32_limit_check``)."""
     from eda_tpu_torch.ops.cuda import sa_prep
 
     f32 = dict(compute_dtype=torch.float32)
@@ -1557,6 +1575,7 @@ def prep_f32_edge_check(wide: bool = False) -> None:
             continue
         pts, w1, b1, scale, lnb, dA = (a.cuda() for a in args)
         got = sa_prep.sa_prep(pts, w1, b1, scale, lnb, radius=radius, **f32)
+        again = sa_prep.sa_prep(pts, w1, b1, scale, lnb, radius=radius, **f32)
         want = sa_prep.sa_prep_plain(pts, w1, b1, scale, lnb, radius=radius, **f32)
         torch.cuda.synchronize()
         if got.dtype != torch.float32 or got.shape != want.shape:
@@ -1565,6 +1584,15 @@ def prep_f32_edge_check(wide: bool = False) -> None:
         if not (err <= prep_f32_tolerance(pts, w1, b1, radius, want)).all():
             raise AssertionError(f"f32 prep edge check {name}: K2f off its plain version by "
                                  f"{err.max().item()}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"f32 prep edge check {name}: K2f's A differs between two "
+                                 f"launches")
+        rows, (in_dim, c1) = pts.shape[0] * pts.shape[1], w1.shape
+        route = sa_prep.f32_forward_route_cuda(rows, in_dim, c1)
+        if route != sa_prep.f32_forward_route(rows, in_dim, c1):
+            raise AssertionError(f"f32 prep edge check {name}: the library's forward route "
+                                 f"{route} is not sa_prep.f32_forward_route's")
+        cached = prep_f32_inplace_check(name, pts, w1, b1, scale, lnb, radius)
         bwd = (pts, dA, w1, b1, scale)
         got_b = sa_prep.sa_prep_bwd(*bwd, radius=radius, **f32)
         again = sa_prep.sa_prep_bwd(*bwd, radius=radius, **f32)
@@ -1581,12 +1609,46 @@ def prep_f32_edge_check(wide: bool = False) -> None:
         if torch.equal(rounded[1], got_b[1]):
             raise AssertionError(f"f32 prep backward edge check {name}: dW1 does not see dA "
                                  f"unrounded")
-        print(f"f32 prep edge check {name}: K2f max err {err.max().item():.3e}; K7f errors "
-              f"relative to each output's largest value {[f'{e:.2e}' for e in errs]}, "
-              f"bit-identical on a second launch, dA read unrounded")
+        print(f"f32 prep edge check {name}: K2f ({route}) max err {err.max().item():.3e}, "
+              f"bit-identical on a second launch{cached}; K7f errors relative to each "
+              f"output's largest value {[f'{e:.2e}' for e in errs]}, bit-identical on a second "
+              f"launch, dA read unrounded")
     if wide:
         prep_f32_wrap_check(cases)
     prep_f32_limit_check(256 if wide else 128)
+
+
+@torch.no_grad()
+def prep_f32_inplace_check(name, pts, w1, b1, scale, lnb, radius) -> str:
+    """Where K2f takes W1 split once a W1 (its cluster route, c1 above 128), on a
+    copy of ``w1``: the split made once and reused while W1 is unchanged; after an
+    in-place update of W1 (as the optimizer's step makes) split again, and K2f
+    within ``prep_f32_tolerance`` of the plain version on the new W1. Returns
+    what it held ("" where the route splits W1 at every launch)."""
+    from eda_tpu_torch.ops.cuda import sa_prep
+
+    f32 = dict(compute_dtype=torch.float32, radius=radius)
+    rows = pts.shape[0] * pts.shape[1]
+    w = w1.clone()
+    first = sa_prep.f32_w1_split(rows, w)
+    if first is None:
+        return ""
+    if sa_prep.f32_w1_split(rows, w) is not first:
+        raise AssertionError(f"f32 prep in-place check {name}: W1 split again while unchanged")
+    w.mul_(-0.75)
+    w[0] += 0.5
+    got = sa_prep.sa_prep(pts, w, b1, scale, lnb, **f32)
+    if sa_prep.f32_w1_split(rows, w) is first:
+        raise AssertionError(f"f32 prep in-place check {name}: W1 not split again after an "
+                             f"in-place update")
+    want = sa_prep.sa_prep_plain(pts, w, b1, scale, lnb, **f32)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if not (err <= prep_f32_tolerance(pts, w, b1, radius, want)).all():
+        raise AssertionError(f"f32 prep in-place check {name}: K2f after an in-place update of "
+                             f"W1 off its plain version by {err.max().item()}")
+    return (f", W1's split reused, and after W1 changed in place split again (max err "
+            f"{err.max().item():.3e})")
 
 
 # clusters of K7f's cluster route in the wrapping check: each takes three or
@@ -3038,7 +3100,8 @@ def w2x_f32_phase(root_cfg) -> list:
         print(f"w2x f32 serving forward, batch {BATCH}: {statistics.median(times[1:]):.2f} ms "
               f"per batch (median of requests 1-{W2X_F32_REQUESTS - 1}), every launch as "
               f"counted")
-        profile(lambda: model(batch), "w2x f32 serving forward", also=("prep_tc", "split_w1"))
+        profile(lambda: model(batch), "w2x f32 serving forward",
+                also=("prep_fwd_cluster", "prep_tc", "split_w1"))
     del model, inputs, batch
     torch.cuda.empty_cache()
 
@@ -3060,7 +3123,7 @@ def w2x_f32_phase(root_cfg) -> list:
         print(f"w2x f32 step {i}: {ms:.2f} ms, loss {loss:.4f}, grad_norm {norm:.4f}")
     rows[1]["launches"] = launch_counts()[F32_PREP_BWD]
     profile(lambda: step(state, batch), "w2x f32 training step",
-            also=("prep_tc", "prep_fma", "split_w1", "reduce_records"))
+            also=("prep_fwd_cluster", "prep_tc", "prep_fma", "split_w1", "reduce_records"))
     exact_repeat_check(state, step, batch, "w2x f32 full-width step")
     del state, step, batch
     torch.cuda.empty_cache()

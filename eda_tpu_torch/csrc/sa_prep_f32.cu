@@ -50,18 +50,18 @@
 //     by two shuffles. Backward, dx and g xhat go to shared tiles, and one
 //     column pass adds dW1 (in registers across the CTA's tiles) and db1,
 //     dscale, dlnb over the tile's rows in row order.
-//   * Tensor route (in_dim > 8, c1 up to 256: SA2-4): a prologue kernel
-//     splits W1 into TF32 hi / lo once per launch, in the layouts the
-//     products read, into a small buffer in device memory (split_w1); its
-//     chunks stream through a second ring (two to four stages) from L2, so
-//     any in_dim up to the points' stage fits (645 forward, 391 backward at
-//     c1 128; 639 forward at c1 256), or stay in the ring when a tile's
-//     chunks all fit it. Per tile:
+//   * Tensor route (in_dim > 8, c1 up to 256: SA2-4; the forward above c1
+//     128 on clusters, below): a prologue kernel splits W1 into TF32 hi / lo
+//     once per launch, in the layouts the products read, into a small
+//     buffer in device memory (split_w1); its chunks stream through a second
+//     ring (two to four stages) from L2, so any in_dim up to the points'
+//     stage fits (645 forward, 391 backward at c1 128), or stay in the ring
+//     when a tile's chunks all fit it. Per tile:
 //       X = P W1: A = P from registers (read from the tile's stage, xyz / r,
 //         split), B the K-major W1^T chunks of 32 K values by up to 128
-//         columns (above c1 128, two chunks a K step, one a column half of
-//         the accumulator, both on the same A fragments); at c1 <= 128 the
-//         next chunk's A fragments are built while a chunk's products run.
+//         columns (the direct backward above c1 128: two chunks a K step, one
+//         a column half); in the forward the next chunk's A fragments are
+//         built while a chunk's products run.
 //         The LayerNorm in the accumulator layout (quad shuffles); forward, A
 //         to the stage and out.
 //       Backward: the LayerNorm backward in the same layout, a column slice
@@ -94,6 +94,14 @@
 //     streaming (split_w1_cluster), the LayerNorm sums added in rank order
 //     across the cluster, dpts a block of 64 k_in columns a CTA from both
 //     CTAs' dx^T, one record a cluster.
+//   * The forward above c1 128 (the width-2 backbone's SA2-4) runs on
+//     persistent clusters of two CTAs (prep_fwd_cluster, its note below): c1
+//     a half a CTA, one or two consumer warpgroups a CTA (a tile each) and a
+//     producer warp streaming W1's half chunks through full / empty
+//     mbarriers, W1 split once a W1 by the caller (sa_prep_f32_split_w1),
+//     each thread's points a few K steps ahead by cp.async, one product group
+//     in flight, the LayerNorm sums added across the pair. Its in_dim is
+//     bound by kDirectMaxIn only.
 //   * reduce_records (wgmma.cuh) adds the CTAs' (clusters') records in a
 //     fixed order.
 
@@ -581,9 +589,9 @@ prep_tc(const float* __restrict__ pts, const float* __restrict__ dA, long long n
       fence_async();
       __syncthreads();
     } else {
-      // at c1 <= 128 in the forward, the next step's A fragments are built
-      // while this step's products run (the backward, and the wider
-      // accumulator, have no registers to spare for a second set)
+      // in the forward (c1 <= 128: wider forwards run prep_fwd_cluster), the
+      // next step's A fragments are built while this step's products run
+      // (the backward has no registers to spare for a second set)
       float acc[NV];
       auto products = [&](uint32_t (&f)[2][4][4], uint32_t (&next)[2][4][4], int q) {
 #pragma unroll
@@ -596,7 +604,7 @@ prep_tc(const float* __restrict__ pts, const float* __restrict__ dA, long long n
             wgmma_tf32x3<XW>(d, f[0][s], f[1][s], make_desc(wb + 256 * s, 128, kChunk * 32),
                              make_desc(wb + xlo + 256 * s, 128, kChunk * 32), q > 0 || s > 0);
           wgmma_commit();
-          if (NH == 1 && !BWD && q + 1 < nX) build(next, q + 1);
+          if (!BWD && q + 1 < nX) build(next, q + 1);
           wgmma_wait<0>();
           fence_regs(acc);
           if (h + 1 == NH) {
@@ -609,7 +617,7 @@ prep_tc(const float* __restrict__ pts, const float* __restrict__ dA, long long n
           release_chunk();
         }
       };
-      if constexpr (BWD || NH > 1) {
+      if constexpr (BWD) {
         for (int q = 0; q < nX; ++q) {
           build(fa[0], q);
           products(fa[0], fa[0], q);
@@ -1803,14 +1811,368 @@ prep_tc_cluster(const float* __restrict__ pts, const float* __restrict__ dA, lon
   cluster_sync();  // no CTA leaves while a peer may still read its dx^T
 }
 
+// ---- the forward at c1 256 on clusters of two CTAs, c1 split between them
+
+constexpr int kFRing = 6;   // W1 half-chunk stages of the cluster forward, at most
+constexpr int kPDepth = 4;  // K steps of a thread's points in flight
+
+// Shared memory of the cluster forward: mbarriers (the ring's full and empty
+// stages; the peer's LayerNorm sums landed, per warpgroup and slot); b1,
+// scale and lnb of the CTA's columns; the LayerNorm row sums the peer sent
+// ([warpgroup][slot][64 rows][2]); each warpgroup's points ring (kPDepth K
+// steps of its threads' 16 A values, [step][value][thread]); R stages of an
+// X half chunk (32 K values by kQW columns, hi then lo).
+struct FwdLayout {
+  size_t bars, vec, lnx, pring, wring, total;
+  __host__ __device__ FwdLayout(int NW, int R) {
+    size_t o = 0;
+    bars = o;   o += 256;
+    vec = o;    o += (size_t)3 * kQW * 4;
+    lnx = o;    o += (size_t)NW * 2 * kRows * 2 * 4;
+    pring = (o + 127) & ~size_t(127);
+    o = pring + (size_t)NW * kPDepth * 16 * kThreads * 4;
+    wring = (o + 127) & ~size_t(127);
+    total = wring + (size_t)R * kXChunk * 4;
+  }
+};
+
+__device__ __forceinline__ void mbar_init_count(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+// One arrival on the CTA's own mbarrier.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// One arrival on a peer's mbarrier (a shared::cluster address, peer()),
+// releasing this thread's earlier accesses to the cluster.
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// bulk_wait with cluster-scope acquire: the accesses peers released before
+// their arrivals are seen after it.
+__device__ __forceinline__ void cluster_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n > (1u << 22)) __trap();
+  }
+}
+
+// tf32_split in integer operations (cvt.rna.tf32 compiles to a longer
+// sequence that also keeps NaN and infinity apart): the same hi and lo for
+// a finite v; a NaN or infinite v still makes its row NaN.
+__device__ __forceinline__ void tf32_split_rna(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(v - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// 4 bytes from global to shared memory, asynchronously (this thread's group).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// The forward at c1 256 (above 128) on persistent clusters of kNQ = 2 CTAs:
+// CTA q computes c1's columns kQW q .. kQW q + kQW of the cluster's tiles,
+// NW at a time (a "set"), one a consumer warpgroup. Cluster j of n takes
+// sets j, j + n, ... (n: the clusters the card holds, at most one a set);
+// every output depends on its own tile only, so the grid changes no bit of
+// it.
+//   * W1's X half chunks for the CTA's columns (split once a W1 by split_w1,
+//     its (K step, half q) chunks) stream through a ring of R stages, each
+//     guarded by a full and an empty mbarrier (a consumer warp's arrival
+//     each); every set takes all of them, so a chunk serves NW tiles. A
+//     producer warp issues each chunk once its stage is free (issuing from a
+//     consumer thread put divergent code between the product groups, and
+//     ptxas then serialized every wgmma).
+//   * A thread's A values of the next kPDepth - 1 K steps are in flight at
+//     once (4-byte cp.async into its own slots of its warpgroup's points
+//     ring; the wait is the thread's own, with no barrier).
+//   * A consumer warpgroup runs X_q = P W1_q in 3xTF32 a K step of 32 values
+//     a product group (A from the ring, xyz / r and split in registers; B
+//     the stage), and keeps one group in flight: step j + 1's A fragments
+//     are built and its group issued while step j's runs, into a second set
+//     of fragment registers (the half-width accumulator leaves room for
+//     them), and step j's stage is released once wgmma_wait<1> shows its
+//     group done. No CTA-wide barrier a chunk.
+//   * The LayerNorm statistics: the row sums over the CTA's columns go to the
+//     peer's shared memory (CTA 1 - q; st.shared::cluster, then an
+//     arrival on the peer's mbarrier of that warpgroup and slot, slots
+//     alternating by set), and S = S_0 + S_1 in both (two terms: the same
+//     bits); then A's columns of the CTA straight from the accumulators to
+//     device memory (a warp's stores whole 32-byte sectors). These sums are
+//     the only accesses to the peer, so a CTA that has seen the last set's
+//     leaves without a cluster barrier.
+// Bound: SA2-4's products (operations). A W1 chunk is read from L2 once a
+// set of NW tiles, where the tile kernel read it once a tile.
+template <int NW>
+__global__ void __cluster_dims__(kNQ, 1, 1) __launch_bounds__(NW * kThreads + 32, 1)
+prep_fwd_cluster(const float* __restrict__ pts, long long n_rows, int in_dim, int c1,
+                 const float* __restrict__ wsplit, const float* __restrict__ b1,
+                 const float* __restrict__ scale, const float* __restrict__ lnb, float radius,
+                 int R, float* __restrict__ out) {
+  constexpr int NV = kQW / 2;                  // accumulator values a thread
+  constexpr uint32_t kBytes = kXChunk * 4;     // a chunk's bytes
+  const FwdLayout L(NW, R);
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  float* bs = reinterpret_cast<float*>(smem + L.vec);
+  float* ss = bs + kQW;
+  float* ls = ss + kQW;
+  float* lnx = reinterpret_cast<float*>(smem + L.lnx);
+  const uint32_t wring = smem_u32(smem + L.wring);
+  auto full = [&](int s) { return smem_u32(&bars[s]); };
+  auto empty = [&](int s) { return smem_u32(&bars[R + s]); };
+  auto landed = [&](int w, int slot) { return smem_u32(&bars[2 * R + 2 * w + slot]); };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = (int)cluster_rank(), c0 = kQW * q;  // the CTA's first column of c1
+  const int cl = blockIdx.x / kNQ, n_cl = gridDim.x / kNQ;
+  const int nX = round32(in_dim) / kChunk;  // K steps, a chunk each
+  const long long n_tiles = (n_rows + kRows - 1) / kRows;
+  const long long n_sets = (n_tiles + NW - 1) / NW;
+  const int my_sets = (int)((n_sets - 1 - cl) / n_cl) + 1;
+
+  if (tid == 0) {
+    for (int s = 0; s < R; ++s) {
+      mbar_init_count(full(s), 1);
+      mbar_init_count(empty(s), 4 * NW);  // a consumer warp's arrival each
+    }
+    for (int i = 0; i < 2 * NW; ++i) mbar_init_count(smem_u32(&bars[2 * R + i]), 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int c = tid; c < kQW; c += blockDim.x) {
+    const bool on = c0 + c < c1;
+    bs[c] = on ? b1[c0 + c] : 0.f;
+    ss[c] = on ? scale[c0 + c] : 0.f;
+    ls[c] = on ? lnb[c0 + c] : 0.f;
+  }
+  __syncthreads();  // the mbarriers are initialized before any thread waits on them
+  cluster_sync();   // and the peer's before any thread arrives on them
+
+  if (warp == 4 * NW) {
+    // ---- the producer warp: the CTA's chunks of every set in order (each
+    // set's nX), chunk k into stage k % R once its use k - R is released
+    if (lane == 0) {
+      const float* wq = wsplit + (size_t)q * kXChunk;
+      int st = 0;
+      uint32_t ph = 0;  // the parity of stage st's use
+      for (int set = 0, k = 0; set < my_sets; ++set)
+        for (int j = 0; j < nX; ++j, ++k) {
+          if (k >= R) bulk_wait(empty(st), ph ^ 1u);
+          bulk_copy(wring + (uint32_t)st * kBytes, wq + (size_t)j * kNQ * kXChunk, kBytes,
+                    full(st));
+          if (++st == R) {
+            st = 0;
+            ph ^= 1u;
+          }
+        }
+    }
+    return;
+  }
+
+  const int w = warp >> 2;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * (warp & 3) + g4;  // the thread's rows r0 and r0 + 8 of a tile
+  const float rr = 1.f / radius, fc1 = (float)c1, rc1 = 1.f / fc1;
+  const bool pair = !(c1 & 1);
+  // the thread's slots of its warpgroup's points ring
+  float* pr = reinterpret_cast<float*>(smem + L.pring) + (size_t)w * kPDepth * 16 * kThreads +
+              (tid & (kThreads - 1));
+  int s = 0;
+  uint32_t ph = 0;  // the stage of the next chunk and the parity of its use
+  auto next_stage = [&]() {
+    if (++s == R) {
+      s = 0;
+      ph ^= 1u;
+    }
+  };
+  auto release = [&](int st) {  // a warp has done with stage st
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  };
+
+  for (int set = 0; set < my_sets; ++set) {
+    const long long tile = (cl + (long long)set * n_cl) * NW + w;
+    if (tile >= n_tiles) {
+      // no tile for this warpgroup in the cluster's last set (nor for its
+      // peer's): it takes and releases the set's chunks all the same
+      for (int j = 0; j < nX; ++j) {
+        bulk_wait(full(s), ph);
+        release(s);
+        next_stage();
+      }
+      continue;
+    }
+    const long long row0 = tile * kRows;
+    const int nr = (int)(n_rows - row0 < kRows ? n_rows - row0 : kRows);
+    const float* P = pts + row0 * in_dim;
+    // the thread's rows of the tile, clamped to its last
+    const int ro0 = (r0 < nr ? r0 : nr - 1) * in_dim;
+    const int ro1 = (r0 + 8 < nr ? r0 + 8 : nr - 1) * in_dim;
+
+    // The thread's A values of K step j into slot j % kPDepth of its ring
+    // (value 4 s + e at row r0 + 8 (e & 1), k 32 j + 8 s + t + 4 (e >> 1)); a
+    // commit a step, so that its waits count steps. Rows past the tile's take
+    // its last row and k past in_dim its last column: finite values, which
+    // meet W1's zero rows past in_dim, or make rows that are not stored.
+    auto fetch = [&](int j) {
+      if (j < nX) {
+        float* d = pr + (j % kPDepth) * 16 * kThreads;
+        const int k0 = kChunk * j + t4;
+        const float* p0 = P + ro0 + k0;
+        const float* p1 = P + ro1 + k0;
+        if (kChunk * (j + 1) <= in_dim) {
+#pragma unroll
+          for (int s4 = 0; s4 < 4; ++s4)
+#pragma unroll
+            for (int eh = 0; eh < 2; ++eh) {
+              cp_async4(d + (4 * s4 + 2 * eh) * kThreads, p0 + 8 * s4 + 4 * eh);
+              cp_async4(d + (4 * s4 + 2 * eh + 1) * kThreads, p1 + 8 * s4 + 4 * eh);
+            }
+        } else {
+          const int last = in_dim - 1 - k0;
+#pragma unroll
+          for (int s4 = 0; s4 < 4; ++s4)
+#pragma unroll
+            for (int eh = 0; eh < 2; ++eh) {
+              const int o = min(8 * s4 + 4 * eh, last);
+              cp_async4(d + (4 * s4 + 2 * eh) * kThreads, p0 + o);
+              cp_async4(d + (4 * s4 + 2 * eh + 1) * kThreads, p1 + o);
+            }
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    // step j's values from the ring ([xyz/r ; f]: at j = 0 the thread's
+    // first two values of lanes t < 3 are xyz), split into hi and lo
+    auto split = [&](uint32_t (&f)[2][4][4], int j) {
+      const float* d = pr + (j % kPDepth) * 16 * kThreads;
+      const bool xyz = j == 0 && t4 < 3;
+#pragma unroll
+      for (int s4 = 0; s4 < 4; ++s4)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = d[(4 * s4 + e) * kThreads];
+          if (s4 == 0 && e < 2) v = xyz ? div_real(v, radius, rr) : v;
+          tf32_split_rna(v, f[0][s4][e], f[1][s4][e]);
+        }
+    };
+    float acc[NV];
+    uint32_t fa[2][2][4][4];  // [buffer][hi, lo][k8 step][register]
+    int prev = 0;             // the stage of the group issued before this one
+    // K step j: a later step's values fetched; step j's fragments into f and
+    // its product group issued; then step j - 1's group is done: its stage
+    // released, its fragments (other) free
+    auto step = [&](uint32_t (&f)[2][4][4], uint32_t (&other)[2][4][4], int j) {
+      fetch(j + kPDepth - 1);
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kPDepth - 1) : "memory");
+      split(f, j);
+      bulk_wait(full(s), ph);
+      const uint32_t wb = opaque(wring + (uint32_t)s * kBytes);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int s4 = 0; s4 < 4; ++s4)
+        wgmma_tf32x3<kQW>(acc, f[0][s4], f[1][s4], make_desc(wb + 256 * s4, 128, kChunk * 32),
+                          make_desc(wb + kBytes / 2 + 256 * s4, 128, kChunk * 32),
+                          j > 0 || s4 > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(acc);
+#pragma unroll
+      for (int s4 = 0; s4 < 4; ++s4) {
+        fence_regs(other[0][s4]);
+        fence_regs(other[1][s4]);
+      }
+      if (j > 0) release(prev);
+      prev = s;
+      next_stage();
+    };
+    for (int j = 0; j + 1 < kPDepth; ++j) fetch(j);
+    for (int j = 0; j < nX; j += 2) {
+      step(fa[0], fa[1], j);
+      if (j + 1 < nX) step(fa[1], fa[0], j + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(prev);
+
+    // ---- x = X + b1; the row sums over the CTA's columns, then both CTAs'
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = 8 * (i / 4) + 2 * t4 + (i & 1), h = (i >> 1) & 1;
+      const float x = acc[i] + bs[c];
+      acc[i] = x;
+      s1[h] += x;
+      s2[h] += x * x;
+    }
+    const int slot = set & 1;
+    float* mine = lnx + (size_t)(w * 2 + slot) * kRows * 2;  // the peer's sums land here
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s1[h] = quad_sum(s1[h]);
+      s2[h] = quad_sum(s2[h]);
+    }
+    if (t4 == 0) {
+      const uint32_t other = (uint32_t)(q ^ 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                         peer(smem_u32(mine + (r0 + 8 * h) * 2), other)),
+                     "f"(s1[h]), "f"(s2[h])
+                     : "memory");
+      mbar_arrive_peer(peer(landed(w, slot), other));
+    }
+    cluster_wait(landed(w, slot), (uint32_t)(set >> 1) & 1u);
+    float mean[2], rstd[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 o = *reinterpret_cast<const float2*>(mine + (r0 + 8 * h) * 2);
+      ln_stats(s1[h] + o.x, s2[h] + o.y, fc1, rc1, mean[h], rstd[h]);
+    }
+
+    // ---- A's columns of the CTA: a warp's stores cover eight rows of 32 bytes
+    float* O = out + row0 * c1;
+#pragma unroll
+    for (int i = 0; i < NV; i += 2) {
+      const int cw = 8 * (i / 4) + 2 * t4, c = c0 + cw, h = (i >> 1) & 1, r = r0 + 8 * h;
+      if (r >= nr || c >= c1) continue;
+      const float y0 = (acc[i] - mean[h]) * rstd[h] * ss[cw] + ls[cw];
+      const float y1 = (acc[i + 1] - mean[h]) * rstd[h] * ss[cw + 1] + ls[cw + 1];
+      float* o = O + (size_t)r * c1 + c;
+      if (pair) {
+        *reinterpret_cast<float2*>(o) = make_float2(y0, y1);
+      } else {
+        o[0] = y0;
+        if (c + 1 < c1) o[1] = y1;
+      }
+    }
+  }
+  // no barrier before leaving: the peer's last access to this CTA, its sums
+  // and arrival of the last set, was seen complete above (a final cluster
+  // barrier measured 3% slower at the width-2 backbone's SA2-4)
+}
+
 // ---- launch plans
 
 // The route, widths and rings of a launch; a function of the rows and the
 // widths only (so are the grid and with it every sum's order; on the cluster
 // route the grid is the clusters the card holds, cluster_count).
 struct Plan {
-  bool tc = false, cluster = false;
-  int CP = 0, T = 0, R = 0, grid = 0;
+  bool tc = false, cluster = false, fwd_cluster = false;
+  int CP = 0, T = 0, R = 0, NW = 0, grid = 0;
   size_t smem = 0;
 };
 
@@ -1818,22 +2180,28 @@ struct Plan {
 // sa_prep_f32_set_max_clusters.
 int max_clusters = 0;
 
-// The clusters of a cluster backward over `tiles` tiles: as many as the card
-// holds at once (one CTA an SM), at most one a tile and at most max_clusters;
-// 0 if it holds none. Also sets the kernel's shared memory size.
-int cluster_count(long long tiles, size_t smem) {
-  auto* kernel = prep_tc_cluster;
+// The clusters of a cluster kernel of `threads` a CTA over `units` tiles (or
+// sets of tiles): as many as the card holds at once, at most one a unit and,
+// given `cap`, at most max_clusters; 0 if it holds none. Also sets the
+// kernel's shared memory size.
+template <typename Kernel>
+int cluster_count(Kernel* kernel, int threads, long long units, size_t smem, bool cap) {
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
       cudaSuccess)
     return 0;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kNQ * kSms, 1, 1);
-  config.blockDim = dim3(kThreads, 1, 1);
+  config.gridDim = dim3(kNQ * kSms, 1, 1);  // a multiple of every cluster size
+  config.blockDim = dim3(threads, 1, 1);
   config.dynamicSmemBytes = smem;
   int n = 0;
   if (cudaOccupancyMaxActiveClusters(&n, kernel, &config) != cudaSuccess) return 0;
-  if (max_clusters > 0 && max_clusters < n) n = max_clusters;
-  return (int)(tiles < n ? tiles : n);
+  if (cap && max_clusters > 0 && max_clusters < n) n = max_clusters;
+  return (int)(units < n ? units : n);
+}
+
+// The clusters of the backward's cluster route over `tiles` tiles.
+int bwd_clusters(long long tiles, size_t smem) {
+  return cluster_count(prep_tc_cluster, kThreads, tiles, smem, true);
 }
 
 int per_sm(size_t smem, int cap) {
@@ -1857,11 +2225,25 @@ bool make_plan(long long n_rows, int in_dim, int c1, bool bwd, Plan& p) {
     return false;
   }
   p.tc = true;
-  if (cluster_route(tiles, in_dim, c1, bwd)) {  // the grid: cluster_count at the launch
+  if (cluster_route(tiles, in_dim, c1, bwd)) {  // the grid: bwd_clusters at the launch
     p.cluster = true;
     p.T = 0;
     p.R = cluster_ring();
     p.smem = ClusterLayout(p.R).total;
+    return true;
+  }
+  if (!bwd && p.CP > kXCols) {  // the cluster forward; the grid: cluster_count at the launch
+    if (in_dim > kDirectMaxIn) return false;
+    p.fwd_cluster = true;
+    p.T = 0;
+    // a warpgroup a CTA (a cluster a tile, two SMs on it) while the tiles fit
+    // the clusters an H100 holds, else two (a cluster two tiles at a time,
+    // each chunk of W1 serving both); each measured the faster of the two
+    // where it runs (the width-2 backbone's SA4, and SA2-3)
+    p.NW = tiles > kSms / kNQ ? 2 : 1;
+    for (p.R = kFRing; FwdLayout(p.NW, p.R).total > (size_t)kMaxSharedBytes; --p.R) {
+    }
+    p.smem = FwdLayout(p.NW, p.R).total;
     return true;
   }
   const bool direct = bwd && p.CP > kXCols;  // no tile stages
@@ -1879,19 +2261,38 @@ bool make_plan(long long n_rows, int in_dim, int c1, bool bwd, Plan& p) {
   return false;
 }
 
-// Floats of the split W1 (tensor route; the cluster backward's rank-major).
+// Floats of the split W1 in a launch's scratch (tensor route; the cluster
+// backward's rank-major; the cluster forward takes its split from the caller).
 long long split_floats(const Plan& p, int in_dim, bool bwd) {
   if (p.cluster) return kNQ * rank_floats(in_dim);
+  if (p.fwd_cluster) return 0;
   return p.tc ? 2LL * p.CP * (round32(in_dim) + (bwd ? round64(in_dim) : 0)) : 0;
 }
 
 bool aligned(const void* p) { return !(reinterpret_cast<uintptr_t>(p) & 15); }
 
+// The cluster forward's launch: W1 split by the caller (split_w1's layout).
+template <int NW>
+cudaError_t launch_fwd_cluster(const Plan& p, const float* pts, long long n_rows, int in_dim,
+                               int c1, const float* wsplit, const float* b1, const float* scale,
+                               const float* lnb, float radius, float* out, cudaStream_t s) {
+  // the float2 stores of A and the chunks' bulk copies
+  if (!wsplit || !aligned(wsplit) || (!(c1 & 1) && reinterpret_cast<uintptr_t>(out) % 8))
+    return cudaErrorInvalidValue;
+  const long long sets = ((n_rows + kRows - 1) / kRows + NW - 1) / NW;
+  const int threads = NW * kThreads + 32;
+  const int n_cl = cluster_count(prep_fwd_cluster<NW>, threads, sets, p.smem, false);
+  if (n_cl <= 0) return cudaErrorInvalidConfiguration;
+  prep_fwd_cluster<NW><<<kNQ * n_cl, threads, p.smem, s>>>(
+      pts, n_rows, in_dim, c1, wsplit, b1, scale, lnb, radius, p.R, out);
+  return cudaGetLastError();
+}
+
 template <int CP, bool BWD>
 cudaError_t launch(const Plan& p, const float* pts, const float* dA, long long n_rows,
                    int in_dim, int c1, const float* w1, const float* b1, const float* scale,
-                   const float* lnb, float radius, float* out, float* wout, float* scratch,
-                   cudaStream_t s) {
+                   const float* lnb, float radius, float* out, float* wout, const float* wsplit,
+                   float* scratch, cudaStream_t s) {
   const bool bulk = aligned(pts) && aligned(out) && (!BWD || aligned(dA));
   float* records = scratch + split_floats(p, in_dim, BWD);
   cudaError_t err = cudaSuccess;
@@ -1904,7 +2305,7 @@ cudaError_t launch(const Plan& p, const float* pts, const float* dA, long long n
       split_w1_cluster<<<(int)std::min((n + 255) / 256, 2LL * kSms), 256, 0, s>>>(w1, in_dim, c1,
                                                                                    scratch);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
-      const int n_cl = cluster_count((n_rows + kRows - 1) / kRows, p.smem);
+      const int n_cl = bwd_clusters((n_rows + kRows - 1) / kRows, p.smem);
       if (n_cl <= 0) return cudaErrorInvalidConfiguration;
       prep_tc_cluster<<<kNQ * n_cl, kThreads, p.smem, s>>>(
           pts, dA, n_rows, in_dim, scratch, b1, scale, radius, p.R, out, records);
@@ -1915,16 +2316,23 @@ cudaError_t launch(const Plan& p, const float* pts, const float* dA, long long n
     }
   }
   if (p.tc) {
-    const long long n = split_floats(p, in_dim, BWD);
-    const int blocks = (int)std::min((n + 255) / 256, 2LL * kSms);
-    split_w1<<<blocks, 256, 0, s>>>(w1, in_dim, c1, CP, BWD, scratch);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(prep_tc<CP, BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)p.smem);
-    if (err != cudaSuccess) return err;
-    prep_tc<CP, BWD><<<p.grid, kThreads, p.smem, s>>>(pts, dA, n_rows, in_dim, c1, scratch,
-                                                      b1, scale, lnb, radius, p.T, p.R, bulk,
-                                                      out, records);
+    if constexpr (CP == 256 && !BWD) {  // make_plan puts all of these on the cluster route
+      return p.NW == 2 ? launch_fwd_cluster<2>(p, pts, n_rows, in_dim, c1, wsplit, b1, scale,
+                                               lnb, radius, out, s)
+                       : launch_fwd_cluster<1>(p, pts, n_rows, in_dim, c1, wsplit, b1, scale,
+                                               lnb, radius, out, s);
+    } else {
+      const long long n = split_floats(p, in_dim, BWD);
+      const int blocks = (int)std::min((n + 255) / 256, 2LL * kSms);
+      split_w1<<<blocks, 256, 0, s>>>(w1, in_dim, c1, CP, BWD, scratch);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      err = cudaFuncSetAttribute(prep_tc<CP, BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)p.smem);
+      if (err != cudaSuccess) return err;
+      prep_tc<CP, BWD><<<p.grid, kThreads, p.smem, s>>>(pts, dA, n_rows, in_dim, c1, scratch,
+                                                        b1, scale, lnb, radius, p.T, p.R, bulk,
+                                                        out, records);
+    }
   } else {
     err = cudaFuncSetAttribute(prep_fma<CP, BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)p.smem);
@@ -1945,14 +2353,15 @@ cudaError_t launch(const Plan& p, const float* pts, const float* dA, long long n
 template <bool BWD>
 cudaError_t dispatch(const float* pts, const float* dA, long long n_rows, int in_dim, int c1,
                      const float* w1, const float* b1, const float* scale, const float* lnb,
-                     float radius, float* out, float* wout, float* scratch, cudaStream_t s) {
+                     float radius, float* out, float* wout, const float* wsplit, float* scratch,
+                     cudaStream_t s) {
   Plan p;
   if (!make_plan(n_rows, in_dim, c1, BWD, p)) return cudaErrorInvalidValue;
   if (p.tc && !aligned(scratch)) return cudaErrorInvalidValue;
 #define EDA_PREP_F32(W)                                                                  \
   if (p.CP == W)                                                                         \
     return launch<W, BWD>(p, pts, dA, n_rows, in_dim, c1, w1, b1, scale, lnb, radius, out, \
-                          wout, scratch, s);
+                          wout, wsplit, scratch, s);
   EDA_PREP_F32(16)
   EDA_PREP_F32(32)
   EDA_PREP_F32(64)
@@ -1967,8 +2376,9 @@ cudaError_t dispatch(const float* pts, const float* dA, long long n_rows, int in
 extern "C" {
 
 // Largest in_dim the forward (bwd = 0) or the backward (bwd = 1) takes at this
-// c1: the tensor route's, whose points' stage grows with in_dim (the direct
-// backward above c1 128: kDirectMaxIn); 0 if c1 is unsupported.
+// c1: the tensor route's, whose points' stage grows with in_dim (above c1
+// 128, where both read the points from device memory: kDirectMaxIn); 0 if c1
+// is unsupported.
 int sa_prep_f32_max_in_dim(int c1, int bwd) {
   if (c1 < 1 || c1 > 256) return 0;
   Plan p;
@@ -1982,8 +2392,18 @@ int sa_prep_f32_max_in_dim(int c1, int bwd) {
 long long sa_prep_f32_scratch(long long n_rows, int in_dim, int c1, int bwd) {
   Plan p;
   if (!make_plan(n_rows, in_dim, c1, bwd, p)) return 0;
-  const int records = p.cluster ? cluster_count((n_rows + kRows - 1) / kRows, p.smem) : p.grid;
+  const int records = p.cluster ? bwd_clusters((n_rows + kRows - 1) / kRows, p.smem) : p.grid;
   return split_floats(p, in_dim, bwd) + (bwd ? (long long)records * (in_dim + 3) * c1 : 0);
+}
+
+
+// The forward's route at these rows and widths (make_plan): 0 the FMA route,
+// 1 the tensor route (prep_tc), 2 + NW - 1 the cluster forward with NW
+// consumer warpgroups a CTA; -1 if it takes none.
+int sa_prep_f32_forward_route(long long n_rows, int in_dim, int c1) {
+  Plan p;
+  if (!make_plan(n_rows, in_dim, c1, false, p)) return -1;
+  return !p.tc ? 0 : p.fwd_cluster ? 1 + p.NW : 1;
 }
 
 // Most 64-row tiles the backward runs on its cluster route (c1 256); with
@@ -1996,15 +2416,36 @@ int sa_prep_f32_cluster_max_tiles() { return kSms / kNQ; }
 // size and launch, which must see the same cap.
 void sa_prep_f32_set_max_clusters(int n) { max_clusters = n > 0 ? n : 0; }
 
+// Floats of W1 split for the forward's cluster route (c1 above 128), which
+// takes it from the caller (sa_prep_f32_split_w1) so that it is split once a
+// W1 and not once a launch; 0 where the forward's plan splits W1 itself.
+long long sa_prep_f32_split_floats(long long n_rows, int in_dim, int c1) {
+  Plan p;
+  if (!make_plan(n_rows, in_dim, c1, false, p) || !p.fwd_cluster) return 0;
+  return 2LL * p.CP * round32(in_dim);
+}
+
+// w1: (in_dim, c1) f32 -> dst: sa_prep_f32_split_floats(., in_dim, c1) floats,
+// 16-byte aligned. Returns cudaGetLastError().
+int sa_prep_f32_split_w1(const float* w1, int in_dim, int c1, float* dst, void* stream) {
+  const int CP = c1_pad(c1);
+  const long long n = 2LL * CP * round32(in_dim);
+  split_w1<<<(int)std::min((n + 255) / 256, 2LL * kSms), 256, 0,
+             static_cast<cudaStream_t>(stream)>>>(w1, in_dim, c1, CP, 0, dst);
+  return cudaGetLastError();
+}
+
 // pts: (n_rows, in_dim) f32; w1: (in_dim, c1) f32; b1/scale/lnb: (c1,) f32;
-// out: (n_rows, c1) f32; scratch: sa_prep_f32_scratch(n_rows, in_dim, c1, 0)
-// floats. Returns cudaGetLastError().
+// out: (n_rows, c1) f32; wsplit: W1 split by sa_prep_f32_split_w1 where
+// sa_prep_f32_split_floats is above 0 (else unused, may be NULL); scratch:
+// sa_prep_f32_scratch(n_rows, in_dim, c1, 0) floats. Returns cudaGetLastError().
 int sa_prep_f32_launch(const float* pts, long long n_rows, int in_dim, int c1,
                        const float* w1, const float* b1, const float* scale, const float* lnb,
-                       float radius, float* out, float* scratch, void* stream) {
+                       float radius, float* out, const float* wsplit, float* scratch,
+                       void* stream) {
   if (n_rows <= 0) return cudaSuccess;
   return dispatch<false>(pts, nullptr, n_rows, in_dim, c1, w1, b1, scale, lnb, radius, out,
-                         nullptr, scratch, static_cast<cudaStream_t>(stream));
+                         nullptr, wsplit, scratch, static_cast<cudaStream_t>(stream));
 }
 
 // pts: (n_rows, in_dim) f32; dA: (n_rows, c1) f32; w1: (in_dim, c1) f32;
@@ -2017,7 +2458,7 @@ int sa_prep_bwd_f32_launch(const float* pts, const float* dA, long long n_rows, 
                            void* stream) {
   if (n_rows <= 0) return cudaErrorInvalidValue;
   return dispatch<true>(pts, dA, n_rows, in_dim, c1, w1, b1, scale, nullptr, radius, dpts,
-                        wout, scratch, static_cast<cudaStream_t>(stream));
+                        wout, nullptr, scratch, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

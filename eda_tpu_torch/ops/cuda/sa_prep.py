@@ -18,6 +18,7 @@ with the forward's rounding points, and returns dpts, dW1, db1, dscale and dlnb.
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 
 import torch
 
@@ -42,7 +43,7 @@ BWD_KERNEL = register(Kernel(
 F32_KERNEL = register(Kernel(
     "sa_prep_f32", "sa_prep_f32_launch",
     (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int)
-    + (ctypes.c_void_p,) * 4 + (ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p),
+    + (ctypes.c_void_p,) * 4 + (ctypes.c_float,) + (ctypes.c_void_p,) * 3,
     replaces="eda_tpu/ops/pallas/sa_prep.py:142",
 ))
 BWD_F32_KERNEL = register(Kernel(
@@ -108,6 +109,36 @@ def cluster_max_in_dim(c1: int) -> int:
     return c_function("sa_prep", "sa_prep_cluster_max_in_dim", [ctypes.c_int])(c1)
 
 
+# csrc/sa_prep_f32.cu's kFmaMaxIn, and the clusters of two CTAs an H100 holds
+# (kSms / kNQ): the f32 forward's routes change there
+F32_FMA_MAX_IN, F32_CLUSTER_TILES = 8, 66
+F32_FORWARD_ROUTES = ("fma", "tensor", "cluster x1", "cluster x2")
+
+
+def f32_forward_route(rows: int, in_dim: int, c1: int) -> str:
+    """The route of the f32 forward (K2f) at these rows and widths, as
+    ``make_plan`` in ``csrc/sa_prep_f32.cu`` picks it (from the rows and widths
+    only): "fma" (in_dim up to 8, the CUDA cores), "tensor" (``prep_tc``, c1 up
+    to 128) or, above c1 128, ``prep_fwd_cluster`` with one consumer warpgroup a
+    CTA ("cluster x1": a cluster of two CTAs a 64-row tile, at most 66 tiles) or
+    two ("cluster x2": two tiles a cluster at a time). ``f32_forward_route_cuda``
+    asks the library."""
+    if in_dim <= F32_FMA_MAX_IN:
+        return "fma"
+    if c1 <= 128:
+        return "tensor"
+    return "cluster x2" if -(-rows // 64) > F32_CLUSTER_TILES else "cluster x1"
+
+
+def f32_forward_route_cuda(rows: int, in_dim: int, c1: int) -> str:
+    """``f32_forward_route`` as the kernel library's plan gives it (needs the built library)."""
+    route = c_function("sa_prep_f32", "sa_prep_f32_forward_route",
+                       [ctypes.c_longlong, ctypes.c_int, ctypes.c_int])(rows, in_dim, c1)
+    if route < 0:
+        raise ValueError(f"the f32 prep forward takes no route at ({rows}, {in_dim}, {c1})")
+    return F32_FORWARD_ROUTES[route]
+
+
 def cluster_max_tiles_f32() -> int:
     """The most 64-row tiles the f32 prep backward runs on its cluster route (c1 256,
     any in_dim it takes); with more it runs the direct backward."""
@@ -125,9 +156,9 @@ def set_max_clusters_f32(n: int) -> None:
 def max_in_dim_f32(c1: int, backward: bool = False) -> int:
     """The largest in_dim the f32 prep forward (or backward) kernel takes at width c1
     (0: c1 unsupported): its tensor-core route's, set by the points' tile in shared
-    memory (645 / 391 at c1 128, 639 forward at c1 256), or by a fixed 2048 for the
-    backward above c1 128, which reads the points from device memory (at c1 256 and
-    few tiles on clusters of two CTAs)."""
+    memory (645 / 391 at c1 128), or by a fixed 2048 above c1 128, where both read
+    the points from device memory (the forward on clusters of two CTAs, the backward
+    too at few tiles)."""
     return c_function("sa_prep_f32", "sa_prep_f32_max_in_dim",
                       [ctypes.c_int, ctypes.c_int])(c1, int(backward))
 
@@ -138,6 +169,45 @@ def _f32_scratch(rows: int, in_dim: int, c1: int, backward: bool, device) -> tor
                    [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int],
                    ctypes.c_longlong)(rows, in_dim, c1, int(backward))
     return torch.empty((n,), dtype=torch.float32, device=device)
+
+
+# W1 split for the f32 forward's cluster route, by W1: (data_ptr, device, shape,
+# stride) -> (W1, its version when split, the split). Each entry holds its W1,
+# so no other tensor takes its memory while the entry lives; the last few are kept.
+_SPLITS: "OrderedDict[tuple, tuple]" = OrderedDict()
+_SPLITS_KEPT = 8
+
+
+def f32_w1_split(rows: int, w1: torch.Tensor):
+    """W1 split into TF32 hi / lo for the f32 forward where its plan takes the split
+    from the caller (the cluster route, c1 above 128), else None.
+
+    Made once a version of W1: an in-place update (the optimizer's step, a loaded
+    state) bumps ``w1._version`` and the next call splits it again; a write through
+    ``w1.data`` bumps no version and is not seen."""
+    in_dim, c1 = w1.shape
+    n = c_function("sa_prep_f32", "sa_prep_f32_split_floats",
+                   [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
+                   ctypes.c_longlong)(rows, in_dim, c1)
+    if n == 0:
+        return None
+    key = (w1.data_ptr(), w1.device, tuple(w1.shape), w1.stride())
+    hit = _SPLITS.get(key)
+    if hit is not None and hit[1] == w1._version:
+        _SPLITS.move_to_end(key)
+        return hit[2]
+    split = torch.empty((n,), dtype=torch.float32, device=w1.device)
+    status = c_function("sa_prep_f32", "sa_prep_f32_split_w1",
+                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                         ctypes.c_void_p])(ptr(w1), in_dim, c1, ptr(split),
+                                           ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if status != 0:
+        raise RuntimeError(f"CUDA kernel split_w1 failed to launch: cudaError_t {status}")
+    _SPLITS[key] = (w1, w1._version, split)
+    _SPLITS.move_to_end(key)
+    while len(_SPLITS) > _SPLITS_KEPT:
+        _SPLITS.popitem(last=False)
+    return split
 
 
 def _check_widths(name: str, in_dim: int, c1: int, max_in: int) -> None:
@@ -182,7 +252,7 @@ def sa_prep(pts, w1, b1, scale, lnb, *, radius: float,
             ptr(out))
     if f32:
         scratch = _f32_scratch(B * N, in_dim, c1, False, pts.device)
-        F32_KERNEL(*args, ptr(scratch))
+        F32_KERNEL(*args, ptr(f32_w1_split(B * N, w1)), ptr(scratch))
     else:
         KERNEL(*args)
     return out

@@ -28,7 +28,10 @@ per kernel, and whether a second launch gave every output bit for bit. With
 model and gives the device's busy ms in each (``torch.profiler``). With
 ``--split`` it profiles one call per layer and gives the device ms of each of
 its launches by name (the kernel, its scratch memsets, the fixed-order
-reductions of its records).
+reductions of its records); where the f32 forward keeps W1's split across
+calls (its cluster route, c1 above 128), ``w1_split_ms`` is the device ms of
+splitting that layer's W1 once (``split_w1``), which a call makes only after
+W1 changed. Each K2f layer names its route (``sa_prep.f32_forward_route``).
 
 It uses only the port's public entry points (``entry.build_trainer``,
 ``entry.build``, ``ops.fused_sa``), so the same file times another checkout
@@ -134,6 +137,29 @@ def split_ms(fn) -> dict:
     return out
 
 
+def w1_split_ms(a, kw):
+    """Device ms of splitting a K2f call's W1 once, where the f32 forward keeps
+    the split across calls (``sa_prep.f32_w1_split``); else None."""
+    from eda_tpu_torch.ops.cuda import sa_prep
+
+    if kw.get("compute_dtype") != torch.float32 or not hasattr(sa_prep, "f32_w1_split"):
+        return None  # (an older checkout splits W1 at every call)
+    rows = a[0].shape[0] * a[0].shape[1]
+    fresh = a[1].detach().clone()  # a W1 not yet split
+    ms = split_ms(lambda: sa_prep.f32_w1_split(rows, fresh))
+    return sum(ms.values()) if ms else None
+
+
+def f32_route(a, kw):
+    """A K2f call's route (``sa_prep.f32_forward_route_cuda``); else None."""
+    from eda_tpu_torch.ops.cuda import sa_prep
+
+    if kw.get("compute_dtype") != torch.float32 or not hasattr(sa_prep, "f32_forward_route_cuda"):
+        return None  # (an older checkout names no route)
+    pts, w1 = a[0], a[1]
+    return sa_prep.f32_forward_route_cuda(pts.shape[0] * pts.shape[1], pts.shape[2], w1.shape[1])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
@@ -200,6 +226,12 @@ def main(argv=None) -> int:
                        "peak_mib": peak_mib(lambda: fn(*a, **kw))})
         if args.split:
             layers[-1]["split_ms"] = split_ms(lambda: fn(*a, **kw))
+            once = w1_split_ms(a, kw) if name == "sa_prep" else None
+            if once is not None:
+                layers[-1]["w1_split_ms"] = once
+        route = f32_route(a, kw) if name == "sa_prep" else None
+        if route is not None:
+            layers[-1]["route"] = route
     out = {"label": args.label, "card": card_line(), "batch": args.batch,
            "kernels": args.kernels, "layers": layers,
            **{f"{k}_ms": v for k, v in sums.items()}, "bit_identical_repeat": repeat}

@@ -231,7 +231,7 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
             # the f32 prep's tensor-core kernels; its CUDA-core route holds none
             "sa_prep_f32": {"_Z7prep_tcILi128ELb1E": 36, "_Z8prep_fmaILi64ELb1E": 0,
                             "_Z8split_w1": 0, "_Z15prep_tc_cluster": 72,
-                            "_Z17split_w1_cluster": 0}}
+                            "_Z17split_w1_cluster": 0, "_Z16prep_fwd_clusterILi2EE": 24}}
     monkeypatch.setattr(chip_smoke, "hgmma_counts", lambda lib: sass[lib])
     with pytest.raises(AssertionError, match="sa_pair_pool_bwd GEMM kernel has no HGMMA"):
         chip_smoke.check_pool_build(ok, FakeBuild)
@@ -241,10 +241,12 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
     assert "72 HGMMA instructions in 2" in out and "98 HGMMA instructions in 4" in out
     assert "pool_bwd_compact: 30 HGMMA" in out and "prep_bwd_cluster: 10 HGMMA" in out
     assert "sa_prep_cluster: 33 HGMMA" in out and "prep_tc_cluster: 72 HGMMA" in out
+    assert "prep_fwd_cluster: 24 HGMMA" in out
     for source, name in (("sa_pair_pool_bwd", "_Z16pool_bwd_compact"),
                          ("sa_prep_bwd", "_Z16prep_bwd_cluster"),
                          ("sa_prep", "_Z15sa_prep_cluster"),
-                         ("sa_prep_f32", "_Z15prep_tc_cluster")):  # each must be built
+                         ("sa_prep_f32", "_Z15prep_tc_cluster"),
+                         ("sa_prep_f32", "_Z16prep_fwd_clusterILi2EE")):  # each must be built
         n = sass[source].pop(name)
         with pytest.raises(AssertionError, match=f"{source} holds no"):
             chip_smoke.check_pool_build(ok, FakeBuild)
@@ -266,7 +268,8 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
         chip_smoke.check_pool_build(ok, FakeBuild)
     sass["sa_prep_f32"]["_Z7prep_tcILi128ELb1E"] = 36
     for source, name in (("sa_prep", "_Z15sa_prep_cluster"),
-                         ("sa_prep_f32", "_Z15prep_tc_cluster")):  # a cluster route counts too
+                         ("sa_prep_f32", "_Z15prep_tc_cluster"),
+                         ("sa_prep_f32", "_Z16prep_fwd_clusterILi2EE")):  # cluster routes count
         sass[source][name] = 0
         with pytest.raises(AssertionError, match=f"{source} GEMM kernel has no HGMMA"):
             chip_smoke.check_pool_build(ok, FakeBuild)
@@ -518,6 +521,24 @@ def test_prep_f32_edge_inputs_hold_their_edge_cases():
         assert all(torch.isfinite(g).all() for g in grads), name
 
 
+def test_prep_f32_edge_inputs_hold_the_cluster_forward_cases():
+    """The forward's cluster route at c1 256 (2-CTA clusters, a warpgroup a CTA up
+    to 66 tiles, else two a set): W2X SA3's widths at the tile edges and at batch
+    8's rows (128 tiles: 64 sets of two), SA4's 4 096 rows (64 tiles, one a
+    warpgroup), an odd tile count above 66 (its last set one tile), many sets a
+    cluster; c1 129 puts one column in the second CTA."""
+    cases = chip_smoke.prep_f32_edge_inputs(cluster_tiles=66)
+    shapes = {(args[0].shape[0] * args[0].shape[1], *args[1].shape) for args, _ in cases.values()}
+    sa3 = chip_smoke.W2X_F32_PREP_WIDTHS[2]
+    assert chip_smoke.W2X_SA3_ROWS == chip_smoke.BATCH * 1024
+    for rows in chip_smoke.TILE_EDGE_ROWS + (chip_smoke.W2X_SA3_ROWS, 4096):
+        assert (rows, *sa3) in shapes
+    tiles = {-(-r // 64) for r, i, c in shapes if c > 128 and i > 8}
+    assert any(t <= 66 for t in tiles) and any(t > 66 and t % 2 for t in tiles)
+    assert any(t // 2 > 2 * 66 for t in tiles)  # several sets a cluster
+    assert (154, 259, 129) in shapes and chip_smoke.wide_prep(259, 129)
+
+
 def test_permuted_batches_move_points_and_labels_together():
     from eda_tpu_torch.entry import make_train_batch
 
@@ -623,7 +644,7 @@ def test_prep_f32_edge_cases_split_between_the_f32_phases():
     in_dim limits of its widest c1 against their least values."""
     wide = {(i, c) for args, _ in chip_smoke.prep_f32_edge_inputs().values()
             for i, c in [tuple(args[1].shape)] if chip_smoke.wide_prep(i, c)}
-    assert wide == {(259, 256), (515, 256), (131, 250), (35, 201)}
+    assert wide == {(259, 256), (515, 256), (131, 250), (35, 201), (259, 129)}
     # the cluster route's tile-count cases, in "w2x f32" too
     rows = {args[0].shape[1] for args, _ in chip_smoke.prep_f32_edge_inputs(
         cluster_tiles=66).values() if chip_smoke.wide_prep(*args[1].shape)}

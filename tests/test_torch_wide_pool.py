@@ -23,7 +23,7 @@ import torch
 
 import chip_smoke
 from eda_tpu_torch.config import ModelConfig
-from eda_tpu_torch.ops.cuda import sa_kernel, sa_pool_bwd
+from eda_tpu_torch.ops.cuda import sa_kernel, sa_pool_bwd, sa_prep
 from eda_tpu_torch.tools import pool_bwd_times
 
 WIDE = (256, 256, 512)
@@ -162,4 +162,49 @@ def test_prep_w2x_timer_needs_a_card(argv, monkeypatch, capsys):
     """A device timing has no CPU counterpart: without CUDA the tool fails, printing nothing."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert pool_bwd_times.main(argv) != 0
+    assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("rows,in_dim,c1,route", [
+    (400_000, 6, 128, "fma"),             # W2X SA1, batch 8
+    (16_384, 259, 256, "cluster x2"),     # SA2: 256 tiles, two a cluster at a time
+    (8_192, 515, 256, "cluster x2"),      # SA3: 128 tiles on 64 clusters
+    (4_096, 515, 256, "cluster x1"),      # SA4: 64 tiles, a cluster each
+    (16_384, 131, 128, "tensor"),         # the flagship's SA2
+    (66 * 64, 515, 256, "cluster x1"), (66 * 64 + 1, 515, 256, "cluster x2"),
+    (3, 35, 201, "cluster x1"), (154, 6, 150, "fma")])
+def test_f32_forward_route_at_the_w2x_batch8_shapes(rows, in_dim, c1, route):
+    """The f32 forward's route, as ``csrc/sa_prep_f32.cu:make_plan`` picks it from the
+    rows and widths: the cluster forward above c1 128, one warpgroup a CTA up to the
+    66 tiles whose clusters an H100 holds, two past them."""
+    assert sa_prep.f32_forward_route(rows, in_dim, c1) == route
+    assert route in sa_prep.F32_FORWARD_ROUTES
+
+
+def test_prep_f32_forward_timer_widths_are_the_w2x_models(monkeypatch, capsys):
+    """The K2f timer's SA2-4 shapes are the f32 W2X model's at batch 8 (its SA
+    widths, ``chip_smoke.W2X_F32_PREP_WIDTHS``); without CUDA it fails, printing nothing."""
+    from eda_tpu_torch.tools import prep_f32_times
+
+    cfg = pool_bwd_times.model_config("prep_f32_w2x")
+    widths = [(in_dim, prep_f32_times.C1) for _, _, in_dim in prep_f32_times.W2X_F32_FORWARDS]
+    assert widths == list(chip_smoke.W2X_F32_PREP_WIDTHS[1:])
+    assert [r for _, r, _ in prep_f32_times.W2X_F32_FORWARDS] == [
+        chip_smoke.BATCH * n for n in cfg.sa_npoints[:3]]
+    in_dims = [i for _, _, i in prep_f32_times.W2X_F32_FORWARDS]
+    assert [3 + m[-1] for m in cfg.sa_mlps[:3]] == in_dims
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert prep_f32_times.main([]) != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_wgmma_rate_tool_needs_a_card(monkeypatch, capsys):
+    """The wgmma rate probe times the f32 prep's product groups (12 TF32 wgmma of
+    m64n128k8, as a K step of ``prep_fwd_cluster``); without CUDA it fails, printing nothing."""
+    from eda_tpu_torch.tools import wgmma_rate
+
+    assert "m64n128k8.f32.tf32.tf32" in wgmma_rate.SOURCE
+    assert {n for _, n, _, _ in wgmma_rate.VARIANTS} == {128, 256}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert wgmma_rate.main([]) != 0
     assert capsys.readouterr().out == ""
