@@ -7,10 +7,10 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    all started at once) and prints the build time. The pair pool's kernels,
    its backward's, both bf16 prep kernels' and the f32 prep's tensor-core
    kernels must spill no register and, where the toolkit has ``cuobjdump``,
-   every GEMM kernel of the five libraries must hold HGMMA (``wgmma``)
+   every GEMM kernel of the seven libraries must hold HGMMA (``wgmma``)
    instructions; the counts are printed (the wide pool kernels, the compact
-   pool backward at (128, 128, 256) and the prep backward's cluster kernel
-   among them).
+   pool backward at (128, 128, 256), the prep backward's cluster kernel and
+   the forward-only kernels above (256, 256, 512) / c1 256 among them).
    Then the pool tie check: all six pool variants (``pair``, ``mxu``,
    ``pre``, each with and without winners) on a full-width SA2 input with
    W3 = 0 and distinct b3, where every in-radius pair of a center gives b3
@@ -44,7 +44,10 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    W = 256), which the wrappers run zero-padded, and at the wide triple
    (256, 256, 512) itself at W = 1024 (the compact backward at c3 512),
    against the plain versions at the real widths under the tolerances above;
-   triples above (256, 256, 512) must raise. The prep edge check: K2 within
+   (384, 384, 768), (300, 300, 600) and (288, 256, 512), padded on the
+   forward-only (512, 512, 1024), under the three radius tests, their winners
+   pool and backward raising the named error before any launch; triples above
+   (512, 512, 1024) must raise. The prep edge check: K2 within
    0.02 plus one bf16 step of its plain version on ``prep_edge_inputs`` (row
    counts no multiple of 64, c1 of 16 to 256 at in_dim 3 and at the kernel's
    largest, 2048, where W1 streams, large points). The mask
@@ -214,6 +217,29 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    profiled forward and step, two steps from one state bit for bit and one
    eval batch scored under ``pair``. Its kernel rows join the JSON line
    named with " (w2x f32)".
+11c. The width-4 backbone (phase "w4x", ``w4x_configs(ModelConfig(use_bf16=
+   True))``: Group-Free-3D's ``width=4``, ``sa_mlps`` (256, 256, 512) then 3
+   x (512, 512, 1024), in_dim 6 / 515 / 1027 / 1027), serving and
+   evaluation only: the forward-only pool at (512, 512, 1024)
+   (``csrc/sa_pair_pool_512.cu``) on tie inputs under each radius test
+   (``xl_tie_check``: values equal to the plain version's with W3 = 0,
+   within 0.03 with a random W3; W = 256, 2048 over two radius-test stages,
+   100 with an odd count of blocks, one block); K2 at c1 512 on
+   ``w4x_prep_edge_inputs`` (ragged rows, the tile edges, in_dim 1027 and
+   2048, odd c1 257 / 300 / 384, large points, SA1's (6, 256); the backward
+   raising the named error above c1 256); the tiny W4X model and its scoring
+   against their CPU twins; at full width, batch 8, K2 and the pools of a
+   forward against their plain versions (SA1 on the flagship's kernels, SA2-4
+   on the c1-512 prep and the XL pool), ``REQUESTS`` serving batches each
+   launching K1, K2 and K3 four times (``w4x_forward_launches``), a profiled
+   forward, the ``mxu`` and ``pre`` XL pools on a forward's inputs (and
+   against the pair kernel), one scored eval batch under each radius test,
+   and a training step that raises the named error (ROADMAP item 8.2b) with
+   every launch counter unchanged. Its rows are named " (w4x)". Then phase
+   "w4x f32" (``w4x_configs(ModelConfig())``): the same for K2f (c1 512 on
+   ``csrc/sa_prep_512.cu``, SA1's c1 256 at in_dim 6 on the FMA route) with
+   ``W4X_REQUESTS`` serving batches and one ``pair`` eval batch; rows " (w4x
+   f32)".
 12. The gather SA (phase "gather", ``sa_impl="gather"``): the tiny model
    against its CPU twin under ``nearest`` and ``first``; at full width in
    f32 one serving batch and ``GATHER_STEPS`` training steps, each launching
@@ -279,8 +305,10 @@ layer's ``ms``, ``bound_ms`` and ``bound_by`` (K2f (w2x f32): bound by bytes at
 SA1, by operations at SA2-4). ``launches`` is the count
 of the serving run (K1-K3), the training run (K4-K7), the mode's evaluation
 run (K8, K9a, K9b), the mode's training step (K8 and K9b with winners) or the
-f32 serving run and training steps (K2f, K7f); a " (w2x)" or " (w2x f32)"
-row's from that phase's runs of the same kind. Each phase prints
+f32 serving run and training steps (K2f, K7f); a " (w2x)", " (w2x f32)",
+" (w4x)" or " (w4x f32)" row's from that phase's runs of the same kind (the
+W4X rows' serving batches and eval batches; their sums over the layers each
+kernel runs: SA1 on the flagship's kernels, SA2-4 on the c1-512 ones). Each phase prints
 its wall time. Any failed check raises, and the script exits non-zero. Without
 CUDA it exits non-zero before printing any result.
 """
@@ -318,6 +346,9 @@ TRAINING = ("sa_pair_pool_winners_launch", "sa_pool_bwd_compact_launch",
 MASK = "sa_radius_mask_launch"
 POOL_BWD = ("sa_pool_bwd_compact_launch", "sa_pool_bwd_window_launch")
 F32_PREP, F32_PREP_BWD = "sa_prep_f32_launch", "sa_prep_bwd_f32_launch"
+# the forward kernels above (256, 256, 512) / c1 256: the pool at (512, 512, 1024)
+# (a symbol per radius test, pool_symbol_xl) and K2 / K2f at c1 512
+PREP_XL, F32_PREP_XL = "sa_prep_512_launch", "sa_prep_f32_512_launch"
 PREP_BWD = ("sa_prep_bwd_launch", F32_PREP_BWD)
 IOU_SHAPE = (2, 2, BATCH, 10)  # (prefixes, scoring modes, batch, top-k)
 SCORE_TIE, IOU_ATOL = 1e-5, 1e-6  # tiny eval check, card vs CPU scoring
@@ -350,6 +381,12 @@ def pool_symbol(mode: str, winners: bool) -> str:
     from eda_tpu_torch.ops.cuda.sa_kernel import KERNELS
 
     return KERNELS[mode, winners].symbol
+
+
+def pool_symbol_xl(mode: str) -> str:
+    from eda_tpu_torch.ops.cuda.sa_kernel import KERNELS_XL
+
+    return KERNELS_XL[mode].symbol
 
 
 def forward_launches(mode: str, f32: bool = False) -> dict:
@@ -439,7 +476,8 @@ class Recorder:
     """Records the arguments of kernel wrappers the model calls.
 
     ``targets`` are (module, attribute, symbol) triples; a symbol may be a
-    function of the call's keyword arguments (the pool backward's variant).
+    function of the call's keyword and positional arguments (the pool
+    backward's variant; the kernel a layer's widths run on).
     """
 
     def __init__(self, targets):
@@ -453,7 +491,7 @@ class Recorder:
             self.saved.append((module, name, fn))
 
             def wrapped(*args, _fn=fn, _symbol=symbol, **kwargs):
-                key = _symbol(kwargs) if callable(_symbol) else _symbol
+                key = _symbol(kwargs, args) if callable(_symbol) else _symbol
                 self.calls.setdefault(key, []).append((args, kwargs))
                 return _fn(*args, **kwargs)
 
@@ -694,14 +732,19 @@ def check_kernel(symbol: str, got, want, layer: int, call=None) -> float:
         if not torch.equal(got, want):
             raise AssertionError(f"FPS kernel differs from its plain version at SA{layer}")
         return 0.0
-    if symbol == "sa_prep_launch":
+    if symbol in ("sa_prep_launch", PREP_XL):
         g, w = got.float(), want.float()
         err = (g - w).abs().max().item()
-        # 0.02, plus one bf16 step (2^-7 relative) where the LN output is large
-        if not ((g - w).abs() <= 0.02 + w.abs() * 2.0 ** -7).all():
+        # 0.02, plus one bf16 step (2^-7 relative) where the LN output is large;
+        # K2 at c1 512 also the image of one flipped rounding of its sum of up
+        # to 2048 products (prep_xl_tolerance)
+        tol = 0.02 + w.abs() * 2.0 ** -7
+        if symbol == PREP_XL:
+            tol = tol + prep_xl_tolerance(*call[0][:4], call[1]["radius"])
+        if not ((g - w).abs() <= tol).all():
             raise AssertionError(f"prep kernel off its plain version at SA{layer}: {err}")
         return err
-    if symbol == F32_PREP:
+    if symbol in (F32_PREP, F32_PREP_XL):
         (pts, w1, b1), radius = call[0][:3], call[1]["radius"]
         err = (got - want).abs()
         if not (err <= prep_f32_tolerance(pts, w1, b1, radius, want)).all():
@@ -754,6 +797,8 @@ def kernel_specs():
         "sa_pool_bwd_window_launch": (*bwd, pool_bwd_bound, 5),
         "sa_prep_bwd_launch": (sa_prep.sa_prep_bwd, sa_prep.sa_prep_bwd_plain, prep_bwd_bound, 10),
         F32_PREP: (sa_prep.sa_prep, sa_prep.sa_prep_plain, prep_bound, 20),
+        PREP_XL: (sa_prep.sa_prep, sa_prep.sa_prep_plain, prep_bound, 20),
+        F32_PREP_XL: (sa_prep.sa_prep, sa_prep.sa_prep_plain, prep_bound, 20),
         F32_PREP_BWD: (sa_prep.sa_prep_bwd, sa_prep.sa_prep_bwd_plain, prep_bwd_bound, 10),
         MASK: (sa_mask.sa_radius_mask, sa_mask.sa_radius_mask_plain, mask_bound, 20),
     }
@@ -764,13 +809,18 @@ def kernel_specs():
             sa_kernel.sa_pair_pool_winners,
             lambda *a, **k: sa_kernel.sa_pair_pool_winners_plain(*a, runner_up=True, **k),
             lambda a, k: pool_bound(a, k, winners=True), 5)
+        specs[pool_symbol_xl(mode)] = (sa_kernel.sa_pair_pool, sa_kernel.sa_pair_pool_plain,
+                                       pool_bound, 3)
     return specs
 
 
 @torch.no_grad()
-def check_kernels(calls, symbols, layers: dict, compare_pair: bool = False) -> list:
+def check_kernels(calls, symbols, layers: dict, compare_pair: bool = False,
+                  first_layer: dict = None) -> list:
     """Hold every recorded kernel call against its plain version; time both.
-    With ``compare_pair`` the pool calls are also held against the pair kernel."""
+    With ``compare_pair`` the pool calls are also held against the pair kernel.
+    ``first_layer``: the SA layer of a symbol's first forward call (by default 1;
+    the width-4 backbone runs SA2-4 on kernels of their own)."""
     from eda_tpu_torch.ops.cuda import build
 
     specs = kernel_specs()
@@ -788,7 +838,7 @@ def check_kernels(calls, symbols, layers: dict, compare_pair: bool = False) -> l
         for i, (args, kw) in enumerate(calls[symbol]):
             # the backward runs the layers last to first
             backward = symbol in ("sa_pool_bwd_window_launch",) + PREP_BWD
-            layer = 4 - i if backward else i + 1
+            layer = 4 - i if backward else i + (first_layer or {}).get(symbol, 1)
             got, want = kernel_fn(*args, **kw), plain_fn(*args, **kw)
             torch.cuda.synchronize()
             err = check_kernel(symbol, got, want, layer, (args, kw))
@@ -864,13 +914,16 @@ def hgmma_counts(library: Path):
 # compact kernel at (128, 128, 256) and the prep kernels' cluster routes at c1
 # 256, the f32 forward's and backward's (REQUIRED_KERNELS), must be among them
 GEMM_KERNELS = {"sa_pair_pool": ("sa_pair_pool_kernel", "sa_pair_pool_wide"),
+                "sa_pair_pool_512": ("sa_pair_pool_512",),
+                "sa_prep_512": ("sa_prep_512",),
                 "sa_pair_pool_bwd": ("pool_bwd_tiles", "pool_bwd_wide", "pool_bwd_compact"),
                 "sa_prep_bwd": ("prep_bwd_tiles", "prep_bwd_cluster"),
                 "sa_prep": ("sa_prep_kernel", "sa_prep_cluster"),
                 "sa_prep_f32": ("prep_tc", "prep_fwd_cluster")}
 REQUIRED_KERNELS = (("sa_pair_pool_bwd", "pool_bwd_compact"), ("sa_prep_bwd", "prep_bwd_cluster"),
                     ("sa_prep", "sa_prep_cluster"), ("sa_prep_f32", "prep_tc_cluster"),
-                    ("sa_prep_f32", "prep_fwd_cluster"))
+                    ("sa_prep_f32", "prep_fwd_cluster"), ("sa_pair_pool_512", "sa_pair_pool_512"),
+                    ("sa_prep_512", "sa_prep_512"))
 
 
 def check_pool_build(logs: dict, build) -> None:
@@ -1107,8 +1160,14 @@ def pool_bwd_edge_check(cases=BWD_EDGE_CASES) -> None:
 # (c3 512 < W)
 WIDTH_CASES = ((1, (48, 48, 96), 8192, 2048, 1024), (2, (96, 80, 200), 2048, 1024, 256),
                (2, (192, 160, 384), 2048, 1024, 256), (1, (256, 256, 512), 8192, 2048, 1024))
-# triples above the widest instantiation, which must raise on CUDA
-TOO_WIDE = ((288, 256, 512), (256, 272, 512), (256, 256, 576))
+# triples above (256, 256, 512), which run padded on the forward-only XL
+# (512, 512, 1024) and raise on the winners pool and the backward (ROADMAP item
+# 8.2b): SA2-shaped inputs at W = 256, batch 2 (layer, widths, N, M, window)
+XL_WIDTH_CASES = ((2, (384, 384, 768), 2048, 1024, 256), (2, (300, 300, 600), 2048, 1024, 256),
+                  (2, (288, 256, 512), 2048, 1024, 256))
+XL_WIDTH_BATCH = 2
+# triples above the widest instantiation, XL, which must raise on CUDA
+TOO_WIDE = ((576, 512, 1024), (512, 544, 1024), (512, 512, 1040))
 
 
 def random_w3(args, seed: int):
@@ -1123,7 +1182,9 @@ def pool_widths_check() -> None:
     """The six pool variants and K5 / K6 at each ``WIDTH_CASES`` triple, which
     runs zero-padded on the next instantiated triple (or on its own), against
     the plain versions at the real widths under the tolerances of the
-    full-width checks; every ``TOO_WIDE`` triple raises."""
+    full-width checks; at each ``XL_WIDTH_CASES`` triple (padded on XL) the
+    three serving pools against the plain version, and the winners pool and
+    K5 / K6 raising the named error; every ``TOO_WIDE`` triple raises."""
     from eda_tpu_torch.ops.cuda import sa_kernel, sa_mask, sa_pool_bwd
 
     for layer, widths, n_points, n_centers, window in WIDTH_CASES:
@@ -1155,6 +1216,39 @@ def pool_widths_check() -> None:
             check_kernel(bwd_symbol(compact), got, want, layer)
             print(f"pool widths SA{layer} {widths}, W={window}, "
                   f"{'compact' if compact else 'windowed'} backward: within tolerance")
+    for layer, widths, n_points, n_centers, window in XL_WIDTH_CASES:
+        args, kw = tie_inputs(B=XL_WIDTH_BATCH, N=n_points, M=n_centers, window=window,
+                              widths=widths)
+        args = tuple(a.cuda() for a in random_w3(args, layer))
+        mask = sa_mask.sa_radius_mask(args[1], args[3], args[4], **kw)
+        for mode in sa_kernel.D2_MODES:
+            mkw = dict(kw, d2_mode=mode, mask=mask if mode == "pre" else None)
+            got = sa_kernel.sa_pair_pool(*args, **mkw)
+            want = sa_kernel.sa_pair_pool_plain(*args, **mkw)
+            torch.cuda.synchronize()
+            if got.shape != want.shape:
+                raise AssertionError(f"pool widths {widths}: output shapes differ")
+            err = check_kernel(pool_symbol_xl(mode), got, want, layer)
+            print(f"pool widths SA{layer} {widths} (runs on "
+                  f"{sa_kernel.kernel_widths(*widths)}), W={window}, {mode}: within 0.03 of the "
+                  f"plain version (max err {err:.2e})")
+        bargs, bkw = bwd_edge_inputs(B=1, N=2048, M=64, window=512, widths=widths)
+        bargs = tuple(a.cuda() for a in bargs)
+        for what, fn in (("winners pool", lambda: sa_kernel.sa_pair_pool_winners(
+                              *args, **kw, d2_mode="pair")),
+                         ("pool backward", lambda: sa_pool_bwd.sa_pool_bwd(
+                             *bargs, **bkw, compact=False))):
+            before = launch_counts()
+            try:
+                fn()
+            except ValueError as err:
+                if "ROADMAP item 8.2b" not in str(err):
+                    raise
+                check_launches(before, {}, f"{what} at widths {widths}")
+                continue
+            raise AssertionError(f"{what} at widths {widths} did not raise on CUDA")
+        print(f"pool widths {widths}: the winners pool and the backward raise the named error "
+              f"before any launch")
     for widths in TOO_WIDE:
         args, kw = tie_inputs(B=1, N=2048, M=64, window=512, widths=widths)
         bargs, bkw = bwd_edge_inputs(B=1, N=2048, M=64, window=512, widths=widths)
@@ -1545,6 +1639,23 @@ def prep_f32_edge_inputs(seed=0, cluster_tiles=None) -> dict:
     return cases
 
 
+def prep_xl_tolerance(pts, w1, b1, scale, radius):
+    """K2 at c1 512, per element, beyond ``check_kernel``'s 0.02 plus one bf16
+    step: the LayerNorm's image (rstd |scale|) of two bf16 steps of x. The
+    tensor cores sum the 515-2048 products of X in another order than the
+    plain version's f32 matmul (within ~1e-6 relative), so bf16(X) may round
+    to the other neighbour, and the second rounding, of bf16(X) + bf16(b1),
+    can make that two steps of x (one element of 4.1 M at W4X SA3's widths on
+    an NVIDIA H100, chip_smoke's W4X edge case: X 2.7e-6 past a midpoint)."""
+    from eda_tpu_torch.ops.cuda import sa_prep
+
+    _, x = sa_prep._recompute(pts, w1, b1, radius)
+    mean = x.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((x * x).mean(-1, keepdim=True) - mean * mean + sa_prep.EPS)
+    step = torch.exp2(torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126))) - 7)
+    return 2 * step * rstd * scale.float().abs()
+
+
 def prep_f32_tolerance(pts, w1, b1, radius, want):
     """Per element: PREP_F32_ATOL + 1e-4 |A| + the one-pass statistics' cancellation."""
     from eda_tpu_torch.ops.cuda import sa_prep
@@ -1695,7 +1806,8 @@ def prep_f32_wrap_check(cases: dict) -> None:
 def prep_f32_limit_check(c1: int) -> None:
     """K2f and K7f at the largest in_dim each takes at ``c1`` (130 rows) against
     their plain versions; the limits no lower than ``PREP_F32_MIN_LIMITS``;
-    one more in_dim, and c1 257, raise."""
+    one more in_dim, K2f at c1 513 and K7f at c1 257 raise (K2f above c1 256 is
+    the c1-512 kernel's, ``w4x_prep_edge_check``)."""
     from eda_tpu_torch.ops.cuda import sa_prep
 
     f32 = dict(compute_dtype=torch.float32, radius=0.4)
@@ -1732,14 +1844,15 @@ def prep_f32_limit_check(c1: int) -> None:
     if max(errs) > PREP_F32_BWD_REL:
         raise AssertionError(f"f32 prep backward at ({limits[1]}, {c1}): {errs}")
     past = (inputs(limits[0] + 1, c1, 4)[0], inputs(limits[1] + 1, c1, 4)[1],
-            *inputs(12, 257, 4))
+            inputs(12, sa_prep.XL_C1 + 1, 4)[0], inputs(12, 257, 4)[1])
     if not all(raises(lambda: fn(*args, **f32)) for fn, args in zip(
             (sa_prep.sa_prep, sa_prep.sa_prep_bwd, sa_prep.sa_prep, sa_prep.sa_prep_bwd), past)):
-        raise AssertionError(f"f32 prep past its in_dim limits at c1 {c1}, or at c1 257, did "
-                             f"not raise")
+        raise AssertionError(f"f32 prep past its in_dim limits at c1 {c1}, K2f at c1 513 or "
+                             f"K7f at c1 257 did not raise")
     print(f"f32 prep limit check: at c1 {c1} K2f takes in_dim {limits[0]} (at least "
           f"{least[0]}; max err {err.max().item():.3e}), K7f {limits[1]} (at least "
-          f"{least[1]}; errors {[f'{e:.2e}' for e in errs]}); one more, and c1 257, raise")
+          f"{least[1]}; errors {[f'{e:.2e}' for e in errs]}); one more, K2f at c1 513 and "
+          f"K7f at c1 257 raise")
 
 
 def small_model_check(root_cfg) -> None:
@@ -2153,7 +2266,7 @@ def train_phase(cfg):
     from eda_tpu_torch.train.step import dropout_generator, step_generator
 
     state, step, batch = build_trainer(cfg, batch_size=BATCH, device="cuda", seed=0)
-    bwd = lambda kw: bwd_symbol(kw["compact"])  # noqa: E731
+    bwd = lambda kw, _: bwd_symbol(kw["compact"])  # noqa: E731
     with Recorder([(fused_sa, "sa_pair_pool_winners", "sa_pair_pool_winners_launch"),
                    (fused_sa, "sa_pool_bwd", bwd),
                    (fused_sa, "sa_prep_bwd", "sa_prep_bwd_launch")]) as rec:
@@ -2215,8 +2328,8 @@ def radius_mode_phase(mode: str, model, inputs, state, step, batch):
     from eda_tpu_torch.ops import fused_sa
     from eda_tpu_torch.ops.cuda import build
 
-    pool = lambda kw: pool_symbol(kw["d2_mode"], False)  # noqa: E731
-    pool_winners = lambda kw: pool_symbol(kw["d2_mode"], True)  # noqa: E731
+    pool = lambda kw, _: pool_symbol(kw["d2_mode"], False)  # noqa: E731
+    pool_winners = lambda kw, _: pool_symbol(kw["d2_mode"], True)  # noqa: E731
     masks = [(fused_sa, "sa_radius_mask", MASK)] if mode == "pre" else []
     with radius_mode(mode):
         before = launch_counts()
@@ -2824,7 +2937,7 @@ def f32_phase(root_cfg) -> list:
     small_eval_check(root_cfg)
 
     cfg = root_cfg
-    prep = lambda kw: F32_PREP if f32_prep(kw) else "sa_prep_launch"  # noqa: E731
+    prep = lambda kw, _: F32_PREP if f32_prep(kw) else "sa_prep_launch"  # noqa: E731
     model, inputs = build_model(cfg, batch_size=BATCH, device="cuda", seed=0)
     with Recorder([(fused_sa, "sa_prep", prep)]) as rec:
         with torch.inference_mode():
@@ -2852,7 +2965,7 @@ def f32_phase(root_cfg) -> list:
     torch.cuda.empty_cache()
 
     state, step, batch = build_trainer(cfg, batch_size=BATCH, device="cuda", seed=0)
-    with Recorder([(fused_sa, "sa_prep_bwd", lambda kw: F32_PREP_BWD)]) as rec:
+    with Recorder([(fused_sa, "sa_prep_bwd", lambda kw, _: F32_PREP_BWD)]) as rec:
         step(state, batch)
     torch.cuda.synchronize()
     rows += check_kernels(rec.calls, (F32_PREP_BWD,), {F32_PREP_BWD: 4})
@@ -2922,6 +3035,24 @@ def w2x_configs(root_cfg):
     return cfg, tiny
 
 
+# The width-4 backbone ("W4X"): Group-Free-3D's Pointnet2Backbone(width=4), the
+# constructor whose width=2 gives W2X, every SA and FP width of the flagship
+# times 4. Its SA1 runs the wide pool (256, 256, 512) and K2 / K2f at c1 256,
+# its SA2-4 the forward-only pool at (512, 512, 1024) (csrc/sa_pair_pool_512.cu)
+# and K2 / K2f at c1 512 (csrc/sa_prep_512.cu). It serves and evaluates on the
+# card; its training step raises (ROADMAP item 8.2b).
+W4X_SA_MLPS = ((256, 256, 512), (512, 512, 1024), (512, 512, 1024), (512, 512, 1024))
+W4X_FP_MLPS = ((1024, 1024), (1024, 288))
+W4X_TINY_FP_MLPS = ((1024, 1024), (1024, 96))
+
+
+def w4x_configs(root_cfg):
+    """(W4X at full width, its tiny twin) from ``root_cfg``'s other fields."""
+    cfg = dataclasses.replace(root_cfg, sa_mlps=W4X_SA_MLPS, fp_mlps=W4X_FP_MLPS)
+    tiny = dataclasses.replace(root_cfg.tiny(), sa_mlps=W4X_SA_MLPS, fp_mlps=W4X_TINY_FP_MLPS)
+    return cfg, tiny
+
+
 @dataclasses.dataclass(frozen=True)
 class TinyOf:
     """A stand-in root config whose ``tiny()`` is ``cfg``: the small checks
@@ -2986,7 +3117,7 @@ def w2x_phase(root_cfg) -> list:
         profile(lambda: model(batch), "w2x serving forward", also=("sa_pair_pool",))
 
     state, step, batch = build_trainer(cfg, batch_size=BATCH, device="cuda", seed=0)
-    bwd = lambda kw: bwd_symbol(kw["compact"])  # noqa: E731
+    bwd = lambda kw, _: bwd_symbol(kw["compact"])  # noqa: E731
     with Recorder([(fused_sa, "sa_pair_pool_winners", TRAINING[0]),
                    (fused_sa, "sa_pool_bwd", bwd),
                    (fused_sa, "sa_prep_bwd", TRAINING[3])]) as rec:
@@ -3076,7 +3207,7 @@ def w2x_f32_phase(root_cfg) -> list:
                       global_cos=F32_GLOBAL_COS)
     small_eval_check(TinyOf(tiny))
 
-    prep = lambda kw: F32_PREP if f32_prep(kw) else "sa_prep_launch"  # noqa: E731
+    prep = lambda kw, _: F32_PREP if f32_prep(kw) else "sa_prep_launch"  # noqa: E731
     model, inputs = build_model(cfg, batch_size=BATCH, device="cuda", seed=0)
     with Recorder([(fused_sa, "sa_prep", prep)]) as rec:
         with torch.inference_mode():
@@ -3106,7 +3237,7 @@ def w2x_f32_phase(root_cfg) -> list:
     torch.cuda.empty_cache()
 
     state, step, batch = build_trainer(cfg, batch_size=BATCH, device="cuda", seed=0)
-    with Recorder([(fused_sa, "sa_prep_bwd", lambda kw: F32_PREP_BWD)]) as rec:
+    with Recorder([(fused_sa, "sa_prep_bwd", lambda kw, _: F32_PREP_BWD)]) as rec:
         step(state, batch)
     torch.cuda.synchronize()
     rows += check_kernels(rec.calls, (F32_PREP_BWD,), {F32_PREP_BWD: 4})
@@ -3144,6 +3275,333 @@ def w2x_f32_phase(root_cfg) -> list:
     torch.cuda.empty_cache()
     for row in rows:
         row["name"] += " (w2x f32)"
+    return rows
+
+
+W4X_REQUESTS = 3  # full-width f32 W4X serving batches (the bf16 phase serves REQUESTS)
+# the forward-only pool at XL on tie inputs (W3 = 0: every in-radius pair of a
+# center gives b3 exactly): SA2's shape at the W4X window, two radius-test
+# stages of 1024 points (W = 2048), a ragged window (W = 100) with an odd
+# count of blocks, one block in all; (layer, widths, N, M, W, batch)
+W4X_TIE_CASES = ((2, (512, 512, 1024), 2048, 1024, 256, 2),
+                 (2, (512, 512, 1024), 4096, 256, 2048, 1),
+                 (2, (512, 512, 1024), 2048, 48, 100, 2), (2, (512, 512, 1024), 2048, 16, 256, 1))
+
+
+def xl_symbol(kw, args) -> str:
+    """The serving pool symbol a recorded call runs on: its widths' kernel."""
+    from eda_tpu_torch.ops.cuda.sa_kernel import XL, kernel_widths
+
+    widths = kernel_widths(args[0].shape[-1], *args[9].shape)
+    mode = kw.get("d2_mode") or "pair"
+    return pool_symbol_xl(mode) if widths == XL else pool_symbol(mode, False)
+
+
+def prep_symbol(kw, args) -> str:
+    """The prep symbol a recorded call runs on: by dtype and c1."""
+    from eda_tpu_torch.ops.cuda.sa_prep import WIDE_C1
+
+    f32, xl = f32_prep(kw), args[1].shape[1] > WIDE_C1
+    return (F32_PREP_XL if xl else F32_PREP) if f32 else (PREP_XL if xl else "sa_prep_launch")
+
+
+def w4x_forward_launches(mode: str, f32: bool = False) -> dict:
+    """Kernel launches of one W4X forward: SA1 on the flagship's kernels at
+    (256, 256, 512), SA2-4 on the XL pool and the c1-512 prep."""
+    out = {"fps_launch": 4, F32_PREP if f32 else "sa_prep_launch": 1,
+           F32_PREP_XL if f32 else PREP_XL: 3, pool_symbol(mode, False): 1,
+           pool_symbol_xl(mode): 3}
+    if mode == "pre":
+        out[MASK] = 4
+    return out
+
+
+@torch.no_grad()
+def xl_tie_check(cases=W4X_TIE_CASES) -> None:
+    """The XL pool under each radius test on ``tie_inputs`` of each case: with
+    W3 = 0 every value equal to the plain version's (b3 at every center with a
+    pair in radius, -1e9 exactly at the others), then with a random W3 within
+    0.03 of it with the same -1e9 rows."""
+    from eda_tpu_torch.ops.cuda import sa_kernel, sa_mask
+
+    for layer, widths, n_points, n_centers, window, B in cases:
+        args, kw = tie_inputs(B=B, N=n_points, M=n_centers, window=window, widths=widths)
+        args = tuple(a.cuda() for a in args)
+        if boundary_centers(args[1], args[3], args[4], kw["radius"], window).any():
+            raise AssertionError("XL tie input: a window point lies on the radius")
+        _, empty = rule_winners(args, kw)
+        mask = sa_mask.sa_radius_mask(args[1], args[3], args[4], **kw)
+        mixed = random_w3(args, layer)
+        for mode in sa_kernel.D2_MODES:
+            mkw = dict(kw, d2_mode=mode, mask=mask if mode == "pre" else None)
+            got = sa_kernel.sa_pair_pool(*args, **mkw)
+            want = sa_kernel.sa_pair_pool_plain(*args, **mkw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want) or not torch.equal((got == -1e9).all(-1), empty):
+                raise AssertionError(f"XL tie check, {mode}, SA{layer} W={window}: values or "
+                                     f"-1e9 rows differ from the plain version")
+            check_kernel(pool_symbol_xl(mode), sa_kernel.sa_pair_pool(*mixed, **mkw),
+                         sa_kernel.sa_pair_pool_plain(*mixed, **mkw), layer)
+        ms = cuda_ms(lambda: sa_kernel.sa_pair_pool(*mixed, **dict(kw, d2_mode="pair")), 3)
+        print(f"XL tie check SA{layer} widths {widths}, W={window}, batch {B}: the three "
+              f"radius tests equal the plain version at every (center, channel) with W3 = 0 "
+              f"({int(empty.sum())} centers out of reach give -1e9); with a random W3 within "
+              f"0.03; pair pool {ms:.4f} ms, {dense_flops(mixed, kw) / ms / 1e9:.1f} TFLOP/s over "
+              f"the dense window work")
+
+
+# the c1-512 prep (K2 / K2f) on edge inputs: (B, N, in_dim, c1, radius, xyz
+# scale, feature scale) by name; W4X's SA2 and SA3 / SA4 widths at ragged rows,
+# the tile edges, 3 rows and SA4's batch-8 4 096; c1 512 at in_dim 3 and at the
+# largest, 2048; odd c1 (257, 300, 384); large points; and W4X's SA1, c1 256 at
+# in_dim 6 on the flagship kernels (K2f's FMA route)
+W4X_PREP_CASES = {
+    "W4X SA2 widths (515, 512), 1 x 3 rows": (1, 3, 515, 512, 0.4, 4.0, 1.0),
+    "W4X SA2 widths (515, 512), 2 x 2049 rows": (2, 2049, 515, 512, 0.4, 4.0, 1.0),
+    "W4X SA3 widths (1027, 512), 8 x 1001 rows": (8, 1001, 1027, 512, 0.8, 4.0, 1.0),
+    "W4X SA3 widths (1027, 512), 1 x 63 rows": (1, 63, 1027, 512, 0.8, 4.0, 1.0),
+    "W4X SA3 widths (1027, 512), 1 x 65 rows": (1, 65, 1027, 512, 0.8, 4.0, 1.0),
+    "W4X SA3 widths (1027, 512), 1 x 129 rows": (1, 129, 1027, 512, 0.8, 4.0, 1.0),
+    "W4X SA4 widths (1027, 512), 1 x 4096 rows": (1, 4096, 1027, 512, 1.2, 4.0, 1.0),
+    "c1 512, in_dim 3, 2 x 100 rows": (2, 100, 3, 512, 0.2, 4.0, 1.0),
+    "c1 512, in_dim 2048 (the largest), 130 rows": (1, 130, 2048, 512, 0.4, 4.0, 1.0),
+    "widths (600, 257), 2 x 77 rows": (2, 77, 600, 257, 0.4, 4.0, 1.0),
+    "widths (303, 300), 2 x 77 rows": (2, 77, 303, 300, 0.4, 4.0, 1.0),
+    "widths (387, 384), 2 x 77 rows": (2, 77, 387, 384, 0.4, 4.0, 1.0),
+    "large-magnitude points, W4X SA3 widths, 300 rows": (1, 300, 1027, 512, 0.8, 500.0, 50.0),
+    "W4X SA1 widths (6, 256), 2 x 2049 rows": (2, 2049, 6, 256, 0.2, 4.0, 1.0),
+    "large-magnitude points, W4X SA1 widths, 4100 rows": (1, 4100, 6, 256, 0.2, 500.0, 50.0),
+}
+
+
+def w4x_prep_edge_inputs(seed=0) -> dict:
+    """name -> ((pts, w1, b1, scale, lnb) CPU tensors, radius) of ``W4X_PREP_CASES``."""
+    g = torch.Generator().manual_seed(seed)
+    cases = {}
+    for name, (B, N, in_dim, c1, radius, scale_xyz, scale_f) in W4X_PREP_CASES.items():
+        pts = torch.cat([(torch.rand(B, N, 3, generator=g) * 2 - 1) * scale_xyz,
+                         torch.randn(B, N, in_dim - 3, generator=g) * scale_f], -1)
+        w1 = torch.randn(in_dim, c1, generator=g) * in_dim ** -0.5
+        b1 = torch.randn(c1, generator=g) * 0.1
+        scale = 1 + 0.1 * torch.randn(c1, generator=g)
+        lnb = 0.1 * torch.randn(c1, generator=g)
+        cases[name] = (pts, w1, b1, scale, lnb), radius
+    return cases
+
+
+@torch.no_grad()
+def w4x_prep_edge_check(f32: bool) -> None:
+    """K2 (or K2f with ``f32``) on ``w4x_prep_edge_inputs`` against its plain
+    version (K2 within 0.02 plus one bf16 step, K2f within
+    ``prep_f32_tolerance``), bit-identical on a second launch, K2f's route as
+    the library's; above c1 256 the backward (K7 / K7f) raises the named error
+    before any launch; in_dim 2049 and c1 513 raise."""
+    from eda_tpu_torch.ops.cuda import sa_prep
+
+    dtype = torch.float32 if f32 else torch.bfloat16
+    kw = dict(compute_dtype=dtype)
+    for name, (args, radius) in w4x_prep_edge_inputs().items():
+        pts, w1, b1, scale, lnb = (a.cuda() for a in args)
+        (in_dim, c1), rows = w1.shape, pts.shape[0] * pts.shape[1]
+        got = sa_prep.sa_prep(pts, w1, b1, scale, lnb, radius=radius, **kw)
+        again = sa_prep.sa_prep(pts, w1, b1, scale, lnb, radius=radius, **kw)
+        want = sa_prep.sa_prep_plain(pts, w1, b1, scale, lnb, radius=radius, **kw)
+        torch.cuda.synchronize()
+        if got.dtype != dtype or got.shape != want.shape:
+            raise AssertionError(f"W4X prep edge check {name}: {got.dtype} {tuple(got.shape)}")
+        symbol = prep_symbol(kw, args)
+        err = check_kernel(symbol, got, want, 0, ((pts, w1, b1, scale, lnb), {"radius": radius}))
+        if not torch.equal(got, again):
+            raise AssertionError(f"W4X prep edge check {name}: A differs between two launches")
+        note = ""
+        if f32:
+            route = sa_prep.f32_forward_route_cuda(rows, in_dim, c1)
+            if route != sa_prep.f32_forward_route(rows, in_dim, c1):
+                raise AssertionError(f"W4X prep edge check {name}: the library's route {route}")
+            note = f" ({route})"
+        if c1 > sa_prep.WIDE_C1:
+            before = launch_counts()
+            try:
+                sa_prep.sa_prep_bwd(pts, torch.ones_like(want), w1, b1, scale, radius=radius,
+                                    **kw)
+            except ValueError as exc:
+                if "ROADMAP item 8.2b" not in str(exc):
+                    raise
+            else:
+                raise AssertionError(f"W4X prep edge check {name}: the backward did not raise")
+            check_launches(before, {}, f"W4X prep backward {name}")
+            note += ", the backward raises the named error"
+        print(f"W4X prep edge check {name}: {symbol.removesuffix('_launch')}{note} max err "
+              f"{err:.3e}, bit-identical on a second launch")
+    g = torch.Generator().manual_seed(2)
+    for in_dim, c1 in ((sa_prep.max_in_dim(512) + 1, 512), (12, sa_prep.XL_C1 + 1)):
+        args = (torch.randn(1, 4, in_dim, generator=g).cuda(), torch.randn(in_dim, c1).cuda(),
+                *torch.zeros(3, c1).cuda())
+        try:
+            sa_prep.sa_prep(*args, radius=0.4, **kw)
+        except ValueError:
+            continue
+        raise AssertionError(f"W4X prep at ({in_dim}, {c1}) did not raise")
+    print(f"W4X prep limits: in_dim {sa_prep.max_in_dim(512)} at c1 512; one more, and c1 "
+          f"{sa_prep.XL_C1 + 1}, raise")
+
+
+def w4x_training_refused(cfg, label: str) -> None:
+    """A full-width W4X training step raises the named error before any launch."""
+    from eda_tpu_torch.entry import build_trainer
+
+    state, step, batch = build_trainer(cfg, batch_size=BATCH, device="cuda", seed=0)
+    before = launch_counts()
+    try:
+        step(state, batch)
+    except ValueError as exc:
+        if "ROADMAP item 8.2b" not in str(exc):
+            raise
+        message = str(exc)
+    else:
+        raise AssertionError(f"{label} training step did not raise")
+    check_launches(before, {}, f"{label} training step")
+    print(f"{label} training step at batch {BATCH}: raises before any launch ({message})")
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+
+def w4x_serving(cfg, label: str, requests: int, f32: bool) -> list:
+    """At full width (batch 8): the prep and (bf16; the f32 model's pools are
+    the same kernels) pool calls of one forward against their plain versions,
+    ``requests`` serving batches with their launches, a profiled forward; the
+    kernel rows (launches from the batches)."""
+    from eda_tpu_torch.entry import build as build_model
+    from eda_tpu_torch.entry import make_batch
+    from eda_tpu_torch.ops import fused_sa
+    from eda_tpu_torch.ops.cuda import build
+
+    model, inputs = build_model(cfg, batch_size=BATCH, device="cuda", seed=0)
+    with Recorder([(fused_sa, "sa_prep", prep_symbol),
+                   (fused_sa, "sa_pair_pool", xl_symbol)]) as rec:
+        with torch.inference_mode():
+            model(inputs)
+    torch.cuda.synchronize()
+    prep = (F32_PREP, F32_PREP_XL) if f32 else ("sa_prep_launch", PREP_XL)
+    symbols = (*prep, pool_symbol("pair", False), pool_symbol_xl("pair"))
+    checked = prep if f32 else symbols
+    rows = check_kernels(rec.calls, checked, dict(zip(symbols, (1, 3, 1, 3))),
+                         first_layer={prep[1]: 2, pool_symbol_xl("pair"): 2})
+    del rec
+    for kernel in build.KERNELS.values():
+        kernel.launches = 0
+    times = []
+    with torch.inference_mode():
+        for i in range(requests):
+            batch = make_batch(cfg, range(BATCH * i, BATCH * (i + 1)), "cuda") if i else inputs
+            before = launch_counts()
+            out, ms = timed(lambda: model(batch)["last_center"])
+            times.append(ms)
+            if out.shape != (BATCH, cfg.num_queries, 3) or not torch.isfinite(out).all():
+                raise AssertionError(f"{label} request {i}: bad last_center {tuple(out.shape)}")
+            check_launches(before, w4x_forward_launches("pair", f32), f"{label} request {i}")
+        counts = launch_counts()
+        for row, symbol in zip(rows, symbols):
+            row["launches"] = counts[symbol]
+        print(f"{label} serving forward, batch {BATCH}: {statistics.median(times[1:]):.2f} ms "
+              f"per batch (median of requests 1-{requests - 1}), every launch as counted")
+        profile(lambda: model(batch), f"{label} serving forward",
+                also=("sa_pair_pool_512", "sa_prep_512", "pool_wide", "prep_fma"))
+    del model, inputs, batch
+    torch.cuda.empty_cache()
+    return rows
+
+
+def w4x_eval(cfg, label: str, modes) -> dict:
+    """One scored eval batch (batch 8) under each radius test of ``modes``, with
+    its launches; returns the launches by symbol."""
+    from eda_tpu_torch.entry import build_evaluator
+
+    evaluator_model, score_step, evaluator, batch = build_evaluator(cfg, batch_size=BATCH,
+                                                                    device="cuda")
+    positive_sizes(evaluator_model)
+    launches = {}
+    f32 = not cfg.use_bf16
+    for mode in modes:
+        with radius_mode(mode):
+            before = launch_counts()
+            ious, ms = timed(lambda: score_step(batch))
+        check_launches(before, w4x_forward_launches(mode, f32), f"{label} {mode} eval batch")
+        launches.update({s: n - before[s] for s, n in launch_counts().items() if n != before[s]})
+        if (ious.shape != IOU_SHAPE or not torch.isfinite(ious).all() or ious.min() < 0
+                or ious.max() > 1):
+            raise AssertionError(f"{label} {mode} eval batch: bad IoU stack {tuple(ious.shape)}")
+        print(f"{label} eval under {mode}, batch {BATCH}: {ms:.2f} ms, IoU stack finite in "
+              f"[0, 1], largest {ious.max().item():.4f}")
+    del evaluator_model, score_step, evaluator, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def w4x_phase(root_cfg) -> list:
+    """The width-4 backbone, ``w4x_configs(ModelConfig(use_bf16=True))``,
+    serving and evaluation: the XL pool on tie inputs (``xl_tie_check``); K2 at
+    c1 512 (and SA1's c1 256) on edge inputs (``w4x_prep_edge_check``); the
+    tiny W4X model and its scoring against their CPU twins; at full width
+    (batch 8) K2 and the pools of a forward against their plain versions,
+    ``REQUESTS`` serving batches with their launches (K1, K2, K3 advancing by
+    4 a batch, SA2-4 on the c1-512 prep and the XL pool) and a profiled
+    forward; the ``mxu`` and ``pre`` XL pools on a forward's inputs (and
+    against the pair kernel); one scored eval batch under each radius test; a
+    training step raising the named error before any launch. Returns the
+    kernel rows, named with " (w4x)"."""
+    from eda_tpu_torch.entry import build as build_model
+    from eda_tpu_torch.ops import fused_sa
+
+    cfg, tiny = w4x_configs(root_cfg)
+    xl_tie_check()
+    w4x_prep_edge_check(f32=False)
+    small_model_check(TinyOf(tiny))
+    small_eval_check(TinyOf(tiny))
+    rows = w4x_serving(cfg, "w4x", REQUESTS, f32=False)
+
+    model, inputs = build_model(cfg, batch_size=BATCH, device="cuda", seed=0)
+    mode_rows = []
+    for mode in ("mxu", "pre"):
+        with radius_mode(mode):
+            with Recorder([(fused_sa, "sa_pair_pool", xl_symbol)]) as rec:
+                with torch.inference_mode():
+                    model(inputs)
+            torch.cuda.synchronize()
+            mode_rows += check_kernels(rec.calls, (pool_symbol_xl(mode),),
+                                       {pool_symbol_xl(mode): 3}, compare_pair=True,
+                                       first_layer={pool_symbol_xl(mode): 2})
+            del rec
+    del model, inputs
+    torch.cuda.empty_cache()
+    launches = w4x_eval(cfg, "w4x", ("pair", "mxu", "pre"))
+    for row in mode_rows:
+        row["launches"] = launches[row["name"] + "_launch"]
+    w4x_training_refused(cfg, "w4x")
+    rows += mode_rows
+    for row in rows:
+        row["name"] += " (w4x)"
+    return rows
+
+
+def w4x_f32_phase(root_cfg) -> list:
+    """The f32 width-4 backbone, ``w4x_configs(ModelConfig())``: K2f at c1 512
+    and SA1's c1 256 at in_dim 6 (its FMA route) on edge inputs; the tiny f32
+    W4X model and its scoring against their CPU twins; at full width (batch 8)
+    K2f (SA1 on the FMA route, SA2-4 on the c1-512 kernel) and the pools
+    against their plain versions, ``W4X_REQUESTS`` serving batches with their
+    launches, a profiled forward, one eval batch scored under ``pair`` and a
+    training step raising the named error before any launch. Returns the K2f
+    rows, named with " (w4x f32)"."""
+    cfg, tiny = w4x_configs(root_cfg)
+    w4x_prep_edge_check(f32=True)
+    small_model_check(TinyOf(tiny))
+    small_eval_check(TinyOf(tiny))
+    rows = w4x_serving(cfg, "w4x f32", W4X_REQUESTS, f32=True)
+    w4x_eval(cfg, "w4x f32", ("pair",))
+    w4x_training_refused(cfg, "w4x f32")
+    for row in rows:
+        row["name"] += " (w4x f32)"
     return rows
 
 
@@ -3347,7 +3805,7 @@ def device_sort_training(cfg, root_cfg) -> None:
 
     state, step, batch = build_trainer(cfg, batch_size=BATCH, device="cuda", seed=0)
     batch = permuted(batch, seed=2)
-    bwd = lambda kw: bwd_symbol(kw["compact"])  # noqa: E731
+    bwd = lambda kw, _: bwd_symbol(kw["compact"])  # noqa: E731
     for kernel in build.KERNELS.values():
         kernel.launches = 0
     with Recorder([(fused_sa, "sa_pair_pool_winners", "sa_pair_pool_winners_launch"),
@@ -4037,6 +4495,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     w2x_f32_rows = phase("w2x f32", w2x_f32_phase, ModelConfig())
     torch.cuda.empty_cache()
+    w4x_rows = phase("w4x", w4x_phase, cfg)
+    torch.cuda.empty_cache()
+    w4x_f32_rows = phase("w4x f32", w4x_f32_phase, ModelConfig())
+    torch.cuda.empty_cache()
     phase("gather", gather_phase, ModelConfig())
     torch.cuda.empty_cache()
     phase("device sort", device_sort_phase, cfg)
@@ -4051,7 +4513,7 @@ def main() -> int:
                 row["launches"] = eval_launches[mode][row["name"] + "_launch"]
 
     rows = (serve_rows + train_rows + mode_rows["mxu"] + mode_rows["pre"] + f32_rows + w2x_rows
-            + w2x_f32_rows)
+            + w2x_f32_rows + w4x_rows + w4x_f32_rows)
     for row in rows:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on the main path")

@@ -20,7 +20,7 @@ from torch import nn
 
 from eda_tpu_torch.models.layers import BatchNorm, Dense
 from eda_tpu_torch.ops import pointops
-from eda_tpu_torch.ops.fused_sa import SAParams, fused_set_abstraction
+from eda_tpu_torch.ops.fused_sa import SAParams, check_trainable, fused_set_abstraction
 
 
 class SharedMLP(nn.Module):
@@ -105,10 +105,13 @@ class FusedSetAbstraction(nn.Module):
             return sub[local.long()]
         return pointops.furthest_point_sample(xyz.contiguous(), self.npoint).long()
 
+    def params(self) -> SAParams:
+        return SAParams(tuple(self.kernels), tuple(self.biases),
+                        tuple(self.ln_scales), tuple(self.ln_biases))
+
     def forward(self, xyz: torch.Tensor, features: torch.Tensor):
         inds = self.sample(xyz)
-        params = SAParams(tuple(self.kernels), tuple(self.biases),
-                          tuple(self.ln_scales), tuple(self.ln_biases))
+        params = self.params()
         out = fused_set_abstraction(
             xyz, features, inds, params, radius=self.radius, window=self.window,
             block=self.block, compute_dtype=self.dtype, presorted=self.presorted,
@@ -176,6 +179,14 @@ class PointNetPPBackbone(nn.Module):
         xyz = point_cloud[..., 0:3].float().contiguous()
         features = point_cloud[..., 3:].float()
         B, N = xyz.shape[:2]
+        if self.sa_impl == "fused" and xyz.device.type == "cuda" and torch.is_grad_enabled():
+            # a training step at widths without training kernels raises before any launch
+            n = N
+            for i in range(4):
+                sa = getattr(self, f"sa{i + 1}")
+                if any(p.requires_grad for p in sa.parameters()):
+                    check_trainable(sa.params(), window=sa.window, n_points=n)
+                n = sa.npoint
         end_points = {}
         # each current point's index into the input cloud
         domain_orig = torch.arange(N, device=xyz.device).expand(B, N)

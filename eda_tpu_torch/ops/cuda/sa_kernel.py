@@ -1,11 +1,13 @@
-"""SA pair-MLP max-pool forward: the CUDA kernel ``csrc/sa_pair_pool.cu`` and its plain version.
+"""SA pair-MLP max-pool forward: the CUDA kernels ``csrc/sa_pair_pool.cu`` and
+``csrc/sa_pair_pool_512.cu`` (widths above (256, 256, 512), up to (512, 512,
+1024), serving only) and their plain version.
 
 Counterpart of ``eda_tpu/ops/pallas/sa_kernel.py:sa_pair_pool_pallas``:
 ``sa_pair_pool`` (serving, no winner export) and ``sa_pair_pool_winners``
 (training: also the winning point of each pooled value, for the backward in
-``sa_pool_bwd.py``). Centers come in blocks of 16 (rank order); each block
-pairs with the ``window`` points that start at its window start floored to a
-multiple of 16. Per pair (center c, point p)::
+``sa_pool_bwd.py``; on CUDA up to (256, 256, 512)). Centers come in blocks of
+16 (rank order); each block pairs with the ``window`` points that start at its
+window start floored to a multiple of 16. Per pair (center c, point p)::
 
     h0 = bf16(relu(f32(A_p) + f32(bc_c)))
     h1 = bf16(relu(LN(h0 @ W2 + b2)))      # f32 sums of bf16 products
@@ -48,13 +50,23 @@ from eda_tpu_torch.ops.cuda.sa_prep import bf16_round, ln_one_pass
 
 BLOCK = 16  # centers per window block
 NEG = -1e9
-PLAIN_MAX_PAIRS = 1 << 22  # pairs the plain version holds at once (SA1's grid is ~1 GB a scene)
-# (c1, c2, c3) widths the kernels are instantiated for (csrc/sa_pair_pool.cu,
-# csrc/sa_pair_pool_bwd.cu): the model's layer widths, full and tiny, and the
-# width-2 backbone's SA2-4 (Group-Free-3D's ``width=2``), in ascending order.
-# Other widths up to (256, 256, 512) run zero-padded on the smallest triple
-# that covers them (``kernel_widths``, ``pad_widths``).
-WIDTHS = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128, 256), (256, 256, 512))
+# pairs the plain version holds at once (SA1's grid is ~1 GB a scene), halved
+# for each doubling of c3 past 512
+PLAIN_MAX_PAIRS = 1 << 22
+# (c1, c2, c3) widths the kernels are instantiated for, in ascending order:
+# the model's layer widths, full and tiny, and the width-2 backbone's SA2-4
+# (Group-Free-3D's ``width=2``) in csrc/sa_pair_pool.cu and
+# csrc/sa_pair_pool_bwd.cu; the width-4 backbone's SA2-4, XL, in
+# csrc/sa_pair_pool_512.cu, forward only (serving and evaluation). Other widths
+# up to XL run zero-padded on the smallest triple that covers them
+# (``kernel_widths``, ``pad_widths``).
+WIDTHS = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128, 256), (256, 256, 512),
+          (512, 512, 1024))
+XL = WIDTHS[-1]
+XL_PASS_COLS = 256  # W3's columns a GEMM2 pass of csrc/sa_pair_pool_512.cu
+# The training kernels (the pool with winners, its backward) stop at the widest
+# triple below XL; training a wider layer on CUDA raises, naming the ROADMAP item.
+TRAIN_WIDTHS = WIDTHS[:-1]
 
 D2_MODES = ("pair", "mxu", "pre")
 
@@ -81,6 +93,43 @@ KERNELS = {
         "sa_pair_pool", "sa_pair_pool_pre_winners_launch", _MASK_ARGS + (ctypes.c_void_p,),
         replaces="eda_tpu/ops/pallas/sa_kernel.py:1235")),
 }
+
+
+_XL_ARGS = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 5 + (ctypes.c_float, ctypes.c_void_p)
+_XL_MASK_ARGS = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+# d2_mode -> the launch function of csrc/sa_pair_pool_512.cu (no winners)
+KERNELS_XL = {
+    mode: register(Kernel(
+        "sa_pair_pool_512", f"sa_pair_pool_512{'' if mode == 'pair' else '_' + mode}_launch",
+        _XL_MASK_ARGS if mode == "pre" else _XL_ARGS,
+        replaces="eda_tpu/ops/pallas/sa_kernel.py:" + ("1235" if mode == "pre" else "1271")))
+    for mode in ("pair", "mxu", "pre")
+}
+
+
+def check_training_widths(c1: int, c2: int, c3: int, what: str = "the pool's training kernels"):
+    """Raise unless a CUDA layer of widths (c1, c2, c3) can train: its
+    ``kernel_widths`` lie in ``TRAIN_WIDTHS`` (the pool with winners and its
+    backward are not written wider)."""
+    if kernel_widths(c1, c2, c3) not in TRAIN_WIDTHS:
+        raise ValueError(f"{what} take widths up to {TRAIN_WIDTHS[-1]}, got c1={c1}, c2={c2}, "
+                         f"c3={c3}: training wider layers on CUDA is ROADMAP item 8.2b")
+
+
+def pack_xl(w2: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    """W2 (512, 512) and W3 (512, 1024), bf16, in the order and layout
+    csrc/sa_pair_pool_512.cu streams them: W2, then W3 in four passes of 256
+    columns, each matrix in the no-swizzle core layout with rows = K: element
+    (k, n) of a matrix of C columns at ((k // 8) * (C // 8) + n // 8) * 64 +
+    (k % 8) * 8 + n % 8. A chunk (32 rows of W2, 64 of a W3 pass) is then 32
+    contiguous KiB."""
+
+    def cores(m):
+        K, C = m.shape
+        return m.reshape(K // 8, 8, C // 8, 8).permute(0, 2, 1, 3).reshape(-1)
+
+    return torch.cat([cores(w2)] + [cores(w3[:, n:n + XL_PASS_COLS])
+                                    for n in range(0, w3.shape[1], XL_PASS_COLS)])
 
 
 def resolve_d2_mode(d2_mode: str | None = None) -> str:
@@ -191,7 +240,7 @@ def _pool_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3, *, radius
     w2f, w3f = bf16_round(w2.float()), bf16_round(w3.float())
     b2, s2, lb2, b3 = (v.float() for v in (b2, s2, lb2, b3))
     offs = torch.arange(window, device=A.device)
-    chunk = max(1, PLAIN_MAX_PAIRS // (B * BLOCK * window))
+    chunk = max(1, PLAIN_MAX_PAIRS * 512 // max(512, w3.shape[1]) // (B * BLOCK * window))
     out = torch.empty((B, M, w3.shape[1]), dtype=torch.float32, device=A.device)
     winners = torch.empty((B, M, w3.shape[1]), dtype=torch.int32, device=A.device)
     second = torch.empty_like(out)
@@ -266,6 +315,7 @@ def sa_pair_pool_winners(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
         return sa_pair_pool_winners_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2,
                                           w3, b3, radius=radius, window=window, d2_mode=mode,
                                           mask=mask)
+    check_training_widths(A.shape[-1], *w3.shape, what="sa_pair_pool_winners")
     return _launch(mode, True, A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
                    radius=radius, window=window, mask=mask)
 
@@ -305,11 +355,14 @@ def _launch(mode: str, with_winners: bool, A, xyz, b_c, cen_xyz, starts, w2, b2,
             raise ValueError("sa_pair_pool input shapes do not agree")
         geometry = [ptr(A), ptr(xyz), ptr(b_c), ptr(cen_xyz), ptr(starts)]
     out = torch.empty((B, M, C3), dtype=torch.float32, device=A.device)
+    radius2 = [] if pre else [torch.tensor(radius * radius, dtype=torch.float32).item()]
+    if widths == XL:  # serving only: sa_pair_pool_winners raised above TRAIN_WIDTHS
+        wpack = pack_xl(w2, w3)
+        KERNELS_XL[mode](*geometry, ptr(wpack), ptr(b2), ptr(s2), ptr(lb2), ptr(b3),
+                         B, N, M, c2, window, *radius2, ptr(out))
+        return out[..., :c3]
     args = geometry + [ptr(w2), ptr(b2), ptr(s2), ptr(lb2), ptr(w3), ptr(b3),
-                       B, N, M, C1, C2, C3, c2, window]
-    if not pre:
-        args.append(torch.tensor(radius * radius, dtype=torch.float32).item())
-    args.append(ptr(out))
+                       B, N, M, C1, C2, C3, c2, window] + radius2 + [ptr(out)]
     kernel = KERNELS[mode, with_winners]
     if with_winners:
         winners = torch.empty((B, M, C3), dtype=torch.int32, device=A.device)

@@ -36,14 +36,21 @@ import ctypes
 import torch
 
 from eda_tpu_torch.ops.cuda.build import Kernel, ptr, register, require_cuda
-from eda_tpu_torch.ops.cuda.sa_kernel import BLOCK, kernel_widths, pad_widths, window_starts
+from eda_tpu_torch.ops.cuda.sa_kernel import (
+    BLOCK,
+    check_training_widths,
+    kernel_widths,
+    pad_widths,
+    window_starts,
+)
 from eda_tpu_torch.ops.cuda.sa_prep import EPS, bf16_round
 
 PLAIN_MAX_ELEMS = 1 << 23  # (center, row, channel) elements the plain version holds at once
 # The wide kernel (csrc/sa_pair_pool_bwd.cu, pool_bwd_wide): one CTA an SM,
 # each over every ctas-th block of 16 centers with one record; it stages the
 # H0, H1 and bf16(dx) images (64 x 256 bf16 each) of up to WIDE_STAGE tiles of
-# 64 rows before folding their weight gradients into its record.
+# 64 rows before folding their weight gradients into its record. WIDE is the
+# backward's ceiling: wider layers (the forward's XL) raise on CUDA.
 WIDE = (256, 256, 512)
 WIDE_STAGE = 16
 WIDE_STAGE_ELEMS = WIDE_STAGE * 3 * 64 * 256
@@ -198,6 +205,7 @@ def sa_pool_bwd(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, *,
         raise ValueError("sa_pool_bwd widths do not agree")
     if g.shape != (B, M, c3) or winners.shape != (B, M, c3):
         raise ValueError("sa_pool_bwd input shapes do not agree")
+    check_training_widths(c1, c2, c3, what="sa_pool_bwd")
     widths = kernel_widths(c1, c2, c3)
     if widths != (c1, c2, c3):
         A, b_c, w2, b2, s2, lb2, w3, _, g, winners = pad_widths(

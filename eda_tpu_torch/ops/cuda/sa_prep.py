@@ -1,6 +1,8 @@
 """Fused SA layer-0 prep: the CUDA kernels ``csrc/sa_prep.cu`` (forward) and
 ``csrc/sa_prep_bwd.cu`` (backward) in bf16, ``csrc/sa_prep_f32.cu`` (both) in
-f32, each with its plain version.
+f32, up to c1 256, and ``csrc/sa_prep_512.cu`` (the forward in both dtypes, c1
+257 to 512), each with its plain version. The backward above c1 256 raises on
+CUDA (training wider layers is ROADMAP item 8.2b).
 
 Counterpart of ``eda_tpu/ops/pallas/sa_prep.py:sa_prep`` (``_prep_fwd`` and
 ``_prep_bwd``) at the model's compute dtype::
@@ -52,7 +54,16 @@ BWD_F32_KERNEL = register(Kernel(
     + (ctypes.c_void_p,) * 3 + (ctypes.c_float,) + (ctypes.c_void_p,) * 3,
     replaces="eda_tpu/ops/pallas/sa_prep.py:178",
 ))
+_XL_ARGS = ((ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int)
+            + (ctypes.c_void_p,) * 4 + (ctypes.c_float, ctypes.c_void_p))
+KERNEL_XL = register(Kernel("sa_prep_512", "sa_prep_512_launch", _XL_ARGS,
+                            replaces="eda_tpu/ops/pallas/sa_prep.py:142"))
+F32_KERNEL_XL = register(Kernel("sa_prep_512", "sa_prep_f32_512_launch", _XL_ARGS,
+                                replaces="eda_tpu/ops/pallas/sa_prep.py:142"))
 COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
+# The widest c1 of the forward kernels (csrc/sa_prep_512.cu above WIDE_C1)
+# and of the backward kernels (csrc/sa_prep_bwd.cu, csrc/sa_prep_f32.cu).
+WIDE_C1, XL_C1 = 256, 512
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -100,6 +111,8 @@ def sa_prep_plain(pts, w1, b1, scale, lnb, *, radius: float,
 
 def max_in_dim(c1: int) -> int:
     """The largest in_dim the bf16 prep kernel takes at width c1 (0: c1 unsupported)."""
+    if c1 > WIDE_C1:
+        return c_function("sa_prep_512", "sa_prep_512_max_in_dim", [ctypes.c_int])(c1)
     return c_function("sa_prep", "sa_prep_max_in_dim", [ctypes.c_int])(c1)
 
 
@@ -113,6 +126,7 @@ def cluster_max_in_dim(c1: int) -> int:
 # (kSms / kNQ): the f32 forward's routes change there
 F32_FMA_MAX_IN, F32_CLUSTER_TILES = 8, 66
 F32_FORWARD_ROUTES = ("fma", "tensor", "cluster x1", "cluster x2")
+F32_XL_ROUTE = "c1 512"  # above c1 256: csrc/sa_prep_512.cu, a 2-CTA cluster a tile
 
 
 def f32_forward_route(rows: int, in_dim: int, c1: int) -> str:
@@ -121,8 +135,10 @@ def f32_forward_route(rows: int, in_dim: int, c1: int) -> str:
     only): "fma" (in_dim up to 8, the CUDA cores), "tensor" (``prep_tc``, c1 up
     to 128) or, above c1 128, ``prep_fwd_cluster`` with one consumer warpgroup a
     CTA ("cluster x1": a cluster of two CTAs a 64-row tile, at most 66 tiles) or
-    two ("cluster x2": two tiles a cluster at a time). ``f32_forward_route_cuda``
-    asks the library."""
+    two ("cluster x2": two tiles a cluster at a time); above c1 256
+    ``F32_XL_ROUTE``. ``f32_forward_route_cuda`` asks the library."""
+    if c1 > WIDE_C1:
+        return F32_XL_ROUTE
     if in_dim <= F32_FMA_MAX_IN:
         return "fma"
     if c1 <= 128:
@@ -132,6 +148,10 @@ def f32_forward_route(rows: int, in_dim: int, c1: int) -> str:
 
 def f32_forward_route_cuda(rows: int, in_dim: int, c1: int) -> str:
     """``f32_forward_route`` as the kernel library's plan gives it (needs the built library)."""
+    if c1 > WIDE_C1:
+        if not 3 <= in_dim <= max_in_dim_f32(c1):
+            raise ValueError(f"the f32 prep forward takes no route at ({rows}, {in_dim}, {c1})")
+        return F32_XL_ROUTE
     route = c_function("sa_prep_f32", "sa_prep_f32_forward_route",
                        [ctypes.c_longlong, ctypes.c_int, ctypes.c_int])(rows, in_dim, c1)
     if route < 0:
@@ -158,7 +178,10 @@ def max_in_dim_f32(c1: int, backward: bool = False) -> int:
     (0: c1 unsupported): its tensor-core route's, set by the points' tile in shared
     memory (645 / 391 at c1 128), or by a fixed 2048 above c1 128, where both read
     the points from device memory (the forward on clusters of two CTAs, the backward
-    too at few tiles)."""
+    too at few tiles); above c1 256 the forward's 2048 (csrc/sa_prep_512.cu), the
+    backward none."""
+    if c1 > WIDE_C1:
+        return 0 if backward else max_in_dim(c1)
     return c_function("sa_prep_f32", "sa_prep_f32_max_in_dim",
                       [ctypes.c_int, ctypes.c_int])(c1, int(backward))
 
@@ -210,10 +233,25 @@ def f32_w1_split(rows: int, w1: torch.Tensor):
     return split
 
 
-def _check_widths(name: str, in_dim: int, c1: int, max_in: int) -> None:
+def _check_widths(name: str, c1: int, backward: bool = False) -> None:
+    """Raise unless the forward (or backward) kernels take width c1: up to
+    ``XL_C1`` (``WIDE_C1`` backward; the wider backward is ROADMAP item 8.2b)."""
+    top = WIDE_C1 if backward else XL_C1
+    if not 1 <= c1 <= top:
+        item = ": training wider layers on CUDA is ROADMAP item 8.2b" if backward else ""
+        raise ValueError(f"{name} kernels take c1 from 1 to {top}, got c1={c1}{item}")
+
+
+def _check_in_dim(name: str, in_dim: int, c1: int, max_in: int) -> None:
     if not 3 <= in_dim <= max_in:
-        raise ValueError(f"{name} kernel takes c1 <= 256 and in_dim <= {max_in}, "
-                         f"got c1={c1}, in_dim={in_dim}")
+        raise ValueError(f"{name} kernel takes in_dim from 3 to {max_in} at c1 {c1}, "
+                         f"got in_dim={in_dim}")
+
+
+def _pad_columns(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` zero-padded to ``n`` entries on its last axis, contiguous, 16-byte aligned."""
+    t = torch.nn.functional.pad(t, (0, n - t.shape[-1])).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def sa_prep(pts, w1, b1, scale, lnb, *, radius: float,
@@ -236,6 +274,7 @@ def sa_prep(pts, w1, b1, scale, lnb, *, radius: float,
     rounding(compute_dtype)
     B, N, in_dim = pts.shape
     c1 = w1.shape[1]
+    _check_widths("sa_prep", c1)
     f32 = compute_dtype == torch.float32
     w1 = w1.to(compute_dtype).contiguous()
     b1, scale, lnb = (v.float().contiguous() for v in (b1, scale, lnb))
@@ -244,10 +283,15 @@ def sa_prep(pts, w1, b1, scale, lnb, *, radius: float,
         raise ValueError(f"sa_prep takes float32 points, got {pts.dtype}")
     if w1.shape[0] != in_dim or any(v.shape != (c1,) for v in (b1, scale, lnb)):
         raise ValueError("sa_prep parameter shapes do not match the points")
-    _check_widths("sa_prep", in_dim, c1, max_in_dim_f32(c1) if f32 else max_in_dim(c1))
+    _check_in_dim("sa_prep", in_dim, c1, max_in_dim_f32(c1) if f32 else max_in_dim(c1))
+    out = torch.empty((B, N, c1), dtype=compute_dtype, device=pts.device)
+    if c1 > WIDE_C1:  # csrc/sa_prep_512.cu: the vectors and W1's columns padded to 512
+        w1, b1, scale, lnb = (_pad_columns(t, XL_C1) for t in (w1, b1, scale, lnb))
+        (F32_KERNEL_XL if f32 else KERNEL_XL)(ptr(pts), B * N, in_dim, c1, ptr(w1), ptr(b1),
+                                              ptr(scale), ptr(lnb), float(radius), ptr(out))
+        return out
     # the bf16 cluster route's 16-byte W1 copies need its base 16-byte aligned
     w1 = w1 if f32 or w1.data_ptr() % 16 == 0 else w1.clone()
-    out = torch.empty((B, N, c1), dtype=compute_dtype, device=pts.device)
     args = (ptr(pts), B * N, in_dim, c1, ptr(w1), ptr(b1), ptr(scale), ptr(lnb), float(radius),
             ptr(out))
     if f32:
@@ -296,6 +340,7 @@ def sa_prep_bwd(pts, dA, w1, b1, scale, *, radius: float, compute_dtype=torch.bf
         return sa_prep_bwd_plain(pts, dA, w1, b1, scale, radius=radius,
                                  compute_dtype=compute_dtype)
     rounding(compute_dtype)
+    _check_widths("sa_prep_bwd", w1.shape[1], backward=True)
     if compute_dtype == torch.float32:
         return _prep_bwd_f32(pts, dA, w1, b1, scale, radius=radius)
     B, N, in_dim = pts.shape
@@ -308,7 +353,7 @@ def sa_prep_bwd(pts, dA, w1, b1, scale, *, radius: float, compute_dtype=torch.bf
         raise ValueError("sa_prep_bwd takes float32 points and a (B, N, c1) cotangent")
     if w1.shape[0] != in_dim:
         raise ValueError("sa_prep_bwd parameter shapes do not match the points")
-    _check_widths("sa_prep_bwd", in_dim, c1,
+    _check_in_dim("sa_prep_bwd", in_dim, c1,
                   c_function("sa_prep_bwd", "sa_prep_bwd_max_in_dim", [ctypes.c_int])(c1))
     # the kernel's vector loads need 16-byte aligned rows' bases: a view that
     # starts elsewhere is copied
@@ -338,7 +383,7 @@ def _prep_bwd_f32(pts, dA, w1, b1, scale, *, radius: float):
     require_cuda(pts, dA, w1, b1, scale)
     if pts.dtype != torch.float32 or dA.shape != (B, N, c1) or w1.shape[0] != in_dim:
         raise ValueError("sa_prep_bwd takes float32 points and a (B, N, c1) cotangent")
-    _check_widths("sa_prep_bwd", in_dim, c1, max_in_dim_f32(c1, backward=True))
+    _check_in_dim("sa_prep_bwd", in_dim, c1, max_in_dim_f32(c1, backward=True))
     # the cluster route's 16-byte dA copies need its base aligned
     dA = dA if dA.data_ptr() % 16 == 0 else dA.clone()
     rows = B * N

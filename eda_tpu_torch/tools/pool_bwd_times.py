@@ -19,7 +19,12 @@ recorded:
 * ``prep_w2x``: the same kernels of the width-2 backbone (SA1 at c1 128,
   SA2-4 at c1 256, in_dim 259 / 515 / 515);
 * ``prep_f32_w2x``: the f32 prep forward and backward (K2f, K7f) of the
-  width-2 backbone in ``ModelConfig()`` (SA2-4 at c1 256).
+  width-2 backbone in ``ModelConfig()`` (SA2-4 at c1 256);
+* ``serve_w4x``: the prep and the pool of a serving forward (K2, K3) of the
+  width-4 backbone (``W4X_SA_MLPS``, ``W4X_FP_MLPS``: SA1 at (256, 256, 512)
+  and c1 256, SA2-4 on the (512, 512, 1024) pool and the c1-512 prep, labelled
+  "K3 XL" and "K2 XL"), which serves and evaluates only: no training step;
+* ``serve_f32_w4x``: the same of the f32 width-4 backbone (K2f, "K2f XL").
 
 Prints one JSON line: the card's name and power limit, ms and the peak device
 memory of one call (above what was allocated before it) per layer, the sums
@@ -49,22 +54,28 @@ import sys
 import torch
 
 SLEEP_CYCLES = 50_000_000  # ~25 ms of device sleep ahead of the timed launches
-# The width-2 backbone ("W2X"): Group-Free-3D's Pointnet2Backbone(width=2)
-# (models/backbone_module.py) doubles every SA and FP width of the flagship
+# The width-2 and width-4 backbones ("W2X", "W4X"): Group-Free-3D's
+# Pointnet2Backbone(width=2 / 4) (models/backbone_module.py) multiplies every
+# SA and FP width of the flagship by 2 / 4
 W2X_SA_MLPS = ((128, 128, 256), (256, 256, 512), (256, 256, 512), (256, 256, 512))
 W2X_FP_MLPS = ((512, 512), (512, 288))
+W4X_SA_MLPS = ((256, 256, 512), (512, 512, 1024), (512, 512, 1024), (512, 512, 1024))
+W4X_FP_MLPS = ((1024, 1024), (1024, 288))
+WIDTHS = {"flagship": None, "w2x": (W2X_SA_MLPS, W2X_FP_MLPS), "w4x": (W4X_SA_MLPS, W4X_FP_MLPS)}
 _POOL_STEP = {"sa_pair_pool_winners": "K4", "sa_pool_bwd": None}
 _POOL_SERVE = {"sa_pair_pool": "K3"}
-# --kernels -> (use_bf16, W2X widths, the recorded fused_sa functions of a
-# training step and of a serving forward, each with the kernel it runs; None:
-# K5 or K6 by the call's variant)
+# --kernels -> (use_bf16, the widths (``WIDTHS``), the recorded fused_sa
+# functions of a training step and of a serving forward, each with the kernel
+# it runs; None: K5 or K6 by the call's variant)
 KERNELS = {
-    "pool": (True, False, _POOL_STEP, _POOL_SERVE),
-    "pool_w2x": (True, True, _POOL_STEP, _POOL_SERVE),
-    "prep_f32": (False, False, {"sa_prep": "K2f", "sa_prep_bwd": "K7f"}, {}),
-    "prep_bf16": (True, False, {"sa_prep": "K2", "sa_prep_bwd": "K7"}, {}),
-    "prep_w2x": (True, True, {"sa_prep": "K2", "sa_prep_bwd": "K7"}, {}),
-    "prep_f32_w2x": (False, True, {"sa_prep": "K2f", "sa_prep_bwd": "K7f"}, {}),
+    "pool": (True, "flagship", _POOL_STEP, _POOL_SERVE),
+    "pool_w2x": (True, "w2x", _POOL_STEP, _POOL_SERVE),
+    "prep_f32": (False, "flagship", {"sa_prep": "K2f", "sa_prep_bwd": "K7f"}, {}),
+    "prep_bf16": (True, "flagship", {"sa_prep": "K2", "sa_prep_bwd": "K7"}, {}),
+    "prep_w2x": (True, "w2x", {"sa_prep": "K2", "sa_prep_bwd": "K7"}, {}),
+    "prep_f32_w2x": (False, "w2x", {"sa_prep": "K2f", "sa_prep_bwd": "K7f"}, {}),
+    "serve_w4x": (True, "w4x", {}, {"sa_prep": "K2", "sa_pair_pool": "K3"}),
+    "serve_f32_w4x": (False, "w4x", {}, {"sa_prep": "K2f"}),
 }
 # the functions called SA1 -> SA4; the others (backward) SA4 -> SA1
 FORWARD = ("sa_prep", "sa_pair_pool", "sa_pair_pool_winners")
@@ -76,9 +87,19 @@ def model_config(kernels: str):
 
     from eda_tpu_torch.config import ModelConfig
 
-    use_bf16, w2x = KERNELS[kernels][:2]
+    use_bf16, widths = KERNELS[kernels][:2]
     cfg = ModelConfig(use_bf16=use_bf16)
-    return dataclasses.replace(cfg, sa_mlps=W2X_SA_MLPS, fp_mlps=W2X_FP_MLPS) if w2x else cfg
+    if WIDTHS[widths] is None:
+        return cfg
+    sa_mlps, fp_mlps = WIDTHS[widths]
+    return dataclasses.replace(cfg, sa_mlps=sa_mlps, fp_mlps=fp_mlps)
+
+
+def xl(name: str, a) -> bool:
+    """Whether a recorded prep or pool call runs above (256, 256, 512) / c1 256."""
+    if name == "sa_prep":
+        return a[1].shape[1] > 256
+    return name == "sa_pair_pool" and a[0].shape[-1] > 256
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -197,11 +218,14 @@ def main(argv=None) -> int:
             for name in names:
                 setattr(fused_sa, name, kernels[name])
 
-    state, step, batch = build_trainer(cfg, batch_size=args.batch, device="cuda", seed=0)
-    run_recorded(step_recorded, lambda: step(state, batch))
-    busy = {"step": busy_ms(lambda: step(state, batch))} if args.busy else {}
-    del state, step, batch
-    torch.cuda.empty_cache()
+    busy = {}
+    if step_recorded:  # (the width-4 backbone serves only)
+        state, step, batch = build_trainer(cfg, batch_size=args.batch, device="cuda", seed=0)
+        run_recorded(step_recorded, lambda: step(state, batch))
+        if args.busy:
+            busy["step"] = busy_ms(lambda: step(state, batch))
+        del state, step, batch
+        torch.cuda.empty_cache()
     model, inputs = build(cfg, batch_size=args.batch, device="cuda", seed=0)
     with torch.inference_mode():
         run_recorded(serve_recorded, lambda: model(inputs))
@@ -218,6 +242,7 @@ def main(argv=None) -> int:
         repeat &= all(torch.equal(x, y) for x, y in outs)
         del first, again
         kernel = recorded[name] or ("K5" if kw["compact"] else "K6")
+        kernel += " XL" if xl(name, a) else ""
         i = seen[name] = seen.get(name, -1) + 1
         layer = f"SA{i + 1}" if name in FORWARD else f"SA{4 - i}"
         ms = cuda_ms(lambda: fn(*a, **kw), args.reps)

@@ -212,12 +212,13 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
               "   8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
     spill_log = "   8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads"
     ok = {"sa_pair_pool": ok_log, "sa_pair_pool_bwd": ok_log, "sa_prep_bwd": ok_log,
-          "sa_prep": ok_log, "sa_prep_f32": ok_log, "fps": spill_log}
+          "sa_prep": ok_log, "sa_prep_f32": ok_log, "sa_pair_pool_512": ok_log,
+          "sa_prep_512": ok_log, "fps": spill_log}
     monkeypatch.setattr(chip_smoke, "hgmma_counts", lambda lib: None)
     chip_smoke.check_pool_build(ok, FakeBuild)
-    assert capsys.readouterr().out.count("not checked") == 5
+    assert capsys.readouterr().out.count("not checked") == 7
     for source in ("sa_pair_pool", "sa_pair_pool_bwd", "sa_prep_bwd", "sa_prep",
-                   "sa_prep_f32"):  # any spill
+                   "sa_prep_f32", "sa_pair_pool_512", "sa_prep_512"):  # any spill
         with pytest.raises(AssertionError, match="spill"):
             chip_smoke.check_pool_build({**ok, source: spill_log}, FakeBuild)
     sass = {"sa_pair_pool": {"_Z19sa_pair_pool_kernelILi16E": 24, "_Z3fps": 0,
@@ -231,7 +232,11 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
             # the f32 prep's tensor-core kernels; its CUDA-core route holds none
             "sa_prep_f32": {"_Z7prep_tcILi128ELb1E": 36, "_Z8prep_fmaILi64ELb1E": 0,
                             "_Z8split_w1": 0, "_Z15prep_tc_cluster": 72,
-                            "_Z17split_w1_cluster": 0, "_Z16prep_fwd_clusterILi2EE": 24}}
+                            "_Z17split_w1_cluster": 0, "_Z16prep_fwd_clusterILi2EE": 24},
+            # the forward-only kernels above (256, 256, 512) and c1 256
+            "sa_pair_pool_512": {"_Z16sa_pair_pool_512ILi0ELb0EEv": 40,
+                                 "_Z16sa_pair_pool_512ILi2ELb1EEv": 40},
+            "sa_prep_512": {"_Z11sa_prep_512ILb0EEv": 4, "_Z11sa_prep_512ILb1EEv": 12}}
     monkeypatch.setattr(chip_smoke, "hgmma_counts", lambda lib: sass[lib])
     with pytest.raises(AssertionError, match="sa_pair_pool_bwd GEMM kernel has no HGMMA"):
         chip_smoke.check_pool_build(ok, FakeBuild)
@@ -242,6 +247,7 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
     assert "pool_bwd_compact: 30 HGMMA" in out and "prep_bwd_cluster: 10 HGMMA" in out
     assert "sa_prep_cluster: 33 HGMMA" in out and "prep_tc_cluster: 72 HGMMA" in out
     assert "prep_fwd_cluster: 24 HGMMA" in out
+    assert "80 HGMMA instructions in 2" in out and "16 HGMMA instructions in 2" in out
     for source, name in (("sa_pair_pool_bwd", "_Z16pool_bwd_compact"),
                          ("sa_prep_bwd", "_Z16prep_bwd_cluster"),
                          ("sa_prep", "_Z15sa_prep_cluster"),
@@ -267,6 +273,12 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
     with pytest.raises(AssertionError, match="sa_prep_f32 GEMM kernel has no HGMMA"):
         chip_smoke.check_pool_build(ok, FakeBuild)
     sass["sa_prep_f32"]["_Z7prep_tcILi128ELb1E"] = 36
+    for source, name in (("sa_pair_pool_512", "_Z16sa_pair_pool_512ILi2ELb1EEv"),
+                         ("sa_prep_512", "_Z11sa_prep_512ILb1EEv")):  # the new kernels count
+        sass[source][name] = 0
+        with pytest.raises(AssertionError, match=f"{source} GEMM kernel has no HGMMA"):
+            chip_smoke.check_pool_build(ok, FakeBuild)
+        sass[source][name] = 40
     for source, name in (("sa_prep", "_Z15sa_prep_cluster"),
                          ("sa_prep_f32", "_Z15prep_tc_cluster"),
                          ("sa_prep_f32", "_Z16prep_fwd_clusterILi2EE")):  # cluster routes count
@@ -362,14 +374,24 @@ def test_pool_widths_cases_lie_between_the_instantiations():
         assert N - W >= widths[2]  # as bwd_edge_inputs needs
     assert {w for _, w, *_ in chip_smoke.WIDTH_CASES} == {(48, 48, 96), (96, 80, 200),
                                                            (192, 160, 384), (256, 256, 512)}
-    # padded on each of the three widest instantiations; the widest itself at a
-    # window where the model's backward is the compact one
+    # padded on each of the three widest instantiations the training kernels
+    # take; the widest of them itself at a window where the model's backward is
+    # the compact one
+    train_top = sa_kernel.TRAIN_WIDTHS[-1]
     assert {sa_kernel.kernel_widths(*w) for _, w, *_ in chip_smoke.WIDTH_CASES} == set(
-        sa_kernel.WIDTHS[2:])
-    wide = [(N, W) for _, w, N, _, W in chip_smoke.WIDTH_CASES if w == sa_kernel.WIDTHS[-1]]
+        sa_kernel.TRAIN_WIDTHS[2:])
+    wide = [(N, W) for _, w, N, _, W in chip_smoke.WIDTH_CASES if w == train_top]
     assert wide == [(8192, 1024)] and sa_pool_bwd.compact_backward(1024, 512)
     assert {(N, W) for _, _, N, _, W in chip_smoke.WIDTH_CASES} == {(8192, 1024), (2048, 256)}
-    assert sa_kernel.WIDTHS[-1] == (256, 256, 512)
+    assert train_top == (256, 256, 512) and sa_kernel.WIDTHS[-1] == sa_kernel.XL
+    # the forward-only XL: padded cases above the training kernels' top, under it
+    assert sa_kernel.XL == (512, 512, 1024)
+    for layer, widths, N, M, W in chip_smoke.XL_WIDTH_CASES:
+        assert sa_kernel.kernel_widths(*widths) == sa_kernel.XL != widths
+        assert any(c > t for c, t in zip(widths, train_top))
+        assert N - 512 >= widths[2]  # the backward's inputs (W = 512) as bwd_edge_inputs needs
+    assert {w for _, w, *_ in chip_smoke.XL_WIDTH_CASES} == {(384, 384, 768), (300, 300, 600),
+                                                              (288, 256, 512)}
     for widths in chip_smoke.TOO_WIDE:
         assert any(c > m for c, m in zip(widths, sa_kernel.WIDTHS[-1]))
         with pytest.raises(ValueError):
@@ -576,7 +598,7 @@ def test_w2x_phase_inputs_hold_their_edge_cases():
     its W points, and the cases hold blocks of more than 16 tiles (several
     folds), CTAs of fewer rows than one tile and more blocks than SMs (a CTA
     takes several in turn); the phase's configs."""
-    widths = sa_kernel.WIDTHS[-1]
+    widths = sa_kernel.TRAIN_WIDTHS[-1]  # the wide kernels' (256, 256, 512)
     cases = chip_smoke.W2X_TIE_CASES
     assert all(c[1] == widths for c in cases)
     assert (2, widths, 2048, 1024, 256) in cases  # SA2's shape, four 64-row stages
@@ -706,3 +728,96 @@ def test_pool_bounds_at_the_wide_widths():
         assert by == "operations"
         assert ms == pytest.approx(1e3 * chip_smoke.pool_bwd_ops(bargs, ckw)
                                    / chip_smoke.PEAK_BF16)
+
+
+def test_w4x_phase_inputs_hold_their_edge_cases():
+    """The w4x phases' inputs: the XL tie cases at SA2's shape and window, at
+    W = 2048 (two radius-test stages of 1024 points), at a ragged window with
+    an odd count of blocks and in one block, none with a window point on the
+    radius, and the plain XL pool giving b3 at every center in reach and -1e9
+    at the others; the c1-512 prep's edge cases (ragged rows, the tile edges,
+    in_dim 1027 and 2048, odd c1, large points, SA1's (6, 256)); the launch
+    counts of a W4X forward and the symbols the recorder files calls under."""
+    from eda_tpu_torch.ops.cuda import sa_prep
+
+    xl = sa_kernel.XL
+    cases = chip_smoke.W4X_TIE_CASES
+    assert all(c[1] == xl for c in cases)
+    assert (2, xl, 2048, 1024, 256, 2) in cases
+    assert any(c[4] > 1024 for c in cases)  # two stages of the radius test
+    assert any(c[4] % 64 and (c[3] // 16) % 2 for c in cases)  # ragged window, odd blocks
+    assert any(c[5] * c[3] // 16 == 1 for c in cases)  # one block in all
+    for layer, _, N, M, W, B in cases:
+        assert M % 16 == 0 and 0 < W <= N
+        args, kw = chip_smoke.tie_inputs(B=1, N=N, M=M, window=W, widths=(16, 16, 32))
+        assert not chip_smoke.boundary_centers(args[1], args[3], args[4], kw["radius"], W).any()
+    args, kw = chip_smoke.tie_inputs(B=1, N=512, M=32, window=256, widths=xl)
+    _, none = chip_smoke.rule_winners(args, kw)
+    out = sa_kernel.sa_pair_pool_plain(*args, **kw)
+    assert torch.equal((out == -1e9).all(-1), none) and none.any() and not none.all()
+    assert torch.equal(out[~none], args[10].expand(int((~none).sum()), -1))  # b3 exactly
+
+    prep = chip_smoke.w4x_prep_edge_inputs()
+    shapes = {(a[0].shape[0] * a[0].shape[1], *a[1].shape) for a, _ in prep.values()}
+    assert {(3, 515, 512), (8008, 1027, 512), (4096, 1027, 512), (130, 2048, 512),
+            (200, 3, 512), (4098, 6, 256)} <= shapes
+    assert {r for r, i, c in shapes if (i, c) == (1027, 512)} >= {63, 65, 129}
+    assert {c for _, _, c in shapes} >= {257, 300, 384, 512, 256}
+    large = [a for name, (a, _) in prep.items() if name.startswith("large")]
+    assert len(large) == 2 and all(a[0][..., :3].abs().max() > 100 for a in large)
+    for args, radius in prep.values():
+        if args[0].shape[1] < 1000:
+            out = sa_prep.sa_prep_plain(*args, radius=radius)
+            assert out.shape == args[0].shape[:2] + (args[1].shape[1],)
+            assert torch.isfinite(out.float()).all()
+
+    for f32 in (False, True):
+        counts = chip_smoke.w4x_forward_launches("pre", f32)
+        prep_syms = (chip_smoke.F32_PREP, chip_smoke.F32_PREP_XL) if f32 else (
+            "sa_prep_launch", chip_smoke.PREP_XL)
+        assert counts["fps_launch"] == counts[chip_smoke.MASK] == 4
+        assert sum(counts[s] for s in prep_syms) == 4
+        assert counts[chip_smoke.pool_symbol("pre", False)] == 1
+        assert counts[chip_smoke.pool_symbol_xl("pre")] == 3
+    kw = {"compute_dtype": torch.float32}
+    assert chip_smoke.prep_symbol(kw, (None, torch.zeros(6, 256))) == chip_smoke.F32_PREP
+    assert chip_smoke.prep_symbol(kw, (None, torch.zeros(515, 512))) == chip_smoke.F32_PREP_XL
+    assert chip_smoke.prep_symbol({}, (None, torch.zeros(515, 300))) == chip_smoke.PREP_XL
+    pool_args = lambda c1, c2, c3: (torch.zeros(1, 1, c1),) + (None,) * 8 + (  # noqa: E731
+        torch.zeros(c2, c3),)
+    assert chip_smoke.xl_symbol({"d2_mode": "mxu"}, pool_args(256, 256, 512)) == \
+        "sa_pair_pool_mxu_launch"
+    assert chip_smoke.xl_symbol({"d2_mode": "mxu"}, pool_args(512, 512, 1024)) == \
+        "sa_pair_pool_512_mxu_launch"
+    cfg, tiny = chip_smoke.w4x_configs(ModelConfig(use_bf16=True))
+    assert cfg.sa_mlps == tiny.sa_mlps == chip_smoke.W4X_SA_MLPS and cfg.use_bf16
+
+
+def test_prep_xl_tolerance_takes_flipped_roundings_not_wrong_sums():
+    """``chip_smoke.prep_xl_tolerance`` (K2 at c1 512): the plain prep with X's
+    sums perturbed by 3e-4 of their value (a hundredfold the tensor cores'
+    difference in order, which flips bf16(X) at a few elements, some of them
+    twice through the second rounding) stays within it everywhere, where the
+    0.02 plus one bf16 step alone does not; a sum that drops one of its 1027
+    products does not."""
+    from eda_tpu_torch.ops.cuda import sa_prep
+
+    rnd = sa_prep.bf16_round
+    (pts, w1, b1, sc, lb), radius = chip_smoke.w4x_prep_edge_inputs()[
+        "W4X SA3 widths (1027, 512), 8 x 1001 rows"]
+    want = sa_prep.sa_prep_plain(pts, w1, b1, sc, lb, radius=radius).float()
+    base = 0.02 + want.abs() * 2.0 ** -7
+    tol = base + chip_smoke.prep_xl_tolerance(pts, w1, b1, sc, radius)
+    x_in = rnd(torch.cat([pts[..., :3] / pts.new_tensor(radius), pts[..., 3:]], -1)).double()
+    X = x_in @ rnd(w1.float()).double()
+    gen = torch.Generator().manual_seed(0)
+
+    def prep_of(Xv):
+        x = rnd(rnd(Xv.float()) + rnd(b1.float()))
+        return sa_prep.ln_one_pass(x, sc.float(), lb.float()).to(torch.bfloat16).float()
+
+    noisy = prep_of(X * (1 + 3e-4 * torch.randn(X.shape, generator=gen, dtype=torch.float64)))
+    assert ((noisy - want).abs() <= tol).all()
+    assert ((noisy - want).abs() > base).any()
+    dropped = prep_of(X - x_in[..., 700:701] * rnd(w1[700].float()).double())
+    assert int(((dropped - want).abs() > tol).sum()) > 1000

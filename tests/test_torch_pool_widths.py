@@ -3,8 +3,9 @@
 On CUDA a triple (c1, c2, c3) outside ``sa_kernel.WIDTHS`` runs zero-padded on
 the smallest instantiated triple that covers it (``kernel_widths``,
 ``pad_widths``), with the real c2 as the interior LayerNorm's divisor, and the
-outputs are sliced back; a triple above (256, 256, 512), the widest (the
-width-2 backbone's SA2-4), raises. These tests
+outputs are sliced back; a triple above (512, 512, 1024), the widest (the
+width-4 backbone's SA2-4, forward only; the training kernels stop at (256,
+256, 512)), raises. These tests
 hold that on the CPU through the plain versions, which the kernels are held
 to on the card:
 
@@ -52,6 +53,11 @@ def test_kernel_widths_picks_the_smallest_cover():
     assert sa_kernel.kernel_widths(129, 8, 8) == (256, 256, 512)
     assert sa_kernel.kernel_widths(8, 8, 257) == (256, 256, 512)
     assert sa_kernel.kernel_widths(256, 256, 512) == (256, 256, 512)
+    # above (256, 256, 512) the forward-only XL, (512, 512, 1024)
+    assert sa_kernel.kernel_widths(288, 256, 512) == (512, 512, 1024)
+    assert sa_kernel.kernel_widths(384, 384, 768) == (512, 512, 1024)
+    assert sa_kernel.kernel_widths(300, 300, 600) == (512, 512, 1024)
+    assert sa_kernel.kernel_widths(512, 512, 1024) == (512, 512, 1024)
     for widths in chip_smoke.TOO_WIDE:
         with pytest.raises(ValueError, match="widths up to"):
             sa_kernel.kernel_widths(*widths)

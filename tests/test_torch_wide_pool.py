@@ -53,7 +53,8 @@ def test_wide_backward_stages_sixteen_tiles_a_cta():
     bf16(dx) images of 64 x 256 bf16, 96 KiB a tile, 1.5 MiB a CTA."""
     assert sa_pool_bwd.WIDE_STAGE == 16
     assert sa_pool_bwd.WIDE_STAGE_ELEMS * 2 == 16 * 96 * 1024
-    assert sa_pool_bwd.WIDE == sa_kernel.WIDTHS[-1] == WIDE
+    # the backward's own ceiling: the widest triple the training kernels take
+    assert sa_pool_bwd.WIDE == sa_kernel.TRAIN_WIDTHS[-1] == WIDE != sa_kernel.WIDTHS[-1]
 
 
 @pytest.mark.parametrize("widths,B,M,W", [((128, 128, 256), 8, 2048, 1024),
@@ -208,3 +209,23 @@ def test_wgmma_rate_tool_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert wgmma_rate.main([]) != 0
     assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("kernels,use_bf16", [("serve_w4x", True), ("serve_f32_w4x", False)])
+def test_w4x_timer_widths_are_the_smokes_and_serve_only(kernels, use_bf16, monkeypatch):
+    """``--kernels serve_w4x`` / ``serve_f32_w4x``: the width-4 backbone of the
+    smoke's "w4x" phases, recording a serving forward's calls only (its
+    training step raises), the calls above c1 256 labelled " XL"."""
+    assert pool_bwd_times.W4X_SA_MLPS == chip_smoke.W4X_SA_MLPS
+    assert pool_bwd_times.W4X_FP_MLPS == chip_smoke.W4X_FP_MLPS
+    cfg = pool_bwd_times.model_config(kernels)
+    assert cfg.use_bf16 == use_bf16 and cfg.sa_mlps == chip_smoke.W4X_SA_MLPS
+    assert pool_bwd_times.KERNELS[kernels][2] == {}  # no training step
+    a_wide, a_xl = (torch.zeros(1, 8, c) for c in (256, 512))
+    w1_wide, w1_xl = torch.zeros(6, 256), torch.zeros(515, 512)
+    assert not pool_bwd_times.xl("sa_prep", (None, w1_wide))
+    assert pool_bwd_times.xl("sa_prep", (None, w1_xl))
+    assert not pool_bwd_times.xl("sa_pair_pool", (a_wide,))
+    assert pool_bwd_times.xl("sa_pair_pool", (a_xl,))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pool_bwd_times.main(["--kernels", kernels]) != 0

@@ -166,6 +166,13 @@ def fused_sa_layer_vs_jax(N, M, window, radius, C, widths):
                                             port_params, radius=radius, window=window, block=64)
     (got * torch.from_numpy(G)).sum().backward()
 
+    assert_layer_matches(got, want, f, want_df, port_params, want_dp)
+
+
+def assert_layer_matches(got, want, f, want_df, port_params, want_dp):
+    """The port's fused SA output within ``FUSED_SA_ATOL`` of JAX's, and the
+    gradient of the features and of every parameter within ``FUSED_SA_REL`` of
+    its largest value."""
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=FUSED_SA_ATOL,
                                rtol=0)
     pairs = [("features", f.grad, want_df)]
@@ -177,6 +184,70 @@ def fused_sa_layer_vs_jax(N, M, window, radius, C, widths):
         assert g is not None and g.shape == w.shape, name
         err = np.abs(g.numpy() - w).max() / (np.abs(w).max() + 1e-6)
         assert err < FUSED_SA_REL, (name, err)
+
+
+# share of (center, channel) entries whose pool winner the port and the JAX side
+# pick apart (near-tied pairs, within the two sides' bf16 rounding differences)
+MAX_SWAPPED = 0.01
+
+
+def fused_sa_layer_vs_jax_on_its_winners(N, M, window, radius, C, widths):
+    """``fused_sa_layer_vs_jax`` at the kinks: the port's pool
+    hands its backward the winners the JAX side's pool exported (recorded by a
+    debug callback around ``sa_pair_pool_pallas``), the share of entries whose
+    winners differ held below ``MAX_SWAPPED``; and the cotangent is zero where
+    the JAX output lies within ``FUSED_SA_ATOL`` of the last ReLU's kink, where
+    the two sides' outputs may fall on either side of it."""
+    import jax
+
+    from eda_tpu.ops import fused_sa as jax_fsa
+    from eda_tpu.ops.pallas import sa_kernel as jax_sk
+    from eda_tpu_torch.ops import fused_sa as port_fsa
+
+    import jax.numpy as jnp
+
+    xyz, feats, cidx, groups, G = sa_layer_setup(N + M + C, N, M, C, widths)
+    kw = dict(radius=radius, window=window, block=64, compute_dtype=jnp.bfloat16,
+              presorted=True, impl="pallas_train", return_rank_order=True)
+    params = jax_fsa.SAParams(*(tuple(jnp.asarray(v) for v in g) for g in groups))
+    jax_winners, swapped = [], []
+    jax_pool, port_pool = jax_sk.sa_pair_pool_pallas, port_fsa.sa_pair_pool_winners
+
+    def recording(*args, **kw):
+        out = jax_pool(*args, **kw)
+        if kw.get("with_winners"):
+            jax.debug.callback(lambda w: jax_winners.append(np.array(w)), out[1])
+        return out
+
+    def on_jax_winners(*args, **kw):
+        out, win = port_pool(*args, **kw)
+        theirs = torch.from_numpy(jax_winners[-1][:, :win.shape[1], :win.shape[2]])
+        swapped.append(float((theirs != win).float().mean()))
+        return out, theirs.to(win.dtype)
+
+    def loss(feats_, params_, G_):
+        out, _ = jax_fsa.fused_set_abstraction(jnp.asarray(xyz), feats_, jnp.asarray(cidx),
+                                               params_, **kw)
+        return jnp.sum(out * G_), out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_sk, "sa_pair_pool_pallas", recording)
+        mp.setattr(port_fsa, "sa_pair_pool_winners", on_jax_winners)
+        want = np.asarray(compiled(lambda f, p: loss(f, p, G)[1], jnp.asarray(feats), params))
+        G = np.where(want > FUSED_SA_ATOL, G, 0.0).astype(np.float32)
+        jax_winners.clear()
+        (_, want), (want_df, want_dp) = compiled(
+            lambda f, p, g: jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(f, p, g),
+            jnp.asarray(feats), params, jnp.asarray(G))
+        port_params = port_fsa.SAParams(*(tuple(torch.tensor(v, requires_grad=True) for v in g)
+                                          for g in groups))
+        f = torch.tensor(feats, requires_grad=True)
+        got, _ = port_fsa.fused_set_abstraction(torch.from_numpy(xyz), f, torch.from_numpy(cidx),
+                                                port_params, radius=radius, window=window,
+                                                block=64)
+        (got * torch.from_numpy(G)).sum().backward()
+    assert len(swapped) == 1 and swapped[0] < MAX_SWAPPED, swapped
+    assert_layer_matches(got, want, f, want_df, port_params, want_dp)
 
 
 def real_data_tree(tmp, n_vertices: int = 3000, scenes=(("train", 3), ("val", 2)),
