@@ -4,11 +4,11 @@
 //
 // Replaces, at these widths, the TPU kernel
 // eda_tpu/ops/pallas/sa_kernel.py:sa_pair_pool_pallas (body _make_kernel, tile
-// :262-382) without winner export (serving and evaluation), under each radius
-// test (d2_mode):
-//   "pair"  sa_pair_pool_512_launch      ("K3")
-//   "mxu"   sa_pair_pool_512_mxu_launch  ("K8")
-//   "pre"   sa_pair_pool_512_pre_launch  ("K9b")
+// :262-382) without winner export (serving and evaluation) and with it
+// (training, template WIN), under each radius test (d2_mode):
+//   "pair"  sa_pair_pool_512_launch      ("K3"),  sa_pair_pool_512_winners_launch      ("K4")
+//   "mxu"   sa_pair_pool_512_mxu_launch  ("K8"),  sa_pair_pool_512_mxu_winners_launch  ("K8w")
+//   "pre"   sa_pair_pool_512_pre_launch  ("K9b"), sa_pair_pool_512_pre_winners_launch  ("K9bw")
 // It computes csrc/sa_pair_pool.cu's function (see its note): per (center c,
 // point p) pair of a block of 16 rank-sorted centers and its window
 //   h0 = bf16(relu(f32(A_p) + f32(bc_c)))
@@ -71,6 +71,19 @@
 //     partials     2 x 4 passes x 4 warps
 //                  x 128 x 4               16 384
 //     centers, barriers                        512
+//
+// Winner export (WIN): the tie rule of csrc/sa_pair_pool.cu (its note): the
+// window cut in tiles of wc = min(128, W) points, the last of equal maxima
+// inside a tile, the earlier tile across tiles, as the total order on (value,
+// rank q = (nt-1-tile)*wc + (p mod wc)) that every combine here takes: the
+// fold of a warp's 16 rows, the running max across a center's 64-point items
+// (which are not the rule's 128-point tiles: the order needs no alignment
+// between them), the 4 warps at a center's end and the earlier stages'
+// partial read back from the output. The two warpgroups own disjoint
+// columns, so no combine crosses them. The running max's ranks (16 KiB) take
+// the room of one ring stage: the ring has three (98 304 bytes; 210 432 in
+// all), and the winners kernels keep the 255-register budget of the others
+// (the rank of a row is formed in the fold, from the tile's row).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,7 +109,8 @@ constexpr int kK2 = kChunkBytes / (kPassCols * 2);  // K rows of a W3 chunk (a p
 constexpr int kChunks1 = C1 / kK1;               // 16
 constexpr int kChunks2 = C2 / kK2;               // 8 a pass
 constexpr int kItemChunks = kChunks1 + kPasses * kChunks2;  // 48
-constexpr int kRing = 4;                         // ring stages
+// ring stages: three with winner export, whose ranks take a stage's room
+__host__ __device__ constexpr int ring_stages(bool win) { return win ? 3 : 4; }
 constexpr int kStagePts = 1024;                  // window points of a radius-test stage
 constexpr int kWords = kStagePts / 32;
 constexpr float kEps = 1e-5f;
@@ -106,15 +120,16 @@ constexpr int kMaxSharedBytes = 232448;
 static_assert(C2 == C1 && kChunks2 * kK2 == C2, "GEMM2's K runs over the h buffer");
 
 struct Layout {
-  size_t ring, h, bits, prm, stats, part, cen, bar, total;
-  __host__ __device__ Layout() {
+  size_t ring, h, bits, prm, stats, part, part_q, cen, bar, total;
+  __host__ __device__ explicit Layout(bool win) {
     size_t o = 0;
-    ring = o;  o += (size_t)kRing * kChunkBytes;
+    ring = o;  o += (size_t)ring_stages(win) * kChunkBytes;
     h = o;     o += (size_t)kRows * C1 * 2;
     bits = o;  o += (size_t)kCenters * kWords * 4;
     prm = o;   o += (size_t)(3 * C2 + C3) * 4;
     stats = o; o += (size_t)kGroups * kRows * 8;
     part = o;  o += (size_t)kGroups * kPasses * 4 * kZCols * 4;
+    part_q = o; o += win ? (size_t)kGroups * kPasses * 4 * kZCols * 4 : 0;
     cen = o;   o += 384;
     bar = o;   o += 128;
     total = o;
@@ -215,11 +230,57 @@ __device__ __forceinline__ float fold32(const float* acc, bool in0, bool in1, in
   return v[0];
 }
 
+// The larger of (va, qa) and (vb, qb) under the tie rule's total order: the
+// larger value, then the larger rank q.
+__device__ __forceinline__ void combine(float& va, int& qa, float vb, int qb) {
+  const bool take = vb > va || (vb == va && qb > qa);
+  va = take ? vb : va;
+  qa = take ? qb : qa;
+}
+
+// max_step carrying each value's rank, combined in the total order.
+template <int n>
+__device__ __forceinline__ void max_step_q(float* v, int* q, int m, bool up) {
+#pragma unroll
+  for (int i = 0; i < n / 2; ++i) {
+    const float send_v = up ? v[i] : v[i + n / 2];
+    const int send_q = up ? q[i] : q[i + n / 2];
+    float keep_v = up ? v[i + n / 2] : v[i];
+    int keep_q = up ? q[i + n / 2] : q[i];
+    combine(keep_v, keep_q, __shfl_xor_sync(0xffffffffu, send_v, m),
+            __shfl_xor_sync(0xffffffffu, send_q, m));
+    v[i] = keep_v;
+    q[i] = keep_q;
+  }
+}
+
+// fold32 with winner export: rows g and g + 8 carry ranks q0 and q1; returns
+// the lane's value and sets its rank.
+__device__ __forceinline__ float fold32_q(const float* acc, bool in0, bool in1, int q0, int q1,
+                                          int lane, int& q_out) {
+  const float none = __uint_as_float(kMinusInfBits);
+  float v[8];
+  int q[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int j = i / 2, e = i % 2;
+    v[i] = in0 ? acc[4 * j + e] : none;
+    q[i] = q0;
+    combine(v[i], q[i], in1 ? acc[4 * j + 2 + e] : none, q1);
+  }
+  max_step_q<8>(v, q, 16, lane & 16);
+  max_step_q<4>(v, q, 8, lane & 8);
+  max_step_q<2>(v, q, 4, lane & 4);
+  q_out = q[0];
+  return v[0];
+}
+
 // The weight ring: chunk n of a stage (48 an item, item after item) lands in
 // ring stage n % kRing, counted by its mbarrier full; every warp arrives on
 // empty once its products are done with it, and thread 0 then copies chunk n
 // + kRing into the stage. Plain inline members, not lambdas: a lambda called
 // from several places may become a call, and its saved registers a spill.
+template <int kRing>
 struct Ring {
   uint32_t ring, full0, empty0;
   const uint16_t* wpack;
@@ -258,7 +319,7 @@ struct Ring {
   }
 };
 
-template <int D2, bool PAD>
+template <int D2, bool PAD, bool WIN>
 __global__ void __launch_bounds__(kThreads, 1)
 sa_pair_pool_512(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
                  const uint16_t* __restrict__ bc, const float* __restrict__ cen,
@@ -266,9 +327,10 @@ sa_pair_pool_512(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
                  const uint16_t* __restrict__ wpack, const float* __restrict__ b2,
                  const float* __restrict__ s2, const float* __restrict__ lb2,
                  const float* __restrict__ b3, int N, int M, int W, float c2, float rc2,
-                 float r2, float* __restrict__ out) {
+                 float r2, float* __restrict__ out, int* __restrict__ winners) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L;
+  constexpr int kRing = ring_stages(WIN);
+  const Layout L(WIN);
   const uint32_t base = smem_u32(smem);
   const uint32_t h_base = base + L.h;
   uint32_t* bits = reinterpret_cast<uint32_t*>(smem + L.bits);  // [center][kWords]
@@ -278,6 +340,7 @@ sa_pair_pool_512(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
   float* b3s = lb2s + C2;
   float2* stats = reinterpret_cast<float2*>(smem + L.stats);  // [warpgroup][row]
   float* part = reinterpret_cast<float*>(smem + L.part);  // [warpgroup][pass][warp][128]
+  int* part_q = reinterpret_cast<int*>(smem + L.part_q);  // their ranks (WIN)
   float* cens = reinterpret_cast<float*>(smem + L.cen);       // [center][4], then o
   // per ring stage: its chunk landed (full), every warp has read it (empty)
   const uint32_t full0 = base + L.bar, empty0 = full0 + 8 * kRing;
@@ -289,6 +352,8 @@ sa_pair_pool_512(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
   const int m0 = blockIdx.x * kCenters;
   int start = starts[(size_t)b * n_blocks + blockIdx.x];
   start = min(max(start, 0), N - W);  // keeps every window read inside the cloud
+  const int wc = W < 128 ? W : 128;   // the tie rule's tiles (WIN)
+  const int nt = (W + wc - 1) / wc;
 
   if (tid == 0) {
     for (int s = 0; s < kRing; ++s) {
@@ -327,7 +392,7 @@ sa_pair_pool_512(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
   __syncthreads();
 
   const int stages = (W + kStagePts - 1) / kStagePts;
-  Ring rg{base + (uint32_t)L.ring, full0, empty0, wpack, 0u, 0u, 0u};
+  Ring<kRing> rg{base + (uint32_t)L.ring, full0, empty0, wpack, 0u, 0u, 0u};
   for (int st = 0; st < stages; ++st) {
     const int s0 = st * kStagePts;  // the stage's first window point
     const int sw = min(kStagePts, W - s0);
@@ -443,10 +508,13 @@ sa_pair_pool_512(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
     // the warp's running max of a center, [pass][128 columns], a lane's
     // columns 32 k + fold_col (k < 4) its own
     float* mine = part + (wg * kPasses * 4 + wq) * kZCols;
+    int* mine_q = part_q + (wg * kPasses * 4 + wq) * kZCols;
     for (int c = 0; c < kCenters; ++c) {
 #pragma unroll
-      for (int i = 0; i < kPasses * 4; ++i)
+      for (int i = 0; i < kPasses * 4; ++i) {
         mine[(i / 4) * 4 * kZCols + 32 * (i % 4) + fold_col] = __uint_as_float(kMinusInfBits);
+        if constexpr (WIN) mine_q[(i / 4) * 4 * kZCols + 32 * (i % 4) + fold_col] = 0;
+      }
       const uint16_t* bcp = bc + ((size_t)b * M + m0 + c) * C1;
 
       for (int t = 0; t < tiles; ++t) {
@@ -552,10 +620,28 @@ sa_pair_pool_512(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
         for (int ps = 0; ps < kPasses; ++ps) {
           float z[64];
           gemm2(z);
+          if constexpr (WIN) {
+            // the ranks of the thread's rows r0 and r0 + 8 (window points p0, p0 + 8)
+            const int p0 = s0 + t * kRows + r0, p1 = p0 + 8;
+            const int q0 = (nt - 1 - p0 / wc) * wc + p0 % wc;
+            const int q1 = (nt - 1 - p1 / wc) * wc + p1 % wc;
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            float* m = mine + ps * 4 * kZCols + 32 * k + fold_col;
-            *m = fmaxf(*m, fold32(z + 16 * k, in0, in1, lane));
+            for (int k = 0; k < 4; ++k) {
+              const int at = ps * 4 * kZCols + 32 * k + fold_col;
+              int qn;
+              const float vn = fold32_q(z + 16 * k, in0, in1, q0, q1, lane, qn);
+              float mv = mine[at];
+              int mq = mine_q[at];
+              combine(mv, mq, vn, qn);
+              mine[at] = mv;
+              mine_q[at] = mq;
+            }
+          } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              float* m = mine + ps * 4 * kZCols + 32 * k + fold_col;
+              *m = fmaxf(*m, fold32(z + 16 * k, in0, in1, lane));
+            }
           }
         }
       }
@@ -566,17 +652,32 @@ sa_pair_pool_512(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
 #pragma unroll
       for (int ps = 0; ps < kPasses; ++ps) {
         const float* ours = part + (wg * kPasses + ps) * 4 * kZCols;
+        const int* ours_q = part_q + (wg * kPasses + ps) * 4 * kZCols;
         float v = ours[wt];
+        int q = WIN ? ours_q[wt] : 0;
 #pragma unroll
-        for (int w = 1; w < 4; ++w) v = fmaxf(v, ours[w * kZCols + wt]);
+        for (int w = 1; w < 4; ++w) {
+          if constexpr (WIN)
+            combine(v, q, ours[w * kZCols + wt], ours_q[w * kZCols + wt]);
+          else
+            v = fmaxf(v, ours[w * kZCols + wt]);
+        }
         const int col = kPassCols * ps + kZCols * wg + wt;
         const size_t o = ((size_t)b * M + m0 + c) * C3 + col;
-        if (st > 0) v = fmaxf(v, out[o]);  // the same thread wrote it at the last stage
+        if (st > 0) {  // the same thread wrote (out, winners)[o] at the last stage
+          if constexpr (WIN)
+            combine(v, q, out[o], winners[o]);
+          else
+            v = fmaxf(v, out[o]);
+        }
         if (st + 1 < stages) {
           out[o] = v;
+          if constexpr (WIN) winners[o] = q;
         } else {
           const float zmax = v + b3s[col];
-          out[o] = zmax > kNeg ? zmax : kNeg;
+          const bool hit = zmax > kNeg;
+          out[o] = hit ? zmax : kNeg;
+          if constexpr (WIN) winners[o] = hit ? start + (nt - 1 - q / wc) * wc + q % wc : 0;
         }
       }
       bar_sync(2 + wg, 128);  // the partials are rewritten next
@@ -584,28 +685,30 @@ sa_pair_pool_512(const uint16_t* __restrict__ A, const float* __restrict__ xyz,
   }
 }
 
-template <int D2, bool PAD>
+template <int D2, bool PAD, bool WIN>
 cudaError_t launch(const uint16_t* A, const float* xyz, const uint16_t* bc, const float* cen,
                    const uint8_t* mask, const int* starts, const uint16_t* wpack,
                    const float* b2, const float* s2, const float* lb2, const float* b3, int B,
-                   int N, int M, int W, int c2_real, float r2, float* out, cudaStream_t s) {
-  const Layout L;
+                   int N, int M, int W, int c2_real, float r2, float* out, int* winners,
+                   cudaStream_t s) {
+  const Layout L(WIN);
   if (L.total > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
-  auto* kernel = sa_pair_pool_512<D2, PAD>;
+  auto* kernel = sa_pair_pool_512<D2, PAD, WIN>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return err;
   dim3 grid(M / kCenters, B);
   kernel<<<grid, kThreads, L.total, s>>>(A, xyz, bc, cen, mask, starts, wpack, b2, s2, lb2, b3,
-                                         N, M, W, (float)c2_real, 1.f / (float)c2_real, r2, out);
+                                         N, M, W, (float)c2_real, 1.f / (float)c2_real, r2, out,
+                                         winners);
   return cudaGetLastError();
 }
 
-template <int D2>
+template <int D2, bool WIN>
 int dispatch(const void* A, const float* xyz, const void* bc, const float* cen,
              const uint8_t* mask, const int* starts, const void* wpack, const float* b2,
              const float* s2, const float* lb2, const float* b3, int B, int N, int M,
-             int c2_real, int W, float r2, float* out, void* stream) {
+             int c2_real, int W, float r2, float* out, int* winners, void* stream) {
   if (B <= 0 || M <= 0) return cudaSuccess;
   if (M % kCenters || W <= 0 || W > N || c2_real <= 0 || c2_real > C2)
     return cudaErrorInvalidValue;
@@ -618,10 +721,10 @@ int dispatch(const void* A, const float* xyz, const void* bc, const float* cen,
   const auto* bcv = static_cast<const uint16_t*>(bc);
   const auto* wp = static_cast<const uint16_t*>(wpack);
   return c2_real == C2
-             ? launch<D2, false>(a, xyz, bcv, cen, mask, starts, wp, b2, s2, lb2, b3, B, N, M, W,
-                                 c2_real, r2, out, s)
-             : launch<D2, true>(a, xyz, bcv, cen, mask, starts, wp, b2, s2, lb2, b3, B, N, M, W,
-                                c2_real, r2, out, s);
+             ? launch<D2, false, WIN>(a, xyz, bcv, cen, mask, starts, wp, b2, s2, lb2, b3, B, N,
+                                      M, W, c2_real, r2, out, winners, s)
+             : launch<D2, true, WIN>(a, xyz, bcv, cen, mask, starts, wp, b2, s2, lb2, b3, B, N,
+                                     M, W, c2_real, r2, out, winners, s);
 }
 
 }  // namespace
@@ -639,8 +742,8 @@ int sa_pair_pool_512_launch(const void* A, const float* xyz, const void* bc, con
                             const int* starts, const void* wpack, const float* b2,
                             const float* s2, const float* lb2, const float* b3, int B, int N,
                             int M, int c2_real, int W, float r2, float* out, void* stream) {
-  return dispatch<kPair>(A, xyz, bc, cen, nullptr, starts, wpack, b2, s2, lb2, b3, B, N, M,
-                         c2_real, W, r2, out, stream);
+  return dispatch<kPair, false>(A, xyz, bc, cen, nullptr, starts, wpack, b2, s2, lb2, b3, B,
+                                N, M, c2_real, W, r2, out, nullptr, stream);
 }
 
 // As sa_pair_pool_512_launch with the expansion-formula radius test ("mxu").
@@ -649,8 +752,8 @@ int sa_pair_pool_512_mxu_launch(const void* A, const float* xyz, const void* bc,
                                 const float* b2, const float* s2, const float* lb2,
                                 const float* b3, int B, int N, int M, int c2_real, int W,
                                 float r2, float* out, void* stream) {
-  return dispatch<kMxu>(A, xyz, bc, cen, nullptr, starts, wpack, b2, s2, lb2, b3, B, N, M,
-                        c2_real, W, r2, out, stream);
+  return dispatch<kMxu, false>(A, xyz, bc, cen, nullptr, starts, wpack, b2, s2, lb2, b3, B, N,
+                               M, c2_real, W, r2, out, nullptr, stream);
 }
 
 // As sa_pair_pool_512_launch with the radius test read from mask ("pre"):
@@ -660,8 +763,38 @@ int sa_pair_pool_512_pre_launch(const void* A, const void* bc, const uint8_t* ma
                                 const int* starts, const void* wpack, const float* b2,
                                 const float* s2, const float* lb2, const float* b3, int B,
                                 int N, int M, int c2_real, int W, float* out, void* stream) {
-  return dispatch<kPre>(A, nullptr, bc, nullptr, mask, starts, wpack, b2, s2, lb2, b3, B, N, M,
-                        c2_real, W, 0.f, out, stream);
+  return dispatch<kPre, false>(A, nullptr, bc, nullptr, mask, starts, wpack, b2, s2, lb2, b3, B,
+                               N, M, c2_real, W, 0.f, out, nullptr, stream);
+}
+
+// The winners variants (training): as the launchers above, and winners
+// (B, M, 1024) int32, the global rank of each pooled value's point under the
+// tie rule, 0 where no pair was in radius.
+int sa_pair_pool_512_winners_launch(const void* A, const float* xyz, const void* bc,
+                                    const float* cen, const int* starts, const void* wpack,
+                                    const float* b2, const float* s2, const float* lb2,
+                                    const float* b3, int B, int N, int M, int c2_real, int W,
+                                    float r2, float* out, int* winners, void* stream) {
+  return dispatch<kPair, true>(A, xyz, bc, cen, nullptr, starts, wpack, b2, s2, lb2, b3, B, N,
+                               M, c2_real, W, r2, out, winners, stream);
+}
+
+int sa_pair_pool_512_mxu_winners_launch(const void* A, const float* xyz, const void* bc,
+                                        const float* cen, const int* starts, const void* wpack,
+                                        const float* b2, const float* s2, const float* lb2,
+                                        const float* b3, int B, int N, int M, int c2_real, int W,
+                                        float r2, float* out, int* winners, void* stream) {
+  return dispatch<kMxu, true>(A, xyz, bc, cen, nullptr, starts, wpack, b2, s2, lb2, b3, B, N, M,
+                              c2_real, W, r2, out, winners, stream);
+}
+
+int sa_pair_pool_512_pre_winners_launch(const void* A, const void* bc, const uint8_t* mask,
+                                        const int* starts, const void* wpack, const float* b2,
+                                        const float* s2, const float* lb2, const float* b3,
+                                        int B, int N, int M, int c2_real, int W, float* out,
+                                        int* winners, void* stream) {
+  return dispatch<kPre, true>(A, nullptr, bc, nullptr, mask, starts, wpack, b2, s2, lb2, b3, B,
+                              N, M, c2_real, W, 0.f, out, winners, stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,11 @@
 """SA pair-MLP max-pool forward: the CUDA kernels ``csrc/sa_pair_pool.cu`` and
 ``csrc/sa_pair_pool_512.cu`` (widths above (256, 256, 512), up to (512, 512,
-1024), serving only) and their plain version.
+1024)) and their plain version.
 
 Counterpart of ``eda_tpu/ops/pallas/sa_kernel.py:sa_pair_pool_pallas``:
 ``sa_pair_pool`` (serving, no winner export) and ``sa_pair_pool_winners``
 (training: also the winning point of each pooled value, for the backward in
-``sa_pool_bwd.py``; on CUDA up to (256, 256, 512)). Centers come in blocks of
+``sa_pool_bwd.py``). Centers come in blocks of
 16 (rank order); each block pairs with the ``window`` points that start at its
 window start floored to a multiple of 16. Per pair (center c, point p)::
 
@@ -46,7 +46,7 @@ import os
 import torch
 
 from eda_tpu_torch.ops.cuda.build import Kernel, ptr, register, require_cuda
-from eda_tpu_torch.ops.cuda.sa_prep import bf16_round, ln_one_pass
+from eda_tpu_torch.ops.cuda.sa_prep import WIDER_ITEM, bf16_round, ln_one_pass
 
 BLOCK = 16  # centers per window block
 NEG = -1e9
@@ -57,16 +57,13 @@ PLAIN_MAX_PAIRS = 1 << 22
 # the model's layer widths, full and tiny, and the width-2 backbone's SA2-4
 # (Group-Free-3D's ``width=2``) in csrc/sa_pair_pool.cu and
 # csrc/sa_pair_pool_bwd.cu; the width-4 backbone's SA2-4, XL, in
-# csrc/sa_pair_pool_512.cu, forward only (serving and evaluation). Other widths
-# up to XL run zero-padded on the smallest triple that covers them
-# (``kernel_widths``, ``pad_widths``).
+# csrc/sa_pair_pool_512.cu and csrc/sa_pair_pool_bwd_512.cu. Other widths up to
+# XL run zero-padded on the smallest triple that covers them (``kernel_widths``,
+# ``pad_widths``); wider layers raise on CUDA (ROADMAP item 8.3).
 WIDTHS = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128, 256), (256, 256, 512),
           (512, 512, 1024))
 XL = WIDTHS[-1]
 XL_PASS_COLS = 256  # W3's columns a GEMM2 pass of csrc/sa_pair_pool_512.cu
-# The training kernels (the pool with winners, its backward) stop at the widest
-# triple below XL; training a wider layer on CUDA raises, naming the ROADMAP item.
-TRAIN_WIDTHS = WIDTHS[:-1]
 
 D2_MODES = ("pair", "mxu", "pre")
 
@@ -97,23 +94,25 @@ KERNELS = {
 
 _XL_ARGS = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 5 + (ctypes.c_float, ctypes.c_void_p)
 _XL_MASK_ARGS = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
-# d2_mode -> the launch function of csrc/sa_pair_pool_512.cu (no winners)
-KERNELS_XL = {
-    mode: register(Kernel(
-        "sa_pair_pool_512", f"sa_pair_pool_512{'' if mode == 'pair' else '_' + mode}_launch",
-        _XL_MASK_ARGS if mode == "pre" else _XL_ARGS,
-        replaces="eda_tpu/ops/pallas/sa_kernel.py:" + ("1235" if mode == "pre" else "1271")))
-    for mode in ("pair", "mxu", "pre")
-}
 
 
-def check_training_widths(c1: int, c2: int, c3: int, what: str = "the pool's training kernels"):
-    """Raise unless a CUDA layer of widths (c1, c2, c3) can train: its
-    ``kernel_widths`` lie in ``TRAIN_WIDTHS`` (the pool with winners and its
-    backward are not written wider)."""
-    if kernel_widths(c1, c2, c3) not in TRAIN_WIDTHS:
-        raise ValueError(f"{what} take widths up to {TRAIN_WIDTHS[-1]}, got c1={c1}, c2={c2}, "
-                         f"c3={c3}: training wider layers on CUDA is ROADMAP item 8.2b")
+def _xl_kernel(mode: str, winners: bool) -> Kernel:
+    infix = "" if mode == "pair" else "_" + mode
+    if winners:
+        site = "1195"
+    else:
+        site = "1235" if mode == "pre" else "1271"
+    return register(Kernel(
+        "sa_pair_pool_512",
+        f"sa_pair_pool_512{infix}{'_winners' if winners else ''}_launch",
+        (_XL_MASK_ARGS if mode == "pre" else _XL_ARGS) + ((ctypes.c_void_p,) if winners else ()),
+        replaces=f"eda_tpu/ops/pallas/sa_kernel.py:{site}"))
+
+
+# d2_mode -> the launch function of csrc/sa_pair_pool_512.cu: without winners
+# (serving) and with them (training)
+KERNELS_XL = {mode: _xl_kernel(mode, False) for mode in D2_MODES}
+KERNELS_XL_WINNERS = {mode: _xl_kernel(mode, True) for mode in D2_MODES}
 
 
 def pack_xl(w2: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
@@ -153,14 +152,15 @@ def window_starts(starts: torch.Tensor, n_points: int, window: int) -> torch.Ten
     return torch.clamp((starts // 16) * 16, 0, n_points - window)
 
 
-def kernel_widths(c1: int, c2: int, c3: int) -> tuple:
+def kernel_widths(c1: int, c2: int, c3: int, what: str = "the pair-pool kernels") -> tuple:
     """The instantiated triple a layer of widths (c1, c2, c3) runs on: the
-    smallest of ``WIDTHS`` that covers each width. Wider layers raise."""
+    smallest of ``WIDTHS`` that covers each width. Wider layers raise, naming
+    ``WIDER_ITEM``."""
     for widths in WIDTHS:
         if c1 <= widths[0] and c2 <= widths[1] and c3 <= widths[2]:
             return widths
-    raise ValueError(f"the pair-pool kernels take widths up to {WIDTHS[-1]}, "
-                     f"got c1={c1}, c2={c2}, c3={c3}")
+    raise ValueError(f"{what} take widths up to {WIDTHS[-1]}, got c1={c1}, c2={c2}, c3={c3}: "
+                     f"wider layers on CUDA are {WIDER_ITEM}")
 
 
 def pad_widths(widths, A, b_c, w2, b2, s2, lb2, w3, b3=None, g=None, winners=None):
@@ -315,7 +315,6 @@ def sa_pair_pool_winners(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
         return sa_pair_pool_winners_plain(A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2,
                                           w3, b3, radius=radius, window=window, d2_mode=mode,
                                           mask=mask)
-    check_training_widths(A.shape[-1], *w3.shape, what="sa_pair_pool_winners")
     return _launch(mode, True, A, xyz, b_c, cen_xyz, starts, w2, b2, s2, lb2, w3, b3,
                    radius=radius, window=window, mask=mask)
 
@@ -356,10 +355,15 @@ def _launch(mode: str, with_winners: bool, A, xyz, b_c, cen_xyz, starts, w2, b2,
         geometry = [ptr(A), ptr(xyz), ptr(b_c), ptr(cen_xyz), ptr(starts)]
     out = torch.empty((B, M, C3), dtype=torch.float32, device=A.device)
     radius2 = [] if pre else [torch.tensor(radius * radius, dtype=torch.float32).item()]
-    if widths == XL:  # serving only: sa_pair_pool_winners raised above TRAIN_WIDTHS
+    if widths == XL:
         wpack = pack_xl(w2, w3)
-        KERNELS_XL[mode](*geometry, ptr(wpack), ptr(b2), ptr(s2), ptr(lb2), ptr(b3),
-                         B, N, M, c2, window, *radius2, ptr(out))
+        args = geometry + [ptr(wpack), ptr(b2), ptr(s2), ptr(lb2), ptr(b3), B, N, M, c2,
+                           window] + radius2 + [ptr(out)]
+        if with_winners:
+            winners = torch.empty((B, M, C3), dtype=torch.int32, device=A.device)
+            KERNELS_XL_WINNERS[mode](*args, ptr(winners))
+            return out[..., :c3], winners[..., :c3]
+        KERNELS_XL[mode](*args)
         return out[..., :c3]
     args = geometry + [ptr(w2), ptr(b2), ptr(s2), ptr(lb2), ptr(w3), ptr(b3),
                        B, N, M, C1, C2, C3, c2, window] + radius2 + [ptr(out)]

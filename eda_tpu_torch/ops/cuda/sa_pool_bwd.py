@@ -1,4 +1,6 @@
-"""SA pair-pool backward: the CUDA kernels ``csrc/sa_pair_pool_bwd.cu`` and their plain version.
+"""SA pair-pool backward: the CUDA kernels ``csrc/sa_pair_pool_bwd.cu`` (up to
+(256, 256, 512)) and ``csrc/sa_pair_pool_bwd_512.cu`` (above it, up to (512, 512,
+1024)) and their plain version.
 
 Counterpart of ``eda_tpu/ops/pallas/sa_kernel.py:sa_pair_pool_bwd_pallas``.
 The forward (``sa_kernel.sa_pair_pool_winners``) pooled, per (center, channel),
@@ -35,10 +37,10 @@ import ctypes
 
 import torch
 
-from eda_tpu_torch.ops.cuda.build import Kernel, ptr, register, require_cuda
+from eda_tpu_torch.ops.cuda.build import Kernel, c_function, ptr, register, require_cuda
 from eda_tpu_torch.ops.cuda.sa_kernel import (
     BLOCK,
-    check_training_widths,
+    XL,
     kernel_widths,
     pad_widths,
     window_starts,
@@ -49,8 +51,8 @@ PLAIN_MAX_ELEMS = 1 << 23  # (center, row, channel) elements the plain version h
 # The wide kernel (csrc/sa_pair_pool_bwd.cu, pool_bwd_wide): one CTA an SM,
 # each over every ctas-th block of 16 centers with one record; it stages the
 # H0, H1 and bf16(dx) images (64 x 256 bf16 each) of up to WIDE_STAGE tiles of
-# 64 rows before folding their weight gradients into its record. WIDE is the
-# backward's ceiling: wider layers (the forward's XL) raise on CUDA.
+# 64 rows before folding their weight gradients into its record. Above WIDE,
+# up to XL, layers run csrc/sa_pair_pool_bwd_512.cu (both variants).
 WIDE = (256, 256, 512)
 WIDE_STAGE = 16
 WIDE_STAGE_ELEMS = WIDE_STAGE * 3 * 64 * 256
@@ -59,9 +61,24 @@ WIDE_STAGE_ELEMS = WIDE_STAGE * 3 * 64 * 256
 # one record, nothing staged (its dW2 stays in registers, dW3 is added to the
 # record a quarter of the channels at a time).
 PERSISTENT_COMPACT = (128, 128, 256)
+# csrc/sa_pair_pool_bwd_512.cu: the pair rows gathered once (their count read
+# back, one host sync), the products through device memory; the weight
+# gradients' partial products a record a split of the rows (at least
+# XL_SPLIT_ROWS rows a split, at most XL_MAX_SPLITS splits), added in order.
+XL_SPLIT_ROWS, XL_MAX_SPLITS = 2048, 128
 
 _ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,) * 6
              + (ctypes.c_int,))
+_XL_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 5 + (ctypes.c_void_p, ctypes.c_longlong)
+                + (ctypes.c_void_p,) * 4)
+# compact -> the launch function of csrc/sa_pair_pool_bwd_512.cu
+XL_KERNELS = {
+    compact: register(Kernel(
+        "sa_pair_pool_bwd_512",
+        f"sa_pool_bwd_512_{'compact' if compact else 'window'}_launch", _XL_ARGTYPES,
+        replaces="eda_tpu/ops/pallas/sa_kernel.py:" + ("649" if compact else "399")))
+    for compact in (False, True)
+}
 COMPACT_KERNEL = register(Kernel(
     "sa_pair_pool_bwd", "sa_pool_bwd_compact_launch", _ARGTYPES,
     replaces="eda_tpu/ops/pallas/sa_kernel.py:649",
@@ -78,18 +95,31 @@ def compact_backward(window: int, c_out: int) -> bool:
     return window % 128 == 0 and -(-c_out // 128) * 128 < window
 
 
-def scratch_plan(widths, B: int, M: int, window: int, sms: int, compact: bool = False) -> dict:
+def xl_splits(rows: int) -> int:
+    """The splits of the rows of csrc/sa_pair_pool_bwd_512.cu's weight-gradient products."""
+    return max(1, min(XL_MAX_SPLITS, -(-rows // XL_SPLIT_ROWS)))
+
+
+def scratch_plan(widths, B: int, M: int, window: int, sms: int, compact: bool = False,
+                 rows: int = 0) -> dict:
     """The kernels' scratch for a call: ``ctas`` (the grid; 0 where a CTA
     takes one block), and the shapes of ``records`` (f32, a record a CTA, or
     a block), ``da_records`` (f32, a window's dA a block) and ``stage`` (bf16,
     the wide kernel's staged tiles a CTA; None otherwise). ``sms``: the
     card's SM count, the persistent kernels' CTAs at most (the wide triple,
-    and ``PERSISTENT_COMPACT`` with ``compact``)."""
+    and ``PERSISTENT_COMPACT`` with ``compact``). At ``XL`` ``ctas`` is the
+    splits of the weight-gradient products over the call's ``rows`` pair rows
+    (``xl_splits``), a record each of dW2 and dW3 (the vector gradients come
+    from the LayerNorm's per-warp records)."""
     C1, C2, C3 = widths
     blocks = B * M // BLOCK
     record = C1 * C2 + C2 * C3 + 3 * C2 + C3
     plan = {"ctas": 0, "records": (blocks, record), "da_records": (blocks, window, C1),
             "stage": None}
+    if tuple(widths) == XL:
+        splits = xl_splits(rows)
+        plan.update(ctas=splits, records=(splits, C1 * C2 + C2 * C3))
+        return plan
     persistent = tuple(widths) == WIDE or (compact and tuple(widths) == PERSISTENT_COMPACT)
     if persistent and blocks > 0:
         ctas = min(blocks, sms)
@@ -205,8 +235,7 @@ def sa_pool_bwd(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, *,
         raise ValueError("sa_pool_bwd widths do not agree")
     if g.shape != (B, M, c3) or winners.shape != (B, M, c3):
         raise ValueError("sa_pool_bwd input shapes do not agree")
-    check_training_widths(c1, c2, c3, what="sa_pool_bwd")
-    widths = kernel_widths(c1, c2, c3)
+    widths = kernel_widths(c1, c2, c3, what="sa_pool_bwd")
     if widths != (c1, c2, c3):
         A, b_c, w2, b2, s2, lb2, w3, _, g, winners = pad_widths(
             widths, A, b_c, w2, b2, s2, lb2, w3, g=g, winners=winners)
@@ -225,20 +254,54 @@ def sa_pool_bwd(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, *,
     # window's dA contributions, which a second kernel adds in block order
     n_w2, n_w3 = C1 * C2, C2 * C3
     f32 = dict(dtype=torch.float32, device=A.device)
-    plan = scratch_plan(widths, B, M, window,
-                        torch.cuda.get_device_properties(A.device).multi_processor_count, compact)
     dA = torch.empty((B, N, C1), **f32)
     dbc = torch.empty((B, M, C1), **f32)
     out = torch.empty(n_w2 + n_w3 + 3 * C2 + C3, **f32)
-    records = torch.empty(plan["records"], **f32)
-    da_records = torch.empty(plan["da_records"], **f32)
-    stage = (None if plan["stage"] is None
-             else torch.empty(plan["stage"], dtype=torch.bfloat16, device=A.device))
-    kernel = COMPACT_KERNEL if compact else WINDOW_KERNEL
-    kernel(ptr(A), ptr(b_c), ptr(g), ptr(winners), ptr(starts), ptr(w2), ptr(b2), ptr(s2),
-           ptr(lb2), ptr(w3), B, N, M, C1, C2, C3, c2, window, ptr(dA), ptr(dbc), ptr(out),
-           ptr(records), ptr(da_records), ptr(stage), plan["ctas"])
+    if widths == XL:
+        _launch_xl(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, c2, window, compact,
+                   dA, dbc, out)
+    else:
+        plan = scratch_plan(widths, B, M, window,
+                            torch.cuda.get_device_properties(A.device).multi_processor_count,
+                            compact)
+        records = torch.empty(plan["records"], **f32)
+        da_records = torch.empty(plan["da_records"], **f32)
+        stage = (None if plan["stage"] is None
+                 else torch.empty(plan["stage"], dtype=torch.bfloat16, device=A.device))
+        kernel = COMPACT_KERNEL if compact else WINDOW_KERNEL
+        kernel(ptr(A), ptr(b_c), ptr(g), ptr(winners), ptr(starts), ptr(w2), ptr(b2), ptr(s2),
+               ptr(lb2), ptr(w3), B, N, M, C1, C2, C3, c2, window, ptr(dA), ptr(dbc), ptr(out),
+               ptr(records), ptr(da_records), ptr(stage), plan["ctas"])
     dw2, dw3 = out[:n_w2].view(C1, C2), out[n_w2:n_w2 + n_w3].view(C2, C3)
     vec = out[n_w2 + n_w3:]
     return (dA[..., :c1], dbc[..., :c1], dw2[:c1, :c2], vec[:c2], vec[C2:C2 + c2],
             vec[2 * C2:2 * C2 + c2], dw3[:c2, :c3], vec[3 * C2:3 * C2 + c3])
+
+
+def _launch_xl(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, c2: int, window: int,
+               compact: bool, dA, dbc, out) -> None:
+    """csrc/sa_pair_pool_bwd_512.cu on operands padded to ``XL``: the rows
+    counted, their number read back (one host sync), the scratch allocated for
+    them, then the backward."""
+    B, N, _ = A.shape
+    M = b_c.shape[1]
+    lib = "sa_pair_pool_bwd_512"
+    top = c_function(lib, "sa_pool_bwd_512_max_window", [])()
+    if window > top:
+        raise ValueError(f"sa_pool_bwd at {XL} takes windows up to {top}, got {window}")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    offsets = torch.empty(B * M + 1, dtype=torch.int32, device=A.device)
+    status = c_function(lib, "sa_pool_bwd_512_rows", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                        + [ctypes.c_void_p] * 2)(
+        ptr(winners), ptr(g), ptr(starts), B, N, M, window, int(compact), ptr(offsets), stream)
+    if status != 0:
+        raise RuntimeError(f"CUDA kernel sa_pool_bwd_512_rows failed to launch: "
+                           f"cudaError_t {status}")
+    rows = int(offsets[-1])
+    nbytes = c_function(lib, "sa_pool_bwd_512_scratch_bytes",
+                        [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
+                        ctypes.c_longlong)(rows, B * M // BLOCK, window)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=A.device)
+    XL_KERNELS[compact](ptr(A), ptr(b_c), ptr(g), ptr(winners), ptr(starts), ptr(w2), ptr(b2),
+                        ptr(s2), ptr(lb2), ptr(w3), B, N, M, c2, window, ptr(offsets), rows,
+                        ptr(dA), ptr(dbc), ptr(out), ptr(scratch))

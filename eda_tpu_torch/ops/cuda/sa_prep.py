@@ -1,8 +1,8 @@
 """Fused SA layer-0 prep: the CUDA kernels ``csrc/sa_prep.cu`` (forward) and
 ``csrc/sa_prep_bwd.cu`` (backward) in bf16, ``csrc/sa_prep_f32.cu`` (both) in
-f32, up to c1 256, and ``csrc/sa_prep_512.cu`` (the forward in both dtypes, c1
-257 to 512), each with its plain version. The backward above c1 256 raises on
-CUDA (training wider layers is ROADMAP item 8.2b).
+f32, up to c1 256, and ``csrc/sa_prep_512.cu`` (the forward) and
+``csrc/sa_prep_bwd_512.cu`` (the backward), both dtypes, c1 257 to 512, each
+with its plain version. Wider layers raise on CUDA (ROADMAP item 8.3).
 
 Counterpart of ``eda_tpu/ops/pallas/sa_prep.py:sa_prep`` (``_prep_fwd`` and
 ``_prep_bwd``) at the model's compute dtype::
@@ -60,10 +60,17 @@ KERNEL_XL = register(Kernel("sa_prep_512", "sa_prep_512_launch", _XL_ARGS,
                             replaces="eda_tpu/ops/pallas/sa_prep.py:142"))
 F32_KERNEL_XL = register(Kernel("sa_prep_512", "sa_prep_f32_512_launch", _XL_ARGS,
                                 replaces="eda_tpu/ops/pallas/sa_prep.py:142"))
+_BWD_XL_ARGS = ((ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int)
+                + (ctypes.c_void_p,) * 3 + (ctypes.c_float,) + (ctypes.c_void_p,) * 3)
+BWD_KERNEL_XL = register(Kernel("sa_prep_bwd_512", "sa_prep_bwd_512_launch", _BWD_XL_ARGS,
+                                replaces="eda_tpu/ops/pallas/sa_prep.py:178"))
+BWD_F32_KERNEL_XL = register(Kernel("sa_prep_bwd_512", "sa_prep_bwd_f32_512_launch",
+                                    _BWD_XL_ARGS, replaces="eda_tpu/ops/pallas/sa_prep.py:178"))
 COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
-# The widest c1 of the forward kernels (csrc/sa_prep_512.cu above WIDE_C1)
-# and of the backward kernels (csrc/sa_prep_bwd.cu, csrc/sa_prep_f32.cu).
+# The widest c1 of csrc/sa_prep.cu, csrc/sa_prep_bwd.cu and csrc/sa_prep_f32.cu,
+# and of csrc/sa_prep_512.cu and csrc/sa_prep_bwd_512.cu above it.
 WIDE_C1, XL_C1 = 256, 512
+WIDER_ITEM = "ROADMAP item 8.3"  # layers wider than the kernels take, on CUDA
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -178,10 +185,10 @@ def max_in_dim_f32(c1: int, backward: bool = False) -> int:
     (0: c1 unsupported): its tensor-core route's, set by the points' tile in shared
     memory (645 / 391 at c1 128), or by a fixed 2048 above c1 128, where both read
     the points from device memory (the forward on clusters of two CTAs, the backward
-    too at few tiles); above c1 256 the forward's 2048 (csrc/sa_prep_512.cu), the
-    backward none."""
+    too at few tiles); above c1 256 2048 (csrc/sa_prep_512.cu,
+    csrc/sa_prep_bwd_512.cu)."""
     if c1 > WIDE_C1:
-        return 0 if backward else max_in_dim(c1)
+        return max_in_dim_bwd_xl(c1) if backward else max_in_dim(c1)
     return c_function("sa_prep_f32", "sa_prep_f32_max_in_dim",
                       [ctypes.c_int, ctypes.c_int])(c1, int(backward))
 
@@ -233,13 +240,17 @@ def f32_w1_split(rows: int, w1: torch.Tensor):
     return split
 
 
-def _check_widths(name: str, c1: int, backward: bool = False) -> None:
-    """Raise unless the forward (or backward) kernels take width c1: up to
-    ``XL_C1`` (``WIDE_C1`` backward; the wider backward is ROADMAP item 8.2b)."""
-    top = WIDE_C1 if backward else XL_C1
-    if not 1 <= c1 <= top:
-        item = ": training wider layers on CUDA is ROADMAP item 8.2b" if backward else ""
-        raise ValueError(f"{name} kernels take c1 from 1 to {top}, got c1={c1}{item}")
+def max_in_dim_bwd_xl(c1: int) -> int:
+    """The largest in_dim the c1-512 backward (csrc/sa_prep_bwd_512.cu) takes at width c1."""
+    return c_function("sa_prep_bwd_512", "sa_prep_bwd_512_max_in_dim", [ctypes.c_int])(c1)
+
+
+def _check_widths(name: str, c1: int) -> None:
+    """Raise unless the kernels take width c1: up to ``XL_C1``; wider layers on
+    CUDA are ``WIDER_ITEM``."""
+    if not 1 <= c1 <= XL_C1:
+        raise ValueError(f"{name} kernels take c1 from 1 to {XL_C1}, got c1={c1}: wider "
+                         f"layers on CUDA are {WIDER_ITEM}")
 
 
 def _check_in_dim(name: str, in_dim: int, c1: int, max_in: int) -> None:
@@ -340,7 +351,9 @@ def sa_prep_bwd(pts, dA, w1, b1, scale, *, radius: float, compute_dtype=torch.bf
         return sa_prep_bwd_plain(pts, dA, w1, b1, scale, radius=radius,
                                  compute_dtype=compute_dtype)
     rounding(compute_dtype)
-    _check_widths("sa_prep_bwd", w1.shape[1], backward=True)
+    _check_widths("sa_prep_bwd", w1.shape[1])
+    if w1.shape[1] > WIDE_C1:
+        return _prep_bwd_xl(pts, dA, w1, b1, scale, radius=radius, compute_dtype=compute_dtype)
     if compute_dtype == torch.float32:
         return _prep_bwd_f32(pts, dA, w1, b1, scale, radius=radius)
     B, N, in_dim = pts.shape
@@ -398,3 +411,32 @@ def _prep_bwd_f32(pts, dA, w1, b1, scale, *, radius: float):
                        float(radius), ptr(dpts), ptr(wout), ptr(scratch))
     vec = wout[in_dim * c1:].view(3, c1)
     return dpts, wout[:in_dim * c1].view(in_dim, c1), vec[0], vec[1], vec[2]
+
+
+def _prep_bwd_xl(pts, dA, w1, b1, scale, *, radius: float, compute_dtype):
+    """K7 / K7f at c1 257-512 (csrc/sa_prep_bwd_512.cu): W1, b1 and scale
+    zero-padded to ``XL_C1`` columns, dA at its real c1."""
+    f32 = compute_dtype == torch.float32
+    B, N, in_dim = pts.shape
+    c1 = w1.shape[1]
+    pts = pts.contiguous()
+    dA = dA.to(compute_dtype).contiguous()
+    require_cuda(pts, dA, w1, b1, scale)
+    if pts.dtype != torch.float32 or dA.shape != (B, N, c1) or w1.shape[0] != in_dim:
+        raise ValueError("sa_prep_bwd takes float32 points and a (B, N, c1) cotangent")
+    w1 = _pad_columns(w1.to(compute_dtype), XL_C1)
+    b1, scale = (_pad_columns(v.float(), XL_C1) for v in (b1, scale))
+    _check_in_dim("sa_prep_bwd", in_dim, c1, max_in_dim_bwd_xl(c1))
+    rows = B * N
+    f32d = dict(dtype=torch.float32, device=pts.device)
+    dpts = torch.empty((B, N, in_dim), **f32d)
+    wout = torch.empty(((in_dim + 3) * XL_C1,), **f32d)
+    nbytes = c_function("sa_prep_bwd_512", "sa_prep_bwd_512_scratch_bytes",
+                        [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
+                        ctypes.c_longlong)(rows, in_dim, int(f32))
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=pts.device)
+    (BWD_F32_KERNEL_XL if f32 else BWD_KERNEL_XL)(
+        ptr(pts), ptr(dA), rows, in_dim, c1, ptr(w1), ptr(b1), ptr(scale),
+        float(radius), ptr(dpts), ptr(wout), ptr(scratch))
+    vec = wout[in_dim * XL_C1:].view(3, XL_C1)[:, :c1]
+    return dpts, wout[:in_dim * XL_C1].view(in_dim, XL_C1)[:, :c1], vec[0], vec[1], vec[2]

@@ -50,10 +50,9 @@ and ``b_c`` to bf16 only inside the pools, as the reference's pair kernels
 take them (``eda_tpu/ops/pallas/sa_kernel.py:953-954``): the pool backward's
 dA and db_c come back in f32.
 
-On CUDA the serving kernels take widths up to (512, 512, 1024) and the
-training kernels up to (256, 256, 512): a training step whose layers would run
-the kernels wider raises before its first launch (``check_trainable``;
-training wider layers on CUDA is ROADMAP item 8.2b).
+On CUDA the serving and training kernels take widths up to (512, 512, 1024):
+a training step whose layers would run the kernels wider raises before its
+first launch (``check_trainable``; wider layers on CUDA are ROADMAP item 8.3).
 
 The pool's radius test is resolved once per call (``resolve_d2_mode``: the
 ``EDA_SA_D2`` environment variable, else ``pair``). ``mxu`` runs the
@@ -71,7 +70,7 @@ from torch.utils.checkpoint import checkpoint
 
 from eda_tpu_torch.ops.cuda.sa_kernel import (
     BLOCK,
-    check_training_widths,
+    kernel_widths,
     resolve_d2_mode,
     sa_pair_pool,
     sa_pair_pool_winners,
@@ -183,11 +182,11 @@ def runs_kernels(window: int, n_points: int) -> bool:
 
 def check_trainable(params: SAParams, *, window: int, n_points: int) -> None:
     """Raise where a training step would run this layer's kernels (on CUDA) at
-    widths the training kernels lack: called by the backbone before its first
-    launch, so that such a step launches nothing."""
+    widths the training kernels lack (above (512, 512, 1024)): called by the
+    backbone before its first launch, so that such a step launches nothing."""
     if runs_kernels(window, n_points):
-        check_training_widths(params.kernels[0].shape[1], *params.kernels[2].shape,
-                              what="the fused SA layer's training kernels")
+        kernel_widths(params.kernels[0].shape[1], *params.kernels[2].shape,
+                      what="the fused SA layer's training kernels")
 
 
 def plain_prep(pts: torch.Tensor, w1, b1, scale, lnb, *, radius: float,

@@ -23,8 +23,14 @@ recorded:
 * ``serve_w4x``: the prep and the pool of a serving forward (K2, K3) of the
   width-4 backbone (``W4X_SA_MLPS``, ``W4X_FP_MLPS``: SA1 at (256, 256, 512)
   and c1 256, SA2-4 on the (512, 512, 1024) pool and the c1-512 prep, labelled
-  "K3 XL" and "K2 XL"), which serves and evaluates only: no training step;
-* ``serve_f32_w4x``: the same of the f32 width-4 backbone (K2f, "K2f XL").
+  "K3 XL" and "K2 XL");
+* ``serve_f32_w4x``: the same of the f32 width-4 backbone (K2f, "K2f XL");
+* ``pool_w4x``: the pools of a serving forward and of a training step and
+  the pool and prep backward (K3, K4, K5 at SA1, K6, K7) of the width-4
+  backbone, SA2-4 labelled " XL" (the winners pool and the backward at (512,
+  512, 1024), K7 at c1 512);
+* ``step_f32_w4x``: the training step's kernels (K4, K5, K6, K7f) of the f32
+  width-4 backbone (its pools are the bf16 ones).
 
 Prints one JSON line: the card's name and power limit, ms and the peak device
 memory of one call (above what was allocated before it) per layer, the sums
@@ -76,6 +82,8 @@ KERNELS = {
     "prep_f32_w2x": (False, "w2x", {"sa_prep": "K2f", "sa_prep_bwd": "K7f"}, {}),
     "serve_w4x": (True, "w4x", {}, {"sa_prep": "K2", "sa_pair_pool": "K3"}),
     "serve_f32_w4x": (False, "w4x", {}, {"sa_prep": "K2f"}),
+    "pool_w4x": (True, "w4x", {**_POOL_STEP, "sa_prep_bwd": "K7"}, _POOL_SERVE),
+    "step_f32_w4x": (False, "w4x", {**_POOL_STEP, "sa_prep_bwd": "K7f"}, {}),
 }
 # the functions called SA1 -> SA4; the others (backward) SA4 -> SA1
 FORWARD = ("sa_prep", "sa_pair_pool", "sa_pair_pool_winners")
@@ -97,9 +105,9 @@ def model_config(kernels: str):
 
 def xl(name: str, a) -> bool:
     """Whether a recorded prep or pool call runs above (256, 256, 512) / c1 256."""
-    if name == "sa_prep":
-        return a[1].shape[1] > 256
-    return name == "sa_pair_pool" and a[0].shape[-1] > 256
+    if name in ("sa_prep", "sa_prep_bwd"):
+        return a[1 if name == "sa_prep" else 2].shape[1] > 256
+    return name in ("sa_pair_pool", "sa_pair_pool_winners", "sa_pool_bwd") and a[0].shape[-1] > 256
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -219,7 +227,7 @@ def main(argv=None) -> int:
                 setattr(fused_sa, name, kernels[name])
 
     busy = {}
-    if step_recorded:  # (the width-4 backbone serves only)
+    if step_recorded:  # (the serve_* sets time a forward only)
         state, step, batch = build_trainer(cfg, batch_size=args.batch, device="cuda", seed=0)
         run_recorded(step_recorded, lambda: step(state, batch))
         if args.busy:

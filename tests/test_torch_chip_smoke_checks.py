@@ -34,6 +34,10 @@ wrong mask and accept a right one, so they run here on small CPU inputs
   checks name (ragged row counts and windows, the widths and in_dims, clamped
   and unaligned windows, points on the radius); ``prep_bound`` reads the
   points once and writes A once;
+* the width-4 backbone's training phase: its launch table, the symbols its
+  recorder files each call under by widths and dtype, the XL backward's edge
+  cases, the c1-512 prep backward's edge cases and the build check of the
+  ``mma.sync`` libraries (no spill, HMMA in every GEMM kernel);
 * the device-sort phase's ``permuted`` puts each scene's points in its own
   random order and the per-point labels with them, and leaves the rest;
   ``_leaf_rel_errs`` holds each gradient leaf to the largest value of all.
@@ -374,17 +378,16 @@ def test_pool_widths_cases_lie_between_the_instantiations():
         assert N - W >= widths[2]  # as bwd_edge_inputs needs
     assert {w for _, w, *_ in chip_smoke.WIDTH_CASES} == {(48, 48, 96), (96, 80, 200),
                                                            (192, 160, 384), (256, 256, 512)}
-    # padded on each of the three widest instantiations the training kernels
-    # take; the widest of them itself at a window where the model's backward is
-    # the compact one
-    train_top = sa_kernel.TRAIN_WIDTHS[-1]
+    # padded on each of the three widest instantiations below XL; the widest of
+    # them itself at a window where the model's backward is the compact one
+    train_top = sa_pool_bwd.WIDE
     assert {sa_kernel.kernel_widths(*w) for _, w, *_ in chip_smoke.WIDTH_CASES} == set(
-        sa_kernel.TRAIN_WIDTHS[2:])
+        sa_kernel.WIDTHS[2:-1])
     wide = [(N, W) for _, w, N, _, W in chip_smoke.WIDTH_CASES if w == train_top]
     assert wide == [(8192, 1024)] and sa_pool_bwd.compact_backward(1024, 512)
     assert {(N, W) for _, _, N, _, W in chip_smoke.WIDTH_CASES} == {(8192, 1024), (2048, 256)}
     assert train_top == (256, 256, 512) and sa_kernel.WIDTHS[-1] == sa_kernel.XL
-    # the forward-only XL: padded cases above the training kernels' top, under it
+    # XL: padded cases above the wide kernels' triple, under XL
     assert sa_kernel.XL == (512, 512, 1024)
     for layer, widths, N, M, W in chip_smoke.XL_WIDTH_CASES:
         assert sa_kernel.kernel_widths(*widths) == sa_kernel.XL != widths
@@ -598,7 +601,7 @@ def test_w2x_phase_inputs_hold_their_edge_cases():
     its W points, and the cases hold blocks of more than 16 tiles (several
     folds), CTAs of fewer rows than one tile and more blocks than SMs (a CTA
     takes several in turn); the phase's configs."""
-    widths = sa_kernel.TRAIN_WIDTHS[-1]  # the wide kernels' (256, 256, 512)
+    widths = sa_pool_bwd.WIDE  # the wide kernels' (256, 256, 512)
     cases = chip_smoke.W2X_TIE_CASES
     assert all(c[1] == widths for c in cases)
     assert (2, widths, 2048, 1024, 256) in cases  # SA2's shape, four 64-row stages
@@ -821,3 +824,113 @@ def test_prep_xl_tolerance_takes_flipped_roundings_not_wrong_sums():
     assert ((noisy - want).abs() > base).any()
     dropped = prep_of(X - x_in[..., 700:701] * rnd(w1[700].float()).double())
     assert int(((dropped - want).abs() > tol).sum()) > 1000
+
+
+def test_w4x_training_launch_table_and_inputs():
+    """The W4X training step's launch table (SA1 on the flagship's kernels,
+    SA2-4 on the XL winners pool, the XL windowed backward and the c1-512
+    prep backward), the symbols the recorder files its calls under, and the
+    XL backward's edge cases."""
+    xl = sa_kernel.XL
+    for mode in ("pair", "mxu", "pre"):
+        for f32 in (False, True):
+            got = chip_smoke.w4x_step_launches(mode, f32)
+            want = {"fps_launch": 4,
+                    chip_smoke.F32_PREP if f32 else "sa_prep_launch": 1,
+                    chip_smoke.F32_PREP_XL if f32 else chip_smoke.PREP_XL: 3,
+                    chip_smoke.pool_symbol(mode, True): 1,
+                    chip_smoke.pool_symbol_xl(mode, True): 3,
+                    "sa_pool_bwd_compact_launch": 1, "sa_pool_bwd_512_window_launch": 3,
+                    chip_smoke.F32_PREP_BWD if f32 else "sa_prep_bwd_launch": 1,
+                    "sa_prep_bwd_f32_512_launch" if f32 else "sa_prep_bwd_512_launch": 3}
+            if mode == "pre":
+                want[chip_smoke.MASK] = 4
+            assert got == want
+    assert chip_smoke.pool_symbol_xl("mxu", True) == "sa_pair_pool_512_mxu_winners_launch"
+    # the model's backward at W4X: compact at SA1 (c3 512 < W 1024), windowed at SA2-4
+    cfg, _ = chip_smoke.w4x_configs(ModelConfig(use_bf16=True))
+    assert sa_pool_bwd.compact_backward(cfg.sa_windows[0], cfg.sa_mlps[0][2])
+    assert not any(sa_pool_bwd.compact_backward(w, m[2])
+                   for w, m in zip(cfg.sa_windows[1:], cfg.sa_mlps[1:]))
+    pool = lambda c1, c2, c3: (torch.zeros(1, 1, c1),) + (None,) * 8 + (  # noqa: E731
+        torch.zeros(c2, c3),)
+    assert chip_smoke.winners_symbol({"d2_mode": "pre"}, pool(*xl)) == \
+        "sa_pair_pool_512_pre_winners_launch"
+    assert chip_smoke.winners_symbol({}, pool(256, 256, 512)) == "sa_pair_pool_winners_launch"
+    assert chip_smoke.pool_bwd_symbol({"compact": False}, pool(384, 384, 768)) == \
+        "sa_pool_bwd_512_window_launch"
+    assert chip_smoke.pool_bwd_symbol({"compact": True}, pool(*xl)) == \
+        "sa_pool_bwd_512_compact_launch"
+    assert chip_smoke.pool_bwd_symbol({"compact": True}, pool(256, 256, 512)) == \
+        "sa_pool_bwd_compact_launch"
+    prep = lambda c1: (None, None, torch.zeros(515, c1))  # noqa: E731
+    f32 = {"compute_dtype": torch.float32}
+    assert chip_smoke.prep_bwd_symbol({}, prep(512)) == "sa_prep_bwd_512_launch"
+    assert chip_smoke.prep_bwd_symbol(f32, prep(300)) == "sa_prep_bwd_f32_512_launch"
+    assert chip_smoke.prep_bwd_symbol(f32, prep(256)) == chip_smoke.F32_PREP_BWD
+    assert chip_smoke.prep_bwd_symbol({}, prep(128)) == "sa_prep_bwd_launch"
+    for symbol in ("sa_pool_bwd_512_window_launch",) + chip_smoke.PREP_BWD:
+        assert symbol in chip_smoke.BACKWARD_ORDER
+    # the backward's edge cases: SA2's shape, a window where the compact rows
+    # are the model's, rows tied on a few points; each as bwd_edge_inputs needs
+    cases = chip_smoke.W4X_BWD_EDGE_CASES
+    assert all(c[1] == xl and c[2] - c[4] >= xl[2] for c in cases)
+    assert (2, xl, 2048, 1024, 256) in cases
+    assert any(sa_pool_bwd.compact_backward(c[4], xl[2]) for c in cases)
+    assert any(len(c) > 5 and c[5] < 16 for c in cases)
+    assert chip_smoke.W4X_STEPS >= 2  # a step past the first
+    specs = chip_smoke.kernel_specs()
+    for symbol in ("sa_pool_bwd_512_window_launch", "sa_pool_bwd_512_compact_launch",
+                   "sa_prep_bwd_512_launch", "sa_prep_bwd_f32_512_launch",
+                   "sa_pair_pool_512_winners_launch", "sa_pair_pool_512_pre_winners_launch"):
+        assert symbol in specs
+
+
+def test_check_mma_build_refuses_spills_and_missing_hmma(monkeypatch, capsys):
+    class FakeBuild:
+        @staticmethod
+        def _target(name):
+            return name
+
+    ok_log = ("ptxas info    : Used 139 registers\n"
+              "   0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
+    spill_log = "   8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads"
+    logs = {source: ok_log for source in chip_smoke.MMA_KERNELS}
+    monkeypatch.setattr(chip_smoke, "sass_counts", lambda lib, op: None)
+    chip_smoke.check_mma_build(logs, FakeBuild)
+    assert capsys.readouterr().out.count("not checked") == 2
+    for source in chip_smoke.MMA_KERNELS:
+        with pytest.raises(AssertionError, match="spill"):
+            chip_smoke.check_mma_build({**logs, source: spill_log}, FakeBuild)
+    sass = {"sa_pair_pool_bwd_512": {"_ZN2mg11gemm_kernelItLb1ELb0EEE": 64,
+                                     "_ZN2mg11gemm_kernelItLb0ELb0EEE": 64, "_Z9h0_rows": 0},
+            "sa_prep_bwd_512": {"_ZN2mg11gemm_kernelIfLb1ELb1EEE": 96, "_Z9build_xin": 0}}
+    seen = []
+    monkeypatch.setattr(chip_smoke, "sass_counts", lambda lib, op: seen.append(op) or sass[lib])
+    chip_smoke.check_mma_build(logs, FakeBuild)
+    assert set(seen) == {"HMMA"}
+    out = capsys.readouterr().out
+    assert "128 HMMA instructions in 2" in out and "96 HMMA instructions in 1" in out
+    sass["sa_prep_bwd_512"]["_ZN2mg11gemm_kernelIfLb1ELb1EEE"] = 0
+    with pytest.raises(AssertionError, match="sa_prep_bwd_512 GEMM kernel has no HMMA"):
+        chip_smoke.check_mma_build(logs, FakeBuild)
+    del sass["sa_prep_bwd_512"]["_ZN2mg11gemm_kernelIfLb1ELb1EEE"]
+    with pytest.raises(AssertionError, match="sa_prep_bwd_512 GEMM kernel has no HMMA"):
+        chip_smoke.check_mma_build(logs, FakeBuild)
+
+
+def test_prep_bwd_edge_inputs_hold_the_c1_512_cases():
+    """Above c1 256 the prep backward's edge cases hold the width-4 backbone's
+    SA2 and SA3 / SA4 widths at ragged rows and an odd c1 (both dtypes run
+    them on the card), and the plain version gives defined results there."""
+    cases = chip_smoke.prep_bwd_edge_inputs()
+    wide = {(a[2].shape[0], a[2].shape[1]): a for a, _ in cases.values()
+            if a[2].shape[1] > sa_prep.WIDE_C1}
+    assert set(wide) == {(515, 512), (1027, 512), (303, 300)}
+    assert all(a[0].shape[0] * a[0].shape[1] % 64 for a in wide.values())  # ragged
+    pts, dA, w1, b1, scale = wide[(303, 300)]
+    for dtype in (torch.bfloat16, torch.float32):
+        out = sa_prep.sa_prep_bwd_plain(pts, dA, w1, b1, scale, radius=0.4, compute_dtype=dtype)
+        assert [tuple(o.shape) for o in out] == [tuple(pts.shape), (303, 300), (300,), (300,),
+                                                 (300,)]
+        assert all(torch.isfinite(o).all() for o in out)

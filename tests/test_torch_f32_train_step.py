@@ -28,70 +28,16 @@ allows, measured over those 3 batches in brackets:
 
 import numpy as np
 import pytest
-import torch
-from torch_parity import (
-    LOSS_REL,
-    METRIC_REL,
-    assert_first_moments_match,
-    assert_new_parameters_match,
-    assert_step_metrics_match,
-    cos,
-    jax_train_step,
-    port_moments,
-    port_train_step,
-)
+from torch_parity import F32_GLOBAL_COS, assert_f32_step_matches  # noqa: F401
+from torch_parity import f32_own_step as own_step
 
 import chip_smoke
-from eda_tpu.data.synthetic import SyntheticConfig as JaxSyntheticConfig
-from eda_tpu.data.synthetic import SyntheticScenes as JaxSyntheticScenes
 
-F32_GLOBAL_COS = 0.98
 OVERRIDES = {"fused": dict(use_bf16=False),
              "gather": dict(use_bf16=False, sa_impl="gather"),
              # the width-2 backbone's SA widths, FP2 out the tiny d_model
              "fused-w2x": dict(use_bf16=False, sa_mlps=chip_smoke.W2X_SA_MLPS,
                                fp_mlps=chip_smoke.W2X_TINY_FP_MLPS)}
-
-
-def own_step(overrides):
-    gen = JaxSyntheticScenes(JaxSyntheticConfig(num_points=1024, num_objects=4, text_len=16),
-                             vocab_size=512)
-    jax_run = jax_train_step(gen.batch(range(2)), overrides=overrides)
-    return jax_run, port_train_step(jax_run, own_decisions=True)
-
-
-def matched_seeds(match_q, kps):
-    """(prefixes * B, T) matched query indices -> the seeds those queries sit on."""
-    rows = torch.arange(match_q.shape[0]) % kps.shape[0]
-    return kps[rows[:, None], match_q.long()]
-
-
-def assert_own_decisions_are_jax_s(jax_run, port_run):
-    dec, own = jax_run["decisions"], port_run["decisions"]
-    kps, jax_kps = own["kps"].long(), dec["__query_inds"].long()
-    assert torch.equal(kps.sort(1).values, jax_kps.sort(1).values)
-    match = own["match"]
-    valid = match.target_valid
-    assert valid.sum() > 0
-    assert torch.equal(matched_seeds(match.match_q, kps)[valid],
-                       matched_seeds(dec["__match_q"], jax_kps)[valid])
-
-
-def assert_f32_step_matches(jax_run, port_run):
-    assert_own_decisions_are_jax_s(jax_run, port_run)
-    assert_step_metrics_match(jax_run["metrics"], port_run["metrics"])
-    got, want = port_moments(port_run), jax_run["moments"]
-    keys = sorted(want)
-    glob = cos(torch.cat([got[k].flatten() for k in keys]),
-               torch.cat([want[k].flatten() for k in keys]))
-    assert glob >= F32_GLOBAL_COS, glob
-    assert_first_moments_match(jax_run, port_run)
-    assert_new_parameters_match(jax_run, port_run)
-    w, g = jax_run["metrics"], port_run["metrics"]
-    print(f"loss rel {abs(g['loss'] - w['loss']) / abs(w['loss']):.2e}, grad_norm "
-          f"{g['grad_norm']:.4f} vs {w['grad_norm']:.4f}, global cos {glob:.5f}")
-    assert abs(g["loss"] - w["loss"]) <= LOSS_REL * abs(w["loss"])
-    assert all(abs(g[k] - w[k]) <= METRIC_REL * abs(w[k]) + 1e-6 for k in w)
 
 
 @pytest.mark.parametrize("impl", ["fused", "fused-w2x"])

@@ -53,7 +53,7 @@ def test_kernel_widths_picks_the_smallest_cover():
     assert sa_kernel.kernel_widths(129, 8, 8) == (256, 256, 512)
     assert sa_kernel.kernel_widths(8, 8, 257) == (256, 256, 512)
     assert sa_kernel.kernel_widths(256, 256, 512) == (256, 256, 512)
-    # above (256, 256, 512) the forward-only XL, (512, 512, 1024)
+    # above (256, 256, 512) XL, (512, 512, 1024)
     assert sa_kernel.kernel_widths(288, 256, 512) == (512, 512, 1024)
     assert sa_kernel.kernel_widths(384, 384, 768) == (512, 512, 1024)
     assert sa_kernel.kernel_widths(300, 300, 600) == (512, 512, 1024)

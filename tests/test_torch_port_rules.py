@@ -98,10 +98,14 @@ def test_entry_needs_cuda_unless_cpu_is_asked(monkeypatch):
     assert all(k.launches == 0 for k in build.KERNELS.values())
     assert sorted(build.KERNELS) == [
         "fps_launch", "sa_pair_pool_512_launch", "sa_pair_pool_512_mxu_launch",
-        "sa_pair_pool_512_pre_launch", "sa_pair_pool_launch", "sa_pair_pool_mxu_launch",
+        "sa_pair_pool_512_mxu_winners_launch", "sa_pair_pool_512_pre_launch",
+        "sa_pair_pool_512_pre_winners_launch", "sa_pair_pool_512_winners_launch",
+        "sa_pair_pool_launch", "sa_pair_pool_mxu_launch",
         "sa_pair_pool_mxu_winners_launch", "sa_pair_pool_pre_launch",
         "sa_pair_pool_pre_winners_launch", "sa_pair_pool_winners_launch",
+        "sa_pool_bwd_512_compact_launch", "sa_pool_bwd_512_window_launch",
         "sa_pool_bwd_compact_launch", "sa_pool_bwd_window_launch", "sa_prep_512_launch",
+        "sa_prep_bwd_512_launch", "sa_prep_bwd_f32_512_launch",
         "sa_prep_bwd_f32_launch", "sa_prep_bwd_launch", "sa_prep_f32_512_launch",
         "sa_prep_f32_launch", "sa_prep_launch", "sa_radius_mask_launch"]
     assert all(k.replaces.startswith("eda_tpu/ops/pallas/") for k in build.KERNELS.values())

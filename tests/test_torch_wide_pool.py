@@ -12,6 +12,10 @@
   ``prep_f32_w2x`` time the width-2 backbone's pools and prep kernels (the
   last in f32): their widths are ``chip_smoke``'s, and without a card they
   fail, printing nothing.
+* The backward at (512, 512, 1024) (``csrc/sa_pair_pool_bwd_512.cu``) splits
+  the rows of its weight-gradient products into records (``scratch_plan``'s
+  ``ctas`` at ``sa_kernel.XL``, ``xl_splits``); ``--kernels pool_w4x`` /
+  ``step_f32_w4x`` time the width-4 backbone's training kernels.
 
 The kernels themselves run on the card only (``chip_smoke.py``).
 """
@@ -53,8 +57,9 @@ def test_wide_backward_stages_sixteen_tiles_a_cta():
     bf16(dx) images of 64 x 256 bf16, 96 KiB a tile, 1.5 MiB a CTA."""
     assert sa_pool_bwd.WIDE_STAGE == 16
     assert sa_pool_bwd.WIDE_STAGE_ELEMS * 2 == 16 * 96 * 1024
-    # the backward's own ceiling: the widest triple the training kernels take
-    assert sa_pool_bwd.WIDE == sa_kernel.TRAIN_WIDTHS[-1] == WIDE != sa_kernel.WIDTHS[-1]
+    # the staged-fold kernel's triple, the widest below XL (whose backward is
+    # csrc/sa_pair_pool_bwd_512.cu)
+    assert sa_pool_bwd.WIDE == sa_kernel.WIDTHS[-2] == WIDE != sa_kernel.WIDTHS[-1] == sa_kernel.XL
 
 
 @pytest.mark.parametrize("widths,B,M,W", [((128, 128, 256), 8, 2048, 1024),
@@ -229,3 +234,57 @@ def test_w4x_timer_widths_are_the_smokes_and_serve_only(kernels, use_bf16, monke
     assert pool_bwd_times.xl("sa_pair_pool", (a_xl,))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert pool_bwd_times.main(["--kernels", kernels]) != 0
+
+
+XL_RECORD = 512 * 512 + 512 * 1024  # dW2, dW3: the XL backward's split records
+
+
+@pytest.mark.parametrize("rows,splits", [(0, 1), (1, 1), (2048, 1), (2049, 2), (106923, 53),
+                                         (262144, 128), (2_000_000, 128)])
+def test_xl_backward_splits_the_rows(rows, splits):
+    """csrc/sa_pair_pool_bwd_512.cu: the weight gradients' partial products a
+    record a split of the rows, at least 2048 rows a split, at most 128 splits;
+    a window's dA a block as the other kernels; nothing staged."""
+    B, M, W = 8, 1024, 256
+    plan = sa_pool_bwd.scratch_plan(sa_kernel.XL, B, M, W, H100_SMS, rows=rows)
+    assert plan == {"ctas": splits, "records": (splits, XL_RECORD),
+                    "da_records": (B * M // 16, W, 512), "stage": None}
+    assert sa_pool_bwd.xl_splits(rows) == splits
+    # the same whatever the variant and the card's SM count
+    assert sa_pool_bwd.scratch_plan(sa_kernel.XL, B, M, W, 78, compact=True, rows=rows) == plan
+    # the split a row lies in: ceil(rows / splits) rows a split, each range whole
+    if rows:
+        per = -(-rows // splits)
+        assert (splits - 1) * per < rows <= splits * per
+
+
+def test_xl_backward_scratch_at_w4x_sa2():
+    """W4X's SA2 at batch 8 (1024 centers, window 256, 188 610 live rows in a
+    full-width step on the card): 93 split records (293 MB) and the 512 blocks'
+    dA records (268 MB)."""
+    plan = sa_pool_bwd.scratch_plan(sa_kernel.XL, 8, 1024, 256, H100_SMS, rows=188610)
+    assert plan["ctas"] == 93 and 4 * plan["records"][0] * plan["records"][1] == 93 * 4 * XL_RECORD
+    assert 4 * 512 * 256 * 512 == plan_bytes(dict(plan, records=None))
+
+
+def test_w4x_training_timer_sets():
+    """``--kernels pool_w4x`` / ``step_f32_w4x`` time a W4X step's K4, K5, K6
+    and K7 / K7f (SA2-4 labelled " XL"); their widths are the smoke's."""
+    assert pool_bwd_times.W4X_SA_MLPS == chip_smoke.W4X_SA_MLPS
+    assert pool_bwd_times.W4X_FP_MLPS == chip_smoke.W4X_FP_MLPS
+    for kernels, bf16, prep_bwd in (("pool_w4x", True, "K7"), ("step_f32_w4x", False, "K7f")):
+        cfg = pool_bwd_times.model_config(kernels)
+        assert cfg.use_bf16 == bf16 and cfg.sa_mlps == chip_smoke.W4X_SA_MLPS
+        step = pool_bwd_times.KERNELS[kernels][2]
+        assert step == {"sa_pair_pool_winners": "K4", "sa_pool_bwd": None,
+                        "sa_prep_bwd": prep_bwd}
+    assert pool_bwd_times.KERNELS["pool_w4x"][3] == {"sa_pair_pool": "K3"}
+    assert pool_bwd_times.KERNELS["step_f32_w4x"][3] == {}
+    xl = (torch.zeros(1, 1, 512),) + (None,) * 8 + (torch.zeros(512, 1024),)
+    sa1 = (torch.zeros(1, 1, 256),) + (None,) * 8 + (torch.zeros(256, 512),)
+    for name in ("sa_pair_pool", "sa_pair_pool_winners", "sa_pool_bwd"):
+        assert pool_bwd_times.xl(name, xl) and not pool_bwd_times.xl(name, sa1)
+    prep_bwd = lambda c1: (None, None, torch.zeros(515, c1))  # noqa: E731
+    assert pool_bwd_times.xl("sa_prep_bwd", prep_bwd(512))
+    assert not pool_bwd_times.xl("sa_prep_bwd", prep_bwd(256))
+    assert pool_bwd_times.xl("sa_prep", (None, torch.zeros(515, 300)))
