@@ -28,8 +28,11 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    on ``bwd_edge_inputs`` (a center whose channels one point wins all, one
    whose channels c3 points win, blocks with no live row, compact winners
    outside the window, windows clamped at N - W) at SA2's widths with W =
-   256 and 512, SA1's with W = 2048 and the tiny SA1 triple, both variants
-   at each, within the training step's tolerances.
+   256 and 512, SA1's with W = 2048, the tiny SA1 triple and the width-4
+   backbone's SA1 shape ((256, 256, 512), W = 1024 over 50 000 points, once
+   with winners tied on a window's first 4 points: the compact rows on
+   ``csrc/sa_pair_pool_bwd_wide_compact.cu``), both variants at each,
+   within the training step's tolerances, bit for bit on a second launch.
    Then the FPS edge check: K1 bit-exact against its plain version, at the
    cluster size it picks and at 1, 2, 4 and 8 CTAs a row, on
    ``fps_edge_inputs`` (duplicated points and equal-distance ties,
@@ -241,8 +244,9 @@ Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA card).
    forward, the ``mxu`` and ``pre`` XL pools on a forward's inputs (and
    against the pair kernel), one scored eval batch under each radius test;
    then K4, K5, K6 and K7 of a training step against their plain versions
-   (SA2-4 on the XL winners pool, the XL backward and the c1-512 prep
-   backward), ``W4X_STEPS`` steps with their launches
+   (SA1's K5 on ``csrc/sa_pair_pool_bwd_wide_compact.cu``, with its live rows
+   beside their distinct (center, position) pairs; SA2-4 on the XL winners
+   pool, the XL backward and the c1-512 prep backward), ``W4X_STEPS`` steps with their launches
    (``w4x_step_launches``), a profiled step, the ``mxu`` and ``pre`` winners
    pools on one step each (and against the pair kernel) and two steps from
    one state bit for bit. Its rows are named " (w4x)". Then phase "w4x f32"
@@ -356,6 +360,9 @@ TRAINING = ("sa_pair_pool_winners_launch", "sa_pool_bwd_compact_launch",
             "sa_pool_bwd_window_launch", "sa_prep_bwd_launch")
 MASK = "sa_radius_mask_launch"
 POOL_BWD = ("sa_pool_bwd_compact_launch", "sa_pool_bwd_window_launch")
+# the compact rows at (256, 256, 512) (the width-4 backbone's SA1):
+# csrc/sa_pair_pool_bwd_wide_compact.cu
+POOL_BWD_WC = "sa_pool_bwd_wide_compact_launch"
 F32_PREP, F32_PREP_BWD = "sa_prep_f32_launch", "sa_prep_bwd_f32_launch"
 # the kernels above (256, 256, 512) / c1 256: the pool at (512, 512, 1024) (a
 # symbol per radius test, with and without winners, pool_symbol_xl), its
@@ -673,17 +680,28 @@ def against_pair(symbol: str, args, kw, got, layer: int) -> None:
                              f"window point on the radius boundary")
 
 
+def window_offsets(args, kw):
+    """(B, M, c3) each channel's winner's offset in its center's window."""
+    A, winners, starts = args[0], args[3], args[4]
+    from eda_tpu_torch.ops.cuda.sa_kernel import BLOCK, window_starts
+
+    start = window_starts(starts.long(), A.shape[1], kw["window"]).repeat_interleave(BLOCK, dim=1)
+    return winners.long() - start[..., None]
+
+
+def distinct_keys(key):
+    """The distinct nonnegative values along the last axis of ``key``."""
+    key = key.sort(-1).values
+    return ((key[..., 1:] != key[..., :-1]) & (key[..., 1:] >= 0)).sum(-1) + (key[..., 0] >= 0)
+
+
 def live_channels(args, kw):
     """(B, M, c3) bool: the (center, channel) entries whose cotangent reaches a
     pair row of the pool backward: g != 0, and (windowed) an in-window winner."""
-    A, b_c, g, winners, starts = args[:5]
-    from eda_tpu_torch.ops.cuda.sa_kernel import BLOCK, window_starts
-
-    live = g != 0
+    live = args[2] != 0
     if kw["compact"]:
         return live
-    start = window_starts(starts.long(), A.shape[1], kw["window"]).repeat_interleave(BLOCK, dim=1)
-    rel = winners.long() - start[..., None]
+    rel = window_offsets(args, kw)
     return live & (rel >= 0) & (rel < kw["window"])
 
 
@@ -693,8 +711,17 @@ def center_rows(args, kw):
     live = live_channels(args, kw)
     if kw["compact"]:
         return live.sum(-1)
-    key = torch.where(live, args[3].long(), -1).sort(-1).values
-    return ((key[..., 1:] != key[..., :-1]) & (key[..., 1:] >= 0)).sum(-1) + (key[..., 0] >= 0)
+    return distinct_keys(torch.where(live, args[3].long(), -1))
+
+
+def center_positions(args, kw):
+    """(B, M) distinct positions of each center's live channels: their winners'
+    window offsets, one for all winners outside the window (the compact
+    backward at (256, 256, 512) computes the forward once a position)."""
+    window = kw["window"]
+    rel = window_offsets(args, kw)
+    key = torch.where((rel >= 0) & (rel < window), rel, window)
+    return distinct_keys(torch.where(args[2] != 0, key, -1))
 
 
 def live_rows(args, kw) -> tuple:
@@ -710,13 +737,23 @@ def pool_bwd_ops(args, kw) -> int:
     return rows * 6 * c1 * c2 + channels * 4 * c2
 
 
-def pool_bwd_bound(args, kw):
+def pool_bwd_position_ops(args, kw) -> int:
+    """The compact backward's work where a center's rows of one window position
+    share that position's forward: per row dh0 = dx @ W2^T; per distinct
+    (center, position) h0 @ W2 and dW2 += h0^T S, S the sum of its rows' dx;
+    per won channel its W3^T row and its dW3 column."""
+    c1, c2 = args[5].shape
+    rows, channels = live_rows(args, kw)
+    positions = int(center_positions(args, kw).sum())
+    return rows * 2 * c1 * c2 + positions * 4 * c1 * c2 + channels * 4 * c2
+
+
+def pool_bwd_bound(args, kw, ops=pool_bwd_ops):
     A, b_c, g, winners, starts, w2, b2, s2, lb2, w3 = args
     c2 = w2.shape[1]
-    ops = pool_bwd_ops(args, kw)
     nb = (nbytes(A, b_c, g, winners, starts, b2, s2, lb2) + (w2.numel() + w3.numel()) * 2
           + A.numel() * 4 + b_c.numel() * 4 + (w2.numel() + w3.numel() + 3 * c2 + w3.shape[1]) * 4)
-    return bound(ops, PEAK_BF16, nb)
+    return bound(ops(args, kw), PEAK_BF16, nb)
 
 
 def prep_bwd_bound(args, kw):
@@ -812,6 +849,7 @@ def kernel_specs():
         "sa_prep_launch": (sa_prep.sa_prep, sa_prep.sa_prep_plain, prep_bound, 20),
         "sa_pool_bwd_compact_launch": (*bwd, pool_bwd_bound, 5),
         "sa_pool_bwd_window_launch": (*bwd, pool_bwd_bound, 5),
+        POOL_BWD_WC: (*bwd, lambda a, k: pool_bwd_bound(a, k, pool_bwd_position_ops), 3),
         "sa_prep_bwd_launch": (sa_prep.sa_prep_bwd, sa_prep.sa_prep_bwd_plain, prep_bwd_bound, 10),
         F32_PREP: (sa_prep.sa_prep, sa_prep.sa_prep_plain, prep_bound, 20),
         PREP_XL: (sa_prep.sa_prep, sa_prep.sa_prep_plain, prep_bound, 20),
@@ -869,7 +907,7 @@ def check_kernels(calls, symbols, layers: dict, compare_pair: bool = False,
             err = check_kernel(symbol, got, want, layer, (args, kw))
             if compare_pair and symbol != MASK:
                 against_pair(symbol, args, kw, got, layer)
-            if symbol in POOL_BWD + POOL_BWD_XL + PREP_BWD:
+            if symbol in POOL_BWD + (POOL_BWD_WC,) + POOL_BWD_XL + PREP_BWD:
                 again = kernel_fn(*args, **kw)
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):
                     raise AssertionError(f"{name} SA{layer}: an output differs between two "
@@ -886,16 +924,28 @@ def check_kernels(calls, symbols, layers: dict, compare_pair: bool = False,
             shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)][:2]
             print(f"kernel {name} SA{layer} {shapes}: max_err {err} ms {ms:.4f} "
                   f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({by})")
-            if symbol in POOL_BWD + POOL_BWD_XL:
+            if symbol in POOL_BWD + (POOL_BWD_WC,) + POOL_BWD_XL:
                 n_rows, _ = live_rows(args, kw)
+                if kw["compact"]:
+                    pos = center_positions(args, kw).flatten().float()
+                    n_pos = int(pos.sum())
+                    mid, p90 = torch.quantile(pos, torch.tensor([0.5, 0.9], device=pos.device))
+                    print(f"  SA{layer} compact rows: {n_rows} live rows over {n_pos} distinct "
+                          f"(center, position) pairs, {n_rows / max(n_pos, 1):.2f} rows a pair; "
+                          f"positions a center: mean {float(pos.mean()):.1f}, median "
+                          f"{float(mid):.0f}, p90 {float(p90):.0f}, max {float(pos.max()):.0f}")
                 torch.cuda.synchronize()
                 base = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
                 kernel_fn(*args, **kw)
                 torch.cuda.synchronize()
                 peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-                print(f"  SA{layer} pool backward: {n_rows} live rows, "
-                      f"{pool_bwd_ops(args, kw) / ms / 1e9:.1f} TFLOP/s over the live-row work, "
+                rate = f"{pool_bwd_ops(args, kw) / ms / 1e9:.1f} TFLOP/s over the live-row work"
+                if symbol == POOL_BWD_WC:
+                    old_ms, _ = pool_bwd_bound(args, kw)
+                    rate += (f" ({pool_bwd_position_ops(args, kw) / ms / 1e9:.1f} over the work a "
+                             f"position shares, its bound_ms; the live-row bound {old_ms:.5f} ms)")
+                print(f"  SA{layer} pool backward: {n_rows} live rows, {rate}, "
                       f"peak memory of one call {peak:.1f} MiB")
             if symbol.startswith("sa_pair_pool"):
                 empty, tiles = empty_tiles(args, kw)
@@ -948,10 +998,12 @@ GEMM_KERNELS = {"sa_pair_pool": ("sa_pair_pool_kernel", "sa_pair_pool_wide"),
                 "sa_pair_pool_512": ("sa_pair_pool_512",),
                 "sa_prep_512": ("sa_prep_512",),
                 "sa_pair_pool_bwd": ("pool_bwd_tiles", "pool_bwd_wide", "pool_bwd_compact"),
+                "sa_pair_pool_bwd_wide_compact": ("pool_bwd_compact_wide",),
                 "sa_prep_bwd": ("prep_bwd_tiles", "prep_bwd_cluster"),
                 "sa_prep": ("sa_prep_kernel", "sa_prep_cluster"),
                 "sa_prep_f32": ("prep_tc", "prep_fwd_cluster")}
 REQUIRED_KERNELS = (("sa_pair_pool_bwd", "pool_bwd_compact"), ("sa_prep_bwd", "prep_bwd_cluster"),
+                    ("sa_pair_pool_bwd_wide_compact", "pool_bwd_compact_wide"),
                     ("sa_prep", "sa_prep_cluster"), ("sa_prep_f32", "prep_tc_cluster"),
                     ("sa_prep_f32", "prep_fwd_cluster"), ("sa_pair_pool_512", "sa_pair_pool_512"),
                     ("sa_prep_512", "sa_prep_512"))
@@ -1169,14 +1221,25 @@ def bwd_edge_inputs(B=2, N=2048, M=1024, window=256, widths=(128, 128, 256), see
     return args, {"window": window}
 
 
-# pool backward edge inputs: (layer, widths, N, M, window). The full-width SA2
-# layer at the flagship window and at 512, SA1's widths at 2048 (both variants
-# called directly; the model picks compact at both), and the tiny SA1 triple
+# pool backward edge inputs: (layer, widths, N, M, window[, tie pool]). The
+# full-width SA2 layer at the flagship window and at 512, SA1's widths at 2048
+# (both variants called directly; the model picks compact at both), the tiny
+# SA1 triple, and the width-4 backbone's SA1 shape, (256, 256, 512) at W = 1024
+# over 50 000 points (its compact rows on csrc/sa_pair_pool_bwd_wide_compact.cu:
+# blocks of centers with up to 512 positions each, with none, with a
+# position for all winners outside the window), once with the random winners
+# drawn from a window's first 4 points (rows of many centers and channels tied
+# on one point)
 BWD_EDGE_CASES = ((2, (128, 128, 256), 2048, 1024, 256), (2, (128, 128, 256), 2048, 1024, 512),
-                  (1, (64, 64, 128), 4096, 2048, 2048), (1, (16, 16, 32), 512, 128, 64))
+                  (1, (64, 64, 128), 4096, 2048, 2048), (1, (16, 16, 32), 512, 128, 64),
+                  (1, (256, 256, 512), 50000, 2048, 1024),
+                  (1, (256, 256, 512), 50000, 2048, 1024, 4))
 
 
-def bwd_symbol(compact: bool, xl: bool = False) -> str:
+def bwd_symbol(compact: bool, xl: bool = False, wide: bool = False) -> str:
+    """The pool backward symbol of a variant at the XL widths, the WIDE ones or below."""
+    if compact and wide and not xl:
+        return POOL_BWD_WC
     symbols = POOL_BWD_XL if xl else POOL_BWD
     return symbols[0] if compact else symbols[1]
 
@@ -3405,8 +3468,10 @@ def winners_symbol(kw, args) -> str:
 def pool_bwd_symbol(kw, args) -> str:
     """The pool backward symbol a recorded call runs on: its variant and widths' kernel."""
     from eda_tpu_torch.ops.cuda.sa_kernel import XL, kernel_widths
+    from eda_tpu_torch.ops.cuda.sa_pool_bwd import WIDE
 
-    return bwd_symbol(kw["compact"], kernel_widths(args[0].shape[-1], *args[9].shape) == XL)
+    widths = kernel_widths(args[0].shape[-1], *args[9].shape)
+    return bwd_symbol(kw["compact"], widths == XL, widths == WIDE)
 
 
 def prep_bwd_symbol(kw, args) -> str:
@@ -3424,7 +3489,7 @@ def w4x_step_launches(mode: str, f32: bool = False) -> dict:
     winners pool, the XL windowed backward and the c1-512 prep and its backward."""
     out = {"fps_launch": 4, F32_PREP if f32 else "sa_prep_launch": 1,
            F32_PREP_XL if f32 else PREP_XL: 3, pool_symbol(mode, True): 1,
-           pool_symbol_xl(mode, True): 3, POOL_BWD[0]: 1, POOL_BWD_XL[1]: 3,
+           pool_symbol_xl(mode, True): 3, POOL_BWD_WC: 1, POOL_BWD_XL[1]: 3,
            F32_PREP_BWD if f32 else "sa_prep_bwd_launch": 1,
            F32_PREP_BWD_XL if f32 else PREP_BWD_XL: 3}
     if mode == "pre":
@@ -3560,7 +3625,7 @@ def w4x_training(cfg, label: str, f32: bool) -> list:
     from eda_tpu_torch.ops.cuda import build
 
     state, step, batch = build_trainer(cfg, batch_size=BATCH, device="cuda", seed=0)
-    pools = (pool_symbol("pair", True), pool_symbol_xl("pair", True), POOL_BWD[0],
+    pools = (pool_symbol("pair", True), pool_symbol_xl("pair", True), POOL_BWD_WC,
              POOL_BWD_XL[1])
     prep_bwd = (F32_PREP_BWD, F32_PREP_BWD_XL) if f32 else ("sa_prep_bwd_launch", PREP_BWD_XL)
     symbols = prep_bwd if f32 else pools + prep_bwd
@@ -3586,7 +3651,7 @@ def w4x_training(cfg, label: str, f32: bool) -> list:
     for row, symbol in zip(rows, symbols):
         row["launches"] = counts[symbol]
     profile(lambda: step(state, batch), f"{label} training step",
-            also=("sa_pair_pool_512", "gemm_kernel", "pool_bwd_wide", "ln_backward"))
+            also=("sa_pair_pool_512", "gemm_kernel", "pool_bwd_compact_wide", "ln_backward"))
     if not f32:
         for mode in ("mxu", "pre"):
             rows += w4x_radius_training(mode, state, step, batch)

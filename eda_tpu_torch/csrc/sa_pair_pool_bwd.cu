@@ -90,8 +90,9 @@
 //   * Scratch: one record of c1 c2 + c2 c3 + 3 c2 + c3 floats per CTA (SA2:
 //     512 CTAs, 99 MB at batch 8) and one dA record of W c1 floats per block
 //     (SA1: 1024 blocks, 268 MB at batch 8), no pair-row buffers.
-//   * The width-2 backbone's (256, 256, 512) runs in pool_bwd_wide: the same
-//     rows and sums, with W2 (128 KiB) and W3 (256 KiB) streamed from L2
+//   * The windowed rows at (256, 256, 512) (the width-2 backbone's SA2-4) run
+//     pool_bwd_wide (the compact rows there, the width-4 backbone's SA1, run
+//     csrc/sa_pair_pool_bwd_wide_compact.cu): the same rows and sums, with W2 (128 KiB) and W3 (256 KiB) streamed from L2
 //     through a ring, since the tile buffers alone take most of a block's
 //     shared memory (its note below). Its hash tables have 1024 slots a warp
 //     (up to min(c3, W) = 512 winners a center). Its record is 197 888 floats
@@ -106,20 +107,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "wgmma.cuh"
+#include "pool_bwd_common.cuh"
 
 namespace {
 
-using namespace wg;
+using namespace pool_bwd;
 
 constexpr int kThreads = 256;  // two warpgroups
 constexpr int kWarps = kThreads / 32;
 constexpr int kCenters = 16;
-constexpr int kRows = 64;      // rows per wgmma tile
 constexpr int kHash = 512;     // hash slots per warp (c3 <= 256 entries)
 constexpr int kHashLog = 9, kHashOb = 8;  // log2(kHash); the bits of a channel in a key
-constexpr uint32_t kEmpty = 0xffffffffu;
-constexpr float kEps = 1e-5f;
 constexpr int kMaxSharedBytes = 232448;
 
 __host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
@@ -161,35 +159,6 @@ struct Layout {
   }
 };
 
-// A warp's hash table of 2^LOG slots keyed by window position rel; an entry
-// is (rel << OB) | o, o < 2^OB the channel.
-template <int LOG>
-__device__ __forceinline__ uint32_t hash_slot(int rel) {
-  return (uint32_t(rel) * 2654435761u) >> (32 - LOG);
-}
-
-// Insert (rel, o) into a warp's table: the slot of rel keeps the smallest o.
-template <int LOG, int OB>
-__device__ __forceinline__ void hash_insert(uint32_t* T, int rel, int o) {
-  const uint32_t key = (uint32_t(rel) << OB) | uint32_t(o);
-  uint32_t h = hash_slot<LOG>(rel);
-  while (true) {
-    const uint32_t old = atomicCAS(&T[h], kEmpty, key);
-    if (old == kEmpty) return;
-    if ((old >> OB) == uint32_t(rel)) {
-      atomicMin(&T[h], key);
-      return;
-    }
-    h = (h + 1) & ((1u << LOG) - 1);
-  }
-}
-template <int LOG, int OB>
-__device__ __forceinline__ int hash_leader(const uint32_t* T, int rel) {
-  uint32_t h = hash_slot<LOG>(rel);
-  while ((T[h] >> OB) != uint32_t(rel)) h = (h + 1) & ((1u << LOG) - 1);
-  return int(T[h] & ((1u << OB) - 1));
-}
-
 // No memory access moves across it: later loads stay later (and out of
 // registers until then).
 __device__ __forceinline__ void compiler_fence() { asm volatile("" ::: "memory"); }
@@ -198,77 +167,6 @@ __device__ __forceinline__ void compiler_fence() { asm volatile("" ::: "memory")
 template <int C1>
 __device__ __forceinline__ int dh0_at(int r, int c) {
   return r * C1 + (c ^ (((r & 7) << 3) & (C1 - 1)));
-}
-
-// ---- The per-tile LayerNorm of h1 in the accumulator layout, shared by the
-// kernels below. Warpgroup wg holds the C2 / 2 = H2 columns c2 = wg H2 .. of
-// a tile's 64 rows, a thread its rows r0 and r0 + 8 at columns c2 + 8 j + 2 t4
-// (and + 1). A row's sums over C2: the quad's, then the two warpgroups'
-// halves added in order through shared memory (xs: [2 uses][2 warpgroups][64
-// rows][2] floats).
-
-// the thread's rows' partial sums (a, b) into its warpgroup's slot of `use`
-__device__ __forceinline__ void row_sums_put(float (&a)[2], float (&b)[2], float* xs, int use,
-                                             int wg, int r0, int t4) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    a[h] += __shfl_xor_sync(0xffffffffu, a[h], 1);
-    a[h] += __shfl_xor_sync(0xffffffffu, a[h], 2);
-    b[h] += __shfl_xor_sync(0xffffffffu, b[h], 1);
-    b[h] += __shfl_xor_sync(0xffffffffu, b[h], 2);
-    if (t4 == 0)
-      *reinterpret_cast<float2*>(xs + ((2 * use + wg) * kRows + r0 + 8 * h) * 2) =
-          make_float2(a[h], b[h]);
-  }
-}
-
-// after a barrier: the rows' sums of `use`, the two warpgroups' halves in order
-__device__ __forceinline__ void row_sums_get(float (&a)[2], float (&b)[2], const float* xs,
-                                             int use, int r0) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float2 p0 = *reinterpret_cast<const float2*>(xs + (2 * use * kRows + r0 + 8 * h) * 2);
-    const float2 p1 =
-        *reinterpret_cast<const float2*>(xs + ((2 * use + 1) * kRows + r0 + 8 * h) * 2);
-    a[h] = p0.x + p1.x;
-    b[h] = p0.y + p1.y;
-  }
-}
-
-// a row's mean and rstd from its sums of z and z^2 over C2 columns
-template <int C2>
-__device__ __forceinline__ void row_stats(const float (&sum)[2], const float (&sq)[2], float c2f,
-                                          float rc2, float (&mean)[2], float (&rstd)[2]) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mean[h] = div_width<C2>(sum[h], c2f, rc2);
-    const float var = fmaxf(div_width<C2>(sq[h], c2f, rc2) - mean[h] * mean[h], 0.f);
-    rstd[h] = rsqrtf(var + kEps);
-  }
-}
-
-// LN forward: acc (X, the warpgroup's columns) becomes z = X + b2; the rows'
-// mean and rstd (a CTA barrier)
-template <int C2, int H2>
-__device__ __forceinline__ void ln_stats(float (&acc)[H2 / 2], const float* b2s, float* xs,
-                                         int wg, int r0, int t4, float c2f, float rc2,
-                                         float (&mean)[2], float (&rstd)[2]) {
-  const int c2 = wg * H2;
-  float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < H2 / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float z = acc[4 * j + e] + b2s[c2 + 8 * j + 2 * t4 + (e & 1)];
-      acc[4 * j + e] = z;
-      sum[e / 2] += z;
-      sq[e / 2] += z * z;
-    }
-  }
-  row_sums_put(sum, sq, xs, 0, wg, r0, t4);
-  __syncthreads();
-  row_sums_get(sum, sq, xs, 0, r0);
-  row_stats<C2>(sum, sq, c2f, rc2, mean, rstd);
 }
 
 // acc (z) becomes xhat; h1 = bf16(relu(xhat s2 + lb2)) into the h1 tile (row
@@ -1478,7 +1376,6 @@ __device__ __forceinline__ void wide_fetch(uint32_t dst, const uint16_t* __restr
 // h1 / dx 32 KiB each, D / dh0 64 KiB, the ring 32 KiB, row_of, row_ch and
 // bf16(g) 16 KiB each, the threads' column sums 12 KiB, vectors, row
 // metadata and the fold's barriers 6.5 KiB: 231 936 bytes.
-template <bool COMPACT>
 __global__ void __launch_bounds__(kThreads, 1)
 pool_bwd_wide(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
               const float* __restrict__ g, const int* __restrict__ win,
@@ -1585,52 +1482,39 @@ pool_bwd_wide(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
         for (int o = lane; o < C3; o += 32)
           gbs[cc * C3 + o] = __bfloat16_as_ushort(__float2bfloat16_rn(gc[o]));
         int n = 0;
-        if constexpr (COMPACT) {
+        for (int i = lane; i < (1 << kWideHashLog); i += 32) T[i] = kEmpty;
+        __syncwarp();
+        int rel[NO];
+        bool live[NO];
 #pragma unroll
-          for (int i = 0; i < NO; ++i) {
-            const int o = 32 * i + lane;
-            const bool live = gc[o] != 0.f;
-            const uint32_t mask = __ballot_sync(0xffffffffu, live);
-            const int idx = n + __popc(mask & lt);
-            rof[o] = live ? idx : -1;
-            if (live) rch[idx] = o;
-            n += __popc(mask);
-          }
-        } else {
-          for (int i = lane; i < (1 << kWideHashLog); i += 32) T[i] = kEmpty;
-          __syncwarp();
-          int rel[NO];
-          bool live[NO];
-#pragma unroll
-          for (int i = 0; i < NO; ++i) {
-            const int o = 32 * i + lane;
-            rel[i] = wc[o] - start;
-            live[i] = gc[o] != 0.f && rel[i] >= 0 && rel[i] < W;
-            if (live[i]) hash_insert<kWideHashLog, kWideHashOb>(T, rel[i], o);
-          }
-          __syncwarp();
-          int lead[NO];
-#pragma unroll
-          for (int i = 0; i < NO; ++i) {
-            const int o = 32 * i + lane;
-            lead[i] = live[i] ? hash_leader<kWideHashLog, kWideHashOb>(T, rel[i]) : -1;
-            const uint32_t mask = __ballot_sync(0xffffffffu, lead[i] == o);
-            const int idx = n + __popc(mask & lt);
-            if (lead[i] == o) {
-              rof[o] = idx;
-              rch[idx] = o;
-            }
-            n += __popc(mask);
-          }
-          __syncwarp();
-#pragma unroll
-          for (int i = 0; i < NO; ++i) {
-            const int o = 32 * i + lane;
-            if (lead[i] < 0) rof[o] = -1;
-            else if (lead[i] != o) rof[o] = rof[lead[i]];
-          }
-          __syncwarp();  // the table is cleared for the warp's next center
+        for (int i = 0; i < NO; ++i) {
+          const int o = 32 * i + lane;
+          rel[i] = wc[o] - start;
+          live[i] = gc[o] != 0.f && rel[i] >= 0 && rel[i] < W;
+          if (live[i]) hash_insert<kWideHashLog, kWideHashOb>(T, rel[i], o);
         }
+        __syncwarp();
+        int lead[NO];
+#pragma unroll
+        for (int i = 0; i < NO; ++i) {
+          const int o = 32 * i + lane;
+          lead[i] = live[i] ? hash_leader<kWideHashLog, kWideHashOb>(T, rel[i]) : -1;
+          const uint32_t mask = __ballot_sync(0xffffffffu, lead[i] == o);
+          const int idx = n + __popc(mask & lt);
+          if (lead[i] == o) {
+            rof[o] = idx;
+            rch[idx] = o;
+          }
+          n += __popc(mask);
+        }
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < NO; ++i) {
+          const int o = 32 * i + lane;
+          if (lead[i] < 0) rof[o] = -1;
+          else if (lead[i] != o) rof[o] = rof[lead[i]];
+        }
+        __syncwarp();  // the table is cleared for the warp's next center
         if (lane == 0) rstart[cc + 1] = n;
       }
     }
@@ -2016,13 +1900,7 @@ pool_bwd_wide(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
         if (!mlead[r]) continue;
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
         for (int n = r; n >= 0; n = mnext[n]) {
-          float4 u = *reinterpret_cast<const float4*>(dh0s + dh0_at<C1>(n, 4 * q));
-          if constexpr (COMPACT) {
-            u.x = __bfloat162float(__float2bfloat16_rn(u.x));
-            u.y = __bfloat162float(__float2bfloat16_rn(u.y));
-            u.z = __bfloat162float(__float2bfloat16_rn(u.z));
-            u.w = __bfloat162float(__float2bfloat16_rn(u.w));
-          }
+          const float4 u = *reinterpret_cast<const float4*>(dh0s + dh0_at<C1>(n, 4 * q));
           v.x += u.x;
           v.y += u.y;
           v.z += u.z;
@@ -2172,60 +2050,6 @@ pool_bwd_wide(const uint16_t* __restrict__ A, const uint16_t* __restrict__ bc,
   write_column_sums<C2, H2>(run(0), red, rec + C1 * C2 + C2 * C3, tid);
 }
 
-// dA (B, N, C1): for each point, the dA records of the windows that cover it,
-// added in block order. A CTA takes kReducePoints points of one batch row;
-// its first warp lists the blocks whose window meets them, in order.
-constexpr int kReducePoints = 64;
-
-template <int C1>
-__global__ void __launch_bounds__(256)
-reduce_dA(const float* __restrict__ da_records, const int* __restrict__ starts, int n_blk,
-          int N, int W, float* __restrict__ dA) {
-  extern __shared__ int hits[];  // [n_blk] block, [n_blk] its window's start
-  __shared__ int n_hits;
-  const int b = blockIdx.y, p0 = blockIdx.x * kReducePoints;
-  const int p1 = min(p0 + kReducePoints, N);
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    int n = 0;
-    for (int j0 = 0; j0 < n_blk; j0 += 32) {
-      const int j = j0 + lane;
-      int s = 0;
-      bool hit = false;
-      if (j < n_blk) {
-        s = min(max(starts[(size_t)b * n_blk + j], 0), N - W);
-        hit = s < p1 && s + W > p0;
-      }
-      const uint32_t mask = __ballot_sync(0xffffffffu, hit);
-      if (hit) {
-        const int k = n + __popc(mask & ((1u << lane) - 1u));
-        hits[k] = j;
-        hits[n_blk + k] = s;
-      }
-      n += __popc(mask);
-    }
-    if (lane == 0) n_hits = n;
-  }
-  __syncthreads();
-  const int n = n_hits;
-  for (int i = threadIdx.x; i < kReducePoints * (C1 / 4); i += blockDim.x) {
-    const int p = p0 + i / (C1 / 4), q = i % (C1 / 4);
-    if (p >= p1) break;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int k = 0; k < n; ++k) {
-      const int rel = p - hits[n_blk + k];
-      if (rel < 0 || rel >= W) continue;
-      const float4 v = *reinterpret_cast<const float4*>(
-          da_records + (((size_t)b * n_blk + hits[k]) * W + rel) * C1 + 4 * q);
-      acc.x += v.x;
-      acc.y += v.y;
-      acc.z += v.z;
-      acc.w += v.w;
-    }
-    *reinterpret_cast<float4*>(dA + ((size_t)b * N + p) * C1 + 4 * q) = acc;
-  }
-}
-
 template <int C1, int C2, int C3, bool COMPACT>
 cudaError_t launch(const uint16_t* A, const uint16_t* bc, const float* g, const int* win,
                    const int* starts, const uint16_t* w2, const float* b2, const float* s2,
@@ -2265,7 +2089,6 @@ cudaError_t launch(const uint16_t* A, const uint16_t* bc, const float* g, const 
   return cudaGetLastError();
 }
 
-template <bool COMPACT>
 cudaError_t launch_wide(const uint16_t* A, const uint16_t* bc, const float* g, const int* win,
                         const int* starts, const uint16_t* w2, const float* b2, const float* s2,
                         const float* lb2, const uint16_t* w3, int B, int N, int M, int W,
@@ -2284,10 +2107,10 @@ cudaError_t launch_wide(const uint16_t* A, const uint16_t* bc, const float* g, c
   if (n_rec > 0) {
     err = cudaMemsetAsync(da_records, 0, (size_t)n_rec * W * C1 * sizeof(float), s);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(pool_bwd_wide<COMPACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(pool_bwd_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)L.total);
     if (err != cudaSuccess) return err;
-    pool_bwd_wide<COMPACT><<<ctas, kThreads, L.total, s>>>(
+    pool_bwd_wide<<<ctas, kThreads, L.total, s>>>(
         A, bc, g, win, starts, w2, b2, s2, lb2, w3, B, N, M, W, (float)c2_real,
         1.f / (float)c2_real, dbc, records, da_records, stage);
     err = cudaGetLastError();
@@ -2374,10 +2197,11 @@ int dispatch(const void* A, const void* bc, const float* g, const int* win, cons
       EDA_BWD_LAUNCH(128, 128, 256)
   }
 #undef EDA_BWD_LAUNCH
-  if (c1 == kWideC1 && c2 == kWideC2 && c3 == kWideC3)
-    return launch_wide<COMPACT>(a, bcv, g, win, starts, w2v, b2, s2, lb2, w3v, B, N, M, W,
-                                c2_real, dA, dbc, wout, records, da_records,
-                                static_cast<uint16_t*>(stage), ctas, s);
+  // windowed rows at (256, 256, 512) run pool_bwd_wide; the compact rows there run
+  // csrc/sa_pair_pool_bwd_wide_compact.cu (no kernel of this file takes them)
+  if (c1 == kWideC1 && c2 == kWideC2 && c3 == kWideC3 && !COMPACT)
+    return launch_wide(a, bcv, g, win, starts, w2v, b2, s2, lb2, w3v, B, N, M, W, c2_real, dA,
+                       dbc, wout, records, da_records, static_cast<uint16_t*>(stage), ctas, s);
   return cudaErrorInvalidValue;
 }
 
@@ -2390,7 +2214,9 @@ extern "C" {
 // of 16 in [0, N-W]); w2: (c1, c2) bf16; b2/s2/lb2: (c2,) f32; w3: (c2, c3)
 // bf16. (c1, c2, c3) is one of (16, 16, 32), (32, 32, 64), (64, 64, 128),
 // (128, 128, 256), the model's layer widths, or (256, 256, 512), the width-2
-// backbone's (pool_bwd_wide); narrower layers come zero-padded
+// backbone's (pool_bwd_wide, windowed rows only: the compact ones at these
+// widths run csrc/sa_pair_pool_bwd_wide_compact.cu); narrower layers come
+// zero-padded
 // to one of them (zero W2 and W3 rows and columns, b2, s2, lb2, g past the
 // real widths) and c2_real <= c2 is the real interior width, the LayerNorm's
 // divisor. Outputs: dA (B, N, c1) f32; dbc (B, M, c1) f32; wout

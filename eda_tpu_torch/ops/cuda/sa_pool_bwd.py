@@ -1,6 +1,7 @@
 """SA pair-pool backward: the CUDA kernels ``csrc/sa_pair_pool_bwd.cu`` (up to
-(256, 256, 512)) and ``csrc/sa_pair_pool_bwd_512.cu`` (above it, up to (512, 512,
-1024)) and their plain version.
+(256, 256, 512); its compact rows at (256, 256, 512) in
+``csrc/sa_pair_pool_bwd_wide_compact.cu``) and ``csrc/sa_pair_pool_bwd_512.cu``
+(above it, up to (512, 512, 1024)) and their plain version.
 
 Counterpart of ``eda_tpu/ops/pallas/sa_kernel.py:sa_pair_pool_bwd_pallas``.
 The forward (``sa_kernel.sa_pair_pool_winners``) pooled, per (center, channel),
@@ -48,11 +49,12 @@ from eda_tpu_torch.ops.cuda.sa_kernel import (
 from eda_tpu_torch.ops.cuda.sa_prep import EPS, bf16_round
 
 PLAIN_MAX_ELEMS = 1 << 23  # (center, row, channel) elements the plain version holds at once
-# The wide kernel (csrc/sa_pair_pool_bwd.cu, pool_bwd_wide): one CTA an SM,
-# each over every ctas-th block of 16 centers with one record; it stages the
-# H0, H1 and bf16(dx) images (64 x 256 bf16 each) of up to WIDE_STAGE tiles of
-# 64 rows before folding their weight gradients into its record. Above WIDE,
-# up to XL, layers run csrc/sa_pair_pool_bwd_512.cu (both variants).
+# The wide kernel (csrc/sa_pair_pool_bwd.cu, pool_bwd_wide), the windowed rows at
+# WIDE: one CTA an SM, each over every ctas-th block of 16 centers with one
+# record; it stages the H0, H1 and bf16(dx) images (64 x 256 bf16 each) of up to
+# WIDE_STAGE tiles of 64 rows before folding their weight gradients into its
+# record. Above WIDE, up to XL, layers run csrc/sa_pair_pool_bwd_512.cu (both
+# variants).
 WIDE = (256, 256, 512)
 WIDE_STAGE = 16
 WIDE_STAGE_ELEMS = WIDE_STAGE * 3 * 64 * 256
@@ -61,6 +63,15 @@ WIDE_STAGE_ELEMS = WIDE_STAGE * 3 * 64 * 256
 # one record, nothing staged (its dW2 stays in registers, dW3 is added to the
 # record a quarter of the channels at a time).
 PERSISTENT_COMPACT = (128, 128, 256)
+# The compact rows at WIDE (the width-4 backbone's SA1) run
+# csrc/sa_pair_pool_bwd_wide_compact.cu: one CTA an SM with one record, the
+# forward once a distinct (center, position); each CTA keeps a row a position
+# of its block (h1 and h0 in bf16, S, the position's sum of bf16(dx), in f32:
+# 2 KiB) in a buffer of WIDE_COMPACT_BUF_ROWS rows (the kernel's kMaxBufRows; a
+# center has at most 512) and a map (center, channel) -> buffer row, for dW2 and
+# dW3 at the block's end.
+WIDE_COMPACT_BUF_ROWS = 1024
+WIDE_COMPACT_ROW = 1024  # bf16 elements of a buffer row
 # csrc/sa_pair_pool_bwd_512.cu: the pair rows gathered once (their count read
 # back, one host sync), the products through device memory; the weight
 # gradients' partial products a record a split of the rows (at least
@@ -79,6 +90,12 @@ XL_KERNELS = {
         replaces="eda_tpu/ops/pallas/sa_kernel.py:" + ("649" if compact else "399")))
     for compact in (False, True)
 }
+_WIDE_COMPACT_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,) * 7
+                          + (ctypes.c_int,))
+WIDE_COMPACT_KERNEL = register(Kernel(
+    "sa_pair_pool_bwd_wide_compact", "sa_pool_bwd_wide_compact_launch", _WIDE_COMPACT_ARGTYPES,
+    replaces="eda_tpu/ops/pallas/sa_kernel.py:649",
+))
 COMPACT_KERNEL = register(Kernel(
     "sa_pair_pool_bwd", "sa_pool_bwd_compact_launch", _ARGTYPES,
     replaces="eda_tpu/ops/pallas/sa_kernel.py:649",
@@ -107,7 +124,9 @@ def scratch_plan(widths, B: int, M: int, window: int, sms: int, compact: bool = 
     a block), ``da_records`` (f32, a window's dA a block) and ``stage`` (bf16,
     the wide kernel's staged tiles a CTA; None otherwise). ``sms``: the
     card's SM count, the persistent kernels' CTAs at most (the wide triple,
-    and ``PERSISTENT_COMPACT`` with ``compact``). At ``XL`` ``ctas`` is the
+    and ``PERSISTENT_COMPACT`` with ``compact``). The compact rows at ``WIDE``
+    also take ``buf`` (bf16, a CTA's buffer of position rows) and ``map``
+    (int32, a CTA's (center, channel) -> buffer row). At ``XL`` ``ctas`` is the
     splits of the weight-gradient products over the call's ``rows`` pair rows
     (``xl_splits``), a record each of dW2 and dW3 (the vector gradients come
     from the LayerNorm's per-warp records)."""
@@ -124,7 +143,9 @@ def scratch_plan(widths, B: int, M: int, window: int, sms: int, compact: bool = 
     if persistent and blocks > 0:
         ctas = min(blocks, sms)
         plan.update(ctas=ctas, records=(ctas, record))
-        if tuple(widths) == WIDE:
+        if tuple(widths) == WIDE and compact:
+            plan.update(buf=(ctas, WIDE_COMPACT_BUF_ROWS, WIDE_COMPACT_ROW), map=(ctas, BLOCK, C3))
+        elif tuple(widths) == WIDE:
             plan["stage"] = (ctas, WIDE_STAGE_ELEMS)
     return plan
 
@@ -260,6 +281,9 @@ def sa_pool_bwd(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, *,
     if widths == XL:
         _launch_xl(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, c2, window, compact,
                    dA, dbc, out)
+    elif widths == WIDE and compact:
+        _launch_wide_compact(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, c2, window,
+                             dA, dbc, out)
     else:
         plan = scratch_plan(widths, B, M, window,
                             torch.cuda.get_device_properties(A.device).multi_processor_count,
@@ -276,6 +300,29 @@ def sa_pool_bwd(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, *,
     vec = out[n_w2 + n_w3:]
     return (dA[..., :c1], dbc[..., :c1], dw2[:c1, :c2], vec[:c2], vec[C2:C2 + c2],
             vec[2 * C2:2 * C2 + c2], dw3[:c2, :c3], vec[3 * C2:3 * C2 + c3])
+
+
+def _launch_wide_compact(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, c2: int,
+                         window: int, dA, dbc, out) -> None:
+    """csrc/sa_pair_pool_bwd_wide_compact.cu on operands padded to ``WIDE``: W3
+    handed over transposed (a row a channel, for the rows' dh1), the scratch of
+    ``scratch_plan(..., compact=True)``."""
+    B, N, _ = A.shape
+    M = b_c.shape[1]
+    plan = scratch_plan(WIDE, B, M, window,
+                        torch.cuda.get_device_properties(A.device).multi_processor_count, True)
+    f32 = dict(dtype=torch.float32, device=A.device)
+    records = torch.empty(plan["records"], **f32)
+    da_records = torch.empty(plan["da_records"], **f32)
+    buf = pmap = None
+    if plan["ctas"]:
+        buf = torch.empty(plan["buf"], dtype=torch.bfloat16, device=A.device)
+        pmap = torch.empty(plan["map"], dtype=torch.int32, device=A.device)
+    w3t = w3.t().contiguous()
+    WIDE_COMPACT_KERNEL(ptr(A), ptr(b_c), ptr(g), ptr(winners), ptr(starts), ptr(w2), ptr(b2),
+                        ptr(s2), ptr(lb2), ptr(w3t), B, N, M, c2, window, ptr(dA), ptr(dbc),
+                        ptr(out), ptr(records), ptr(da_records), ptr(buf), ptr(pmap),
+                        plan["ctas"])
 
 
 def _launch_xl(A, b_c, g, winners, starts, w2, b2, s2, lb2, w3, c2: int, window: int,

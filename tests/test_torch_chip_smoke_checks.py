@@ -206,6 +206,14 @@ def test_tie_input_plain_winners_are_the_rule(window):
         assert torch.equal(v[~none], args[10].expand_as(v)[~none])  # every value is b3
 
 
+# the compact wide backward's kernel and its dA reduction as cuobjdump names them: the
+# file's anonymous namespace carries the file's name into every function's name
+WC_KERNEL = ("_ZN65_GLOBAL__N__353943cc_32_sa_pair_pool_bwd_wide_compact_cu_ec332461"
+             "21pool_bwd_compact_wideEPKtS1_PKfPKiS5_S1_S3_S3_S3_S1_iiiiffPfS6_S6_PtiPi")
+WC_REDUCE = ("_ZN65_GLOBAL__N__353943cc_32_sa_pair_pool_bwd_wide_compact_cu_ec332461"
+             "9reduce_dAEPKfPKiiiiPf")
+
+
 def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
     class FakeBuild:
         @staticmethod
@@ -217,19 +225,23 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
     spill_log = "   8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads"
     ok = {"sa_pair_pool": ok_log, "sa_pair_pool_bwd": ok_log, "sa_prep_bwd": ok_log,
           "sa_prep": ok_log, "sa_prep_f32": ok_log, "sa_pair_pool_512": ok_log,
-          "sa_prep_512": ok_log, "fps": spill_log}
+          "sa_prep_512": ok_log, "sa_pair_pool_bwd_wide_compact": ok_log, "fps": spill_log}
     monkeypatch.setattr(chip_smoke, "hgmma_counts", lambda lib: None)
     chip_smoke.check_pool_build(ok, FakeBuild)
-    assert capsys.readouterr().out.count("not checked") == 7
+    assert capsys.readouterr().out.count("not checked") == 8
     for source in ("sa_pair_pool", "sa_pair_pool_bwd", "sa_prep_bwd", "sa_prep",
-                   "sa_prep_f32", "sa_pair_pool_512", "sa_prep_512"):  # any spill
+                   "sa_prep_f32", "sa_pair_pool_512", "sa_prep_512",
+                   "sa_pair_pool_bwd_wide_compact"):  # any spill
         with pytest.raises(AssertionError, match="spill"):
             chip_smoke.check_pool_build({**ok, source: spill_log}, FakeBuild)
     sass = {"sa_pair_pool": {"_Z19sa_pair_pool_kernelILi16E": 24, "_Z3fps": 0,
                              "_Z17sa_pair_pool_wideILb1ELi0ELb0E": 48},
             "sa_pair_pool_bwd": {"_Z14pool_bwd_tilesILi16E": 12, "_Z14pool_bwd_tilesILi32E": 0,
-                                 "_Z14reduce_records": 0, "_Z13pool_bwd_wideILb1E": 40,
+                                 "_Z14reduce_records": 0, "_Z13pool_bwd_wide": 40,
                                  "_Z16pool_bwd_compact": 30},
+            # the compact rows at (256, 256, 512); its reductions hold none
+            "sa_pair_pool_bwd_wide_compact": {WC_KERNEL: 54, WC_REDUCE: 0,
+                                              "_Z14reduce_records": 0},
             "sa_prep_bwd": {"_Z14prep_bwd_tilesILi64ELb1E": 6, "_Z14reduce_records": 0,
                             "_Z16prep_bwd_cluster": 10},
             "sa_prep": {"_Z14sa_prep_kernelILi64EE": 1, "_Z15sa_prep_cluster": 33},
@@ -250,7 +262,7 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
     assert "72 HGMMA instructions in 2" in out and "98 HGMMA instructions in 4" in out
     assert "pool_bwd_compact: 30 HGMMA" in out and "prep_bwd_cluster: 10 HGMMA" in out
     assert "sa_prep_cluster: 33 HGMMA" in out and "prep_tc_cluster: 72 HGMMA" in out
-    assert "prep_fwd_cluster: 24 HGMMA" in out
+    assert "prep_fwd_cluster: 24 HGMMA" in out and "pool_bwd_compact_wide: 54 HGMMA" in out
     assert "80 HGMMA instructions in 2" in out and "16 HGMMA instructions in 2" in out
     for source, name in (("sa_pair_pool_bwd", "_Z16pool_bwd_compact"),
                          ("sa_prep_bwd", "_Z16prep_bwd_cluster"),
@@ -261,6 +273,10 @@ def test_check_pool_build_refuses_spills_and_missing_hgmma(monkeypatch, capsys):
         with pytest.raises(AssertionError, match=f"{source} holds no"):
             chip_smoke.check_pool_build(ok, FakeBuild)
         sass[source][name] = n
+    n = sass["sa_pair_pool_bwd_wide_compact"].pop(WC_KERNEL)  # it must be built
+    with pytest.raises(AssertionError, match="sa_pair_pool_bwd_wide_compact GEMM kernel"):
+        chip_smoke.check_pool_build(ok, FakeBuild)
+    sass["sa_pair_pool_bwd_wide_compact"][WC_KERNEL] = n
     sass["sa_pair_pool"]["_Z17sa_pair_pool_wideILb1ELi0ELb0E"] = 0  # a wide kernel counts too
     with pytest.raises(AssertionError, match="sa_pair_pool GEMM kernel has no HGMMA"):
         chip_smoke.check_pool_build(ok, FakeBuild)
@@ -827,7 +843,8 @@ def test_prep_xl_tolerance_takes_flipped_roundings_not_wrong_sums():
 
 
 def test_w4x_training_launch_table_and_inputs():
-    """The W4X training step's launch table (SA1 on the flagship's kernels,
+    """The W4X training step's launch table (SA1 on the flagship's kernels, its
+    compact backward on the kernel of the compact rows at (256, 256, 512);
     SA2-4 on the XL winners pool, the XL windowed backward and the c1-512
     prep backward), the symbols the recorder files its calls under, and the
     XL backward's edge cases."""
@@ -840,7 +857,7 @@ def test_w4x_training_launch_table_and_inputs():
                     chip_smoke.F32_PREP_XL if f32 else chip_smoke.PREP_XL: 3,
                     chip_smoke.pool_symbol(mode, True): 1,
                     chip_smoke.pool_symbol_xl(mode, True): 3,
-                    "sa_pool_bwd_compact_launch": 1, "sa_pool_bwd_512_window_launch": 3,
+                    "sa_pool_bwd_wide_compact_launch": 1, "sa_pool_bwd_512_window_launch": 3,
                     chip_smoke.F32_PREP_BWD if f32 else "sa_prep_bwd_launch": 1,
                     "sa_prep_bwd_f32_512_launch" if f32 else "sa_prep_bwd_512_launch": 3}
             if mode == "pre":
@@ -862,7 +879,7 @@ def test_w4x_training_launch_table_and_inputs():
     assert chip_smoke.pool_bwd_symbol({"compact": True}, pool(*xl)) == \
         "sa_pool_bwd_512_compact_launch"
     assert chip_smoke.pool_bwd_symbol({"compact": True}, pool(256, 256, 512)) == \
-        "sa_pool_bwd_compact_launch"
+        "sa_pool_bwd_wide_compact_launch"
     prep = lambda c1: (None, None, torch.zeros(515, c1))  # noqa: E731
     f32 = {"compute_dtype": torch.float32}
     assert chip_smoke.prep_bwd_symbol({}, prep(512)) == "sa_prep_bwd_512_launch"

@@ -104,7 +104,8 @@ def test_entry_needs_cuda_unless_cpu_is_asked(monkeypatch):
         "sa_pair_pool_mxu_winners_launch", "sa_pair_pool_pre_launch",
         "sa_pair_pool_pre_winners_launch", "sa_pair_pool_winners_launch",
         "sa_pool_bwd_512_compact_launch", "sa_pool_bwd_512_window_launch",
-        "sa_pool_bwd_compact_launch", "sa_pool_bwd_window_launch", "sa_prep_512_launch",
+        "sa_pool_bwd_compact_launch", "sa_pool_bwd_wide_compact_launch",
+        "sa_pool_bwd_window_launch", "sa_prep_512_launch",
         "sa_prep_bwd_512_launch", "sa_prep_bwd_f32_512_launch",
         "sa_prep_bwd_f32_launch", "sa_prep_bwd_launch", "sa_prep_f32_512_launch",
         "sa_prep_f32_launch", "sa_prep_launch", "sa_radius_mask_launch"]
